@@ -1,0 +1,314 @@
+"""Decoder-only Transformer LM — the serving subset, in PyTorch.
+
+Counterpart of ``distributed_model_parallel_tpu/models/transformer.py``.
+Only what the serving engine reads is here: the config, the parameter
+layout, and the block pieces the paged prefill/decode steps
+(``serve/model.py``) compose. Training, ``generate``, MoE and the
+parallel paths come with later slices.
+
+The parameter tree keeps the JAX package's layout exactly — blocks
+stacked on a leading ``[n_layers]`` axis, ``wqkv: [L, d, H, 3*Dh]`` with
+the q/k/v split per head along the last axis — so one tree of numpy
+arrays feeds both packages (:func:`params_from_jax`) and every function
+here can be held against its JAX counterpart on the same inputs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``, refusing CUDA when no card is present —
+    the port's entry points run on the card unless the caller asks for
+    the CPU, and never fall back silently."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device='cuda' requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch paths")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    """The fields of the JAX ``TransformerConfig`` that serving reads.
+
+    ``tp_axis``/``sp_axis``/``moe_experts`` are kept only so the engine
+    can reject those configurations the way the JAX engine does.
+    """
+
+    vocab_size: int = 1024
+    d_model: int = 128
+    n_heads: int = 4
+    n_layers: int = 4
+    d_ff: int = 512
+    max_seq_len: int = 256
+    dtype: torch.dtype = torch.float32
+    tp_axis: str | None = None
+    sp_axis: str | None = None
+    # Sliding-window (local) attention: each token attends the last W
+    # positions — the (pos - W, pos] band of ``band_keep``.
+    attn_window: int | None = None
+    moe_experts: int = 0
+    pos_embedding: str = "learned"     # "learned" | "rope"
+    rope_theta: float = 10000.0
+    # Grouped-query attention: k/v get n_kv_heads heads (must divide
+    # n_heads). None = multi-head (k/v fused in wqkv).
+    n_kv_heads: int | None = None
+
+    def __post_init__(self):
+        if self.attn_window is not None and self.attn_window < 1:
+            raise ValueError(
+                f"attn_window must be >= 1, got {self.attn_window}")
+        if self.pos_embedding not in ("learned", "rope"):
+            raise ValueError(f"unknown pos_embedding {self.pos_embedding!r}")
+        if self.n_kv_heads is not None:
+            if not (1 <= self.n_kv_heads <= self.n_heads):
+                raise ValueError(f"n_kv_heads={self.n_kv_heads} must be in "
+                                 f"[1, n_heads={self.n_heads}]")
+            if self.n_heads % self.n_kv_heads:
+                raise ValueError(f"n_kv_heads={self.n_kv_heads} must divide "
+                                 f"n_heads={self.n_heads}")
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_model // self.n_heads
+
+    @property
+    def kv_heads(self) -> int:
+        return self.n_kv_heads if self.n_kv_heads is not None else self.n_heads
+
+    @property
+    def gqa(self) -> bool:
+        return self.n_kv_heads is not None
+
+
+def param_specs(cfg: TransformerConfig) -> dict:
+    """The parameter tree as ``{name: (shape, init)}`` (``blocks`` nested),
+    ``init`` being ``"ones"``, ``"zeros"`` or a normal's std. The JAX
+    ``init_params`` layout and scales, shared by :func:`init_params` and
+    the shape check of :func:`params_from_jax`."""
+    d, f, L, v = cfg.d_model, cfg.d_ff, cfg.n_layers, cfg.vocab_size
+    h, dh, hkv = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    blocks = {
+        "ln1_scale": ((L, d), "ones"),
+        "ln1_bias": ((L, d), "zeros"),
+        "wo": ((L, d, d), d ** -0.5),
+        "ln2_scale": ((L, d), "ones"),
+        "ln2_bias": ((L, d), "zeros"),
+        "w1": ((L, d, f), d ** -0.5),
+        "b1": ((L, f), "zeros"),
+        "w2": ((L, f, d), f ** -0.5),
+        "b2": ((L, d), "zeros"),
+    }
+    if cfg.gqa:
+        blocks["wq"] = ((L, d, h, dh), d ** -0.5)
+        blocks["wkv"] = ((L, d, hkv, 2 * dh), d ** -0.5)
+    else:
+        blocks["wqkv"] = ((L, d, h, 3 * dh), d ** -0.5)
+    out = {
+        "embed": ((v, d), 0.02),
+        "blocks": blocks,
+        "ln_f_scale": ((d,), "ones"),
+        "ln_f_bias": ((d,), "zeros"),
+        "head": ((d, v), d ** -0.5),
+    }
+    if cfg.pos_embedding == "learned":
+        out["pos"] = ((cfg.max_seq_len, d), 0.02)
+    return out
+
+
+def init_params(cfg: TransformerConfig, seed: int = 0,
+                device="cuda") -> dict:
+    """Random parameters in the JAX layout, drawn from a ``torch.Generator``
+    on ``device`` seeded with ``seed`` (the draws differ from JAX's for
+    the same seed; tests share weights through :func:`params_from_jax`)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def make(spec):
+        shape, init = spec
+        if init == "ones":
+            return torch.ones(shape, dtype=cfg.dtype, device=dev)
+        if init == "zeros":
+            return torch.zeros(shape, dtype=cfg.dtype, device=dev)
+        w = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.float32) * init
+        return w.to(cfg.dtype)
+
+    return {k: ({bk: make(bs) for bk, bs in s.items()}
+                if k == "blocks" else make(s))
+            for k, s in param_specs(cfg).items()}
+
+
+def params_from_jax(tree: dict, cfg: TransformerConfig,
+                    device="cuda") -> dict:
+    """The JAX package's parameter tree (leaves as numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) as the port's tensors, in
+    ``cfg.dtype`` on ``device``. Keys and shapes must match
+    :func:`param_specs` exactly."""
+    dev = resolve_device(device)
+
+    def convert(name, leaf, shape):
+        a = np.asarray(leaf)
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"parameter {name}: shape {a.shape}, "
+                             f"expected {shape}")
+        # bf16 numpy arrays (ml_dtypes) have no torch counterpart: go
+        # through f32, which holds every bf16 value exactly.
+        if a.dtype.kind != "f" or a.dtype.itemsize not in (4, 8):
+            a = a.astype(np.float32)
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            device=dev, dtype=cfg.dtype)
+
+    specs = param_specs(cfg)
+    if set(tree) != set(specs) or set(tree["blocks"]) != set(
+            specs["blocks"]):
+        raise ValueError(f"parameter tree keys {sorted(tree)} / "
+                         f"{sorted(tree.get('blocks', {}))} do not match "
+                         f"the config's {sorted(specs)} / "
+                         f"{sorted(specs['blocks'])}")
+    out = {}
+    for k, s in specs.items():
+        if k == "blocks":
+            out[k] = {bk: convert(f"blocks.{bk}", tree[k][bk], bs[0])
+                      for bk, bs in s.items()}
+        else:
+            out[k] = convert(k, tree[k], s[0])
+    return out
+
+
+def layer_params(params: dict, layer: int) -> dict:
+    """One block's (unstacked) parameters: views into the stacked tree."""
+    return {k: v[layer] for k, v in params["blocks"].items()}
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    """Population-variance layer norm, as ``jnp.var`` computes it."""
+    mu = x.mean(-1, keepdim=True)
+    var = x.var(-1, keepdim=True, unbiased=False)
+    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Rotary position embedding (GPT-NeoX half-split convention).
+
+    x: [B, T, H, Dh] (Dh even); positions: [T] shared across the batch or
+    [B, T] per row (the continuous decode batch). Angles in f32; the
+    result is cast back to ``x.dtype``.
+    """
+    dh = x.shape[-1]
+    if dh % 2:
+        raise ValueError(f"RoPE needs an even head_dim, got {dh}")
+    inv_freq = theta ** (-torch.arange(0, dh, 2, dtype=torch.float32,
+                                       device=x.device) / dh)
+    ang = positions.to(torch.float32)[..., :, None] * inv_freq
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    if positions.ndim == 1:
+        cos, sin = cos[None], sin[None]
+    x1, x2 = x[..., :dh // 2], x[..., dh // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _qkv_proj(bp: dict, h: torch.Tensor, cfg: TransformerConfig):
+    """q [B,T,H,Dh] and k/v [B,T,Hkv,Dh]: fused ``wqkv`` for multi-head,
+    separate ``wq``/``wkv`` for grouped-query; the split is per head,
+    along the last axis."""
+    b, t, d = h.shape
+    dh = cfg.head_dim
+    if cfg.gqa:
+        q = (h @ bp["wq"].reshape(d, -1)).reshape(b, t, cfg.n_heads, dh)
+        kv = (h @ bp["wkv"].reshape(d, -1)).reshape(b, t, cfg.kv_heads,
+                                                    2 * dh)
+        k, v = kv.split(dh, dim=-1)
+    else:
+        qkv = (h @ bp["wqkv"].reshape(d, -1)).reshape(b, t, cfg.n_heads,
+                                                      3 * dh)
+        q, k, v = qkv.split(dh, dim=-1)
+    return q, k, v
+
+
+def _ffn(bp: dict, h: torch.Tensor) -> torch.Tensor:
+    """Dense MLP tail. ``jax.nn.gelu`` defaults to the tanh approximation,
+    so this does too."""
+    y = F.gelu(h @ bp["w1"] + bp["b1"], approximate="tanh")
+    return y @ bp["w2"] + bp["b2"]
+
+
+def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
+    x = layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
+    return x @ params["head"]
+
+
+def _filter_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """Mask all but the k highest logits to -inf ([B, V])."""
+    kth = torch.topk(logits, k, dim=-1).values[:, -1:]
+    return logits.masked_fill(logits < kth, float("-inf"))
+
+
+def _filter_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
+    """Nucleus filtering: keep the smallest set of tokens whose cumulative
+    probability reaches p (always the top token), by rank — the JAX
+    package's exclusive-cumsum rule, so tied logits outside the nucleus
+    do not leak in."""
+    order = torch.argsort(logits, dim=-1, descending=True)
+    probs = torch.softmax(torch.gather(logits, -1, order), dim=-1)
+    keep_sorted = (torch.cumsum(probs, dim=-1) - probs) < p
+    keep = torch.zeros_like(keep_sorted).scatter(-1, order, keep_sorted)
+    return logits.masked_fill(~keep, float("-inf"))
+
+
+def validate_sampling(cfg: TransformerConfig, temperature: float,
+                      top_k: int | None, top_p: float | None) -> None:
+    """The sampling-knob rules the JAX package's ``generate`` and engine
+    enforce."""
+    if (top_k is not None or top_p is not None) and temperature <= 0:
+        raise ValueError("top_k/top_p filter the sampling distribution; "
+                         "set temperature > 0 (greedy ignores them)")
+    if top_k is not None and not (1 <= top_k <= cfg.vocab_size):
+        raise ValueError(f"top_k must be in [1, {cfg.vocab_size}], got {top_k}")
+    if top_p is not None and not (0.0 < top_p <= 1.0):
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+
+
+def _draw_seed(seed: int, position: int) -> int:
+    """The generator seed of one (request seed, position) draw: a
+    request's stream depends on nothing else, so it does not depend on
+    who shares the batch."""
+    return ((seed & 0xFFFFFFFF) << 32) | (position & 0xFFFFFFFF)
+
+
+def make_sampler(cfg: TransformerConfig, temperature: float,
+                 top_k: int | None, top_p: float | None):
+    """``sample(logits [B, V], seeds, positions) -> [B] int64``: greedy
+    argmax at temperature 0 (``seeds``/``positions`` unused), else
+    temperature/top-k/nucleus sampling by the Gumbel-max rule, each row's
+    noise drawn from a CPU ``torch.Generator`` seeded from that row's
+    (seed, position). Sampled streams cannot match JAX's bits; only
+    greedy is compared across frameworks."""
+    validate_sampling(cfg, temperature, top_k, top_p)
+
+    def sample(logits, seeds=None, positions=None):
+        if temperature <= 0:
+            return torch.argmax(logits, dim=-1)
+        logits = logits.float() / temperature
+        if top_k is not None:
+            logits = _filter_top_k(logits, top_k)
+        if top_p is not None:
+            logits = _filter_top_p(logits, top_p)
+        noise = torch.empty(logits.shape, dtype=torch.float32)
+        for row, (s, pos) in enumerate(zip(seeds, positions)):
+            gen = torch.Generator().manual_seed(_draw_seed(int(s), int(pos)))
+            u = torch.rand(logits.shape[-1], generator=gen)
+            noise[row] = -torch.log(-torch.log(u))
+        return torch.argmax(logits + noise.to(logits.device), dim=-1)
+
+    return sample
