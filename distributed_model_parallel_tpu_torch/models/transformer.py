@@ -1,10 +1,13 @@
-"""Decoder-only Transformer LM — the serving subset, in PyTorch.
+"""Decoder-only Transformer LM in PyTorch — the serving subset and the
+single-device training forward.
 
-Counterpart of ``distributed_model_parallel_tpu/models/transformer.py``.
-Only what the serving engine reads is here: the config, the parameter
-layout, and the block pieces the paged prefill/decode steps
-(``serve/model.py``) compose. Training, ``generate``, MoE and the
-parallel paths come with later slices.
+Counterpart of ``distributed_model_parallel_tpu/models/transformer.py``:
+the config, the parameter layout, the block pieces the paged
+prefill/decode steps (``serve/model.py``) compose, and the training path
+(``block_apply``, ``blocks_scan``, ``apply``, ``lm_loss``) whose attention
+runs the flash kernels (``ops/flash_attention.py``) on the card. MoE,
+tensor and sequence parallelism, remat, the chunked loss head and
+``generate`` come with later slices and raise here (ROADMAP A9).
 
 The parameter tree keeps the JAX package's layout exactly — blocks
 stacked on a leading ``[n_layers]`` axis, ``wqkv: [L, d, H, 3*Dh]`` with
@@ -21,6 +24,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from distributed_model_parallel_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    full_attention,
+)
+
+ATTN_IMPLS = ("auto", "xla", "flash")
+
 
 def resolve_device(device) -> torch.device:
     """``torch.device(device)``, refusing CUDA when no card is present —
@@ -36,10 +46,12 @@ def resolve_device(device) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
-    """The fields of the JAX ``TransformerConfig`` that serving reads.
+    """The fields of the JAX ``TransformerConfig`` that serving and
+    single-device training read.
 
-    ``tp_axis``/``sp_axis``/``moe_experts`` are kept only so the engine
-    can reject those configurations the way the JAX engine does.
+    ``tp_axis``/``sp_axis``/``sp_impl``/``moe_experts``/``remat``/
+    ``loss_chunk`` are kept so the engine and the trainer can reject the
+    configurations this port does not run yet, by name.
     """
 
     vocab_size: int = 1024
@@ -51,20 +63,35 @@ class TransformerConfig:
     dtype: torch.dtype = torch.float32
     tp_axis: str | None = None
     sp_axis: str | None = None
+    sp_impl: str = "ring"
+    # Attention of the training path: "auto" and "flash" run the flash
+    # kernels on the card (their plain versions on CPU tensors); "xla"
+    # names the plain ``full_attention``, the reference. No dispatch table
+    # or crossover is taken from the TPU.
+    attn_impl: str = "auto"
     # Sliding-window (local) attention: each token attends the last W
     # positions — the (pos - W, pos] band of ``band_keep``.
     attn_window: int | None = None
+    remat: bool = False
     moe_experts: int = 0
     pos_embedding: str = "learned"     # "learned" | "rope"
     rope_theta: float = 10000.0
     # Grouped-query attention: k/v get n_kv_heads heads (must divide
     # n_heads). None = multi-head (k/v fused in wqkv).
     n_kv_heads: int | None = None
+    loss_chunk: int = 0
 
     def __post_init__(self):
         if self.attn_window is not None and self.attn_window < 1:
             raise ValueError(
                 f"attn_window must be >= 1, got {self.attn_window}")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn impl {self.attn_impl!r}; known: "
+                             f"{', '.join(ATTN_IMPLS)}")
+        if self.loss_chunk < 0:
+            raise ValueError(
+                f"loss_chunk must be >= 0 (0 = dense head), got "
+                f"{self.loss_chunk}")
         if self.pos_embedding not in ("learned", "rope"):
             raise ValueError(f"unknown pos_embedding {self.pos_embedding!r}")
         if self.n_kv_heads is not None:
@@ -163,6 +190,8 @@ def params_from_jax(tree: dict, cfg: TransformerConfig,
         # through f32, which holds every bf16 value exactly.
         if a.dtype.kind != "f" or a.dtype.itemsize not in (4, 8):
             a = a.astype(np.float32)
+        if not a.flags.writeable:        # e.g. a view of a JAX array
+            a = a.copy()
         return torch.from_numpy(np.ascontiguousarray(a)).to(
             device=dev, dtype=cfg.dtype)
 
@@ -246,6 +275,127 @@ def _ffn(bp: dict, h: torch.Tensor) -> torch.Tensor:
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     x = layer_norm(x, params["ln_f_scale"], params["ln_f_bias"])
     return x @ params["head"]
+
+
+# ---------------------------------------------------------------------------
+# training forward (single device)
+# ---------------------------------------------------------------------------
+
+def check_training_config(cfg: TransformerConfig) -> None:
+    """Raise, by name, on what the single-device training path does not
+    run yet (ROADMAP A9): nothing is silently ignored."""
+    unsupported = {
+        "tp_axis": cfg.tp_axis is not None,
+        "sp_axis": cfg.sp_axis is not None,
+        "sp_impl": cfg.sp_impl != "ring",
+        "moe_experts": bool(cfg.moe_experts),
+        "remat": cfg.remat,
+        "loss_chunk": bool(cfg.loss_chunk),
+    }
+    named = [k for k, bad in unsupported.items() if bad]
+    if named:
+        raise NotImplementedError(
+            f"{', '.join(named)} not ported yet: the port trains one dense "
+            f"model on one device without remat or a chunked loss head "
+            f"(ROADMAP A9)")
+
+
+def embed(params: dict, tokens: torch.Tensor,
+          cfg: TransformerConfig) -> torch.Tensor:
+    """[B, T] int tokens -> [B, T, d]: the table lookup, plus the learned
+    positions from 0 (RoPE rotates q/k inside attention instead)."""
+    if cfg.pos_embedding == "rope":
+        return params["embed"][tokens]
+    return params["embed"][tokens] + params["pos"][:tokens.shape[1]][None]
+
+
+def _rope_qk(q: torch.Tensor, k: torch.Tensor, cfg: TransformerConfig):
+    """Rotate q/k for the training path: the sequence starts at 0."""
+    positions = torch.arange(q.shape[1], device=q.device)
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def _repeat_kv(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """kv heads up to the query head count ([..., Hkv, Dh] -> [..., H,
+    Dh]): kv head j serves query heads j·G … j·G+G−1 (``jnp.repeat``).
+    Autograd sums dK/dV over each group."""
+    groups = q.shape[2] // x.shape[2]
+    return x if groups == 1 else x.repeat_interleave(groups, dim=2)
+
+
+def _attention(q, k, v, cfg: TransformerConfig) -> torch.Tensor:
+    """Causal attention of the training path, [B, T, H, Dh]. "auto" and
+    "flash" go to :func:`flash_attention` (the CUDA kernels for CUDA
+    tensors, their plain versions for CPU tensors); "xla" to the plain
+    :func:`full_attention`. A window needs ``attn_impl="flash"``, as in
+    the JAX package."""
+    if cfg.sp_axis is not None:
+        raise NotImplementedError("sequence-parallel (ring/Ulysses) "
+                                  "attention is not ported yet (ROADMAP A9)")
+    if cfg.attn_window is not None:
+        if cfg.attn_impl != "flash":
+            raise ValueError(
+                "attn_window requires attn_impl='flash' (the banded "
+                "block-skipping lives in the flash kernels)")
+        return flash_attention(q, k, v, causal=True, window=cfg.attn_window)
+    if cfg.attn_impl == "xla":
+        return full_attention(q, k, v, causal=True)
+    return flash_attention(q, k, v, causal=True)
+
+
+def block_apply(bp: dict, x: torch.Tensor,
+                cfg: TransformerConfig) -> torch.Tensor:
+    """One pre-LN block on [B, T, d] with unstacked parameters ``bp``.
+    The JAX block also returns the MoE stats vector, zeros for a dense
+    block; it comes with MoE (ROADMAP A9)."""
+    b, t, _ = x.shape
+    h = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
+    q, k, v = _qkv_proj(bp, h, cfg)
+    if cfg.pos_embedding == "rope":
+        q, k = _rope_qk(q, k, cfg)
+    k, v = _repeat_kv(k, q), _repeat_kv(v, q)
+    o = _attention(q, k, v, cfg)
+    x = x + o.reshape(b, t, -1) @ bp["wo"]
+    h = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
+    return x + _ffn(bp, h)
+
+
+def blocks_scan(blocks: dict, x: torch.Tensor,
+                cfg: TransformerConfig) -> torch.Tensor:
+    """All stacked blocks in order (the JAX ``lax.scan``, as a loop)."""
+    n_layers = next(iter(blocks.values())).shape[0]
+    for layer in range(n_layers):
+        x = block_apply({k: w[layer] for k, w in blocks.items()}, x, cfg)
+    return x
+
+
+def hidden(params: dict, tokens: torch.Tensor,
+           cfg: TransformerConfig) -> torch.Tensor:
+    """[B, T] tokens -> [B, T, d] pre-head activations (the JAX
+    ``hidden_with_aux`` without the MoE stats, which come with MoE)."""
+    check_training_config(cfg)
+    return blocks_scan(params["blocks"], embed(params, tokens, cfg), cfg)
+
+
+def apply(params: dict, tokens: torch.Tensor,
+          cfg: TransformerConfig) -> torch.Tensor:
+    """Full forward: [B, T] tokens -> [B, T, V] logits."""
+    return unembed(params, hidden(params, tokens, cfg))
+
+
+def token_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy, log-softmax in f32. The JAX version
+    adds the weighted MoE terms, zero for a dense model; they come with
+    MoE (ROADMAP A9)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, targets[..., None].long())[..., 0].mean()
+
+
+def lm_loss(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy through the dense head."""
+    return token_loss(apply(params, tokens, cfg), targets)
 
 
 def _filter_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:

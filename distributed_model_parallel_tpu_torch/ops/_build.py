@@ -4,9 +4,10 @@ Each source under ``ops/csrc/`` is compiled by ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface (no PyTorch headers, so a
 build takes seconds, not minutes), at first use, into ``build/kernels/``
 at the root of the checkout. The library's name carries a hash of its
-source and flags, so an edited source is rebuilt and a stale library is
-never loaded. Nothing is compiled when a module is imported: this runs
-inside the first launch (or ``build_all``), on a machine with ``nvcc``.
+source, the shared headers (``*.cuh``) and the flags, so an edited source
+is rebuilt and a stale library is never loaded. Nothing is compiled when
+a module is imported: this runs inside the first launch (or
+``build_all``), on a machine with ``nvcc``.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("paged_decode",)
+KERNELS = ("paged_decode", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,9 +42,11 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    # The shared headers are hashed too: a kernel that includes one is
+    # rebuilt when it changes.
+    text = b"".join(f.read_bytes() for f in
+                    [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 

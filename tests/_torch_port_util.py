@@ -9,8 +9,11 @@ from distributed_model_parallel_tpu.models import transformer as jtfm
 from distributed_model_parallel_tpu_torch.models import transformer as ttfm
 
 # tests/test_serve.py's model (vocab 64, d 32, 4 heads, 2 layers, RoPE),
-# multi-head, grouped-query and sliding-window.
+# multi-head, grouped-query and sliding-window; and the multi-head model
+# with a learned position table.
 SHAPES = {
+    "learned": dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2,
+                    d_ff=64, max_seq_len=128),
     "mha": dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
                 max_seq_len=128, pos_embedding="rope"),
     "gqa": dict(vocab_size=64, d_model=32, n_heads=4, n_layers=2, d_ff=64,
@@ -21,10 +24,10 @@ SHAPES = {
 }
 
 
-def configs(kind: str):
-    """(JAX config, port config), float32."""
-    return (jtfm.TransformerConfig(**SHAPES[kind]),
-            ttfm.TransformerConfig(**SHAPES[kind]))
+def configs(kind: str, **kw):
+    """(JAX config, port config), float32, with overrides ``kw``."""
+    return (jtfm.TransformerConfig(**SHAPES[kind], **kw),
+            ttfm.TransformerConfig(**SHAPES[kind], **kw))
 
 
 def numpy_params(tcfg, seed: int = 0) -> dict:
@@ -45,9 +48,9 @@ def numpy_params(tcfg, seed: int = 0) -> dict:
             for k, s in ttfm.param_specs(tcfg).items()}
 
 
-def both_params(kind: str, seed: int = 0):
+def both_params(kind: str, seed: int = 0, **kw):
     """(jcfg, tcfg, JAX params, port params) from one numpy tree."""
-    jcfg, tcfg = configs(kind)
+    jcfg, tcfg = configs(kind, **kw)
     tree = numpy_params(tcfg, seed)
     jp = {k: ({bk: jnp.asarray(bv) for bk, bv in v.items()}
               if k == "blocks" else jnp.asarray(v)) for k, v in tree.items()}

@@ -24,8 +24,16 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m == "distributed_model_parallel_tpu"
              or m.startswith("distributed_model_parallel_tpu."))
-print(len(names), bad)
+print(" ".join(names), "|", bad)
 """
+
+# Every module of the serving and LM training slices.
+_MODULES = {
+    "config", "models.transformer", "ops._build", "ops.paged_attention",
+    "ops.flash_attention", "serve.engine", "serve.generate", "serve.model",
+    "serve.paged_kv", "serve.scheduler", "train.lm_trainer", "train.optim",
+    "train.metrics", "train.train_lm", "utils.profiling",
+}
 
 
 def test_port_imports_without_jax_or_the_jax_package():
@@ -33,8 +41,10 @@ def test_port_imports_without_jax_or_the_jax_package():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 10 and bad == "[]", out.stdout
+    names, bad = out.stdout.strip().split(" | ")
+    prefix = "distributed_model_parallel_tpu_torch."
+    assert {prefix + m for m in _MODULES} <= set(names.split()), out.stdout
+    assert bad == "[]", out.stdout
 
 
 @pytest.mark.parametrize("path", [
