@@ -37,7 +37,25 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
    (b) a warm-up step, then 5 steps through ``LMTrainer`` at B 2, T 8192
    — finite losses, parameters changed, each flash kernel launched
    n_layers times per step — with step time, tokens/s, MFU and peak
-   memory; (c) one step under ``torch.profiler``.
+   memory; (c) one step under ``torch.profiler``;
+9. fused SGD vs plain — ``FusedSGD`` on the card over MobileNetV2's 173
+   parameter leaves (one bucket, and a cap that gives 12), 5 updates of
+   each variant (momentum + weight decay, nesterov, no decay, momentum 0)
+   through the kernels against the plain version per leaf; launches ==
+   updates x buckets;
+10. fused SGD timing — each variant's one-bucket update: kernel, plain
+    version, ``torch.optim.SGD(fused=True)`` over the 173 leaves (the
+    library yardstick, never used by the port) and the byte bound, CUDA
+    events, L2 flushed before each run;
+11. CNN trainer — bench.py's CNN workload with the fused optimizer
+    (MobileNetV2, batch 512, bf16 over f32, device-resident, 10 steps per
+    dispatch, cuDNN autotuner on): (a) two steps through the fused kernel
+    against ``torch.optim.SGD`` from the same weights and batches; (b)
+    bench.py's timing shape — 2 warm-up dispatches, 50 steps, one sync —
+    with samples/s, step time, MFU and peak memory (fused_sgd launches
+    == steps x buckets, parameters and BN statistics changed), then 20
+    steps with momentum 0 (plain_sgd launches == steps) and 20 with
+    ``fused=False``; (c) one step under ``torch.profiler``.
 
 Prints the card line, each phase's seconds, the ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -129,6 +147,43 @@ TRAIN_LOSS_ATOL = 2e-2
 # per-kernel error of phase 6 (<= 2e-2) compounded through 8 bf16 layers.
 TRAIN_GRAD_RTOL = 5e-2
 
+# The fused SGD kernels (phases 9-10) at the CNN slice's 173 MobileNetV2
+# parameter leaves, f32 N(0, 1) values and gradients. Variants: the
+# slice's SGD (momentum 0.9, wd 1e-4), nesterov, no weight decay, and
+# momentum 0 (the plain_sgd kernel).
+SGD_VARIANTS = {
+    "momentum_wd": dict(momentum=0.9, weight_decay=1e-4, nesterov=False),
+    "nesterov_wd": dict(momentum=0.9, weight_decay=1e-4, nesterov=True),
+    "momentum_no_wd": dict(momentum=0.9, weight_decay=0.0, nesterov=False),
+    "no_momentum": dict(momentum=0.0, weight_decay=1e-4, nesterov=False),
+}
+SGD_UPDATES = 5
+SGD_SMALL_BUCKET_BYTES = 1 << 20       # ~10 buckets of MobileNetV2
+# Kernel vs plain, max|a - b| / max|b| over p and m: the kernel rounds each
+# product and sum on its own (__fmul_rn/__fadd_rn), as the plain version's
+# eager ops do, so the two agree bit for bit; 1e-6 (~8 f32 ulp) leaves
+# room for nothing but an FMA contraction creeping into either side.
+SGD_RTOL = 1e-6
+
+# The CNN slice (phase 11): bench.py's CNN workload (bench.py:1343-1361)
+# with DMP_BENCH_FUSED_OPT=1 on one device — MobileNetV2 (CIFAR layout),
+# bf16 compute over f32 parameters, batch 512, 32 px synthetic data, 4 x
+# 512 training images, SGD lr 0.4 / momentum 0.9 / wd 1e-4 / 10 warm-up
+# steps / cosine, device-resident, 10 steps per dispatch; bench.py's
+# timing shape (bench.py:1562-1586): 2 warm-up dispatches, 50 steps timed.
+CNN_BATCH, CNN_SPD, CNN_WARM_DISPATCHES, CNN_TIMED_STEPS = 512, 10, 2, 50
+CNN_SIDE_STEPS = 20                    # momentum 0, and fused=False
+# 11a, fused kernel vs torch.optim.SGD (fused=False) from the same weights
+# and batches, two steps (lr 0 at step 0 under warm-up, 0.04 at step 1):
+# the forward of both steps is the same computation on the same values,
+# so the losses agree to cuDNN's run-to-run order (bf16, loss ~2.3). The
+# step-1 update of every leaf, max|Δa - Δb| / max|Δb|: f32 rounding
+# (~1e-6) when the gradients agree bit for bit; a wrong kernel (a dropped
+# bucket slot, a missing trace or decay term) moves it by O(1).
+CNN_LOSS_ATOL = 1e-2
+CNN_UPDATE_RTOL = 5e-2
+CNN_STATS_RTOL = 1e-3
+
 
 def fail(phase: str, msg: str) -> None:
     print(f"chip_smoke: phase {phase} FAILED: {msg}", file=sys.stderr)
@@ -187,12 +242,22 @@ def make_case(b, h, hkv, dh, page, n, n_pool, positions, seed):
             torch.tensor(positions, dtype=torch.int32, device=dev))
 
 
-def print_profile(label: str, run, card) -> None:
+def lm_kind(key: str) -> str:
+    """Device-time kinds of the serving and LM steps: the port's own
+    kernels, cuBLAS GEMMs (nvjet, gemm and xmma kernel names), the rest."""
+    if "flash::" in key or "paged_decode" in key:
+        return "port kernels"
+    if any(s in key.lower() for s in ("nvjet", "gemm", "xmma")):
+        return "cuBLAS GEMMs"
+    return "other"
+
+
+def print_profile(label: str, run, card, kind=lm_kind) -> None:
     """``run()`` under ``torch.profiler``: device time by kernel and the
     device's busy share of the run's wall time (kernels run on one
-    stream, so their times add). ``run`` returns a note for the summary
-    line. Informational: a profile without device events prints "not
-    measured"."""
+    stream, so their times add), then by ``kind(kernel name)``. ``run``
+    returns a note for the summary line. Informational: a profile without
+    device events prints "not measured"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -215,16 +280,9 @@ def print_profile(label: str, run, card) -> None:
           f"top kernels:")
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:12]:
         print(f"  {us:10.0f} us {n:6d} x  {key[:90]}")
-    # Device time by kind: the port's own kernels, cuBLAS GEMMs (nvjet,
-    # gemm and xmma kernel names), everything else.
-    kinds = {"port kernels": 0.0, "cuBLAS GEMMs": 0.0, "other": 0.0}
+    kinds: dict[str, float] = {}
     for key, us, _ in rows:
-        if "flash::" in key or "paged_decode" in key:
-            kinds["port kernels"] += us
-        elif any(s in key.lower() for s in ("nvjet", "gemm", "xmma")):
-            kinds["cuBLAS GEMMs"] += us
-        else:
-            kinds["other"] += us
+        kinds[kind(key)] = kinds.get(kind(key), 0.0) + us
     print("  by kind: " + ", ".join(
         f"{k} {us:.0f} us ({100 * us / busy_us:.1f}%)"
         for k, us in kinds.items()))
@@ -568,6 +626,349 @@ def train_full_width(tfm, lm, fa, lm_model_flops, card) -> dict:
     return launches
 
 
+def sgd_leaves(model_params, seed):
+    """f32 N(0, 1) tensors on the card with the model parameters' shapes
+    and strides (channels-last conv weights stay so)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.empty_like(p, device="cuda").normal_(generator=gen)
+            for p in model_params]
+
+
+def check_fused_sgd(fs, optim, tconfig, model_params) -> float:
+    """Phase 9: ``FusedSGD`` on the card (the kernels, one bucket; and a
+    cap that gives several) against the plain version per leaf, 5 updates
+    of each variant under a warm-up/cosine schedule. Returns the largest
+    max-abs error of p and m."""
+    import torch
+
+    cases = [(name, v, optim.FUSED_BUCKET_BYTES)
+             for name, v in SGD_VARIANTS.items()]
+    cases.append(("momentum_wd_small_buckets", SGD_VARIANTS["momentum_wd"],
+                  SGD_SMALL_BUCKET_BYTES))
+    max_abs, bad = 0.0, []
+    for i, (label, v, cap) in enumerate(cases):
+        cfg = tconfig.OptimizerConfig(learning_rate=0.4, warmup_steps=2,
+                                      fused=True, **v)
+        schedule = optim.make_schedule(cfg, 10, 1)
+        leaves = [torch.nn.Parameter(x) for x in sgd_leaves(model_params,
+                                                             seed=i)]
+        ref_p = [x.detach().clone() for x in leaves]
+        ref_m = [torch.zeros_like(x) if v["momentum"] else None
+                 for x in leaves]
+        opt = optim.FusedSGD(leaves, cfg, schedule, bucket_bytes=cap)
+        counter = (fs.fused_sgd_kernel if v["momentum"]
+                   else fs.plain_sgd_kernel)
+        before = counter.launches
+        gen = torch.Generator(device="cuda").manual_seed(1000 + i)
+        for k in range(SGD_UPDATES):
+            for p, rp, rm in zip(opt.params, ref_p, ref_m):
+                g = torch.empty_like(rp).normal_(generator=gen)
+                p.grad.copy_(g)
+                fs.fused_sgd_plain(rp, rm, g, schedule(k), **v)
+            opt.step()
+        torch.cuda.synchronize()
+        launched = counter.launches - before
+        want = SGD_UPDATES * len(opt.buckets)
+        errs = []
+        for j, (p, rp, rm) in enumerate(zip(opt.params, ref_p, ref_m)):
+            errs.append(((p - rp).abs().max().item(), rp.abs().max().item()))
+            if rm is not None:
+                m = opt.momentum_buffer(j)
+                errs.append(((m - rm).abs().max().item(),
+                             rm.abs().max().item()))
+        err = max(e for e, _ in errs)
+        rel = err / max(r for _, r in errs)
+        finite = all(torch.isfinite(p).all() for p in opt.params)
+        print(f"fused_sgd {label}: {len(opt.buckets)} bucket(s), "
+              f"{launched} launches (want {want}), max_abs_err {err}, "
+              f"max|a-b|/max|b| {rel:.3e} (rtol {SGD_RTOL}, p and m over "
+              f"{len(leaves)} leaves)")
+        if launched != want:
+            bad.append(f"{label}: {launched} launches != {want}")
+        if not finite or not rel <= SGD_RTOL:
+            bad.append(f"{label}: rel err {rel} > {SGD_RTOL} or non-finite")
+        max_abs = max(max_abs, err)
+    if bad:
+        fail("9/fused sgd", "; ".join(bad))
+    return max_abs
+
+
+def time_fused_sgd(fs, optim, tconfig, model_params, card) -> dict:
+    """Phase 10: each variant's one-bucket update at the slice's shapes —
+    the kernel, the plain version on the same bucket, the library call
+    (``torch.optim.SGD(fused=True)`` over the 173 leaves, never used by
+    the port) and the byte bound. CUDA events, L2 flushed, median of 30.
+    Returns the rows of the slice's two kernels."""
+    import torch
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    n = sum(p.numel() for p in model_params)
+    out = {}
+    for name, v in SGD_VARIANTS.items():
+        cfg = tconfig.OptimizerConfig(learning_rate=0.1, fused=True, **v)
+        leaves = [torch.nn.Parameter(x) for x in sgd_leaves(model_params,
+                                                             seed=7)]
+        opt = optim.FusedSGD(leaves, cfg, lambda _: 0.1)
+        if len(opt.buckets) != 1:
+            fail("10/fused sgd timing", f"{len(opt.buckets)} buckets, want 1")
+        p, m, g = opt.flat_buckets()[0]
+        g.normal_()
+        if v["momentum"]:
+            kern = lambda: fs.fused_sgd_kernel(p, m, g, 0.1, **v)
+        else:
+            kern = lambda: fs.plain_sgd_kernel(p, g, 0.1,
+                                               v["weight_decay"])
+        ms = time_ms(kern, flush=flush)
+        plain_ms = time_ms(lambda: fs.fused_sgd_plain(p, m, g, 0.1, **v),
+                           flush=flush)
+        lib_leaves = [torch.nn.Parameter(x) for x in sgd_leaves(
+            model_params, seed=8)]
+        for x in lib_leaves:
+            x.grad = torch.randn_like(x)
+        try:
+            lib = torch.optim.SGD(lib_leaves, lr=0.1, fused=True, **v)
+            lib_kind = "fused=True"
+        except (TypeError, RuntimeError):
+            lib = torch.optim.SGD(lib_leaves, lr=0.1, foreach=True, **v)
+            lib_kind = "foreach=True (fused unavailable)"
+        library_ms = time_ms(lib.step, flush=flush)
+        bytes_moved = (5 if v["momentum"] else 3) * n * 4
+        flops = (2 * (v["weight_decay"] != 0) + 2 * (v["momentum"] != 0)
+                 + 2 * v["nesterov"] + 2) * n
+        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / F32_FLOPS_PER_S * 1e3
+        bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+        print(f"fused_sgd timing {name} [{card}]: kernel {ms} ms, plain "
+              f"{plain_ms} ms, library {library_ms} ms (torch.optim.SGD "
+              f"{lib_kind}, 173 leaves), bound {bound_ms} ms ({bound_by}: "
+              f"{bytes_moved} B, {flops} flop), {bound_ms / ms:.1%} of bound")
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms)
+        if name == "momentum_wd":
+            out["fused_sgd"] = row
+        elif name == "no_momentum":
+            out["plain_sgd"] = row
+        del opt, leaves, lib_leaves, lib, p, m, g
+    del flush
+    torch.cuda.empty_cache()
+    return out
+
+
+def cnn_config(tconfig, **optimizer):
+    """The CNN slice's TrainConfig (bench.py's CNN workload, one card)."""
+    return tconfig.TrainConfig(
+        model=tconfig.ModelConfig(name="mobilenetv2", dtype="bfloat16"),
+        data=tconfig.DataConfig(
+            name="synthetic", batch_size=CNN_BATCH,
+            eval_batch_size=CNN_BATCH, image_size=32,
+            synthetic_native_size=32, synthetic_train_size=4 * CNN_BATCH,
+            synthetic_eval_size=CNN_BATCH),
+        optimizer=tconfig.OptimizerConfig(
+            **{**dict(learning_rate=0.4, warmup_steps=10, fused=True),
+               **optimizer}),
+        device_resident_data=True, steps_per_dispatch=CNN_SPD,
+        device="cuda")
+
+
+def cnn_dispatch_indices(n: int, dispatches: int):
+    """bench.py's per-dispatch batches (bench.py:1374-1380): one
+    ``default_rng(0)`` stream of ``integers(0, n, (10, 512))`` draws, on
+    the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(0)
+    return [torch.from_numpy(rng.integers(0, n, (CNN_SPD, CNN_BATCH))
+                             .astype(np.int64)).cuda()
+            for _ in range(dispatches)]
+
+
+def cnn_kind(key: str) -> str:
+    """Device-time kinds of the CNN step (kernel-name heuristics)."""
+    low = key.lower()
+    if "fused_sgd" in low:
+        return "port kernels (fused_sgd)"
+    if "batch_norm" in low or "bn_" in low:
+        return "BatchNorm"
+    if any(s in low for s in ("conv", "xmma", "implicit", "dgrad", "wgrad",
+                              "fprop", "cutlass", "nvjet", "gemm", "sm90")):
+        return "cuDNN/cuBLAS conv and GEMM"
+    return "other (elementwise, copies, reductions)"
+
+
+def check_cnn_step(trainer_mod, models, staged, tconfig) -> None:
+    """Phase 11a: two steps of the CNN slice from the same weights and
+    batches through the fused kernel and through ``torch.optim.SGD``
+    (``fused=False``): losses, every leaf's step-1 update and the BN
+    statistics."""
+    import numpy as np
+    import torch
+
+    params, state = staged.params_to_jax(models.get_model(
+        tconfig.ModelConfig(name="mobilenetv2", dtype="bfloat16"), seed=0,
+        device="cpu"))
+    idx = cnn_dispatch_indices(4 * CNN_BATCH, 1)[0][:2]
+    runs = {}
+    for fused in (True, False):
+        t = trainer_mod.Trainer(cnn_config(tconfig, fused=fused),
+                                params=params, state=state)
+        t.run_steps(idx[:1])
+        p1 = [p.detach().clone() for p in t.model.parameters()]
+        m = t.run_steps(idx[1:])
+        loss = m["loss"].cpu().numpy()
+        p2 = [p.detach().clone() for p in t.model.parameters()]
+        stats = [b.detach().clone() for b in t.model.buffers()]
+        runs[fused] = (loss, [b - a for a, b in zip(p1, p2)], stats)
+        del t
+    loss_a, upd_a, st_a = runs[True]
+    loss_b, upd_b, st_b = runs[False]
+    loss_err = float(np.abs(loss_a - loss_b).max())
+    upd = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+              for a, b in zip(upd_a, upd_b))
+    st = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+             for a, b in zip(st_a, st_b))
+    print(f"cnn check: step-1 loss fused {loss_a} vs torch.optim.SGD "
+          f"{loss_b} (|diff| {loss_err}, atol {CNN_LOSS_ATOL}); step-1 "
+          f"update per leaf max|a-b|/max|b| {upd:.3e} (rtol "
+          f"{CNN_UPDATE_RTOL}); BN statistics {st:.3e} (rtol "
+          f"{CNN_STATS_RTOL})")
+    if not (loss_err <= CNN_LOSS_ATOL and upd <= CNN_UPDATE_RTOL
+            and st <= CNN_STATS_RTOL and np.isfinite(loss_a).all()):
+        fail("11/cnn", "fused vs plain update outside tolerance")
+    torch.cuda.empty_cache()
+
+
+def cnn_run(trainer, idxs, steps_kind: str, card) -> dict:
+    """Dispatch ``idxs`` (one list entry per dispatch) back to back, one
+    sync at the end; returns host losses, seconds and rates."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ms = [trainer.run_steps(ix) for ix in idxs]
+    losses = torch.cat([m["loss"] for m in ms]).cpu().tolist()
+    dt = time.perf_counter() - t0
+    steps = sum(ix.shape[0] for ix in idxs)
+    rec = dict(steps=steps, seconds=dt, step_s=dt / steps,
+               samples_per_s=CNN_BATCH * steps / dt, losses=losses)
+    print(f"cnn {steps_kind} [{card}]: {steps} steps in {dt} s, step "
+          f"{dt / steps} s, {CNN_BATCH * steps / dt} samples/s")
+    return rec
+
+
+def train_cnn(trainer_mod, fs, tconfig, card) -> dict:
+    """Phase 11b/11c: the CNN slice's main path — bench.py's timing shape
+    through ``Trainer.run_steps`` with the fused kernel — then 20 steps
+    with momentum 0 (plain_sgd), 20 with ``fused=False`` (a data point),
+    and one profiled step. Returns the main path's launch counts."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    n_disp = CNN_TIMED_STEPS // CNN_SPD
+    idxs = cnn_dispatch_indices(4 * CNN_BATCH, CNN_WARM_DISPATCHES + n_disp)
+    trainer = trainer_mod.Trainer(cnn_config(tconfig))
+    for ix in idxs[:CNN_WARM_DISPATCHES]:
+        trainer.run_steps(ix)
+    torch.cuda.synchronize()
+    params0 = [p.detach().clone() for p in trainer.model.parameters()]
+    stats0 = [b.detach().clone() for b in trainer.model.buffers()]
+    torch.cuda.reset_peak_memory_stats()
+    fs.fused_sgd_kernel.launches = 0
+    fs.plain_sgd_kernel.launches = 0
+    rec = cnn_run(trainer, idxs[CNN_WARM_DISPATCHES:], "trainer (fused)",
+                  card)
+    launches = {"fused_sgd": fs.fused_sgd_kernel.launches,
+                "plain_sgd": fs.plain_sgd_kernel.launches}
+    peak = torch.cuda.max_memory_allocated()
+    buckets = len(trainer.optimizer.buckets)
+    changed_p = sum(not torch.equal(a, b) for a, b in
+                    zip(params0, trainer.model.parameters()))
+    changed_s = sum(not torch.equal(a, b) for a, b in
+                    zip(stats0, trainer.model.buffers()))
+    want = CNN_TIMED_STEPS * buckets
+    print(f"cnn trainer: losses {rec['losses']}; fused_sgd launches "
+          f"{launches['fused_sgd']} (want steps x buckets = {want}), "
+          f"plain_sgd {launches['plain_sgd']} (want 0); parameters "
+          f"changed {changed_p}/{len(params0)}, BN buffers changed "
+          f"{changed_s}/{len(stats0)}")
+    if not all(math.isfinite(x) for x in rec["losses"]):
+        fail("11/cnn", f"non-finite losses {rec['losses']}")
+    if launches != {"fused_sgd": want, "plain_sgd": 0}:
+        fail("11/cnn", f"launches {launches}, want fused_sgd {want}")
+    if changed_p != len(params0) or changed_s != len(stats0):
+        fail("11/cnn", "parameters or BN statistics unchanged by training")
+
+    # FLOPs of one step: 3 x the forward's convolution and matmul FLOPs as
+    # FlopCounterMode counts them (the backward computes the input and the
+    # weight gradient of each; BN, elementwise work and the update are not
+    # counted). Its count of a whole train step is printed beside it but
+    # not used: its convolution_backward formula ignores `groups`, so it
+    # counts each depthwise conv's backward as a dense conv's.
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        trainer.model.apply(torch.zeros(CNN_BATCH, 32, 32, 3,
+                                        dtype=torch.bfloat16, device="cuda"),
+                            train=False)
+    flops = 3 * counter.get_total_flops()
+    with FlopCounterMode(display=False) as counter:
+        trainer.run_steps(idxs[-1][:1])
+    print(f"cnn trainer: FlopCounterMode forward x 3 = {flops} flop per "
+          f"step (its whole-step count, depthwise backward as dense: "
+          f"{counter.get_total_flops()})")
+    print(f"cnn trainer [{card}]: B {CNN_BATCH}, {CNN_TIMED_STEPS} steps "
+          f"(after {CNN_WARM_DISPATCHES} warm-up dispatches of {CNN_SPD}), "
+          f"one sync: samples/s/chip {rec['samples_per_s']}, step "
+          f"{rec['step_s']} s, MFU ({flops} flop per step "
+          f"/ step s / {BF16_FLOPS_PER_S:.0f}) "
+          f"{flops / rec['step_s'] / BF16_FLOPS_PER_S}, "
+          f"torch.cuda.max_memory_allocated {peak} B; "
+          f"cudnn.benchmark {torch.backends.cudnn.benchmark}, cudnn "
+          f"allow_tf32 {torch.backends.cudnn.allow_tf32}")
+
+    # 11c: one step under the profiler.
+    print_profile("cnn step", lambda: f"loss "
+                  f"{trainer.run_steps(idxs[-1][:1])['loss'].item()}",
+                  card, kind=cnn_kind)
+    del trainer, params0, stats0
+
+    # Momentum 0: the plain_sgd kernel, once per step.
+    side = trainer_mod.Trainer(cnn_config(tconfig, momentum=0.0))
+    side.run_steps(idxs[0][:2])                    # warm-up
+    fs.plain_sgd_kernel.launches = 0
+    r0 = cnn_run(side, [idxs[1], idxs[2]], "trainer (fused, momentum 0)",
+                 card)
+    launches["plain_sgd"] = fs.plain_sgd_kernel.launches
+    if launches["plain_sgd"] != CNN_SIDE_STEPS or not all(
+            math.isfinite(x) for x in r0["losses"]):
+        fail("11/cnn", f"momentum 0: plain_sgd launches "
+                       f"{launches['plain_sgd']} != {CNN_SIDE_STEPS}, or "
+                       f"non-finite losses {r0['losses']}")
+    del side
+    # fused=False: the port's per-leaf torch.optim.SGD, as a data point.
+    side = trainer_mod.Trainer(cnn_config(tconfig, fused=False))
+    side.run_steps(idxs[0][:2])
+    cnn_run(side, [idxs[1], idxs[2]], "trainer (fused=False, "
+            "torch.optim.SGD per leaf)", card)
+    del side
+    # Trainer.fit, one epoch (4 steps + eval) on each input path: the
+    # device-resident dataset and per-batch pinned uploads.
+    for resident in (True, False):
+        t = trainer_mod.Trainer(cnn_config(tconfig).replace(
+            epochs=1, device_resident_data=resident))
+        before = fs.fused_sgd_kernel.launches
+        hist = t.fit()
+        n = fs.fused_sgd_kernel.launches - before
+        print(f"cnn fit (device_resident_data={resident}): {hist}, "
+              f"fused_sgd launches {n}")
+        if n != 4 or not all(math.isfinite(hist[0][k]) for k in
+                             ("loss_train", "loss_val")):
+            fail("11/cnn", f"fit: launches {n} != 4 or non-finite {hist}")
+        del t
+    torch.cuda.empty_cache()
+    return launches
+
+
 class Laps:
     """Prints each phase's seconds since the previous phase ended."""
 
@@ -622,6 +1023,14 @@ def main() -> None:
     )
     from distributed_model_parallel_tpu_torch.utils.profiling import (
         lm_model_flops,
+    )
+    from distributed_model_parallel_tpu_torch import config as tconfig
+    from distributed_model_parallel_tpu_torch import models
+    from distributed_model_parallel_tpu_torch.models import staged
+    from distributed_model_parallel_tpu_torch.ops import fused_sgd as fs
+    from distributed_model_parallel_tpu_torch.train import optim
+    from distributed_model_parallel_tpu_torch.train import (
+        trainer as cnn_trainer,
     )
 
     card = card_line()
@@ -819,6 +1228,25 @@ def main() -> None:
     flash_launches = train_full_width(tfm, lm, fa, lm_model_flops, card)
     laps.done("8b-c/trainer")
 
+    # -- phases 9-10: fused SGD kernels vs plain, timing ----------------------
+    mnv2 = [p.detach() for p in models.get_model(
+        tconfig.ModelConfig(), device="cuda").parameters()]
+    print(f"MobileNetV2 (CIFAR): {len(mnv2)} leaves, "
+          f"{sum(p.numel() for p in mnv2)} parameters")
+    sgd_err = check_fused_sgd(fs, optim, tconfig, mnv2)
+    laps.done("9/fused sgd")
+    sgd_times = time_fused_sgd(fs, optim, tconfig, mnv2, card)
+    del mnv2
+    laps.done("10/fused sgd timing")
+
+    # -- phase 11: CNN trainer at full width ----------------------------------
+    torch.backends.cudnn.benchmark = True
+    print("set torch.backends.cudnn.benchmark=True")
+    check_cnn_step(cnn_trainer, models, staged, tconfig)
+    laps.done("11a/cnn check")
+    sgd_launches = train_cnn(cnn_trainer, fs, tconfig, card)
+    laps.done("11b-c/cnn trainer")
+
     kernels = [{
         "name": "paged_decode",
         "route": "cuda",
@@ -847,6 +1275,18 @@ def main() -> None:
             "max_abs_err": flash_errs[name][0],
             "max_row_rel_err": flash_errs[name][1],
             **flash_times[name],
+        })
+    for name, line in (("fused_sgd", 64), ("plain_sgd", 80)):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "distributed_model_parallel_tpu_torch/ops/csrc/"
+                      "fused_sgd.cu",
+            "replaces": f"distributed_model_parallel_tpu/ops/"
+                        f"pallas_optim.py:{line}",
+            "launches": sgd_launches[name],
+            "max_abs_err": sgd_err,
+            **sgd_times[name],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ so each counterpart is easy to find, and every Pallas TPU kernel on a
 ported path becomes a kernel written by hand for Hopper (``sm_90a``),
 kept beside a plain PyTorch version of the same function.
 
-Ported so far — the serving path and single-device LM training:
+Ported so far — the serving path, single-device LM training and
+single-device CNN training:
 
 * :mod:`.models.transformer` — the Transformer LM's serving subset
   (config, parameter layout, layer norm, RoPE, projections, sampling)
@@ -16,9 +17,17 @@ Ported so far — the serving path and single-device LM training:
 * :mod:`.ops.flash_attention` — flash attention for training: the
   forward, dq and dk/dv CUDA kernels (``ops/csrc/flash_*.cu``) and their
   plain versions;
+* :mod:`.ops.fused_sgd` — the fused SGD update over flat parameter
+  buckets: the CUDA kernel (``ops/csrc/fused_sgd.cu``) and its plain
+  version;
+* :mod:`.models` — MobileNetV2 and tinycnn as staged unit sequences
+  (``layers``, ``staged``, ``mobilenetv2``, ``tinycnn``, ``get_model``);
+* :mod:`.data` — the dataset registry and the loader (batch order on
+  the host, crop/flip and normalize on the device);
 * :mod:`.serve` — paged KV cache, continuous-batching scheduler, the
   paged prefill/decode steps and the engine loop;
-* :mod:`.train` — the LM trainer, SGD with its schedule, and a CLI;
+* :mod:`.train` — the LM and CNN trainers, SGD (per leaf or fused) with
+  its schedule, metrics, and two CLIs;
 * :mod:`.config` — the typed configuration the ported slices read.
 
 The package imports ``torch`` and numpy only: never ``jax``, and nothing

@@ -1,1 +1,79 @@
-"""Models of the port (so far: the serving subset of the Transformer LM)."""
+"""Models of the port: the CNN zoo's ported members (MobileNetV2 and
+tinycnn, as staged unit sequences) and the Transformer LM
+(:mod:`.transformer`, which has its own entry points)."""
+
+from __future__ import annotations
+
+import torch
+
+from distributed_model_parallel_tpu_torch.config import ModelConfig
+from distributed_model_parallel_tpu_torch.models.mobilenetv2 import (
+    build_mobilenetv2,
+)
+from distributed_model_parallel_tpu_torch.models.staged import (  # noqa: F401
+    StagedModel,
+    balanced_boundaries,
+    merge_tree,
+    params_from_jax,
+    params_to_jax,
+    partition_tree,
+    stage_slices,
+)
+from distributed_model_parallel_tpu_torch.models.tinycnn import build_tinycnn
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _cnn_kwargs(config: ModelConfig) -> dict:
+    if config.batchnorm == "sync":
+        raise ValueError("sync BatchNorm (cross-replica statistics) needs "
+                         "more than one device; not ported yet (ROADMAP A6)")
+    if config.dtype not in DTYPES:
+        raise ValueError(f"unknown compute dtype {config.dtype!r}; known: "
+                         f"{', '.join(DTYPES)}")
+    if config.param_dtype != "float32":
+        raise ValueError(f"param_dtype {config.param_dtype!r}: the port "
+                         f"keeps float32 parameters (ROADMAP A4)")
+    return dict(num_classes=config.num_classes, bn_mode=config.batchnorm,
+                bn_momentum=config.bn_momentum,
+                bn_epsilon=config.bn_epsilon, dtype=DTYPES[config.dtype])
+
+
+def get_model(config: ModelConfig, *, seed: int = 0,
+              device="cuda") -> StagedModel:
+    """Build the ``config.name`` model on ``device`` with weights from
+    ``seed`` (the port's own draws of flax's default initializers).
+    ``extra={"input_layout": "imagenet"}`` selects MobileNetV2's ImageNet
+    stride table; tinycnn takes ``width``/``depth`` from ``extra``. ResNet,
+    the rest of the zoo and the embedding model are not ported yet
+    (ROADMAP A8); the LM has its own entry (``models/transformer.py``)."""
+    from distributed_model_parallel_tpu_torch.models.transformer import (
+        resolve_device,
+    )
+
+    name = config.name
+    extra = dict(config.extra)
+    layout = extra.pop("input_layout", "cifar")
+    if "input_layout" in config.extra and name not in (
+            "mobilenetv2", "mobilenetv2_nobn"):
+        raise ValueError(f"model {name!r} takes no input_layout (only "
+                         f"mobilenetv2 does in the port)")
+    if name in ("mobilenetv2", "mobilenetv2_nobn"):
+        kw = _cnn_kwargs(config)
+        if name.endswith("_nobn"):
+            kw["bn_mode"] = "none"
+        if extra:
+            raise ValueError(f"mobilenetv2 takes no extra {sorted(extra)}")
+        model = build_mobilenetv2(**kw, input_layout=layout)
+    elif name == "tinycnn":
+        model = build_tinycnn(**_cnn_kwargs(config), **extra)
+    elif name == "transformer":
+        raise ValueError("the Transformer LM is built through "
+                         "models/transformer.py (init_params, "
+                         "LMTrainer), not get_model")
+    else:
+        raise KeyError(f"model {name!r} is not ported yet; the port has "
+                       f"mobilenetv2[_nobn] and tinycnn (ResNet, the zoo and "
+                       f"embedding_bow: ROADMAP A8)")
+    model.reset_parameters(seed)
+    return model.to(resolve_device(device))

@@ -21,7 +21,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNELS = ("paged_decode", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+KERNELS = ("paged_decode", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+           "fused_sgd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

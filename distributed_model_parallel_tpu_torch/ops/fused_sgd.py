@@ -1,0 +1,108 @@
+"""Fused SGD update over flat parameter buckets — the counterpart of
+``distributed_model_parallel_tpu/ops/pallas_optim.py``.
+
+One pass per bucket applies weight decay, the momentum trace (in place),
+nesterov, the learning rate and the update itself:
+
+    g' = g + wd·p;  m' = μ·m + g';  d = g' + μ·m' (nesterov) | m' | g';
+    p' = p + (-lr)·d
+
+* :func:`sgd_delta_plain` — the JAX ``_run_xla`` (delta, momentum in
+  place), in its operation order;
+* :func:`fused_sgd_plain` — the plain version of the kernel: the delta,
+  then the apply (``optax.apply_updates``), eager ops rounded one by one;
+* :func:`fused_sgd_kernel` / :func:`plain_sgd_kernel` — the wrappers of
+  the hand-written CUDA kernel ``csrc/fused_sgd.cu`` with and without a
+  momentum buffer (the TPU's ``_fused_sgd_kernel`` and
+  ``_plain_sgd_kernel``). The kernel rounds every product and sum on its
+  own, so it equals the plain version bit for bit.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises. Each wrapper counts its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from distributed_model_parallel_tpu_torch.ops import _build
+
+
+def sgd_delta_plain(p: torch.Tensor, m: torch.Tensor | None,
+                    g: torch.Tensor, lr: float, momentum: float,
+                    weight_decay: float, nesterov: bool) -> torch.Tensor:
+    """``-lr · d`` for flat f32 ``p``, ``m``, ``g``; ``m`` (None when
+    momentum is 0: no trace) is updated in place."""
+    if weight_decay:
+        g = g + weight_decay * p
+    if m is None:
+        return g * -lr
+    m.copy_(momentum * m + g)
+    d = g + momentum * m if nesterov else m
+    return d * -lr
+
+
+def fused_sgd_plain(p: torch.Tensor, m: torch.Tensor | None,
+                    g: torch.Tensor, lr: float, momentum: float,
+                    weight_decay: float, nesterov: bool) -> None:
+    """The kernel's function in plain PyTorch: ``p`` and ``m`` in place."""
+    p.add_(sgd_delta_plain(p, m, g, lr, momentum, weight_decay, nesterov))
+
+
+def _kernel_fn():
+    fn = _build.load("fused_sgd").fused_sgd
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+                       + [ctypes.c_float] * 3 + [ctypes.c_int,
+                                                 ctypes.c_void_p])
+    return fn
+
+
+def _launch(p, m, g, lr, momentum, weight_decay, nesterov) -> None:
+    bufs = [x for x in (p, m, g) if x is not None]
+    if p.device.type != "cuda" or any(x.device != p.device for x in bufs):
+        raise ValueError("p, m and g must all lie on the same CUDA device")
+    if any(x.dtype != torch.float32 for x in bufs):
+        raise TypeError(f"the fused SGD kernel takes float32 buckets, got "
+                        f"{[x.dtype for x in bufs]} (f32 master weights for "
+                        f"other leaf types: ROADMAP A4)")
+    if any(x.ndim != 1 or not x.is_contiguous() or x.numel() != p.numel()
+           for x in bufs):
+        raise ValueError("p, m and g must be contiguous 1-D buckets of one "
+                         "length")
+    rc = _kernel_fn()(
+        p.data_ptr(), None if m is None else m.data_ptr(), g.data_ptr(),
+        p.numel(), float(lr), float(momentum), float(weight_decay),
+        int(nesterov), torch.cuda.current_stream(p.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_sgd kernel launch failed: CUDA error {rc}")
+
+
+def fused_sgd_kernel(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
+                     lr: float, momentum: float, weight_decay: float,
+                     nesterov: bool = False) -> None:
+    """One bucket's update with a momentum trace (the TPU's
+    ``_fused_sgd_kernel`` + apply): ``p`` and ``m`` in place."""
+    if p.device.type == "cpu":
+        fused_sgd_plain(p, m, g, lr, momentum, weight_decay, nesterov)
+        return
+    _launch(p, m, g, lr, momentum, weight_decay, nesterov)
+    fused_sgd_kernel.launches += 1
+
+
+def plain_sgd_kernel(p: torch.Tensor, g: torch.Tensor, lr: float,
+                     weight_decay: float) -> None:
+    """One bucket's momentum-free update (the TPU's ``_plain_sgd_kernel``
+    + apply): ``p`` in place."""
+    if p.device.type == "cpu":
+        fused_sgd_plain(p, None, g, lr, 0.0, weight_decay, False)
+        return
+    _launch(p, None, g, lr, 0.0, weight_decay, False)
+    plain_sgd_kernel.launches += 1
+
+
+fused_sgd_kernel.launches = 0
+plain_sgd_kernel.launches = 0

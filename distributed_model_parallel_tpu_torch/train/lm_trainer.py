@@ -26,6 +26,7 @@ from distributed_model_parallel_tpu_torch.train.metrics import (
     StepTimer,
 )
 from distributed_model_parallel_tpu_torch.train.optim import make_optimizer
+from distributed_model_parallel_tpu_torch.train.trainer import eval_now
 
 
 def make_token_stream(vocab_size: int, n_tokens: int, seed: int = 0
@@ -45,12 +46,6 @@ def make_token_stream(vocab_size: int, n_tokens: int, seed: int = 0
         else:
             tok = int(rng.integers(0, vocab_size))
     return out
-
-
-def eval_now(epoch: int, total_epochs: int, eval_every: int) -> bool:
-    """Eval cadence: every Nth epoch, and always the final one."""
-    return ((epoch + 1) % max(1, eval_every) == 0
-            or epoch == total_epochs - 1)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,0 +1,440 @@
+"""CNN trainer on one device — the port of
+``distributed_model_parallel_tpu/train/trainer.py`` (``strategy="gspmd"``
+on a one-device mesh).
+
+One step (:func:`make_train_step`): on-device augmentation (random crop
+with pad 4, horizontal flip) → normalize → forward with BatchNorm in
+training mode → cross-entropy → backward (autograd; convolutions and
+BatchNorm through cuDNN on the card) → the optimizer update in place
+(``OptimizerConfig(fused=True)``: the fused SGD kernel, one launch per
+flat bucket) → top-1/top-5 sums. Parameters and BN statistics live in
+the model and update in place; the JAX step returns new ones instead.
+
+:class:`Trainer` keeps the JAX trainer's loop shape: metrics stay device
+tensors until a drain at ``max_inflight_steps`` or the log cadence (one
+host read per drain), the timer attributes each drained window's wall
+time to its steps, and the history records carry the same keys. The
+device-resident path keeps the training set on the card as flat uint8,
+gathers each step's batch by index, and runs ``steps_per_dispatch`` steps
+per call as a Python loop with no host sync inside. The augmentation draws
+of global step s come from a generator derived from ``(seed + 1, s)``:
+stateless like the JAX trainer's, but the port's own bits.
+
+Not ported yet, and refused by :func:`check_train_config` where a config
+field asks for them (ROADMAP A5/A6/A7/A8/A11): other strategies and
+meshes beyond one device, checkpoint/resume, recovery, fault injection,
+the guards, the consistency sentinel, emergency checkpoints, elastic
+restarts and the status exporter. Absent without a field to refuse
+(ROADMAP A5): log and telemetry files, the best-accuracy checkpoint,
+preemption handling and ``step_hook``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from distributed_model_parallel_tpu_torch.config import TrainConfig
+from distributed_model_parallel_tpu_torch.data.loader import (
+    BatchLoader,
+    augment_batch,
+    normalize,
+    resolve_input_size,
+    step_generator,
+)
+from distributed_model_parallel_tpu_torch.data.registry import (
+    ArrayDataset,
+    load_dataset,
+)
+from distributed_model_parallel_tpu_torch.models import (
+    DTYPES,
+    get_model,
+    params_from_jax,
+)
+from distributed_model_parallel_tpu_torch.models.staged import StagedModel
+from distributed_model_parallel_tpu_torch.models.transformer import (
+    resolve_device,
+)
+from distributed_model_parallel_tpu_torch.train.metrics import (
+    AverageMeter,
+    StepTimer,
+    topk_correct,
+)
+from distributed_model_parallel_tpu_torch.train.optim import make_optimizer
+
+METRIC_KEYS = ("loss", "batch", "correct@1", "correct@5")
+
+# TrainConfig fields the port does not run yet: (name, refused when, item).
+_UNPORTED = (
+    ("resume", lambda c: c.resume, "A5: checkpoint/resume"),
+    ("async_checkpoint", lambda c: c.async_checkpoint, "A5: checkpointing"),
+    ("recovery.max_retries", lambda c: c.recovery.max_retries > 0,
+     "A11: recovery"),
+    ("recovery.faults", lambda c: bool(c.recovery.faults),
+     "A11: fault injection"),
+    ("check_finite_every", lambda c: c.check_finite_every != 0,
+     "A11: guards"),
+    ("stall_budget_s", lambda c: c.stall_budget_s is not None,
+     "A11: guards"),
+    ("consistency_every", lambda c: c.consistency_every != 0,
+     "A11: consistency sentinel"),
+    ("emergency_every", lambda c: c.emergency_every != 0,
+     "A11: emergency checkpoints"),
+    ("elastic", lambda c: c.elastic, "A11: elastic restarts"),
+    ("statusz_port", lambda c: c.statusz_port is not None,
+     "A11: status exporter"),
+    ("grad_bucket_mb", lambda c: c.grad_bucket_mb is not None,
+     "A6: bucketed gradient allreduce"),
+)
+_STRATEGIES = {"ddp": "A6: DDP", "fsdp": "A8: FSDP",
+               "spmd_pipeline": "A7: pipeline", "auto": "A11: autotune"}
+
+
+def check_train_config(config: TrainConfig) -> None:
+    """Raise, naming the ROADMAP item, for what the port does not run."""
+    if config.strategy in _STRATEGIES:
+        raise ValueError(f"strategy={config.strategy!r} is not ported yet "
+                         f"(ROADMAP {_STRATEGIES[config.strategy]}); the "
+                         f"port runs 'gspmd' on one device")
+    if config.strategy != "gspmd":
+        raise KeyError(f"unknown strategy {config.strategy!r}")
+    if config.mesh.num_devices != 1:
+        raise ValueError(f"mesh {config.mesh.axis_sizes()} spans "
+                         f"{config.mesh.num_devices} devices; the port runs "
+                         f"one (multi-GPU data parallelism: ROADMAP A6)")
+    bad = [f"{name} (ROADMAP {item})" for name, refused, item in _UNPORTED
+           if refused(config)]
+    if bad:
+        raise ValueError(f"not ported yet: {', '.join(bad)}")
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
+                  ) -> torch.Tensor:
+    """Mean softmax cross-entropy over integer labels, in f32."""
+    return F.cross_entropy(logits.float(), labels.long())
+
+
+def eval_now(epoch: int, total_epochs: int, eval_every: int) -> bool:
+    """Eval cadence: every Nth epoch, and always the final one."""
+    return ((epoch + 1) % max(1, eval_every) == 0
+            or epoch == total_epochs - 1)
+
+
+def _metrics(loss: torch.Tensor, logits: torch.Tensor,
+             labels: torch.Tensor) -> dict:
+    return {"loss": loss.detach(),
+            "batch": logits.new_full((), float(labels.shape[0])),
+            **topk_correct(logits.detach(), labels)}
+
+
+def make_train_step(model: StagedModel, optimizer, *, mean, std,
+                    augment: bool = True, dtype=torch.float32,
+                    ema_decay: float | None = None,
+                    resize_to: int | None = None):
+    """``step(images_u8, labels, generator=None) -> metrics``: augment
+    (draws from ``generator``) → normalize → forward (``train=True``) →
+    loss → backward → ``optimizer.step()``; metrics are 0-d device
+    tensors (sums, like the JAX step's). ``mean``/``std`` may be numpy;
+    they are put on the model's device once, here."""
+    if ema_decay is not None:
+        raise ValueError("ema_decay is not ported yet (ROADMAP A4)")
+    if resize_to is not None:
+        raise ValueError("the on-device resize (the 224 px input path) is "
+                         "not ported yet (ROADMAP A3)")
+    dev = next(model.parameters()).device
+    mean = torch.as_tensor(mean, dtype=dtype, device=dev)
+    std = torch.as_tensor(std, dtype=dtype, device=dev)
+
+    def step(images_u8, labels, generator=None):
+        if augment:
+            images_u8 = augment_batch(generator, images_u8)
+        images = normalize(images_u8, mean, std, dtype)
+        optimizer.zero_grad()
+        logits, _ = model.apply(images, train=True)
+        loss = cross_entropy(logits, labels)
+        loss.backward()
+        optimizer.step()
+        return _metrics(loss, logits, labels)
+
+    return step
+
+
+def make_multi_step(model: StagedModel, optimizer, *, image_shape, mean,
+                    std, augment: bool = True, dtype=torch.float32,
+                    seed: int = 1):
+    """K train steps per call over a device-resident dataset:
+    ``multi(images_flat, labels_all, idx[K, B], first_step) -> metrics``
+    stacked over K. Each step gathers its batch from the on-device
+    dataset by index and takes the augmentation generator of its global
+    step (``first_step + k``, from ``seed``); the per-step math is
+    :func:`make_train_step`'s. Nothing in the loop waits for the card."""
+    step = make_train_step(model, optimizer, mean=mean, std=std,
+                           augment=augment, dtype=dtype)
+    h, w, c = image_shape
+
+    def multi(images_flat, labels_all, idx, first_step: int):
+        out = []
+        for k in range(idx.shape[0]):
+            ib = idx[k]
+            im = images_flat.index_select(0, ib).view(ib.shape[0], h, w, c)
+            gen = (step_generator(seed, first_step + k, images_flat.device)
+                   if augment else None)
+            out.append(step(im, labels_all.index_select(0, ib), gen))
+        return {k: torch.stack([m[k] for m in out]) for k in METRIC_KEYS}
+
+    return multi
+
+
+def make_eval_step(model: StagedModel, *, mean, std, dtype=torch.float32):
+    """``step(images_u8, labels) -> metrics`` with BN running statistics
+    and no gradient."""
+    dev = next(model.parameters()).device
+    mean = torch.as_tensor(mean, dtype=dtype, device=dev)
+    std = torch.as_tensor(std, dtype=dtype, device=dev)
+
+    @torch.no_grad()
+    def step(images_u8, labels):
+        logits, _ = model.apply(normalize(images_u8, mean, std, dtype),
+                                train=False)
+        return _metrics(cross_entropy(logits, labels), logits, labels)
+
+    return step
+
+
+@dataclasses.dataclass
+class EpochResult:
+    loss: float
+    acc1: float
+    acc5: float
+    step_time: float
+    data_time: float
+
+
+class Trainer:
+    """Epoch driver on one device (the JAX ``Trainer`` with
+    ``strategy="gspmd"`` and ``MeshConfig(data=1)``).
+
+    ``params``/``state`` (optional, together): the JAX package's staged
+    trees as numpy arrays (``params_from_jax``), e.g. another run's
+    weights; default: :func:`~..models.get_model`'s init from
+    ``config.seed``. ``step_log`` holds the per-window records the JAX
+    trainer logs at ``log_every_n_steps``."""
+
+    def __init__(self, config: TrainConfig, *,
+                 train_ds: ArrayDataset | None = None,
+                 eval_ds: ArrayDataset | None = None,
+                 params=None, state=None):
+        check_train_config(config)
+        self.config = config
+        # Index resolved ("cuda" -> "cuda:0") so it compares equal to the
+        # tensors' own device.
+        self.device = torch.empty(
+            0, device=resolve_device(config.device)).device
+        if train_ds is None or eval_ds is None:
+            train_ds, eval_ds = load_dataset(config.data)
+        self.train_ds, self.eval_ds = train_ds, eval_ds
+        resize_to, _ = resolve_input_size(train_ds.images.shape,
+                                          config.data.image_size)
+        if resize_to is not None:
+            raise ValueError(f"image_size {config.data.image_size} differs "
+                             f"from the data's {train_ds.images.shape[1]} "
+                             f"px: the on-device resize is not ported yet "
+                             f"(ROADMAP A3)")
+        self.model = get_model(config.model, seed=config.seed,
+                               device=self.device)
+        if (params is None) != (state is None):
+            raise ValueError("pass params and state together")
+        if params is not None:
+            params_from_jax(self.model, params, state, self.device)
+        self.dtype = DTYPES[config.model.dtype]
+
+        self.train_loader = BatchLoader(
+            train_ds, config.data.batch_size, shuffle=config.data.shuffle,
+            seed=config.data.seed, use_native=config.data.use_native)
+        self.eval_loader = BatchLoader(
+            eval_ds, min(config.data.eval_batch_size, len(eval_ds)),
+            shuffle=False)
+        self.optimizer = make_optimizer(config.optimizer,
+                                        len(self.train_loader),
+                                        config.epochs,
+                                        self.model.parameters())
+        kw = dict(mean=train_ds.mean, std=train_ds.std, dtype=self.dtype)
+        self._train_step = make_train_step(
+            self.model, self.optimizer, augment=config.data.augment, **kw)
+        self._eval_step = make_eval_step(self.model, **kw)
+        self._aug_seed = config.seed + 1
+        self._multi_step = None
+        if config.device_resident_data:
+            n = len(train_ds)
+            self.dev_images = self._to_device(train_ds.images.reshape(n, -1))
+            self.dev_labels = self._to_device(train_ds.labels).long()
+            self._multi_step = make_multi_step(
+                self.model, self.optimizer,
+                image_shape=train_ds.images.shape[1:],
+                augment=config.data.augment, seed=self._aug_seed, **kw)
+        self._max_inflight = max(1, config.max_inflight_steps)
+        self.global_step = 0
+        self.best_acc = 0.0
+        self.step_log: list[dict] = []
+
+    # ------------------------------------------------------------------ data
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array on the device: pinned and asynchronous on the card,
+        so the upload does not wait for the steps already queued."""
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    def _generator(self):
+        if not self.config.data.augment:
+            return None
+        return step_generator(self._aug_seed, self.global_step, self.device)
+
+    def _drain(self, pending: list, meters: dict) -> None:
+        """Fold the queued device metrics into the meters: one host read
+        for the whole window. Entries may stack K steps."""
+        if not pending:
+            return
+        rows = torch.cat([
+            torch.stack([m[k].float() for k in METRIC_KEYS], -1)
+            .reshape(-1, len(METRIC_KEYS)) for m in pending]).cpu().numpy()
+        pending.clear()
+        loss, batch, c1, c5 = rows.astype(np.float64).T
+        b_tot = float(batch.sum())
+        if b_tot > 0:
+            meters["loss"].update(float((loss * batch).sum()) / b_tot,
+                                  int(b_tot))
+            meters["acc1"].update(float(c1.sum()) / b_tot * 100, int(b_tot))
+            meters["acc5"].update(float(c5.sum()) / b_tot * 100, int(b_tot))
+
+    def _log_step(self, epoch: int, step: int, meters: dict,
+                  timer: StepTimer) -> None:
+        self.step_log.append(dict(
+            epoch=epoch, step=step, loss=meters["loss"].avg,
+            acc1=meters["acc1"].avg, step_time_s=timer.step.last,
+            data_time_s=timer.data.last,
+            samples_per_s=self.config.data.batch_size
+            / max(timer.step.last, 1e-9)))
+
+    # ----------------------------------------------------------------- steps
+    def run_steps(self, idx: torch.Tensor) -> dict:
+        """``idx.shape[0]`` device-resident steps over the batches of
+        indices ``idx [K, B]`` (on the device); returns their stacked
+        metrics, still on the device."""
+        if self._multi_step is None:
+            raise ValueError("run_steps needs device_resident_data=True")
+        metrics = self._multi_step(self.dev_images, self.dev_labels, idx,
+                                   self.global_step)
+        self.global_step += idx.shape[0]
+        return metrics
+
+    # ----------------------------------------------------------------- loops
+    def train_epoch(self, epoch: int) -> EpochResult:
+        if self._multi_step is not None:
+            return self._train_epoch_device_resident(epoch)
+        meters = {k: AverageMeter(k) for k in ("loss", "acc1", "acc5")}
+        timer = StepTimer()
+        pending: list = []
+        self.train_loader.set_epoch(epoch)
+        base = self.train_loader.cursor
+        for i, (images, labels) in enumerate(self.train_loader):
+            gi = base + i
+            images = self._to_device(images)
+            labels = self._to_device(labels)
+            timer.data_ready()
+            pending.append(self._train_step(images, labels,
+                                            self._generator()))
+            self.global_step += 1
+            log_now = gi % self.config.log_every_n_steps == 0
+            if log_now or len(pending) >= self._max_inflight:
+                n = len(pending)
+                self._drain(pending, meters)
+                timer.window_done(n)
+            if log_now:
+                self._log_step(epoch, gi, meters, timer)
+        n = len(pending)
+        self._drain(pending, meters)
+        timer.window_done(n)
+        return EpochResult(meters["loss"].avg, meters["acc1"].avg,
+                           meters["acc5"].avg, timer.step.avg,
+                           timer.data.avg)
+
+    def _train_epoch_device_resident(self, epoch: int) -> EpochResult:
+        """Epoch over the on-device dataset, ``steps_per_dispatch`` steps
+        per call; batch composition is the per-batch path's
+        (``BatchLoader.epoch_indices``)."""
+        meters = {k: AverageMeter(k) for k in ("loss", "acc1", "acc5")}
+        timer = StepTimer()
+        pending: list = []
+        bs = self.train_loader.batch_size
+        k_steps = max(1, self.config.steps_per_dispatch)
+        self.train_loader.set_epoch(epoch)
+        base = self.train_loader.cursor
+        idx = self.train_loader.epoch_indices(epoch)
+        steps = len(idx) // bs
+        idx = self._to_device(idx[:steps * bs].reshape(steps, bs))
+        inflight = 0
+        for i in range(base, steps, k_steps):
+            chunk = idx[i:i + k_steps]
+            timer.data_ready()
+            pending.append(self.run_steps(chunk))
+            inflight += chunk.shape[0]
+            # Log when a multiple of log_every_n_steps falls in [i, i+K).
+            log_now = (-i) % self.config.log_every_n_steps < chunk.shape[0]
+            if log_now or len(pending) >= self._max_inflight:
+                self._drain(pending, meters)
+                timer.window_done(inflight)
+                inflight = 0
+            if log_now:
+                self._log_step(epoch, i, meters, timer)
+        self._drain(pending, meters)
+        timer.window_done(inflight)
+        return EpochResult(meters["loss"].avg, meters["acc1"].avg,
+                           meters["acc5"].avg, timer.step.avg,
+                           timer.data.avg)
+
+    def evaluate(self) -> EpochResult:
+        meters = {k: AverageMeter(k) for k in ("loss", "acc1", "acc5")}
+        timer = StepTimer()
+        pending: list = []
+        for images, labels in self.eval_loader:
+            images = self._to_device(images)
+            labels = self._to_device(labels)
+            timer.data_ready()
+            pending.append(self._eval_step(images, labels))
+            if len(pending) >= self._max_inflight:
+                n = len(pending)
+                self._drain(pending, meters)
+                timer.window_done(n)
+        n = len(pending)
+        self._drain(pending, meters)
+        timer.window_done(n)
+        return EpochResult(meters["loss"].avg, meters["acc1"].avg,
+                           meters["acc5"].avg, timer.step.avg,
+                           timer.data.avg)
+
+    def fit(self, epochs: int | None = None) -> list[dict]:
+        """Train epochs ``0 .. epochs - 1`` (default ``config.epochs``)
+        with eval at the ``eval_every`` cadence; returns one history
+        record per epoch, with the JAX trainer's keys. ``best_acc`` tracks
+        the best eval top-1 (no checkpoint is written: ROADMAP A5)."""
+        epochs = epochs if epochs is not None else self.config.epochs
+        history = []
+        for epoch in range(epochs):
+            tr = self.train_epoch(epoch)
+            ev = (self.evaluate()
+                  if eval_now(epoch, epochs, self.config.eval_every)
+                  else None)
+            history.append(dict(
+                epoch=epoch, loss_train=tr.loss, acc1_train=tr.acc1,
+                loss_val=ev.loss if ev else None,
+                acc1_val=ev.acc1 if ev else None,
+                time_per_batch=tr.step_time,
+                time_load_per_batch=tr.data_time))
+            if ev is not None and ev.acc1 > self.best_acc:
+                self.best_acc = ev.acc1
+        return history

@@ -152,7 +152,7 @@ def test_schedule_matches_optax(warmup, decay):
 
 
 @pytest.mark.parametrize("bad", [
-    dict(name="adamw"), dict(fused=True), dict(accum_steps=2),
+    dict(name="adamw"), dict(fused=True, name="adamw"), dict(accum_steps=2),
     dict(ema_decay=0.999),
 ])
 def test_unported_optimizer_options_raise(bad):

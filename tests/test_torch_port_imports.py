@@ -27,12 +27,15 @@ bad = sorted(m for m in sys.modules
 print(" ".join(names), "|", bad)
 """
 
-# Every module of the serving and LM training slices.
+# Every module of the serving, LM training and CNN training slices.
 _MODULES = {
     "config", "models.transformer", "ops._build", "ops.paged_attention",
     "ops.flash_attention", "serve.engine", "serve.generate", "serve.model",
     "serve.paged_kv", "serve.scheduler", "train.lm_trainer", "train.optim",
     "train.metrics", "train.train_lm", "utils.profiling",
+    "models.layers", "models.staged", "models.mobilenetv2", "models.tinycnn",
+    "data.registry", "data.loader", "ops.collectives", "ops.fused_sgd",
+    "train.trainer", "train.train_cnn",
 }
 
 
