@@ -11,12 +11,16 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
 2. build — compile every kernel of the port from ``ops/csrc`` (one
    ``nvcc`` per source, all at once) and print ptxas's register and
    spill lines;
-3. kernel vs plain — the paged decode kernel against its plain PyTorch
-   version at the serving slice's shapes (MHA, GQA, sliding window),
-   unreferenced and stale pool slots filled with NaN;
-4. timing — kernel, plain version, one ``scaled_dot_product_attention``
-   call over pre-gathered K/V (the library yardstick, never used by the
-   port) and the HBM bound, with CUDA events, L2 flushed before each run;
+3. kernel vs plain — the paged decode kernel (a split pass over page
+   ranges, then a merge launch) against its plain PyTorch version at the
+   serving slice's shapes: MHA, GQA (G 4 and G 8), sliding windows of 64
+   and 100, positions on page and split edges, one row alone at pos 639;
+   unreferenced and stale pool slots filled with NaN; each row of a batch
+   equals that row run alone, bit for bit;
+4. timing — kernel (both launches), plain version, one
+   ``scaled_dot_product_attention`` call over pre-gathered K/V (the
+   library yardstick, never used by the port) and the HBM bound; the
+   longest row alone; CUDA events, L2 flushed before each run;
 5. engine — the serving engine at full width (the bench.py LM/decode
    model, random weights from a seed): 8 greedy requests under continuous
    batching; every request completes, the kernel ran n_layers times per
@@ -27,7 +31,8 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
    against their plain versions (each backward kernel fed the kernel's
    own o and lse) and against autograd through the plain
    ``full_attention``, at the training slice's shape (B 2, H 8, T 8192,
-   Dh 128, causal) and its edges (ragged T, full, window, Dh 64);
+   Dh 128, causal) and its edges (ragged T, full, windows of 256 and 100,
+   Dh 64, T 77);
 7. flash timing — each kernel, its plain version, the operation bound
    and the library yardstick (SDPA forward; SDPA's backward for the
    dq + dk/dv pair), CUDA events, L2 flushed before each run;
@@ -101,6 +106,10 @@ FLASH_CASES = {
     "full_t1024": dict(t=1024, dh=128, causal=False, window=None),
     "window256_t2048": dict(t=2048, dh=128, causal=True, window=256),
     "dh64_t2048": dict(t=2048, dh=64, causal=True, window=None),
+    # Edges of the forward's 128 x 128 tiling: a window that is a multiple
+    # of neither block, and T shorter than one q block.
+    "window100_t2048": dict(t=2048, dh=128, causal=True, window=100),
+    "t77": dict(t=77, dh=128, causal=True, window=None),
 }
 # o, gated per row: max over (b, t, h) of ||o - o_ref|| / ||o_ref|| over
 # Dh. Row i of o averages ~i/e values of v, so |o| falls from ~2-4 on the
@@ -487,7 +496,11 @@ def time_flash(fa, card) -> dict:
               f"{bytes_moved} B), {bound_ms / ms:.1%} of bound, library "
               f"{library_ms} ms ("
               + ("SDPA forward" if name == "flash_fwd" else
-                 "SDPA backward alone, dq and dk/dv together") + ")")
+                 "SDPA backward alone, dq and dk/dv together")
+              + f"), ms / library_ms {ms / library_ms:.3f}")
+    pair = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
+    print(f"flash backward timing [{card}]: dq + dk/dv {pair} ms, / SDPA "
+          f"backward {pair / sdpa_bwd_ms:.3f}")
     del flush, q, k, v, do, o, lse, delta, qh, kh, vh, doh, oh
     torch.cuda.empty_cache()
     return out
@@ -1058,27 +1071,45 @@ def main() -> None:
     # -- phase 3: kernel vs plain ---------------------------------------------
     page, n, n_pool, dh = 16, 40, GEOMETRY["n_pages"], 128
     spread = [0, 639, 15, 16, 100, 255, 383, 512]
+    # On page (16 tokens) and split (4 pages) edges, and the longest row.
+    edges = [63, 64, 127, 128, 0, 639, 255, 256]
     cases = {
-        "mha": dict(h=8, hkv=8, window=None),
-        "gqa": dict(h=8, hkv=2, window=None),
-        "window64": dict(h=8, hkv=8, window=64),
+        "mha": dict(b=8, h=8, hkv=8, window=None, positions=spread),
+        "gqa": dict(b=8, h=8, hkv=2, window=None, positions=spread),
+        "window64": dict(b=8, h=8, hkv=8, window=64, positions=spread),
+        "edges": dict(b=8, h=8, hkv=8, window=None, positions=edges),
+        "window64_edges": dict(b=8, h=8, hkv=8, window=64, positions=edges),
+        "window100": dict(b=8, h=8, hkv=8, window=100, positions=spread),
+        "gqa_g8_edges": dict(b=8, h=8, hkv=1, window=None, positions=edges),
+        "long_row_b1": dict(b=1, h=8, hkv=8, window=None, positions=[639]),
     }
     max_err = 0.0
     for i, (label, c) in enumerate(cases.items()):
-        q, kp, vp, tables, pos = make_case(8, c["h"], c["hkv"], dh, page, n,
-                                           n_pool, spread, seed=i)
+        q, kp, vp, tables, pos = make_case(c["b"], c["h"], c["hkv"], dh, page,
+                                           n, n_pool, c["positions"], seed=i)
         got = pa.paged_attention_kernel(q, kp, vp, tables, pos,
                                         window=c["window"])
         want = pa.paged_attention_gather(
             q.float(), kp.float(), vp.float(), tables, pos[:, None],
             pos + 1, c["window"]).to(torch.bfloat16)
+        # A row's output must not depend on the batch: each row alone (B 1)
+        # equals its row of the batched call, bit for bit.
+        alone = [pa.paged_attention_kernel(q[r:r + 1], kp, vp,
+                                           tables[r:r + 1], pos[r:r + 1],
+                                           window=c["window"])
+                 for r in range(c["b"])]
         torch.cuda.synchronize()
         if not torch.isfinite(got).all():
             fail("3/kernel", f"{label}: non-finite kernel output")
         err = (got.float() - want.float()).abs().max().item()
-        print(f"paged_decode {label}: max_abs_err {err} (atol {KERNEL_ATOL})")
+        bitwise = all(torch.equal(x, got[r:r + 1])
+                      for r, x in enumerate(alone))
+        print(f"paged_decode {label}: max_abs_err {err} (atol {KERNEL_ATOL});"
+              f" each row alone == its row in the batch: {bitwise}")
         if not err <= KERNEL_ATOL:
             fail("3/kernel", f"{label}: max_abs_err {err} > {KERNEL_ATOL}")
+        if not bitwise:
+            fail("3/kernel", f"{label}: a row's output depends on the batch")
         max_err = max(max_err, err)
 
     laps.done("3/kernel")
@@ -1089,6 +1120,9 @@ def main() -> None:
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     ms = time_ms(lambda: pa.paged_attention_kernel(q, kp, vp, tables, pos),
                  flush=flush)
+    r = spread.index(max(spread))                            # pos 639 alone
+    ms_b1 = time_ms(lambda: pa.paged_attention_kernel(
+        q[r:r + 1], kp, vp, tables[r:r + 1], pos[r:r + 1]), flush=flush)
     plain_ms = time_ms(lambda: pa.paged_attention_gather(
         q, kp, vp, tables, pos[:, None], pos + 1), flush=flush)
     t_all = n * page
@@ -1109,9 +1143,11 @@ def main() -> None:
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
-    print(f"paged_decode timing [{card}]: kernel {ms} ms, plain {plain_ms} "
-          f"ms, sdpa {library_ms} ms, bound {bound_ms} ms ({bound_by}: "
-          f"{bytes_moved} B, {flops} flop)")
+    print(f"paged_decode timing [{card}]: kernel {ms} ms (split + merge), "
+          f"plain {plain_ms} ms, sdpa {library_ms} ms, bound {bound_ms} ms "
+          f"({bound_by}: {bytes_moved} B, {flops} flop); ms / library_ms "
+          f"{ms / library_ms:.3f}, {bound_ms / ms:.1%} of bound; the longest "
+          f"row alone (B 1, pos {spread[r]}) {ms_b1} ms")
     del flush, kr, vr
     laps.done("4/timing")
 
@@ -1261,6 +1297,7 @@ def main() -> None:
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": library_ms,
+        "ms_b1_long_row": ms_b1,
     }]
     for name, line in (("flash_fwd", 112), ("flash_bwd_dq", 199),
                        ("flash_bwd_dkv", 278)):

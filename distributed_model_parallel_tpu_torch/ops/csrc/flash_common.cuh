@@ -2,14 +2,15 @@
 // flash_bwd_dq.cu, flash_bwd_dkv.cu): tile sizes, the band predicates of
 // distributed_model_parallel_tpu/ops/pallas_attention.py (`band_keep`,
 // `_band_start_k`, `_last_k_block`, `_block_interior`, `_q_bounds_for_k`),
-// cp.async tile loads and the tensor-core primitives every kernel is
-// built from: ldmatrix and mma.sync m16n8k16 (bf16 in, f32 accumulate).
+// cp.async tile loads and the mma.sync primitives of the two backward
+// kernels: ldmatrix and mma.sync m16n8k16 (bf16 in, f32 accumulate). The
+// forward uses the band predicates here and sm90.cuh's wgmma and TMA.
 //
 // Layout: q/k/v/dO/o/dq/dk/dv are [B, T, H, D] bf16, contiguous (the JAX
 // package's layout — no transpose or padding pass); lse and delta are
-// [B, H, T] f32. A CTA works on one (b, h) and one 64-row block, one warp
-// per 16 rows; rows at or past T are loaded as zeros and masked, so T
-// needs no padding.
+// [B, H, T] f32. A backward CTA works on one (b, h) and one 64-row block,
+// one warp per 16 rows; rows at or past T are loaded as zeros and masked,
+// so T needs no padding.
 //
 // Fragments (PTX ISA, mma.m16n8k16, lane = 4·g + c): an f32 accumulator
 // tile [16 x 8] holds rows g and g + 8, columns 2c and 2c + 1 of the
@@ -53,26 +54,41 @@ __device__ __forceinline__ bool keep(const Problem& p, int q_pos, int k_pos) {
   return k_pos <= q_pos && (p.window <= 0 || k_pos > q_pos - p.window);
 }
 
-// True when the (q block qi, k block kj) tile needs no mask: strictly
-// inside the causal band (`_block_interior`) and clear of the ragged edge.
-__device__ __forceinline__ bool interior(const Problem& p, int qi, int kj) {
-  if ((qi + 1) * kBlock > p.T || (kj + 1) * kBlock > p.T) return false;
+// True when rows [q0, q0 + BQ) and keys [k0, k0 + BK) need no mask:
+// strictly inside the causal band (`_block_interior`) and clear of the
+// ragged edge. Block sizes are parameters: the forward tiles 128 x 128
+// (two 64-row warpgroups, each asking for its own rows), the backward
+// kernels kBlock x kBlock.
+template <int BQ, int BK>
+__device__ __forceinline__ bool interior_rows(const Problem& p, int q0, int k0) {
+  if (q0 + BQ > p.T || k0 + BK > p.T) return false;
   if (!p.causal) return true;
-  bool in = (kj + 1) * kBlock - 1 <= qi * kBlock;
-  if (p.window > 0) in = in && kj * kBlock > qi * kBlock + kBlock - 1 - p.window;
+  bool in = k0 + BK - 1 <= q0;
+  if (p.window > 0) in = in && k0 > q0 + BQ - 1 - p.window;
   return in;
 }
 
-// K blocks [lo, hi] a q block attends (`_band_start_k`, `_last_k_block`).
-__device__ __forceinline__ void k_range(const Problem& p, int qi, int& lo, int& hi) {
-  const int num_k = (p.T + kBlock - 1) / kBlock;
+// Key blocks [lo, hi] of BK keys that rows [q0, q0 + BQ) attend
+// (`_band_start_k`, `_last_k_block`).
+template <int BQ, int BK>
+__device__ __forceinline__ void k_range_rows(const Problem& p, int q0, int& lo, int& hi) {
+  const int num_k = (p.T + BK - 1) / BK;
   if (!p.causal) {
     lo = 0;
     hi = num_k - 1;
     return;
   }
-  lo = p.window > 0 ? max(0, qi * kBlock - p.window + 1) / kBlock : 0;
-  hi = min((qi * kBlock + kBlock - 1) / kBlock, num_k - 1);
+  lo = p.window > 0 ? max(0, q0 - p.window + 1) / BK : 0;
+  hi = min((q0 + BQ - 1) / BK, num_k - 1);
+}
+
+// The same for the (q block qi, k block kj) tile of kBlock x kBlock.
+__device__ __forceinline__ bool interior(const Problem& p, int qi, int kj) {
+  return interior_rows<kBlock, kBlock>(p, qi * kBlock, kj * kBlock);
+}
+
+__device__ __forceinline__ void k_range(const Problem& p, int qi, int& lo, int& hi) {
+  k_range_rows<kBlock, kBlock>(p, qi * kBlock, lo, hi);
 }
 
 // Q blocks [lo, hi) attending any key of k block kj (`_q_bounds_for_k`).

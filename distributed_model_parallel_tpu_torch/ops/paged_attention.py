@@ -11,7 +11,9 @@ plus a per-sequence page table; this module reads it:
   prefill path, and the plain version of the kernel;
 * :func:`paged_attention_kernel` — the wrapper of the hand-written CUDA
   kernel ``csrc/paged_decode.cu`` for single-token decode (the
-  counterpart of the Pallas ``_paged_decode_kernel``).
+  counterpart of the Pallas ``_paged_decode_kernel``): a row's pages are
+  split over CTAs of a fixed number of pages and a second launch merges
+  the splits.
 
 Masking is sanitizing, not just causal: positions past a row's length
 are zeroed in K/V *and* banded out of the scores, so stale page contents
@@ -88,13 +90,17 @@ def paged_attention_gather(q: torch.Tensor, k_pool: torch.Tensor,
     return attend_rows(q, kr, vr, positions, lengths, window)
 
 
-def _kernel_fn():
-    fn = _build.load("paged_decode").paged_decode
+def _kernel_fns():
+    """The kernel's C entry and its split count, ``paged_decode_splits(N)``
+    (a row's N table pages split over CTAs of a fixed number of pages)."""
+    lib = _build.load("paged_decode")
+    fn, splits = lib.paged_decode, lib.paged_decode_splits
     if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+        fn.restype = splits.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    return fn
+        splits.argtypes = [ctypes.c_int]
+    return fn, splits
 
 
 def paged_attention_kernel(q: torch.Tensor, k_pool: torch.Tensor,
@@ -108,7 +114,9 @@ def paged_attention_kernel(q: torch.Tensor, k_pool: torch.Tensor,
 
     A CPU ``q`` takes the plain version (:func:`paged_attention_gather`
     with lengths ``positions + 1``); a CUDA ``q`` launches the kernel or
-    raises. ``paged_attention_kernel.launches`` counts launches.
+    raises. ``paged_attention_kernel.launches`` counts wrapper calls
+    that launched (each is two CUDA launches: the split pass and the
+    merge).
     """
     if q.ndim != 4 or q.shape[1] != 1:
         raise ValueError(f"the paged decode kernel takes one query token "
@@ -149,11 +157,16 @@ def paged_attention_kernel(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("q, pools, tables and positions must be contiguous")
     if any(x.data_ptr() % 16 for x in (q, k_pool, v_pool)):
         raise ValueError("q and pools must be 16-byte aligned")
+    fn, splits = _kernel_fns()
+    n = tables.shape[1]
     out = torch.empty_like(q)
-    rc = _kernel_fn()(
+    # f32 scratch of the split pass: (m, l) and acc[Dh] per (b, h, split).
+    part = torch.empty(b * h * splits(n) * (2 + dh), dtype=torch.float32,
+                       device=q.device)
+    rc = fn(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        b, h, hkv, dh, n_pool, page, tables.shape[1],
+        part.data_ptr(), b, h, hkv, dh, n_pool, page, n,
         0 if window is None else int(window), float(dh ** -0.5),
         int(q.dtype == torch.bfloat16),
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -2,7 +2,10 @@
 inputs: the plain gather path (``attend_rows``) against JAX
 ``paged_attention_xla`` and against the Pallas kernel run in interpret
 mode, and the CUDA kernel's wrapper on CPU tensors (its plain version).
-f32, atol 1e-5 (the same math in another summation order)."""
+f32, atol 1e-5 (the same math in another summation order). Then the CUDA
+kernel's flash-decoding algebra on the CPU: per-split (m, l, acc) merged
+in split order against attention over the whole band, the port's and
+JAX's."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -133,3 +136,110 @@ def test_band_keep_matches_jax(window):
     ref = np.asarray(band_keep(jnp.asarray(qp), jnp.asarray(kp), window))
     got = tpa.band_keep(t(qp), t(kp), window).numpy()
     assert (got == ref).all()
+
+
+# The decode kernel's split/merge (csrc/paged_decode.cu), at a small
+# geometry: pages of 4 tokens, 8 pages per row, 2 pages per split, so
+# splits of 8 tokens. Positions on page edges (3/4, 15/16), on split edges
+# (7/8, 23/24), the first and the last token; windows of one token (1),
+# of one split (8), that start the band mid-split (5, 13) or never cut it.
+SPLIT_PAGE, SPLIT_N, SPLIT_PPS = 4, 8, 2
+SPLIT_POSITIONS = [0, 3, 4, 7, 8, 15, 16, 23, 24, 31]
+# f32 on O(1) values: the merge reorders a softmax sum over <= 32 terms.
+MERGE_ATOL = 1e-6
+
+
+def _split_page_ranges(positions, window, page, n_pages, pages_per_split):
+    """The decode kernel's split plan (csrc/paged_decode.cu, `first` and
+    `last`): for each row, the first and last logical page of each of its
+    ``ceil(n_pages / pages_per_split)`` split CTAs, ``[B, S]`` each —
+    split s takes pages ``[s·pps, (s+1)·pps)`` of the row's band pages
+    ``[(pos - window + 1) // page, pos // page]``; ``first > last`` marks
+    a split with no page."""
+    n_splits = -(-n_pages // pages_per_split)
+    s = torch.arange(n_splits)
+    pos = positions.long()[:, None]
+    lo = (pos - window + 1).clamp_min(0) if window else torch.zeros_like(pos)
+    first = torch.maximum(lo // page, s * pages_per_split)
+    last = torch.minimum((pos // page).clamp_max(n_pages - 1),
+                         (s + 1) * pages_per_split - 1)
+    return first, last
+
+
+def _split_merge_reference(q, kr, vr, positions, window):
+    """Decode attention the kernel's way, in f32: for each split of each
+    row, (m, l, acc) of the split's pages — acc from ``attend_rows`` over
+    the split's sub-range, m and l from its scores — merged in split order:
+    out = Σ e^(m_s - m*)·acc_s / Σ e^(m_s - m*)·l_s over non-empty
+    splits."""
+    first, last = _split_page_ranges(positions, window, SPLIT_PAGE,
+                                        SPLIT_N, SPLIT_PPS)
+    b, _, h, dh = q.shape
+    hkv = kr.shape[2]
+    out = torch.empty_like(q)
+    for r in range(b):
+        pos = int(positions[r])
+        parts = []
+        for s in range(first.shape[1]):
+            if first[r, s] > last[r, s]:
+                continue                                   # an empty split
+            t0 = int(first[r, s]) * SPLIT_PAGE
+            t1 = (int(last[r, s]) + 1) * SPLIT_PAGE
+            sub_pos = torch.tensor([[pos - t0]])
+            sub_len = torch.tensor([pos + 1 - t0])
+            ks, vs = kr[r:r + 1, t0:t1], vr[r:r + 1, t0:t1]
+            o_s = tpa.attend_rows(q[r:r + 1], ks, vs, sub_pos, sub_len,
+                                  window)
+            k_pos = torch.arange(t0, t1)
+            keep = tpa.band_keep(torch.tensor(pos), k_pos, window)
+            keep &= k_pos <= pos
+            # Query head h reads kv head h // G.
+            sc = torch.einsum("hd,khd->hk", q[r, 0],
+                              ks[0].repeat_interleave(h // hkv, dim=1)) * (
+                dh ** -0.5)
+            sc = sc.masked_fill(~keep, float("-inf"))
+            m = sc.max(-1).values                          # [H]
+            l = torch.exp(sc - m[:, None]).sum(-1)
+            parts.append((m, l, o_s[0, 0] * l[:, None]))
+        m_star = torch.stack([m for m, _, _ in parts]).max(0).values
+        num = torch.zeros(h, dh)
+        den = torch.zeros(h)
+        for m, l, acc in parts:                            # split order
+            w = torch.exp(m - m_star)
+            num += w[:, None] * acc
+            den += w * l
+        out[r, 0] = num / den[:, None]
+    return out
+
+
+@pytest.mark.parametrize("window", [None, 1, 5, 8, 13])
+@pytest.mark.parametrize("group", [1, 2, 8])
+def test_split_merge_equals_attention_over_the_whole_band(group, window):
+    """Split partials merged in split order equal attention over the whole
+    band: the port's ``attend_rows`` within 1e-6 and JAX's
+    ``paged_attention_xla`` within ATOL, on the same pages read through a
+    shuffled page table."""
+    rng = np.random.default_rng(group * 31 + (window or 0))
+    b, hkv, dh = len(SPLIT_POSITIONS), 2, 16
+    t_all = SPLIT_N * SPLIT_PAGE
+    q = rng.standard_normal((b, 1, hkv * group, dh)).astype(np.float32)
+    kr = rng.standard_normal((b, t_all, hkv, dh)).astype(np.float32)
+    vr = rng.standard_normal((b, t_all, hkv, dh)).astype(np.float32)
+    # Row r's logical page j lives at pool page tables[r, j].
+    tables = rng.permutation(b * SPLIT_N).astype(np.int32).reshape(b, SPLIT_N)
+    k_pool = np.empty((b * SPLIT_N, SPLIT_PAGE, hkv, dh), np.float32)
+    v_pool = np.empty_like(k_pool)
+    k_pool[tables] = kr.reshape(b, SPLIT_N, SPLIT_PAGE, hkv, dh)
+    v_pool[tables] = vr.reshape(b, SPLIT_N, SPLIT_PAGE, hkv, dh)
+    pos = np.asarray(SPLIT_POSITIONS, np.int32)
+    positions = torch.tensor(SPLIT_POSITIONS)
+    got = _split_merge_reference(t(q), t(kr), t(vr), positions, window)
+    want = tpa.attend_rows(t(q), t(kr), t(vr), positions[:, None],
+                           positions + 1, window)
+    ref = np.asarray(jpa.paged_attention_xla(
+        jnp.asarray(q), jnp.asarray(k_pool), jnp.asarray(v_pool),
+        jnp.asarray(tables), jnp.asarray(pos)[:, None], jnp.asarray(pos) + 1,
+        window))
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=MERGE_ATOL, rtol=0)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=0)
