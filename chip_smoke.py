@@ -9,8 +9,8 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
 1. device — require CUDA, print the card's name and power limit, turn
    TF32 off for float32 matmuls and convolutions;
 2. build — compile every kernel of the port from ``ops/csrc`` (one
-   ``nvcc`` per source, all at once) and print ptxas's register and
-   spill lines;
+   ``nvcc`` per source, all at once) and print ptxas's register, spill
+   and warning lines;
 3. kernel vs plain — the paged decode kernel (a split pass over page
    ranges, then a merge launch) against its plain PyTorch version at the
    serving slice's shapes: MHA, GQA (G 4 and G 8), sliding windows of 64
@@ -32,10 +32,13 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
    own o and lse) and against autograd through the plain
    ``full_attention``, at the training slice's shape (B 2, H 8, T 8192,
    Dh 128, causal) and its edges (ragged T, full, windows of 256 and 100,
-   Dh 64, T 77);
+   Dh 64, T 77, a window of 300 over T 1000); both backward kernels run
+   twice on each case's inputs and must agree with themselves bit for bit
+   (no atomics, no order that depends on scheduling);
 7. flash timing — each kernel, its plain version, the operation bound
    and the library yardstick (SDPA forward; SDPA's backward for the
-   dq + dk/dv pair), CUDA events, L2 flushed before each run;
+   dq + dk/dv pair), then the port's whole backward (delta, dq, dk/dv)
+   beside SDPA's backward, CUDA events, L2 flushed before each run;
 8. trainer — the LM training slice at full width (bench.py's LM model,
    bf16, RoPE, remat off, LMTrainConfig's SGD): (a) one step's loss and
    gradients through the kernels against the plain attention at T 2048;
@@ -110,6 +113,10 @@ FLASH_CASES = {
     # of neither block, and T shorter than one q block.
     "window100_t2048": dict(t=2048, dh=128, causal=True, window=100),
     "t77": dict(t=77, dh=128, causal=True, window=None),
+    # Edges of the backward's tiles (128-row blocks over 64-row tiles):
+    # a window that is a multiple of neither, over a T that is not a
+    # multiple of 128.
+    "window300_t1000": dict(t=1000, dh=128, causal=True, window=300),
 }
 # o, gated per row: max over (b, t, h) of ||o - o_ref|| / ||o_ref|| over
 # Dh. Row i of o averages ~i/e values of v, so |o| falls from ~2-4 on the
@@ -366,7 +373,16 @@ def check_flash(fa) -> dict:
         dq = fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal, window)
         dk, dv = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal,
                                          window)
+        # Both backward kernels again on the same inputs: bit for bit.
+        dq2 = fa.flash_bwd_dq_kernel(q, k, v, do, lse, delta, causal, window)
+        dk2, dv2 = fa.flash_bwd_dkv_kernel(q, k, v, do, lse, delta, causal,
+                                           window)
         torch.cuda.synchronize()
+        repeat = {n: torch.equal(a, b) for n, a, b in (
+            ("dq", dq, dq2), ("dk", dk, dk2), ("dv", dv, dv2))}
+        bad += [f"{label}: {n} differs between two calls on the same inputs"
+                for n, same in repeat.items() if not same]
+        del dq2, dk2, dv2
         got = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
         bad += [f"{label}: non-finite {n}" for n, x in got.items()
                 if not torch.isfinite(x).all()]
@@ -404,7 +420,8 @@ def check_flash(fa) -> dict:
               + ", ".join(f"{n} {e:.3e}" for n, e in rel.items())
               + "; per row vs the plain backward "
               + ", ".join(f"{n} {e:.3e}" for n, e in row.items())
-              + f" (rtol {GRAD_RTOL} each)")
+              + f" (rtol {GRAD_RTOL} each); second call bitwise equal: "
+              + ", ".join(f"{n} {same}" for n, same in repeat.items()))
         if not o_row <= O_ROW_RTOL:
             bad.append(f"{label}: o per-row rel err {o_row} > {O_ROW_RTOL}")
         if not o_err <= O_ATOL:
@@ -501,6 +518,17 @@ def time_flash(fa, card) -> dict:
     pair = out["flash_bwd_dq"]["ms"] + out["flash_bwd_dkv"]["ms"]
     print(f"flash backward timing [{card}]: dq + dk/dv {pair} ms, / SDPA "
           f"backward {pair / sdpa_bwd_ms:.3f}")
+
+    # What FlashAttention.backward runs: delta, dq, dk/dv (SDPA's backward
+    # includes its own delta pass).
+    def whole_backward():
+        dl = fa.bwd_delta(o, do)
+        fa.flash_bwd_dq_kernel(q, k, v, do, lse, dl)
+        fa.flash_bwd_dkv_kernel(q, k, v, do, lse, dl)
+
+    bwd_ms = time_ms(whole_backward, flush=flush)
+    print(f"flash whole backward timing [{card}]: delta + dq + dk/dv "
+          f"{bwd_ms} ms, / SDPA backward {bwd_ms / sdpa_bwd_ms:.3f}")
     del flush, q, k, v, do, o, lse, delta, qh, kh, vh, doh, oh
     torch.cuda.empty_cache()
     return out
@@ -1064,7 +1092,8 @@ def main() -> None:
     for name, log in _build.build_logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("entry function", "registers",
-                                       "spill")):
+                                       "spill", "warning",
+                                       "Performance Loss")):
                 print(f"  {name}: {line.strip()}")
     laps.done("2/build")
 

@@ -1,23 +1,25 @@
 // Shared pieces of the three flash-attention kernels (flash_fwd.cu,
-// flash_bwd_dq.cu, flash_bwd_dkv.cu): tile sizes, the band predicates of
+// flash_bwd_dq.cu, flash_bwd_dkv.cu): the band predicates of
 // distributed_model_parallel_tpu/ops/pallas_attention.py (`band_keep`,
-// `_band_start_k`, `_last_k_block`, `_block_interior`, `_q_bounds_for_k`),
-// cp.async tile loads and the mma.sync primitives of the two backward
-// kernels: ldmatrix and mma.sync m16n8k16 (bf16 in, f32 accumulate). The
-// forward uses the band predicates here and sm90.cuh's wgmma and TMA.
+// `_band_start_k`, `_last_k_block`, `_block_interior`, `_q_bounds_for_k`)
+// with block sizes as template arguments, the wgmma issue loops of the
+// two backward kernels over TMA-written tiles, and the bf16 epilogue.
 //
 // Layout: q/k/v/dO/o/dq/dk/dv are [B, T, H, D] bf16, contiguous (the JAX
 // package's layout — no transpose or padding pass); lse and delta are
-// [B, H, T] f32. A backward CTA works on one (b, h) and one 64-row block,
-// one warp per 16 rows; rows at or past T are loaded as zeros and masked,
-// so T needs no padding.
+// [B, H, T] f32. TMA loads rows at or past T as zeros and the band
+// predicates mask them, so T needs no padding.
 //
-// Fragments (PTX ISA, mma.m16n8k16, lane = 4·g + c): an f32 accumulator
-// tile [16 x 8] holds rows g and g + 8, columns 2c and 2c + 1 of the
-// tile in its four registers; an A operand [16 x 16] holds the same rows
-// at columns 2c, 2c + 1, 2c + 8, 2c + 9. So the accumulators of two
-// neighbouring 8-column tiles, rounded to bf16, are the A operand of the
-// next product without passing through shared memory (FlashAttention-2).
+// A tile in shared memory is what a TMA load of `rows` rows writes (see
+// sm90.cuh): D / 64 boxes of rows x 128 bytes, 128-byte swizzle, one
+// box `rows` · 128 bytes after the other. The same tile is read two ways
+// by wgmma, so nothing is ever transposed in memory:
+//   * K-major (D is the contraction): S = Q·K^T, dP = dO·V^T and their
+//     transposes; a k16 step is 32 bytes along a row, a new box every
+//     4 steps;
+//   * MN-major with the transpose bit (the rows are the contraction):
+//     dQ += dS·K, dV += P^T·dO, dK += dS^T·Q; a k16 step is 16 rows
+//     (2048 bytes), LBO the box stride.
 
 #pragma once
 
@@ -26,18 +28,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "sm90.cuh"
+
 namespace flash {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBlock = 64;       // query and key rows per tile
-constexpr int kWarps = 4;        // one warp per 16 rows of a tile
-constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;          // bf16 row padding: a 16-byte shift per
-                                 // row keeps ldmatrix free of conflicts
 constexpr float kNegInf = -1e30f;  // JAX's NEG_INF: lse of a keyless row
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kRowBytes = 128;  // one swizzled row of a box: 64 bf16
 
 struct Problem {
   int B, T, H;
@@ -56,9 +56,7 @@ __device__ __forceinline__ bool keep(const Problem& p, int q_pos, int k_pos) {
 
 // True when rows [q0, q0 + BQ) and keys [k0, k0 + BK) need no mask:
 // strictly inside the causal band (`_block_interior`) and clear of the
-// ragged edge. Block sizes are parameters: the forward tiles 128 x 128
-// (two 64-row warpgroups, each asking for its own rows), the backward
-// kernels kBlock x kBlock.
+// ragged edge. Each warpgroup asks for its own 64 rows (or keys).
 template <int BQ, int BK>
 __device__ __forceinline__ bool interior_rows(const Problem& p, int q0, int k0) {
   if (q0 + BQ > p.T || k0 + BK > p.T) return false;
@@ -82,102 +80,56 @@ __device__ __forceinline__ void k_range_rows(const Problem& p, int q0, int& lo, 
   hi = min((q0 + BQ - 1) / BK, num_k - 1);
 }
 
-// The same for the (q block qi, k block kj) tile of kBlock x kBlock.
-__device__ __forceinline__ bool interior(const Problem& p, int qi, int kj) {
-  return interior_rows<kBlock, kBlock>(p, qi * kBlock, kj * kBlock);
-}
-
-__device__ __forceinline__ void k_range(const Problem& p, int qi, int& lo, int& hi) {
-  k_range_rows<kBlock, kBlock>(p, qi * kBlock, lo, hi);
-}
-
-// Q blocks [lo, hi) attending any key of k block kj (`_q_bounds_for_k`).
-__device__ __forceinline__ void q_range(const Problem& p, int kj, int& lo, int& hi) {
-  const int num_q = (p.T + kBlock - 1) / kBlock;
+// Q blocks [lo, hi) of BQ rows that attend any key of [k0, k0 + BK)
+// (`_q_bounds_for_k`): from the block holding row k0 (the band's
+// diagonal) to the block holding row k0 + BK - 1 + window - 1 (the last
+// row whose window still reaches the block's last key).
+template <int BQ, int BK>
+__device__ __forceinline__ void q_range_rows(const Problem& p, int k0, int& lo, int& hi) {
+  const int num_q = (p.T + BQ - 1) / BQ;
   if (!p.causal) {
     lo = 0;
     hi = num_q;
     return;
   }
-  lo = kj;
-  hi = p.window > 0 ? min(num_q, ((kj + 1) * kBlock - 1 + p.window - 1) / kBlock + 1)
-                    : num_q;
+  lo = k0 / BQ;
+  hi = p.window > 0 ? min(num_q, (k0 + BK - 1 + p.window - 1) / BQ + 1) : num_q;
 }
 
 // ---------------------------------------------------------------------------
-// asynchronous global -> shared copies
+// wgmma over TMA-written tiles (the backward kernels)
 // ---------------------------------------------------------------------------
 
-// 16 bytes global -> shared, zero-filled when !valid (nothing is read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Rows [row0, row0 + kBlock) of head (b, h) of a [B, T, H, D] tensor into
-// a shared tile [kBlock][D + kPad], zeros past T; one commit group is the
-// caller's to close.
+// acc[64 x 64] = A · B^T over D: A is 64 rows of a tile whose boxes are
+// a_box bytes apart, B the 64 rows of a tile with boxes b_box apart, both
+// K-major (S = Q·K^T, dP = dO·V^T, S^T = K·Q^T, dP^T = V·dO^T).
 template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* __restrict__ src,
-                                          const Problem& p, int b, int h, int row0) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kBlock * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int d0 = (c % kChunks) * 8;
-    const int t = row0 + r;
-    const bool valid = t < p.T;
-    // An invalid chunk reads nothing; its address only has to be legal.
-    const bf16* g = src + (((size_t)b * p.T + (valid ? t : 0)) * p.H + h) * D + d0;
-    cp_async16(dst + r * (D + kPad) + d0, g, valid);
+__device__ __forceinline__ void issue_ss64(float (&acc)[8][4], const unsigned char* a,
+                                           uint32_t a_box, const unsigned char* b,
+                                           uint32_t b_box) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int step = (kk % 4) * 32;
+    sm90::wgmma_ss_m64n64k16(acc, sm90::desc_sw128(a + (kk / 4) * a_box + step, 16, 1024),
+                             sm90::desc_sw128(b + (kk / 4) * b_box + step, 16, 1024),
+                             kk > 0);
   }
 }
 
-// Rows [row0, row0 + kBlock) of a [B, H, T] f32 vector, times `mul`
-// (0 past T), with plain loads.
-__device__ __forceinline__ void load_vec(float* dst, const float* __restrict__ src,
-                                         const Problem& p, int b, int h, int row0,
-                                         float mul) {
-  for (int r = threadIdx.x; r < kBlock; r += kThreads) {
-    const int t = row0 + r;
-    dst[r] = t < p.T ? src[((size_t)b * p.H + h) * p.T + t] * mul : 0.f;
-  }
+// acc[64 x D] += A · B over 64 rows: A in registers (a bf16 score tile,
+// register-A fragments per k16 step), B the first 64 rows of a tile with
+// boxes b_box apart, MN-major (dQ += dS·K, dV += P^T·dO, dK += dS^T·Q).
+template <int D>
+__device__ __forceinline__ void issue_rs64(float (&acc)[D / 8][4], const uint32_t (&a)[4][4],
+                                           const unsigned char* b, uint32_t b_box) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    sm90::wgmma_rs<D>(acc, a[kk], sm90::desc_sw128(b + kk * 16 * kRowBytes, b_box, 1024), 1);
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core primitives
+// registers and the epilogue
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* ptr) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* ptr) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// d += a · b, a [16 x 16] row-major, b [16 x 8] column-major, d f32.
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Two f32 -> one register of two bf16 (lo in the low half).
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
@@ -185,70 +137,16 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// The A operand of rows [16 x 16] at (row0, col0) of a shared tile with
-// row stride ld: lane l points at row l % 16, column half l / 16.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile, int ld, int row0,
-                                       int col0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(a, tile + (row0 + (lane & 15)) * ld + col0 + (lane >> 4) * 8);
-}
-
-// B operands of two 8-column output tiles (n0, n0 + 8) for the k step
-// [k0, k0 + 16), from a shared tile stored [n][k] (row n holds the k
-// values: K for Q·K^T). b[0], b[1] feed tile n0; b[2], b[3] tile n0 + 8.
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4], const bf16* tile, int ld, int n0,
-                                          int k0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4(b, tile + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + k0 + ((lane >> 3) & 1) * 8);
-}
-
-// The same from a shared tile stored [k][n] (row k holds the n values:
-// V for P·V), transposed by ldmatrix.
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4], const bf16* tile, int ld, int k0,
-                                          int n0) {
-  const int lane = threadIdx.x & 31;
-  ldsm_x4_t(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 + (lane >> 4) * 8);
-}
-
-// acc[N/8][4] += a_tile[16 x K] (rows row0.., shared, [row][k]) ·
-// b_tile^T, b_tile [N][K] in shared ([n][k]): the scores Q·K^T and dO·V^T.
-template <int K, int N>
-__device__ __forceinline__ void gemm_abt(float (&acc)[N / 8][4], const bf16* a_tile,
-                                         const bf16* b_tile, int ld, int row0) {
+// A [64 x 16·K] f32 accumulator tile in bf16 as register-A fragments: k
+// step kk takes column blocks 2kk and 2kk + 1 (the accumulator's rows g,
+// g + 8 at columns 2c.. and 2c + 8.. are the A operand's, as in
+// mma.sync m16n8k16).
+template <int K>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[K][4], const float (&acc)[2 * K][4]) {
 #pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t a[4];
-    load_a(a, a_tile, ld, row0, kk * 16);
-#pragma unroll
-    for (int np = 0; np < N / 16; ++np) {
-      uint32_t b[4];
-      load_b_nk(b, b_tile, ld, np * 16, kk * 16);
-      mma(acc[2 * np], a, b[0], b[1]);
-      mma(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// acc[D/8][4] += P[16 x K] · b_tile, P given as f32 accumulator tiles
-// s[K/8][4] (rounded to bf16 here), b_tile [K][D] in shared ([k][n]):
-// P·V, dS·K, P^T·dO, dS^T·Q.
-template <int K, int D>
-__device__ __forceinline__ void gemm_pb(float (&acc)[D / 8][4], const float (&s)[K / 8][4],
-                                        const bf16* b_tile, int ld, int k_row0) {
-#pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    uint32_t a[4];
-    a[0] = pack(s[2 * kk][0], s[2 * kk][1]);
-    a[1] = pack(s[2 * kk][2], s[2 * kk][3]);
-    a[2] = pack(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    a[3] = pack(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-    for (int np = 0; np < D / 16; ++np) {
-      uint32_t b[4];
-      load_b_kn(b, b_tile, ld, k_row0 + kk * 16, np * 16);
-      mma(acc[2 * np], a, b[0], b[1]);
-      mma(acc[2 * np + 1], a, b[2], b[3]);
-    }
+  for (int nt = 0; nt < 2 * K; ++nt) {
+    a[nt / 2][2 * (nt & 1)] = pack(acc[nt][0], acc[nt][1]);
+    a[nt / 2][2 * (nt & 1) + 1] = pack(acc[nt][2], acc[nt][3]);
   }
 }
 
@@ -279,8 +177,5 @@ __device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (
           pack(acc[nt][2 * half] * mul[half], acc[nt][2 * half + 1] * mul[half]);
   }
 }
-
-// Shared-memory carve-up helper: 128-byte aligned offsets.
-__host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }
 
 }  // namespace flash

@@ -59,7 +59,6 @@ constexpr int kBlockK = 128;   // keys per tile
 constexpr int kStages = 2;     // K/V ring depth
 constexpr int kConsumers = 2;  // warpgroups of 64 rows
 constexpr int kFwdThreads = (kConsumers + 1) * 128;  // + the producer warpgroup
-constexpr int kRowBytes = 128;                       // one swizzled row: 64 bf16
 
 template <int D>
 struct FwdSmem {
@@ -140,17 +139,6 @@ __device__ __forceinline__ void softmax_tile(float (&sc)[kBlockK / 8][4], float 
       sc[nt][e] = pr;
       l[e >> 1] += pr;
     }
-  }
-}
-
-// p in bf16 as register-A fragments: k-step kk takes S's column blocks
-// 2kk and 2kk + 1 (rows g, g + 8 at columns 2c.., 2c + 8..).
-__device__ __forceinline__ void pack_p(uint32_t (&pa)[kBlockK / 16][4],
-                                       const float (&sc)[kBlockK / 8][4]) {
-#pragma unroll
-  for (int nt = 0; nt < kBlockK / 8; ++nt) {
-    pa[nt / 2][2 * (nt & 1)] = pack(sc[nt][0], sc[nt][1]);
-    pa[nt / 2][2 * (nt & 1) + 1] = pack(sc[nt][2], sc[nt][3]);
   }
 }
 
@@ -249,7 +237,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     sm90::mbar_arrive(k_empty);
     softmax_tile(sc, m, l, alpha, !interior_rows<64, kBlockK>(p, r0, lo * kBlockK), p, row_w,
                  lo * kBlockK, sl2);
-    pack_p(pa, sc);
+    pack_a(pa, sc);
 
     // Tile kj: S_kj is issued with P·V of tile kj - 1 behind it, and the
     // softmax of S_kj runs while P·V is in flight.
@@ -280,7 +268,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         acc[nt][2] *= alpha[1];
         acc[nt][3] *= alpha[1];
       }
-      pack_p(pa, sc);
+      pack_a(pa, sc);
     }
 
     // P·V of tile hi.

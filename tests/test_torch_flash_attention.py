@@ -3,8 +3,8 @@ package's Pallas kernels run in interpret mode, on the same f32 inputs:
 the plain forward (o, lse) against ``_flash_impl`` and ``full_attention``,
 the plain dq/dk/dv against ``_flash_bwd_impl``, and autograd through
 ``flash_attention`` against ``jax.vjp`` of the JAX ``flash_attention``.
-Causal, full, ragged T (40 with blocks of 16) and windows {1, 7, 17,
->= T}. atol 1e-5 forward, 1e-4 gradients (f32 sums in another order).
+Causal, full, ragged T (40 with blocks of 16), windows {1, 7, 17,
+>= T} and a window over a ragged T (13 over 45). atol 1e-5 forward, 1e-4 gradients (f32 sums in another order).
 On the CPU every wrapper runs its plain version; the kernels themselves
 are held against those on the card by ``chip_smoke.py``."""
 
@@ -37,6 +37,8 @@ CASES = {
     "window7": (40, True, 7),
     "window17": (40, True, 17),
     "window_ge_t": (40, True, 64),
+    # Ragged T and a window together, neither a multiple of the block.
+    "ragged_window": (45, True, 13),
 }
 
 
