@@ -49,12 +49,22 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
 9. fused SGD vs plain — ``FusedSGD`` on the card over MobileNetV2's 173
    parameter leaves (one bucket, and a cap that gives 12), 5 updates of
    each variant (momentum + weight decay, nesterov, no decay, momentum 0)
-   through the kernels against the plain version per leaf; launches ==
-   updates x buckets;
+   through the kernels against the plain version per leaf; then the
+   public wrappers on a cap-sized bucket, a length that is not a multiple
+   of 4, views 4 bytes into their buffers (unaligned head) and views of
+   differing offsets, every variant; all bit for bit, launches ==
+   updates x buckets; the grid the kernel picks at the CNN and cap
+   buckets;
 10. fused SGD timing — each variant's one-bucket update: kernel, plain
     version, ``torch.optim.SGD(fused=True)`` over the 173 leaves (the
-    library yardstick, never used by the port) and the byte bound, CUDA
-    events, L2 flushed before each run;
+    library yardstick, never used by the port) and the byte bound, one
+    call after an L2 flush (host enqueue included where it outlasts the
+    flush); then the device time per launch, from CUDA graphs of K
+    launches over R bucket sets that together exceed the L2 3x (each
+    launch finds its bucket cold), at the CNN bucket and a cap-sized one,
+    beside ``torch.optim.SGD(fused=True)`` over the same flat bucket in
+    the same graph train; and the host's enqueue per launch of
+    ``FusedSGD.step`` and of the public wrapper;
 11. CNN trainer — bench.py's CNN workload with the fused optimizer
     (MobileNetV2, batch 512, bf16 over f32, device-resident, 10 steps per
     dispatch, cuDNN autotuner on): (a) two steps through the fused kernel
@@ -63,11 +73,15 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     with samples/s, step time, MFU and peak memory (fused_sgd launches
     == steps x buckets, parameters and BN statistics changed), then 20
     steps with momentum 0 (plain_sgd launches == steps) and 20 with
-    ``fused=False``; (c) one step under ``torch.profiler``.
+    ``fused=False``; (c) one step under ``torch.profiler``, and one with
+    momentum 0, each printing the fused SGD kernel's device time.
 
 Prints the card line, each phase's seconds, the ``{"kernels": [...]}``
 line and, last, ``{"ok": true, "device": {...}}``. Exits non-zero
 without a card, or when run outside a checkout of the repository.
+``--sgd-timing-only`` runs phases 1, 2 (the fused SGD kernel) and 10 and
+prints their ``{"sgd_timing": ...}`` line: copied into another checkout,
+it measures that checkout's kernel the same way.
 """
 
 from __future__ import annotations
@@ -175,11 +189,32 @@ SGD_VARIANTS = {
 }
 SGD_UPDATES = 5
 SGD_SMALL_BUCKET_BYTES = 1 << 20       # ~10 buckets of MobileNetV2
-# Kernel vs plain, max|a - b| / max|b| over p and m: the kernel rounds each
-# product and sum on its own (__fmul_rn/__fadd_rn), as the plain version's
-# eager ops do, so the two agree bit for bit; 1e-6 (~8 f32 ulp) leaves
-# room for nothing but an FMA contraction creeping into either side.
-SGD_RTOL = 1e-6
+# Kernel vs plain over p and m: the kernel rounds each product and sum on
+# its own (__fmul_rn/__fadd_rn), as the plain version's eager ops do, so
+# every phase-9 case must agree bit for bit (max_abs_err exactly 0).
+# Phase 9's direct wrapper cases, each variant, 2 updates: a cap-sized
+# bucket (FUSED_BUCKET_BYTES of f32), a length that is not a multiple of
+# 4, a view starting 4 bytes into its buffers (an unaligned head before
+# the 16-byte body), and views whose offsets differ (no common alignment:
+# all scalar). Offsets in f32 elements for p, m, g.
+SGD_WRAPPER_CASES = {
+    "cap_bucket": dict(n=16 * 1024 * 1024, offsets=(0, 0, 0)),
+    "ragged_n": dict(n=1_000_003, offsets=(0, 0, 0)),
+    "unaligned_head": dict(n=2_296_922, offsets=(1, 1, 1)),
+    "mixed_offsets": dict(n=100_001, offsets=(1, 2, 3)),
+}
+# Phase 10's device time per launch: a CUDA graph of K launches rotating
+# over R bucket sets (p, m, g) whose total is >= 3x the 50 MB L2, so each
+# launch finds its bucket cold; events around graph.replay(), median over
+# the replays, / K. Shapes: MobileNetV2's one bucket (the CNN path's) and
+# a full FUSED_BUCKET_BYTES bucket (what every bucket of a model over 64
+# MiB of f32 parameters fills).
+SGD_TIMING_SHAPES = {
+    "cnn": dict(n=2_296_922, sets=6, launches=60),
+    "cap": dict(n=16 * 1024 * 1024, sets=2, launches=20),
+}
+SGD_GRAPH_REPLAYS = 15
+SGD_HOST_STEPS = 200                   # host enqueue: steps, no sync
 
 # The CNN slice (phase 11): bench.py's CNN workload (bench.py:1343-1361)
 # with DMP_BENCH_FUSED_OPT=1 on one device — MobileNetV2 (CIFAR layout),
@@ -212,6 +247,55 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sgd_traffic(n: int, momentum: float, weight_decay: float,
+                nesterov: bool) -> dict:
+    """One fused SGD update over ``n`` f32 parameters: the HBM bytes it
+    must move (p, g and, with a trace, m read once; p and m written once),
+    its f32 operations, and its bound — the larger of bytes at the card's
+    memory rate and operations at its f32 rate — in ms."""
+    bytes_moved = (5 if momentum else 3) * n * 4
+    flops = (2 * (weight_decay != 0) + 2 * (momentum != 0)
+             + 2 * bool(nesterov and momentum) + 2) * n
+    bound_ms, bound_by = max(
+        (bytes_moved / HBM_BYTES_PER_S * 1e3, "bytes"),
+        (flops / F32_FLOPS_PER_S * 1e3, "operations"))
+    return dict(bytes=bytes_moved, flops=flops, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def graph_train_ms(launch, k: int, replays: int = SGD_GRAPH_REPLAYS) -> float:
+    """Device ms per launch of ``launch(i)``, i = 0..k-1, captured as one
+    CUDA graph: CUDA events around ``graph.replay()`` (behind a short
+    device sleep, so the host's submission of the graph is not in the
+    window), median over ``replays``, divided by k. A refused capture
+    raises."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # warm-up before capture
+        for i in range(k):
+            launch(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(k):
+            launch(i)
+    graph.replay()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000)                 # ~50 us of device time
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / k)
+    del graph
+    return statistics.median(times)
 
 
 def time_ms(fn, *, reps: int = 30, warmup: int = 5, flush=None) -> float:
@@ -268,12 +352,13 @@ def lm_kind(key: str) -> str:
     return "other"
 
 
-def print_profile(label: str, run, card, kind=lm_kind) -> None:
+def print_profile(label: str, run, card, kind=lm_kind) -> list:
     """``run()`` under ``torch.profiler``: device time by kernel and the
     device's busy share of the run's wall time (kernels run on one
     stream, so their times add), then by ``kind(kernel name)``. ``run``
     returns a note for the summary line. Informational: a profile without
-    device events prints "not measured"."""
+    device events prints "not measured". Returns the (kernel name, device
+    us, count) rows."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -290,7 +375,7 @@ def print_profile(label: str, run, card, kind=lm_kind) -> None:
     if not rows:
         print(f"profile {label} [{card}]: device time not measured "
               f"(no CUDA events)")
-        return
+        return rows
     print(f"profile {label} [{card}]: wall {wall_us:.0f} us, device busy "
           f"{busy_us:.0f} us ({100 * busy_us / wall_us:.1f}%), {note}; "
           f"top kernels:")
@@ -302,6 +387,7 @@ def print_profile(label: str, run, card, kind=lm_kind) -> None:
     print("  by kind: " + ", ".join(
         f"{k} {us:.0f} us ({100 * us / busy_us:.1f}%)"
         for k, us in kinds.items()))
+    return rows
 
 
 def profile_engine(Engine, params, cfg, serve, prompts, gens, card) -> None:
@@ -677,11 +763,54 @@ def sgd_leaves(model_params, seed):
             for p in model_params]
 
 
-def check_fused_sgd(fs, optim, tconfig, model_params) -> float:
+def check_sgd_wrapper_cases(fs) -> list:
+    """Phase 9, direct wrapper calls: each case of ``SGD_WRAPPER_CASES``
+    and each variant, 2 updates through the kernel's public wrapper on
+    views at the case's offsets, against the plain version on copies;
+    p and m must agree bit for bit, and each call must count one launch.
+    Returns the violations."""
+    import torch
+
+    bad = []
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    for label, c in SGD_WRAPPER_CASES.items():
+        n, offs = c["n"], c["offsets"]
+        errs = []
+        for name, v in SGD_VARIANTS.items():
+            bufs = [torch.empty(n + 4, device="cuda").normal_(generator=gen)
+                    for _ in range(3)]
+            p, m, g = (b[o:o + n] for b, o in zip(bufs, offs))
+            m = m if v["momentum"] else None
+            rp = p.clone()
+            rm = None if m is None else m.clone()
+            counter = (fs.plain_sgd_kernel if m is None
+                       else fs.fused_sgd_kernel)
+            before = counter.launches
+            for k in range(2):
+                lr = 0.1 * (k + 1)
+                sgd_launch(fs, p, m, g, lr, v)
+                fs.fused_sgd_plain(rp, rm, g, lr, **v)
+            torch.cuda.synchronize()
+            err = (p - rp).abs().max().item()
+            if m is not None:
+                err = max(err, (m - rm).abs().max().item())
+            same = torch.equal(p, rp) and (m is None or torch.equal(m, rm))
+            errs.append(err)
+            if not same or counter.launches - before != 2:
+                bad.append(f"{label}/{name}: max_abs_err {err}, launches "
+                           f"{counter.launches - before} (want 2)")
+        print(f"fused_sgd wrapper {label} (n {n}, offsets {offs} f32): "
+              f"max_abs_err per variant {errs} (bitwise required)")
+    return bad
+
+
+def check_fused_sgd(fs, optim, tconfig, model_params, card) -> float:
     """Phase 9: ``FusedSGD`` on the card (the kernels, one bucket; and a
     cap that gives several) against the plain version per leaf, 5 updates
-    of each variant under a warm-up/cosine schedule. Returns the largest
-    max-abs error of p and m."""
+    of each variant under a warm-up/cosine schedule, then the direct
+    wrapper cases. Every case must agree bit for bit. Prints the grid the
+    kernel picks at the CNN and cap buckets. Returns the largest max-abs
+    error of p and m (0)."""
     import torch
 
     cases = [(name, v, optim.FUSED_BUCKET_BYTES)
@@ -714,38 +843,148 @@ def check_fused_sgd(fs, optim, tconfig, model_params) -> float:
         want = SGD_UPDATES * len(opt.buckets)
         errs = []
         for j, (p, rp, rm) in enumerate(zip(opt.params, ref_p, ref_m)):
-            errs.append(((p - rp).abs().max().item(), rp.abs().max().item()))
+            errs.append((p - rp).abs().max().item())
             if rm is not None:
-                m = opt.momentum_buffer(j)
-                errs.append(((m - rm).abs().max().item(),
-                             rm.abs().max().item()))
-        err = max(e for e, _ in errs)
-        rel = err / max(r for _, r in errs)
+                errs.append((opt.momentum_buffer(j) - rm).abs().max().item())
+        err = max(errs)
         finite = all(torch.isfinite(p).all() for p in opt.params)
         print(f"fused_sgd {label}: {len(opt.buckets)} bucket(s), "
-              f"{launched} launches (want {want}), max_abs_err {err}, "
-              f"max|a-b|/max|b| {rel:.3e} (rtol {SGD_RTOL}, p and m over "
-              f"{len(leaves)} leaves)")
+              f"{launched} launches (want {want}), max_abs_err {err} "
+              f"(bitwise required; p and m over {len(leaves)} leaves)")
         if launched != want:
             bad.append(f"{label}: {launched} launches != {want}")
-        if not finite or not rel <= SGD_RTOL:
-            bad.append(f"{label}: rel err {rel} > {SGD_RTOL} or non-finite")
+        if not finite or err != 0:
+            bad.append(f"{label}: max_abs_err {err} != 0 or non-finite")
         max_abs = max(max_abs, err)
+    bad += check_sgd_wrapper_cases(fs)
     if bad:
         fail("9/fused sgd", "; ".join(bad))
+    for n, shape in ((SGD_TIMING_SHAPES["cnn"]["n"], "CNN bucket"),
+                     (SGD_TIMING_SHAPES["cap"]["n"], "cap bucket")):
+        for momentum in (True, False):
+            grid = fs.kernel_grid(n, momentum)
+            print(f"fused_sgd grid [{card}]: {shape} (n {n}), "
+                  f"{'fused_sgd' if momentum else 'plain_sgd'}: "
+                  f"{grid['blocks']} CTAs x {grid['threads']} threads, "
+                  f"{grid['unroll']} float4 per operand in flight a thread")
     return max_abs
+
+
+def sgd_launch(fs, p, m, g, lr, v):
+    """One update through the public wrapper of the variant's kernel."""
+    if v["momentum"]:
+        fs.fused_sgd_kernel(p, m, g, lr, **v)
+    else:
+        fs.plain_sgd_kernel(p, g, lr, v["weight_decay"])
+
+
+def time_sgd_graph_trains(fs, card) -> dict:
+    """Phase 10, device time per launch: for each shape of
+    ``SGD_TIMING_SHAPES`` and each variant, the kernel and
+    ``torch.optim.SGD(fused=True)`` over the same flat bucket as one leaf
+    (the library yardstick, never used by the port), each as a graph
+    train over R cold bucket sets. A library call that capture refuses is
+    timed as a train of eager calls and says that its time holds the
+    host. Returns {variant: {shape: row}}."""
+    import torch
+
+    out = {name: {} for name in SGD_VARIANTS}
+    for shape, s in SGD_TIMING_SHAPES.items():
+        n, r, k = s["n"], s["sets"], s["launches"]
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        sets = [[torch.empty(n, device="cuda").normal_(generator=gen)
+                 for _ in range(3)] for _ in range(r)]
+        for name, v in SGD_VARIANTS.items():
+            lr = 1e-3
+            t = sgd_traffic(n, **v)
+            ms = graph_train_ms(lambda i: sgd_launch(
+                fs, *sets[i % r], lr, v), k)
+            params = [torch.nn.Parameter(st[0]) for st in sets]
+            for prm, st in zip(params, sets):
+                prm.grad = st[2]
+            libs = [torch.optim.SGD([prm], lr=lr, fused=True, **v)
+                    for prm in params]
+            for lib in libs:                       # allocates the traces
+                lib.step()
+            try:
+                lib_ms = graph_train_ms(lambda i: libs[i % r].step(), k)
+                lib_kind = "graph"
+            except RuntimeError as e:
+                print(f"  torch.optim.SGD(fused=True) capture refused "
+                      f"({str(e)[:120]}); timed as eager calls, host "
+                      f"included")
+                torch.cuda.synchronize()
+                lib_ms = time_ms(lambda: [lb.step() for lb in libs],
+                                 reps=SGD_GRAPH_REPLAYS) / r
+                lib_kind = "eager, host included"
+            print(f"fused_sgd device time {shape} {name} [{card}]: kernel "
+                  f"{ms} ms/launch, {t['bound_ms'] / ms:.1%} of bound "
+                  f"{t['bound_ms']} ms ({t['bound_by']}: {t['bytes']} B, "
+                  f"n {n}); library {lib_ms} ms/launch (torch.optim.SGD "
+                  f"fused=True, one flat leaf, {lib_kind}), kernel / "
+                  f"library {ms / lib_ms:.3f}; {r} sets x {k} launches, "
+                  f"median of {SGD_GRAPH_REPLAYS} replays")
+            out[name][shape] = dict(ms=ms, bound_ms=t["bound_ms"],
+                                    library_ms=lib_ms, library_kind=lib_kind)
+            del params, libs
+        del sets
+        torch.cuda.empty_cache()
+    return out
+
+
+def time_sgd_host(fs, optim, tconfig, model_params, card) -> dict:
+    """Phase 10, host enqueue: ``FusedSGD.step`` over MobileNetV2's 173
+    leaves (the slot check, the launch, the ctypes call) and the public
+    wrapper alone, ``SGD_HOST_STEPS`` calls each on the host clock with no
+    sync inside; µs per launch (one bucket)."""
+    import torch
+
+    out = {}
+    for name in ("momentum_wd", "no_momentum"):
+        v = SGD_VARIANTS[name]
+        cfg = tconfig.OptimizerConfig(learning_rate=0.1, fused=True, **v)
+        leaves = [torch.nn.Parameter(x) for x in sgd_leaves(model_params,
+                                                             seed=9)]
+        opt = optim.FusedSGD(leaves, cfg, lambda _: 1e-3)
+        p, m, g = opt.flat_buckets()[0]
+        times = {}
+        for what, fn in (("FusedSGD.step", opt.step),
+                         ("wrapper", lambda: sgd_launch(fs, p, m, g, 1e-3,
+                                                        v))):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(SGD_HOST_STEPS):
+                fn()
+            times[what] = (time.perf_counter() - t0) / SGD_HOST_STEPS * 1e6
+            torch.cuda.synchronize()
+        print(f"fused_sgd host enqueue {name} [{card}]: FusedSGD.step "
+              f"{times['FusedSGD.step']} us per launch ({len(leaves)} leaves, "
+              f"1 bucket), public wrapper {times['wrapper']} us per launch; "
+              f"{SGD_HOST_STEPS} calls, host clock, no sync")
+        out[name] = dict(host_us_per_step=times["FusedSGD.step"],
+                         host_us_per_wrapper_launch=times["wrapper"])
+        del opt, leaves, p, m, g
+    return out
 
 
 def time_fused_sgd(fs, optim, tconfig, model_params, card) -> dict:
     """Phase 10: each variant's one-bucket update at the slice's shapes —
     the kernel, the plain version on the same bucket, the library call
     (``torch.optim.SGD(fused=True)`` over the 173 leaves, never used by
-    the port) and the byte bound. CUDA events, L2 flushed, median of 30.
-    Returns the rows of the slice's two kernels."""
+    the port) and the byte bound, CUDA events around one call after an L2
+    flush, median of 30 (the table's continuity column, host enqueue
+    included where it outlasts the flush); then the device time per
+    launch from graph trains at the CNN and cap buckets, and the host
+    enqueue. Returns the rows of the slice's two kernels."""
     import torch
 
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     n = sum(p.numel() for p in model_params)
+    if (n != SGD_TIMING_SHAPES["cnn"]["n"] or SGD_TIMING_SHAPES["cap"]["n"]
+            != optim.FUSED_BUCKET_BYTES // 4):
+        fail("10/fused sgd timing", f"SGD_TIMING_SHAPES do not match the "
+             f"CNN bucket ({n}) or FUSED_BUCKET_BYTES")
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     out = {}
     for name, v in SGD_VARIANTS.items():
         cfg = tconfig.OptimizerConfig(learning_rate=0.1, fused=True, **v)
@@ -756,12 +995,7 @@ def time_fused_sgd(fs, optim, tconfig, model_params, card) -> dict:
             fail("10/fused sgd timing", f"{len(opt.buckets)} buckets, want 1")
         p, m, g = opt.flat_buckets()[0]
         g.normal_()
-        if v["momentum"]:
-            kern = lambda: fs.fused_sgd_kernel(p, m, g, 0.1, **v)
-        else:
-            kern = lambda: fs.plain_sgd_kernel(p, g, 0.1,
-                                               v["weight_decay"])
-        ms = time_ms(kern, flush=flush)
+        ms = time_ms(lambda: sgd_launch(fs, p, m, g, 0.1, v), flush=flush)
         plain_ms = time_ms(lambda: fs.fused_sgd_plain(p, m, g, 0.1, **v),
                            flush=flush)
         lib_leaves = [torch.nn.Parameter(x) for x in sgd_leaves(
@@ -775,18 +1009,15 @@ def time_fused_sgd(fs, optim, tconfig, model_params, card) -> dict:
             lib = torch.optim.SGD(lib_leaves, lr=0.1, foreach=True, **v)
             lib_kind = "foreach=True (fused unavailable)"
         library_ms = time_ms(lib.step, flush=flush)
-        bytes_moved = (5 if v["momentum"] else 3) * n * 4
-        flops = (2 * (v["weight_decay"] != 0) + 2 * (v["momentum"] != 0)
-                 + 2 * v["nesterov"] + 2) * n
-        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / F32_FLOPS_PER_S * 1e3
-        bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+        t = sgd_traffic(n, **v)
         print(f"fused_sgd timing {name} [{card}]: kernel {ms} ms, plain "
               f"{plain_ms} ms, library {library_ms} ms (torch.optim.SGD "
-              f"{lib_kind}, 173 leaves), bound {bound_ms} ms ({bound_by}: "
-              f"{bytes_moved} B, {flops} flop), {bound_ms / ms:.1%} of bound")
-        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                   bound_by=bound_by, library_ms=library_ms)
+              f"{lib_kind}, 173 leaves), bound {t['bound_ms']} ms "
+              f"({t['bound_by']}: {t['bytes']} B, {t['flops']} flop), "
+              f"{t['bound_ms'] / ms:.1%} of bound (one launch after an L2 "
+              f"flush, host enqueue included where it outlasts the flush)")
+        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=t["bound_ms"],
+                   bound_by=t["bound_by"], library_ms=library_ms)
         if name == "momentum_wd":
             out["fused_sgd"] = row
         elif name == "no_momentum":
@@ -794,6 +1025,17 @@ def time_fused_sgd(fs, optim, tconfig, model_params, card) -> dict:
         del opt, leaves, lib_leaves, lib, p, m, g
     del flush
     torch.cuda.empty_cache()
+    graphs = time_sgd_graph_trains(fs, card)
+    host = time_sgd_host(fs, optim, tconfig, model_params, card)
+    for kernel, name in (("fused_sgd", "momentum_wd"),
+                         ("plain_sgd", "no_momentum")):
+        for shape, row in graphs[name].items():
+            out[kernel].update({
+                f"device_ms_{shape}": row["ms"],
+                f"bound_ms_{shape}": row["bound_ms"],
+                f"library_flat_ms_{shape}": row["library_ms"],
+                f"library_flat_kind_{shape}": row["library_kind"]})
+        out[kernel].update(host[name])
     return out
 
 
@@ -899,11 +1141,27 @@ def cnn_run(trainer, idxs, steps_kind: str, card) -> dict:
     return rec
 
 
-def train_cnn(trainer_mod, fs, tconfig, card) -> dict:
+def sgd_in_step_us(rows, kernel: str, card) -> float | None:
+    """The fused SGD kernel's device µs per launch in a profiled CNN step
+    (``print_profile``'s rows); None, printed as not measured, when the
+    profile has no such kernel."""
+    hits = [(us, n) for key, us, n in rows if "fused_sgd" in key]
+    if not hits:
+        print(f"cnn step {kernel} device time [{card}]: not measured")
+        return None
+    us, n = sum(h[0] for h in hits), sum(h[1] for h in hits)
+    print(f"cnn step {kernel} device time [{card}]: {us} us in {n} "
+          f"launch(es), {us / n} us per launch (torch.profiler)")
+    return us / n
+
+
+def train_cnn(trainer_mod, fs, tconfig, card) -> tuple:
     """Phase 11b/11c: the CNN slice's main path — bench.py's timing shape
     through ``Trainer.run_steps`` with the fused kernel — then 20 steps
     with momentum 0 (plain_sgd), 20 with ``fused=False`` (a data point),
-    and one profiled step. Returns the main path's launch counts."""
+    and a profiled step with and without momentum. Returns the main
+    path's launch counts and each kernel's device µs per launch in its
+    profiled step."""
     import torch
     from torch.utils.flop_counter import FlopCounterMode
 
@@ -968,9 +1226,10 @@ def train_cnn(trainer_mod, fs, tconfig, card) -> dict:
           f"allow_tf32 {torch.backends.cudnn.allow_tf32}")
 
     # 11c: one step under the profiler.
-    print_profile("cnn step", lambda: f"loss "
-                  f"{trainer.run_steps(idxs[-1][:1])['loss'].item()}",
-                  card, kind=cnn_kind)
+    rows = print_profile("cnn step", lambda: f"loss "
+                         f"{trainer.run_steps(idxs[-1][:1])['loss'].item()}",
+                         card, kind=cnn_kind)
+    in_step = {"fused_sgd": sgd_in_step_us(rows, "fused_sgd", card)}
     del trainer, params0, stats0
 
     # Momentum 0: the plain_sgd kernel, once per step.
@@ -985,6 +1244,10 @@ def train_cnn(trainer_mod, fs, tconfig, card) -> dict:
         fail("11/cnn", f"momentum 0: plain_sgd launches "
                        f"{launches['plain_sgd']} != {CNN_SIDE_STEPS}, or "
                        f"non-finite losses {r0['losses']}")
+    rows = print_profile("cnn step (momentum 0)", lambda: f"loss "
+                         f"{side.run_steps(idxs[0][:1])['loss'].item()}",
+                         card, kind=cnn_kind)
+    in_step["plain_sgd"] = sgd_in_step_us(rows, "plain_sgd", card)
     del side
     # fused=False: the port's per-leaf torch.optim.SGD, as a data point.
     side = trainer_mod.Trainer(cnn_config(tconfig, fused=False))
@@ -1007,7 +1270,7 @@ def train_cnn(trainer_mod, fs, tconfig, card) -> dict:
             fail("11/cnn", f"fit: launches {n} != 4 or non-finite {hist}")
         del t
     torch.cuda.empty_cache()
-    return launches
+    return launches, in_step
 
 
 class Laps:
@@ -1023,6 +1286,15 @@ class Laps:
 
 
 def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sgd-timing-only", action="store_true",
+                    help="run phases 1, 2 (the fused SGD kernel only) and "
+                         "10, print their JSON line and stop: the phase-10 "
+                         "measure run against another checkout's port "
+                         "(copy this script into it)")
+    args = ap.parse_args()
     # -- phase 1: device ----------------------------------------------------
     laps = Laps()
     import torch
@@ -1085,7 +1357,8 @@ def main() -> None:
     # -- phase 2: build -----------------------------------------------------
     t = time.perf_counter()
     try:
-        paths = _build.build_all()
+        paths = _build.build_all(("fused_sgd",) if args.sgd_timing_only
+                                 else _build.KERNELS)
     except RuntimeError as e:
         fail("2/build", str(e))
     print(f"built {len(paths)} kernel(s) in {time.perf_counter() - t:.2f} s")
@@ -1096,6 +1369,13 @@ def main() -> None:
                                        "Performance Loss")):
                 print(f"  {name}: {line.strip()}")
     laps.done("2/build")
+    if args.sgd_timing_only:
+        mnv2 = [p.detach() for p in models.get_model(
+            tconfig.ModelConfig(), device="cuda").parameters()]
+        print(json.dumps({"sgd_timing": time_fused_sgd(
+            fs, optim, tconfig, mnv2, card)}))
+        laps.done("10/fused sgd timing")
+        return
 
     # -- phase 3: kernel vs plain ---------------------------------------------
     page, n, n_pool, dh = 16, 40, GEOMETRY["n_pages"], 128
@@ -1298,7 +1578,7 @@ def main() -> None:
         tconfig.ModelConfig(), device="cuda").parameters()]
     print(f"MobileNetV2 (CIFAR): {len(mnv2)} leaves, "
           f"{sum(p.numel() for p in mnv2)} parameters")
-    sgd_err = check_fused_sgd(fs, optim, tconfig, mnv2)
+    sgd_err = check_fused_sgd(fs, optim, tconfig, mnv2, card)
     laps.done("9/fused sgd")
     sgd_times = time_fused_sgd(fs, optim, tconfig, mnv2, card)
     del mnv2
@@ -1309,7 +1589,7 @@ def main() -> None:
     print("set torch.backends.cudnn.benchmark=True")
     check_cnn_step(cnn_trainer, models, staged, tconfig)
     laps.done("11a/cnn check")
-    sgd_launches = train_cnn(cnn_trainer, fs, tconfig, card)
+    sgd_launches, sgd_in_step = train_cnn(cnn_trainer, fs, tconfig, card)
     laps.done("11b-c/cnn trainer")
 
     kernels = [{
@@ -1353,6 +1633,7 @@ def main() -> None:
             "launches": sgd_launches[name],
             "max_abs_err": sgd_err,
             **sgd_times[name],
+            "in_step_us": sgd_in_step[name],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

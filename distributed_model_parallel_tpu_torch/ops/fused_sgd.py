@@ -19,6 +19,11 @@ nesterov, the learning rate and the update itself:
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises. Each wrapper counts its launches in ``.launches``.
+:class:`BucketLauncher` is the launch that ``train/optim.FusedSGD`` keeps
+per bucket: its buffers are checked once when it is built
+(:func:`check_bucket`, device, 16-byte alignment), so a step passes the
+kept pointers straight to the kernel; it counts on the same two
+counters.
 """
 
 from __future__ import annotations
@@ -61,9 +66,29 @@ def _kernel_fn():
     return fn
 
 
-def _launch(p, m, g, lr, momentum, weight_decay, nesterov) -> None:
+def kernel_grid(n: int, momentum: bool) -> dict:
+    """The grid the kernel launches on the current CUDA device for a
+    16-byte aligned bucket of ``n`` f32 (with a trace when ``momentum``):
+    CTAs, threads per CTA, float4 of each operand a thread keeps in
+    flight."""
+    fn = _build.load("fused_sgd").fused_sgd_grid
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_longlong, ctypes.c_int] + [
+            ctypes.POINTER(ctypes.c_int)] * 3
+    out = [ctypes.c_int() for _ in range(3)]
+    rc = fn(int(n), int(bool(momentum)), *(ctypes.byref(x) for x in out))
+    if rc != 0:
+        raise RuntimeError(f"fused_sgd_grid failed: CUDA error {rc}")
+    return dict(zip(("blocks", "threads", "unroll"), (x.value for x in out)))
+
+
+def check_bucket(p: torch.Tensor, m: torch.Tensor | None,
+                 g: torch.Tensor) -> None:
+    """Raises unless ``p``, ``m`` (None: no trace) and ``g`` are float32,
+    contiguous 1-D buckets of one length on one device."""
     bufs = [x for x in (p, m, g) if x is not None]
-    if p.device.type != "cuda" or any(x.device != p.device for x in bufs):
+    if any(x.device != p.device for x in bufs):
         raise ValueError("p, m and g must all lie on the same CUDA device")
     if any(x.dtype != torch.float32 for x in bufs):
         raise TypeError(f"the fused SGD kernel takes float32 buckets, got "
@@ -73,12 +98,63 @@ def _launch(p, m, g, lr, momentum, weight_decay, nesterov) -> None:
            for x in bufs):
         raise ValueError("p, m and g must be contiguous 1-D buckets of one "
                          "length")
-    rc = _kernel_fn()(
-        p.data_ptr(), None if m is None else m.data_ptr(), g.data_ptr(),
-        p.numel(), float(lr), float(momentum), float(weight_decay),
-        int(nesterov), torch.cuda.current_stream(p.device).cuda_stream)
+
+
+def _require_cuda(p: torch.Tensor) -> None:
+    if p.device.type != "cuda":
+        raise ValueError("p, m and g must all lie on the same CUDA device")
+
+
+def _call(fn, p_ptr, m_ptr, g_ptr, n, lr, momentum, weight_decay, nesterov,
+          device) -> None:
+    rc = fn(p_ptr, m_ptr, g_ptr, n, lr, momentum, weight_decay, nesterov,
+            torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_sgd kernel launch failed: CUDA error {rc}")
+
+
+def _launch(p, m, g, lr, momentum, weight_decay, nesterov) -> None:
+    _require_cuda(p)
+    check_bucket(p, m, g)
+    _call(_kernel_fn(), p.data_ptr(), None if m is None else m.data_ptr(),
+          g.data_ptr(), p.numel(), float(lr), float(momentum),
+          float(weight_decay), int(nesterov), p.device)
+
+
+class BucketLauncher:
+    """One bucket's kernel launch, checked once: ``p``, ``m`` (None: the
+    ``plain_sgd`` variant) and ``g`` pass :func:`check_bucket`, start on a
+    16-byte boundary (the kernel's float4 body then covers all but the
+    last n % 4 elements) and lie on a CUDA device. The buffers must stay
+    the bucket's for the launcher's life (``FusedSGD`` owns them); a call
+    launches with the kept pointers and counts on ``fused_sgd_kernel`` or
+    ``plain_sgd_kernel``."""
+
+    def __init__(self, p: torch.Tensor, m: torch.Tensor | None,
+                 g: torch.Tensor):
+        self.check(p, m, g)
+        self._bufs = (p, m, g)              # kept alive with the pointers
+        self._ptrs = (p.data_ptr(), None if m is None else m.data_ptr(),
+                      g.data_ptr(), p.numel())
+        self._device = p.device
+        self._fn = _kernel_fn()
+        self._counter = plain_sgd_kernel if m is None else fused_sgd_kernel
+
+    @staticmethod
+    def check(p: torch.Tensor, m: torch.Tensor | None,
+              g: torch.Tensor) -> None:
+        """What the launcher takes, without launching (raises)."""
+        check_bucket(p, m, g)
+        if any(x.data_ptr() % 16 for x in (p, m, g) if x is not None):
+            raise ValueError("a prepared bucket must start on a 16-byte "
+                             "boundary (p, m and g)")
+        _require_cuda(p)
+
+    def __call__(self, lr: float, momentum: float, weight_decay: float,
+                 nesterov: bool) -> None:
+        _call(self._fn, *self._ptrs, lr, momentum, weight_decay,
+              int(nesterov), self._device)
+        self._counter.launches += 1
 
 
 def fused_sgd_kernel(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor,

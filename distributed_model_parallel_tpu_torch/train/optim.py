@@ -128,7 +128,10 @@ class FusedSGD:
     layout it cannot accumulate into; ``.to()`` rebinds parameters).
 
     Buckets on the card launch the kernel (``fused_sgd`` with a trace,
-    ``plain_sgd`` without), or raise; on the CPU the plain version runs.
+    ``plain_sgd`` without), or raise; their buffers are checked once, here
+    (``fs.BucketLauncher``: device, type, shape, length, alignment), and a
+    step launches with the kept pointers. On the CPU the plain version
+    runs.
     Leaves that are not float32 are taken only on the CPU, where each
     step concatenates them in f32 and casts the delta back, as the JAX
     f32-master path does; on the card they raise (ROADMAP A4).
@@ -184,6 +187,10 @@ class FusedSGD:
                 off += p.numel()
         self._slots = ([(p.data_ptr(), p.grad.data_ptr())
                         for p in self.params] if self.flat else None)
+        self._launchers = ([fs.BucketLauncher(*b) for b in
+                            self.flat_buckets()]
+                           if self.flat and self.device.type == "cuda"
+                           else None)
 
     @property
     def lr(self) -> float:
@@ -229,7 +236,9 @@ class FusedSGD:
         lr, mu, wd = self.lr, self.momentum, self.weight_decay
         for b, bucket in enumerate(self.buckets):
             m = self._m[b]
-            if not self.flat:
+            if self._launchers is not None:
+                self._launchers[b](lr, mu, wd, self.nesterov)
+            elif not self.flat:
                 self._step_cast_back(bucket, grads, m, lr)
             elif m is None:
                 fs.plain_sgd_kernel(self._p[b], self._g[b], lr, wd)

@@ -3,12 +3,17 @@ against the JAX package's ``ops/pallas_optim.py`` on the same f32 inputs:
 the plain version against ``_run_xla`` and against the Pallas kernel in
 interpret mode (every variant), ``plan_buckets``, ``make_optimizer(fused=
 True)`` against the JAX chain (warm-up, cosine, gradient clipping), the
-f32-master cast-back path for bf16 leaves, and the bucket views (autograd
-accumulates into them; a replaced gradient raises). Tolerances: f32
+f32-master cast-back path for bf16 leaves, the bucket views (autograd
+accumulates into them; a replaced gradient raises), the bucket checks
+``BucketLauncher`` runs once at construction (on CPU buckets, without
+launching), the wrappers on ragged and offset views, and chip_smoke.py's
+phase-10 byte and bound arithmetic. Tolerances: f32
 rounding (the schedule's lr is computed in double here and in f32 by
 optax; the clip norm is summed per bucket here and per leaf there)."""
 
+import importlib.util
 from functools import partial
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -224,3 +229,140 @@ def test_fused_with_another_optimizer_raises():
     with pytest.raises(ValueError, match="fused"):
         toptim.make_optimizer(TOpt(name="adamw", fused=True), 5, 1,
                               [torch.nn.Parameter(torch.zeros(2))])
+
+
+def _cpu_bucket(n=40, momentum=True):
+    """A FusedSGD's own flat buckets on the CPU (what it hands the
+    launcher on the card)."""
+    leaves = [torch.nn.Parameter(torch.ones(n // 2, 2))]
+    opt = toptim.FusedSGD(leaves, TOpt(fused=True,
+                                       momentum=0.9 if momentum else 0.0),
+                          lambda n: 0.1)
+    (p, m, g), = opt.flat_buckets()
+    return opt, p, m, g
+
+
+def _bad_bucket(case):
+    _, p, m, g = _cpu_bucket()
+    if case == "dtype":
+        return (p, m, g.double()), TypeError, "float32"
+    if case == "2d":
+        return (p.view(20, 2), m.view(20, 2), g.view(20, 2)), ValueError, \
+            "1-D"
+    if case == "strided":
+        wide = torch.zeros(80)
+        return (p, m, wide[::2]), ValueError, "contiguous"
+    if case == "lengths":
+        return (p, m[:-4], g), ValueError, "one length"
+    if case == "devices":
+        return (p, m, torch.empty(40, device="meta")), ValueError, "device"
+    raise AssertionError(case)
+
+
+@pytest.mark.parametrize("case", ["dtype", "2d", "strided", "lengths",
+                                  "devices"])
+def test_bucket_checks_raise_as_launch_did(case):
+    """The checks the wrapper's launch ran on every call now run once in
+    ``BucketLauncher`` (and still in the public wrappers): each bad
+    bucket raises the same error, without launching anything."""
+    (p, m, g), exc, match = _bad_bucket(case)
+    with pytest.raises(exc, match=match):
+        fs.check_bucket(p, m, g)
+    with pytest.raises(exc, match=match):
+        fs.BucketLauncher.check(p, m, g)
+    with pytest.raises(exc, match=match):
+        fs.BucketLauncher(p, m, g)
+
+
+def test_launcher_check_takes_fused_sgd_buckets_but_not_the_cpu():
+    """FusedSGD's own buffers pass every device-free check (type, shape,
+    length, 16-byte alignment); on the CPU the launcher then refuses for
+    want of a CUDA device, and an unaligned view is refused first."""
+    for momentum in (True, False):
+        opt, p, m, g = _cpu_bucket(momentum=momentum)
+        assert (m is None) == (not momentum)
+        fs.check_bucket(p, m, g)
+        assert all(x.data_ptr() % 16 == 0 for x in (p, m, g)
+                   if x is not None)
+        with pytest.raises(ValueError, match="CUDA device"):
+            fs.BucketLauncher.check(p, m, g)
+    buf = torch.zeros(44)
+    views = (buf[1:41], None, torch.zeros(40))          # p 4 bytes in
+    fs.check_bucket(*views)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        fs.BucketLauncher.check(*views)
+
+
+@pytest.mark.parametrize("momentum", [0.9, 0.0])
+def test_cpu_fused_sgd_step_takes_the_plain_version(momentum):
+    """On the CPU, FusedSGD keeps no launcher and its step is the plain
+    version on the bucket (nothing is launched)."""
+    leaves = [torch.nn.Parameter(torch.arange(6.).view(2, 3)),
+              torch.nn.Parameter(torch.ones(5))]
+    cfg = TOpt(fused=True, momentum=momentum, weight_decay=1e-4)
+    opt = toptim.FusedSGD(leaves, cfg, lambda n: 0.1)
+    assert opt._launchers is None
+    (p, m, g), = opt.flat_buckets()
+    g.copy_(torch.linspace(-1, 1, g.numel()))
+    rp, rm = p.clone(), None if m is None else m.clone()
+    launches = (fs.fused_sgd_kernel.launches, fs.plain_sgd_kernel.launches)
+    opt.step()
+    fs.fused_sgd_plain(rp, rm, g, 0.1, momentum, 1e-4, False)
+    assert torch.equal(p, rp) and (m is None or torch.equal(m, rm))
+    assert (fs.fused_sgd_kernel.launches,
+            fs.plain_sgd_kernel.launches) == launches
+
+
+@pytest.mark.parametrize("n,offsets", [(1_003, (0, 0, 0)), (17, (1, 1, 1)),
+                                       (101, (1, 2, 3))])
+def test_wrappers_take_ragged_and_offset_views_on_cpu(n, offsets):
+    """The views phase 9 gives the kernel on the card (a length that is
+    not a multiple of 4, an unaligned head, differing offsets) are taken
+    by the public wrappers; on the CPU they run the plain version in
+    place."""
+    rng = np.random.default_rng(3)
+    bufs = [torch.from_numpy(rng.normal(size=n + 4).astype(np.float32))
+            for _ in range(3)]
+    p, m, g = (b[o:o + n] for b, o in zip(bufs, offsets))
+    rp, rm = p.clone(), m.clone()
+    fs.fused_sgd_kernel(p, m, g, 0.1, 0.9, 1e-4, True)
+    fs.fused_sgd_plain(rp, rm, g, 0.1, 0.9, 1e-4, True)
+    assert torch.equal(p, rp) and torch.equal(m, rm)
+    rp = p.clone()
+    fs.plain_sgd_kernel(p, g, 0.1, 1e-4)
+    fs.fused_sgd_plain(rp, None, g, 0.1, 0.0, 1e-4, False)
+    assert torch.equal(p, rp)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("shape,variant,bytes_,bound_ms", [
+    ("cnn", "momentum_wd", 45_938_440, 0.013713),
+    ("cnn", "nesterov_wd", 45_938_440, 0.013713),
+    ("cnn", "no_momentum", 27_563_064, 0.0082278),
+    ("cap", "momentum_wd", 335_544_320, 0.10016),
+    ("cap", "momentum_no_wd", 335_544_320, 0.10016),
+    ("cap", "no_momentum", 201_326_592, 0.060097)])
+def test_phase10_byte_and_bound_arithmetic(shape, variant, bytes_, bound_ms):
+    """chip_smoke.py's phase-10 arithmetic: 20 B per parameter with a
+    trace, 12 without, at 3.35 TB/s; bytes, not f32 operations, bound
+    every variant. The CNN shape is MobileNetV2's bucket and the cap
+    shape fills FUSED_BUCKET_BYTES."""
+    cs = _chip_smoke()
+    n = cs.SGD_TIMING_SHAPES[shape]["n"]
+    t = cs.sgd_traffic(n, **cs.SGD_VARIANTS[variant])
+    assert t["bytes"] == bytes_ and t["bound_by"] == "bytes"
+    assert t["bound_ms"] == pytest.approx(bound_ms, rel=1e-4)
+    assert cs.SGD_TIMING_SHAPES["cnn"]["n"] == sum(
+        p.numel() for p in get_model(ModelConfig(), device="cpu").parameters())
+    assert cs.SGD_TIMING_SHAPES["cap"]["n"] == toptim.FUSED_BUCKET_BYTES // 4
+    # The R sets of one shape hold at least 3x the card's 50 MB L2.
+    s = cs.SGD_TIMING_SHAPES[shape]
+    assert s["sets"] * 12 * n >= 3 * 50e6 and s["launches"] % s["sets"] == 0
