@@ -74,10 +74,26 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     == steps x buckets, parameters and BN statistics changed), then 20
     steps with momentum 0 (plain_sgd launches == steps) and 20 with
     ``fused=False``; (c) one step under ``torch.profiler``, and one with
-    momentum 0, each printing the fused SGD kernel's device time.
+    momentum 0, each printing the fused SGD kernel's device time;
+12. data parallelism — the CNN slice through the port's process group,
+    one process per rank started by ``mesh.spawn``: (a) at world =
+    ``device_count()`` over NCCL, two gspmd steps at world 1 against
+    phase 11's one-device trainer from the same weights and batches,
+    cuDNN deterministic, bit for bit; bench.py's timing shape through
+    gspmd with samples/s, MFU, peak memory, the grad-allreduce µs a step
+    (CUDA events from the first bucket's launch to the end of the
+    Reducer's ``finish``) and all-reduce launches a step (== buckets;
+    fused_sgd launches counted from 0 over the timed steps); 20 ddp
+    steps, bucketed, streaming input; (b) two ranks (both on the one
+    card over gloo, or two cards over NCCL): ddp with per-replica, then
+    synchronized BN, 5 steps of the global batch of 512 with augment
+    off — parameters and momentum bitwise equal across the ranks after
+    every step, BN statistics different across ranks under local and
+    bitwise equal under sync, and the sync step-0 loss against the
+    one-rank gspmd loss on the same rows.
 
-Prints the card line, each phase's seconds, the ``{"kernels": [...]}``
-line and, last, ``{"ok": true, "device": {...}}``. Exits non-zero
+Prints the card line, each phase's seconds, a ``{"data_parallel": ...}``
+line, the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``. Exits non-zero
 without a card, or when run outside a checkout of the repository.
 ``--sgd-timing-only`` runs phases 1, 2 (the fused SGD kernel) and 10 and
 prints their ``{"sgd_timing": ...}`` line: copied into another checkout,
@@ -234,6 +250,25 @@ CNN_SIDE_STEPS = 20                    # momentum 0, and fused=False
 CNN_LOSS_ATOL = 1e-2
 CNN_UPDATE_RTOL = 5e-2
 CNN_STATS_RTOL = 1e-3
+
+# Data parallelism (phase 12): the CNN slice through the port's process
+# group. 12a at world = device_count() over NCCL: the gate step, bench.py's
+# timing shape (CNN_WARM_DISPATCHES, CNN_TIMED_STEPS) through gspmd, then
+# DP_DDP_STEPS ddp steps (bucketed, streaming). 12b: two ranks, DDP with
+# per-replica and with synchronized BN, DP_TWO_RANK_STEPS steps of the
+# global batch (256 rows a rank), augment off so that the gspmd reference
+# at world 1 draws nothing and the two see the same rows.
+DP_DDP_STEPS = 20
+DP_TWO_RANK_STEPS = 5
+# 12b's step-0 loss, two-rank ddp + sync BN vs one-rank gspmd, same weights
+# and rows, loss ~2.3: the same function; the two BatchNorms (cuDNN's at
+# one rank, the port's f32 E[x²] − E[x]² over the group at two) and the
+# convolutions at batch 512 vs 256 round differently, each layer's bf16
+# output by up to one ulp (2^-8 relative) on some elements, which the mean
+# over 512 rows averages down. A wrong reduction (statistics not divided
+# by the world, a rank's rows dropped) moves the loss by O(1); per-rank
+# statistics under sync fail the bitwise BN gate instead.
+DP_LOSS_ATOL = 2e-2
 
 
 def fail(phase: str, msg: str) -> None:
@@ -1273,6 +1308,327 @@ def train_cnn(trainer_mod, fs, tconfig, card) -> tuple:
     return launches, in_step
 
 
+def dp_config(tconfig, world: int, **kw):
+    """The CNN slice's TrainConfig over ``world`` ranks (global batch
+    CNN_BATCH); ``augment=False`` also gives the 12b data (5 batches)."""
+    import dataclasses
+
+    augment = kw.pop("augment", True)
+    cfg = cnn_config(tconfig).replace(mesh=tconfig.MeshConfig(data=world),
+                                      **kw)
+    if not augment:
+        cfg = cfg.replace(data=dataclasses.replace(
+            cfg.data, augment=False,
+            synthetic_train_size=DP_TWO_RANK_STEPS * CNN_BATCH))
+    return cfg
+
+
+def dp_gate_step(trainer_mod, tconfig, spec=None) -> tuple:
+    """Two gspmd steps of the CNN slice (lr 0, then 0.04 under warm-up)
+    from the seed-0 weights on the first bench batches, cuDNN
+    deterministic (no autotuner): the losses and every parameter,
+    momentum trace and BN buffer after them, as numpy."""
+    import torch
+
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    t = trainer_mod.Trainer(dp_config(tconfig, 1), spec=spec)
+    loss = t.run_steps(cnn_dispatch_indices(4 * CNN_BATCH, 1)[0][:2])["loss"]
+    params = list(t.model.parameters())
+    moms = [t.optimizer.momentum_buffer(i) for i in range(len(params))]
+    out = (loss.cpu().numpy(), [x.detach().cpu().numpy() for x in
+                                (*params, *moms, *t.model.buffers())])
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = bench
+    return out
+
+
+def dp_streaming_losses(trainer, steps: int, check=None) -> list:
+    """``steps`` steps of the streaming path over epoch 0's batches (this
+    rank's rows of each), ``check(trainer)`` after each; the global
+    losses."""
+    losses = []
+    trainer.train_loader.set_epoch(0)
+    for _, (images, labels) in zip(range(steps), trainer.train_loader):
+        m = trainer._train_step(trainer._to_device(images),
+                                trainer._to_device(labels),
+                                trainer._generator())
+        trainer.global_step += 1
+        if check is not None:
+            check(trainer)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def dp_world_rank(spec) -> dict:
+    """Phase 12a on one rank of the NCCL group: the gate step, bench.py's
+    CNN workload through gspmd (counts set to 0 just before the timed
+    steps and read just after), DP_DDP_STEPS ddp steps (bucketed,
+    streaming), and the one-rank reference losses of 12b (world 1 only).
+    Numbers come back as plain Python and numpy."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from distributed_model_parallel_tpu_torch import config as tconfig
+    from distributed_model_parallel_tpu_torch.ops import collectives
+    from distributed_model_parallel_tpu_torch.ops import fused_sgd as fs
+    from distributed_model_parallel_tpu_torch.train import (
+        trainer as trainer_mod,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    world = spec.num_data
+    out = {"backend": spec.backend,
+           "gate": dp_gate_step(trainer_mod, tconfig, spec)
+           if world == 1 else None}
+
+    torch.backends.cudnn.benchmark = True
+    n_disp = CNN_TIMED_STEPS // CNN_SPD
+    idxs = cnn_dispatch_indices(4 * CNN_BATCH, CNN_WARM_DISPATCHES + n_disp)
+    t = trainer_mod.Trainer(dp_config(tconfig, world), spec=spec)
+    for ix in idxs[:CNN_WARM_DISPATCHES]:
+        t.run_steps(ix)
+    torch.cuda.synchronize()
+    t.reducer.take_times_us()
+    torch.cuda.reset_peak_memory_stats()
+    fs.fused_sgd_kernel.launches = 0
+    fs.plain_sgd_kernel.launches = 0
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    ms = [t.run_steps(ix) for ix in idxs[CNN_WARM_DISPATCHES:]]
+    losses = torch.cat([m["loss"] for m in ms]).cpu().tolist()
+    dt = time.perf_counter() - t0
+    bench = dict(steps=CNN_TIMED_STEPS, seconds=dt, step_s=dt / CNN_TIMED_STEPS,
+                 samples_per_s=CNN_BATCH * CNN_TIMED_STEPS / dt,
+                 losses=losses, peak_bytes=torch.cuda.max_memory_allocated(),
+                 fused_sgd=fs.fused_sgd_kernel.launches,
+                 plain_sgd=fs.plain_sgd_kernel.launches,
+                 reducer_calls=collectives.calls["reducer"],
+                 calls=dict(collectives.calls),
+                 buckets=len(t.reducer.buckets),
+                 allreduce_us=t.reducer.take_times_us())
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        t.model.apply(torch.zeros(CNN_BATCH // world, 32, 32, 3,
+                                  dtype=torch.bfloat16, device=spec.device),
+                      train=False)
+    bench["flops_per_rank_step"] = 3 * counter.get_total_flops()
+    out["bench"] = bench
+    del t, ms
+
+    d = trainer_mod.Trainer(dp_config(tconfig, world, strategy="ddp",
+                                      ddp_allreduce="bucketed",
+                                      device_resident_data=False), spec=spec)
+    d.train_epoch(0)                                   # warm-up, 4 steps
+    torch.cuda.synchronize()
+    d.reducer.take_times_us()
+    fs.fused_sgd_kernel.launches = 0
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    per_epoch = len(d.train_loader)
+    rec = [d.train_epoch(e) for e in range(1, 1 + DP_DDP_STEPS // per_epoch)]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    out["ddp"] = dict(steps=DP_DDP_STEPS, seconds=dt,
+                      samples_per_s=CNN_BATCH * DP_DDP_STEPS / dt,
+                      losses=[r.loss for r in rec],
+                      fused_sgd=fs.fused_sgd_kernel.launches,
+                      reducer_calls=collectives.calls["reducer"],
+                      buckets=len(d.reducer.buckets),
+                      allreduce_us=d.reducer.take_times_us())
+    del d
+    if world == 1:
+        torch.backends.cudnn.benchmark = False
+        ref = trainer_mod.Trainer(dp_config(tconfig, 1, augment=False,
+                                            device_resident_data=False),
+                                  spec=spec)
+        out["ref_losses"] = dp_streaming_losses(ref, DP_TWO_RANK_STEPS)
+    return out
+
+
+def dp_two_rank(spec) -> dict:
+    """Phase 12b on one of two ranks: ddp with per-replica BN, then with
+    synchronized BN, DP_TWO_RANK_STEPS steps of the global batch each
+    (augment off), parameters and momentum checked bitwise equal across
+    the ranks after every step; each run's losses and both ranks' BN
+    statistics."""
+    import dataclasses
+
+    import torch
+
+    from distributed_model_parallel_tpu_torch import config as tconfig
+    from distributed_model_parallel_tpu_torch.parallel import ddp
+    from distributed_model_parallel_tpu_torch.train import (
+        trainer as trainer_mod,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    checks = []
+    for bn in ("local", "sync"):
+        cfg = dp_config(tconfig, spec.num_data, augment=False,
+                        strategy="ddp", ddp_allreduce="bucketed",
+                        device_resident_data=False)
+        cfg = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                    batchnorm=bn))
+        t = trainer_mod.Trainer(cfg, spec=spec)
+
+        def check(tr):
+            ddp.assert_ddp_replicated(tr.model, tr.optimizer, spec)
+            checks.append(bn)
+
+        t0 = time.perf_counter()
+        losses = dp_streaming_losses(t, DP_TWO_RANK_STEPS, check)
+        dt = time.perf_counter() - t0
+        stats = ddp.gather_replica_state(t.model, spec)
+        leaves = [leaf for unit in stats for mod in unit.values()
+                  for leaf in mod.values()]
+        out[bn] = dict(
+            losses=losses, seconds=dt, replicated_checks=checks.count(bn),
+            stats_bitwise_equal=all(
+                (leaf[0] == leaf[r]).all() for leaf in leaves
+                for r in range(1, leaf.shape[0])),
+            stats_max_rel_diff=max(
+                float(abs(leaf[0] - leaf[1]).max()
+                      / max(abs(leaf[1]).max(), 1e-30)) for leaf in leaves),
+            allreduce_us=t.reducer.take_times_us())
+        del t
+    return out
+
+
+def dp_spawn(mesh, fn, nproc: int, phase: str, **kw):
+    """``mesh.spawn`` of a phase's rank function; a failed or hung rank
+    fails the phase."""
+    try:
+        return mesh.spawn(fn, nproc, device="cuda", timeout_s=600, **kw)
+    except (RuntimeError, TimeoutError, ValueError) as e:
+        fail(phase, f"{type(e).__name__}: {e}")
+
+
+def data_parallel(mesh, trainer_mod, tconfig, card) -> dict:
+    """Phase 12: the CNN slice through the port's process group. 12a:
+    world = device_count() over NCCL — the world-1 gate against the
+    one-device trainer of phase 11, bench.py's workload through gspmd,
+    20 ddp steps; 12b: two ranks (sharing the one card over gloo, or two
+    cards over NCCL), ddp with per-replica and synchronized BN."""
+    import numpy as np
+    import torch
+
+    world = torch.cuda.device_count()
+    ref = dp_gate_step(trainer_mod, tconfig)
+    torch.cuda.empty_cache()
+    a = dp_spawn(mesh, dp_world_rank, world, "12a/data parallel")[0]
+    transport = a["backend"]
+    out = {"world": world, "backend": transport, "transport": transport}
+    if world == 1:
+        (loss, leaves), (ref_loss, ref_leaves) = a["gate"], ref
+        same = [np.array_equal(x, y) for x, y in zip(leaves, ref_leaves)]
+        gap = max(float(np.abs(x - y).max()) for x, y in
+                  zip(leaves, ref_leaves))
+        print(f"dp gate [{card}]: two gspmd steps at world 1 over "
+              f"{transport} vs "
+              f"phase 11's "
+              f"one-device trainer, cuDNN deterministic, same weights and "
+              f"batches: losses {loss} vs {ref_loss}; parameters, momentum "
+              f"and BN buffers bitwise equal {sum(same)}/{len(same)} (max "
+              f"|diff| {gap})")
+        if not (np.array_equal(loss, ref_loss) and all(same)):
+            fail("12a/data parallel", "the world-1 steps are not bitwise "
+                 "the one-device steps")
+        out["gate_bitwise"] = True
+    b = a["bench"]
+    us = sorted(b["allreduce_us"])
+    med_us = statistics.median(us)
+    mfu = b["flops_per_rank_step"] / b["step_s"] / BF16_FLOPS_PER_S
+    per_step = b["reducer_calls"] / b["steps"]
+    print(f"dp gspmd [{card}]: world {world}, backend {transport}, "
+          f"transport {transport}; B {CNN_BATCH} ({CNN_BATCH // world} a "
+          f"rank), "
+          f"{b['steps']} steps (after {CNN_WARM_DISPATCHES} warm-up "
+          f"dispatches of {CNN_SPD}), one sync: samples/s {b['samples_per_s']}"
+          f" ({b['samples_per_s'] / world} a card), step {b['step_s']} s, "
+          f"MFU ({b['flops_per_rank_step']} flop a rank a step) {mfu}, "
+          f"torch.cuda.max_memory_allocated {b['peak_bytes']} B (rank 0); "
+          f"grad-allreduce {med_us} us a step (median; min {us[0]}, max "
+          f"{us[-1]}; CUDA events, first bucket launch to the end of "
+          f"finish), all-reduce launches a step {per_step} (buckets "
+          f"{b['buckets']}); fused_sgd launches {b['fused_sgd']}, plain_sgd "
+          f"{b['plain_sgd']}; collectives {b['calls']}")
+    print(f"dp gspmd losses [{card}]: {b['losses']}")
+    if not all(math.isfinite(x) for x in b["losses"]):
+        fail("12a/data parallel", "non-finite losses")
+    if (b["fused_sgd"] != b["steps"] * b["buckets"] or b["plain_sgd"]
+            or per_step != b["buckets"]):
+        fail("12a/data parallel", f"launches: fused_sgd {b['fused_sgd']}, "
+             f"plain_sgd {b['plain_sgd']}, all-reduces a step {per_step}; "
+             f"want {b['steps']} x {b['buckets']}, 0, {b['buckets']}")
+    d = a["ddp"]
+    dus = statistics.median(d["allreduce_us"])
+    print(f"dp ddp [{card}]: world {world}, allreduce bucketed, streaming "
+          f"input: {d['steps']} steps in {d['seconds']} s, samples/s "
+          f"{d['samples_per_s']}, grad-allreduce {dus} us a step (median), "
+          f"all-reduces {d['reducer_calls']} (buckets {d['buckets']}), "
+          f"fused_sgd launches {d['fused_sgd']}; epoch losses {d['losses']}")
+    if (d["reducer_calls"] != d["steps"] * d["buckets"]
+            or d["fused_sgd"] != d["steps"] * d["buckets"]
+            or not all(math.isfinite(x) for x in d["losses"])):
+        fail("12a/data parallel", "ddp: wrong launch counts or non-finite "
+             "losses")
+    out.update(gspmd=dict(samples_per_s=b["samples_per_s"],
+                          step_s=b["step_s"], mfu=mfu,
+                          peak_bytes=b["peak_bytes"],
+                          grad_allreduce_us_median=med_us,
+                          allreduce_launches_per_step=per_step,
+                          buckets=b["buckets"],
+                          fused_sgd_launches=b["fused_sgd"]),
+               ddp=dict(samples_per_s=d["samples_per_s"],
+                        grad_allreduce_us_median=dus))
+
+    two_cards = world >= 2
+    backend = "nccl" if two_cards else "gloo"
+    torch.cuda.empty_cache()
+    r = dp_spawn(mesh, dp_two_rank, 2, "12b/two ranks",
+                 backend=backend)[0]
+    where = "two cards" if two_cards else "both ranks on the one card"
+    for bn in ("local", "sync"):
+        x = r[bn]
+        print(f"dp two ranks [{card}] bn {bn}: backend {backend}, transport "
+              f"{backend} ({where}), ddp bucketed, B {CNN_BATCH} "
+              f"({CNN_BATCH // 2} a rank), augment off: losses "
+              f"{x['losses']} in {x['seconds']} s;"
+              f" params and momentum bitwise equal across ranks after "
+              f"{x['replicated_checks']}/{DP_TWO_RANK_STEPS} steps; BN "
+              f"statistics bitwise equal across ranks "
+              f"{x['stats_bitwise_equal']} (max rel diff "
+              f"{x['stats_max_rel_diff']}); grad-allreduce "
+              f"{statistics.median(x['allreduce_us'])} us a step (median)")
+        if x["replicated_checks"] != DP_TWO_RANK_STEPS:
+            fail("12b/two ranks", f"{bn}: replication checked "
+                 f"{x['replicated_checks']} times")
+    if r["local"]["stats_bitwise_equal"] or not r["sync"][
+            "stats_bitwise_equal"]:
+        fail("12b/two ranks", "BN statistics must differ across ranks "
+             "under local and agree bit for bit under sync")
+    if world == 1:
+        err = abs(r["sync"]["losses"][0] - a["ref_losses"][0])
+        print(f"dp two ranks [{card}]: step-0 loss, ddp + sync BN at 2 "
+              f"ranks "
+              f"{r['sync']['losses'][0]} vs gspmd at 1 rank "
+              f"{a['ref_losses'][0]} (|diff| {err}, atol {DP_LOSS_ATOL}); "
+              f"1-rank losses {a['ref_losses']}")
+        if not err <= DP_LOSS_ATOL:
+            fail("12b/two ranks", f"sync loss off the 1-rank loss by {err}")
+        out["two_rank_step0_loss_diff"] = err
+    out["two_ranks"] = {"backend": backend, "transport": backend,
+                        **{bn: dict(losses=r[bn]["losses"],
+                                    stats_bitwise_equal=r[bn][
+                                        "stats_bitwise_equal"])
+                           for bn in ("local", "sync")}}
+    return out
+
+
 class Laps:
     """Prints each phase's seconds since the previous phase ended."""
 
@@ -1592,6 +1948,12 @@ def main() -> None:
     sgd_launches, sgd_in_step = train_cnn(cnn_trainer, fs, tconfig, card)
     laps.done("11b-c/cnn trainer")
 
+    # -- phase 12: data parallelism over the port's process group ------------
+    from distributed_model_parallel_tpu_torch import mesh
+
+    dp = data_parallel(mesh, cnn_trainer, tconfig, card)
+    laps.done("12/data parallel")
+
     kernels = [{
         "name": "paged_decode",
         "route": "cuda",
@@ -1631,10 +1993,13 @@ def main() -> None:
             "replaces": f"distributed_model_parallel_tpu/ops/"
                         f"pallas_optim.py:{line}",
             "launches": sgd_launches[name],
+            "launches_12a_gspmd": (dp["gspmd"]["fused_sgd_launches"]
+                                   if name == "fused_sgd" else 0),
             "max_abs_err": sgd_err,
             **sgd_times[name],
             "in_step_us": sgd_in_step[name],
         })
+    print(json.dumps({"data_parallel": dp, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

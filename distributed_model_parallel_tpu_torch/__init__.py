@@ -6,8 +6,8 @@ so each counterpart is easy to find, and every Pallas TPU kernel on a
 ported path becomes a kernel written by hand for Hopper (``sm_90a``),
 kept beside a plain PyTorch version of the same function.
 
-Ported so far — the serving path, single-device LM training and
-single-device CNN training:
+Ported so far — the serving path, single-device LM training, and CNN
+training on one device or data-parallel over ranks:
 
 * :mod:`.models.transformer` — the Transformer LM's serving subset
   (config, parameter layout, layer norm, RoPE, projections, sampling)
@@ -28,6 +28,12 @@ single-device CNN training:
   paged prefill/decode steps and the engine loop;
 * :mod:`.train` — the LM and CNN trainers, SGD (per leaf or fused) with
   its schedule, metrics, and two CLIs;
+* :mod:`.mesh` — the process group of the data axis (NCCL on the card,
+  gloo on the CPU), a rank's rows, and ``spawn``, the launcher of ranks;
+* :mod:`.ops.collectives` — the collectives over the data axis and the
+  bucket plan;
+* :mod:`.parallel` — DataParallel's phases and DDP (per-replica or
+  synchronized BatchNorm, the replication check);
 * :mod:`.config` — the typed configuration the ported slices read.
 
 The package imports ``torch`` and numpy only: never ``jax``, and nothing

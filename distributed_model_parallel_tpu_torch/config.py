@@ -7,7 +7,8 @@ and :class:`MeshConfig`, :class:`ModelConfig`, :class:`DataConfig`,
 Fields and defaults are the JAX package's, field for field, so a config
 written for one reads the same in the other. What the port does not run
 yet is refused where it is read (``train/trainer.check_train_config``,
-``models.get_model``, ``train/optim.make_optimizer``), by ROADMAP item.
+``models.get_model``, ``train/optim.make_optimizer``, ``mesh.py``), by
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import Any, Mapping, Sequence
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Logical device mesh; axis sizes of 1 disable an axis. The port runs
-    one device: ``num_devices > 1`` is refused (ROADMAP A6)."""
+    the data axis over a process group of ``data`` ranks (``mesh.py``);
+    ``dcn_data > 1`` and the other axes are refused (ROADMAP A6-A9)."""
 
     data: int = 1
     stage: int = 1
@@ -76,7 +78,7 @@ class ModelConfig:
     name: str = "mobilenetv2"
     num_classes: int = 10
     # "local" = per-replica batch statistics, "sync" = cross-replica
-    # (refused: one device, ROADMAP A6), "none" = the no-BN variant.
+    # (over the data axis' process group), "none" = the no-BN variant.
     batchnorm: str = "local"
     bn_momentum: float = 0.9
     bn_epsilon: float = 1e-5

@@ -10,9 +10,15 @@ bits, not JAX's), and :func:`apply_crop_flip` applies given draws — the
 part the tests hold bit for bit against the JAX ``augment_batch`` fed
 its own draws.
 
+Data parallelism: every rank draws the same global batch order and
+materializes its own rows (``BatchLoader(rows=...)``); a rank's
+augmentation draws come from ``(seed, step, rank)`` (DDP, each replica its
+own draws) or are the global batch's draws, of which it takes its rows
+(the gspmd strategy, one program over the global batch).
+
 Not ported yet (ROADMAP A3): the C++ row gather (``use_native``),
-multi-process sharding, the host and device prefetch stages and the
-on-device resize of the 224 px path.
+the host and device prefetch stages and the on-device resize of the
+224 px path.
 """
 
 from __future__ import annotations
@@ -34,11 +40,13 @@ class BatchLoader:
     (``state_dict``: epoch + batch cursor). Iteration never moves the
     cursor except at clean exhaustion (next epoch); the epoch drivers call
     :meth:`set_epoch` at the top of each epoch, as in the JAX package.
+    ``rows``: the slice of each global batch this rank materializes (all
+    of it by default).
     """
 
     def __init__(self, ds: ArrayDataset, batch_size: int, *,
                  shuffle: bool = True, seed: int = 0, drop_last: bool = True,
-                 use_native: bool = False):
+                 use_native: bool = False, rows: slice = slice(None)):
         if batch_size > len(ds):
             raise ValueError(
                 f"batch size {batch_size} exceeds dataset size {len(ds)}")
@@ -50,6 +58,7 @@ class BatchLoader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.rows = rows
         self._epoch = 0
         self._cursor = 0
 
@@ -105,7 +114,7 @@ class BatchLoader:
         stop = ((n // self.batch_size) * self.batch_size if self.drop_last
                 else n)
         for lo in range(start * self.batch_size, stop, self.batch_size):
-            sel = idx[lo:lo + self.batch_size]
+            sel = idx[lo:lo + self.batch_size][self.rows]
             yield self.ds.images[sel], self.ds.labels[sel]
         if epoch == self._epoch and start == self._cursor:
             self._epoch, self._cursor = epoch + 1, 0
@@ -136,11 +145,13 @@ def normalize(images_u8: torch.Tensor, mean, std,
     return (x - mean) / std
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
-    """The augmentation generator of global step ``step``: stateless,
-    derived from ``(seed, step)`` only (host arithmetic, no device
-    sync)."""
-    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(
+def step_generator(seed: int, step: int, device,
+                   rank: int | None = None) -> torch.Generator:
+    """The augmentation generator of global step ``step`` (of ``rank``,
+    when each rank draws its own): stateless, derived from ``(seed,
+    step[, rank])`` only (host arithmetic, no device sync)."""
+    entropy = [int(seed), int(step)] + ([] if rank is None else [int(rank)])
+    state = np.random.SeedSequence(entropy).generate_state(
         1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state))
 
@@ -176,10 +187,16 @@ def apply_crop_flip(images_u8: torch.Tensor, offsets: torch.Tensor,
 
 
 def augment_batch(generator: torch.Generator, images_u8: torch.Tensor, *,
-                  pad: int = 4, flip: bool = True) -> torch.Tensor:
+                  pad: int = 4, flip: bool = True,
+                  rows: tuple[int, int] | None = None) -> torch.Tensor:
     """Random crop + horizontal flip on the device: the reference's
-    ``RandomCrop(32, padding=4)`` + ``RandomHorizontalFlip``."""
-    offsets, flips = draw_crop_flip(generator, images_u8.shape[0], pad=pad,
+    ``RandomCrop(32, padding=4)`` + ``RandomHorizontalFlip``. ``rows =
+    (start, total)``: ``images_u8`` are rows ``start ..`` of a batch of
+    ``total``, and take those rows of the whole batch's draws."""
+    b = images_u8.shape[0]
+    start, total = rows if rows is not None else (0, b)
+    offsets, flips = draw_crop_flip(generator, total, pad=pad,
                                     device=images_u8.device)
+    offsets, flips = offsets[start:start + b], flips[start:start + b]
     return apply_crop_flip(images_u8, offsets, flips if flip else None,
                            pad=pad)

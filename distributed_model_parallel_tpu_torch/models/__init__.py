@@ -24,10 +24,10 @@ from distributed_model_parallel_tpu_torch.models.tinycnn import build_tinycnn
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def _cnn_kwargs(config: ModelConfig) -> dict:
-    if config.batchnorm == "sync":
-        raise ValueError("sync BatchNorm (cross-replica statistics) needs "
-                         "more than one device; not ported yet (ROADMAP A6)")
+def _cnn_kwargs(config: ModelConfig, axis) -> dict:
+    if config.batchnorm == "sync" and axis is None:
+        raise ValueError("sync BatchNorm requires an axis (the data axis' "
+                         "process group)")
     if config.dtype not in DTYPES:
         raise ValueError(f"unknown compute dtype {config.dtype!r}; known: "
                          f"{', '.join(DTYPES)}")
@@ -36,13 +36,16 @@ def _cnn_kwargs(config: ModelConfig) -> dict:
                          f"keeps float32 parameters (ROADMAP A4)")
     return dict(num_classes=config.num_classes, bn_mode=config.batchnorm,
                 bn_momentum=config.bn_momentum,
-                bn_epsilon=config.bn_epsilon, dtype=DTYPES[config.dtype])
+                bn_epsilon=config.bn_epsilon, dtype=DTYPES[config.dtype],
+                axis=axis)
 
 
-def get_model(config: ModelConfig, *, seed: int = 0,
-              device="cuda") -> StagedModel:
+def get_model(config: ModelConfig, *, seed: int = 0, device="cuda",
+              axis=None) -> StagedModel:
     """Build the ``config.name`` model on ``device`` with weights from
     ``seed`` (the port's own draws of flax's default initializers).
+    ``axis`` is the data axis' process group for cross-replica BatchNorm
+    statistics; only consulted when ``config.batchnorm == "sync"``.
     ``extra={"input_layout": "imagenet"}`` selects MobileNetV2's ImageNet
     stride table; tinycnn takes ``width``/``depth`` from ``extra``. ResNet,
     the rest of the zoo and the embedding model are not ported yet
@@ -59,14 +62,14 @@ def get_model(config: ModelConfig, *, seed: int = 0,
         raise ValueError(f"model {name!r} takes no input_layout (only "
                          f"mobilenetv2 does in the port)")
     if name in ("mobilenetv2", "mobilenetv2_nobn"):
-        kw = _cnn_kwargs(config)
+        kw = _cnn_kwargs(config, axis)
         if name.endswith("_nobn"):
             kw["bn_mode"] = "none"
         if extra:
             raise ValueError(f"mobilenetv2 takes no extra {sorted(extra)}")
         model = build_mobilenetv2(**kw, input_layout=layout)
     elif name == "tinycnn":
-        model = build_tinycnn(**_cnn_kwargs(config), **extra)
+        model = build_tinycnn(**_cnn_kwargs(config, axis), **extra)
     elif name == "transformer":
         raise ValueError("the Transformer LM is built through "
                          "models/transformer.py (init_params, "

@@ -17,7 +17,12 @@ and the input, as flax does. What each piece keeps of flax's numerics:
   ``ra = μ·ra + (1 - μ)·stat`` with the *biased* batch variance. The
   normalization is ``F.batch_norm`` (cuDNN on the card); its running
   variance, which torch updates with the unbiased variance n/(n-1)·var,
-  is corrected in place after each training call.
+  is corrected in place after each training call. With a process
+  ``group`` of more than one rank (``bn_mode="sync"``) the batch
+  statistics span every rank's batch, as flax's ``axis_name`` BN computes
+  them: one all-reduce of the per-rank E[x] and E[x²] (f32), the variance
+  E[x²] − E[x]² clamped at 0, and an all-reduce of their gradients in the
+  backward (:class:`AllReduceSum`).
 * :class:`Dense` — float32 whatever ``dtype`` is (the classifier head).
 """
 
@@ -29,6 +34,11 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from distributed_model_parallel_tpu_torch.ops.collectives import (
+    all_reduce_,
+    world_size,
+)
 
 # flax's lecun_normal: truncated normal on [-2, 2] scaled to unit variance.
 _TRUNC_STD = 0.87962566103423978
@@ -98,16 +108,38 @@ class Dense(nn.Module):
         return F.linear(x.float(), self.weight, self.bias)
 
 
+class AllReduceSum(torch.autograd.Function):
+    """Sum over a process group whose backward sums the gradient over the
+    group too (every rank's output depends on every rank's input)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone()
+        all_reduce_(x, group, kind="sync_bn")
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        all_reduce_(g, ctx.group, kind="sync_bn")
+        return g, None
+
+
 class BatchNorm(nn.Module):
     """flax ``nn.BatchNorm`` over the channel dim: ``weight``/``bias`` are
     flax's ``scale``/``bias``, ``running_mean``/``running_var`` its
     ``batch_stats`` ``mean``/``var``. ``momentum`` is flax's (the running
-    average keeps ``momentum`` of the old value)."""
+    average keeps ``momentum`` of the old value). ``group``: the process
+    group whose ranks' batches the training statistics span (None: this
+    rank's batch; at world 1 the two are the same and the local path
+    runs)."""
 
     def __init__(self, features: int, momentum: float = 0.9,
-                 epsilon: float = 1e-5):
+                 epsilon: float = 1e-5, group=None):
         super().__init__()
         self.momentum, self.epsilon = momentum, epsilon
+        self.group = group
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -124,6 +156,8 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.epsilon)
+        if self.group is not None and world_size(self.group) > 1:
+            return self._sync_forward(x)
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             kept = self.running_var * self.momentum
@@ -138,16 +172,43 @@ class BatchNorm(nn.Module):
             torch.lerp(scratch, kept, 1.0 / n, out=self.running_var)
         return y
 
+    def _sync_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """flax's BN with ``axis_name``: statistics in (at least) f32
+        averaged over the group, normalization in f32 rounded once to
+        ``x.dtype``."""
+        c = x.shape[1]
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        stats = torch.cat([xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))])
+        stats = AllReduceSum.apply(stats, self.group) / world_size(
+            self.group)
+        mean, mean2 = stats[:c], stats[c:]
+        var = (mean2 - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        y = ((xf - mean[:, None, None]) * mul[:, None, None]
+             + self.bias[:, None, None])
+        with torch.no_grad():
+            mu = self.momentum
+            self.running_mean.copy_(mu * self.running_mean
+                                    + (1 - mu) * mean.detach())
+            self.running_var.copy_(mu * self.running_var
+                                   + (1 - mu) * var.detach())
+        return y.to(x.dtype)
+
 
 def _norm(bn_mode: str, features: int, *, momentum: float,
-          epsilon: float) -> BatchNorm | None:
-    """A BatchNorm for ``"local"``, nothing for ``"none"``. ``"sync"``
-    (cross-replica statistics) needs more than one device (ROADMAP A6)."""
+          epsilon: float, axis=None) -> BatchNorm | None:
+    """A BatchNorm for ``"local"`` (this rank's statistics) and ``"sync"``
+    (statistics over the process group ``axis``), nothing for
+    ``"none"``."""
     if bn_mode == "none":
         return None
+    if bn_mode == "sync":
+        if axis is None:
+            raise ValueError("sync BatchNorm requires an axis (the data "
+                             "axis' process group)")
+        return BatchNorm(features, momentum, epsilon, group=axis)
     if bn_mode != "local":
-        raise ValueError(f"bn_mode {bn_mode!r} is not ported; the port runs "
-                         f"'local' and 'none' on one device (ROADMAP A6)")
+        raise ValueError(f"unknown bn_mode {bn_mode!r}")
     return BatchNorm(features, momentum, epsilon)
 
 
@@ -164,7 +225,7 @@ class ConvUnit(nn.Module):
     def __init__(self, in_features: int, ops: Sequence[dict],
                  bn_mode: str = "local", bn_momentum: float = 0.9,
                  bn_epsilon: float = 1e-5,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, axis=None):
         super().__init__()
         self.ops = tuple(dict(op) for op in ops)
         c = in_features
@@ -181,7 +242,7 @@ class ConvUnit(nn.Module):
             if normed:
                 setattr(self, f"bn{i}", _norm(
                     bn_mode, op["features"], momentum=bn_momentum,
-                    epsilon=bn_epsilon))
+                    epsilon=bn_epsilon, axis=axis))
             c = op["features"]
         self.out_features = c
 
@@ -203,14 +264,14 @@ class ClassifierHead(nn.Module):
     def __init__(self, in_features: int, num_classes: int,
                  conv_features: int | None = None, bn_mode: str = "local",
                  bn_momentum: float = 0.9, bn_epsilon: float = 1e-5,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, axis=None):
         super().__init__()
         c = in_features
         if conv_features is not None:
             self.conv = Conv(c, conv_features, 1,
                              use_bias=bn_mode == "none", dtype=dtype)
             self.bn = _norm(bn_mode, conv_features, momentum=bn_momentum,
-                            epsilon=bn_epsilon)
+                            epsilon=bn_epsilon, axis=axis)
             c = conv_features
         self.has_conv = conv_features is not None
         self.linear = Dense(c, num_classes)

@@ -57,14 +57,14 @@ class InvertedResidual(nn.Module):
                  stride: int, bn_mode: str = "local",
                  bn_momentum: float = 0.9, bn_epsilon: float = 1e-5,
                  dtype: torch.dtype = torch.float32,
-                 style: str = "reference"):
+                 style: str = "reference", axis=None):
         super().__init__()
         hidden = in_features * expansion
         use_bias = bn_mode == "none"
         self.stride, self.style = stride, style
         self.residual = stride == 1 and (in_features == features
                                          or style == "reference")
-        norm = dict(momentum=bn_momentum, epsilon=bn_epsilon)
+        norm = dict(momentum=bn_momentum, epsilon=bn_epsilon, axis=axis)
 
         self.has_expand = not (expansion == 1 and style == "torchvision")
         if self.has_expand:
@@ -101,14 +101,15 @@ def build_mobilenetv2(num_classes: int = 10, *, bn_mode: str = "local",
                       bn_momentum: float = 0.9, bn_epsilon: float = 1e-5,
                       dtype: torch.dtype = torch.float32,
                       input_layout: str = "cifar",
-                      in_channels: int = 3) -> StagedModel:
+                      in_channels: int = 3, axis=None) -> StagedModel:
     """19 units: stem, 17 inverted-residual blocks, head. Weights are
-    uninitialized; :func:`~..models.get_model` initializes them."""
+    uninitialized; :func:`~..models.get_model` initializes them. ``axis``:
+    the process group of ``bn_mode="sync"``."""
     if input_layout not in ("cifar", "imagenet"):
         raise ValueError(f"unknown input_layout: {input_layout!r}")
     imagenet = input_layout == "imagenet"
     common = dict(bn_mode=bn_mode, bn_momentum=bn_momentum,
-                  bn_epsilon=bn_epsilon, dtype=dtype)
+                  bn_epsilon=bn_epsilon, dtype=dtype, axis=axis)
     units: list[nn.Module] = [ConvUnit(
         in_channels, ({"features": 32, "kernel": 3,
                        "stride": 2 if imagenet else 1},), **common)]

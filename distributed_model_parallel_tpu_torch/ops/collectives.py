@@ -1,11 +1,52 @@
-"""Bucket planning — the port's copy of ``plan_buckets`` from
-``distributed_model_parallel_tpu/ops/collectives.py``. The fused SGD
-update runs over these buckets; the bucketed allreduce and the other
-collectives come with multi-GPU data parallelism (ROADMAP A6)."""
+"""Collectives over the data axis — the port of
+``distributed_model_parallel_tpu/ops/collectives.py``.
+
+The JAX functions run inside ``shard_map`` over a named axis; these run
+on every rank of a ``torch.distributed`` process group (``group=None``:
+the default group). Without a process group the world is one rank and
+each function returns its input's value without a collective.
+
+* :func:`psum_mean`, :func:`all_gather_concat`, :func:`reduce_scatter_mean`
+  — gradient averaging, DataParallel's gather, the ZeRO building block;
+* :func:`plan_buckets` and :func:`bucketed_psum` — the DDP Reducer's
+  trick: size-capped flat buckets in reverse leaf order, one all-reduce
+  per bucket, each bucket on the wire in its promoted leaf dtype (or
+  ``accum_dtype``, reduced there and cast back);
+* :func:`unused_param_mask`, :func:`mesh_barrier`.
+
+Trees are tensors, lists, tuples and dicts; dict leaves are taken in
+sorted key order, as ``jax.tree.leaves`` takes them, so bucket plans
+agree with the JAX package's. Every collective is counted, per call, in
+:data:`calls` and :data:`wire_bytes` under its ``kind`` (the bytes this
+rank hands to it), as the kernel wrappers count their launches.
+
+Not ported, and raising by name: ``hierarchical_psum*`` (a two-level data
+axis, ``dcn_data > 1``, ROADMAP A6) and ``ppermute_shift`` (the
+pipeline, ROADMAP A7).
+"""
 
 from __future__ import annotations
 
-from typing import Sequence
+from collections import Counter
+from typing import Any, Callable, Sequence
+
+import torch
+import torch.distributed as dist
+
+# Collectives issued, and bytes handed to them, per kind (reset by the
+# caller, e.g. to 0 before the run it counts).
+calls: Counter = Counter()
+wire_bytes: Counter = Counter()
+
+
+def reset_counts() -> None:
+    calls.clear()
+    wire_bytes.clear()
+
+
+def world_size(group=None) -> int:
+    """Ranks of ``group`` (1 without a process group)."""
+    return dist.get_world_size(group) if dist.is_initialized() else 1
 
 
 def _nbytes(leaf) -> int:
@@ -14,12 +55,118 @@ def _nbytes(leaf) -> int:
     return int(leaf.nbytes)                         # numpy array
 
 
+def all_reduce_(t: torch.Tensor, group=None, *, kind: str = "all_reduce",
+                async_op: bool = False):
+    """Sum ``t`` over ``group`` in place, counted under ``kind``; returns
+    the work handle under ``async_op``. Without a process group: nothing
+    to do (None)."""
+    if not dist.is_initialized():
+        return None
+    calls[kind] += 1
+    wire_bytes[kind] += _nbytes(t)
+    return dist.all_reduce(t, group=group, async_op=async_op)
+
+
+def broadcast_(t: torch.Tensor, group=None, *, src: int = 0,
+               kind: str = "broadcast") -> None:
+    """Overwrite ``t`` with rank ``src``'s value, in place, counted."""
+    if not dist.is_initialized():
+        return
+    calls[kind] += 1
+    wire_bytes[kind] += _nbytes(t)
+    dist.broadcast(t, src, group=group)
+
+
+# -- trees ---------------------------------------------------------------------
+
+def tree_flatten(tree: Any) -> tuple[list, Callable[[list], Any]]:
+    """(leaves, rebuild): tensors (and None) are leaves; dicts are walked
+    in sorted key order, lists and tuples in order."""
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        parts = [tree_flatten(tree[k]) for k in keys]
+    elif isinstance(tree, (list, tuple)):
+        keys = None
+        parts = [tree_flatten(x) for x in tree]
+    else:
+        return [tree], lambda leaves: leaves[0]
+    leaves = [leaf for p, _ in parts for leaf in p]
+    sizes = [len(p) for p, _ in parts]
+
+    def rebuild(new: list):
+        out, off = [], 0
+        for (_, sub), n in zip(parts, sizes):
+            out.append(sub(new[off:off + n]))
+            off += n
+        if keys is not None:
+            return dict(zip(keys, out))
+        return type(tree)(out)
+
+    return leaves, rebuild
+
+
+def tree_map(fn: Callable, tree: Any) -> Any:
+    leaves, rebuild = tree_flatten(tree)
+    return rebuild([fn(x) for x in leaves])
+
+
+# -- the collectives -----------------------------------------------------------
+
+def psum_mean(tree: Any, group=None) -> Any:
+    """Gradient averaging over the data axis — DDP's all-reduce-mean, one
+    collective per leaf."""
+    n = world_size(group)
+
+    def mean(x):
+        out = x.clone()
+        all_reduce_(out, group, kind="psum")
+        return out / n
+
+    return tree_map(mean, tree)
+
+
+def all_gather_concat(x: torch.Tensor, group=None, *,
+                      axis: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` concatenated along ``axis`` in rank order
+    (DataParallel's output ``gather``)."""
+    n = world_size(group)
+    if n == 1 or not dist.is_initialized():
+        return x.clone()
+    calls["all_gather"] += 1
+    wire_bytes["all_gather"] += _nbytes(x)
+    parts = [torch.empty_like(x) for _ in range(n)]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts, axis)
+
+
+def reduce_scatter_mean(x: torch.Tensor, group=None, *,
+                        axis: int = 0) -> torch.Tensor:
+    """psum_scatter-mean: rank r gets slice r (of ``axis``, split into
+    world equal parts) of the mean over ranks."""
+    n = world_size(group)
+    if x.shape[axis] % n:
+        raise ValueError(f"dim {axis} of size {x.shape[axis]} does not "
+                         f"split over {n} ranks")
+    if n == 1 or not dist.is_initialized():
+        return x.clone()
+    calls["reduce_scatter"] += 1
+    wire_bytes["reduce_scatter"] += _nbytes(x)
+    parts = [c.contiguous() for c in x.movedim(axis, 0).chunk(n)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group)
+    return (out / n).movedim(0, axis)
+
+
+# -- bucketed all-reduce: the DDP Reducer's coalescing -----------------------
+
 def plan_buckets(leaves: Sequence, bucket_bytes: int = 25 * 1024 * 1024
                  ) -> list[list[int]]:
     """Group leaf indices into size-capped buckets, in reverse leaf order
     (the DDP Reducer's order: the last parameters' gradients are ready
     first in the backward). A leaf larger than the cap gets a bucket of
-    its own."""
+    its own. ``leaves`` may be a tree (its leaves are taken)."""
+    if not isinstance(leaves, (list, tuple)):
+        leaves = tree_flatten(leaves)[0]
     buckets: list[list[int]] = [[]]
     used = 0
     for idx in reversed(range(len(leaves))):
@@ -30,3 +177,75 @@ def plan_buckets(leaves: Sequence, bucket_bytes: int = 25 * 1024 * 1024
         buckets[-1].append(idx)
         used += nbytes
     return buckets
+
+
+def bucketed_psum(tree: Any, group=None, *,
+                  bucket_bytes: int = 25 * 1024 * 1024, mean: bool = True,
+                  accum_dtype: torch.dtype | None = None) -> Any:
+    """All-reduce a gradient tree in flat coalesced buckets: each bucket
+    of :func:`plan_buckets` concatenated into one vector, reduced by one
+    collective, split back. The wire dtype of a bucket is its promoted
+    leaf dtype (bf16 gradients reduce in bf16, as torch DDP's do; a stray
+    f32 leaf upcasts only its bucket), or ``accum_dtype``: reduce and
+    mean-divide there, cast back to each leaf's dtype after.
+    ``mean=False`` sums."""
+    leaves, rebuild = tree_flatten(tree)
+    n = world_size(group) if mean else 1
+    out: list = [None] * len(leaves)
+    for bucket in plan_buckets(leaves, bucket_bytes):
+        wire = accum_dtype
+        if wire is None:
+            wire = leaves[bucket[0]].dtype
+            for i in bucket[1:]:
+                wire = torch.promote_types(wire, leaves[i].dtype)
+        flat = torch.cat([leaves[i].to(wire).reshape(-1) for i in bucket])
+        all_reduce_(flat, group, kind="bucketed_psum")
+        if mean:
+            flat = flat / n
+        off = 0
+        for i in bucket:
+            size = leaves[i].numel()
+            out[i] = (flat[off:off + size].view(leaves[i].shape)
+                      .to(leaves[i].dtype))
+            off += size
+    return rebuild(out)
+
+
+def hierarchical_psum(*args, **kwargs):
+    """Two-level all-reduce over ``(dcn, data)``: not ported yet."""
+    raise ValueError("hierarchical_psum needs a two-level data axis "
+                     "(MeshConfig.dcn_data > 1), which is not ported yet "
+                     "(ROADMAP A6, multi-node)")
+
+
+def hierarchical_psum_tree(*args, **kwargs):
+    """The tree form of :func:`hierarchical_psum`: not ported yet."""
+    hierarchical_psum()
+
+
+def ppermute_shift(*args, **kwargs):
+    """Stage-to-stage ring shift of the pipeline: not ported yet."""
+    raise ValueError("ppermute_shift belongs to the pipeline, which is not "
+                     "ported yet (ROADMAP A7: torch.distributed P2P)")
+
+
+def mesh_barrier(spec) -> float:
+    """Rendezvous of every rank of ``spec``'s mesh: an all-reduce of one
+    that cannot complete until all ranks take part; blocks until it does.
+    Returns the world size (the reduced value)."""
+    one = torch.ones((), dtype=torch.float32, device=spec.device)
+    all_reduce_(one, spec.group, kind="barrier")
+    return float(one)
+
+
+def unused_param_mask(grads: Any) -> Any:
+    """Per leaf, a 0-d bool tensor: True where the gradient is None (never
+    produced) or identically zero — DDP's ``find_unused_parameters`` as a
+    report. A value test: a used parameter whose gradient is exactly zero
+    this step is flagged too."""
+    def unused(g):
+        if g is None:
+            return torch.tensor(True)
+        return (g == 0).all()
+
+    return tree_map(unused, grads)

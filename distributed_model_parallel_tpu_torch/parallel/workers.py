@@ -1,0 +1,214 @@
+"""Rank functions for :func:`~..mesh.spawn`: each runs one piece of the
+data-parallel path on every rank from numpy inputs and returns numpy
+results, which the caller holds against a reference (the tests hold
+them against the JAX package on the same inputs). They live in the
+package so that a spawned rank imports nothing but the port.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from distributed_model_parallel_tpu_torch.config import (
+    ModelConfig,
+    OptimizerConfig,
+)
+from distributed_model_parallel_tpu_torch.data.registry import ArrayDataset
+from distributed_model_parallel_tpu_torch.mesh import (
+    MeshSpec,
+    barrier_with_timeout,
+)
+from distributed_model_parallel_tpu_torch.models import (
+    get_model,
+    params_from_jax,
+    params_to_jax,
+)
+from distributed_model_parallel_tpu_torch.ops import collectives as C
+from distributed_model_parallel_tpu_torch.parallel import data_parallel as dp
+from distributed_model_parallel_tpu_torch.parallel import ddp
+from distributed_model_parallel_tpu_torch.train.optim import (
+    GradReducer,
+    make_optimizer,
+)
+from distributed_model_parallel_tpu_torch.train.trainer import (
+    Trainer,
+    cross_entropy,
+)
+
+
+def _np(tree):
+    return C.tree_map(lambda t: t.detach().float().cpu().numpy(), tree)
+
+
+def _t(tree):
+    return C.tree_map(lambda a: torch.from_numpy(np.array(a)), tree)
+
+
+def collectives(spec: MeshSpec, x: np.ndarray, tree: dict, caps: list,
+                params, state, images: np.ndarray) -> dict:
+    """The collectives and DataParallel's four phases on this rank:
+    ``x [N·k, ...]`` (rank r's rows for psum_mean and all-gather; the whole
+    of it, scaled by r + 1, for reduce-scatter), the ragged ``tree`` (its
+    ``head`` in bf16) scaled by r + 1 through ``bucketed_psum`` at each cap
+    (and the calls each made) and ``psum_mean``, the f32 accumulation of
+    the bf16 leaf,
+    sum mode, the barrier, scatter/replicate/gather, and tinycnn's eval
+    forward (``params``, ``state``) through ``data_parallel_apply``."""
+    r, rows = spec.rank, spec.rows(x.shape[0])
+    xt = torch.from_numpy(x)
+    base = _t(tree)
+    base["head"] = base["head"].to(torch.bfloat16)
+    scaled = C.tree_map(lambda t: t * torch.tensor(1.0 + r, dtype=t.dtype),
+                        base)
+    out = {"psum_mean": _np(C.psum_mean(xt[rows], spec.group)),
+           "all_gather": _np(C.all_gather_concat(xt[rows], spec.group)),
+           "reduce_scatter": _np(C.reduce_scatter_mean(xt * (1.0 + r),
+                                                       spec.group)),
+           "psum_tree": _np(C.psum_mean(scaled, spec.group)),
+           "bucketed": {}, "calls": {}}
+    for cap in caps:
+        C.reset_counts()
+        out["bucketed"][cap] = _np(C.bucketed_psum(scaled, spec.group,
+                                                   bucket_bytes=cap))
+        out["calls"][cap] = C.calls["bucketed_psum"]
+    bf = {"g": base["head"] * torch.tensor(1.0 + r, dtype=torch.bfloat16)}
+    out["accum_f32"] = _np(C.bucketed_psum(bf, spec.group,
+                                           accum_dtype=torch.float32))
+    out["sum_mode"] = _np(C.bucketed_psum({"x": torch.ones(5)}, spec.group,
+                                          mean=False))
+    out["barrier"] = barrier_with_timeout(lambda: C.mesh_barrier(spec), 60.0)
+
+    batch = torch.arange(64, dtype=torch.float32).reshape(16, 4)
+    shard = dp.scatter(batch, spec)
+    own = {"w": torch.full((4, 2), float(r))}
+    out["scatter"] = _np(shard)
+    out["gather"] = _np(dp.gather(shard, spec))
+    out["replicate"] = _np(dp.replicate(own, spec))
+
+    model = get_model(ModelConfig(name="tinycnn"), device="cpu")
+    params_from_jax(model, params, state, "cpu")
+    with torch.no_grad():
+        model.units[0].conv0.weight.add_(float(r))     # replicate undoes it
+        out["dp_apply"] = _np(dp.data_parallel_apply(
+            lambda m, b: m.apply(b, train=False)[0], model,
+            torch.from_numpy(images), spec))
+    return out
+
+
+def ddp_steps(spec: MeshSpec, cases: dict, params, state,
+              images: np.ndarray, labels: np.ndarray, mean, std) -> dict:
+    """One DDP step of tinycnn per case (augment off; SGD lr 0.1, no
+    warm-up) from the same weights, on this rank's rows of the global
+    batch. A case sets ``bn`` ("local"/"sync"), ``allreduce``,
+    ``bucket_bytes``, ``fused`` and ``clip`` (grad_clip_norm). Returns per
+    case the parameters, this rank's BN state, the step's and an eval
+    step's metrics and the Reducer's collectives; raises (failing the
+    rank) if the replicas' parameters or momentum differ."""
+    rows = spec.rows(len(labels))
+    im, lb = torch.from_numpy(images[rows]), torch.from_numpy(labels[rows])
+    out = {}
+    for name, c in cases.items():
+        model = get_model(ModelConfig(name="tinycnn", batchnorm=c["bn"]),
+                          device="cpu", axis=spec.group)
+        params_from_jax(model, params, state, "cpu")
+        opt = make_optimizer(
+            OptimizerConfig(learning_rate=0.1, warmup_steps=0,
+                            fused=c.get("fused", False),
+                            grad_clip_norm=c.get("clip")), 2, 2,
+            model.parameters(), bucket_bytes=c.get("bucket_bytes"))
+        step = ddp.make_ddp_train_step(
+            model, opt, spec, mean=mean, std=std, augment=False,
+            bucket_bytes=c.get("bucket_bytes"),
+            allreduce=c.get("allreduce", "psum"))
+        C.reset_counts()
+        metrics = step(im, lb)
+        calls = C.calls["reducer"]
+        ddp.assert_ddp_replicated(model, opt, spec)
+        ev = ddp.make_ddp_eval_step(model, spec, mean=mean, std=std)(im, lb)
+        p, s = params_to_jax(model)
+        out[name] = dict(params=p, state=s, calls=calls,
+                         replica_state=ddp.gather_replica_state(model, spec),
+                         metrics={k: float(v) for k, v in metrics.items()},
+                         eval={k: float(v) for k, v in ev.items()})
+    return out
+
+
+def unused_param(spec: MeshSpec, x: np.ndarray) -> dict:
+    """A Reducer over ``[used, unused]`` where only ``used`` is on the
+    loss path (``sum(used · x_r)``, x_r = rank r's row of ``x``): the
+    unused bucket is launched by ``finish`` instead of hanging. Returns
+    the averaged gradients, the mask and the collectives, per mode."""
+    out = {}
+    for mode in ("psum", "bucketed"):
+        used = torch.nn.Parameter(torch.ones(3))
+        unused = torch.nn.Parameter(torch.ones(3))
+        reducer = GradReducer([used, unused], spec.group,
+                              allreduce=mode, bucket_bytes=24)
+        C.reset_counts()
+        (used * torch.from_numpy(x[spec.rank])).sum().backward()
+        mask = C.unused_param_mask({"used": used.grad,
+                                    "unused": unused.grad})
+        barrier_with_timeout(reducer.finish, 60.0, what="reducer.finish")
+        out[mode] = dict(used=_np(used.grad), unused=_np(unused.grad),
+                         mask={k: bool(v) for k, v in mask.items()},
+                         calls=C.calls["reducer"])
+    return out
+
+
+def trainer_runs(spec: MeshSpec, runs: dict, train: tuple,
+                 evals: tuple) -> dict:
+    """Per run ``{"config", "params", "state", "step"}``: a Trainer on this
+    rank from the given weights over ``train``/``evals`` ((images, labels)
+    numpy pairs), then either one train step on this rank's rows of
+    ``step`` (images, labels; no augmentation draws) or ``fit()``.
+    Returns the metrics or history, the step log, the parameters and
+    every rank's BN state (leading replica axis)."""
+    tr, ev = ArrayDataset(*train, 10), ArrayDataset(*evals, 10)
+    out = {}
+    for name, run in runs.items():
+        t = Trainer(run["config"], train_ds=tr, eval_ds=ev,
+                    params=run["params"], state=run["state"], spec=spec)
+        res = {}
+        if run.get("step") is not None:
+            images, labels = run["step"]
+            rows = spec.rows(len(labels))
+            m = t._train_step(torch.from_numpy(images[rows]),
+                              torch.from_numpy(labels[rows]), None)
+            res["metrics"] = {k: float(v) for k, v in m.items()}
+        else:
+            res["history"] = t.fit()
+            res["step_log"] = t.step_log
+        ddp.assert_ddp_replicated(t.model, t.optimizer, spec)
+        res["params"] = params_to_jax(t.model)[0]
+        res["replica_state"] = ddp.gather_replica_state(t.model, spec)
+        out[name] = res
+    return out
+
+
+def mobilenet_grads_f64(spec: MeshSpec, params, state, images: np.ndarray,
+                        labels: np.ndarray, mean, std) -> tuple:
+    """One MobileNetV2 step's gradients in float64 (the head's Dense in
+    f32, as the JAX package fixes it) with BatchNorm statistics over the
+    group, on this rank's rows, averaged by the Reducer: the gradient of
+    the global batch's mean loss. Returns (gradients, new BN state) in
+    the JAX layout."""
+    from distributed_model_parallel_tpu_torch.data.loader import normalize
+    from distributed_model_parallel_tpu_torch.models import layers
+    from distributed_model_parallel_tpu_torch.models.mobilenetv2 import (
+        build_mobilenetv2,
+    )
+
+    model = build_mobilenetv2(dtype=torch.float64, bn_mode="sync",
+                              axis=spec.group)
+    for m in model.modules():
+        if isinstance(m, (layers.Conv, layers.BatchNorm)):
+            m.double()
+    params_from_jax(model, params, state, "cpu")
+    reducer = GradReducer(model.parameters(), spec.group)
+    rows = spec.rows(len(labels))
+    x = normalize(torch.from_numpy(images[rows]), mean, std)
+    logits, _ = model.apply(x, train=True)
+    cross_entropy(logits, torch.from_numpy(labels[rows])).backward()
+    reducer.finish()
+    return params_to_jax(model, grads=True)[0], params_to_jax(model)[1]

@@ -1,11 +1,13 @@
-"""Training of the port: the Transformer LM and the CNNs on one device.
+"""Training of the port: the Transformer LM on one device, the CNNs on
+one device or data-parallel over ranks.
 
 * :mod:`.lm_trainer` — ``LMTrainConfig``, ``LMTrainer``, the token
   stream and the train step;
 * :mod:`.trainer` — the CNN ``Trainer``, its train, eval and
   device-resident multi-step functions;
 * :mod:`.optim` — SGD with momentum, weight decay and the warmup/cosine
-  schedule, per leaf or fused over flat buckets;
+  schedule, per leaf or fused over flat buckets, and the gradient
+  Reducer of data parallelism;
 * :mod:`.metrics` — top-k sums and running meters;
 * :mod:`.train_lm`, :mod:`.train_cnn` — the command lines.
 """

@@ -11,22 +11,37 @@ trace), nesterov as ``g + μ·buf``. ``fused=True`` runs the same math as
 SGD kernel (``ops/fused_sgd.py``), the counterpart of
 ``ops/pallas_optim.fused_sgd``. The learning rate of update n is
 ``schedule(n)``, counted before the increment, as optax's count is.
+
+:class:`GradReducer` is DDP's Reducer over a process group: autograd
+hooks launch one asynchronous all-reduce per bucket as its gradients are
+ready, and :meth:`GradReducer.finish` completes and averages them before
+clipping and the update. Under ``fused`` its buckets are the optimizer's
+own flat gradient buffers, reduced in place.
 """
 
 from __future__ import annotations
 
+import collections
 import math
+import time
 from typing import Callable
 
 import torch
 
 from distributed_model_parallel_tpu_torch.config import OptimizerConfig
 from distributed_model_parallel_tpu_torch.ops import fused_sgd as fs
-from distributed_model_parallel_tpu_torch.ops.collectives import plan_buckets
+from distributed_model_parallel_tpu_torch.ops.collectives import (
+    all_reduce_,
+    plan_buckets,
+    world_size,
+)
 
 # fused_sgd's bucket cap (ops/pallas_optim.py): MobileNetV2's 9.2 MB of
 # f32 parameters make one bucket.
 FUSED_BUCKET_BYTES = 64 * 1024 * 1024
+# bucketed_psum's default cap (ops/collectives.py), for gradients that are
+# not the fused optimizer's buckets.
+DDP_BUCKET_BYTES = 25 * 1024 * 1024
 
 
 def make_schedule(config: OptimizerConfig, steps_per_epoch: int,
@@ -84,6 +99,10 @@ class SGD:
     def lr(self) -> float:
         """The learning rate the next update uses."""
         return self.schedule(self.count)
+
+    def momentum_buffer(self, i: int) -> torch.Tensor | None:
+        """Parameter i's momentum trace (None before its first update)."""
+        return self.opt.state.get(self.params[i], {}).get("momentum_buffer")
 
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
@@ -259,9 +278,134 @@ class FusedSGD:
             off += x.numel()
 
 
+class GradReducer:
+    """DDP's Reducer: the gradient all-reduce-mean over ``group``, launched
+    from autograd as the backward produces the gradients.
+
+    A ``register_post_accumulate_grad_hook`` per parameter counts the
+    ready leaves of its bucket; a full bucket launches one asynchronous
+    all-reduce. :meth:`finish` (before clipping and the update) launches,
+    in bucket order, each bucket no hook completed (a parameter off the
+    loss path would otherwise hang every rank), waits on every handle and
+    divides by the world size. Every rank issues its collectives in the
+    same order: the hooks follow the graph, which is the same on every
+    rank, and :meth:`finish` goes in bucket order.
+
+    Buckets: ``allreduce="bucketed"`` over a :class:`FusedSGD` with flat
+    buffers reduces the optimizer's own gradient buckets in place (its
+    ``.grad`` views stay bound); otherwise :func:`plan_buckets` of the
+    parameters at ``bucket_bytes``, each bucket concatenated into a flat
+    copy and split back. ``"psum"``: one all-reduce per parameter, on its
+    ``.grad`` in place. A gradient never produced is taken as zeros.
+
+    The time from the first launch to the end of :meth:`finish` is kept
+    per step (CUDA events on the card, the host clock on the CPU) and read
+    by :meth:`take_times_us`.
+    """
+
+    def __init__(self, params, group, optimizer=None, *,
+                 allreduce: str = "bucketed",
+                 bucket_bytes: int = DDP_BUCKET_BYTES):
+        if allreduce not in ("psum", "bucketed"):
+            raise KeyError(f"unknown allreduce {allreduce!r}")
+        self.params = list(params)
+        self.group = group
+        self.world = world_size(group)
+        self.buffers = None
+        if allreduce == "psum":
+            self.buckets = [[i] for i in reversed(range(len(self.params)))]
+        elif isinstance(optimizer, FusedSGD) and optimizer.flat:
+            self.buckets = optimizer.buckets
+            self.buffers = [g for _, _, g in optimizer.flat_buckets()]
+        else:
+            self.buckets = plan_buckets(self.params, bucket_bytes)
+        self._bucket_of = {i: b for b, idx in enumerate(self.buckets)
+                           for i in idx}
+        self._cuda = self.params[0].device.type == "cuda"
+        self.times = collections.deque(maxlen=4096)
+        self._reset()
+        for i, p in enumerate(self.params):
+            p.register_post_accumulate_grad_hook(self._hook(i))
+
+    def _reset(self) -> None:
+        self._pending = [len(idx) for idx in self.buckets]
+        self._work: list = [None] * len(self.buckets)
+        self._flat: list = [None] * len(self.buckets)
+        self._start = None
+
+    def _hook(self, i: int):
+        def hook(_param):
+            b = self._bucket_of[i]
+            self._pending[b] -= 1
+            if self._pending[b] == 0:
+                self._launch(b)
+        return hook
+
+    def _grad(self, i: int) -> torch.Tensor:
+        p = self.params[i]
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+        return p.grad
+
+    def _launch(self, b: int) -> None:
+        if self._start is None:
+            if self._cuda:
+                self._start = torch.cuda.Event(enable_timing=True)
+                self._start.record()
+            else:
+                self._start = time.perf_counter()
+        idx = self.buckets[b]
+        if self.buffers is not None:
+            flat = self.buffers[b]
+        elif len(idx) == 1:
+            flat = self._grad(idx[0])
+        else:
+            flat = torch.cat([self._grad(i).reshape(-1) for i in idx])
+        self._flat[b] = flat
+        self._work[b] = all_reduce_(flat, self.group, kind="reducer",
+                                    async_op=True)
+
+    @torch.no_grad()
+    def finish(self) -> None:
+        """Complete the step's reduction: every gradient is the mean over
+        the ranks when this returns."""
+        for b in range(len(self.buckets)):
+            if self._flat[b] is None:
+                self._launch(b)
+        for b, idx in enumerate(self.buckets):
+            if self._work[b] is not None:
+                self._work[b].wait()
+            flat = self._flat[b].div_(self.world)
+            if self.buffers is None and len(idx) > 1:
+                off = 0
+                for i in idx:
+                    g = self.params[i].grad
+                    g.copy_(flat[off:off + g.numel()].view_as(g))
+                    off += g.numel()
+        if self._cuda:
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.times.append((self._start, end))
+        else:
+            self.times.append(time.perf_counter() - self._start)
+        self._reset()
+
+    def take_times_us(self) -> list[float]:
+        """µs of each step's reduction since the last call (waits for the
+        card)."""
+        if self._cuda:
+            out = [start.elapsed_time(end) * 1e3 for start, end in self.times]
+        else:
+            out = [s * 1e6 for s in self.times]
+        self.times.clear()
+        return out
+
+
 def make_optimizer(config: OptimizerConfig, steps_per_epoch: int,
-                   epochs: int, params) -> SGD | FusedSGD:
-    """The SGD chain over ``params`` (:class:`FusedSGD` under ``fused``).
+                   epochs: int, params, *,
+                   bucket_bytes: int | None = None) -> SGD | FusedSGD:
+    """The SGD chain over ``params`` (:class:`FusedSGD` under ``fused``,
+    with buckets of ``bucket_bytes``, default :data:`FUSED_BUCKET_BYTES`).
     Other names, ``accum_steps > 1`` and ``ema_decay`` are not ported yet
     (ROADMAP A4) and raise; ``fused`` with another name raises, as in the
     JAX package."""
@@ -278,5 +422,6 @@ def make_optimizer(config: OptimizerConfig, steps_per_epoch: int,
         raise ValueError("ema_decay is not ported yet (ROADMAP A4)")
     schedule = make_schedule(config, max(1, steps_per_epoch * epochs), 1)
     if config.fused:
-        return FusedSGD(params, config, schedule)
+        return FusedSGD(params, config, schedule,
+                        bucket_bytes or FUSED_BUCKET_BYTES)
     return SGD(params, config, schedule)

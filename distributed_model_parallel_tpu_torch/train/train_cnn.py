@@ -1,5 +1,5 @@
-"""CNN training on one device — the port's counterpart of
-``scripts/train_data_parallel.py``.
+"""CNN training, on one device or data-parallel over ranks — the port's
+counterpart of ``scripts/train_data_parallel.py``.
 
     python -m distributed_model_parallel_tpu_torch.train.train_cnn \\
         --device cpu --model tinycnn --epochs 2 --batch-size 32 \\
@@ -7,24 +7,35 @@
     python -m distributed_model_parallel_tpu_torch.train.train_cnn \\
         --device cuda --batch-size 512 --fused --device-data \\
         --steps-per-dispatch 10 --epochs 1
+    python -m distributed_model_parallel_tpu_torch.train.train_cnn \\
+        --device cpu --model tinycnn --nproc 2 --strategy ddp \\
+        --bn-mode sync --allreduce bucketed --batch-size 32
+    torchrun --nproc-per-node 4 -m \\
+        distributed_model_parallel_tpu_torch.train.train_cnn --fused
 
 ``--device`` defaults to ``cuda``, where the model computes in bf16 over
 f32 parameters (``--dtype`` overrides) with cuDNN's autotuner on; on
-``cpu`` it runs in f32. ``--fused`` takes the fused SGD kernel. Prints one
-JSON record per epoch. Multi-device meshes, resume, the recovery plane
-and the other optimizers are not ported yet and are refused.
+``cpu`` it runs in f32. ``--fused`` takes the fused SGD kernel.
+``--nproc N`` spawns N ranks (a ``file://`` store in a temporary
+directory): rank r runs on ``cuda:r`` over NCCL, so N may not exceed the
+cards unless ``--backend gloo`` is given; ``--device cpu`` runs gloo.
+Under torchrun the ranks come from its environment. ``--batch-size`` is
+the global batch. Prints one JSON record per epoch, from rank 0. Resume,
+the recovery plane and the other optimizers are not ported yet and are
+refused.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import torch
 
 # flag -> (value that is refused, ROADMAP item), for what is not ported.
 _REFUSED = {
-    "num_devices": (lambda v: v > 1, "A6: multi-GPU data parallelism"),
+    "dcn_data": (lambda v: v > 1, "A6: multi-node data parallelism"),
     "resume": (bool, "A5: checkpoint/resume"),
     "ema_decay": (lambda v: v is not None, "A4: EMA"),
     "accum_steps": (lambda v: v != 1, "A4: gradient accumulation"),
@@ -52,7 +63,8 @@ def parse_args(argv=None):
     p.add_argument("--fused", action="store_true",
                    help="the fused SGD kernel over flat parameter buckets")
     p.add_argument("--epochs", default=1, type=int)
-    p.add_argument("--batch-size", "-b", default=512, type=int)
+    p.add_argument("--batch-size", "-b", default=512, type=int,
+                   help="global batch, split over the ranks")
     p.add_argument("--warmup-steps", default=10, type=int)
     p.add_argument("--no-augment", action="store_true")
     p.add_argument("--synthetic-train-size", default=2048, type=int)
@@ -61,8 +73,20 @@ def parse_args(argv=None):
                    help="keep the training set on the device")
     p.add_argument("--steps-per-dispatch", default=1, type=int)
     p.add_argument("--seed", default=0, type=int)
+    p.add_argument("--nproc", default=1, type=int,
+                   help="ranks to spawn (data parallelism)")
+    p.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                   help="default: nccl on cuda, gloo on cpu")
+    p.add_argument("--strategy", default="gspmd", choices=("gspmd", "ddp"))
+    p.add_argument("--bn-mode", default="local",
+                   choices=("local", "sync", "none"))
+    p.add_argument("--allreduce", default="psum",
+                   choices=("psum", "bucketed", "ring", "hierarchical"),
+                   help="ddp's gradient transport")
+    p.add_argument("--bucket-mb", default=None, type=float,
+                   help="ddp's all-reduce bucket cap (grad_bucket_mb)")
     # Accepted so they can be refused by name (not ported yet).
-    p.add_argument("--num-devices", default=1, type=int)
+    p.add_argument("--dcn-data", default=1, type=int)
     p.add_argument("--accum-steps", default=1, type=int)
     p.add_argument("--ema-decay", default=None, type=float)
     p.add_argument("--emergency-every", default=0, type=int)
@@ -73,27 +97,20 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def main(argv=None):
-    args = parse_args(argv)
-    refused = [f"--{k.replace('_', '-')} (ROADMAP {item})"
-               for k, (bad, item) in _REFUSED.items()
-               if bad(getattr(args, k))]
-    if refused:
-        raise SystemExit(f"not ported yet: {', '.join(refused)}")
+def _config(args, world: int):
     from distributed_model_parallel_tpu_torch.config import (
         DataConfig,
+        MeshConfig,
         ModelConfig,
         OptimizerConfig,
         TrainConfig,
     )
-    from distributed_model_parallel_tpu_torch.train.trainer import Trainer
 
     on_cpu = torch.device(args.device).type == "cpu"
     dtype = args.dtype or ("float32" if on_cpu else "bfloat16")
-    if not on_cpu:
-        torch.backends.cudnn.benchmark = True
-    config = TrainConfig(
-        model=ModelConfig(name=args.model, dtype=dtype),
+    return TrainConfig(
+        model=ModelConfig(name=args.model, dtype=dtype,
+                          batchnorm=args.bn_mode),
         data=DataConfig(name=args.dataset_type, root=args.data,
                         batch_size=args.batch_size,
                         eval_batch_size=args.batch_size,
@@ -105,10 +122,52 @@ def main(argv=None):
                                   weight_decay=args.wd,
                                   warmup_steps=args.warmup_steps,
                                   fused=args.fused),
+        mesh=MeshConfig(data=world), strategy=args.strategy,
+        ddp_allreduce=args.allreduce, grad_bucket_mb=args.bucket_mb,
         epochs=args.epochs, seed=args.seed,
         device_resident_data=args.device_data,
         steps_per_dispatch=args.steps_per_dispatch, device=args.device)
-    for record in Trainer(config).fit():
+
+
+def _fit(spec, args) -> list[dict]:
+    """One rank's run: the Trainer's history (the same on every rank)."""
+    from distributed_model_parallel_tpu_torch.train.trainer import Trainer
+
+    if spec.device.type == "cuda":
+        torch.backends.cudnn.benchmark = True
+    return Trainer(_config(args, spec.num_data), spec=spec).fit()
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    refused = [f"--{k.replace('_', '-')} (ROADMAP {item})"
+               for k, (bad, item) in _REFUSED.items()
+               if bad(getattr(args, k))]
+    if refused:
+        raise SystemExit(f"not ported yet: {', '.join(refused)}")
+    from distributed_model_parallel_tpu_torch import mesh
+
+    check = _config(args, args.nproc)
+    from distributed_model_parallel_tpu_torch.train.trainer import (
+        check_train_config,
+    )
+
+    check_train_config(check)
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        spec = mesh.init_process_group(device=args.device,
+                                       backend=args.backend)
+        try:
+            records = _fit(spec, args)
+        finally:
+            torch.distributed.destroy_process_group()
+        if spec.rank != 0:
+            return
+    elif args.nproc > 1:
+        records = mesh.spawn(_fit, args.nproc, args, device=args.device,
+                             backend=args.backend)[0]
+    else:
+        records = _fit(mesh.make_mesh(device=args.device), args)
+    for record in records:
         print(json.dumps(record), flush=True)
 
 

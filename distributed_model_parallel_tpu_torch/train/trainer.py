@@ -1,32 +1,45 @@
-"""CNN trainer on one device — the port of
-``distributed_model_parallel_tpu/train/trainer.py`` (``strategy="gspmd"``
-on a one-device mesh).
+"""CNN trainer — the port of ``distributed_model_parallel_tpu/train/
+trainer.py`` with ``strategy="gspmd"`` and ``"ddp"`` over the data axis.
 
 One step (:func:`make_train_step`): on-device augmentation (random crop
 with pad 4, horizontal flip) → normalize → forward with BatchNorm in
 training mode → cross-entropy → backward (autograd; convolutions and
-BatchNorm through cuDNN on the card) → the optimizer update in place
+BatchNorm through cuDNN on the card) → the gradient all-reduce when there
+is a process group (``optim.GradReducer``) → the optimizer update in place
 (``OptimizerConfig(fused=True)``: the fused SGD kernel, one launch per
 flat bucket) → top-1/top-5 sums. Parameters and BN statistics live in
 the model and update in place; the JAX step returns new ones instead.
+
+Data parallelism (``MeshConfig(data=N)``, one process per rank, see
+``mesh.py``): every rank draws the same global batch order and runs its
+rows ``[r·B/N, (r+1)·B/N)``; metrics are the global batch's. Under
+``gspmd`` the program is the global batch's, as XLA partitions it for the
+JAX package: BatchNorm statistics span the global batch whatever
+``bn_mode`` says (``"local"`` runs as ``"sync"``), and each step's
+augmentation draws are the global batch's, of which a rank takes its
+rows. Under ``ddp`` each rank has its own BN state (``"local"``) or
+cross-replica statistics (``"sync"``) and its own draws, from ``(seed +
+1, step, rank)`` (``parallel/ddp.py``). Parameters start equal on every
+rank: built from ``config.seed``, then broadcast from rank 0.
 
 :class:`Trainer` keeps the JAX trainer's loop shape: metrics stay device
 tensors until a drain at ``max_inflight_steps`` or the log cadence (one
 host read per drain), the timer attributes each drained window's wall
 time to its steps, and the history records carry the same keys. The
-device-resident path keeps the training set on the card as flat uint8,
-gathers each step's batch by index, and runs ``steps_per_dispatch`` steps
-per call as a Python loop with no host sync inside. The augmentation draws
-of global step s come from a generator derived from ``(seed + 1, s)``:
-stateless like the JAX trainer's, but the port's own bits.
+device-resident path (``gspmd`` only, as in the JAX package) keeps the
+training set on the device as flat uint8 on every rank, gathers each
+step's rows by index, and runs ``steps_per_dispatch`` steps per call as a
+Python loop with no host sync inside. The augmentation draws of global
+step s come from a generator derived from ``(seed + 1, s)``: stateless
+like the JAX trainer's, but the port's own bits.
 
 Not ported yet, and refused by :func:`check_train_config` where a config
-field asks for them (ROADMAP A5/A6/A7/A8/A11): other strategies and
-meshes beyond one device, checkpoint/resume, recovery, fault injection,
-the guards, the consistency sentinel, emergency checkpoints, elastic
-restarts and the status exporter. Absent without a field to refuse
-(ROADMAP A5): log and telemetry files, the best-accuracy checkpoint,
-preemption handling and ``step_hook``.
+field asks for them (ROADMAP A5/A6/A7/A8/A11): the other strategies and
+mesh axes, checkpoint/resume, recovery, fault injection, the guards, the
+consistency sentinel, emergency checkpoints, elastic restarts and the
+status exporter. Absent without a field to refuse (ROADMAP A5): log and
+telemetry files, the best-accuracy checkpoint, preemption handling and
+``step_hook``.
 """
 
 from __future__ import annotations
@@ -49,21 +62,30 @@ from distributed_model_parallel_tpu_torch.data.registry import (
     ArrayDataset,
     load_dataset,
 )
+from distributed_model_parallel_tpu_torch.mesh import (
+    MeshSpec,
+    check_mesh_config,
+    make_mesh,
+)
 from distributed_model_parallel_tpu_torch.models import (
     DTYPES,
     get_model,
     params_from_jax,
 )
 from distributed_model_parallel_tpu_torch.models.staged import StagedModel
-from distributed_model_parallel_tpu_torch.models.transformer import (
-    resolve_device,
+from distributed_model_parallel_tpu_torch.ops.collectives import all_reduce_
+from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
+    replicate,
 )
 from distributed_model_parallel_tpu_torch.train.metrics import (
     AverageMeter,
     StepTimer,
     topk_correct,
 )
-from distributed_model_parallel_tpu_torch.train.optim import make_optimizer
+from distributed_model_parallel_tpu_torch.train.optim import (
+    GradReducer,
+    make_optimizer,
+)
 
 METRIC_KEYS = ("loss", "batch", "correct@1", "correct@5")
 
@@ -86,25 +108,37 @@ _UNPORTED = (
     ("elastic", lambda c: c.elastic, "A11: elastic restarts"),
     ("statusz_port", lambda c: c.statusz_port is not None,
      "A11: status exporter"),
-    ("grad_bucket_mb", lambda c: c.grad_bucket_mb is not None,
-     "A6: bucketed gradient allreduce"),
 )
-_STRATEGIES = {"ddp": "A6: DDP", "fsdp": "A8: FSDP",
-               "spmd_pipeline": "A7: pipeline", "auto": "A11: autotune"}
+_STRATEGIES = {"fsdp": "A8: FSDP", "spmd_pipeline": "A7: pipeline",
+               "auto": "A11: autotune"}
 
 
 def check_train_config(config: TrainConfig) -> None:
-    """Raise, naming the ROADMAP item, for what the port does not run."""
+    """Raise, naming the ROADMAP item, for what the port does not run, and
+    as the JAX trainer does for what it refuses."""
     if config.strategy in _STRATEGIES:
         raise ValueError(f"strategy={config.strategy!r} is not ported yet "
                          f"(ROADMAP {_STRATEGIES[config.strategy]}); the "
-                         f"port runs 'gspmd' on one device")
-    if config.strategy != "gspmd":
+                         f"port runs 'gspmd' and 'ddp'")
+    if config.strategy not in ("gspmd", "ddp"):
         raise KeyError(f"unknown strategy {config.strategy!r}")
-    if config.mesh.num_devices != 1:
-        raise ValueError(f"mesh {config.mesh.axis_sizes()} spans "
-                         f"{config.mesh.num_devices} devices; the port runs "
-                         f"one (multi-GPU data parallelism: ROADMAP A6)")
+    check_mesh_config(config.mesh)
+    if config.strategy == "ddp":
+        from distributed_model_parallel_tpu_torch.parallel.ddp import (
+            resolve_allreduce,
+        )
+
+        resolve_allreduce(config.ddp_allreduce, config.ddp_bucket_bytes,
+                          config.grad_bucket_mb)
+        if config.device_resident_data:
+            raise ValueError("device_resident_data is only supported with "
+                             "strategy='gspmd' (the ddp path materializes "
+                             "per-replica batches on host)")
+    elif config.grad_bucket_mb is not None:
+        raise ValueError(f"grad_bucket_mb sets the buckets of the per-replica "
+                         f"gradient all-reduce (strategy='ddp'); "
+                         f"strategy={config.strategy!r} reduces over the "
+                         f"optimizer's buckets — no silent ignores")
     bad = [f"{name} (ROADMAP {item})" for name, refused, item in _UNPORTED
            if refused(config)]
     if bad:
@@ -130,15 +164,33 @@ def _metrics(loss: torch.Tensor, logits: torch.Tensor,
             **topk_correct(logits.detach(), labels)}
 
 
+def reduce_metrics(metrics: dict, spec: MeshSpec) -> dict:
+    """A rank's metrics (0-d, or stacked over steps) → the global batch's:
+    one all-reduce of them all; the loss is the mean of the ranks' means
+    (``psum(loss) / N``), the batch and top-k counts are sums. Unchanged
+    without a process group."""
+    if spec.group is None:
+        return metrics
+    rows = torch.stack([metrics[k].float() for k in METRIC_KEYS], -1)
+    all_reduce_(rows, spec.group, kind="metrics")
+    rows[..., 0] /= spec.num_data
+    return {k: rows[..., i] for i, k in enumerate(METRIC_KEYS)}
+
+
 def make_train_step(model: StagedModel, optimizer, *, mean, std,
                     augment: bool = True, dtype=torch.float32,
                     ema_decay: float | None = None,
-                    resize_to: int | None = None):
+                    resize_to: int | None = None,
+                    reducer: GradReducer | None = None,
+                    rows: tuple[int, int] | None = None):
     """``step(images_u8, labels, generator=None) -> metrics``: augment
     (draws from ``generator``) → normalize → forward (``train=True``) →
-    loss → backward → ``optimizer.step()``; metrics are 0-d device
-    tensors (sums, like the JAX step's). ``mean``/``std`` may be numpy;
-    they are put on the model's device once, here."""
+    loss → backward (``reducer`` averaging the gradients over the ranks)
+    → ``optimizer.step()``; metrics are this rank's, 0-d device tensors
+    (sums, like the JAX step's). ``rows = (start, total)``: the images are
+    rows ``start ..`` of a global batch of ``total`` whose augmentation
+    draws the generator gives. ``mean``/``std`` may be numpy; they are put
+    on the model's device once, here."""
     if ema_decay is not None:
         raise ValueError("ema_decay is not ported yet (ROADMAP A4)")
     if resize_to is not None:
@@ -150,12 +202,14 @@ def make_train_step(model: StagedModel, optimizer, *, mean, std,
 
     def step(images_u8, labels, generator=None):
         if augment:
-            images_u8 = augment_batch(generator, images_u8)
+            images_u8 = augment_batch(generator, images_u8, rows=rows)
         images = normalize(images_u8, mean, std, dtype)
         optimizer.zero_grad()
         logits, _ = model.apply(images, train=True)
         loss = cross_entropy(logits, labels)
         loss.backward()
+        if reducer is not None:
+            reducer.finish()
         optimizer.step()
         return _metrics(loss, logits, labels)
 
@@ -164,15 +218,18 @@ def make_train_step(model: StagedModel, optimizer, *, mean, std,
 
 def make_multi_step(model: StagedModel, optimizer, *, image_shape, mean,
                     std, augment: bool = True, dtype=torch.float32,
-                    seed: int = 1):
+                    seed: int = 1, reducer: GradReducer | None = None,
+                    rows: tuple[int, int] | None = None):
     """K train steps per call over a device-resident dataset:
     ``multi(images_flat, labels_all, idx[K, B], first_step) -> metrics``
     stacked over K. Each step gathers its batch from the on-device
     dataset by index and takes the augmentation generator of its global
     step (``first_step + k``, from ``seed``); the per-step math is
-    :func:`make_train_step`'s. Nothing in the loop waits for the card."""
+    :func:`make_train_step`'s (``reducer``, ``rows``: this rank's share
+    of a global batch). Nothing in the loop waits for the card."""
     step = make_train_step(model, optimizer, mean=mean, std=std,
-                           augment=augment, dtype=dtype)
+                           augment=augment, dtype=dtype, reducer=reducer,
+                           rows=rows)
     h, w, c = image_shape
 
     def multi(images_flat, labels_all, idx, first_step: int):
@@ -214,25 +271,34 @@ class EpochResult:
 
 
 class Trainer:
-    """Epoch driver on one device (the JAX ``Trainer`` with
-    ``strategy="gspmd"`` and ``MeshConfig(data=1)``).
+    """Epoch driver (the JAX ``Trainer`` with ``strategy="gspmd"`` or
+    ``"ddp"``), one per rank.
 
-    ``params``/``state`` (optional, together): the JAX package's staged
-    trees as numpy arrays (``params_from_jax``), e.g. another run's
-    weights; default: :func:`~..models.get_model`'s init from
-    ``config.seed``. ``step_log`` holds the per-window records the JAX
-    trainer logs at ``log_every_n_steps``."""
+    ``spec``: this rank's :class:`~..mesh.MeshSpec` (default:
+    ``make_mesh(config.mesh, config.device)`` — the process group this
+    process joined, or a lone process at ``data=1``). ``params``/``state``
+    (optional, together): the JAX package's staged trees as numpy arrays
+    (``params_from_jax``), e.g. another run's weights; under ``ddp``
+    ``state`` carries the leading per-replica axis
+    (``parallel.ddp.replicate_model_state``) and rank r takes slice r.
+    Default: :func:`~..models.get_model`'s init from ``config.seed``.
+    ``step_log`` holds the per-window records the JAX trainer logs at
+    ``log_every_n_steps``; every rank keeps the same global numbers."""
 
     def __init__(self, config: TrainConfig, *,
                  train_ds: ArrayDataset | None = None,
                  eval_ds: ArrayDataset | None = None,
-                 params=None, state=None):
+                 params=None, state=None, spec: MeshSpec | None = None):
         check_train_config(config)
         self.config = config
-        # Index resolved ("cuda" -> "cuda:0") so it compares equal to the
-        # tensors' own device.
-        self.device = torch.empty(
-            0, device=resolve_device(config.device)).device
+        self.spec = spec = spec or make_mesh(config.mesh, config.device)
+        if spec.config.data != config.mesh.data:
+            raise ValueError(f"spec has data={spec.num_data}, the config "
+                             f"data={config.mesh.data}")
+        self.device = spec.device
+        ddp = None
+        if config.strategy == "ddp":
+            from distributed_model_parallel_tpu_torch.parallel import ddp
         if train_ds is None or eval_ds is None:
             train_ds, eval_ds = load_dataset(config.data)
         self.train_ds, self.eval_ds = train_ds, eval_ds
@@ -243,38 +309,78 @@ class Trainer:
                              f"from the data's {train_ds.images.shape[1]} "
                              f"px: the on-device resize is not ported yet "
                              f"(ROADMAP A3)")
-        self.model = get_model(config.model, seed=config.seed,
-                               device=self.device)
+        # gspmd normalizes over the global batch whatever bn_mode says; with
+        # one rank and no process group the statistics are the local ones.
+        bn = config.model.batchnorm
+        if not ddp and bn == "local":
+            bn = "sync"
+        if spec.group is None and bn == "sync":
+            bn = "local"
+        self.model = get_model(
+            dataclasses.replace(config.model, batchnorm=bn),
+            seed=config.seed, device=self.device, axis=spec.group)
         if (params is None) != (state is None):
             raise ValueError("pass params and state together")
         if params is not None:
+            if ddp:
+                state = ddp.replica_state(state, spec.rank)
             params_from_jax(self.model, params, state, self.device)
         self.dtype = DTYPES[config.model.dtype]
 
+        bs = config.data.batch_size
+        self._rows = spec.rows(bs)
         self.train_loader = BatchLoader(
-            train_ds, config.data.batch_size, shuffle=config.data.shuffle,
-            seed=config.data.seed, use_native=config.data.use_native)
-        self.eval_loader = BatchLoader(
-            eval_ds, min(config.data.eval_batch_size, len(eval_ds)),
-            shuffle=False)
-        self.optimizer = make_optimizer(config.optimizer,
-                                        len(self.train_loader),
-                                        config.epochs,
-                                        self.model.parameters())
+            train_ds, bs, shuffle=config.data.shuffle,
+            seed=config.data.seed, use_native=config.data.use_native,
+            rows=self._rows)
+        eval_bs = min(config.data.eval_batch_size, len(eval_ds))
+        self.eval_loader = BatchLoader(eval_ds, eval_bs, shuffle=False,
+                                       rows=spec.rows(eval_bs))
+        if ddp:
+            allreduce, bucket_bytes = ddp.resolve_allreduce(
+                config.ddp_allreduce, config.ddp_bucket_bytes,
+                config.grad_bucket_mb)
+        self.optimizer = make_optimizer(
+            config.optimizer, len(self.train_loader), config.epochs,
+            self.model.parameters(),
+            bucket_bytes=bucket_bytes if ddp else None)
+        if spec.group is not None:
+            # Rank 0's parameters everywhere (and its BN state, unless each
+            # replica was given its own).
+            replicate(list(self.model.parameters()) + (
+                [] if ddp and state is not None
+                else list(self.model.buffers())), spec)
         kw = dict(mean=train_ds.mean, std=train_ds.std, dtype=self.dtype)
-        self._train_step = make_train_step(
-            self.model, self.optimizer, augment=config.data.augment, **kw)
-        self._eval_step = make_eval_step(self.model, **kw)
         self._aug_seed = config.seed + 1
         self._multi_step = None
-        if config.device_resident_data:
-            n = len(train_ds)
-            self.dev_images = self._to_device(train_ds.images.reshape(n, -1))
-            self.dev_labels = self._to_device(train_ds.labels).long()
-            self._multi_step = make_multi_step(
-                self.model, self.optimizer,
-                image_shape=train_ds.images.shape[1:],
-                augment=config.data.augment, seed=self._aug_seed, **kw)
+        if ddp:
+            self._train_step = ddp.make_ddp_train_step(
+                self.model, self.optimizer, spec,
+                augment=config.data.augment, bucket_bytes=bucket_bytes,
+                allreduce=allreduce, **kw)
+            self.reducer = self._train_step.reducer
+            self._eval_step = ddp.make_ddp_eval_step(self.model, spec, **kw)
+        else:
+            self.reducer = (GradReducer(self.model.parameters(), spec.group,
+                                        self.optimizer)
+                            if spec.group is not None else None)
+            share = dict(reducer=self.reducer, rows=(self._rows.start, bs))
+            step = make_train_step(self.model, self.optimizer,
+                                   augment=config.data.augment, **share,
+                                   **kw)
+            self._train_step = lambda *a: reduce_metrics(step(*a), spec)
+            ev = make_eval_step(self.model, **kw)
+            self._eval_step = lambda *a: reduce_metrics(ev(*a), spec)
+            if config.device_resident_data:
+                n = len(train_ds)
+                self.dev_images = self._to_device(
+                    train_ds.images.reshape(n, -1))
+                self.dev_labels = self._to_device(train_ds.labels).long()
+                self._multi_step = make_multi_step(
+                    self.model, self.optimizer,
+                    image_shape=train_ds.images.shape[1:],
+                    augment=config.data.augment, seed=self._aug_seed,
+                    **share, **kw)
         self._max_inflight = max(1, config.max_inflight_steps)
         self.global_step = 0
         self.best_acc = 0.0
@@ -290,9 +396,13 @@ class Trainer:
         return t.to(self.device)
 
     def _generator(self):
+        """This step's augmentation draws: the global batch's under gspmd,
+        this rank's own under ddp."""
         if not self.config.data.augment:
             return None
-        return step_generator(self._aug_seed, self.global_step, self.device)
+        rank = self.spec.rank if self.config.strategy == "ddp" else None
+        return step_generator(self._aug_seed, self.global_step, self.device,
+                              rank)
 
     def _drain(self, pending: list, meters: dict) -> None:
         """Fold the queued device metrics into the meters: one host read
@@ -322,15 +432,16 @@ class Trainer:
 
     # ----------------------------------------------------------------- steps
     def run_steps(self, idx: torch.Tensor) -> dict:
-        """``idx.shape[0]`` device-resident steps over the batches of
-        indices ``idx [K, B]`` (on the device); returns their stacked
-        metrics, still on the device."""
+        """``idx.shape[0]`` device-resident steps over the global batches
+        of indices ``idx [K, B]`` (on the device; this rank runs its
+        columns); returns their stacked global metrics, still on the
+        device."""
         if self._multi_step is None:
             raise ValueError("run_steps needs device_resident_data=True")
-        metrics = self._multi_step(self.dev_images, self.dev_labels, idx,
-                                   self.global_step)
+        metrics = self._multi_step(self.dev_images, self.dev_labels,
+                                   idx[:, self._rows], self.global_step)
         self.global_step += idx.shape[0]
-        return metrics
+        return reduce_metrics(metrics, self.spec)
 
     # ----------------------------------------------------------------- loops
     def train_epoch(self, epoch: int) -> EpochResult:

@@ -410,16 +410,19 @@ def test_fit_matches_jax_trainer(jax_fit, fused, resident):
     assert got[-1]["loss_train"] < got[0]["loss_train"]
 
 
+# Multi-GPU data parallelism (strategy="ddp", data > 1, grad_bucket_mb,
+# sync BN) is ported (tests/test_torch_ddp*.py); its entries here became
+# what of it is still refused.
 @pytest.mark.parametrize("bad", [
-    dict(strategy="ddp"), dict(strategy="fsdp"),
+    dict(strategy="ddp", ddp_allreduce="ring"), dict(strategy="fsdp"),
     dict(strategy="spmd_pipeline"), dict(strategy="auto"),
-    dict(mesh=tconfig.MeshConfig(data=2)), dict(resume=True),
+    dict(mesh=tconfig.MeshConfig(data=2, dcn_data=2)), dict(resume=True),
     dict(check_finite_every=1), dict(consistency_every=1),
     dict(emergency_every=5), dict(elastic=True), dict(statusz_port=0),
-    dict(grad_bucket_mb=25.0),
+    dict(strategy="ddp", ddp_allreduce="hierarchical"),
     dict(recovery=tconfig.RecoveryConfig(max_retries=1)),
     dict(recovery=tconfig.RecoveryConfig(faults=("nan_loss@1",))),
-    dict(model=tconfig.ModelConfig(name="tinycnn", batchnorm="sync")),
+    dict(mesh=tconfig.MeshConfig(stage=2)),
     dict(data=tconfig.DataConfig(**{**DATA, "use_native": True})),
     dict(data=tconfig.DataConfig(**{**DATA, "image_size": 64,
                                      "synthetic_native_size": 32})),
@@ -448,4 +451,4 @@ def test_cli_prints_one_record_per_epoch(capsys):
     assert [r["epoch"] for r in records] == [0, 1]
     assert all(np.isfinite(r["loss_train"]) for r in records)
     with pytest.raises(SystemExit, match="ROADMAP A6"):
-        train_cnn.main(["--device", "cpu", "--num-devices", "2"])
+        train_cnn.main(["--device", "cpu", "--dcn-data", "2"])

@@ -27,7 +27,8 @@ bad = sorted(m for m in sys.modules
 print(" ".join(names), "|", bad)
 """
 
-# Every module of the serving, LM training and CNN training slices.
+# Every module of the serving, LM training, CNN training and data-parallel
+# slices.
 _MODULES = {
     "config", "models.transformer", "ops._build", "ops.paged_attention",
     "ops.flash_attention", "serve.engine", "serve.generate", "serve.model",
@@ -36,6 +37,7 @@ _MODULES = {
     "models.layers", "models.staged", "models.mobilenetv2", "models.tinycnn",
     "data.registry", "data.loader", "ops.collectives", "ops.fused_sgd",
     "train.trainer", "train.train_cnn",
+    "mesh", "parallel.data_parallel", "parallel.ddp", "parallel.workers",
 }
 
 
