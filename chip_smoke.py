@@ -90,14 +90,34 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     off — parameters and momentum bitwise equal across the ranks after
     every step, BN statistics different across ranks under local and
     bitwise equal under sync, and the sync step-0 loss against the
-    one-rank gspmd loss on the same rows.
+    one-rank gspmd loss on the same rows;
+13. pipeline — the CNN slice cut into stages, one ``FusedSGD`` per chunk:
+    (a) the runner in one process over ``[cuda:(c % n)]`` for 4 stages
+    (all on card 0 on a one-card machine, listed explicitly), cuDNN
+    deterministic: two naive (M=1) steps at the reference's cut
+    ``0,4,10,16,19`` bit for bit phase 11's one-device trainer, and gpipe
+    M=8 == 1f1b M=8 == interleaved V=2 M=8 (8 chunks at the port's
+    cost-balanced cut) bit for bit over two steps; then naive M=1, gpipe
+    M=4 and M=8, 1f1b M=8 and interleaved V=2 M=8 timed (20 steps after 3,
+    each synced: step s, samples/s, host enqueue, peak memory, fused_sgd
+    launches == chunks x steps) and one ``PipelineTrainer.fit`` epoch;
+    (b) the SPMD engine through ``mesh.spawn`` at 2 stages (two ranks on
+    the one card over gloo, or two cards over NCCL), gpipe and 1f1b M=4,
+    3 steps of ``Trainer(strategy="spmd_pipeline")``: each rank's
+    parameters, momentum and BN statistics bit for bit the runner's at
+    S=2 with the same cut and M; hops and bytes, µs a ring shift of the
+    boundary activation, step time.
 
 Prints the card line, each phase's seconds, a ``{"data_parallel": ...}``
-line, the ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device": {...}}``. Exits non-zero
+line, a ``{"pipeline": ...}`` line, the ``{"kernels": [...]}`` line and,
+last, ``{"ok": true, "device": {...}}``. Exits non-zero
 without a card, or when run outside a checkout of the repository.
 ``--sgd-timing-only`` runs phases 1, 2 (the fused SGD kernel) and 10 and
 prints their ``{"sgd_timing": ...}`` line: copied into another checkout,
-it measures that checkout's kernel the same way.
+it measures that checkout's kernel the same way. ``--pipeline-only``
+runs phases 1, 2 (the fused SGD kernel) and 13 and prints the
+``{"pipeline": ...}`` line: on a machine with four cards, it drives the
+runner with each stage on its own card and the SPMD engine over NCCL.
 """
 
 from __future__ import annotations
@@ -269,6 +289,22 @@ DP_TWO_RANK_STEPS = 5
 # by the world, a rank's rows dropped) moves the loss by O(1); per-rank
 # statistics under sync fail the bitwise BN gate instead.
 DP_LOSS_ATOL = 2e-2
+
+# The pipeline (phase 13): the CNN cell (MobileNetV2, batch 512, bf16
+# over f32, fused SGD lr 0.4 / momentum 0.9 / wd 1e-4) cut at the
+# reference's 4-GPU boundaries (scripts/train_model_parallel.py:8-9), one
+# FusedSGD per chunk. 13a: the runner in one process, every chunk on the
+# one card (listed explicitly); the schedules timed, cuDNN's autotuner off
+# (each microbatch size would take its own first pass). 13b: the SPMD
+# engine, 2 stages as 2 ranks at the port's cost-balanced 2-stage cut.
+PP_STAGES, PP_CUT = 4, (0, 4, 10, 16, 19)
+PP_WARM_STEPS, PP_TIMED_STEPS = 3, 20
+PP_RUNS = {                       # name -> (M, schedule, virtual stages)
+    "naive_m1": (1, "gpipe", 1), "gpipe_m4": (4, "gpipe", 1),
+    "gpipe_m8": (8, "gpipe", 1), "1f1b_m8": (8, "1f1b", 1),
+    "interleaved_v2_m8": (8, "1f1b", 2),
+}
+PP_SPMD_M, PP_SPMD_STEPS, PP_HOPS = 4, 3, 20
 
 
 def fail(phase: str, msg: str) -> None:
@@ -1498,11 +1534,12 @@ def dp_two_rank(spec) -> dict:
     return out
 
 
-def dp_spawn(mesh, fn, nproc: int, phase: str, **kw):
+def dp_spawn(mesh, fn, nproc: int, phase: str, *args, **kw):
     """``mesh.spawn`` of a phase's rank function; a failed or hung rank
     fails the phase."""
     try:
-        return mesh.spawn(fn, nproc, device="cuda", timeout_s=600, **kw)
+        return mesh.spawn(fn, nproc, *args, device="cuda", timeout_s=600,
+                          **kw)
     except (RuntimeError, TimeoutError, ValueError) as e:
         fail(phase, f"{type(e).__name__}: {e}")
 
@@ -1629,6 +1666,438 @@ def data_parallel(mesh, trainer_mod, tconfig, card) -> dict:
     return out
 
 
+def pp_runner(models, pipeline, tconfig, devices, cfg, *, m: int,
+              schedule: str = "gpipe", virtual: int = 1, boundaries=None,
+              augment: bool = True, steps_per_epoch: int = 4):
+    """A PipelineRunner over ``devices`` from the seed-0 MobileNetV2 (the
+    weights phase 11's trainer starts from), with ``cfg``'s optimizer and
+    its schedule over ``steps_per_epoch`` x ``cfg.epochs`` steps."""
+    from distributed_model_parallel_tpu_torch.data.registry import (
+        CIFAR10_MEAN,
+        CIFAR10_STD,
+    )
+
+    model = models.get_model(cfg.model, seed=cfg.seed, device="cpu")
+    return pipeline.PipelineRunner(
+        model, devices, optimizer=cfg.optimizer,
+        steps_per_epoch=steps_per_epoch, epochs=cfg.epochs,
+        mean=CIFAR10_MEAN, std=CIFAR10_STD,
+        boundaries=PP_CUT if boundaries is None else boundaries,
+        num_microbatches=m, augment=augment, schedule=schedule,
+        virtual_stages=virtual, dtype=models.DTYPES[cfg.model.dtype])
+
+
+def pp_state(runner) -> tuple:
+    """Every parameter, momentum trace and BN buffer of a runner, in unit
+    order, as numpy."""
+    moms = [st.optimizer.momentum_buffer(i) for st in runner.stages
+            for i in range(len(st.optimizer.params))]
+    return [x.detach().cpu().numpy().copy() for x in (
+        *runner.model.parameters(), *moms, *runner.model.buffers())]
+
+
+def pp_bitwise(a: list, b: list) -> tuple[int, float]:
+    import numpy as np
+
+    same = sum(np.array_equal(x, y) for x, y in zip(a, b))
+    gap = max(float(np.abs(x - y).max()) for x, y in zip(a, b))
+    return same, gap
+
+
+def pp_batches(cfg, idx_rows):
+    """The training set on the card and each step's gathered rows."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.data.registry import (
+        load_dataset,
+    )
+
+    train, _ = load_dataset(cfg.data)
+    images = torch.from_numpy(train.images).cuda()
+    labels = torch.from_numpy(train.labels).cuda()
+    return [(images[ix], labels[ix]) for ix in idx_rows]
+
+
+def pp_gates(models, pipeline, auto_partition, trainer_mod, tconfig,
+             devices, card) -> dict:
+    """13a's gates, cuDNN deterministic, augment off: (1) two naive (M=1)
+    steps over 4 chunks == phase 11's one-device trainer from the same
+    weights and batches; (2) gpipe M=8 == 1f1b M=8 == interleaved V=2 M=8
+    (8 chunks at the port's cost-balanced cut), two steps. All bit for
+    bit: losses, parameters, momentum, BN buffers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    cfg = cnn_config(tconfig)
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data, augment=False))
+    idx = cnn_dispatch_indices(4 * CNN_BATCH, 1)[0][:2]
+    ref = trainer_mod.Trainer(cfg)
+    ref_loss = ref.run_steps(idx)["loss"].cpu().numpy()
+    params = list(ref.model.parameters())
+    moms = [ref.optimizer.momentum_buffer(i) for i in range(len(params))]
+    ref_state = [x.detach().cpu().numpy()
+                 for x in (*params, *moms, *ref.model.buffers())]
+    del ref
+    batches = pp_batches(cfg, idx)
+    naive = pp_runner(models, pipeline, tconfig, devices, cfg, m=1,
+                      augment=False)
+    loss = np.array([float(pipeline.PipelineRunner.finalize_metrics(
+        naive.train_step_device(None, *b), CNN_BATCH)["loss"])
+        for b in batches], np.float32)
+    same, gap = pp_bitwise(pp_state(naive), ref_state)
+    print(f"pp gate naive [{card}]: two M=1 steps over {naive.num_chunks} "
+          f"chunks {naive.slices} on {[str(d) for d in naive.devices]} vs "
+          f"phase 11's one-device trainer, cuDNN deterministic, augment "
+          f"off, same weights and batches: losses {loss.tolist()} vs "
+          f"{ref_loss.tolist()}; parameters, momentum and BN buffers "
+          f"bitwise equal {same}/{len(ref_state)} (max |diff| {gap})")
+    if not (np.array_equal(loss, ref_loss) and same == len(ref_state)):
+        fail("13a/pipeline", "naive M=1 is not bitwise the one-device "
+                             "trainer")
+    del naive
+    cut8 = auto_partition.auto_boundaries(
+        models.get_model(cfg.model, device="cpu"),
+        (auto_partition.microbatch_rows(CNN_BATCH, 8), 32, 32, 3),
+        2 * PP_STAGES)
+    runs = {}
+    for name in ("gpipe_m8", "1f1b_m8", "interleaved_v2_m8"):
+        m, sched, v = PP_RUNS[name]
+        r = pp_runner(models, pipeline, tconfig, devices, cfg, m=m,
+                      schedule=sched, virtual=v,
+                      boundaries=cut8 if v > 1 else PP_CUT, augment=False)
+        losses = [pipeline.PipelineRunner.finalize_metrics(
+            r.train_step_device(None, *b), CNN_BATCH)["loss"]
+            for b in batches]
+        runs[name] = (losses, pp_state(r), r.num_chunks)
+        del r
+    base = runs["gpipe_m8"]
+    ok = True
+    for name in ("1f1b_m8", "interleaved_v2_m8"):
+        same, gap = pp_bitwise(runs[name][1], base[1])
+        print(f"pp gate schedules [{card}]: {name} ({runs[name][2]} chunks"
+              f"{', cut ' + str(cut8) if name.startswith('inter') else ''})"
+              f" vs gpipe_m8 ({base[2]} chunks, cut {list(PP_CUT)}), two "
+              f"steps: losses {runs[name][0]} vs {base[0]}; bitwise equal "
+              f"{same}/{len(base[1])} (max |diff| {gap})")
+        ok &= runs[name][0] == base[0] and same == len(base[1])
+    if not ok:
+        fail("13a/pipeline", "the schedules are not bit for bit the same")
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = bench
+    torch.cuda.empty_cache()
+    return {"naive_vs_trainer_bitwise": True, "schedules_bitwise": True,
+            "interleaved_cut": cut8}
+
+
+def sync_cards(devices) -> None:
+    """Waits for every card of ``devices`` (``torch.cuda.synchronize()``
+    waits for the current one only)."""
+    import torch
+
+    for d in sorted({str(x) for x in devices}):
+        torch.cuda.synchronize(d)
+
+
+def pp_time(models, pipeline, fs, tconfig, devices, cut8, card) -> dict:
+    """13a timing: each schedule of PP_RUNS from the seed-0 weights (the
+    interleaved one over the 8-chunk cut ``cut8``), augment on (one set of
+    draws per microbatch), batches already on the card; PP_WARM_STEPS
+    steps, then PP_TIMED_STEPS steps, each synced on every card: step s
+    (median), host enqueue (the call, no sync), peak memory (the most of
+    any card, and per card), fused_sgd launches counted
+    from 0 over the timed steps; then one step under the profiler (the
+    device's busy time in it)."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.data.loader import (
+        step_generator,
+    )
+
+    torch.backends.cudnn.benchmark = False
+    cfg = cnn_config(tconfig)
+    n = PP_WARM_STEPS + PP_TIMED_STEPS
+    idx = [i for ix in cnn_dispatch_indices(4 * CNN_BATCH, -(-n // CNN_SPD))
+           for i in ix][:n]
+    batches = pp_batches(cfg, idx)
+    cards = sorted(set(devices))
+    out = {}
+    for name, (m, sched, v) in PP_RUNS.items():
+        r = pp_runner(models, pipeline, tconfig, devices, cfg, m=m,
+                      schedule=sched, virtual=v,
+                      boundaries=cut8 if v > 1 else None)
+        step_s, host_s, losses = [], [], []
+        for k, b in enumerate(batches):
+            if k == PP_WARM_STEPS:
+                sync_cards(cards)
+                for d in cards:
+                    torch.cuda.reset_peak_memory_stats(d)
+                fs.fused_sgd_kernel.launches = 0
+            t0 = time.perf_counter()
+            mm = r.train_step_device(step_generator(1, k, "cuda"), *b)
+            t1 = time.perf_counter()
+            sync_cards(cards)
+            t2 = time.perf_counter()
+            if k >= PP_WARM_STEPS:
+                step_s.append(t2 - t0)
+                host_s.append(t1 - t0)
+                losses.append(pipeline.PipelineRunner.finalize_metrics(
+                    mm, CNN_BATCH)["loss"])
+        launches = fs.fused_sgd_kernel.launches
+        buckets = sum(len(st.optimizer.buckets) for st in r.stages)
+        def one_step():
+            mm = r.train_step_device(step_generator(1, n, "cuda"),
+                                     *batches[-1])
+            return f"loss {torch.stack([x['loss'] for x in mm]).mean()}"
+
+        rows = print_profile(f"pp step {name}", one_step, card,
+                             kind=cnn_kind)
+        rec = dict(m=m, schedule=sched, virtual_stages=v,
+                   chunks=r.num_chunks, step_s=statistics.median(step_s),
+                   samples_per_s=CNN_BATCH / statistics.median(step_s),
+                   host_enqueue_s=statistics.median(host_s),
+                   peak_bytes=max(torch.cuda.max_memory_allocated(d)
+                                  for d in cards),
+                   peak_bytes_per_card={d: torch.cuda.max_memory_allocated(
+                       d) for d in cards},
+                   fused_sgd=launches, want=buckets * PP_TIMED_STEPS,
+                   device_busy_us=sum(row[1] for row in rows) or None,
+                   losses=losses)
+        out[name] = rec
+        print(f"pp runner {name} [{card}]: M {m}, {sched}, V {v}, "
+              f"{r.num_chunks} chunks on {len(set(r.devices))} card(s); "
+              f"{PP_TIMED_STEPS} steps after {PP_WARM_STEPS}, each synced: "
+              f"step {rec['step_s']} s (median; min {min(step_s)}, max "
+              f"{max(step_s)}), samples/s {rec['samples_per_s']}, host "
+              f"enqueue {rec['host_enqueue_s']} s a step (median), "
+              f"torch.cuda.max_memory_allocated {rec['peak_bytes']} B "
+              f"(the most of any card; per card "
+              f"{rec['peak_bytes_per_card']}), "
+              f"fused_sgd launches {launches} (want chunks x buckets x steps"
+              f" = {rec['want']}); cudnn.benchmark False")
+        print(f"pp runner {name} losses: {losses}")
+        if launches != rec["want"] or not all(
+                math.isfinite(x) for x in losses):
+            fail("13a/pipeline", f"{name}: fused_sgd launches {launches} != "
+                                 f"{rec['want']} or non-finite losses")
+        del r
+        torch.cuda.empty_cache()
+    return out
+
+
+def pp_fit(pipeline_trainer, fs, tconfig, devices, card) -> dict:
+    """One PipelineTrainer.fit epoch through the normal entry point: 4
+    steps of gpipe M=4 over the 4-chunk cut (augment on), then eval."""
+    cfg = cnn_config(tconfig).replace(
+        mesh=tconfig.MeshConfig(stage=PP_STAGES), num_microbatches=4,
+        stage_boundaries=PP_CUT, device_resident_data=False, epochs=1)
+    t = pipeline_trainer.PipelineTrainer(cfg, devices)
+    before = fs.fused_sgd_kernel.launches
+    hist = t.fit()
+    n = fs.fused_sgd_kernel.launches - before
+    want = len(t.train_loader) * t.runner.num_chunks
+    print(f"pp fit [{card}]: PipelineTrainer, {PP_STAGES} stages on "
+          f"{devices}, gpipe M=4: {hist}; fused_sgd launches {n} (want "
+          f"{want})")
+    if n != want or not all(math.isfinite(hist[0][k])
+                            for k in ("loss_train", "loss_val")):
+        fail("13a/pipeline", f"fit: launches {n} != {want} or non-finite "
+                             f"{hist}")
+    return dict(history=hist, fused_sgd=n)
+
+
+def pp_spmd_config(tconfig, schedule: str, cut):
+    import dataclasses
+
+    cfg = cnn_config(tconfig).replace(
+        strategy="spmd_pipeline", mesh=tconfig.MeshConfig(stage=2),
+        num_microbatches=PP_SPMD_M, pipeline_schedule=schedule,
+        stage_boundaries=tuple(cut), device_resident_data=False)
+    return cfg.replace(data=dataclasses.replace(
+        cfg.data, augment=False,
+        synthetic_train_size=PP_SPMD_STEPS * CNN_BATCH))
+
+
+def pp_spmd_rank(spec, cut) -> dict:
+    """Phase 13b on one rank of the 2-stage mesh: per schedule, the
+    Trainer (strategy="spmd_pipeline") from the seed-0 weights, 3 steps
+    of epoch 0's batches (cuDNN deterministic, augment off), then its
+    stage's parameters, momentum and BN buffers, the hops of those steps,
+    epoch 1's steps (each synced) and PP_HOPS ring shifts of the boundary
+    activation."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch import config as tconfig
+    from distributed_model_parallel_tpu_torch.ops import collectives
+    from distributed_model_parallel_tpu_torch.train import (
+        trainer as trainer_mod,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    out = {"backend": spec.backend}
+    for schedule in ("gpipe", "1f1b"):
+        t = trainer_mod.Trainer(pp_spmd_config(tconfig, schedule, cut),
+                                spec=spec)
+        collectives.reset_counts()
+        losses = dp_streaming_losses(t, PP_SPMD_STEPS)
+        calls, nbytes = dict(collectives.calls), dict(collectives.wire_bytes)
+        moms = [t.optimizer.momentum_buffer(i)
+                for i in range(len(t.optimizer.params))]
+        state = [x.detach().cpu().numpy().copy() for x in (
+            *t.model.parameters(), *moms, *t.model.buffers())]
+        step_s = []
+        t.train_loader.set_epoch(1)
+        for images, labels in t.train_loader:
+            images, labels = t._to_device(images), t._to_device(labels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t._train_step(images, labels, None)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        shape, dtype = t.stage.specs(CNN_BATCH // PP_SPMD_M)[1]
+        buf = torch.zeros(shape, dtype=dtype, device=spec.device)
+        hop_s = []
+        for _ in range(PP_HOPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            collectives.ppermute_shift(buf, 1, spec.stage_group)
+            torch.cuda.synchronize()
+            hop_s.append(time.perf_counter() - t0)
+        out[schedule] = dict(
+            lo=t.stage.lo, hi=t.stage.hi, losses=losses, state=state,
+            calls=calls, bytes=nbytes, step_s=step_s,
+            hop_us=statistics.median(hop_s) * 1e6,
+            hop_bytes=buf.numel() * buf.element_size())
+        del t
+        torch.cuda.empty_cache()
+    return out
+
+
+def pp_spmd(mesh, models, pipeline, auto_partition, tconfig, card) -> dict:
+    """Phase 13b: the SPMD engine at stage 2 through mesh.spawn (two ranks
+    on the one card over gloo, or two cards over NCCL), gpipe and 1f1b
+    M=4, each rank's parameters, momentum and BN statistics after 3 steps
+    against the runner at S=2, the same cut, M and batches, bit for bit."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.data.loader import BatchLoader
+    from distributed_model_parallel_tpu_torch.data.registry import (
+        load_dataset,
+    )
+
+    two_cards = torch.cuda.device_count() >= 2
+    backend = "nccl" if two_cards else "gloo"
+    cut = auto_partition.auto_boundaries(
+        models.get_model(cnn_config(tconfig).model, device="cpu"),
+        (auto_partition.microbatch_rows(CNN_BATCH, PP_SPMD_M), 32, 32, 3), 2)
+    ranks = dp_spawn(mesh, pp_spmd_rank, 2, "13b/spmd pipeline", cut,
+                     backend=backend, config=tconfig.MeshConfig(stage=2))
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    devices = ["cuda:0", "cuda:1" if two_cards else "cuda:0"]
+    out = {"backend": backend, "cut": cut,
+           "where": "two cards" if two_cards else "both ranks on the one card"}
+    for schedule in ("gpipe", "1f1b"):
+        cfg = pp_spmd_config(tconfig, schedule, cut)
+        train, _ = load_dataset(cfg.data)
+        loader = BatchLoader(train, CNN_BATCH, shuffle=True, seed=0)
+        runner = pp_runner(models, pipeline, tconfig, devices, cfg,
+                           m=PP_SPMD_M, schedule=schedule, boundaries=cut,
+                           augment=False, steps_per_epoch=len(loader))
+        loader.set_epoch(0)
+        # The ranks' loss: the mean of the microbatch losses in f32.
+        losses = [float(torch.stack([m["loss"] for m in (
+            runner.train_step_device(None, torch.from_numpy(im).cuda(),
+                                     torch.from_numpy(lb).cuda()))]).mean())
+            for im, lb in loader]
+        want = []
+        for st in runner.stages:
+            moms = [st.optimizer.momentum_buffer(i)
+                    for i in range(len(st.optimizer.params))]
+            units = [runner.model.units[i] for i in range(st.lo, st.hi)]
+            want.append([x.detach().cpu().numpy().copy() for x in (
+                *(p for u in units for p in u.parameters()), *moms,
+                *(b for u in units for b in u.buffers()))])
+        rec = {}
+        for s, r in enumerate(ranks):
+            got = r[schedule]
+            same, gap = pp_bitwise(got["state"], want[s])
+            rec[s] = dict(same=same, leaves=len(want[s]), gap=gap)
+            if (got["lo"], got["hi"]) != (runner.stages[s].lo,
+                                          runner.stages[s].hi):
+                fail("13b/spmd pipeline", "a rank holds the wrong units")
+        r0 = ranks[0][schedule]
+        step_s = [statistics.median(r[schedule]["step_s"]) for r in ranks]
+        print(f"pp spmd {schedule} [{card}]: 2 stages as 2 ranks, backend "
+              f"{backend} ({out['where']}), cut {cut}, M {PP_SPMD_M}, "
+              f"{PP_SPMD_STEPS} steps of B {CNN_BATCH}, augment off: rank "
+              f"losses {r0['losses']} vs runner {losses}; parameters, "
+              f"momentum and BN buffers bitwise equal to the runner's at "
+              f"S=2: stage 0 {rec[0]['same']}/{rec[0]['leaves']}, stage 1 "
+              f"{rec[1]['same']}/{rec[1]['leaves']} (max |diff| "
+              f"{max(rec[0]['gap'], rec[1]['gap'])})")
+        print(f"pp spmd {schedule} hops [{card}]: stage 0 sent "
+              f"{r0['calls'].get('p2p_send', 0)} hops "
+              f"({r0['bytes'].get('p2p_send', 0)} B), received "
+              f"{r0['calls'].get('p2p_recv', 0)} "
+              f"({r0['bytes'].get('p2p_recv', 0)} B) in {PP_SPMD_STEPS} "
+              f"steps; a ring shift of the boundary activation "
+              f"({r0['hop_bytes']} B) {r0['hop_us']} us (median of "
+              f"{PP_HOPS}, synced, {backend}); step s per rank {step_s} "
+              f"(median of epoch 1's {len(r0['step_s'])} steps, each "
+              f"synced)")
+        ok = (all(v["same"] == v["leaves"] for v in rec.values())
+              and r0["losses"] == losses)
+        if not ok:
+            fail("13b/spmd pipeline", f"{schedule}: the ranks are not "
+                                      f"bitwise the runner at S=2")
+        out[schedule] = dict(losses=losses, step_s=step_s,
+                             hop_us=r0["hop_us"], hop_bytes=r0["hop_bytes"],
+                             hops_sent=r0["calls"].get("p2p_send", 0),
+                             bytes_sent=r0["bytes"].get("p2p_send", 0),
+                             bitwise=True)
+        del runner
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = bench
+    return out
+
+
+def pipeline_phase(laps, models, cnn_trainer, fs, tconfig, card) -> dict:
+    """Phase 13: the runner over ``[cuda:(c % n)]`` for PP_STAGES stages
+    (gates, timing, a fit epoch), then the SPMD engine at 2 stages."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch import mesh
+    from distributed_model_parallel_tpu_torch.parallel import (
+        auto_partition,
+        pipeline,
+    )
+    from distributed_model_parallel_tpu_torch.train import pipeline_trainer
+
+    n_cards = torch.cuda.device_count()
+    pp_devices = [f"cuda:{c % n_cards}" for c in range(PP_STAGES)]
+    pp = {"devices": pp_devices,
+          "gates": pp_gates(models, pipeline, auto_partition, cnn_trainer,
+                            tconfig, pp_devices, card)}
+    laps.done("13a/pipeline gates")
+    pp["runner"] = pp_time(models, pipeline, fs, tconfig, pp_devices,
+                           pp["gates"]["interleaved_cut"], card)
+    pp["fit"] = pp_fit(pipeline_trainer, fs, tconfig, pp_devices, card)
+    laps.done("13a/pipeline runner")
+    pp["spmd"] = pp_spmd(mesh, models, pipeline, auto_partition, tconfig,
+                         card)
+    laps.done("13b/spmd pipeline")
+    return pp
+
+
 class Laps:
     """Prints each phase's seconds since the previous phase ended."""
 
@@ -1650,7 +2119,13 @@ def main() -> None:
                          "10, print their JSON line and stop: the phase-10 "
                          "measure run against another checkout's port "
                          "(copy this script into it)")
+    ap.add_argument("--pipeline-only", action="store_true",
+                    help="run phases 1, 2 (the fused SGD kernel only) and "
+                         "13, print the pipeline's JSON line and stop: with "
+                         "four cards, each stage of the runner on its own "
+                         "card and the SPMD engine over NCCL")
     args = ap.parse_args()
+    only = args.sgd_timing_only or args.pipeline_only
     # -- phase 1: device ----------------------------------------------------
     laps = Laps()
     import torch
@@ -1713,7 +2188,7 @@ def main() -> None:
     # -- phase 2: build -----------------------------------------------------
     t = time.perf_counter()
     try:
-        paths = _build.build_all(("fused_sgd",) if args.sgd_timing_only
+        paths = _build.build_all(("fused_sgd",) if only
                                  else _build.KERNELS)
     except RuntimeError as e:
         fail("2/build", str(e))
@@ -1731,6 +2206,11 @@ def main() -> None:
         print(json.dumps({"sgd_timing": time_fused_sgd(
             fs, optim, tconfig, mnv2, card)}))
         laps.done("10/fused sgd timing")
+        return
+    if args.pipeline_only:
+        torch.backends.cudnn.benchmark = True      # as phase 11 leaves it
+        print(json.dumps({"pipeline": pipeline_phase(
+            laps, models, cnn_trainer, fs, tconfig, card), "card": card}))
         return
 
     # -- phase 3: kernel vs plain ---------------------------------------------
@@ -1954,6 +2434,10 @@ def main() -> None:
     dp = data_parallel(mesh, cnn_trainer, tconfig, card)
     laps.done("12/data parallel")
 
+    # -- phase 13: the pipeline -----------------------------------------------
+    pp = pipeline_phase(laps, models, cnn_trainer, fs, tconfig, card)
+    pp_launches = sum(r["fused_sgd"] for r in pp["runner"].values())
+
     kernels = [{
         "name": "paged_decode",
         "route": "cuda",
@@ -1995,11 +2479,14 @@ def main() -> None:
             "launches": sgd_launches[name],
             "launches_12a_gspmd": (dp["gspmd"]["fused_sgd_launches"]
                                    if name == "fused_sgd" else 0),
+            "launches_13a_pipeline": pp_launches if name == "fused_sgd"
+            else 0,
             "max_abs_err": sgd_err,
             **sgd_times[name],
             "in_step_us": sgd_in_step[name],
         })
     print(json.dumps({"data_parallel": dp, "card": card}))
+    print(json.dumps({"pipeline": pp, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

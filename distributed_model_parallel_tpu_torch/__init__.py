@@ -7,7 +7,8 @@ ported path becomes a kernel written by hand for Hopper (``sm_90a``),
 kept beside a plain PyTorch version of the same function.
 
 Ported so far — the serving path, single-device LM training, and CNN
-training on one device or data-parallel over ranks:
+training on one device, data-parallel over ranks, or pipelined over
+stages:
 
 * :mod:`.models.transformer` — the Transformer LM's serving subset
   (config, parameter layout, layer norm, RoPE, projections, sampling)
@@ -26,14 +27,16 @@ training on one device or data-parallel over ranks:
   the host, crop/flip and normalize on the device);
 * :mod:`.serve` — paged KV cache, continuous-batching scheduler, the
   paged prefill/decode steps and the engine loop;
-* :mod:`.train` — the LM and CNN trainers, SGD (per leaf or fused) with
-  its schedule, metrics, and two CLIs;
-* :mod:`.mesh` — the process group of the data axis (NCCL on the card,
-  gloo on the CPU), a rank's rows, and ``spawn``, the launcher of ranks;
-* :mod:`.ops.collectives` — the collectives over the data axis and the
-  bucket plan;
-* :mod:`.parallel` — DataParallel's phases and DDP (per-replica or
-  synchronized BatchNorm, the replication check);
+* :mod:`.train` — the LM and CNN trainers, the pipeline trainer, SGD
+  (per leaf or fused) with its schedule, metrics, and three CLIs;
+* :mod:`.mesh` — the process group of the ``(data, stage)`` mesh (NCCL
+  on the card, gloo on the CPU), a rank's coordinates, rows and
+  sub-groups, and ``spawn``, the launcher of ranks;
+* :mod:`.ops.collectives` — the collectives over the data axis, the
+  bucket plan, and the pipeline's point-to-point hops;
+* :mod:`.parallel` — DataParallel's phases, DDP (per-replica or
+  synchronized BatchNorm, the replication check), the pipeline runner,
+  the SPMD pipeline engine and the cost-balanced stage cut;
 * :mod:`.config` — the typed configuration the ported slices read.
 
 The package imports ``torch`` and numpy only: never ``jax``, and nothing

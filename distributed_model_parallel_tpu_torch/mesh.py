@@ -1,12 +1,17 @@
-"""Process group and data mesh — the port of
+"""Process group and ``(data, stage)`` mesh — the port of
 ``distributed_model_parallel_tpu/mesh.py``.
 
 The JAX package lays its devices out as a named ``jax.sharding.Mesh`` in
 one process; the port runs one process per rank, joined by a
 ``torch.distributed`` process group: NCCL on the card, gloo on the CPU.
-The data axis is the world: rank ``r`` of ``N`` holds rows
-``[r·B/N, (r+1)·B/N)`` of every global batch of ``B`` rows, in the order
-JAX shards the data axis.
+The ranks form JAX's device grid over ``(data, stage)``, row-major: rank
+``r`` of ``D·S`` sits at ``data = r // S``, ``stage = r % S``. Each rank
+belongs to two sub-groups: the ranks of its stage across the data rows
+(gradients and BatchNorm statistics are pooled there) and the ranks of
+its data row across the stages (the pipeline's point-to-point ring). With
+``stage == 1`` the data sub-group is the whole world. The data axis
+splits every global batch of ``B`` rows: data row ``d`` holds rows
+``[d·B/D, (d+1)·B/D)``, in the order JAX shards the data axis.
 
 * :func:`init_process_group` joins this process to the group, from
   torchrun's environment (``env://``, ``LOCAL_RANK`` picks the card) or
@@ -21,10 +26,11 @@ JAX shards the data axis.
   :func:`best_effort_distributed_init` keep the JAX package's contracts.
 
 The backend is never switched behind the caller's back: a CUDA rank runs
-NCCL unless the caller asks for gloo (two ranks sharing one card), and a
-rank that finds no card raises instead of running on the CPU. Not ported
-yet, and refused by name: ``dcn_data > 1`` (the two-level data axis
-across hosts, ROADMAP A6) and the other mesh axes (A7, A8, A9).
+NCCL, one rank per card, unless the caller asks for gloo (several ranks
+sharing one card), and a rank that finds no card raises instead of
+running on the CPU. Not ported yet, and refused by name: ``dcn_data > 1``
+(the two-level data axis across hosts, ROADMAP A6) and the ``model``,
+``seq`` and ``expert`` axes (A9).
 """
 
 from __future__ import annotations
@@ -42,16 +48,15 @@ import torch.distributed as dist
 
 from distributed_model_parallel_tpu_torch.config import MeshConfig
 
-# Mesh axes other than data, and the ROADMAP item that ports each.
-_OTHER_AXES = (("stage", "A7: pipeline"),
-               ("model", "A9: tensor parallelism"),
+# Mesh axes the port does not run, and the ROADMAP item that ports each.
+_OTHER_AXES = (("model", "A9: tensor parallelism"),
                ("seq", "A9: sequence parallelism"),
                ("expert", "A9: mixture of experts"))
 
 
 def check_mesh_config(config: MeshConfig) -> None:
     """Raise, naming the ROADMAP item, for a mesh the port does not run:
-    anything beyond one data axis."""
+    anything beyond the ``data`` and ``stage`` axes."""
     if config.dcn_data != 1:
         raise ValueError(f"MeshConfig(dcn_data={config.dcn_data}): the "
                          f"two-level data axis across hosts (hierarchical "
@@ -61,41 +66,95 @@ def check_mesh_config(config: MeshConfig) -> None:
         if getattr(config, axis) != 1:
             raise ValueError(f"MeshConfig({axis}={getattr(config, axis)}) "
                              f"is not ported yet (ROADMAP {item}); the port "
-                             f"runs the data axis only")
+                             f"runs the data and stage axes")
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """One rank's view of the data mesh: the mesh config, this rank, its
-    device, and the backend of its process group (None: a lone process
-    with no group, world 1)."""
+    """One rank's view of the ``(data, stage)`` mesh: the mesh config, this
+    rank, its device, the backend of its process group (None: a lone
+    process with no group, world 1) and its two sub-groups (None at
+    ``stage == 1``, where the data axis is the whole world and there is
+    no ring)."""
 
     config: MeshConfig
     rank: int = 0
     device: torch.device = torch.device("cpu")
     backend: str | None = None
+    data_group: object = None
+    stage_group: object = None
 
     @property
     def num_data(self) -> int:
         return self.config.data
 
     @property
+    def num_stages(self) -> int:
+        return self.config.stage
+
+    @property
     def data_axis(self) -> str:
         return self.config.data_axis
 
     @property
+    def stage_axis(self) -> str:
+        return self.config.stage_axis
+
+    @property
+    def coords(self) -> tuple[int, int]:
+        """This rank's ``(data, stage)`` position in JAX's device grid."""
+        return divmod(self.rank, self.num_stages)
+
+    @property
+    def data_index(self) -> int:
+        return self.coords[0]
+
+    @property
+    def stage_index(self) -> int:
+        return self.coords[1]
+
+    @property
     def group(self):
-        """The process group of the data axis (None without one)."""
-        return dist.group.WORLD if self.backend is not None else None
+        """The process group of the data axis — this rank's stage across
+        the data rows (None without a process group)."""
+        if self.backend is None:
+            return None
+        return self.data_group if self.data_group is not None else \
+            dist.group.WORLD
+
+    def stage_rank(self, stage: int) -> int:
+        """The global rank of ``stage`` in this rank's data row."""
+        return self.data_index * self.num_stages + stage
 
     def rows(self, global_batch: int) -> slice:
-        """This rank's rows of a global batch."""
+        """This rank's data row's rows of a global batch."""
         local = local_batch_slice(global_batch, self)
-        return slice(self.rank * local, (self.rank + 1) * local)
+        return slice(self.data_index * local, (self.data_index + 1) * local)
+
+
+def mesh_groups(data: int, stage: int) -> tuple[list, list]:
+    """The global ranks of every data sub-group (one per stage: the ranks
+    of that stage across the data rows) and of every stage ring (one per
+    data row), in the order :func:`init_process_group` creates them."""
+    return ([[d * stage + s for d in range(data)] for s in range(stage)],
+            [[d * stage + s for s in range(stage)] for d in range(data)])
+
+
+def _sub_groups(config: MeshConfig, rank: int) -> dict:
+    """Create every sub-group of the mesh (each rank must create all of
+    them, in the same order) and return this rank's two; nothing at
+    ``stage == 1``."""
+    if config.stage == 1:
+        return {}
+    data_ranks, stage_ranks = mesh_groups(config.data, config.stage)
+    d, s = divmod(rank, config.stage)
+    data_groups = [dist.new_group(r) for r in data_ranks]
+    stage_groups = [dist.new_group(r) for r in stage_ranks]
+    return {"data_group": data_groups[s], "stage_group": stage_groups[d]}
 
 
 def local_batch_slice(global_batch: int, spec: MeshSpec) -> int:
-    """Per-rank batch size; raises on an uneven split."""
+    """Rows per data row; raises on an uneven split."""
     d = spec.num_data
     if global_batch % d:
         raise ValueError(f"global batch {global_batch} not divisible by "
@@ -128,7 +187,7 @@ def init_process_group(config: MeshConfig | None = None, *,
                        rank: int | None = None, world: int | None = None,
                        init_method: str | None = None, device="cuda",
                        backend: str | None = None) -> MeshSpec:
-    """Join this process to the data axis' process group and return its
+    """Join this process to the mesh's process group and return its
     :class:`MeshSpec`. With ``rank`` None the group comes from torchrun's
     environment (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``; ``env://``);
     otherwise from ``rank``, ``world`` and ``init_method``. A CUDA rank
@@ -143,23 +202,29 @@ def init_process_group(config: MeshConfig | None = None, *,
         if world is None or init_method is None:
             raise ValueError("an explicit rank needs world and init_method")
     config = config or MeshConfig(data=world)
-    check_mesh_config(config)
-    if config.data != world:
-        raise ValueError(f"MeshConfig(data={config.data}) but the process "
-                         f"group has {world} rank(s)")
+    _check_world(config, world)
     if backend is None:
         backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
     dev = _rank_device(device, local_rank, backend)
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world)
-    return MeshSpec(config, rank, dev, backend)
+    return MeshSpec(config, rank, dev, backend, **_sub_groups(config, rank))
+
+
+def _check_world(config: MeshConfig, world: int) -> None:
+    check_mesh_config(config)
+    if config.data * config.stage != world:
+        raise ValueError(f"MeshConfig(data={config.data}, stage="
+                         f"{config.stage}) needs {config.data * config.stage}"
+                         f" rank(s) but the process group has {world}")
 
 
 def make_mesh(config: MeshConfig | None = None, device="cuda") -> MeshSpec:
     """This process's :class:`MeshSpec`: from its process group when it has
-    joined one (``config`` defaults to ``data=world``), else a lone
-    process at ``data=1`` on ``device``. A mesh of more ranks than the
-    group has raises."""
+    joined one (``config`` defaults to ``data=world``; every rank must
+    call, since a ``stage > 1`` mesh creates its sub-groups here), else a
+    lone process at ``data=1, stage=1`` on ``device``. A mesh of another
+    size than the group raises."""
     from distributed_model_parallel_tpu_torch.models.transformer import (
         resolve_device,
     )
@@ -167,25 +232,25 @@ def make_mesh(config: MeshConfig | None = None, device="cuda") -> MeshSpec:
     if not dist.is_initialized():
         config = config or MeshConfig()
         check_mesh_config(config)
-        if config.data != 1:
+        n = config.data * config.stage
+        if n != 1:
             raise ValueError(
-                f"MeshConfig(data={config.data}) needs a process group of "
-                f"{config.data} ranks: start them with mesh.spawn, "
-                f"train_cnn --nproc, or torchrun")
+                f"MeshConfig(data={config.data}, stage={config.stage}) needs "
+                f"a process group of {n} ranks: start them with mesh.spawn, "
+                f"train_cnn / train_model_parallel --nproc, or torchrun")
         return MeshSpec(config, 0, torch.empty(
             0, device=resolve_device(device)).device, None)
     world = dist.get_world_size()
     config = config or MeshConfig(data=world)
-    check_mesh_config(config)
-    if config.data != world:
-        raise ValueError(f"MeshConfig(data={config.data}) but the process "
-                         f"group has {world} rank(s)")
+    _check_world(config, world)
     kind = torch.device(device).type
     if kind == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
     else:
         dev = torch.device(kind)
-    return MeshSpec(config, dist.get_rank(), dev, dist.get_backend())
+    rank = dist.get_rank()
+    return MeshSpec(config, rank, dev, dist.get_backend(),
+                    **_sub_groups(config, rank))
 
 
 def best_effort_distributed_init(device="cuda") -> bool:

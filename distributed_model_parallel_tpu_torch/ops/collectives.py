@@ -1,5 +1,5 @@
-"""Collectives over the data axis — the port of
-``distributed_model_parallel_tpu/ops/collectives.py``.
+"""Collectives over the data axis and point-to-point hops over the stage
+ring — the port of ``distributed_model_parallel_tpu/ops/collectives.py``.
 
 The JAX functions run inside ``shard_map`` over a named axis; these run
 on every rank of a ``torch.distributed`` process group (``group=None``:
@@ -12,6 +12,11 @@ each function returns its input's value without a collective.
   trick: size-capped flat buckets in reverse leaf order, one all-reduce
   per bucket, each bucket on the wire in its promoted leaf dtype (or
   ``accum_dtype``, reduced there and cast back);
+* :func:`exchange`, :func:`send_to`, :func:`recv_from` and
+  :func:`ppermute_shift` — the pipeline's hops: one batch of
+  ``batch_isend_irecv`` (NCCL groups it, so the order of the hops inside
+  a batch cannot deadlock), tensors of static shape on the wire, nothing
+  of a shape negotiation;
 * :func:`unused_param_mask`, :func:`mesh_barrier`.
 
 Trees are tensors, lists, tuples and dicts; dict leaves are taken in
@@ -21,8 +26,7 @@ agree with the JAX package's. Every collective is counted, per call, in
 rank hands to it), as the kernel wrappers count their launches.
 
 Not ported, and raising by name: ``hierarchical_psum*`` (a two-level data
-axis, ``dcn_data > 1``, ROADMAP A6) and ``ppermute_shift`` (the
-pipeline, ROADMAP A7).
+axis, ``dcn_data > 1``, ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -223,10 +227,94 @@ def hierarchical_psum_tree(*args, **kwargs):
     hierarchical_psum()
 
 
-def ppermute_shift(*args, **kwargs):
-    """Stage-to-stage ring shift of the pipeline: not ported yet."""
-    raise ValueError("ppermute_shift belongs to the pipeline, which is not "
-                     "ported yet (ROADMAP A7: torch.distributed P2P)")
+# -- point to point: the pipeline's hops --------------------------------------
+
+def _host_staged(group) -> bool:
+    """gloo's send/recv take a tensor's pointer as host memory: on an H100
+    a raw gloo send of a CUDA tensor fails (``writev ... Bad address``),
+    so a CUDA tensor crosses a gloo group through a pinned host copy. A
+    gloo group on the card exists only where the caller asked for gloo
+    (``mesh.py`` never switches a backend), so the copy is never a silent
+    fallback."""
+    return dist.get_backend(group) == "gloo"
+
+
+def exchange(sends: Sequence[tuple[torch.Tensor, int]] = (),
+             recvs: Sequence[tuple[torch.Tensor, int]] = (), group=None, *,
+             kind: str = "p2p") -> None:
+    """One batch of point-to-point hops: every ``(tensor, dst)`` of
+    ``sends`` is sent to global rank ``dst`` and every ``(buffer, src)``
+    of ``recvs`` is filled from global rank ``src``, all posted together
+    (``batch_isend_irecv`` over ``group``); returns when all completed.
+    The peers post the matching batch; the order of hops inside a batch
+    does not matter. Each hop is counted under ``{kind}_send`` /
+    ``{kind}_recv``, bytes under the same names. A hop of a rank to itself
+    raises (the callers keep such values where they are). Over a gloo
+    group a CUDA tensor is staged through pinned host memory
+    (:func:`_host_staged`)."""
+    me = dist.get_rank() if dist.is_initialized() else 0
+    if any(peer == me for _, peer in (*sends, *recvs)):
+        raise ValueError(f"rank {me} cannot send a hop to itself")
+    ops, unstage = [], []
+    staged = None
+    for t, dst in sends:
+        calls[f"{kind}_send"] += 1
+        wire_bytes[f"{kind}_send"] += _nbytes(t)
+        if staged is None:
+            staged = _host_staged(group)
+        if staged and t.is_cuda:
+            t = torch.empty(t.shape, dtype=t.dtype,
+                            pin_memory=True).copy_(t)
+        ops.append(dist.P2POp(dist.isend, t.contiguous(), dst, group))
+    for buf, src in recvs:
+        calls[f"{kind}_recv"] += 1
+        wire_bytes[f"{kind}_recv"] += _nbytes(buf)
+        if staged is None:
+            staged = _host_staged(group)
+        target = buf
+        if staged and buf.is_cuda:
+            target = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+            unstage.append((buf, target))
+        ops.append(dist.P2POp(dist.irecv, target, src, group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for buf, host in unstage:
+        buf.copy_(host)
+
+
+def send_to(x: torch.Tensor, dst: int, group=None) -> None:
+    """One hop: ``x`` to global rank ``dst`` (which calls
+    :func:`recv_from`), counted as ``p2p_send``."""
+    exchange([(x, dst)], (), group)
+
+
+def recv_from(src: int, shape, dtype: torch.dtype, device,
+              group=None) -> torch.Tensor:
+    """One hop: a tensor of ``shape``/``dtype`` from global rank ``src``
+    (which calls :func:`send_to`), counted as ``p2p_recv``."""
+    buf = torch.empty(tuple(shape), dtype=dtype, device=device)
+    exchange((), [(buf, src)], group)
+    return buf
+
+
+def ppermute_shift(x: torch.Tensor, shift: int = 1, group=None
+                   ) -> torch.Tensor:
+    """Rotate ``x`` around the ring of ``group``'s ranks (in group-rank
+    order): group rank ``i`` sends to ``(i + shift) % n`` and receives
+    from ``(i - shift) % n``, as ``jax.lax.ppermute`` with that
+    permutation does; every rank of the group must call. Without a
+    process group (or at n 1) the value comes back as is (a copy)."""
+    n = world_size(group)
+    if n == 1 or shift % n == 0:
+        return x.clone()
+    i = dist.get_rank(group)
+    peer = lambda j: dist.get_global_rank(group, j % n) if group is not None \
+        else j % n
+    out = torch.empty_like(x)
+    exchange([(x, peer(i + shift))], [(out, peer(i - shift))], group,
+             kind="ppermute")
+    return out
 
 
 def mesh_barrier(spec) -> float:

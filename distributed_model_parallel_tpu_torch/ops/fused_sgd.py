@@ -18,7 +18,8 @@ nesterov, the learning rate and the update itself:
   own, so it equals the plain version bit for bit.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-or raises. Each wrapper counts its launches in ``.launches``.
+on its own card (made the current device for the launch) or raises. Each
+wrapper counts its launches in ``.launches``.
 :class:`BucketLauncher` is the launch that ``train/optim.FusedSGD`` keeps
 per bucket: its buffers are checked once when it is built
 (:func:`check_bucket`, device, 16-byte alignment), so a step passes the
@@ -107,8 +108,12 @@ def _require_cuda(p: torch.Tensor) -> None:
 
 def _call(fn, p_ptr, m_ptr, g_ptr, n, lr, momentum, weight_decay, nesterov,
           device) -> None:
-    rc = fn(p_ptr, m_ptr, g_ptr, n, lr, momentum, weight_decay, nesterov,
-            torch.cuda.current_stream(device).cuda_stream)
+    # The kernel launches on the current device: make it the bucket's, so
+    # that a bucket on cuda:k (a pipeline chunk's) runs on card k, on that
+    # card's current stream, ordered after the backward that filled g.
+    with torch.cuda.device(device):
+        rc = fn(p_ptr, m_ptr, g_ptr, n, lr, momentum, weight_decay,
+                nesterov, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_sgd kernel launch failed: CUDA error {rc}")
 

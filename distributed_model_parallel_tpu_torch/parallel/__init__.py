@@ -1,10 +1,17 @@
 """Parallel strategies of the port over a ``torch.distributed`` process
-group (``mesh.py``):
+group (``mesh.py``) or an explicit device list:
 
 * :mod:`.data_parallel` — DataParallel's scatter → replicate → apply →
   gather, one rank per process;
 * :mod:`.ddp` — explicit DDP: per-replica programs and BN state, the
   gradient all-reduce (per leaf or bucketed), the replication check;
+* :mod:`.pipeline` — the pipeline runner: chunks over an explicit device
+  list, the naive, GPipe, 1F1B and interleaved schedules, and the
+  per-chunk functions both pipeline engines run;
+* :mod:`.spmd_cnn_pipeline` — the SPMD pipeline engine, one process per
+  stage over point-to-point hops;
+* :mod:`.auto_partition` — cost-balanced stage boundaries (XLA's FLOP
+  count, the JAX package's cuts);
 * :mod:`.workers` — rank functions for ``mesh.spawn`` that run pieces of
-  the data-parallel path and return numpy results.
+  the data-parallel and pipeline paths and return numpy results.
 """

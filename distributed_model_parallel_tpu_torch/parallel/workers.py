@@ -1,6 +1,6 @@
 """Rank functions for :func:`~..mesh.spawn`: each runs one piece of the
-data-parallel path on every rank from numpy inputs and returns numpy
-results, which the caller holds against a reference (the tests hold
+data-parallel or pipeline path on every rank from numpy inputs and
+returns numpy results, which the caller holds against a reference (the tests hold
 them against the JAX package on the same inputs). They live in the
 package so that a spawned rank imports nothing but the port.
 """
@@ -27,6 +27,9 @@ from distributed_model_parallel_tpu_torch.models import (
 from distributed_model_parallel_tpu_torch.ops import collectives as C
 from distributed_model_parallel_tpu_torch.parallel import data_parallel as dp
 from distributed_model_parallel_tpu_torch.parallel import ddp
+from distributed_model_parallel_tpu_torch.parallel import (
+    spmd_cnn_pipeline as sp,
+)
 from distributed_model_parallel_tpu_torch.train.optim import (
     GradReducer,
     make_optimizer,
@@ -212,3 +215,102 @@ def mobilenet_grads_f64(spec: MeshSpec, params, state, images: np.ndarray,
     cross_entropy(logits, torch.from_numpy(labels[rows])).backward()
     reducer.finish()
     return params_to_jax(model, grads=True)[0], params_to_jax(model)[1]
+
+
+# -- the pipeline ----------------------------------------------------------------
+
+def several(spec: MeshSpec, calls: list) -> list:
+    """Several rank functions of this module in one spawn: ``calls`` are
+    ``(name, args)`` pairs; their results, in order."""
+    return [globals()[name](spec, *args) for name, args in calls]
+
+
+def mesh_coords(spec: MeshSpec) -> dict:
+    """This rank's ``(data, stage)`` coordinates and the global ranks of
+    its two sub-groups."""
+    import torch.distributed as dist
+
+    return dict(rank=spec.rank, coords=spec.coords,
+                data_group=dist.get_process_group_ranks(spec.group),
+                stage_group=dist.get_process_group_ranks(spec.stage_group))
+
+
+def ring_shifts(spec: MeshSpec, shifts: list) -> dict:
+    """``ppermute_shift`` of a tensor holding this rank's number, around
+    the stage ring and around the whole world, per shift; and one
+    ``send_to``/``recv_from`` hop from stage 0 to the last stage."""
+    me = torch.full((3,), float(spec.rank))
+    out = {"stage": {k: float(C.ppermute_shift(me, k, spec.stage_group)[0])
+                     for k in shifts},
+           "world": {k: float(C.ppermute_shift(me, k)[0]) for k in shifts}}
+    last = spec.stage_rank(spec.num_stages - 1)
+    if spec.stage_index == 0:
+        C.send_to(me * 10, last, spec.stage_group)
+    elif spec.rank == last:
+        out["hop"] = _np(C.recv_from(spec.stage_rank(0), (3,),
+                                     torch.float32, "cpu", spec.stage_group))
+    return out
+
+
+def spmd_pipeline_steps(spec: MeshSpec, cases: dict, params, state,
+                        images: np.ndarray, labels: np.ndarray, mean,
+                        std) -> dict:
+    """Per case, ``steps`` SPMD pipeline steps of tinycnn (augment off;
+    SGD lr 0.1, momentum 0.9, wd 1e-4, no warm-up, the JAX tests'
+    ``make_optimizer(..., 10, 10)`` schedule) from the given whole-model
+    weights on this rank's stage, over the global batch, then one eval
+    step. A case sets ``M``, ``schedule``, ``bn``, ``fused``, ``clip``,
+    ``boundaries`` and ``steps``. Returns this rank's stage range, its
+    parameters and BN state (JAX layout), momentum traces, the global
+    metrics per step, the eval metrics and the hops counted."""
+    rows = spec.rows(len(labels))
+    im, lb = torch.from_numpy(images[rows]), torch.from_numpy(labels[rows])
+    b_local = len(lb)
+    out = {}
+    for name, c in cases.items():
+        model = get_model(ModelConfig(name="tinycnn",
+                                      batchnorm=c.get("bn", "local")),
+                          device="cpu", axis=spec.group)
+        params_from_jax(model, params, state, "cpu")
+        stage = sp.CnnPipelineStage(model, spec, sample_shape=images.shape,
+                                    boundaries=c.get("boundaries"))
+        opt = make_optimizer(
+            OptimizerConfig(learning_rate=0.1, warmup_steps=0,
+                            fused=c.get("fused", False),
+                            grad_clip_norm=c.get("clip")), 10, 10,
+            stage.model.parameters())
+        reducer = (GradReducer(stage.model.parameters(), spec.group, opt)
+                   if spec.num_data > 1 else None)
+        kw = dict(mean=mean, std=std)
+        step = sp.make_spmd_cnn_train_step(
+            stage, opt, num_microbatches=c.get("M", 1), augment=False,
+            schedule=c.get("schedule", "gpipe"), reducer=reducer, **kw)
+        ev = sp.make_spmd_cnn_eval_step(stage, **kw)
+        C.reset_counts()
+        metrics = []
+        for _ in range(c.get("steps", 1)):
+            m = (step(im, lb) if stage.s == 0 else step(b_local=b_local))
+            metrics.append({k: float(v) for k, v in m.items()})
+        calls, nbytes = dict(C.calls), dict(C.wire_bytes)
+        e = ev(im, lb) if stage.s == 0 else ev(b_local=b_local)
+        p, st = params_to_jax(stage.model)
+        n = len(list(stage.model.parameters()))
+        out[name] = dict(
+            lo=stage.lo, hi=stage.hi, params=p, state=st,
+            momentum=[_np(opt.momentum_buffer(i)) for i in range(n)],
+            metrics=metrics, eval={k: float(v) for k, v in e.items()},
+            calls=calls, bytes=nbytes)
+    return out
+
+
+def spmd_trainer_fit(spec: MeshSpec, config, params, state, train: tuple,
+                     evals: tuple) -> dict:
+    """``Trainer(strategy="spmd_pipeline").fit()`` on this rank from the
+    given whole-model weights over ``train``/``evals`` ((images, labels)
+    numpy pairs): the history and this rank's stage parameters."""
+    t = Trainer(config, train_ds=ArrayDataset(*train, 10),
+                eval_ds=ArrayDataset(*evals, 10), params=params,
+                state=state, spec=spec)
+    history = t.fit()
+    return dict(history=history, lo=t.stage.lo, hi=t.stage.hi,
+                params=params_to_jax(t.model)[0])

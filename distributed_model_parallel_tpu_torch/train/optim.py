@@ -22,6 +22,7 @@ own flat gradient buffers, reduced in place.
 from __future__ import annotations
 
 import collections
+import contextlib
 import math
 import time
 from typing import Callable
@@ -68,10 +69,18 @@ def make_schedule(config: OptimizerConfig, steps_per_epoch: int,
 
 
 @torch.no_grad()
-def clip_by_global_norm_(grads: list, max_norm: float) -> None:
+def clip_by_global_norm_(grads: list, max_norm: float, group=None) -> None:
     """optax's ``clip_by_global_norm`` in place: t where ||g|| < max_norm,
-    else (t / ||g||) · max_norm — on the device, no host sync."""
-    norm = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+    else (t / ||g||) · max_norm — on the device, no host sync. ``group``:
+    ``grads`` are this rank's part of a tree spread over the group's ranks
+    (a pipeline's stages), and the norm is the whole tree's: the squared
+    sums are all-reduced before the root."""
+    sq = sum(g.float().pow(2).sum() for g in grads)
+    if group is not None:
+        sq = torch.as_tensor(sq, dtype=torch.float32,
+                             device=grads[0].device if grads else None)
+        all_reduce_(sq, group, kind="clip_norm")
+    norm = torch.sqrt(sq)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
@@ -79,14 +88,16 @@ def clip_by_global_norm_(grads: list, max_norm: float) -> None:
 
 class SGD:
     """``torch.optim.SGD`` driven by the schedule, with optax's
-    ``clip_by_global_norm`` in front when ``grad_clip_norm`` is set.
-    ``step()`` updates the parameters in place."""
+    ``clip_by_global_norm`` in front when ``grad_clip_norm`` is set (the
+    norm over ``clip_group``'s ranks when it is set). ``step()`` updates
+    the parameters in place."""
 
     def __init__(self, params, config: OptimizerConfig,
                  schedule: Callable[[int], float]):
         self.params = list(params)
         self.schedule = schedule
         self.clip = config.grad_clip_norm
+        self.clip_group = None
         self.count = 0
         momentum = config.momentum or 0.0
         self.opt = torch.optim.SGD(
@@ -110,7 +121,8 @@ class SGD:
     def step(self) -> None:
         if self.clip is not None:
             clip_by_global_norm_([p.grad for p in self.params
-                                  if p.grad is not None], self.clip)
+                                  if p.grad is not None], self.clip,
+                                 self.clip_group)
         for group in self.opt.param_groups:
             group["lr"] = self.lr
         self.opt.step()
@@ -154,6 +166,7 @@ class FusedSGD:
     Leaves that are not float32 are taken only on the CPU, where each
     step concatenates them in f32 and casts the delta back, as the JAX
     f32-master path does; on the card they raise (ROADMAP A4).
+    ``clip_group``, as :class:`SGD`'s.
     """
 
     def __init__(self, params, config: OptimizerConfig,
@@ -162,6 +175,7 @@ class FusedSGD:
         self.params = list(params)
         self.schedule = schedule
         self.clip = config.grad_clip_norm
+        self.clip_group = None
         self.count = 0
         self.momentum = float(config.momentum or 0.0)
         self.weight_decay = float(config.weight_decay)
@@ -251,7 +265,7 @@ class FusedSGD:
                  [p.grad if p.grad is not None else torch.zeros_like(p)
                   for p in self.params])
         if self.clip is not None:
-            clip_by_global_norm_(grads, self.clip)
+            clip_by_global_norm_(grads, self.clip, self.clip_group)
         lr, mu, wd = self.lr, self.momentum, self.weight_decay
         for b, bucket in enumerate(self.buckets):
             m = self._m[b]
@@ -298,6 +312,10 @@ class GradReducer:
     copy and split back. ``"psum"``: one all-reduce per parameter, on its
     ``.grad`` in place. A gradient never produced is taken as zeros.
 
+    Under :meth:`no_sync` (a pipeline's microbatches but the last) the
+    hooks launch nothing and the gradients accumulate, as under torch
+    DDP's ``no_sync``.
+
     The time from the first launch to the end of :meth:`finish` is kept
     per step (CUDA events on the card, the host clock on the CPU) and read
     by :meth:`take_times_us`.
@@ -323,6 +341,7 @@ class GradReducer:
                            for i in idx}
         self._cuda = self.params[0].device.type == "cuda"
         self.times = collections.deque(maxlen=4096)
+        self._sync = True
         self._reset()
         for i, p in enumerate(self.params):
             p.register_post_accumulate_grad_hook(self._hook(i))
@@ -333,8 +352,19 @@ class GradReducer:
         self._flat: list = [None] * len(self.buckets)
         self._start = None
 
+    @contextlib.contextmanager
+    def no_sync(self):
+        """Backward passes inside accumulate without launching."""
+        self._sync = False
+        try:
+            yield
+        finally:
+            self._sync = True
+
     def _hook(self, i: int):
         def hook(_param):
+            if not self._sync:
+                return
             b = self._bucket_of[i]
             self._pending[b] -= 1
             if self._pending[b] == 0:

@@ -1,5 +1,6 @@
 """CNN trainer — the port of ``distributed_model_parallel_tpu/train/
-trainer.py`` with ``strategy="gspmd"`` and ``"ddp"`` over the data axis.
+trainer.py`` with ``strategy="gspmd"`` and ``"ddp"`` over the data axis,
+and ``"spmd_pipeline"`` over a ``(data, stage)`` mesh.
 
 One step (:func:`make_train_step`): on-device augmentation (random crop
 with pad 4, horizontal flip) → normalize → forward with BatchNorm in
@@ -21,6 +22,14 @@ rows. Under ``ddp`` each rank has its own BN state (``"local"``) or
 cross-replica statistics (``"sync"``) and its own draws, from ``(seed +
 1, step, rank)`` (``parallel/ddp.py``). Parameters start equal on every
 rank: built from ``config.seed``, then broadcast from rank 0.
+
+The pipeline (``strategy="spmd_pipeline"``, ``MeshConfig(stage=S)``, S ≥
+2; ``parallel/spmd_cnn_pipeline.py``): each rank holds its stage's units
+only and steps its own optimizer; stage 0 of each data row loads that
+row's rows of the batch, draws the global batch's augmentation and takes
+its rows; BN normalizes by each data row's microbatch moments and the
+running statistics are pooled; evaluation runs forward-only through the
+pipeline. Metrics are the global batch's on every rank.
 
 :class:`Trainer` keeps the JAX trainer's loop shape: metrics stay device
 tensors until a drain at ``max_inflight_steps`` or the log cadence (one
@@ -109,8 +118,7 @@ _UNPORTED = (
     ("statusz_port", lambda c: c.statusz_port is not None,
      "A11: status exporter"),
 )
-_STRATEGIES = {"fsdp": "A8: FSDP", "spmd_pipeline": "A7: pipeline",
-               "auto": "A11: autotune"}
+_STRATEGIES = {"fsdp": "A8: FSDP", "auto": "A11: autotune"}
 
 
 def check_train_config(config: TrainConfig) -> None:
@@ -119,10 +127,17 @@ def check_train_config(config: TrainConfig) -> None:
     if config.strategy in _STRATEGIES:
         raise ValueError(f"strategy={config.strategy!r} is not ported yet "
                          f"(ROADMAP {_STRATEGIES[config.strategy]}); the "
-                         f"port runs 'gspmd' and 'ddp'")
-    if config.strategy not in ("gspmd", "ddp"):
+                         f"port runs 'gspmd', 'ddp' and 'spmd_pipeline'")
+    if config.strategy not in ("gspmd", "ddp", "spmd_pipeline"):
         raise KeyError(f"unknown strategy {config.strategy!r}")
     check_mesh_config(config.mesh)
+    if config.strategy == "spmd_pipeline":
+        check_spmd_pipeline_config(config)
+    elif config.mesh.stage != 1:
+        raise ValueError(f"MeshConfig(stage={config.mesh.stage}) is the "
+                         f"pipeline's axis: strategy='spmd_pipeline' runs it "
+                         f"(or train/pipeline_trainer.PipelineTrainer); "
+                         f"{config.strategy!r} runs the data axis only")
     if config.strategy == "ddp":
         from distributed_model_parallel_tpu_torch.parallel.ddp import (
             resolve_allreduce,
@@ -143,6 +158,41 @@ def check_train_config(config: TrainConfig) -> None:
            if refused(config)]
     if bad:
         raise ValueError(f"not ported yet: {', '.join(bad)}")
+
+
+def check_spmd_pipeline_config(config: TrainConfig) -> None:
+    """The JAX trainer's refusals for ``strategy="spmd_pipeline"``, with
+    its wording, and what of it the port does not run (ROADMAP A7)."""
+    if config.device_resident_data:
+        raise ValueError("device_resident_data is only supported with "
+                         "strategy='gspmd'")
+    if config.mesh.stage < 2:
+        raise ValueError("strategy='spmd_pipeline' needs mesh.stage >= 2 "
+                         "(use 'gspmd' for pure data parallelism)")
+    if config.pipeline_schedule not in ("gpipe", "1f1b"):
+        raise ValueError(
+            f"strategy='spmd_pipeline' implements the gpipe and 1f1b "
+            f"schedules, got {config.pipeline_schedule!r} (interleaved is a "
+            f"single-controller PipelineRunner schedule — no silent "
+            f"ignores)")
+    if config.virtual_stages != 1 and config.pipeline_schedule != "1f1b":
+        raise ValueError(
+            "strategy='spmd_pipeline' supports interleaved virtual stages "
+            "only under pipeline_schedule='1f1b' "
+            "(spmd_cnn_pipeline.make_cnn_1f1b_fwd_bwd); gpipe's "
+            "whole-program AD would gain nothing — no silent ignores")
+    from distributed_model_parallel_tpu_torch.parallel.spmd_cnn_pipeline import (  # noqa: E501
+        refuse_interleaved,
+    )
+
+    refuse_interleaved(config.virtual_stages)
+    n_chunks = config.mesh.stage * config.virtual_stages
+    b = config.stage_boundaries
+    if b is not None and len(b) != n_chunks + 1:
+        raise ValueError(
+            f"stage_boundaries has {len(b)} cut points but the pipeline "
+            f"splits into {n_chunks} chunks ({config.mesh.stage} stages x "
+            f"{config.virtual_stages} virtual) — provide {n_chunks + 1}")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
@@ -271,8 +321,8 @@ class EpochResult:
 
 
 class Trainer:
-    """Epoch driver (the JAX ``Trainer`` with ``strategy="gspmd"`` or
-    ``"ddp"``), one per rank.
+    """Epoch loop (the JAX ``Trainer`` with ``strategy="gspmd"``,
+    ``"ddp"`` or ``"spmd_pipeline"``), one per rank.
 
     ``spec``: this rank's :class:`~..mesh.MeshSpec` (default:
     ``make_mesh(config.mesh, config.device)`` — the process group this
@@ -282,6 +332,8 @@ class Trainer:
     ``state`` carries the leading per-replica axis
     (``parallel.ddp.replicate_model_state``) and rank r takes slice r.
     Default: :func:`~..models.get_model`'s init from ``config.seed``.
+    Under ``spmd_pipeline`` ``model`` is this rank's stage (``stage``)
+    and ``params``/``state`` are the whole model's trees.
     ``step_log`` holds the per-window records the JAX trainer logs at
     ``log_every_n_steps``; every rank keeps the same global numbers."""
 
@@ -311,31 +363,39 @@ class Trainer:
                              f"(ROADMAP A3)")
         # gspmd normalizes over the global batch whatever bn_mode says; with
         # one rank and no process group the statistics are the local ones.
+        pipe = config.strategy == "spmd_pipeline"
         bn = config.model.batchnorm
-        if not ddp and bn == "local":
+        if not ddp and not pipe and bn == "local":
             bn = "sync"
         if spec.group is None and bn == "sync":
             bn = "local"
-        self.model = get_model(
-            dataclasses.replace(config.model, batchnorm=bn),
-            seed=config.seed, device=self.device, axis=spec.group)
+        model_config = dataclasses.replace(config.model, batchnorm=bn)
         if (params is None) != (state is None):
             raise ValueError("pass params and state together")
-        if params is not None:
-            if ddp:
-                state = ddp.replica_state(state, spec.rank)
-            params_from_jax(self.model, params, state, self.device)
+        if pipe:
+            self.stage = self._pipeline_stage(model_config, params, state)
+            self.model = self.stage.model
+        else:
+            self.model = get_model(model_config, seed=config.seed,
+                                   device=self.device, axis=spec.group)
+            if params is not None:
+                if ddp:
+                    state = ddp.replica_state(state, spec.rank)
+                params_from_jax(self.model, params, state, self.device)
         self.dtype = DTYPES[config.model.dtype]
 
         bs = config.data.batch_size
         self._rows = spec.rows(bs)
+        eval_bs = min(config.data.eval_batch_size, len(eval_ds))
+        # A pipeline's stages past 0 take no rows (stage 0 holds the data).
+        loads = not pipe or spec.stage_index == 0
         self.train_loader = BatchLoader(
             train_ds, bs, shuffle=config.data.shuffle,
             seed=config.data.seed, use_native=config.data.use_native,
-            rows=self._rows)
-        eval_bs = min(config.data.eval_batch_size, len(eval_ds))
-        self.eval_loader = BatchLoader(eval_ds, eval_bs, shuffle=False,
-                                       rows=spec.rows(eval_bs))
+            rows=self._rows if loads else slice(0, 0))
+        self.eval_loader = BatchLoader(
+            eval_ds, eval_bs, shuffle=False,
+            rows=spec.rows(eval_bs) if loads else slice(0, 0))
         if ddp:
             allreduce, bucket_bytes = ddp.resolve_allreduce(
                 config.ddp_allreduce, config.ddp_bucket_bytes,
@@ -344,16 +404,20 @@ class Trainer:
             config.optimizer, len(self.train_loader), config.epochs,
             self.model.parameters(),
             bucket_bytes=bucket_bytes if ddp else None)
-        if spec.group is not None:
+        if spec.group is not None and (not pipe or spec.num_data > 1):
             # Rank 0's parameters everywhere (and its BN state, unless each
-            # replica was given its own).
+            # replica was given its own); a pipeline's, over each stage's
+            # data rows.
             replicate(list(self.model.parameters()) + (
                 [] if ddp and state is not None
                 else list(self.model.buffers())), spec)
         kw = dict(mean=train_ds.mean, std=train_ds.std, dtype=self.dtype)
         self._aug_seed = config.seed + 1
         self._multi_step = None
-        if ddp:
+        if pipe:
+            self._pipeline_steps(bs // spec.num_data,
+                                 eval_bs // spec.num_data, kw)
+        elif ddp:
             self._train_step = ddp.make_ddp_train_step(
                 self.model, self.optimizer, spec,
                 augment=config.data.augment, bucket_bytes=bucket_bytes,
@@ -385,6 +449,60 @@ class Trainer:
         self.global_step = 0
         self.best_acc = 0.0
         self.step_log: list[dict] = []
+
+    # -------------------------------------------------------------- pipeline
+    def _pipeline_stage(self, model_config, params, state):
+        """This rank's stage: the full model built (or loaded) on the CPU,
+        cut at ``stage_boundaries`` (or ``auto_partition``'s cost-balanced
+        cut at the microbatch rows), its stage's units moved to the
+        device."""
+        from distributed_model_parallel_tpu_torch.parallel import (
+            auto_partition,
+            spmd_cnn_pipeline,
+        )
+
+        config, spec = self.config, self.spec
+        full = get_model(model_config, seed=config.seed, device="cpu",
+                         axis=spec.group)
+        if params is not None:
+            params_from_jax(full, params, state, "cpu")
+        image_shape = self.train_ds.images.shape[1:]
+        boundaries = config.stage_boundaries
+        if boundaries is None and config.auto_partition:
+            micro = auto_partition.microbatch_rows(
+                config.data.batch_size, config.num_microbatches,
+                spec.num_data)
+            boundaries = auto_partition.auto_boundaries(
+                full, (micro, *image_shape),
+                spec.num_stages * config.virtual_stages)
+        self.boundaries = boundaries
+        return spmd_cnn_pipeline.CnnPipelineStage(
+            full, spec, sample_shape=image_shape, boundaries=boundaries,
+            bn_momentum=config.model.bn_momentum)
+
+    def _pipeline_steps(self, b_local: int, eval_local: int, kw) -> None:
+        """The pipeline's train and eval steps; the stages past 0 run
+        theirs with no data."""
+        from distributed_model_parallel_tpu_torch.parallel import (
+            spmd_cnn_pipeline as sp,
+        )
+
+        config, spec = self.config, self.spec
+        self.reducer = (GradReducer(self.model.parameters(), spec.group,
+                                    self.optimizer)
+                        if spec.num_data > 1 else None)
+        step = sp.make_spmd_cnn_train_step(
+            self.stage, self.optimizer,
+            num_microbatches=config.num_microbatches,
+            augment=config.data.augment, schedule=config.pipeline_schedule,
+            virtual_stages=config.virtual_stages, reducer=self.reducer, **kw)
+        ev = sp.make_spmd_cnn_eval_step(self.stage, **kw)
+        if self.stage.s == 0:
+            self._train_step = step
+            self._eval_step = ev
+        else:
+            self._train_step = lambda *_: step(b_local=b_local)
+            self._eval_step = lambda *_: ev(b_local=eval_local)
 
     # ------------------------------------------------------------------ data
     def _to_device(self, a: np.ndarray) -> torch.Tensor:

@@ -411,18 +411,21 @@ def test_fit_matches_jax_trainer(jax_fit, fused, resident):
 
 
 # Multi-GPU data parallelism (strategy="ddp", data > 1, grad_bucket_mb,
-# sync BN) is ported (tests/test_torch_ddp*.py); its entries here became
-# what of it is still refused.
+# sync BN) and the pipeline (strategy="spmd_pipeline", the stage axis)
+# are ported (tests/test_torch_ddp*.py, tests/test_torch_*pipeline*.py);
+# their entries here became what of them is still refused.
 @pytest.mark.parametrize("bad", [
     dict(strategy="ddp", ddp_allreduce="ring"), dict(strategy="fsdp"),
-    dict(strategy="spmd_pipeline"), dict(strategy="auto"),
+    dict(strategy="spmd_pipeline", mesh=tconfig.MeshConfig(stage=2),
+         pipeline_schedule="1f1b", virtual_stages=2),
+    dict(strategy="auto"),
     dict(mesh=tconfig.MeshConfig(data=2, dcn_data=2)), dict(resume=True),
     dict(check_finite_every=1), dict(consistency_every=1),
     dict(emergency_every=5), dict(elastic=True), dict(statusz_port=0),
     dict(strategy="ddp", ddp_allreduce="hierarchical"),
     dict(recovery=tconfig.RecoveryConfig(max_retries=1)),
     dict(recovery=tconfig.RecoveryConfig(faults=("nan_loss@1",))),
-    dict(mesh=tconfig.MeshConfig(stage=2)),
+    dict(mesh=tconfig.MeshConfig(stage=2, model=2)),
     dict(data=tconfig.DataConfig(**{**DATA, "use_native": True})),
     dict(data=tconfig.DataConfig(**{**DATA, "image_size": 64,
                                      "synthetic_native_size": 32})),

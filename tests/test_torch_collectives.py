@@ -23,6 +23,9 @@ from distributed_model_parallel_tpu_torch import config as tconfig
 from distributed_model_parallel_tpu_torch import mesh as tmesh
 from distributed_model_parallel_tpu_torch.ops import collectives as tcoll
 from distributed_model_parallel_tpu_torch.parallel import ddp as tddp
+from distributed_model_parallel_tpu_torch.parallel import (
+    spmd_cnn_pipeline as tsp,
+)
 from distributed_model_parallel_tpu_torch.parallel import workers
 
 pytestmark = pytest.mark.torch_port
@@ -298,13 +301,14 @@ def test_spawn_times_out_and_kills_its_ranks(tmp_path):
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda: tcoll.ppermute_shift(torch.ones(2)), "ROADMAP A7"),
+    (lambda: tsp.make_cnn_1f1b_fwd_bwd(None, virtual_stages=2),
+     "ROADMAP A7"),
     (lambda: tcoll.hierarchical_psum(torch.ones(2)), "ROADMAP A6"),
     (lambda: tcoll.hierarchical_psum_tree({}), "ROADMAP A6"),
     (lambda: tmesh.make_mesh(tconfig.MeshConfig(data=2, dcn_data=2),
                              "cpu"), "ROADMAP A6"),
     (lambda: tmesh.make_mesh(tconfig.MeshConfig(stage=2), "cpu"),
-     "ROADMAP A7"),
+     "needs a process group of 2 ranks"),
     (lambda: tmesh.make_mesh(tconfig.MeshConfig(data=2), "cpu"),
      "needs a process group of 2 ranks"),
     (lambda: tddp.resolve_allreduce("ring"), "ROADMAP A8"),
@@ -358,3 +362,16 @@ def test_replicate_model_state_matches_jax():
     assert jax.tree.structure(got) == jax.tree.structure(state)
     np.testing.assert_array_equal(
         tddp.replica_state(got, 2)[0]["bn0"]["mean"], state[0]["bn0"]["mean"])
+
+
+@pytest.mark.parametrize("side", ["send", "recv"])
+def test_exchange_refuses_a_hop_to_itself(side):
+    """A hop names another rank: a rank's own value stays where it is (the
+    engines keep it), so a hop to or from the rank itself raises before
+    anything is counted or posted."""
+    tcoll.reset_counts()
+    x = torch.zeros(3)
+    hops = ([(x, 0)], ()) if side == "send" else ((), [(x, 0)])
+    with pytest.raises(ValueError, match="to itself"):
+        tcoll.exchange(*hops)
+    assert not any(tcoll.calls.values())

@@ -366,3 +366,36 @@ def test_phase10_byte_and_bound_arithmetic(shape, variant, bytes_, bound_ms):
     # The R sets of one shape hold at least 3x the card's 50 MB L2.
     s = cs.SGD_TIMING_SHAPES[shape]
     assert s["sets"] * 12 * n >= 3 * 50e6 and s["launches"] % s["sets"] == 0
+
+
+@pytest.mark.parametrize("index", [0, 1, 3])
+def test_kernel_launches_on_its_buckets_card(monkeypatch, index):
+    """The kernel launches on the current device, so a bucket on cuda:k
+    (a pipeline chunk's) is launched with cuda:k made current and on
+    cuda:k's stream, and the previous device is current again after."""
+    current = [0]
+    seen = {}
+
+    class Guard:
+        def __init__(self, device):
+            self.index = torch.device(device).index
+
+        def __enter__(self):
+            self.prev, current[0] = current[0], self.index
+
+        def __exit__(self, *exc):
+            current[0] = self.prev
+
+    def stream(device):
+        return type("S", (), {"cuda_stream": 100 + torch.device(device).index})
+
+    def kernel(*args):
+        seen.update(current=current[0], stream=args[-1])
+        return 0
+
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", stream)
+    fs._call(kernel, 16, 32, 48, 40, 0.1, 0.9, 1e-4, 0,
+             torch.device("cuda", index))
+    assert seen == {"current": index, "stream": 100 + index}
+    assert current[0] == 0

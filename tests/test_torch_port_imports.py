@@ -27,8 +27,8 @@ bad = sorted(m for m in sys.modules
 print(" ".join(names), "|", bad)
 """
 
-# Every module of the serving, LM training, CNN training and data-parallel
-# slices.
+# Every module of the serving, LM training, CNN training, data-parallel
+# and pipeline slices.
 _MODULES = {
     "config", "models.transformer", "ops._build", "ops.paged_attention",
     "ops.flash_attention", "serve.engine", "serve.generate", "serve.model",
@@ -38,6 +38,9 @@ _MODULES = {
     "data.registry", "data.loader", "ops.collectives", "ops.fused_sgd",
     "train.trainer", "train.train_cnn",
     "mesh", "parallel.data_parallel", "parallel.ddp", "parallel.workers",
+    "parallel.pipeline", "parallel.auto_partition",
+    "parallel.spmd_cnn_pipeline", "train.pipeline_trainer",
+    "train.train_model_parallel",
 }
 
 
