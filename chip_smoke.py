@@ -106,11 +106,33 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     3 steps of ``Trainer(strategy="spmd_pipeline")``: each rank's
     parameters, momentum and BN statistics bit for bit the runner's at
     S=2 with the same cut and M; hops and bytes, µs a ring shift of the
-    boundary activation, step time.
+    boundary activation, step time;
+14. ResNet and the remaining data-parallel engines: (a) bench.py's CNN
+    workload with ``DMP_BENCH_MODEL=resnet50`` (ResNet-50, CIFAR layout,
+    batch 512, bf16 over f32, fused SGD over two buckets, device-resident,
+    10 steps per dispatch): the two-step fused vs ``torch.optim.SGD``
+    check, bench.py's timing shape (samples/s, MFU, peak memory;
+    fused_sgd launches == steps x buckets, counted from 0 over the timed
+    steps), 20 momentum-0 steps (plain_sgd == steps x buckets), a
+    profiled step with the fused kernel's device time beside its byte
+    bound, one ResNet-18 step and ResNet-50's ImageNet layout forward at
+    batch 32 on 224 px; (b) two ranks (both on the one card over gloo, or
+    two cards over NCCL), ResNet-50 in f32 at batch 128, augment off,
+    cuDNN deterministic, 3 steps a case, each step from the reference
+    run's state: ddp ``allreduce="ring"`` vs ``"bucketed"`` and ZeRO
+    (fused SGD kernel on each rank's slice, then momentum 0) vs gspmd's
+    FusedSGD, parameters per leaf within 1e-5 relative and bitwise equal
+    across ranks, one kernel launch a step a rank under ZeRO and its
+    momentum bytes beside gspmd's; fsdp vs gspmd within
+    tests/test_fsdp.py's bounds, each rank's resident bytes; the sparse
+    bag-of-words (BowConfig's defaults, 512 rows x 64 tokens, 5 steps)
+    against dense SGD on the global batch within 1e-5, tables bitwise
+    equal across ranks.
 
 Prints the card line, each phase's seconds, a ``{"data_parallel": ...}``
-line, a ``{"pipeline": ...}`` line, the ``{"kernels": [...]}`` line and,
-last, ``{"ok": true, "device": {...}}``. Exits non-zero
+line, a ``{"pipeline": ...}`` line, a ``{"resnet": ...}`` line, a
+``{"dp_engines": ...}`` line, the ``{"kernels": [...]}`` line and, last,
+``{"ok": true, "device": {...}}``. Exits non-zero
 without a card, or when run outside a checkout of the repository.
 ``--sgd-timing-only`` runs phases 1, 2 (the fused SGD kernel) and 10 and
 prints their ``{"sgd_timing": ...}`` line: copied into another checkout,
@@ -118,6 +140,12 @@ it measures that checkout's kernel the same way. ``--pipeline-only``
 runs phases 1, 2 (the fused SGD kernel) and 13 and prints the
 ``{"pipeline": ...}`` line: on a machine with four cards, it drives the
 runner with each stage on its own card and the SPMD engine over NCCL.
+``--dp-only`` runs phases 1, 2 (the fused SGD kernel) and 14b at world =
+``device_count()`` over NCCL and prints the ``{"dp_engines": ...}`` line;
+with more than one card it adds BASELINE.json's pair per engine
+(bucketed, ring, ZeRO, fsdp, gspmd): samples/s a card over 10 more steps
+and the gradient reduction's µs a step by CUDA events (not measured for
+fsdp, whose reduce-scatters run inside the backward).
 """
 
 from __future__ import annotations
@@ -305,6 +333,33 @@ PP_RUNS = {                       # name -> (M, schedule, virtual stages)
     "interleaved_v2_m8": (8, "1f1b", 2),
 }
 PP_SPMD_M, PP_SPMD_STEPS, PP_HOPS = 4, 3, 20
+
+# ResNet (phase 14a): bench.py's CNN workload with DMP_BENCH_MODEL=resnet50
+# (bench.py:1320-1387, 1542-1545) — ResNet-50 in the CIFAR layout, the rest
+# as phase 11 (batch 512, bf16 over f32, fused SGD, device-resident, 10
+# steps per dispatch, bench.py's timing shape). Its 23,520,842 f32
+# parameters make two fused SGD buckets at the 64 MiB cap. Beside it one
+# ResNet-18 step, and ResNet-50's ImageNet layout (7x7 stride-2 stem, 3x3
+# SAME max-pool) forward at batch 32 on 224 px input made at that size.
+RN_MODEL, RN_SIDE_MODEL = "resnet50", "resnet18"
+RN_IMAGENET_BATCH, RN_IMAGENET_PX = 32, 224
+# The DP engines (phase 14b): ResNet-50 in f32 (the gates are the JAX
+# package's f32 bounds), global batch 128, augment off, SGD lr 0.01 /
+# momentum 0.9 / wd 1e-4 without warm-up (at 0.1 the loss climbs from 2.6
+# to 36 in 3 steps), DPE_STEPS steps per case from the
+# same weights and batches. DPE_RTOL: ring vs bucketed and ZeRO vs gspmd,
+# per leaf max|a - b| / max|b| after every step — two ranks sum two
+# values in either order to the same bits, so any gap is a fault of the
+# transport or of the slice update, not of rounding. fsdp vs gspmd:
+# tests/test_fsdp.py's bounds (losses rel 2e-4; params rtol 2e-4, atol
+# 2e-5). The sparse BOW at BowConfig's defaults (vocab 10,000, embed 64,
+# 10 classes), 512 rows x 64 tokens, 5 steps at lr 0.1 against dense SGD
+# on the global batch: tests/test_sparse_embedding.py's bounds.
+DPE_BATCH, DPE_STEPS, DPE_TIMED_STEPS, DPE_LR = 128, 3, 10, 0.01
+DPE_RTOL = 1e-5
+FSDP_LOSS_RTOL, FSDP_RTOL, FSDP_ATOL = 2e-4, 2e-4, 2e-5
+BOW_ROWS, BOW_TOKENS, BOW_STEPS, BOW_LR = 512, 64, 5, 0.1
+BOW_RTOL, BOW_ATOL = 1e-5, 1e-6
 
 
 def fail(phase: str, msg: str) -> None:
@@ -1110,10 +1165,11 @@ def time_fused_sgd(fs, optim, tconfig, model_params, card) -> dict:
     return out
 
 
-def cnn_config(tconfig, **optimizer):
-    """The CNN slice's TrainConfig (bench.py's CNN workload, one card)."""
+def cnn_config(tconfig, model: str = "mobilenetv2", **optimizer):
+    """The CNN slice's TrainConfig (bench.py's CNN workload, one card;
+    ``model``: DMP_BENCH_MODEL)."""
     return tconfig.TrainConfig(
-        model=tconfig.ModelConfig(name="mobilenetv2", dtype="bfloat16"),
+        model=tconfig.ModelConfig(name=model, dtype="bfloat16"),
         data=tconfig.DataConfig(
             name="synthetic", batch_size=CNN_BATCH,
             eval_batch_size=CNN_BATCH, image_size=32,
@@ -1152,21 +1208,22 @@ def cnn_kind(key: str) -> str:
     return "other (elementwise, copies, reductions)"
 
 
-def check_cnn_step(trainer_mod, models, staged, tconfig) -> None:
-    """Phase 11a: two steps of the CNN slice from the same weights and
-    batches through the fused kernel and through ``torch.optim.SGD``
-    (``fused=False``): losses, every leaf's step-1 update and the BN
-    statistics."""
+def check_cnn_step(trainer_mod, models, staged, tconfig,
+                   model: str = "mobilenetv2", phase: str = "11/cnn") -> None:
+    """Phase 11a (14a for ResNet-50): two steps of the CNN slice from the
+    same weights and batches through the fused kernel and through
+    ``torch.optim.SGD`` (``fused=False``): losses, every leaf's step-1
+    update and the BN statistics."""
     import numpy as np
     import torch
 
     params, state = staged.params_to_jax(models.get_model(
-        tconfig.ModelConfig(name="mobilenetv2", dtype="bfloat16"), seed=0,
+        tconfig.ModelConfig(name=model, dtype="bfloat16"), seed=0,
         device="cpu"))
     idx = cnn_dispatch_indices(4 * CNN_BATCH, 1)[0][:2]
     runs = {}
     for fused in (True, False):
-        t = trainer_mod.Trainer(cnn_config(tconfig, fused=fused),
+        t = trainer_mod.Trainer(cnn_config(tconfig, model, fused=fused),
                                 params=params, state=state)
         t.run_steps(idx[:1])
         p1 = [p.detach().clone() for p in t.model.parameters()]
@@ -1183,14 +1240,15 @@ def check_cnn_step(trainer_mod, models, staged, tconfig) -> None:
               for a, b in zip(upd_a, upd_b))
     st = max(((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
              for a, b in zip(st_a, st_b))
-    print(f"cnn check: step-1 loss fused {loss_a} vs torch.optim.SGD "
+    label = "cnn" if model == "mobilenetv2" else model
+    print(f"{label} check: step-1 loss fused {loss_a} vs torch.optim.SGD "
           f"{loss_b} (|diff| {loss_err}, atol {CNN_LOSS_ATOL}); step-1 "
           f"update per leaf max|a-b|/max|b| {upd:.3e} (rtol "
           f"{CNN_UPDATE_RTOL}); BN statistics {st:.3e} (rtol "
           f"{CNN_STATS_RTOL})")
     if not (loss_err <= CNN_LOSS_ATOL and upd <= CNN_UPDATE_RTOL
             and st <= CNN_STATS_RTOL and np.isfinite(loss_a).all()):
-        fail("11/cnn", "fused vs plain update outside tolerance")
+        fail(phase, "fused vs plain update outside tolerance")
     torch.cuda.empty_cache()
 
 
@@ -2098,6 +2156,538 @@ def pipeline_phase(laps, models, cnn_trainer, fs, tconfig, card) -> dict:
     return pp
 
 
+def train_resnet(trainer_mod, fs, models, staged, tconfig, card) -> dict:
+    """Phase 14a: ResNet-50 through the CNN trainer at bench.py's
+    full-width shape — the fused-vs-torch.optim.SGD check, then the main
+    path (bench.py's timing shape, counts set to 0 just before and read
+    just after: fused_sgd launches == steps x buckets), 20 momentum-0
+    steps (plain_sgd == steps x buckets), a profiled step with the fused
+    kernel's device time beside its byte bound; then a ResNet-18 step and
+    the ImageNet layout's forward at 224 px."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    check_cnn_step(trainer_mod, models, staged, tconfig, model=RN_MODEL,
+                   phase="14a/resnet")
+    n_disp = CNN_TIMED_STEPS // CNN_SPD
+    idxs = cnn_dispatch_indices(4 * CNN_BATCH, CNN_WARM_DISPATCHES + n_disp)
+    t = trainer_mod.Trainer(cnn_config(tconfig, RN_MODEL))
+    dev = t.device
+    n_params = sum(p.numel() for p in t.model.parameters())
+    buckets = len(t.optimizer.buckets)
+    for ix in idxs[:CNN_WARM_DISPATCHES]:
+        t.run_steps(ix)
+    torch.cuda.synchronize()
+    params0 = [p.detach().clone() for p in t.model.parameters()]
+    torch.cuda.reset_peak_memory_stats()
+    fs.fused_sgd_kernel.launches = 0
+    fs.plain_sgd_kernel.launches = 0
+    rec = cnn_run(t, idxs[CNN_WARM_DISPATCHES:], f"{RN_MODEL} trainer "
+                  f"(fused)", card)
+    launches = {"fused_sgd": fs.fused_sgd_kernel.launches,
+                "plain_sgd": fs.plain_sgd_kernel.launches}
+    peak = torch.cuda.max_memory_allocated()
+    changed = sum(not torch.equal(a, b) for a, b in
+                  zip(params0, t.model.parameters()))
+    want = CNN_TIMED_STEPS * buckets
+    print(f"{RN_MODEL} trainer: {n_params} parameters in {buckets} "
+          f"bucket(s); losses {rec['losses']}; fused_sgd launches "
+          f"{launches['fused_sgd']} (want steps x buckets = {want}), "
+          f"plain_sgd {launches['plain_sgd']} (want 0); parameters changed "
+          f"{changed}/{len(params0)}")
+    if not all(math.isfinite(x) for x in rec["losses"]):
+        fail("14a/resnet", f"non-finite losses {rec['losses']}")
+    if launches != {"fused_sgd": want, "plain_sgd": 0}:
+        fail("14a/resnet", f"launches {launches}, want fused_sgd {want}")
+    if changed != len(params0):
+        fail("14a/resnet", "parameters unchanged by training")
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        t.model.apply(torch.zeros(CNN_BATCH, 32, 32, 3, dtype=torch.bfloat16,
+                                  device=dev), train=False)
+    flops = 3 * counter.get_total_flops()
+    mfu = flops / rec["step_s"] / BF16_FLOPS_PER_S
+    print(f"{RN_MODEL} trainer [{card}]: B {CNN_BATCH}, {CNN_TIMED_STEPS} "
+          f"steps (after {CNN_WARM_DISPATCHES} warm-up dispatches of "
+          f"{CNN_SPD}), one sync: samples/s/chip {rec['samples_per_s']}, "
+          f"step {rec['step_s']} s, MFU ({flops} flop per step = 3 x "
+          f"FlopCounterMode's forward / step s / {BF16_FLOPS_PER_S:.0f}) "
+          f"{mfu}, torch.cuda.max_memory_allocated {peak} B")
+    rows = print_profile(f"{RN_MODEL} step", lambda: f"loss "
+                         f"{t.run_steps(idxs[-1][:1])['loss'].item()}",
+                         card, kind=cnn_kind)
+    hits = [(us, n) for key, us, n in rows if "fused_sgd" in key]
+    bound = sgd_traffic(n_params, 0.9, 1e-4, False)
+    kernel_us = sum(h[0] for h in hits) if hits else None
+    if kernel_us is None:
+        print(f"{RN_MODEL} step fused_sgd device time [{card}]: not measured")
+    else:
+        print(f"{RN_MODEL} step fused_sgd device time [{card}]: {kernel_us} "
+              f"us for {sum(h[1] for h in hits)} launch(es) over "
+              f"{n_params} parameters; byte bound {bound['bound_ms'] * 1e3} "
+              f"us ({bound['bytes']} B at {HBM_BYTES_PER_S:.3g} B/s), "
+              f"{bound['bound_ms'] * 1e3 / kernel_us:.1%} of it")
+    del t, params0
+
+    side = trainer_mod.Trainer(cnn_config(tconfig, RN_MODEL, momentum=0.0))
+    side.run_steps(idxs[0][:2])                    # warm-up
+    fs.fused_sgd_kernel.launches = 0
+    fs.plain_sgd_kernel.launches = 0
+    r0 = cnn_run(side, [idxs[1], idxs[2]], f"{RN_MODEL} trainer (fused, "
+                 f"momentum 0)", card)
+    m0 = {"fused_sgd": fs.fused_sgd_kernel.launches,
+          "plain_sgd": fs.plain_sgd_kernel.launches}
+    want0 = CNN_SIDE_STEPS * buckets
+    print(f"{RN_MODEL} momentum 0: launches {m0} (want plain_sgd steps x "
+          f"buckets = {want0})")
+    if m0 != {"fused_sgd": 0, "plain_sgd": want0} or not all(
+            math.isfinite(x) for x in r0["losses"]):
+        fail("14a/resnet", f"momentum 0: launches {m0}, want plain_sgd "
+                           f"{want0}, or non-finite {r0['losses']}")
+    del side
+
+    r18 = trainer_mod.Trainer(cnn_config(tconfig, RN_SIDE_MODEL))
+    loss18 = r18.run_steps(idxs[0][:1])["loss"].item()
+    del r18
+    gen = torch.Generator(device=dev).manual_seed(0)
+    net = models.get_model(tconfig.ModelConfig(
+        name=RN_MODEL, dtype="bfloat16",
+        extra={"input_layout": "imagenet"}), seed=0, device=dev)
+    x = torch.randn(RN_IMAGENET_BATCH, RN_IMAGENET_PX, RN_IMAGENET_PX, 3,
+                    device=dev, generator=gen).to(torch.bfloat16)
+    with torch.no_grad():
+        y_eval, _ = net.apply(x, train=False)
+        y_train, _ = net.apply(x, train=True)
+    finite = bool(torch.isfinite(y_eval).all() and torch.isfinite(
+        y_train).all())
+    print(f"{RN_SIDE_MODEL} step: loss {loss18}; {net.name} forward, B "
+          f"{RN_IMAGENET_BATCH} at {RN_IMAGENET_PX} px (stem 7x7/2 + 3x3/2 "
+          f"SAME max-pool): logits {tuple(y_eval.shape)} finite {finite}")
+    if not (math.isfinite(loss18) and finite and tuple(y_eval.shape) == (
+            RN_IMAGENET_BATCH, 10)):
+        fail("14a/resnet", "ResNet-18 step or ImageNet forward not finite")
+    del net, x
+    torch.cuda.empty_cache()
+    return dict(model=RN_MODEL, parameters=n_params, buckets=buckets,
+                samples_per_s=rec["samples_per_s"], step_s=rec["step_s"],
+                mfu=mfu, flops_per_step=flops, peak_bytes=peak,
+                launches=launches, launches_momentum0=m0,
+                fused_sgd_in_step_us=kernel_us,
+                fused_sgd_bound_us=bound["bound_ms"] * 1e3,
+                resnet18_loss=loss18, imagenet_forward_finite=finite)
+
+
+def dpe_config(tconfig, world: int, **kw):
+    """Phase 14b's TrainConfig: ResNet-50 in f32 at DPE_BATCH over
+    ``world`` ranks, augment off, streaming input, no warm-up."""
+    optimizer = kw.pop("optimizer", {})
+    return tconfig.TrainConfig(
+        model=tconfig.ModelConfig(name=RN_MODEL, dtype="float32"),
+        data=tconfig.DataConfig(
+            name="synthetic", batch_size=DPE_BATCH,
+            eval_batch_size=DPE_BATCH, image_size=32,
+            synthetic_native_size=32, augment=False,
+            synthetic_train_size=(DPE_STEPS + DPE_TIMED_STEPS) * DPE_BATCH,
+            synthetic_eval_size=DPE_BATCH),
+        optimizer=tconfig.OptimizerConfig(
+            **{**dict(learning_rate=DPE_LR, warmup_steps=0), **optimizer}),
+        mesh=tconfig.MeshConfig(data=world), device="cuda", **kw)
+
+
+def rel_gap(a, b) -> float:
+    """max|a - b| / max|b| over one tensor pair."""
+    a, b = a.detach(), b.detach()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def dpe_batches(trainer, n: int) -> list:
+    """This rank's rows of epoch 0's first ``n`` batches, on the card."""
+    trainer.train_loader.set_epoch(0)
+    return [(trainer._to_device(im), trainer._to_device(lb))
+            for _, (im, lb) in zip(range(n), trainer.train_loader)]
+
+
+def dpe_steps(trainer, batches, after=None) -> list:
+    """One train step per batch; ``after(trainer)`` after each; the
+    global losses."""
+    out = []
+    for im, lb in batches:
+        m = trainer._train_step(im, lb, None)
+        trainer.global_step += 1
+        out.append(float(m["loss"]))
+        if after is not None:
+            after(trainer)
+    return out
+
+
+def dpe_sync_fsdp(src, dst, spec) -> None:
+    """Copy the gspmd trainer ``src``'s parameters and momentum into the
+    fsdp trainer ``dst``: each sharded leaf gets this rank's slice."""
+    import torch
+    from torch.nn.utils import parametrize
+
+    n, r = spec.num_data, spec.data_index
+    smods = dict(src.model.named_modules())
+    sstate, dstate = src.optimizer.opt.state, dst.optimizer.opt.state
+    with torch.no_grad():
+        for name, m in dst.model.named_modules():
+            if name not in smods:
+                continue
+            for leaf in ("weight", "bias"):
+                if parametrize.is_parametrized(m, leaf):
+                    p = m.parametrizations[leaf].original
+                    dim = m.parametrizations[leaf][0].dim
+                    cut = (lambda t, dim=dim: t.chunk(n, dim)[r])
+                else:
+                    p = m._parameters.get(leaf)
+                    cut = (lambda t: t)
+                if p is None:
+                    continue
+                sp = smods[name]._parameters[leaf]
+                p.copy_(cut(sp))
+                sm = sstate.get(sp, {}).get("momentum_buffer")
+                if sm is not None:
+                    dstate[p]["momentum_buffer"].copy_(cut(sm))
+
+
+def dpe_params(trainer) -> list:
+    """Every parameter of the trainer's model, whole (an FSDP model's
+    gathered: every rank must call), in the weight carrier's order."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.models.staged import (
+        _unit_slots,
+    )
+
+    with torch.no_grad():
+        return [t.detach().clone() for unit in trainer.model.units
+                for leaves in _unit_slots(unit)[0].values()
+                for t, _ in leaves.values()]
+
+
+def dpe_timed(run, reducer_times, n: int) -> dict:
+    """``run()`` n times after the gated steps, one sync at each end:
+    samples/s per rank's card and the reduction's µs a step."""
+    import torch
+
+    reducer_times()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    us = sorted(reducer_times())
+    return dict(steps=n, samples_per_s=DPE_BATCH * n / dt,
+                reduction_us_median=statistics.median(us) if us else None)
+
+
+def dp_engines_rank(spec, timed: bool) -> dict:
+    """Phase 14b on one rank: ddp ring vs bucketed, ZeRO (fused, then
+    momentum 0) vs gspmd's FusedSGD, fsdp vs gspmd, each DPE_STEPS steps
+    from the same weights and batches (this rank's rows), cuDNN
+    deterministic; the sparse BOW against dense SGD on the global batch.
+    With ``timed``, DPE_TIMED_STEPS more steps of each engine, timed.
+    Numbers come back as plain Python and numpy."""
+    import numpy as np
+    import torch
+    from torch.func import functional_call
+
+    from distributed_model_parallel_tpu_torch import config as tconfig
+    from distributed_model_parallel_tpu_torch.data.loader import normalize
+    from distributed_model_parallel_tpu_torch.models import embedding as bow
+    from distributed_model_parallel_tpu_torch.ops import collectives
+    from distributed_model_parallel_tpu_torch.ops import fused_sgd as fs
+    from distributed_model_parallel_tpu_torch.parallel import ddp, fsdp, zero
+    from distributed_model_parallel_tpu_torch.train import (
+        trainer as trainer_mod,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    world = spec.num_data
+    n_all = DPE_STEPS + (DPE_TIMED_STEPS if timed else 0)
+    out = {"backend": spec.backend, "world": world}
+
+    def replicated(tr):
+        ddp.assert_ddp_replicated(tr.model, tr.optimizer, spec)
+
+    # -- ddp: the ring against the bucketed all-reduce ------------------
+    # Each step starts both from the bucketed run's state (parameters and
+    # momentum copied into the ring's buckets), so a gap is the step's own.
+    ref, ring = (trainer_mod.Trainer(dpe_config(
+        tconfig, world, strategy="ddp", ddp_allreduce=allreduce,
+        optimizer=dict(fused=True)), spec=spec)
+        for allreduce in ("bucketed", "ring"))
+    batches = dpe_batches(ref, n_all)
+    losses, gaps = {"bucketed": [], "ring": []}, []
+    for b in batches[:DPE_STEPS]:
+        losses["bucketed"] += dpe_steps(ref, [b], replicated)
+        losses["ring"] += dpe_steps(ring, [b], replicated)
+        gaps.append(max(rel_gap(x, y) for x, y in zip(
+            ring.model.parameters(), ref.model.parameters())))
+        with torch.no_grad():
+            for src, dst in ((ref.optimizer._p, ring.optimizer._p),
+                             (ref.optimizer._m, ring.optimizer._m)):
+                for x, y in zip(src, dst):
+                    y.copy_(x)
+    timed_runs = {}
+    if timed:
+        for name, tr in (("bucketed", ref), ("ring", ring)):
+            it = iter(batches[DPE_STEPS:])
+            timed_runs[name] = dpe_timed(
+                lambda tr=tr, it=it: dpe_steps(tr, [next(it)]),
+                tr.reducer.take_times_us, DPE_TIMED_STEPS)
+    out["ring"] = dict(losses=losses, rel_gap=gaps, timed=timed_runs)
+    del ref, ring
+    torch.cuda.empty_cache()
+
+    # -- ZeRO against gspmd's FusedSGD ----------------------------------
+    # Each ZeRO step starts from the gspmd run's state before that step
+    # (its parameters, and this rank's slice of its momentum).
+    out["zero"] = {}
+    for label, momentum in (("fused", 0.9), ("momentum0", 0.0)):
+        ref = trainer_mod.Trainer(dpe_config(
+            tconfig, world, optimizer=dict(fused=True, momentum=momentum)),
+            spec=spec)
+        batches = dpe_batches(ref, n_all)
+        model = ref.model
+        names = [n for n, _ in model.named_parameters()]
+        mean = torch.as_tensor(ref.train_ds.mean, dtype=torch.float32,
+                               device=spec.device)
+        std = torch.as_tensor(ref.train_ds.std, dtype=torch.float32,
+                              device=spec.device)
+
+        def loss_fn(params, batch, model=model, mean=mean, std=std):
+            images, labels = batch
+            x = normalize(images, mean, std, torch.float32)
+            logits = functional_call(model, params, (x,), {"train": True})
+            return trainer_mod.cross_entropy(logits, labels)
+
+        init_fn, step_fn = zero.make_zero_train_step(
+            loss_fn, tconfig.OptimizerConfig(
+                learning_rate=DPE_LR, momentum=momentum, weight_decay=1e-4,
+                fused=True), spec, schedule=ref.optimizer.schedule)
+
+        def ref_state(ref=ref, names=names):
+            """The gspmd run's parameters (clones) and momentum."""
+            params = {n: p.detach().clone()
+                      for n, p in zip(names, ref.model.parameters())}
+            moms = {n: ref.optimizer.momentum_buffer(i)
+                    for i, n in enumerate(names)}
+            return params, moms
+
+        state = init_fn(ref_state()[0])
+        fs.fused_sgd_kernel.launches = 0
+        fs.plain_sgd_kernel.launches = 0
+        losses, ref_losses, gaps, launches = [], [], [], {}
+        for k, b in enumerate(batches[:DPE_STEPS]):
+            params, moms = ref_state()
+            if state.momentum is not None:
+                flat = collectives.flatten_padded(moms, world)
+                size = flat.numel() // world
+                state.momentum.copy_(flat[spec.rank * size:
+                                          (spec.rank + 1) * size])
+            state.count = k
+            before = (fs.fused_sgd_kernel.launches,
+                      fs.plain_sgd_kernel.launches)
+            params, state, loss = step_fn(params, state, b)
+            launches = {"fused_sgd": launches.get("fused_sgd", 0)
+                        + fs.fused_sgd_kernel.launches - before[0],
+                        "plain_sgd": launches.get("plain_sgd", 0)
+                        + fs.plain_sgd_kernel.launches - before[1]}
+            losses.append(float(loss))
+            ref_losses += dpe_steps(ref, [b])
+            gaps.append(max(rel_gap(params[n], w) for n, w in zip(
+                names, ref.model.parameters())))
+        fp = ddp._fingerprint([params[n] for n in names], spec.device)
+        every = collectives.all_gather_concat(fp[None], spec.group)
+        rec = dict(losses=losses, ref_losses=ref_losses, rel_gap=gaps,
+                   launches=launches,
+                   bitwise_across_ranks=bool((every == every[0]).all()),
+                   momentum_bytes=(0 if state.momentum is None
+                                   else state.momentum.numel() * 4),
+                   gspmd_momentum_bytes=sum(
+                       m.numel() * 4 for m in ref.optimizer._m
+                       if m is not None))
+        if timed:
+            it = iter(batches[DPE_STEPS:])
+            box = {"p": params, "s": state}
+
+            def zstep(box=box, it=it):
+                box["p"], box["s"], _ = step_fn(box["p"], box["s"],
+                                                next(it))
+
+            step_fn.take_times_us()
+            rec["timed"] = dpe_timed(zstep, step_fn.take_times_us,
+                                     DPE_TIMED_STEPS)
+        out["zero"][label] = rec
+        del ref, model, params, state
+        torch.cuda.empty_cache()
+
+    # -- fsdp against gspmd ---------------------------------------------
+    # Each step starts both from the gspmd run's state (its parameters and
+    # momentum cut into this rank's slices).
+    ref, sharded = (trainer_mod.Trainer(dpe_config(
+        tconfig, world, strategy=strategy), spec=spec)
+        for strategy in ("gspmd", "fsdp"))
+    batches = dpe_batches(ref, n_all)
+    losses, ref_losses, close, gaps = [], [], [], []
+    for b in batches[:DPE_STEPS]:
+        ref_losses += dpe_steps(ref, [b])
+        losses += dpe_steps(sharded, [b])
+        got, want = dpe_params(sharded), dpe_params(ref)    # gathered
+        close.append(all(torch.allclose(x, y, rtol=FSDP_RTOL, atol=FSDP_ATOL)
+                         for x, y in zip(got, want)))
+        gaps.append(max(rel_gap(x, y) for x, y in zip(got, want)))
+        dpe_sync_fsdp(ref, sharded, spec)
+    resident = {name: fsdp.resident_bytes(tr.model, tr.optimizer)
+                for name, tr in (("gspmd", ref), ("fsdp", sharded))}
+    timed_runs = {}
+    if timed:
+        for name, tr in (("gspmd", ref), ("fsdp", sharded)):
+            it = iter(batches[DPE_STEPS:])
+            times = (tr.reducer.take_times_us if name == "gspmd"
+                     else (lambda: []))
+            timed_runs[name] = dpe_timed(
+                lambda tr=tr, it=it: dpe_steps(tr, [next(it)]), times,
+                DPE_TIMED_STEPS)
+    out["fsdp"] = dict(
+        losses=losses, ref_losses=ref_losses,
+        loss_rel=max(abs(x - y) / abs(y) for x, y in zip(losses,
+                                                        ref_losses)),
+        params_close=all(close), rel_gap=gaps, resident=resident["fsdp"],
+        gspmd_resident=resident["gspmd"], timed=timed_runs)
+    del ref, sharded
+    torch.cuda.empty_cache()
+
+    # -- the sparse BOW -------------------------------------------------
+    cfg = bow.BowConfig()
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (
+        BOW_ROWS, BOW_TOKENS))).to(spec.device)
+    labels = torch.from_numpy(rng.integers(0, cfg.num_classes,
+                                           BOW_ROWS)).to(spec.device)
+    rows = spec.rows(BOW_ROWS)
+    params = bow.init_params(cfg, seed=0, device=spec.device)
+    dense = {k: v.clone() for k, v in params.items()}
+    step = bow.make_sparse_sgd_step(cfg, BOW_LR, group=spec.group)
+    errs, losses = [], []
+    t0 = time.perf_counter()
+    for _ in range(BOW_STEPS):
+        params, loss = step(params, tokens[rows], labels[rows])
+        live = {k: v.detach().requires_grad_(True) for k, v in dense.items()}
+        dloss = bow.loss_fn(live, tokens, labels)
+        grads = torch.autograd.grad(dloss, [live[k] for k in bow.PARAM_NAMES])
+        with torch.no_grad():
+            dense = {k: live[k] - BOW_LR * g
+                     for k, g in zip(bow.PARAM_NAMES, grads)}
+        losses.append((float(loss), float(dloss.detach())))
+        errs.append(max(float(((params[k] - dense[k]).abs()
+                               - BOW_RTOL * dense[k].abs()).max())
+                        for k in bow.PARAM_NAMES))
+    torch.cuda.synchronize()
+    fp = ddp._fingerprint([params[k] for k in bow.PARAM_NAMES], spec.device)
+    every = collectives.all_gather_concat(fp[None], spec.group)
+    out["bow"] = dict(losses=losses, excess=errs,
+                      seconds=time.perf_counter() - t0,
+                      bitwise_across_ranks=bool((every == every[0]).all()))
+    return out
+
+
+def dp_engines(mesh, card, world: int, backend: str) -> dict:
+    """Phase 14b (14c under ``--dp-only``): :func:`dp_engines_rank` on
+    ``world`` ranks over ``backend``; the parent prints and gates."""
+    timed = backend == "nccl" and world > 1
+    where = ("each rank on its own card" if backend == "nccl"
+             else "both ranks on the one card")
+    r = dp_spawn(mesh, dp_engines_rank, world, "14b/dp engines", timed,
+                 backend=backend)
+    a = r[0]
+    tag = f"[{card}] {world} ranks over {backend} ({where})"
+    ring = a["ring"]
+    print(f"dp engines ring vs bucketed {tag}: {RN_MODEL} f32, B "
+          f"{DPE_BATCH}, {DPE_STEPS} steps, fused SGD buckets, each step "
+          f"from the bucketed run's state: losses ring "
+          f"{ring['losses']['ring']} bucketed {ring['losses']['bucketed']}; "
+          f"params per-leaf max rel gap per step {ring['rel_gap']} (gate "
+          f"{DPE_RTOL}); replicas bitwise equal after every step")
+    losses = [x for v in ring["losses"].values() for x in v] + [
+        x for z in a["zero"].values() for x in z["losses"]] + a["fsdp"][
+        "losses"] + [x for pair in a["bow"]["losses"] for x in pair]
+    if not all(math.isfinite(x) for x in losses):
+        fail("14b/dp engines", f"non-finite losses {losses}")
+    if not max(ring["rel_gap"]) <= DPE_RTOL:
+        fail("14b/dp engines", f"ring vs bucketed {ring['rel_gap']}")
+    out = {"world": world, "backend": backend,
+           "ring": dict(rel_gap=ring["rel_gap"])}
+    for label, z in a["zero"].items():
+        kernel = "plain_sgd" if label == "momentum0" else "fused_sgd"
+        other = "fused_sgd" if kernel == "plain_sgd" else "plain_sgd"
+        print(f"dp engines ZeRO ({label}) vs gspmd FusedSGD {tag}, each "
+              f"step from gspmd's state: losses "
+              f"{z['losses']} vs {z['ref_losses']}; params per-leaf max rel "
+              f"gap per step {z['rel_gap']} (gate {DPE_RTOL}); {kernel} "
+              f"launches {z['launches'][kernel]} on rank 0 (want one a step "
+              f"a rank: {DPE_STEPS}); params bitwise equal across ranks "
+              f"{z['bitwise_across_ranks']}; resident momentum "
+              f"{[x['zero'][label]['momentum_bytes'] for x in r]} B a rank "
+              f"vs gspmd's {z['gspmd_momentum_bytes']} B")
+        bad = [x for x in r if x["zero"][label]["launches"] != {
+            kernel: DPE_STEPS, other: 0}]
+        if bad or not max(z["rel_gap"]) <= DPE_RTOL or not all(
+                x["zero"][label]["bitwise_across_ranks"] for x in r):
+            fail("14b/dp engines", f"ZeRO {label}: gaps {z['rel_gap']}, "
+                 f"launches {[x['zero'][label]['launches'] for x in r]}")
+        out[f"zero_{label}"] = dict(
+            rel_gap=z["rel_gap"], launches=[x["zero"][label]["launches"]
+                                            for x in r],
+            momentum_bytes=z["momentum_bytes"],
+            gspmd_momentum_bytes=z["gspmd_momentum_bytes"])
+    f = a["fsdp"]
+    print(f"dp engines fsdp vs gspmd {tag}, each step from gspmd's state: "
+          f"losses {f['losses']} vs "
+          f"{f['ref_losses']} (max rel {f['loss_rel']}, gate "
+          f"{FSDP_LOSS_RTOL}); gathered params allclose(rtol {FSDP_RTOL}, "
+          f"atol {FSDP_ATOL}) after every step {f['params_close']} (per-leaf "
+          f"max rel gap per step {f['rel_gap']}); resident bytes a rank "
+          f"{[x['fsdp']['resident'] for x in r]} vs gspmd's "
+          f"{f['gspmd_resident']}")
+    if not (f["loss_rel"] <= FSDP_LOSS_RTOL and all(
+            x["fsdp"]["params_close"] for x in r)):
+        fail("14b/dp engines", "fsdp vs gspmd outside tolerance")
+    out["fsdp"] = dict(loss_rel=f["loss_rel"], rel_gap=f["rel_gap"],
+                       resident=[x["fsdp"]["resident"] for x in r],
+                       gspmd_resident=f["gspmd_resident"])
+    b = a["bow"]
+    print(f"dp engines sparse BOW {tag}: vocab 10000 x 64, {BOW_ROWS} rows "
+          f"x {BOW_TOKENS} tokens, {BOW_STEPS} steps in {b['seconds']} s: "
+          f"losses (sparse, dense) {b['losses']}; max(|sparse - dense| - "
+          f"{BOW_RTOL}|dense|) per step {b['excess']} (gate {BOW_ATOL}); "
+          f"tables bitwise equal across ranks {b['bitwise_across_ranks']}")
+    if not (max(b["excess"]) <= BOW_ATOL and all(
+            x["bow"]["bitwise_across_ranks"] for x in r)):
+        fail("14b/dp engines", "sparse BOW outside tolerance or ranks "
+                               "differ")
+    out["bow"] = dict(excess=b["excess"], losses=b["losses"])
+    if a["ring"]["timed"]:
+        pairs = {"bucketed": a["ring"]["timed"]["bucketed"],
+                 "ring": a["ring"]["timed"]["ring"],
+                 "zero": a["zero"]["fused"].get("timed"),
+                 "fsdp": a["fsdp"]["timed"]["fsdp"],
+                 "gspmd": a["fsdp"]["timed"]["gspmd"]}
+        for name, p in pairs.items():
+            us = p["reduction_us_median"]
+            print(f"dp engines BASELINE pair {name} {tag}: samples/s/card "
+                  f"{p['samples_per_s'] / world} ({p['steps']} steps, "
+                  f"{RN_MODEL} f32, B {DPE_BATCH}); grad reduction "
+                  f"{'not measured' if us is None else f'{us} us'} a step "
+                  f"(median, CUDA events)")
+        out["timed"] = pairs
+    return out
+
+
 class Laps:
     """Prints each phase's seconds since the previous phase ended."""
 
@@ -2124,8 +2714,14 @@ def main() -> None:
                          "13, print the pipeline's JSON line and stop: with "
                          "four cards, each stage of the runner on its own "
                          "card and the SPMD engine over NCCL")
+    ap.add_argument("--dp-only", action="store_true",
+                    help="run phases 1, 2 (the fused SGD kernel only) and "
+                         "14b at world = device_count() over NCCL, print "
+                         "the DP engines' JSON line and stop: with four "
+                         "cards, BASELINE's pair (samples/s a card, the "
+                         "gradient reduction's us a step) per engine")
     args = ap.parse_args()
-    only = args.sgd_timing_only or args.pipeline_only
+    only = args.sgd_timing_only or args.pipeline_only or args.dp_only
     # -- phase 1: device ----------------------------------------------------
     laps = Laps()
     import torch
@@ -2211,6 +2807,13 @@ def main() -> None:
         torch.backends.cudnn.benchmark = True      # as phase 11 leaves it
         print(json.dumps({"pipeline": pipeline_phase(
             laps, models, cnn_trainer, fs, tconfig, card), "card": card}))
+        return
+    if args.dp_only:
+        from distributed_model_parallel_tpu_torch import mesh
+
+        print(json.dumps({"dp_engines": dp_engines(
+            mesh, card, torch.cuda.device_count(), "nccl"), "card": card}))
+        laps.done("14b/dp engines")
         return
 
     # -- phase 3: kernel vs plain ---------------------------------------------
@@ -2438,6 +3041,14 @@ def main() -> None:
     pp = pipeline_phase(laps, models, cnn_trainer, fs, tconfig, card)
     pp_launches = sum(r["fused_sgd"] for r in pp["runner"].values())
 
+    # -- phase 14: ResNet and the remaining data-parallel engines ------------
+    torch.backends.cudnn.benchmark = True
+    resnet = train_resnet(cnn_trainer, fs, models, staged, tconfig, card)
+    laps.done("14a/resnet")
+    two_cards = torch.cuda.device_count() >= 2
+    dpe = dp_engines(mesh, card, 2, "nccl" if two_cards else "gloo")
+    laps.done("14b/dp engines")
+
     kernels = [{
         "name": "paged_decode",
         "route": "cuda",
@@ -2481,12 +3092,20 @@ def main() -> None:
                                    if name == "fused_sgd" else 0),
             "launches_13a_pipeline": pp_launches if name == "fused_sgd"
             else 0,
+            "launches_14a_resnet50": (
+                resnet["launches"]["fused_sgd"] if name == "fused_sgd"
+                else resnet["launches_momentum0"]["plain_sgd"]),
+            "launches_14b_zero_rank0": dpe[
+                "zero_fused" if name == "fused_sgd" else
+                "zero_momentum0"]["launches"][0][name],
             "max_abs_err": sgd_err,
             **sgd_times[name],
             "in_step_us": sgd_in_step[name],
         })
     print(json.dumps({"data_parallel": dp, "card": card}))
     print(json.dumps({"pipeline": pp, "card": card}))
+    print(json.dumps({"resnet": resnet, "card": card}))
+    print(json.dumps({"dp_engines": dpe, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,8 +21,10 @@ stages:
 * :mod:`.ops.fused_sgd` — the fused SGD update over flat parameter
   buckets: the CUDA kernel (``ops/csrc/fused_sgd.cu``) and its plain
   version;
-* :mod:`.models` — MobileNetV2 and tinycnn as staged unit sequences
-  (``layers``, ``staged``, ``mobilenetv2``, ``tinycnn``, ``get_model``);
+* :mod:`.models` — MobileNetV2, ResNet-18/34/50 and tinycnn as staged
+  unit sequences (``layers``, ``staged``, ``mobilenetv2``, ``resnet``,
+  ``tinycnn``, ``get_model``) and the sparse bag-of-words classifier
+  (``embedding``);
 * :mod:`.data` — the dataset registry and the loader (batch order on
   the host, crop/flip and normalize on the device);
 * :mod:`.serve` — paged KV cache, continuous-batching scheduler, the
@@ -33,10 +35,14 @@ stages:
   on the card, gloo on the CPU), a rank's coordinates, rows and
   sub-groups, and ``spawn``, the launcher of ranks;
 * :mod:`.ops.collectives` — the collectives over the data axis, the
-  bucket plan, and the pipeline's point-to-point hops;
+  bucket plan, the flat padded vector of a tree, and the pipeline's
+  point-to-point hops; :mod:`.ops.ring_reduce` — the explicit ring
+  all-reduce; :mod:`.ops.sparse` — the COO embedding gradient and its
+  sparse all-reduce;
 * :mod:`.parallel` — DataParallel's phases, DDP (per-replica or
-  synchronized BatchNorm, the replication check), the pipeline runner,
-  the SPMD pipeline engine and the cost-balanced stage cut;
+  synchronized BatchNorm, the replication check), ZeRO (the fused SGD
+  kernel on each rank's slice), FSDP, the pipeline runner, the SPMD
+  pipeline engine and the cost-balanced stage cut;
 * :mod:`.config` — the typed configuration the ported slices read.
 
 The package imports ``torch`` and numpy only: never ``jax``, and nothing

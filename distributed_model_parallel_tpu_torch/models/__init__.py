@@ -1,5 +1,6 @@
-"""Models of the port: the CNN zoo's ported members (MobileNetV2 and
-tinycnn, as staged unit sequences) and the Transformer LM
+"""Models of the port: the CNN zoo's ported members (MobileNetV2,
+ResNet-18/34/50 and tinycnn, as staged unit sequences), the sparse
+bag-of-words classifier (:mod:`.embedding`) and the Transformer LM
 (:mod:`.transformer`, which has its own entry points)."""
 
 from __future__ import annotations
@@ -10,6 +11,7 @@ from distributed_model_parallel_tpu_torch.config import ModelConfig
 from distributed_model_parallel_tpu_torch.models.mobilenetv2 import (
     build_mobilenetv2,
 )
+from distributed_model_parallel_tpu_torch.models.resnet import build_resnet
 from distributed_model_parallel_tpu_torch.models.staged import (  # noqa: F401
     StagedModel,
     balanced_boundaries,
@@ -22,6 +24,8 @@ from distributed_model_parallel_tpu_torch.models.staged import (  # noqa: F401
 from distributed_model_parallel_tpu_torch.models.tinycnn import build_tinycnn
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_LAYOUT_MODELS = ("mobilenetv2", "mobilenetv2_nobn", "resnet18", "resnet34",
+                  "resnet50")
 
 
 def _cnn_kwargs(config: ModelConfig, axis) -> dict:
@@ -41,15 +45,20 @@ def _cnn_kwargs(config: ModelConfig, axis) -> dict:
 
 
 def get_model(config: ModelConfig, *, seed: int = 0, device="cuda",
-              axis=None) -> StagedModel:
+              axis=None):
     """Build the ``config.name`` model on ``device`` with weights from
     ``seed`` (the port's own draws of flax's default initializers).
     ``axis`` is the data axis' process group for cross-replica BatchNorm
     statistics; only consulted when ``config.batchnorm == "sync"``.
-    ``extra={"input_layout": "imagenet"}`` selects MobileNetV2's ImageNet
-    stride table; tinycnn takes ``width``/``depth`` from ``extra``. ResNet,
-    the rest of the zoo and the embedding model are not ported yet
-    (ROADMAP A8); the LM has its own entry (``models/transformer.py``)."""
+    ``extra={"input_layout": "imagenet"}`` selects the ImageNet stride
+    table of MobileNetV2 and the ImageNet stem of ResNet (every other
+    family refuses the key, as the JAX package does); tinycnn takes
+    ``width``/``depth`` from ``extra``. ``embedding_bow`` returns its
+    :class:`~.embedding.BowConfig` (fields from ``extra``), as the JAX
+    registry does: its parameters are a flat dict
+    (:func:`~.embedding.init_params`). The rest of the zoo is not ported
+    yet (ROADMAP A8); the LM has its own entry
+    (``models/transformer.py``)."""
     from distributed_model_parallel_tpu_torch.models.transformer import (
         resolve_device,
     )
@@ -57,10 +66,9 @@ def get_model(config: ModelConfig, *, seed: int = 0, device="cuda",
     name = config.name
     extra = dict(config.extra)
     layout = extra.pop("input_layout", "cifar")
-    if "input_layout" in config.extra and name not in (
-            "mobilenetv2", "mobilenetv2_nobn"):
+    if "input_layout" in config.extra and name not in _LAYOUT_MODELS:
         raise ValueError(f"model {name!r} takes no input_layout (only "
-                         f"mobilenetv2 does in the port)")
+                         f"mobilenetv2/resnet18/34/50 do)")
     if name in ("mobilenetv2", "mobilenetv2_nobn"):
         kw = _cnn_kwargs(config, axis)
         if name.endswith("_nobn"):
@@ -68,6 +76,17 @@ def get_model(config: ModelConfig, *, seed: int = 0, device="cuda",
         if extra:
             raise ValueError(f"mobilenetv2 takes no extra {sorted(extra)}")
         model = build_mobilenetv2(**kw, input_layout=layout)
+    elif name in ("resnet18", "resnet34", "resnet50"):
+        if extra:
+            raise ValueError(f"{name} takes no extra {sorted(extra)}")
+        model = build_resnet(name, **_cnn_kwargs(config, axis),
+                             input_layout=layout)
+    elif name == "embedding_bow":
+        from distributed_model_parallel_tpu_torch.models.embedding import (
+            build_embedding_bow,
+        )
+
+        return build_embedding_bow(config)
     elif name == "tinycnn":
         model = build_tinycnn(**_cnn_kwargs(config, axis), **extra)
     elif name == "transformer":
@@ -76,7 +95,7 @@ def get_model(config: ModelConfig, *, seed: int = 0, device="cuda",
                          "LMTrainer), not get_model")
     else:
         raise KeyError(f"model {name!r} is not ported yet; the port has "
-                       f"mobilenetv2[_nobn] and tinycnn (ResNet, the zoo and "
-                       f"embedding_bow: ROADMAP A8)")
+                       f"mobilenetv2[_nobn], resnet18/34/50, tinycnn and "
+                       f"embedding_bow (the zoo: ROADMAP A8)")
     model.reset_parameters(seed)
     return model.to(resolve_device(device))

@@ -11,7 +11,13 @@ and the input, as flax does. What each piece keeps of flax's numerics:
 * :class:`Conv` — ``padding="SAME"`` as XLA pads it: total
   ``max((ceil(in/s) - 1)·s + k - in, 0)``, the low side taking the floor
   of half. At stride 2 on an even input that is (0, 1), not torch's
-  symmetric (1, 1).
+  symmetric (1, 1). flax's explicit paddings (``"VALID"``, an int, or
+  per-dim ints or ``(low, high)`` pairs) are taken as given.
+* :func:`max_pool_same` — flax's ``nn.max_pool(x, (k, k), (s, s),
+  padding="SAME")``: XLA's SAME pads with −∞ and asymmetrically (0, 1 at
+  stride 2 on an even input), which ``F.max_pool2d``'s symmetric
+  ``padding`` cannot express; the input is padded explicitly with −∞ (bf16
+  holds it too) and pooled with padding 0.
 * :class:`BatchNorm` — flax's ``BatchNorm``: batch statistics in f32,
   normalization in f32 rounded once to ``dtype``, and running averages
   ``ra = μ·ra + (1 - μ)·stat`` with the *biased* batch variance. The
@@ -50,6 +56,38 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def explicit_padding(padding, size: int, kernel: int,
+                     stride: int, dim: int) -> tuple[int, int]:
+    """flax's conv ``padding`` of spatial dim ``dim`` (0: H, 1: W) as
+    (low, high): ``"SAME"`` (XLA's rule), ``"VALID"``, an int for every
+    side, or a sequence per dim of an int or a ``(low, high)`` pair."""
+    if isinstance(padding, str):
+        if padding == "SAME":
+            return same_padding(size, kernel, stride)
+        if padding == "VALID":
+            return 0, 0
+        raise ValueError(f"conv padding {padding!r}: the port takes 'SAME', "
+                         f"'VALID' and explicit padding")
+    if isinstance(padding, int):
+        return padding, padding
+    p = padding[dim]
+    if isinstance(p, int):
+        return p, p
+    lo, hi = p
+    return int(lo), int(hi)
+
+
+def max_pool_same(x: torch.Tensor, window: int = 3,
+                  stride: int = 2) -> torch.Tensor:
+    """flax's ``nn.max_pool(x, (window,)*2, strides=(stride,)*2,
+    padding="SAME")`` of NCHW ``x``: XLA's SAME padding, filled with −∞."""
+    ph = same_padding(x.shape[2], window, stride)
+    pw = same_padding(x.shape[3], window, stride)
+    if any(ph + pw):
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(x, window, stride)
+
+
 def lecun_normal_(w: torch.Tensor, fan_in: int,
                   generator: torch.Generator) -> None:
     """flax's default kernel init (variance scaling 1, fan-in, truncated
@@ -60,14 +98,16 @@ def lecun_normal_(w: torch.Tensor, fan_in: int,
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` with ``padding="SAME"``: weight ``[O, I/g, k, k]``
-    (channels-last in memory), optional bias, compute in ``dtype``."""
+    """flax ``nn.Conv``: weight ``[O, I/g, k, k]`` (channels-last in
+    memory), optional bias, compute in ``dtype``; ``padding`` as flax
+    takes it (:func:`explicit_padding`)."""
 
     def __init__(self, in_features: int, features: int, kernel: int = 3,
                  stride: int = 1, groups: int = 1, use_bias: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, padding="SAME"):
         super().__init__()
         self.kernel, self.stride, self.groups = kernel, stride, groups
+        self.padding = padding
         self.dtype = dtype
         self.weight = nn.Parameter(
             torch.empty(features, in_features // groups, kernel, kernel)
@@ -80,9 +120,15 @@ class Conv(nn.Module):
         if self.bias is not None:
             nn.init.zeros_(self.bias)
 
+    def pads(self, h: int, w: int) -> tuple[tuple, tuple]:
+        """(low, high) padding of H and W for an ``h`` x ``w`` input."""
+        return (explicit_padding(self.padding, h, self.kernel, self.stride,
+                                 0),
+                explicit_padding(self.padding, w, self.kernel, self.stride,
+                                 1))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ph = same_padding(x.shape[2], self.kernel, self.stride)
-        pw = same_padding(x.shape[3], self.kernel, self.stride)
+        ph, pw = self.pads(x.shape[2], x.shape[3])
         x = x.to(self.dtype)
         if ph[0] != ph[1] or pw[0] != pw[1]:
             x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
@@ -218,9 +264,11 @@ def _apply_norm(bn: BatchNorm | None, x: torch.Tensor,
 
 
 class ConvUnit(nn.Module):
-    """Conv → (BN) → (ReLU), once per entry of ``ops`` (dicts with keys
-    features, kernel, stride, groups, act, norm). Children are named
-    ``conv{i}``/``bn{i}`` as flax names them."""
+    """Conv → (BN) → (ReLU) → (max-pool), once per entry of ``ops`` (dicts
+    with keys features, kernel, stride, padding, groups, act, norm, and
+    maxpool: the stride of a trailing 3x3 SAME max-pool, e.g. the ImageNet
+    ResNet stem's; 0/absent = none). Children are named ``conv{i}``/
+    ``bn{i}`` as flax names them."""
 
     def __init__(self, in_features: int, ops: Sequence[dict],
                  bn_mode: str = "local", bn_momentum: float = 0.9,
@@ -230,15 +278,12 @@ class ConvUnit(nn.Module):
         self.ops = tuple(dict(op) for op in ops)
         c = in_features
         for i, op in enumerate(self.ops):
-            if op.get("padding", "SAME") != "SAME" or op.get("maxpool"):
-                raise ValueError("ConvUnit ops with explicit padding or a "
-                                 "max-pool (ResNet's ImageNet stem) are not "
-                                 "ported yet (ROADMAP A8)")
             normed = op.get("norm", True)
             setattr(self, f"conv{i}", Conv(
                 c, op["features"], op.get("kernel", 3), op.get("stride", 1),
                 op.get("groups", 1),
-                use_bias=bn_mode == "none" or not normed, dtype=dtype))
+                use_bias=bn_mode == "none" or not normed, dtype=dtype,
+                padding=op.get("padding", "SAME")))
             if normed:
                 setattr(self, f"bn{i}", _norm(
                     bn_mode, op["features"], momentum=bn_momentum,
@@ -253,6 +298,8 @@ class ConvUnit(nn.Module):
                 x = _apply_norm(getattr(self, f"bn{i}"), x, train)
             if op.get("act", True):
                 x = F.relu(x)
+            if op.get("maxpool"):
+                x = max_pool_same(x, 3, op["maxpool"])
         return x
 
 

@@ -8,10 +8,14 @@ each function returns its input's value without a collective.
 
 * :func:`psum_mean`, :func:`all_gather_concat`, :func:`reduce_scatter_mean`
   — gradient averaging, DataParallel's gather, the ZeRO building block;
+* :func:`flatten_padded` and :func:`unflatten_like` — a tree as one flat
+  vector padded to a multiple of the shard count (ZeRO's pre-shape), and
+  back;
 * :func:`plan_buckets` and :func:`bucketed_psum` — the DDP Reducer's
   trick: size-capped flat buckets in reverse leaf order, one all-reduce
-  per bucket, each bucket on the wire in its promoted leaf dtype (or
-  ``accum_dtype``, reduced there and cast back);
+  per bucket (or ``reduce_fn``, e.g. the explicit ring of
+  ``ops/ring_reduce.py``), each bucket on the wire in its promoted leaf
+  dtype (or ``accum_dtype``, reduced there and cast back);
 * :func:`exchange`, :func:`send_to`, :func:`recv_from` and
   :func:`ppermute_shift` — the pipeline's hops: one batch of
   ``batch_isend_irecv`` (NCCL groups it, so the order of the hops inside
@@ -129,6 +133,36 @@ def psum_mean(tree: Any, group=None) -> Any:
     return tree_map(mean, tree)
 
 
+def flatten_padded(tree: Any, n_shards: int,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Every leaf cast to ``dtype`` (f32 by default), concatenated in leaf
+    order into one flat vector, zero-padded to a multiple of ``n_shards``:
+    shard r of it is the JAX package's row r."""
+    leaves = tree_flatten(tree)[0]
+    flat = torch.cat([x.detach().to(dtype).reshape(-1) for x in leaves])
+    pad = (-flat.numel()) % n_shards
+    return torch.nn.functional.pad(flat, (0, pad)) if pad else flat
+
+
+def unflatten_like(flat: torch.Tensor, tree: Any) -> Any:
+    """The inverse of :func:`flatten_padded`: the padding dropped, each
+    leaf a view of ``flat`` in its shape (in ``flat``'s dtype when it is
+    the leaf's, else a cast copy)."""
+    leaves, rebuild = tree_flatten(tree)
+    out, off = [], 0
+    for x in leaves:
+        out.append(flat[off:off + x.numel()].view(x.shape).to(x.dtype))
+        off += x.numel()
+    return rebuild(out)
+
+
+def _gloo_cuda(x: torch.Tensor, group) -> bool:
+    """A CUDA tensor on a gloo group: staged through host memory for the
+    collectives gloo runs on the CPU only (reduce-scatter), as
+    :func:`_host_staged` stages the point-to-point hops."""
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
 def all_gather_concat(x: torch.Tensor, group=None, *,
                       axis: int = 0) -> torch.Tensor:
     """Every rank's ``x`` concatenated along ``axis`` in rank order
@@ -155,9 +189,13 @@ def reduce_scatter_mean(x: torch.Tensor, group=None, *,
         return x.clone()
     calls["reduce_scatter"] += 1
     wire_bytes["reduce_scatter"] += _nbytes(x)
-    parts = [c.contiguous() for c in x.movedim(axis, 0).chunk(n)]
+    staged = _gloo_cuda(x, group)
+    src = x.cpu() if staged else x
+    parts = [c.contiguous() for c in src.movedim(axis, 0).chunk(n)]
     out = torch.empty_like(parts[0])
     dist.reduce_scatter(out, parts, group=group)
+    if staged:
+        out = out.to(x.device)
     return (out / n).movedim(0, axis)
 
 
@@ -183,8 +221,14 @@ def plan_buckets(leaves: Sequence, bucket_bytes: int = 25 * 1024 * 1024
     return buckets
 
 
+def _all_reduce_sum(flat: torch.Tensor, group=None) -> torch.Tensor:
+    all_reduce_(flat, group, kind="bucketed_psum")
+    return flat
+
+
 def bucketed_psum(tree: Any, group=None, *,
                   bucket_bytes: int = 25 * 1024 * 1024, mean: bool = True,
+                  reduce_fn: Callable | None = None,
                   accum_dtype: torch.dtype | None = None) -> Any:
     """All-reduce a gradient tree in flat coalesced buckets: each bucket
     of :func:`plan_buckets` concatenated into one vector, reduced by one
@@ -192,9 +236,13 @@ def bucketed_psum(tree: Any, group=None, *,
     leaf dtype (bf16 gradients reduce in bf16, as torch DDP's do; a stray
     f32 leaf upcasts only its bucket), or ``accum_dtype``: reduce and
     mean-divide there, cast back to each leaf's dtype after.
-    ``mean=False`` sums."""
+    ``mean=False`` sums. ``reduce_fn(flat, group) -> summed flat`` swaps
+    the transport (default: one all-reduce, counted as
+    ``bucketed_psum``; ``ops/ring_reduce.ring_psum_tree`` passes the
+    explicit ring)."""
     leaves, rebuild = tree_flatten(tree)
     n = world_size(group) if mean else 1
+    reduce_fn = reduce_fn or _all_reduce_sum
     out: list = [None] * len(leaves)
     for bucket in plan_buckets(leaves, bucket_bytes):
         wire = accum_dtype
@@ -203,7 +251,7 @@ def bucketed_psum(tree: Any, group=None, *,
             for i in bucket[1:]:
                 wire = torch.promote_types(wire, leaves[i].dtype)
         flat = torch.cat([leaves[i].to(wire).reshape(-1) for i in bucket])
-        all_reduce_(flat, group, kind="bucketed_psum")
+        flat = reduce_fn(flat, group)
         if mean:
             flat = flat / n
         off = 0

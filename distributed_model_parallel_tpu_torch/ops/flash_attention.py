@@ -178,10 +178,14 @@ def _check(name, rows, vecs):
 
 def _launch(name, ptrs, q, causal, window):
     b, t, h, d = q.shape
-    rc = _entry(name)(
-        *ptrs, b, t, h, d, int(bool(causal)),
-        0 if window is None else int(window), float(d ** -0.5),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    # The kernel launches on the current device (the .cu entry points set
+    # none): make it the tensors' own, so that q on cuda:k runs on card k,
+    # on that card's current stream.
+    with torch.cuda.device(q.device):
+        rc = _entry(name)(
+            *ptrs, b, t, h, d, int(bool(causal)),
+            0 if window is None else int(window), float(d ** -0.5),
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 

@@ -103,6 +103,18 @@ def _kernel_fns():
     return fn, splits
 
 
+def _call(fn, args: tuple, device: torch.device) -> None:
+    """Launch the split and merge passes: ``fn(*args, stream)``. The
+    kernel launches on the current device (``paged_decode.cu`` sets none):
+    make it the tensors' own, so that q on cuda:k runs on card k, on that
+    card's current stream."""
+    with torch.cuda.device(device):
+        rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
+                           f"{rc}")
+
+
 def paged_attention_kernel(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, tables: torch.Tensor,
                            positions: torch.Tensor,
@@ -163,16 +175,11 @@ def paged_attention_kernel(q: torch.Tensor, k_pool: torch.Tensor,
     # f32 scratch of the split pass: (m, l) and acc[Dh] per (b, h, split).
     part = torch.empty(b * h * splits(n) * (2 + dh), dtype=torch.float32,
                        device=q.device)
-    rc = fn(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-        part.data_ptr(), b, h, hkv, dh, n_pool, page, n,
-        0 if window is None else int(window), float(dh ** -0.5),
-        int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"paged_decode kernel launch failed: CUDA error "
-                           f"{rc}")
+    _call(fn, (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+               tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
+               part.data_ptr(), b, h, hkv, dh, n_pool, page, n,
+               0 if window is None else int(window), float(dh ** -0.5),
+               int(q.dtype == torch.bfloat16)), q.device)
     paged_attention_kernel.launches += 1
     return out
 

@@ -4,7 +4,12 @@ group (``mesh.py``) or an explicit device list:
 * :mod:`.data_parallel` — DataParallel's scatter → replicate → apply →
   gather, one rank per process;
 * :mod:`.ddp` — explicit DDP: per-replica programs and BN state, the
-  gradient all-reduce (per leaf or bucketed), the replication check;
+  gradient all-reduce (per leaf, bucketed, or round the explicit ring),
+  the replication check;
+* :mod:`.zero` — ZeRO: the reduce-scattered gradient, each rank's slice
+  of the momentum updated by the fused SGD kernel, the gathered params;
+* :mod:`.fsdp` — FSDP: parameters and momentum sharded at rest, gathered
+  for each use, gradients reduce-scattered;
 * :mod:`.pipeline` — the pipeline runner: chunks over an explicit device
   list, the naive, GPipe, 1F1B and interleaved schedules, and the
   per-chunk functions both pipeline engines run;

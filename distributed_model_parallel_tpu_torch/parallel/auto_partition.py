@@ -19,10 +19,17 @@ device (shapes only) and adds, per operation, what XLA counts:
 * BatchNorm in training: ``6`` per element plus ``6`` per channel (the
   two moments, normalize, scale and shift; the running averages are not
   part of a unit's output, and XLA drops them);
-* ReLU and a residual add: 1 per element; a mean: 1 per input element.
+* ReLU and a residual add: 1 per element; a mean: 1 per input element;
+* a max-pool (XLA's reduce-window): window − 1 comparisons per output
+  element, whatever the padding (ResNet's ImageNet stem: 8 for its 3x3
+  window).
 
 The per-unit counts equal JAX's ``unit_costs`` to XLA's float32
-rounding (``tests/test_torch_auto_partition.py``).
+rounding (``tests/test_torch_auto_partition.py``), except where XLA's CPU
+cost analysis counts a reduction over a length that is not a power of two
+as a few elements longer (BN statistics over 112/56/28/14/7 px maps:
+ResNet-50's ImageNet layout, up to 0.26% of a unit), which the cuts do
+not notice.
 """
 
 from __future__ import annotations
@@ -46,11 +53,16 @@ __all__ = ["auto_boundaries", "cost_balanced_boundaries",
            "microbatch_rows", "unit_costs"]
 
 
-def conv_taps(size: int, kernel: int, stride: int) -> int:
+def conv_taps(size: int, kernel: int, stride: int,
+              pads: tuple[int, int] | None = None) -> int:
     """Kernel taps inside the input, summed over the outputs of one
-    spatial dim under XLA's SAME padding."""
-    out = -(-size // stride)
-    lo = max((out - 1) * stride + kernel - size, 0) // 2
+    spatial dim under ``pads`` (low, high; default XLA's SAME padding)."""
+    if pads is None:
+        out = -(-size // stride)
+        lo = max((out - 1) * stride + kernel - size, 0) // 2
+    else:
+        lo = pads[0]
+        out = (size + pads[0] + pads[1] - kernel) // stride + 1
     return sum(min(o * stride - lo + kernel, size) - max(o * stride - lo, 0)
                for o in range(out))
 
@@ -58,6 +70,7 @@ def conv_taps(size: int, kernel: int, stride: int) -> int:
 _ELEMENTWISE = (F.relu, torch.relu, torch.Tensor.relu, torch.add,
                 torch.Tensor.add, torch.Tensor.__add__)
 _REDUCTIONS = (torch.mean, torch.Tensor.mean)
+_POOLS = (F.max_pool2d,)
 
 
 class _Count(TorchFunctionMode):
@@ -75,15 +88,19 @@ class _Count(TorchFunctionMode):
                 self.flops += out.numel()
             elif func in _REDUCTIONS:
                 self.flops += args[0].numel()
+            elif func in _POOLS:
+                window = args[1] if len(args) > 1 else kwargs["kernel_size"]
+                self.flops += (window * window - 1) * out.numel()
         return out
 
 
 def _module_flops(m, x: torch.Tensor, y: torch.Tensor) -> float:
     if isinstance(m, Conv):
         n, cin, h, w = x.shape
+        ph, pw = m.pads(h, w)
         return (2.0 * n * y.shape[1] * (cin // m.groups)
-                * conv_taps(h, m.kernel, m.stride)
-                * conv_taps(w, m.kernel, m.stride))
+                * conv_taps(h, m.kernel, m.stride, ph)
+                * conv_taps(w, m.kernel, m.stride, pw))
     if isinstance(m, BatchNorm):
         return 6.0 * y.numel() + 6.0 * y.shape[1]
     return 2.0 * x.numel() * m.weight.shape[0] + y.numel()       # Dense

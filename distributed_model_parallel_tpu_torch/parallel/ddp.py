@@ -6,14 +6,15 @@ state (per-replica statistics, DDP without SyncBN), unless the model was
 built with ``bn_mode="sync"`` (statistics over the process group).
 Gradients are averaged by the Reducer (``train/optim.GradReducer``): one
 all-reduce per leaf (``allreduce="psum"``) or per flat bucket
-(``"bucketed"``), launched from autograd hooks, completed before gradient
-clipping and the optimizer, as the JAX step runs ``tx.update`` after
-``psum_mean``. Parameters and the optimizer state stay identical on
+(``"bucketed"``), launched from autograd hooks, or each flat bucket round
+the explicit neighbour ring (``"ring"``, ``ops/ring_reduce.py``: blocking
+hops, run in bucket order when the backward is done), completed before
+gradient clipping and the optimizer, as the JAX step runs ``tx.update``
+after ``psum_mean``. Parameters and the optimizer state stay identical on
 every rank; :func:`assert_ddp_replicated` checks that bit for bit.
 
-Not ported yet, and refused by name: ``allreduce="ring"``
-(``ops/ring_reduce.py``, ROADMAP A8) and ``"hierarchical"`` (a two-level
-data axis, ``dcn_data > 1``, ROADMAP A6).
+Not ported yet, and refused by name: ``allreduce="hierarchical"`` (a
+two-level data axis, ``dcn_data > 1``, ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -51,14 +52,11 @@ def resolve_allreduce(allreduce: str = "psum", bucket_bytes: int | None = None,
         bucket_bytes = int(grad_bucket_mb * 1024 * 1024)
     if allreduce == "psum" and bucket_bytes is not None:
         allreduce = "bucketed"
-    if allreduce == "ring":
-        raise ValueError("allreduce='ring' (ops/ring_reduce.py, the explicit "
-                         "neighbour ring) is not ported yet (ROADMAP A8)")
     if allreduce == "hierarchical":
         raise ValueError("allreduce='hierarchical' needs a two-level data "
                          "axis (MeshConfig.dcn_data > 1), which is not "
                          "ported yet (ROADMAP A6, multi-node)")
-    if allreduce not in ("psum", "bucketed"):
+    if allreduce not in ("psum", "bucketed", "ring"):
         raise KeyError(f"unknown allreduce {allreduce!r}")
     return allreduce, bucket_bytes
 

@@ -26,7 +26,7 @@ from distributed_model_parallel_tpu_torch.models import (
 )
 from distributed_model_parallel_tpu_torch.ops import collectives as C
 from distributed_model_parallel_tpu_torch.parallel import data_parallel as dp
-from distributed_model_parallel_tpu_torch.parallel import ddp
+from distributed_model_parallel_tpu_torch.parallel import ddp, fsdp
 from distributed_model_parallel_tpu_torch.parallel import (
     spmd_cnn_pipeline as sp,
 )
@@ -182,8 +182,13 @@ def trainer_runs(spec: MeshSpec, runs: dict, train: tuple,
         else:
             res["history"] = t.fit()
             res["step_log"] = t.step_log
-        ddp.assert_ddp_replicated(t.model, t.optimizer, spec)
-        res["params"] = params_to_jax(t.model)[0]
+        if run["config"].strategy != "fsdp":
+            ddp.assert_ddp_replicated(t.model, t.optimizer, spec)
+        else:
+            res["resident"] = fsdp.resident_bytes(t.model, t.optimizer)
+            res["slices"] = fsdp.local_params_to_jax(t.model)
+        with torch.no_grad():
+            res["params"] = params_to_jax(t.model)[0]
         res["replica_state"] = ddp.gather_replica_state(t.model, spec)
         out[name] = res
     return out
@@ -314,3 +319,86 @@ def spmd_trainer_fit(spec: MeshSpec, config, params, state, train: tuple,
     history = t.fit()
     return dict(history=history, lo=t.stage.lo, hi=t.stage.hi,
                 params=params_to_jax(t.model)[0])
+
+
+# -- the remaining data-parallel engines ------------------------------------
+
+def ring_collectives(spec: MeshSpec, xs: dict, tree: dict) -> dict:
+    """The explicit ring on this rank: ``ring_all_reduce`` of rank r's
+    row of each ``xs`` entry (sum, and mean for ``"mean"``),
+    ``ring_reduce_scatter`` of rank r's row of ``xs["scatter"]`` (and its
+    refusal of a leading dim not divisible by the ranks), and
+    ``ring_psum_tree`` of rank r's row of every leaf of ``tree``; the hops
+    each made."""
+    from distributed_model_parallel_tpu_torch.ops import ring_reduce as rr
+
+    r = spec.rank
+    out = {"all_reduce": {}, "hops": {}}
+    for name, x in xs.items():
+        row = torch.from_numpy(np.array(x[r]))
+        C.reset_counts()
+        if name == "scatter":
+            out["reduce_scatter"] = _np(rr.ring_reduce_scatter(row.reshape(-1),
+                                                               spec.group))
+        else:
+            out["all_reduce"][name] = _np(rr.ring_all_reduce(
+                row, spec.group, mean=name == "mean"))
+        out["hops"][name] = C.calls["ring_send"]
+    try:
+        rr.ring_reduce_scatter(torch.ones(15), spec.group)
+        out["refused"] = None
+    except ValueError as e:
+        out["refused"] = str(e)
+    out["tree"] = _np(rr.ring_psum_tree(
+        C.tree_map(lambda a: torch.from_numpy(np.array(a[r])), tree),
+        spec.group))
+    return out
+
+
+def zero_linear_loss(params, batch):
+    """tests/test_zero.py's problem: the mean squared error of a linear
+    map."""
+    x, y = batch
+    return ((x @ params["w"] + params["b"] - y) ** 2).mean()
+
+
+def zero_steps(spec: MeshSpec, params: dict, x: np.ndarray, y: np.ndarray,
+               cases: dict, steps: int) -> dict:
+    """Per case (``OptimizerConfig`` kwargs), ``steps`` ZeRO steps of
+    :func:`zero_linear_loss` from ``params`` on this rank's rows of
+    ``(x, y)``: the parameters and loss after each step and this rank's
+    momentum slice."""
+    from distributed_model_parallel_tpu_torch.parallel import zero
+
+    rows = spec.rows(len(x))
+    batch = (torch.from_numpy(x[rows]), torch.from_numpy(y[rows]))
+    out = {}
+    for name, kw in cases.items():
+        init_fn, step_fn = zero.make_zero_train_step(
+            zero_linear_loss, OptimizerConfig(**kw), spec)
+        p = _t(params)
+        state = init_fn(p)
+        hist = []
+        for _ in range(steps):
+            p, state, loss = step_fn(p, state, batch)
+            hist.append(dict(params=_np(p), loss=float(loss)))
+        out[name] = dict(
+            steps=hist, count=state.count,
+            momentum=None if state.momentum is None
+            else _np(state.momentum))
+    return out
+
+
+def sparse_bow_step(spec: MeshSpec, cfg, params: dict, tokens: np.ndarray,
+                    labels: np.ndarray, lr: float) -> dict:
+    """One sparse-gradient SGD step of the bag-of-words model on this
+    rank's rows of the global batch, the COO pairs crossing by the sparse
+    all-reduce; the new parameters and the loss."""
+    from distributed_model_parallel_tpu_torch.models import embedding as bow
+
+    rows = spec.rows(len(labels))
+    step = bow.make_sparse_sgd_step(cfg, lr, group=spec.group)
+    new, loss = step(bow.params_from_jax(params, "cpu"),
+                     torch.from_numpy(tokens[rows]),
+                     torch.from_numpy(labels[rows]))
+    return dict(params=bow.params_to_jax(new), loss=float(loss))

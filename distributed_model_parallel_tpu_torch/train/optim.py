@@ -14,9 +14,10 @@ SGD kernel (``ops/fused_sgd.py``), the counterpart of
 
 :class:`GradReducer` is DDP's Reducer over a process group: autograd
 hooks launch one asynchronous all-reduce per bucket as its gradients are
-ready, and :meth:`GradReducer.finish` completes and averages them before
-clipping and the update. Under ``fused`` its buckets are the optimizer's
-own flat gradient buffers, reduced in place.
+ready (or, over the explicit ring, :meth:`GradReducer.finish` sends each
+bucket round it), and :meth:`GradReducer.finish` completes and averages
+them before clipping and the update. Under ``fused`` its buckets are the
+optimizer's own flat gradient buffers, reduced in place.
 """
 
 from __future__ import annotations
@@ -33,8 +34,13 @@ from distributed_model_parallel_tpu_torch.config import OptimizerConfig
 from distributed_model_parallel_tpu_torch.ops import fused_sgd as fs
 from distributed_model_parallel_tpu_torch.ops.collectives import (
     all_reduce_,
+    calls,
     plan_buckets,
+    wire_bytes,
     world_size,
+)
+from distributed_model_parallel_tpu_torch.ops.ring_reduce import (
+    ring_all_reduce,
 )
 
 # fused_sgd's bucket cap (ops/pallas_optim.py): MobileNetV2's 9.2 MB of
@@ -43,6 +49,11 @@ FUSED_BUCKET_BYTES = 64 * 1024 * 1024
 # bucketed_psum's default cap (ops/collectives.py), for gradients that are
 # not the fused optimizer's buckets.
 DDP_BUCKET_BYTES = 25 * 1024 * 1024
+# Floats a parameter's slot in a flat f32 bucket is aligned to (16 bytes):
+# cuDNN's f32 kernels load a BatchNorm scale or a conv weight with vector
+# loads, and a slot 8 bytes into its buffer (after a 10-float head bias)
+# fails them with CUDNN_STATUS_EXECUTION_FAILED_CUDART. The gaps stay 0.
+SLOT_ALIGN = 4
 
 
 def make_schedule(config: OptimizerConfig, steps_per_epoch: int,
@@ -147,8 +158,10 @@ class FusedSGD:
     (``plan_buckets`` of the parameters, ``bucket_bytes`` cap).
 
     Each bucket owns three contiguous f32 buffers — parameters, gradients
-    and (momentum > 0) the trace. At construction every parameter is
-    rebound to a view of its slot, with its own strides (channels-last
+    and (momentum > 0) the trace — with every slot starting on a 16-byte
+    boundary (:data:`SLOT_ALIGN`; the gaps between slots stay zero). At
+    construction every parameter is rebound to a view of its slot, with
+    its own strides (channels-last
     conv weights stay channels-last), and its ``.grad`` is set once to a
     view of the gradient slot: autograd accumulates into it in place and
     :meth:`zero_grad` zeroes the buckets (DDP's
@@ -193,8 +206,12 @@ class FusedSGD:
         self.buckets = plan_buckets(self.params, bucket_bytes)
         self._p, self._g, self._m = [], [], []
         self._m_views: list = [None] * len(self.params)
+        align = SLOT_ALIGN if self.flat else 1
         for bucket in self.buckets:
-            n = sum(self.params[i].numel() for i in bucket)
+            offsets, n = [], 0
+            for i in bucket:
+                offsets.append(n)
+                n += -(-self.params[i].numel() // align) * align
             mk = lambda: torch.zeros(n, dtype=torch.float32,
                                      device=self.device)
             m = mk() if self.momentum else None
@@ -202,8 +219,7 @@ class FusedSGD:
             pbuf, gbuf = (mk(), mk()) if self.flat else (None, None)
             self._p.append(pbuf)
             self._g.append(gbuf)
-            off = 0
-            for i in bucket:
+            for i, off in zip(bucket, offsets):
                 p = self.params[i]
                 if not _dense(p):
                     raise ValueError(f"parameter {i} of shape "
@@ -217,7 +233,6 @@ class FusedSGD:
                     pv.copy_(p.detach())
                     p.data = pv
                     p.grad = view(gbuf)
-                off += p.numel()
         self._slots = ([(p.data_ptr(), p.grad.data_ptr())
                         for p in self.params] if self.flat else None)
         self._launchers = ([fs.BucketLauncher(*b) for b in
@@ -310,7 +325,12 @@ class GradReducer:
     ``.grad`` views stay bound); otherwise :func:`plan_buckets` of the
     parameters at ``bucket_bytes``, each bucket concatenated into a flat
     copy and split back. ``"psum"``: one all-reduce per parameter, on its
-    ``.grad`` in place. A gradient never produced is taken as zeros.
+    ``.grad`` in place. ``"ring"``: the buckets of ``"bucketed"``, each
+    summed by ``ops/ring_reduce.ring_all_reduce``; its hops block, so
+    :meth:`finish` runs them, in bucket order on every rank, and the
+    overlap with the backward is lost on this transport. A gradient never
+    produced is taken as zeros. Each bucket's reduction counts one
+    ``reducer`` call.
 
     Under :meth:`no_sync` (a pipeline's microbatches but the last) the
     hooks launch nothing and the gradients accumulate, as under torch
@@ -324,11 +344,12 @@ class GradReducer:
     def __init__(self, params, group, optimizer=None, *,
                  allreduce: str = "bucketed",
                  bucket_bytes: int = DDP_BUCKET_BYTES):
-        if allreduce not in ("psum", "bucketed"):
+        if allreduce not in ("psum", "bucketed", "ring"):
             raise KeyError(f"unknown allreduce {allreduce!r}")
         self.params = list(params)
         self.group = group
         self.world = world_size(group)
+        self.ring = allreduce == "ring"
         self.buffers = None
         if allreduce == "psum":
             self.buckets = [[i] for i in reversed(range(len(self.params)))]
@@ -367,7 +388,7 @@ class GradReducer:
                 return
             b = self._bucket_of[i]
             self._pending[b] -= 1
-            if self._pending[b] == 0:
+            if self._pending[b] == 0 and not self.ring:
                 self._launch(b)
         return hook
 
@@ -392,6 +413,11 @@ class GradReducer:
         else:
             flat = torch.cat([self._grad(i).reshape(-1) for i in idx])
         self._flat[b] = flat
+        if self.ring:
+            calls["reducer"] += 1
+            wire_bytes["reducer"] += flat.numel() * flat.element_size()
+            flat.copy_(ring_all_reduce(flat, self.group))
+            return
         self._work[b] = all_reduce_(flat, self.group, kind="reducer",
                                     async_op=True)
 

@@ -10,12 +10,23 @@ counterpart of ``scripts/train_data_parallel.py``.
     python -m distributed_model_parallel_tpu_torch.train.train_cnn \\
         --device cpu --model tinycnn --nproc 2 --strategy ddp \\
         --bn-mode sync --allreduce bucketed --batch-size 32
+    python -m distributed_model_parallel_tpu_torch.train.train_cnn \\
+        --device cpu --model tinycnn --nproc 2 --strategy fsdp \\
+        --batch-size 32
+    python -m distributed_model_parallel_tpu_torch.train.train_cnn \\
+        --device cuda --model resnet50 --batch-size 512 --fused \\
+        --device-data --steps-per-dispatch 10
     torchrun --nproc-per-node 4 -m \\
         distributed_model_parallel_tpu_torch.train.train_cnn --fused
 
 ``--device`` defaults to ``cuda``, where the model computes in bf16 over
 f32 parameters (``--dtype`` overrides) with cuDNN's autotuner on; on
-``cpu`` it runs in f32. ``--fused`` takes the fused SGD kernel.
+``cpu`` it runs in f32. ``--model`` takes MobileNetV2, ResNet-18/34/50
+(the CIFAR layout; the JAX CLI has no layout flag either) and tinycnn.
+``--fused`` takes the fused SGD kernel. ``--strategy fsdp`` shards the
+parameters and momentum over the ranks (no ``--fused``);
+``--allreduce ring`` sends ddp's gradient buckets round the explicit
+neighbour ring.
 ``--nproc N`` spawns N ranks (a ``file://`` store in a temporary
 directory): rank r runs on ``cuda:r`` over NCCL, so N may not exceed the
 cards unless ``--backend gloo`` is given; ``--device cpu`` runs gloo.
@@ -53,7 +64,8 @@ def parse_args(argv=None):
                    choices=("synthetic", "cifar10"))
     p.add_argument("--device", default="cuda")
     p.add_argument("--model", default="mobilenetv2",
-                   choices=("mobilenetv2", "mobilenetv2_nobn", "tinycnn"))
+                   choices=("mobilenetv2", "mobilenetv2_nobn", "resnet18",
+                            "resnet34", "resnet50", "tinycnn"))
     p.add_argument("--dtype", default=None, choices=("float32", "bfloat16"),
                    help="compute dtype (default: bfloat16 on cuda, float32 "
                         "on cpu)")
@@ -77,7 +89,8 @@ def parse_args(argv=None):
                    help="ranks to spawn (data parallelism)")
     p.add_argument("--backend", default=None, choices=("nccl", "gloo"),
                    help="default: nccl on cuda, gloo on cpu")
-    p.add_argument("--strategy", default="gspmd", choices=("gspmd", "ddp"))
+    p.add_argument("--strategy", default="gspmd",
+                   choices=("gspmd", "ddp", "fsdp"))
     p.add_argument("--bn-mode", default="local",
                    choices=("local", "sync", "none"))
     p.add_argument("--allreduce", default="psum",

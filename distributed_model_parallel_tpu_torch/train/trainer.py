@@ -1,6 +1,6 @@
 """CNN trainer — the port of ``distributed_model_parallel_tpu/train/
-trainer.py`` with ``strategy="gspmd"`` and ``"ddp"`` over the data axis,
-and ``"spmd_pipeline"`` over a ``(data, stage)`` mesh.
+trainer.py`` with ``strategy="gspmd"``, ``"ddp"`` and ``"fsdp"`` over the
+data axis, and ``"spmd_pipeline"`` over a ``(data, stage)`` mesh.
 
 One step (:func:`make_train_step`): on-device augmentation (random crop
 with pad 4, horizontal flip) → normalize → forward with BatchNorm in
@@ -23,6 +23,14 @@ cross-replica statistics (``"sync"``) and its own draws, from ``(seed +
 1, step, rank)`` (``parallel/ddp.py``). Parameters start equal on every
 rank: built from ``config.seed``, then broadcast from rank 0.
 
+FSDP (``strategy="fsdp"``, ``parallel/fsdp.py``) runs gspmd's program
+with the parameters sharded: at rest each rank keeps its slice of every
+sharded leaf and of its momentum (1/N of both); each use all-gathers the
+leaf, its gradient is reduce-scattered back, and the SGD update runs on
+the slices. The JAX package's refusals hold: ``fused`` (the fused kernel
+runs over flat buckets of full parameters), ``grad_bucket_mb`` and
+``consistency_every`` (no replicated state to compare).
+
 The pipeline (``strategy="spmd_pipeline"``, ``MeshConfig(stage=S)``, S ≥
 2; ``parallel/spmd_cnn_pipeline.py``): each rank holds its stage's units
 only and steps its own optimizer; stage 0 of each data row loads that
@@ -35,10 +43,10 @@ pipeline. Metrics are the global batch's on every rank.
 tensors until a drain at ``max_inflight_steps`` or the log cadence (one
 host read per drain), the timer attributes each drained window's wall
 time to its steps, and the history records carry the same keys. The
-device-resident path (``gspmd`` only, as in the JAX package) keeps the
-training set on the device as flat uint8 on every rank, gathers each
-step's rows by index, and runs ``steps_per_dispatch`` steps per call as a
-Python loop with no host sync inside. The augmentation draws of global
+device-resident path (``gspmd`` and ``fsdp``, as in the JAX package)
+keeps the training set on the device as flat uint8 on every rank, gathers
+each step's rows by index, and runs ``steps_per_dispatch`` steps per call
+as a Python loop with no host sync inside. The augmentation draws of global
 step s come from a generator derived from ``(seed + 1, s)``: stateless
 like the JAX trainer's, but the port's own bits.
 
@@ -118,7 +126,7 @@ _UNPORTED = (
     ("statusz_port", lambda c: c.statusz_port is not None,
      "A11: status exporter"),
 )
-_STRATEGIES = {"fsdp": "A8: FSDP", "auto": "A11: autotune"}
+_STRATEGIES = {"auto": "A11: autotune"}
 
 
 def check_train_config(config: TrainConfig) -> None:
@@ -127,9 +135,21 @@ def check_train_config(config: TrainConfig) -> None:
     if config.strategy in _STRATEGIES:
         raise ValueError(f"strategy={config.strategy!r} is not ported yet "
                          f"(ROADMAP {_STRATEGIES[config.strategy]}); the "
-                         f"port runs 'gspmd', 'ddp' and 'spmd_pipeline'")
-    if config.strategy not in ("gspmd", "ddp", "spmd_pipeline"):
+                         f"port runs 'gspmd', 'ddp', 'fsdp' and "
+                         f"'spmd_pipeline'")
+    if config.strategy not in ("gspmd", "ddp", "fsdp", "spmd_pipeline"):
         raise KeyError(f"unknown strategy {config.strategy!r}")
+    if config.optimizer.fused and config.strategy == "fsdp":
+        raise ValueError(
+            "OptimizerConfig.fused runs the update over flat coalesced "
+            "parameter buckets, which would gather the ZeRO-sharded "
+            "params/opt state back to full size on every step; use it with "
+            "replicated-param strategies (gspmd/ddp) — no silent ignores")
+    if config.consistency_every and config.strategy == "fsdp":
+        raise ValueError(
+            "consistency_every needs state replicated over the data axis to "
+            "compare; strategy='fsdp' shards params + optimizer state over "
+            "it — no redundancy, no cross-replica check. No silent ignores")
     check_mesh_config(config.mesh)
     if config.strategy == "spmd_pipeline":
         check_spmd_pipeline_config(config)
@@ -349,6 +369,7 @@ class Trainer:
                              f"data={config.mesh.data}")
         self.device = spec.device
         ddp = None
+        fsdp = config.strategy == "fsdp"
         if config.strategy == "ddp":
             from distributed_model_parallel_tpu_torch.parallel import ddp
         if train_ds is None or eval_ds is None:
@@ -400,11 +421,27 @@ class Trainer:
             allreduce, bucket_bytes = ddp.resolve_allreduce(
                 config.ddp_allreduce, config.ddp_bucket_bytes,
                 config.grad_bucket_mb)
+        if fsdp:
+            # Rank 0's weights everywhere, then each rank keeps its slices;
+            # the optimizer (and its momentum) sees only those.
+            from distributed_model_parallel_tpu_torch.parallel import (
+                fsdp as fsdp_mod,
+            )
+
+            if spec.group is not None:
+                replicate(list(self.model.parameters())
+                          + list(self.model.buffers()), spec)
+            fsdp_mod.shard_model(self.model, spec)
         self.optimizer = make_optimizer(
             config.optimizer, len(self.train_loader), config.epochs,
             self.model.parameters(),
             bucket_bytes=bucket_bytes if ddp else None)
-        if spec.group is not None and (not pipe or spec.num_data > 1):
+        if fsdp:
+            self.reducer = fsdp_mod.FsdpReducer(self.model, spec.group,
+                                                self.optimizer.clip)
+            self.optimizer.clip = None          # the reducer clips
+        if (spec.group is not None and not fsdp
+                and (not pipe or spec.num_data > 1)):
             # Rank 0's parameters everywhere (and its BN state, unless each
             # replica was given its own); a pipeline's, over each stage's
             # data rows.
@@ -425,9 +462,10 @@ class Trainer:
             self.reducer = self._train_step.reducer
             self._eval_step = ddp.make_ddp_eval_step(self.model, spec, **kw)
         else:
-            self.reducer = (GradReducer(self.model.parameters(), spec.group,
-                                        self.optimizer)
-                            if spec.group is not None else None)
+            if not fsdp:
+                self.reducer = (GradReducer(self.model.parameters(),
+                                            spec.group, self.optimizer)
+                                if spec.group is not None else None)
             share = dict(reducer=self.reducer, rows=(self._rows.start, bs))
             step = make_train_step(self.model, self.optimizer,
                                    augment=config.data.augment, **share,

@@ -411,11 +411,13 @@ def test_fit_matches_jax_trainer(jax_fit, fused, resident):
 
 
 # Multi-GPU data parallelism (strategy="ddp", data > 1, grad_bucket_mb,
-# sync BN) and the pipeline (strategy="spmd_pipeline", the stage axis)
-# are ported (tests/test_torch_ddp*.py, tests/test_torch_*pipeline*.py);
-# their entries here became what of them is still refused.
+# sync BN), the pipeline (strategy="spmd_pipeline", the stage axis), the
+# ring transport and FSDP are ported (tests/test_torch_ddp*.py,
+# tests/test_torch_*pipeline*.py, test_torch_ring_reduce.py,
+# test_torch_fsdp.py); their entries here became what is still refused.
 @pytest.mark.parametrize("bad", [
-    dict(strategy="ddp", ddp_allreduce="ring"), dict(strategy="fsdp"),
+    dict(async_checkpoint=True),
+    dict(optimizer=tconfig.OptimizerConfig(accum_steps=2)),
     dict(strategy="spmd_pipeline", mesh=tconfig.MeshConfig(stage=2),
          pipeline_schedule="1f1b", virtual_stages=2),
     dict(strategy="auto"),
@@ -438,7 +440,8 @@ def test_unported_trainer_options_raise(bad):
         ttrainer.Trainer(dataclasses.replace(cfg, **bad))
 
 
-@pytest.mark.parametrize("name", ["resnet18", "densenet121", "transformer"])
+# ResNet is ported (tests/test_torch_resnet.py); the zoo is not.
+@pytest.mark.parametrize("name", ["vgg16", "densenet121", "transformer"])
 def test_unported_models_raise(name):
     with pytest.raises((KeyError, ValueError)):
         get_model(tconfig.ModelConfig(name=name), device="cpu")

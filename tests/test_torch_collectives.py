@@ -311,7 +311,7 @@ def test_spawn_times_out_and_kills_its_ranks(tmp_path):
      "needs a process group of 2 ranks"),
     (lambda: tmesh.make_mesh(tconfig.MeshConfig(data=2), "cpu"),
      "needs a process group of 2 ranks"),
-    (lambda: tddp.resolve_allreduce("ring"), "ROADMAP A8"),
+    (lambda: tddp.resolve_allreduce("hierarchical", 1 << 20), "ROADMAP A6"),
     (lambda: tddp.resolve_allreduce("hierarchical"), "ROADMAP A6"),
     (lambda: tmesh.spawn(workers.unused_param, 2, device="cuda"),
      "no CUDA device"),

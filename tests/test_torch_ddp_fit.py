@@ -246,9 +246,11 @@ def test_cli_spawns_ranks_and_prints_rank_0(capsys):
     (dict(strategy="ddp", device_resident_data=True),
      "only supported with strategy='gspmd'"),
     (dict(grad_bucket_mb=25.0), "grad_bucket_mb"),
-    (dict(strategy="ddp", ddp_allreduce="ring"), "ROADMAP A8"),
+    (dict(strategy="fsdp", optimizer=tconfig.OptimizerConfig(fused=True)),
+     "OptimizerConfig.fused runs the update over flat"),
     (dict(strategy="ddp", ddp_allreduce="hierarchical"), "ROADMAP A6"),
-    (dict(strategy="fsdp"), "ROADMAP A8"),
+    (dict(strategy="fsdp", consistency_every=1),
+     "consistency_every needs state replicated"),
     (dict(mesh=tconfig.MeshConfig(data=2, dcn_data=2)), "ROADMAP A6"),
     (dict(mesh=tconfig.MeshConfig(data=2)), "process group of 2"),
 ])

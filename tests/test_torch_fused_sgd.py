@@ -399,3 +399,29 @@ def test_kernel_launches_on_its_buckets_card(monkeypatch, index):
              torch.device("cuda", index))
     assert seen == {"current": index, "stream": 100 + index}
     assert current[0] == 0
+
+
+def test_bucket_slots_start_on_16_byte_boundaries():
+    """Every parameter and gradient slot of a flat bucket starts on a
+    16-byte boundary, whatever the leaf sizes before it (a 10-float head
+    bias first in reverse leaf order): cuDNN's f32 BatchNorm faults on a
+    scale 8 bytes into its buffer (``misaligned address`` on the card).
+    The gaps between slots stay zero through a step, and each slot still
+    holds its parameter."""
+    sizes = [(64,), (3, 3), (10,), (5, 7), (130,), (10,)]
+    leaves = [torch.nn.Parameter(torch.randn(*s)) for s in sizes]
+    want = [p.detach().clone() for p in leaves]
+    opt = toptim.FusedSGD(leaves, TOpt(fused=True), lambda n: 0.1)
+    (p, m, g), = opt.flat_buckets()
+    for x, w in zip(leaves, want):
+        assert x.data_ptr() % 16 == 0 and x.grad.data_ptr() % 16 == 0
+        assert torch.equal(x.detach(), w)
+    assert p.numel() == sum(-(-x.numel() // 4) * 4 for x in leaves)
+    used = torch.zeros(p.numel(), dtype=torch.bool)
+    for x in leaves:
+        start = (x.data_ptr() - p.data_ptr()) // 4
+        used[start:start + x.numel()] = True
+    for x in leaves:
+        x.grad.fill_(1.0)
+    opt.step()
+    assert not p[~used].any() and not m[~used].any()

@@ -28,7 +28,8 @@ print(" ".join(names), "|", bad)
 """
 
 # Every module of the serving, LM training, CNN training, data-parallel
-# and pipeline slices.
+# and pipeline slices, ResNet, the remaining data-parallel engines and the
+# sparse-gradient embedding path.
 _MODULES = {
     "config", "models.transformer", "ops._build", "ops.paged_attention",
     "ops.flash_attention", "serve.engine", "serve.generate", "serve.model",
@@ -41,6 +42,8 @@ _MODULES = {
     "parallel.pipeline", "parallel.auto_partition",
     "parallel.spmd_cnn_pipeline", "train.pipeline_trainer",
     "train.train_model_parallel",
+    "models.resnet", "models.embedding", "ops.ring_reduce", "ops.sparse",
+    "parallel.zero", "parallel.fsdp",
 }
 
 
