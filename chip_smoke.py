@@ -127,11 +127,32 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     tests/test_fsdp.py's bounds, each rank's resident bytes; the sparse
     bag-of-words (BowConfig's defaults, 512 rows x 64 tokens, 5 steps)
     against dense SGD on the global batch within 1e-5, tables bitwise
-    equal across ranks.
+    equal across ranks;
+15. the reference's harness: (a) each of the 16 zoo models
+    (``models/zoo.py``) at its CIFAR widths, bf16 over f32 parameters,
+    FusedSGD (lr 0.4, momentum 0.9, wd 1e-4), batch 128 of synthetic
+    32 px data on the card, device-resident: 2 one-step warm-ups, 10
+    steps in one dispatch, one sync — the JAX package's parameter count,
+    ``fused_sgd`` launches == steps x buckets on the card, finite losses;
+    step s, samples/s and peak memory (over what was allocated before
+    the model's Trainer) printed; phase 11a's check on
+    EfficientNet-B0 and DenseNet-121, a momentum-0 EfficientNet-B0 run
+    (``plain_sgd``); (b) MobileNetV2 bf16, batch 256, cuDNN deterministic:
+    ``fit(2)`` against ``fit`` preempted by a ``step_hook`` at step 5 of
+    epoch 1 and finished by ``Trainer(resume=True)``, bit for bit
+    (parameters, momentum, BN statistics, update count, global step,
+    history), per batch and device-resident at 10 steps a dispatch; the
+    ``ckpt`` slot's best_acc, a torn newest version skipped and logged,
+    the text log's lines, save and restore ms and the checkpoint's
+    bytes; (c) the same gate at two ranks for ddp and zero (gloo on one
+    card, NCCL on two or more), and zero's uninterrupted run against
+    gspmd's from the same inputs, parameters, momentum and BN statistics
+    per leaf within 1e-5 relative.
 
 Prints the card line, each phase's seconds, a ``{"data_parallel": ...}``
 line, a ``{"pipeline": ...}`` line, a ``{"resnet": ...}`` line, a
-``{"dp_engines": ...}`` line, the ``{"kernels": [...]}`` line and, last,
+``{"dp_engines": ...}`` line, a ``{"harness": ...}`` line, the
+``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero
 without a card, or when run outside a checkout of the repository.
 ``--sgd-timing-only`` runs phases 1, 2 (the fused SGD kernel) and 10 and
@@ -145,11 +166,14 @@ runner with each stage on its own card and the SPMD engine over NCCL.
 with more than one card it adds BASELINE.json's pair per engine
 (bucketed, ring, ZeRO, fsdp, gspmd): samples/s a card over 10 more steps
 and the gradient reduction's µs a step by CUDA events (not measured for
-fsdp, whose reduce-scatters run inside the backward).
+fsdp, whose reduce-scatters run inside the backward). ``--harness-only``
+runs phases 1, 2 (the fused SGD kernel) and 15 and prints the
+``{"harness": ...}`` line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -360,6 +384,44 @@ DPE_RTOL = 1e-5
 FSDP_LOSS_RTOL, FSDP_RTOL, FSDP_ATOL = 2e-4, 2e-4, 2e-5
 BOW_ROWS, BOW_TOKENS, BOW_STEPS, BOW_LR = 512, 64, 5, 0.1
 BOW_RTOL, BOW_ATOL = 1e-5, 1e-6
+# The zoo (phase 15a): each of the 16 architectures of
+# models/zoo.py at its published CIFAR widths, bf16 over f32 parameters,
+# bench.py's SGD recipe (lr 0.4, momentum 0.9, wd 1e-4) through FusedSGD,
+# synthetic 32 px data on the card, device-resident: 2 one-step warm-up
+# dispatches (cuDNN's autotuner), then 10 steps in one dispatch and one
+# sync. Cut: batch 128, not bench.py's 512, so 16 models fit the phase's
+# time. ZOO_PARAMS: the JAX package's parameter count of each (jax.
+# eval_shape of its init on the CPU; tests/test_torch_zoo_models.py).
+ZOO_BATCH, ZOO_WARM_DISPATCHES, ZOO_TIMED_STEPS = 128, 2, 10
+ZOO_PARAMS = {
+    "vgg11": 9228362, "vgg13": 9413066, "vgg16": 14724042,
+    "vgg19": 20035018, "preactresnet18": 11171210, "senet18": 11260290,
+    "googlenet": 6158346, "densenet121": 6956362,
+    "resnext29_2x64d": 9130314, "mobilenetv1": 3217226, "dpn92": 34236634,
+    "shufflenetg2": 888158, "shufflenetv2": 1263854,
+    "efficientnetb0": 3598598, "regnetx_200mf": 2321946,
+    "simpledla": 15142970,
+}
+# Resume (phase 15b/c): the reference's workload (MobileNetV2,
+# bf16, fused SGD, augment on), 4,096 / 1,024 synthetic rows, batch 256
+# (16 steps an epoch), 2 epochs, preempted at step 5 of epoch 1 (the
+# first dispatch boundary after it at 10 steps a dispatch), cuDNN
+# deterministic.
+RES_TRAIN, RES_EVAL, RES_BATCH, RES_PREEMPT_STEP = 4096, 1024, 256, 5
+
+
+# Where the phases' trainers write their logs and checkpoints: one
+# temporary directory of the run, made by main() and removed at exit;
+# spawned ranks inherit the variable.
+RUN_DIR_ENV = "CHIP_SMOKE_RUN_DIR"
+
+
+def run_dirs(name: str) -> dict:
+    """A TrainConfig's log_dir, log_name and checkpoint_dir under the
+    run's temporary directory (never the working directory)."""
+    root = os.environ[RUN_DIR_ENV]
+    return dict(log_dir=os.path.join(root, "log"), log_name=name,
+                checkpoint_dir=os.path.join(root, "ckpt", name))
 
 
 def fail(phase: str, msg: str) -> None:
@@ -1179,7 +1241,7 @@ def cnn_config(tconfig, model: str = "mobilenetv2", **optimizer):
             **{**dict(learning_rate=0.4, warmup_steps=10, fused=True),
                **optimizer}),
         device_resident_data=True, steps_per_dispatch=CNN_SPD,
-        device="cuda")
+        device="cuda", **run_dirs(model))
 
 
 def cnn_dispatch_indices(n: int, dispatches: int):
@@ -2290,7 +2352,8 @@ def dpe_config(tconfig, world: int, **kw):
             synthetic_eval_size=DPE_BATCH),
         optimizer=tconfig.OptimizerConfig(
             **{**dict(learning_rate=DPE_LR, warmup_steps=0), **optimizer}),
-        mesh=tconfig.MeshConfig(data=world), device="cuda", **kw)
+        mesh=tconfig.MeshConfig(data=world), device="cuda",
+        **{**run_dirs(f"dpe_{RN_MODEL}"), **kw})
 
 
 def rel_gap(a, b) -> float:
@@ -2356,12 +2419,12 @@ def dpe_params(trainer) -> list:
 
     from distributed_model_parallel_tpu_torch.models.staged import (
         _unit_slots,
+        slot_leaves,
     )
 
     with torch.no_grad():
         return [t.detach().clone() for unit in trainer.model.units
-                for leaves in _unit_slots(unit)[0].values()
-                for t, _ in leaves.values()]
+                for t, _ in slot_leaves(_unit_slots(unit)[0])]
 
 
 def dpe_timed(run, reducer_times, n: int) -> dict:
@@ -2688,6 +2751,401 @@ def dp_engines(mesh, card, world: int, backend: str) -> dict:
     return out
 
 
+# -- phase 15: the reference's harness on the CNN trainer -----------------
+
+def zoo_config(tconfig, model: str, root: str, **optimizer):
+    """Phase 15a's TrainConfig: ``model`` at its CIFAR widths, bf16 over
+    f32 parameters, bench.py's SGD recipe through FusedSGD, synthetic
+    32 px data on the card, ZOO_BATCH rows, device-resident."""
+    return tconfig.TrainConfig(
+        model=tconfig.ModelConfig(name=model, dtype="bfloat16"),
+        data=tconfig.DataConfig(
+            name="synthetic", batch_size=ZOO_BATCH, eval_batch_size=ZOO_BATCH,
+            image_size=32, synthetic_native_size=32,
+            synthetic_train_size=4 * ZOO_BATCH, synthetic_eval_size=ZOO_BATCH),
+        optimizer=tconfig.OptimizerConfig(
+            **{**dict(learning_rate=0.4, warmup_steps=10, fused=True),
+               **optimizer}),
+        device_resident_data=True, steps_per_dispatch=ZOO_TIMED_STEPS,
+        device="cuda", log_dir=os.path.join(root, "log"), log_name=model,
+        checkpoint_dir=os.path.join(root, "ckpt", model))
+
+
+def zoo_run(trainer_mod, fs, tconfig, name: str, root: str, card,
+            momentum: float = 0.9) -> dict:
+    """One zoo model through ``Trainer.run_steps``: ZOO_WARM_DISPATCHES
+    one-step dispatches (cuDNN's autotuner), then ZOO_TIMED_STEPS steps in
+    one dispatch, one sync at the end. Gates: the JAX package's parameter
+    count, the fused update launched on the card (no plain fallback),
+    launches == steps x buckets, finite losses."""
+    import torch
+
+    phase = "15a/zoo"
+    # What earlier models and phases still hold, once cycles are freed (a
+    # collection inside this model's run would otherwise lower the
+    # allocation under the baseline).
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t = trainer_mod.Trainer(zoo_config(tconfig, name, root,
+                                       momentum=momentum))
+    params = list(t.model.parameters())
+    n = sum(p.numel() for p in params)
+    buckets = len(t.optimizer.buckets)
+    if n != ZOO_PARAMS[name]:
+        fail(phase, f"{name}: {n} parameters, the JAX package's "
+                    f"{ZOO_PARAMS[name]}")
+    if getattr(t.optimizer, "_launchers", None) is None:
+        fail(phase, f"{name}: FusedSGD runs the plain update on the card")
+    gen = torch.Generator().manual_seed(0)
+    idx = torch.randint(0, 4 * ZOO_BATCH, (ZOO_WARM_DISPATCHES
+                                           + ZOO_TIMED_STEPS, ZOO_BATCH),
+                        generator=gen).cuda()
+    for w in range(ZOO_WARM_DISPATCHES):
+        t.run_steps(idx[w:w + 1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fs.fused_sgd_kernel.launches = 0
+    fs.plain_sgd_kernel.launches = 0
+    t0 = time.perf_counter()
+    m = t.run_steps(idx[ZOO_WARM_DISPATCHES:])
+    losses = m["loss"].cpu().tolist()
+    dt = time.perf_counter() - t0
+    launches = {"fused_sgd": fs.fused_sgd_kernel.launches,
+                "plain_sgd": fs.plain_sgd_kernel.launches}
+    kernel = "fused_sgd" if momentum else "plain_sgd"
+    want = {"fused_sgd": 0, "plain_sgd": 0, kernel: ZOO_TIMED_STEPS * buckets}
+    rec = dict(params=n, leaves=len(params), buckets=buckets,
+               step_s=dt / ZOO_TIMED_STEPS,
+               samples_per_s=ZOO_BATCH * ZOO_TIMED_STEPS / dt,
+               peak_bytes=torch.cuda.max_memory_allocated() - base,
+               launches=launches, losses=losses)
+    print(f"zoo {name}{'' if momentum else ' (momentum 0)'} [{card}]: "
+          f"{n} parameters, {len(params)} leaves, {buckets} bucket(s); "
+          f"step {rec['step_s']} s, {rec['samples_per_s']} samples/s, peak "
+          f"{rec['peak_bytes']} B over what was allocated before its "
+          f"Trainer; launches {launches} (want {want}); "
+          f"losses {losses[0]} .. {losses[-1]}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(phase, f"{name}: non-finite losses {losses}")
+    if launches != want:
+        fail(phase, f"{name}: launches {launches}, want {want}")
+    del t, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def zoo_phase(trainer_mod, fs, models, staged, tconfig, root, card) -> dict:
+    """Phase 15a: the 16 zoo models on the card, phase 11a's fused vs
+    ``torch.optim.SGD`` check on EfficientNet-B0 (SE biases under BN) and
+    DenseNet-121 (the most leaves), and one momentum-0 EfficientNet-B0
+    run through ``plain_sgd``."""
+    import torch
+
+    torch.backends.cudnn.benchmark = True
+    rows = {name: zoo_run(trainer_mod, fs, tconfig, name, root, card)
+            for name in ZOO_PARAMS}
+    for name in ("efficientnetb0", "densenet121"):
+        check_cnn_step(trainer_mod, models, staged, tconfig, model=name,
+                       phase="15a/zoo")
+    m0 = zoo_run(trainer_mod, fs, tconfig, "efficientnetb0", root, card,
+                 momentum=0.0)
+    return {"models": rows, "efficientnetb0_momentum0": m0}
+
+
+def resume_config(tconfig, root: str, name: str, **kw):
+    """Phase 15b/c: the reference's workload (MobileNetV2, bf16, fused
+    SGD, augment on) on RES_TRAIN / RES_EVAL synthetic 32 px rows, batch
+    RES_BATCH, 2 epochs; logs and checkpoints under ``root``."""
+    return tconfig.TrainConfig(
+        model=tconfig.ModelConfig(name="mobilenetv2", dtype="bfloat16"),
+        data=tconfig.DataConfig(
+            name="synthetic", batch_size=RES_BATCH, eval_batch_size=RES_BATCH,
+            image_size=32, synthetic_native_size=32,
+            synthetic_train_size=RES_TRAIN, synthetic_eval_size=RES_EVAL),
+        optimizer=tconfig.OptimizerConfig(learning_rate=0.4,
+                                          warmup_steps=10, fused=True),
+        epochs=2, log_every_n_steps=1000, device="cuda",
+        log_dir=os.path.join(root, "log"), log_name=name,
+        checkpoint_dir=os.path.join(root, f"ckpt_{name}"), **kw)
+
+
+def resume_state(trainer) -> list:
+    """A trainer's parameters, BN statistics and momentum (JAX layout,
+    host copies), then its update count and global step."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.models import params_to_jax
+    from distributed_model_parallel_tpu_torch.ops.collectives import (
+        tree_flatten,
+    )
+
+    with torch.no_grad():
+        trees = (params_to_jax(trainer.model), trainer._momentum_tree())
+    return tree_flatten(trees)[0] + [trainer.optimizer.count,
+                                     trainer.global_step]
+
+
+def resume_mismatches(a: list, b: list) -> int:
+    import numpy as np
+
+    return sum(not np.array_equal(x, y) for x, y in zip(a, b, strict=True))
+
+
+def history_matches(a: list, b: list) -> bool:
+    """Epoch 0's record (less the time keys) and epoch 1's eval equal: the
+    interrupted epoch's train averages cover only the steps its trainer
+    ran, as in the JAX trainer."""
+    keys = ("epoch", "loss_train", "acc1_train", "loss_val", "acc1_val")
+    return ([h["epoch"] for h in b] == [h["epoch"] for h in a] == [0, 1]
+            and all(a[0][k] == b[0][k] for k in keys)
+            and all(a[1][k] == b[1][k] for k in ("loss_val", "acc1_val")))
+
+
+def resume_gate(trainer_mod, tconfig, root, label: str, card, **kw) -> dict:
+    """Phase 15b, one input path: run A ``fit(2)``; run B ``fit(2)``
+    preempted by a ``step_hook`` at the first step boundary at or after
+    step RES_PREEMPT_STEP of epoch 1, then a new ``Trainer(resume=True)``
+    finishing it. Gates: B == A bit for bit (parameters, momentum, BN
+    statistics, update count, global step, history), the text log."""
+    import torch
+
+    phase = "15b/resume"
+    a = trainer_mod.Trainer(resume_config(tconfig, root, f"{label}_a", **kw))
+    ha = a.fit()
+    steps = len(a.train_loader)
+    target = steps + RES_PREEMPT_STEP
+
+    def hook(t):
+        if t.global_step >= target:
+            t.preemption.request()
+
+    cfg = resume_config(tconfig, root, f"{label}_b", **kw)
+    b = trainer_mod.Trainer(cfg)
+    b.step_hook = hook
+    hb = b.fit()
+    stopped_at = (b.global_step, b.train_loader.cursor)
+    del b
+    r = trainer_mod.Trainer(cfg.replace(resume=True))
+    hb = hb + r.fit()
+    torch.cuda.synchronize()
+    bad = resume_mismatches(resume_state(a), resume_state(r))
+    same_history = history_matches(ha, hb)
+    lines = open(os.path.join(root, "log", f"{label}_b.txt")).read()
+    epoch_lines = [x for x in lines.splitlines() if x.startswith("epoch:")]
+    preempt_line = (f"preempted: checkpoint saved at epoch 1, global step "
+                    f"{stopped_at[0]}") in lines
+    print(f"resume {label} [{card}]: MobileNetV2 bf16, B {RES_BATCH}, "
+          f"{steps} steps an epoch, preempted at global step "
+          f"{stopped_at[0]} (loader cursor {stopped_at[1]}), resumed to "
+          f"{r.global_step}; B vs A: {bad} of {len(resume_state(a))} "
+          f"arrays differ (parameters, BN statistics, momentum, count, "
+          f"step); history equal {same_history}; log: {len(epoch_lines)} "
+          f"epoch lines, preemption line {preempt_line}")
+    if bad or not same_history:
+        fail(phase, f"{label}: the resumed run differs from the "
+                    f"uninterrupted one ({bad} arrays, history "
+                    f"{same_history})")
+    if len(epoch_lines) != 2 or not preempt_line:
+        fail(phase, f"{label}: log lines {lines!r}")
+    return dict(preempted_at=stopped_at[0], cursor=stopped_at[1],
+                steps=r.global_step, best_acc=r.best_acc, trainer=r,
+                history_equal=same_history)
+
+
+def resume_phase(trainer_mod, tconfig, root, card) -> dict:
+    """Phase 15b: the resume gate per batch (steps_per_dispatch 1) and
+    device-resident at 10 steps a dispatch (a mid-epoch cursor at a
+    dispatch boundary), cuDNN deterministic; the best-accuracy slot, the
+    torn-version fallback, save and restore times and bytes."""
+    import numpy as np
+    import torch
+
+    from distributed_model_parallel_tpu_torch.train.checkpoint import (
+        PAYLOAD_FILENAME,
+    )
+
+    phase = "15b/resume"
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    per_batch = resume_gate(trainer_mod, tconfig, root, "per_batch", card)
+    resident = resume_gate(trainer_mod, tconfig, root, "resident", card,
+                           device_resident_data=True, steps_per_dispatch=10)
+    r = per_batch.pop("trainer")
+    resident.pop("trainer")
+    tmpl = r._ckpt_tree()
+    best = r.ckpt.restore(tmpl, "ckpt")
+    if float(best["best_acc"]) != np.float32(r.best_acc):
+        fail(phase, f"the ckpt slot's best_acc {float(best['best_acc'])} "
+                    f"!= the run's {r.best_acc}")
+    # Timing: the tree (device to host), the write, the read and load.
+    saves, trees, restores = [], [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = r._ckpt_tree()
+        t1 = time.perf_counter()
+        path = r.ckpt.save(tree, "bench")
+        t2 = time.perf_counter()
+        restored = r.ckpt.restore(tmpl, "bench")
+        r._load_tree(restored)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        trees.append((t1 - t0) * 1e3)
+        saves.append((t2 - t1) * 1e3)
+        restores.append((t3 - t2) * 1e3)
+    nbytes = os.path.getsize(os.path.join(path, PAYLOAD_FILENAME))
+    # The torn newest version: truncated, the one before is restored and
+    # the fallback logged.
+    older = r.ckpt.save(tmpl, "ckpt")
+    newest = r.ckpt.save(tmpl, "ckpt")
+    p = os.path.join(newest, PAYLOAD_FILENAME)
+    with open(p, "r+b") as f:
+        f.truncate(os.path.getsize(p) // 2)
+    r.ckpt.restore(tmpl, "ckpt", allow_fallback=True,
+                   on_fallback=r._note_fallback)
+    log = open(os.path.join(root, "log", "per_batch_b.txt")).read()
+    fell_back = (r.ckpt.last_restored_path == older
+                 and f"checkpoint fallback: {os.path.basename(newest)} "
+                     f"rejected" in log)
+    print(f"resume checkpoint [{card}]: {nbytes} B (MobileNetV2 params, "
+          f"momentum, BN statistics); tree (device to host) "
+          f"{statistics.median(trees)} ms, save {statistics.median(saves)} "
+          f"ms, restore + load {statistics.median(restores)} ms (median of "
+          f"3); ckpt slot best_acc {float(best['best_acc'])}; torn newest "
+          f"{os.path.basename(newest)} -> restored "
+          f"{os.path.basename(r.ckpt.last_restored_path)}, logged "
+          f"{fell_back}")
+    if not fell_back:
+        fail(phase, "the torn newest version was not skipped and logged")
+    torch.backends.cudnn.deterministic = False
+    return dict(per_batch=per_batch, resident=resident, bytes=nbytes,
+                tree_ms=trees, save_ms=saves, restore_ms=restores,
+                best_acc=float(best["best_acc"]))
+
+
+def resume_rank(spec, configs, train, evals, preempt_at,
+                uninterrupted) -> dict:
+    """Phase 15c on one of two ranks: ``workers.preempt_resume`` under
+    cuDNN determinism (a spawned rank starts with cuDNN's defaults)."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.parallel import workers
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    out = workers.preempt_resume(spec, configs, train, evals, preempt_at,
+                                 uninterrupted)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def resume_ranks(mesh, tconfig, root, card) -> dict:
+    """Phase 15c: the preempt/resume gate at two ranks for ddp and zero
+    (gloo on one card, NCCL on two or more): each rank's resumed run ==
+    its uninterrupted one bit for bit, and the ranks agree. Beside them an
+    uninterrupted gspmd run from the same inputs, which zero's must equal
+    per leaf within DPE_RTOL (ZeRO is gspmd's SGD with the momentum
+    sharded: a wrong slice, scatter order, mean, decay or rate shows
+    there and not in a run compared with itself)."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.data.registry import (
+        load_dataset,
+    )
+    from distributed_model_parallel_tpu_torch.ops.collectives import (
+        tree_flatten,
+    )
+
+    phase = "15c/resume ranks"
+    import numpy as np
+
+    two = torch.cuda.device_count() >= 2
+    backend = "nccl" if two else "gloo"
+    configs = {s: resume_config(tconfig, root, f"ranks_{s}", strategy=s,
+                                mesh=tconfig.MeshConfig(data=2))
+               for s in ("ddp", "zero", "gspmd")}
+    train, evals = load_dataset(configs["ddp"].data)
+    steps = RES_TRAIN // RES_BATCH
+    r = dp_spawn(mesh, resume_rank, 2, phase, configs,
+                 (train.images, train.labels), (evals.images, evals.labels),
+                 steps + RES_PREEMPT_STEP, ("gspmd",), backend=backend,
+                 config=tconfig.MeshConfig(data=2))
+    out = {"backend": backend, "seconds": [x["seconds"] for x in r]}
+    gaps = []
+    for x in r:
+        za, ga = x["zero"]["a"], x["gspmd"]["a"]
+        for key in ("params", "momentum", "state"):
+            gaps += [rel_gap(torch.from_numpy(np.asarray(a, np.float32)),
+                             torch.from_numpy(np.asarray(b, np.float32)))
+                     for a, b in zip(tree_flatten(za[key])[0],
+                                     tree_flatten(ga[key])[0], strict=True)]
+    print(f"resume zero vs gspmd, 2 ranks over {backend} [{card}]: "
+          f"uninterrupted fit(2), max per-leaf max|a - b| / max|b| over "
+          f"parameters, momentum and BN statistics {max(gaps)} (bound "
+          f"{DPE_RTOL}; {sum(g == 0 for g in gaps)} of {len(gaps)} leaves "
+          f"bitwise equal); update count, step "
+          f"{[(x['zero']['a']['count'], x['gspmd']['a']['count']) for x in r]}")
+    if not max(gaps) <= DPE_RTOL:
+        fail(phase, f"zero differs from gspmd: {max(gaps)} > {DPE_RTOL}")
+    out["zero_vs_gspmd_max_rel"] = max(gaps)
+    for s in ("ddp", "zero"):
+        leaves = [[tree_flatten((x[s][run]["params"], x[s][run]["momentum"],
+                                 x[s][run]["state"]))[0] for run in "ab"]
+                  for x in r]
+        bad = [resume_mismatches(a, b) for a, b in leaves]
+        across = resume_mismatches(leaves[0][1], leaves[1][1])
+        counts = [(x[s]["b"]["count"], x[s]["b"]["step"]) for x in r]
+        same_history = all(history_matches(x[s]["a"]["history"],
+                                           x[s]["b"]["history"]) for x in r)
+        print(f"resume {s}, 2 ranks over {backend} [{card}]: arrays "
+              f"differing resumed vs uninterrupted {bad} (of "
+              f"{len(leaves[0][0])}) per rank; rank 0's resumed arrays "
+              f"vs rank 1's: {across} differ; update count, step "
+              f"{counts} (want {2 * steps}); history equal {same_history}")
+        if any(bad) or not same_history or any(
+                c != (2 * steps, 2 * steps) for c in counts):
+            fail(phase, f"{s}: the resumed runs differ")
+        params = [tree_flatten(x[s]["b"]["params"])[0] for x in r]
+        if resume_mismatches(*params):
+            fail(phase, f"{s}: the ranks' parameters differ")
+        out[s] = dict(differing=bad, rank_params_equal=True,
+                      steps=counts[0][1])
+    return out
+
+
+def harness_summary(harness: dict) -> dict:
+    """Phase 15's numbers for the JSON line (no per-step losses)."""
+    zoo = {name: {k: v for k, v in row.items() if k != "losses"}
+           for name, row in harness["zoo"]["models"].items()}
+    return {"zoo": zoo, "resume": harness["resume"],
+            "resume_ranks": harness["resume_ranks"]}
+
+
+def harness_phase(laps, trainer_mod, fs, models, staged, mesh, tconfig,
+                  card) -> dict:
+    """Phase 15 (15a zoo, 15b resume, 15c resume at two ranks), its
+    temporary logs and checkpoints removed after."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=HERE) as root:
+        zoo = zoo_phase(trainer_mod, fs, models, staged, tconfig, root, card)
+        laps.done("15a/zoo")
+        fs.fused_sgd_kernel.launches = 0
+        fs.plain_sgd_kernel.launches = 0
+        resume = resume_phase(trainer_mod, tconfig, root, card)
+        resume["launches"] = {"fused_sgd": fs.fused_sgd_kernel.launches,
+                              "plain_sgd": fs.plain_sgd_kernel.launches}
+        laps.done("15b/resume")
+        ranks = resume_ranks(mesh, tconfig, root, card)
+        laps.done("15c/resume ranks")
+    return {"zoo": zoo, "resume": resume, "resume_ranks": ranks}
+
+
 class Laps:
     """Prints each phase's seconds since the previous phase ended."""
 
@@ -2714,6 +3172,10 @@ def main() -> None:
                          "13, print the pipeline's JSON line and stop: with "
                          "four cards, each stage of the runner on its own "
                          "card and the SPMD engine over NCCL")
+    ap.add_argument("--harness-only", action="store_true",
+                    help="run phases 1, 2 (the fused SGD kernel only) and "
+                         "15 (the zoo, resume, resume at two ranks), print "
+                         "the harness's JSON line and stop")
     ap.add_argument("--dp-only", action="store_true",
                     help="run phases 1, 2 (the fused SGD kernel only) and "
                          "14b at world = device_count() over NCCL, print "
@@ -2721,7 +3183,15 @@ def main() -> None:
                          "cards, BASELINE's pair (samples/s a card, the "
                          "gradient reduction's us a step) per engine")
     args = ap.parse_args()
-    only = args.sgd_timing_only or args.pipeline_only or args.dp_only
+    only = (args.sgd_timing_only or args.pipeline_only or args.dp_only
+            or args.harness_only)
+    import atexit
+    import shutil
+    import tempfile
+
+    os.environ[RUN_DIR_ENV] = tempfile.mkdtemp(prefix=".chip_smoke_run_",
+                                               dir=HERE)
+    atexit.register(shutil.rmtree, os.environ[RUN_DIR_ENV], True)
     # -- phase 1: device ----------------------------------------------------
     laps = Laps()
     import torch
@@ -2807,6 +3277,13 @@ def main() -> None:
         torch.backends.cudnn.benchmark = True      # as phase 11 leaves it
         print(json.dumps({"pipeline": pipeline_phase(
             laps, models, cnn_trainer, fs, tconfig, card), "card": card}))
+        return
+    if args.harness_only:
+        from distributed_model_parallel_tpu_torch import mesh
+
+        print(json.dumps({"harness": harness_summary(harness_phase(
+            laps, cnn_trainer, fs, models, staged, mesh, tconfig, card)),
+            "card": card}))
         return
     if args.dp_only:
         from distributed_model_parallel_tpu_torch import mesh
@@ -3049,6 +3526,10 @@ def main() -> None:
     dpe = dp_engines(mesh, card, 2, "nccl" if two_cards else "gloo")
     laps.done("14b/dp engines")
 
+    # -- phase 15: the zoo, checkpoint/resume, preemption, logs ------------
+    harness = harness_phase(laps, cnn_trainer, fs, models, staged, mesh,
+                            tconfig, card)
+
     kernels = [{
         "name": "paged_decode",
         "route": "cuda",
@@ -3098,6 +3579,12 @@ def main() -> None:
             "launches_14b_zero_rank0": dpe[
                 "zero_fused" if name == "fused_sgd" else
                 "zero_momentum0"]["launches"][0][name],
+            "launches_15a_zoo": (
+                sum(r["launches"]["fused_sgd"]
+                    for r in harness["zoo"]["models"].values())
+                if name == "fused_sgd" else harness["zoo"][
+                    "efficientnetb0_momentum0"]["launches"]["plain_sgd"]),
+            "launches_15b_resume": harness["resume"]["launches"][name],
             "max_abs_err": sgd_err,
             **sgd_times[name],
             "in_step_us": sgd_in_step[name],
@@ -3106,6 +3593,7 @@ def main() -> None:
     print(json.dumps({"pipeline": pp, "card": card}))
     print(json.dumps({"resnet": resnet, "card": card}))
     print(json.dumps({"dp_engines": dpe, "card": card}))
+    print(json.dumps({"harness": harness_summary(harness), "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

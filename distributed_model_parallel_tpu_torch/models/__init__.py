@@ -1,7 +1,8 @@
-"""Models of the port: the CNN zoo's ported members (MobileNetV2,
-ResNet-18/34/50 and tinycnn, as staged unit sequences), the sparse
-bag-of-words classifier (:mod:`.embedding`) and the Transformer LM
-(:mod:`.transformer`, which has its own entry points)."""
+"""Models of the port: the whole CNN zoo as staged unit sequences
+(MobileNetV2, ResNet-18/34/50, tinycnn, and the 16 architectures of
+:mod:`.zoo`), the sparse bag-of-words classifier (:mod:`.embedding`) and
+the Transformer LM (:mod:`.transformer`, which has its own entry
+points)."""
 
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from distributed_model_parallel_tpu_torch.models.staged import (  # noqa: F401
     stage_slices,
 )
 from distributed_model_parallel_tpu_torch.models.tinycnn import build_tinycnn
+from distributed_model_parallel_tpu_torch.models.zoo import ZOO_BUILDERS
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _LAYOUT_MODELS = ("mobilenetv2", "mobilenetv2_nobn", "resnet18", "resnet34",
@@ -56,8 +58,10 @@ def get_model(config: ModelConfig, *, seed: int = 0, device="cuda",
     ``width``/``depth`` from ``extra``. ``embedding_bow`` returns its
     :class:`~.embedding.BowConfig` (fields from ``extra``), as the JAX
     registry does: its parameters are a flat dict
-    (:func:`~.embedding.init_params`). The rest of the zoo is not ported
-    yet (ROADMAP A8); the LM has its own entry
+    (:func:`~.embedding.init_params`). The 16 names of
+    :data:`~.zoo.ZOO_BUILDERS` (VGG, PreActResNet, SENet, GoogLeNet,
+    DenseNet, ResNeXt, MobileNet v1, DPN, the ShuffleNets, EfficientNet,
+    RegNetX, SimpleDLA) take no ``extra``; the LM has its own entry
     (``models/transformer.py``)."""
     from distributed_model_parallel_tpu_torch.models.transformer import (
         resolve_device,
@@ -89,13 +93,18 @@ def get_model(config: ModelConfig, *, seed: int = 0, device="cuda",
         return build_embedding_bow(config)
     elif name == "tinycnn":
         model = build_tinycnn(**_cnn_kwargs(config, axis), **extra)
+    elif name in ZOO_BUILDERS:
+        if extra:
+            raise ValueError(f"{name} takes no extra {sorted(extra)}")
+        model = ZOO_BUILDERS[name](**_cnn_kwargs(config, axis))
     elif name == "transformer":
         raise ValueError("the Transformer LM is built through "
                          "models/transformer.py (init_params, "
                          "LMTrainer), not get_model")
     else:
-        raise KeyError(f"model {name!r} is not ported yet; the port has "
-                       f"mobilenetv2[_nobn], resnet18/34/50, tinycnn and "
-                       f"embedding_bow (the zoo: ROADMAP A8)")
+        raise KeyError(f"unknown model {name!r}; known: mobilenetv2[_nobn], "
+                       f"resnet18/34/50, tinycnn, embedding_bow, "
+                       f"{', '.join(sorted(ZOO_BUILDERS))} (the LM: "
+                       f"models/transformer.py)")
     model.reset_parameters(seed)
     return model.to(resolve_device(device))

@@ -15,11 +15,12 @@ channels-last.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
 from torch import nn
+from torch.nn.utils import parametrize
 
 from distributed_model_parallel_tpu_torch.models.layers import (
     BatchNorm,
@@ -51,10 +52,14 @@ class StagedModel(nn.Module):
 
     def unit_state(self, i: int) -> dict:
         """Unit i's BN running statistics as the JAX ``batch_stats``
-        subtree: ``{bn_name: {"mean": ..., "var": ...}}`` ({} if none)."""
-        return {name: {"mean": m.running_mean, "var": m.running_var}
-                for name, m in self.units[i].named_modules()
-                if isinstance(m, BatchNorm)}
+        subtree: ``{bn_name: {"mean": ..., "var": ...}}``, nested by
+        module path as flax nests it ({} if none)."""
+        state: dict = {}
+        for path, m in unit_modules(self.units[i]):
+            if isinstance(m, BatchNorm):
+                subtree(state, path[:-1])[path[-1]] = {
+                    "mean": m.running_mean, "var": m.running_var}
+        return state
 
     def state(self) -> tuple:
         return tuple(self.unit_state(i) for i in range(self.num_units))
@@ -101,27 +106,186 @@ _TO_JAX = {"conv": lambda t: t.permute(2, 3, 1, 0),
            "dense": lambda t: t.t(), None: lambda t: t}
 
 
-def _unit_slots(unit: nn.Module) -> tuple[dict, dict]:
-    """Unit children by flax module name: ({name: {leaf: (tensor, kind)}}
-    for params, the same for batch_stats)."""
-    params, state = {}, {}
+_LEAF_MODULES = (Conv, Dense, BatchNorm)
+
+
+def subtree(tree: dict, path: tuple) -> dict:
+    """The dict at module ``path`` of a nested tree, created as needed."""
+    for name in path:
+        tree = tree.setdefault(name, {})
+    return tree
+
+
+def unit_modules(unit: nn.Module, prefix: tuple = ()) -> list[tuple]:
+    """``(path, module)`` for every Conv, Dense and BatchNorm of ``unit``,
+    ``path`` its flax module path (child names, nested as flax nests
+    submodules: a DLA tree's ``("left", "right", "conv0")``), in
+    registration order. A child that is none of these and holds none of
+    them has no JAX counterpart and raises."""
+    out = []
     for name, m in unit.named_children():
-        if isinstance(m, Conv):
-            params[name] = {"kernel": (m.weight, "conv")}
-            if m.bias is not None:
-                params[name]["bias"] = (m.bias, None)
-        elif isinstance(m, Dense):
-            params[name] = {"kernel": (m.weight, "dense"),
-                            "bias": (m.bias, None)}
-        elif isinstance(m, BatchNorm):
-            params[name] = {"scale": (m.weight, None),
-                            "bias": (m.bias, None)}
-            state[name] = {"mean": (m.running_mean, None),
-                           "var": (m.running_var, None)}
+        path = prefix + (name,)
+        if isinstance(m, _LEAF_MODULES):
+            out.append((path, m))
+        elif any(isinstance(c, _LEAF_MODULES) for c in m.modules()):
+            out.extend(unit_modules(m, path))
         else:
-            raise TypeError(f"unit child {name!r} of type "
+            raise TypeError(f"unit child {'.'.join(path)!r} of type "
                             f"{type(m).__name__} has no JAX counterpart")
+    return out
+
+
+def leaf_attrs(m: nn.Module) -> tuple:
+    """``(JAX leaf, attribute, kind)`` of each parameter of a Conv, Dense
+    or BatchNorm (a Conv's bias may be None)."""
+    if isinstance(m, Conv):
+        return (("kernel", "weight", "conv"), ("bias", "bias", None))
+    if isinstance(m, Dense):
+        return (("kernel", "weight", "dense"), ("bias", "bias", None))
+    return (("scale", "weight", None), ("bias", "bias", None))
+
+
+class Leaf(NamedTuple):
+    """One leaf of a model in the JAX package's layout: its unit, flax
+    module path and JAX leaf name, and the port's module, attribute and
+    layout kind (a key of ``_TO_JAX``/``_FROM_JAX``). The one place that
+    knows how a leaf at rest — whole, or a parametrization's slice such
+    as FSDP's — maps to and from the JAX layout."""
+
+    unit: int
+    path: tuple
+    name: str
+    module: nn.Module
+    attr: str
+    kind: str | None
+
+    @property
+    def _gathered(self):
+        """The parametrization gathering the leaf (FSDP's), or None."""
+        if parametrize.is_parametrized(self.module, self.attr):
+            return self.module.parametrizations[self.attr]
+        return None
+
+    @property
+    def stored(self) -> torch.Tensor:
+        """The tensor at rest, no gather: a parametrized leaf's
+        ``original`` (this rank's slice), else the attribute."""
+        plist = self._gathered
+        return plist.original if plist is not None else getattr(
+            self.module, self.attr)
+
+    @property
+    def shard_dim(self) -> int | None:
+        """The port dim a parametrized leaf is gathered along, None for a
+        whole leaf."""
+        plist = self._gathered
+        return plist[0].dim if plist is not None else None
+
+    def local(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole port-layout tensor of the leaf's
+        shape (the parametrization's ``right_inverse``), on the leaf's
+        device."""
+        full = full.to(self.stored.device)
+        plist = self._gathered
+        return plist[0].right_inverse(full) if plist is not None else full
+
+    def to_jax(self, t: torch.Tensor) -> np.ndarray:
+        """A port-layout tensor of this leaf as a float32 JAX-layout
+        numpy array."""
+        return _TO_JAX[self.kind](t).detach().float().cpu().numpy().copy()
+
+    def from_jax(self, a) -> torch.Tensor:
+        """A JAX-layout array of this leaf as a float32 port-layout CPU
+        tensor."""
+        return torch.from_numpy(np.ascontiguousarray(
+            _FROM_JAX[self.kind](np.asarray(a, np.float32))))
+
+    @torch.no_grad()
+    def load(self, a) -> None:
+        """Copy a whole JAX-layout array into the leaf at rest."""
+        self.stored.copy_(self.local(self.from_jax(a)))
+
+
+def model_leaves(model: "StagedModel", *, state: bool = False
+                 ) -> list[Leaf]:
+    """Every parameter leaf of ``model`` that exists (a Conv may have no
+    bias) or, with ``state``, every BatchNorm statistic (``mean``,
+    ``var``), by unit and module path in registration order. Reads no
+    parametrized value, so it gathers nothing."""
+    out = []
+    for u, unit in enumerate(model.units):
+        for path, m in unit_modules(unit):
+            if state:
+                if isinstance(m, BatchNorm):
+                    out += [Leaf(u, path, "mean", m, "running_mean", None),
+                            Leaf(u, path, "var", m, "running_var", None)]
+                continue
+            for jname, attr, kind in leaf_attrs(m):
+                if (parametrize.is_parametrized(m, attr)
+                        or getattr(m, attr) is not None):
+                    out.append(Leaf(u, path, jname, m, attr, kind))
+    return out
+
+
+def leaf_tree(model: "StagedModel", fn, *, state: bool = False) -> tuple:
+    """Per unit, the JAX-layout nested dict holding ``fn(leaf)`` at every
+    leaf of :func:`model_leaves`."""
+    out = tuple({} for _ in model.units)
+    for leaf in model_leaves(model, state=state):
+        subtree(out[leaf.unit], leaf.path)[leaf.name] = fn(leaf)
+    return out
+
+
+def tree_at(tree: Sequence, leaf: Leaf):
+    """The value at ``leaf``'s place in a per-unit JAX-layout tree."""
+    node = tree[leaf.unit]
+    for name in leaf.path:
+        node = node[name]
+    return node[leaf.name]
+
+
+def _leaf_slots(m: nn.Module) -> tuple[dict, dict | None]:
+    """One module's {leaf: (tensor, kind)} for params and for
+    batch_stats (None when it has none)."""
+    params = {}
+    for jname, attr, kind in leaf_attrs(m):
+        t = getattr(m, attr)
+        if t is not None:
+            params[jname] = (t, kind)
+    if not isinstance(m, BatchNorm):
+        return params, None
+    return params, {"mean": (m.running_mean, None),
+                    "var": (m.running_var, None)}
+
+
+def _unit_slots(unit: nn.Module) -> tuple[dict, dict]:
+    """Unit modules by flax module path: ({name: {leaf: (tensor, kind)}}
+    for params, the same for batch_stats), nested where flax nests
+    (:func:`unit_modules`); a submodule without statistics is absent
+    from batch_stats, as in flax."""
+    params, state = {}, {}
+    for path, m in unit_modules(unit):
+        p, s = _leaf_slots(m)
+        subtree(params, path[:-1])[path[-1]] = p
+        if s is not None:
+            subtree(state, path[:-1])[path[-1]] = s
     return params, state
+
+
+def map_slots(fn, slots: dict) -> dict:
+    """``slots`` with every ``(tensor, kind)`` leaf replaced by
+    ``fn(tensor, kind)``, the nesting kept."""
+    return {name: (fn(*v) if isinstance(v, tuple) else map_slots(fn, v))
+            for name, v in slots.items()}
+
+
+def slot_leaves(slots: dict) -> list[tuple]:
+    """Every ``(tensor, kind)`` leaf of ``slots``, depth first in the
+    slots' order."""
+    out = []
+    for v in slots.values():
+        out.extend([v] if isinstance(v, tuple) else slot_leaves(v))
+    return out
 
 
 def _load(where: str, slots: dict, tree) -> None:
@@ -130,6 +294,9 @@ def _load(where: str, slots: dict, tree) -> None:
         raise ValueError(f"{where}: the JAX tree has modules {sorted(tree)}, "
                          f"the port's unit {sorted(slots)}")
     for name, leaves in slots.items():
+        if not all(isinstance(v, tuple) for v in leaves.values()):
+            _load(f"{where}.{name}", leaves, tree[name])
+            continue
         if set(tree[name]) != set(leaves):
             raise ValueError(f"{where}.{name}: the JAX tree has leaves "
                              f"{sorted(tree[name])}, the port "
@@ -150,7 +317,7 @@ def params_from_jax(model: StagedModel, params: Sequence, state: Sequence,
     """Load the JAX package's staged trees — ``params`` and ``state``
     (``batch_stats``), tuples over units of dicts of numpy arrays, e.g.
     ``jax.tree.map(np.asarray, ...)`` — into ``model`` on ``device``,
-    walking both sides by unit and module name (never by flat order:
+    walking both sides by unit and module path (never by flat order:
     ``jax.tree.leaves`` sorts dict keys). Every pairing is shape-checked;
     a mismatch raises with both names. Values are copied into the
     existing tensors, so views (e.g. the fused optimizer's buckets) stay
@@ -181,10 +348,9 @@ def params_to_jax(model: StagedModel, *, grads: bool = False
         p_slots, s_slots = _unit_slots(unit)
 
         def tree(slots, use_grad):
-            return {n: {k: _TO_JAX[kind](t.grad if use_grad else t).detach()
-                        .float().cpu().numpy().copy()
-                        for k, (t, kind) in leaves.items()}
-                    for n, leaves in slots.items()}
+            return map_slots(lambda t, kind: _TO_JAX[kind](
+                t.grad if use_grad else t).detach().float().cpu().numpy()
+                .copy(), slots)
 
         params.append(tree(p_slots, grads))
         state.append(tree(s_slots, False))

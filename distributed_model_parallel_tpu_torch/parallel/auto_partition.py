@@ -19,17 +19,29 @@ device (shapes only) and adds, per operation, what XLA counts:
 * BatchNorm in training: ``6`` per element plus ``6`` per channel (the
   two moments, normalize, scale and shift; the running averages are not
   part of a unit's output, and XLA drops them);
-* ReLU and a residual add: 1 per element; a mean: 1 per input element;
+* a conv's bias (flax's ``use_bias``: ``bn_mode="none"``, a bare stem,
+  the squeeze-excite gates): 1 per output element;
+* ReLU, a residual add and a multiply (the squeeze-excite gate): 1 per
+  element; a sigmoid 3 and a swish 4 (XLA's logistic is 1 / (1 + e^-x),
+  its exp a transcendental it does not count as a FLOP); a mean: 1 per
+  input element, 0 over one element (a 1 x 1 map, which XLA drops);
 * a max-pool (XLA's reduce-window): window − 1 comparisons per output
   element, whatever the padding (ResNet's ImageNet stem: 8 for its 3x3
-  window).
+  window); an average pool: window adds and the divide per output
+  element, zero padding included (ShuffleNet v1's SAME shortcut);
+* concatenation, slices, padding and the channel shuffle's transpose: 0.
 
 The per-unit counts equal JAX's ``unit_costs`` to XLA's float32
 rounding (``tests/test_torch_auto_partition.py``), except where XLA's CPU
 cost analysis counts a reduction over a length that is not a power of two
 as a few elements longer (BN statistics over 112/56/28/14/7 px maps:
-ResNet-50's ImageNet layout, up to 0.26% of a unit), which the cuts do
-not notice.
+ResNet-50's ImageNet layout, up to 0.26% of a unit), and where XLA
+duplicates the tail of a BatchNorm (3 operations per element, 2 per
+channel) into each of two fusions that read its output: DPN-92's blocks,
+whose output is sliced into its residual and dense parts (up to 1.5% of
+a unit), and SimpleDLA's trees, whose left branch feeds the right one
+and the root (up to 0.19%). The port does not model the duplication;
+the cuts agree all the same.
 """
 
 from __future__ import annotations
@@ -68,9 +80,15 @@ def conv_taps(size: int, kernel: int, stride: int,
 
 
 _ELEMENTWISE = (F.relu, torch.relu, torch.Tensor.relu, torch.add,
-                torch.Tensor.add, torch.Tensor.__add__)
+                torch.Tensor.add, torch.Tensor.__add__, torch.mul,
+                torch.Tensor.mul, torch.Tensor.__mul__)
+# XLA counts its logistic as 3 operations per element (1 / (1 + e^-x):
+# the negation, the add and the divide; exp is a transcendental), and
+# swish as x · logistic(x), 4.
+_PER_ELEMENT = {torch.sigmoid: 3, torch.Tensor.sigmoid: 3, F.silu: 4}
 _REDUCTIONS = (torch.mean, torch.Tensor.mean)
 _POOLS = (F.max_pool2d,)
+_AVG_POOLS = (F.avg_pool2d,)
 
 
 class _Count(TorchFunctionMode):
@@ -87,10 +105,17 @@ class _Count(TorchFunctionMode):
             if func in _ELEMENTWISE:
                 self.flops += out.numel()
             elif func in _REDUCTIONS:
-                self.flops += args[0].numel()
+                # XLA drops a mean over one element (a 1 x 1 map).
+                if args[0].numel() > out.numel():
+                    self.flops += args[0].numel()
+            elif func in _PER_ELEMENT:
+                self.flops += _PER_ELEMENT[func] * out.numel()
             elif func in _POOLS:
                 window = args[1] if len(args) > 1 else kwargs["kernel_size"]
                 self.flops += (window * window - 1) * out.numel()
+            elif func in _AVG_POOLS:
+                window = args[1] if len(args) > 1 else kwargs["kernel_size"]
+                self.flops += window * window * out.numel()
         return out
 
 
@@ -100,7 +125,8 @@ def _module_flops(m, x: torch.Tensor, y: torch.Tensor) -> float:
         ph, pw = m.pads(h, w)
         return (2.0 * n * y.shape[1] * (cin // m.groups)
                 * conv_taps(h, m.kernel, m.stride, ph)
-                * conv_taps(w, m.kernel, m.stride, pw))
+                * conv_taps(w, m.kernel, m.stride, pw)
+                + (y.numel() if m.bias is not None else 0))
     if isinstance(m, BatchNorm):
         return 6.0 * y.numel() + 6.0 * y.shape[1]
     return 2.0 * x.numel() * m.weight.shape[0] + y.numel()       # Dense

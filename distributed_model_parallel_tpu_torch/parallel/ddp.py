@@ -26,6 +26,7 @@ from distributed_model_parallel_tpu_torch.mesh import MeshSpec
 from distributed_model_parallel_tpu_torch.models.staged import (
     StagedModel,
     _unit_slots,
+    map_slots,
 )
 from distributed_model_parallel_tpu_torch.ops.collectives import (
     all_gather_concat,
@@ -80,11 +81,9 @@ def gather_replica_state(model: StagedModel, spec: MeshSpec) -> tuple:
     state = []
     for unit in model.units:
         _, slots = _unit_slots(unit)
-        state.append({name: {k: all_gather_concat(t.detach()[None],
-                                                  spec.group)
-                             .float().cpu().numpy()
-                             for k, (t, _) in leaves.items()}
-                      for name, leaves in slots.items()})
+        state.append(map_slots(
+            lambda t, _kind: all_gather_concat(t.detach()[None], spec.group)
+            .float().cpu().numpy(), slots))
     return tuple(state)
 
 
@@ -104,9 +103,12 @@ def assert_ddp_replicated(model: StagedModel, optimizer,
     """DDP's invariant: parameters and momentum bitwise identical on every
     rank (BN state is per replica under ``"local"`` and left out). Every
     rank must call: their fingerprints are all-gathered and compared with
-    rank 0's; raises AssertionError naming the first leaf that differs."""
+    rank 0's; raises AssertionError naming the first leaf that differs.
+    ``optimizer`` None: the parameters only (ZeRO's momentum is one slice
+    a rank)."""
     params = list(model.parameters())
-    moms = [optimizer.momentum_buffer(i) for i in range(len(params))]
+    moms = ([] if optimizer is None else
+            [optimizer.momentum_buffer(i) for i in range(len(params))])
     tensors = params + [m for m in moms if m is not None]
     fp = _fingerprint(tensors, spec.device)
     every = all_gather_concat(fp[None], spec.group)

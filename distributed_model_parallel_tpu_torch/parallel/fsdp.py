@@ -36,12 +36,12 @@ from torch import nn
 from torch.nn.utils import parametrize
 
 from distributed_model_parallel_tpu_torch.mesh import MeshSpec
-from distributed_model_parallel_tpu_torch.models.layers import (
-    BatchNorm,
-    Conv,
-    Dense,
+from distributed_model_parallel_tpu_torch.models.staged import (
+    StagedModel,
+    leaf_tree,
+    model_leaves,
+    tree_at,
 )
-from distributed_model_parallel_tpu_torch.models.staged import StagedModel
 from distributed_model_parallel_tpu_torch.ops.collectives import (
     all_gather_concat,
     all_reduce_,
@@ -135,16 +135,6 @@ class _Gathered(nn.Module):
         return full.chunk(self.n, self.dim)[self.rank].clone()
 
 
-def _leaf_kinds(m: nn.Module) -> list[tuple[str, str | None]]:
-    if isinstance(m, Conv):
-        return [("weight", "conv"), ("bias", None)]
-    if isinstance(m, Dense):
-        return [("weight", "dense"), ("bias", None)]
-    if isinstance(m, BatchNorm):
-        return [("weight", None), ("bias", None)]
-    return []
-
-
 def jax_shape(t: torch.Tensor, kind: str | None) -> tuple:
     """The shape of a port parameter in the JAX package's layout."""
     if kind is None:
@@ -164,19 +154,16 @@ def shard_model(model: StagedModel, spec: MeshSpec,
     out = []
     if n == 1:
         return out
-    for m in list(model.modules()):
-        for name, kind in _leaf_kinds(m):
-            p = getattr(m, name, None)
-            if p is None:
-                continue
-            d = leaf_spec(jax_shape(p, kind), n, min_size)
-            if d is None:
-                continue
-            dim = d if kind is None else _PORT_DIM[kind][d]
-            parametrize.register_parametrization(
-                m, name, _Gathered(dim, group, n, rank,
-                                   kind == "conv"), unsafe=True)
-            out.append((m, name, dim))
+    for leaf in model_leaves(model):
+        d = leaf_spec(jax_shape(leaf.stored, leaf.kind), n, min_size)
+        if d is None:
+            continue
+        dim = d if leaf.kind is None else _PORT_DIM[leaf.kind][d]
+        parametrize.register_parametrization(
+            leaf.module, leaf.attr, _Gathered(dim, group, n, rank,
+                                              leaf.kind == "conv"),
+            unsafe=True)
+        out.append((leaf.module, leaf.attr, dim))
     return out
 
 
@@ -184,28 +171,17 @@ def local_params_to_jax(model: StagedModel) -> tuple:
     """This rank's parameters at rest in the JAX package's layout (float32
     numpy, per unit and module): the slice of each sharded leaf, the whole
     of each replicated one. No collective."""
-    from distributed_model_parallel_tpu_torch.models.staged import _TO_JAX
+    return leaf_tree(model, lambda leaf: leaf.to_jax(leaf.stored))
 
-    out = []
-    for unit in model.units:
-        tree = {}
-        for name, m in unit.named_children():
-            leaves = {}
-            for leaf, kind in _leaf_kinds(m):
-                if parametrize.is_parametrized(m, leaf):
-                    t = m.parametrizations[leaf].original
-                else:
-                    t = getattr(m, leaf, None)
-                if t is None:
-                    continue
-                jname = "scale" if (isinstance(m, BatchNorm)
-                                    and leaf == "weight") else (
-                    "kernel" if leaf == "weight" else leaf)
-                leaves[jname] = (_TO_JAX[kind](t).detach().float().cpu()
-                                 .numpy().copy())
-            tree[name] = leaves
-        out.append(tree)
-    return tuple(out)
+
+@torch.no_grad()
+def load_params_from_jax(model: StagedModel, params, state) -> None:
+    """Load whole trees in the JAX package's layout (``params_from_jax``'s)
+    into a sharded model: each sharded leaf takes this rank's slice, the
+    rest and the BN statistics are copied. No collective."""
+    for tree, stats in ((params, False), (state, True)):
+        for leaf in model_leaves(model, state=stats):
+            leaf.load(tree_at(tree, leaf))
 
 
 def sharded_parameters(model: nn.Module) -> list[nn.Parameter]:

@@ -183,7 +183,9 @@ def trainer_runs(spec: MeshSpec, runs: dict, train: tuple,
             res["history"] = t.fit()
             res["step_log"] = t.step_log
         if run["config"].strategy != "fsdp":
-            ddp.assert_ddp_replicated(t.model, t.optimizer, spec)
+            ddp.assert_ddp_replicated(
+                t.model, None if run["config"].strategy == "zero"
+                else t.optimizer, spec)
         else:
             res["resident"] = fsdp.resident_bytes(t.model, t.optimizer)
             res["slices"] = fsdp.local_params_to_jax(t.model)
@@ -402,3 +404,44 @@ def sparse_bow_step(spec: MeshSpec, cfg, params: dict, tokens: np.ndarray,
                      torch.from_numpy(tokens[rows]),
                      torch.from_numpy(labels[rows]))
     return dict(params=bow.params_to_jax(new), loss=float(loss))
+
+
+def preempt_resume(spec: MeshSpec, configs: dict, train: tuple,
+                   evals: tuple, preempt_at: int,
+                   uninterrupted: tuple = ()) -> dict:
+    """Per named config, run ``a``: ``Trainer(config).fit()``, and run
+    ``b``: the same with a ``step_hook`` that requests preemption at
+    global step ``preempt_at`` (on every rank), then a new
+    ``Trainer(resume=True)`` that finishes the run; the configs named in
+    ``uninterrupted`` run ``a`` only. Each run checkpoints to its own
+    directory under ``config.checkpoint_dir``. Returns per config and run
+    the history, parameters, momentum and every rank's BN state in the
+    JAX layout, the update count and the global step."""
+    tr, ev = ArrayDataset(*train, 10), ArrayDataset(*evals, 10)
+
+    def hook(t):
+        if t.global_step == preempt_at:
+            t.preemption.request()
+
+    out = {}
+    for name, config in configs.items():
+        out[name] = {}
+        for run in ("a",) if name in uninterrupted else ("a", "b"):
+            cfg = config.replace(
+                checkpoint_dir=f"{config.checkpoint_dir}/{run}",
+                log_name=f"{config.log_name}_{run}")
+            t = Trainer(cfg, train_ds=tr, eval_ds=ev, spec=spec)
+            history = []
+            if run == "b":
+                t.step_hook = hook
+                history += t.fit()
+                t = Trainer(cfg.replace(resume=True), train_ds=tr,
+                            eval_ds=ev, spec=spec)
+            history += t.fit()
+            with torch.no_grad():
+                params = params_to_jax(t.model)[0]
+            out[name][run] = dict(
+                history=history, params=params, momentum=t._momentum_tree(),
+                state=ddp.gather_replica_state(t.model, spec),
+                count=t.optimizer.count, step=t.global_step)
+    return out

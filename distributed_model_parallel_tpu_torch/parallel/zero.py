@@ -51,6 +51,69 @@ class ZeroState:
     count: int = 0
 
 
+class SliceUpdate:
+    """The ZeRO update of one rank's slice, shared by
+    :func:`make_zero_train_step` and :class:`ZeroSGD`: the gradients
+    flattened and padded (``flatten_padded``), reduce-scattered to this
+    rank's slice of their mean, the SGD update of that slice of the
+    parameters and of the momentum slice in place (one launch of the
+    fused kernel, or of ``plain_sgd`` without momentum, under ``fused``;
+    the plain version otherwise), then all-gathered into the new flat
+    vector. Refuses what the ZeRO update does not run: another optimizer,
+    clipping, accumulation and EMA."""
+
+    def __init__(self, config: OptimizerConfig, spec: MeshSpec):
+        if config.name != "sgd":
+            raise ValueError(f"the ZeRO step runs the sgd recipe, got "
+                             f"name={config.name!r} (other optimizers: "
+                             f"ROADMAP A4)")
+        if (config.grad_clip_norm is not None or config.accum_steps != 1
+                or config.ema_decay is not None):
+            raise ValueError("the ZeRO step takes no grad_clip_norm, "
+                             "accum_steps or ema_decay (it clips, "
+                             "accumulates and averages nothing)")
+        self.fused = bool(config.fused)
+        self.mu = float(config.momentum or 0.0)
+        self.wd = float(config.weight_decay)
+        self.nesterov = bool(config.nesterov and self.mu)
+        self.group = spec.group
+        self.n = world_size(spec.group)
+        self.rank = spec.data_index if spec.group is not None else 0
+
+    def slice_size(self, numel: int) -> int:
+        """Elements of each rank's slice of ``numel`` padded elements."""
+        return -(-numel // self.n)
+
+    def local(self, flat: torch.Tensor) -> torch.Tensor:
+        """This rank's slice (a view) of a flat padded vector."""
+        size = flat.numel() // self.n
+        return flat[self.rank * size:(self.rank + 1) * size]
+
+    def momentum(self, numel: int, device) -> torch.Tensor | None:
+        """A zeroed momentum slice for ``numel`` parameter elements (None
+        without momentum)."""
+        if not self.mu:
+            return None
+        return torch.zeros(self.slice_size(numel), dtype=torch.float32,
+                           device=device)
+
+    @torch.no_grad()
+    def __call__(self, leaves, grads, momentum, lr: float) -> torch.Tensor:
+        """The new flat padded parameter vector (every rank's slices);
+        ``momentum`` (this rank's slice) is updated in place."""
+        g = reduce_scatter_mean(flatten_padded(grads, self.n), self.group)
+        p = self.local(flatten_padded(leaves, self.n))
+        if not self.fused:
+            fs.fused_sgd_plain(p, momentum, g, lr, self.mu, self.wd,
+                               self.nesterov)
+        elif momentum is None:
+            fs.plain_sgd_kernel(p, g, lr, self.wd)
+        else:
+            fs.fused_sgd_kernel(p, momentum, g, lr, self.mu, self.wd,
+                                self.nesterov)
+        return all_gather_concat(p, self.group)
+
+
 def make_zero_train_step(loss_fn: Callable, optimizer_config: OptimizerConfig,
                          spec: MeshSpec, *,
                          schedule: Callable[[int], float] | None = None
@@ -61,9 +124,8 @@ def make_zero_train_step(loss_fn: Callable, optimizer_config: OptimizerConfig,
     tensors (``collectives.tree_flatten``'s leaf order). ``init_fn(params)
     -> ZeroState``: this rank's zeroed momentum slice. ``step_fn(params,
     state, batch) -> (new_params, state, loss)``, on this rank's rows of
-    the batch: the gradient of ``loss_fn`` → ``flatten_padded`` →
-    ``reduce_scatter_mean`` to this rank's slice → the SGD update of the
-    slice of params and momentum → ``all_gather_concat`` →
+    the batch: the gradient of ``loss_fn``, then :class:`SliceUpdate`
+    (reduce-scatter, the update of this rank's slice, all-gather), then
     ``unflatten_like`` (new tensors, views of one flat buffer); the loss
     is the mean over ranks. The update is ``optimizer_config``'s SGD
     (momentum, weight decay, nesterov) at ``schedule(count)`` (default:
@@ -75,35 +137,14 @@ def make_zero_train_step(loss_fn: Callable, optimizer_config: OptimizerConfig,
     ``step_fn.take_times_us()`` returns the µs of each step's reduction,
     from the reduce-scatter to the end of the all-gather (CUDA events on
     the card, the host clock on the CPU), since its last call."""
-    cfg = optimizer_config
-    if cfg.name != "sgd":
-        raise ValueError(f"the ZeRO step runs the sgd recipe, got "
-                         f"name={cfg.name!r} (other optimizers: ROADMAP A4)")
-    if (cfg.grad_clip_norm is not None or cfg.accum_steps != 1
-            or cfg.ema_decay is not None):
-        raise ValueError("the ZeRO step takes no grad_clip_norm, "
-                         "accum_steps or ema_decay")
-    group = spec.group
-    n = world_size(group)
-    rank = spec.data_index if group is not None else 0
-    mu = float(cfg.momentum or 0.0)
-    wd = float(cfg.weight_decay)
-    nesterov = bool(cfg.nesterov and mu)
-    lr_at = schedule or (lambda _count: cfg.learning_rate)
+    update = SliceUpdate(optimizer_config, spec)
+    n = update.n
+    lr_at = schedule or (lambda _count: optimizer_config.learning_rate)
 
     def init_fn(params: Any) -> ZeroState:
-        size = flatten_padded(params, n).numel() // n
-        leaf = tree_flatten(params)[0][0]
-        return ZeroState(torch.zeros(size, dtype=torch.float32,
-                                     device=leaf.device) if mu else None)
-
-    def update(p, m, g, lr) -> None:
-        if not cfg.fused:
-            fs.fused_sgd_plain(p, m, g, lr, mu, wd, nesterov)
-        elif m is None:
-            fs.plain_sgd_kernel(p, g, lr, wd)
-        else:
-            fs.fused_sgd_kernel(p, m, g, lr, mu, wd, nesterov)
+        leaves = tree_flatten(params)[0]
+        return ZeroState(update.momentum(sum(x.numel() for x in leaves),
+                                         leaves[0].device))
 
     times = collections.deque(maxlen=4096)
 
@@ -122,15 +163,11 @@ def make_zero_train_step(loss_fn: Callable, optimizer_config: OptimizerConfig,
         cuda = leaves[0].is_cuda
         with torch.no_grad():
             start = mark(cuda)
-            g_slice = reduce_scatter_mean(flatten_padded(grads, n), group)
-            flat_p = flatten_padded(leaves, n)
-            size = flat_p.numel() // n
-            p_slice = flat_p[rank * size:(rank + 1) * size]
-            update(p_slice, state.momentum, g_slice, lr_at(state.count))
-            new_flat = all_gather_concat(p_slice, group)
+            new_flat = update(leaves, grads, state.momentum,
+                              lr_at(state.count))
             times.append((start, mark(cuda)))
             loss = loss.detach().clone()
-            all_reduce_(loss, group, kind="metrics")
+            all_reduce_(loss, update.group, kind="metrics")
         state.count += 1
         return unflatten_like(new_flat, params), state, loss / n
 
@@ -142,3 +179,65 @@ def make_zero_train_step(loss_fn: Callable, optimizer_config: OptimizerConfig,
 
     step_fn.take_times_us = take_times_us
     return init_fn, step_fn
+
+
+class ZeroSGD:
+    """The trainer's ZeRO optimizer (``TrainConfig(strategy="zero")``):
+    :class:`~..train.optim.SGD`'s interface over full, replicated
+    parameters, with :class:`SliceUpdate` — the update
+    :func:`make_zero_train_step` runs — written back into the parameters
+    in place. Momentum is 1/N per rank. :meth:`full_momentum` /
+    :meth:`load_full_momentum` move the momentum between the slices and
+    whole leaves (collectives: every rank calls)."""
+
+    def __init__(self, params, config: OptimizerConfig,
+                 schedule: Callable[[int], float], spec: MeshSpec):
+        self.update = SliceUpdate(config, spec)
+        self.params = list(params)
+        self.schedule = schedule
+        self.clip = None
+        self.count = 0
+        self.momentum = self.update.momentum(
+            sum(p.numel() for p in self.params), self.params[0].device)
+
+    @property
+    def lr(self) -> float:
+        """The learning rate the next update uses."""
+        return self.schedule(self.count)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    @staticmethod
+    def _scatter_back(flat: torch.Tensor, leaves: list) -> None:
+        off = 0
+        for x in leaves:
+            x.copy_(flat[off:off + x.numel()].view(x.shape))
+            off += x.numel()
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        self._scatter_back(self.update(self.params, grads, self.momentum,
+                                       self.lr), self.params)
+        self.count += 1
+
+    @torch.no_grad()
+    def full_momentum(self) -> list[torch.Tensor | None]:
+        """Every leaf's whole momentum (None per leaf without momentum),
+        gathered from the ranks' slices."""
+        if self.momentum is None:
+            return [None] * len(self.params)
+        out = [torch.empty_like(p, dtype=torch.float32) for p in self.params]
+        self._scatter_back(all_gather_concat(self.momentum,
+                                             self.update.group), out)
+        return out
+
+    @torch.no_grad()
+    def load_full_momentum(self, moms: list) -> None:
+        """This rank's slice of whole per-leaf momenta."""
+        if self.momentum is not None:
+            self.momentum.copy_(self.update.local(
+                flatten_padded(moms, self.update.n)))

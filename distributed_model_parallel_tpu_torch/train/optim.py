@@ -126,6 +126,14 @@ class SGD:
         """Parameter i's momentum trace (None before its first update)."""
         return self.opt.state.get(self.params[i], {}).get("momentum_buffer")
 
+    def set_momentum_buffer(self, i: int, value: torch.Tensor) -> None:
+        """Parameter i's momentum trace := ``value`` (a restore; nothing
+        without momentum)."""
+        if self.opt.defaults["momentum"]:
+            p = self.params[i]
+            self.opt.state[p]["momentum_buffer"] = value.to(
+                p.device, p.dtype).clone()
+
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
 
@@ -253,6 +261,13 @@ class FusedSGD:
     def momentum_buffer(self, i: int) -> torch.Tensor | None:
         """Parameter i's momentum trace (a view of its bucket slot)."""
         return self._m_views[i]
+
+    @torch.no_grad()
+    def set_momentum_buffer(self, i: int, value: torch.Tensor) -> None:
+        """Parameter i's momentum slot := ``value`` (a restore; nothing
+        without momentum)."""
+        if self._m_views[i] is not None:
+            self._m_views[i].copy_(value)
 
     def zero_grad(self) -> None:
         if self.flat:
@@ -459,9 +474,10 @@ class GradReducer:
 
 def make_optimizer(config: OptimizerConfig, steps_per_epoch: int,
                    epochs: int, params, *,
-                   bucket_bytes: int | None = None) -> SGD | FusedSGD:
+                   bucket_bytes: int | None = None, zero=None):
     """The SGD chain over ``params`` (:class:`FusedSGD` under ``fused``,
-    with buckets of ``bucket_bytes``, default :data:`FUSED_BUCKET_BYTES`).
+    with buckets of ``bucket_bytes``, default :data:`FUSED_BUCKET_BYTES`;
+    ``parallel/zero.ZeroSGD`` over the ranks of ``zero``, a MeshSpec).
     Other names, ``accum_steps > 1`` and ``ema_decay`` are not ported yet
     (ROADMAP A4) and raise; ``fused`` with another name raises, as in the
     JAX package."""
@@ -477,6 +493,12 @@ def make_optimizer(config: OptimizerConfig, steps_per_epoch: int,
     if config.ema_decay is not None:
         raise ValueError("ema_decay is not ported yet (ROADMAP A4)")
     schedule = make_schedule(config, max(1, steps_per_epoch * epochs), 1)
+    if zero is not None:
+        from distributed_model_parallel_tpu_torch.parallel.zero import (
+            ZeroSGD,
+        )
+
+        return ZeroSGD(params, config, schedule, zero)
     if config.fused:
         return FusedSGD(params, config, schedule,
                         bucket_bytes or FUSED_BUCKET_BYTES)

@@ -13,12 +13,13 @@ trainer's keys. Stage boundaries come from ``stage_boundaries``, from
 augmentation draws of global step s come from ``(seed + 1, s)``.
 
 Not ported yet, and refused by name where a config field asks for them
-(ROADMAP A5/A11): checkpoint/resume, fault injection, recovery, the
-guards, the consistency sentinel, emergency checkpoints, elastic
-restarts, the status exporter and ``strategy="auto"``; ``ema_decay`` is
-refused as the JAX trainer refuses it. Absent without a field to refuse
-(ROADMAP A5): the best-accuracy checkpoint (``best_acc`` is tracked),
-preemption handling, log files and ``step_hook``.
+(ROADMAP A7/A11): checkpoint/resume (``resume``, ``async_checkpoint``:
+the CNN ``Trainer`` has them, the pipeline's are A7), fault injection,
+recovery, the guards, the consistency sentinel, emergency checkpoints,
+elastic restarts, the status exporter and ``strategy="auto"``;
+``ema_decay`` is refused as the JAX trainer refuses it. Absent without a
+field to refuse (ROADMAP A7): the best-accuracy checkpoint (``best_acc``
+is tracked), preemption handling, log files and ``step_hook``.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from distributed_model_parallel_tpu_torch.parallel.pipeline import (
 )
 from distributed_model_parallel_tpu_torch.train.metrics import AverageMeter
 from distributed_model_parallel_tpu_torch.train.trainer import (
+    _PIPELINE_UNPORTED,
     _UNPORTED,
     EpochResult,
     eval_now,
@@ -60,8 +62,8 @@ def check_pipeline_config(config: TrainConfig) -> None:
     if config.strategy == "auto":
         raise ValueError("strategy='auto' (the pipeline autotuner) is not "
                          "ported yet (ROADMAP A11: autotune)")
-    bad = [f"{name} (ROADMAP {item})" for name, refused, item in _UNPORTED
-           if refused(config)]
+    bad = [f"{name} (ROADMAP {item})" for name, refused, item
+           in _UNPORTED + _PIPELINE_UNPORTED if refused(config)]
     if bad:
         raise ValueError(f"not ported yet: {', '.join(bad)}")
     if config.optimizer.ema_decay is not None:

@@ -16,24 +16,37 @@ counterpart of ``scripts/train_data_parallel.py``.
     python -m distributed_model_parallel_tpu_torch.train.train_cnn \\
         --device cuda --model resnet50 --batch-size 512 --fused \\
         --device-data --steps-per-dispatch 10
+    python -m distributed_model_parallel_tpu_torch.train.train_cnn \\
+        --device cpu --model shufflenetv2 --epochs 2 --batch-size 32 \\
+        --synthetic-train-size 96 --synthetic-eval-size 32 --resume
     torchrun --nproc-per-node 4 -m \\
         distributed_model_parallel_tpu_torch.train.train_cnn --fused
 
 ``--device`` defaults to ``cuda``, where the model computes in bf16 over
 f32 parameters (``--dtype`` overrides) with cuDNN's autotuner on; on
 ``cpu`` it runs in f32. ``--model`` takes MobileNetV2, ResNet-18/34/50
-(the CIFAR layout; the JAX CLI has no layout flag either) and tinycnn.
-``--fused`` takes the fused SGD kernel. ``--strategy fsdp`` shards the
-parameters and momentum over the ranks (no ``--fused``);
+(the CIFAR layout; the JAX CLI has no layout flag either), tinycnn and
+the 16 architectures of the zoo (``models/zoo.py``: vgg11/13/16/19,
+preactresnet18, senet18, googlenet, densenet121, resnext29_2x64d,
+mobilenetv1, dpn92, shufflenetg2, shufflenetv2, efficientnetb0,
+regnetx_200mf, simpledla). ``--fused`` takes the fused SGD kernel.
+``--strategy fsdp`` shards the parameters and momentum over the ranks
+(no ``--fused``); ``--strategy zero`` shards the momentum only;
 ``--allreduce ring`` sends ddp's gradient buckets round the explicit
 neighbour ring.
 ``--nproc N`` spawns N ranks (a ``file://`` store in a temporary
 directory): rank r runs on ``cuda:r`` over NCCL, so N may not exceed the
 cards unless ``--backend gloo`` is given; ``--device cpu`` runs gloo.
 Under torchrun the ranks come from its environment. ``--batch-size`` is
-the global batch. Prints one JSON record per epoch, from rank 0. Resume,
-the recovery plane and the other optimizers are not ported yet and are
-refused.
+the global batch. Prints one JSON record per epoch, from rank 0; the
+text log (one line per epoch, the reference's) and a JSON-lines log go
+to ``--log-dir``/``--log-name``.txt/.jsonl (default ``./log/
+data_para_{batch}``), and every improvement of eval top-1 saves the
+whole state to ``--checkpoint-dir`` (default ``./checkpoint``, slot
+``ckpt-{v}``). SIGTERM or Ctrl-C stops at the next step and saves to the
+``preempt`` slot; ``--resume`` continues from the newest valid of the
+two, mid-epoch. The recovery plane and the other optimizers are not
+ported yet and are refused.
 """
 
 from __future__ import annotations
@@ -44,10 +57,11 @@ import os
 
 import torch
 
+from distributed_model_parallel_tpu_torch.models.zoo import ZOO_BUILDERS
+
 # flag -> (value that is refused, ROADMAP item), for what is not ported.
 _REFUSED = {
     "dcn_data": (lambda v: v > 1, "A6: multi-node data parallelism"),
-    "resume": (bool, "A5: checkpoint/resume"),
     "ema_decay": (lambda v: v is not None, "A4: EMA"),
     "accum_steps": (lambda v: v != 1, "A4: gradient accumulation"),
     "emergency_every": (lambda v: v != 0, "A11: resilience hooks"),
@@ -65,7 +79,10 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda")
     p.add_argument("--model", default="mobilenetv2",
                    choices=("mobilenetv2", "mobilenetv2_nobn", "resnet18",
-                            "resnet34", "resnet50", "tinycnn"))
+                            "resnet34", "resnet50", "tinycnn",
+                            *ZOO_BUILDERS),
+                   help="mobilenetv2[_nobn], resnet18/34/50, tinycnn, or "
+                        "a zoo architecture: " + ", ".join(ZOO_BUILDERS))
     p.add_argument("--dtype", default=None, choices=("float32", "bfloat16"),
                    help="compute dtype (default: bfloat16 on cuda, float32 "
                         "on cpu)")
@@ -90,7 +107,7 @@ def parse_args(argv=None):
     p.add_argument("--backend", default=None, choices=("nccl", "gloo"),
                    help="default: nccl on cuda, gloo on cpu")
     p.add_argument("--strategy", default="gspmd",
-                   choices=("gspmd", "ddp", "fsdp"))
+                   choices=("gspmd", "ddp", "fsdp", "zero"))
     p.add_argument("--bn-mode", default="local",
                    choices=("local", "sync", "none"))
     p.add_argument("--allreduce", default="psum",
@@ -98,13 +115,20 @@ def parse_args(argv=None):
                    help="ddp's gradient transport")
     p.add_argument("--bucket-mb", default=None, type=float,
                    help="ddp's all-reduce bucket cap (grad_bucket_mb)")
+    p.add_argument("--resume", "-r", action="store_true",
+                   help="continue from the newest valid checkpoint")
+    p.add_argument("--async-checkpoint", action="store_true",
+                   help="persist checkpoints on a background thread")
+    p.add_argument("--log-dir", default="./log")
+    p.add_argument("--log-name", default=None,
+                   help="default: data_para_{batch size}")
+    p.add_argument("--checkpoint-dir", default="./checkpoint")
     # Accepted so they can be refused by name (not ported yet).
     p.add_argument("--dcn-data", default=1, type=int)
     p.add_argument("--accum-steps", default=1, type=int)
     p.add_argument("--ema-decay", default=None, type=float)
     p.add_argument("--emergency-every", default=0, type=int)
     p.add_argument("--check-finite-every", default=0, type=int)
-    p.add_argument("--resume", "-r", action="store_true")
     p.add_argument("--elastic", action="store_true")
     p.add_argument("--inject-faults", default=None)
     return p.parse_args(argv)
@@ -137,7 +161,10 @@ def _config(args, world: int):
                                   fused=args.fused),
         mesh=MeshConfig(data=world), strategy=args.strategy,
         ddp_allreduce=args.allreduce, grad_bucket_mb=args.bucket_mb,
-        epochs=args.epochs, seed=args.seed,
+        epochs=args.epochs, seed=args.seed, resume=args.resume,
+        async_checkpoint=args.async_checkpoint, log_dir=args.log_dir,
+        log_name=args.log_name or f"data_para_{args.batch_size}",
+        checkpoint_dir=args.checkpoint_dir,
         device_resident_data=args.device_data,
         steps_per_dispatch=args.steps_per_dispatch, device=args.device)
 

@@ -39,7 +39,7 @@ import sys
 import torch
 
 _REFUSED = {
-    "resume": (bool, "A5: checkpoint/resume"),
+    "resume": (bool, "A7: the pipeline's checkpoint/resume"),
     "emergency_every": (lambda v: v != 0, "A11: resilience hooks"),
 }
 
@@ -74,6 +74,8 @@ def parse_args(argv=None):
     p.add_argument("--nproc", default=None, type=int,
                    help="spmd: ranks to spawn (default dp x stages)")
     p.add_argument("--backend", default=None, choices=("nccl", "gloo"))
+    p.add_argument("--log-dir", default="./log",
+                   help="--engine spmd: where rank 0 writes the run log")
     p.add_argument("--lr", default=0.4, type=float)
     p.add_argument("--momentum", default=0.9, type=float)
     p.add_argument("--wd", default=1e-4, type=float)
@@ -125,7 +127,7 @@ def _config(args):
         auto_partition=args.auto_partition,
         pipeline_schedule=args.schedule,
         virtual_stages=args.virtual_stages, epochs=args.epochs,
-        seed=args.seed, device=args.device)
+        seed=args.seed, device=args.device, log_dir=args.log_dir)
 
 
 def _fit_rank(spec, args) -> list[dict]:

@@ -1,6 +1,7 @@
 """CNN trainer — the port of ``distributed_model_parallel_tpu/train/
-trainer.py`` with ``strategy="gspmd"``, ``"ddp"`` and ``"fsdp"`` over the
-data axis, and ``"spmd_pipeline"`` over a ``(data, stage)`` mesh.
+trainer.py`` with ``strategy="gspmd"``, ``"ddp"``, ``"fsdp"`` and
+``"zero"`` over the data axis, and ``"spmd_pipeline"`` over a ``(data,
+stage)`` mesh.
 
 One step (:func:`make_train_step`): on-device augmentation (random crop
 with pad 4, horizontal flip) → normalize → forward with BatchNorm in
@@ -31,6 +32,12 @@ the slices. The JAX package's refusals hold: ``fused`` (the fused kernel
 runs over flat buckets of full parameters), ``grad_bucket_mb`` and
 ``consistency_every`` (no replicated state to compare).
 
+ZeRO (``strategy="zero"``, the port's own: the JAX package runs ZeRO
+through ``parallel/zero.make_zero_train_step`` only) is gspmd's program
+with the momentum sharded: ``parallel/zero.ZeroSGD`` reduce-scatters the
+flat gradient, updates this rank's slice (one fused SGD launch under
+``fused``) and all-gathers the parameters back.
+
 The pipeline (``strategy="spmd_pipeline"``, ``MeshConfig(stage=S)``, S ≥
 2; ``parallel/spmd_cnn_pipeline.py``): each rank holds its stage's units
 only and steps its own optimizer; stage 0 of each data row loads that
@@ -50,18 +57,40 @@ as a Python loop with no host sync inside. The augmentation draws of global
 step s come from a generator derived from ``(seed + 1, s)``: stateless
 like the JAX trainer's, but the port's own bits.
 
+The reference's harness (``data_parallel.py:80-87,143-171``), as the JAX
+trainer runs it: ``log_dir``/``log_name`` name the run's text and JSON
+logs (``train/logging_util.RunLogger``, one line per epoch, character for
+character the JAX logger's); whenever eval top-1 improves the whole state
+is saved to the ``"ckpt"`` slot of a ``train/checkpoint.Checkpointer`` in
+``checkpoint_dir``: parameters, BN statistics and momentum in the JAX
+package's layout (gathered from the ranks' slices under ``zero`` and
+``fsdp``; the per-replica BN statistics with a leading replica axis under
+``ddp``), the optimizer's update count, ``best_acc``, the epoch and the
+exact-continuation subtree (loader epoch and cursor, global step).
+``step_hook`` is called at every train-step boundary of both loops and
+the preemption flag (``train/preemption.py``: SIGTERM/SIGINT or
+``trainer.preemption.request()``) polled right after; a requested stop
+saves to the ``"preempt"`` slot and ``fit`` returns. ``resume=True``
+restores the newest valid of ``("ckpt", "preempt")`` and continues
+mid-epoch, so a resumed run equals an uninterrupted one bit for bit (the
+augmentation draws are stateless). With a process group rank 0 writes and
+logs, the others wait at a barrier; every rank restores. Every rank polls
+its own flag: a preemption must reach every rank (a cluster signals every
+process; a ``step_hook`` requests on every rank at the same step).
+Under ``spmd_pipeline`` no checkpoint is written and ``resume`` and
+``async_checkpoint`` are refused (ROADMAP A7).
+
 Not ported yet, and refused by :func:`check_train_config` where a config
-field asks for them (ROADMAP A5/A6/A7/A8/A11): the other strategies and
-mesh axes, checkpoint/resume, recovery, fault injection, the guards, the
-consistency sentinel, emergency checkpoints, elastic restarts and the
-status exporter. Absent without a field to refuse (ROADMAP A5): log and
-telemetry files, the best-accuracy checkpoint, preemption handling and
-``step_hook``.
+field asks for them (ROADMAP A6/A7/A11): the other strategies and mesh
+axes, recovery, fault injection, the guards, the consistency sentinel,
+emergency checkpoints, elastic restarts (resharded restore), the typed
+telemetry stream and the status exporter.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -88,11 +117,30 @@ from distributed_model_parallel_tpu_torch.models import (
     DTYPES,
     get_model,
     params_from_jax,
+    params_to_jax,
 )
-from distributed_model_parallel_tpu_torch.models.staged import StagedModel
-from distributed_model_parallel_tpu_torch.ops.collectives import all_reduce_
+from distributed_model_parallel_tpu_torch.models.staged import (
+    StagedModel,
+    leaf_tree,
+    model_leaves,
+    tree_at,
+)
+from distributed_model_parallel_tpu_torch.ops.collectives import (
+    all_gather_concat,
+    all_reduce_,
+    mesh_barrier,
+)
 from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
     replicate,
+)
+from distributed_model_parallel_tpu_torch.train.checkpoint import (
+    Checkpointer,
+    CheckpointIntegrityError,
+    build_resume_tree,
+    unpack_resume_tree,
+)
+from distributed_model_parallel_tpu_torch.train.logging_util import (
+    RunLogger,
 )
 from distributed_model_parallel_tpu_torch.train.metrics import (
     AverageMeter,
@@ -103,13 +151,15 @@ from distributed_model_parallel_tpu_torch.train.optim import (
     GradReducer,
     make_optimizer,
 )
+from distributed_model_parallel_tpu_torch.train.preemption import (
+    PreemptionGuard,
+    checkpoint_on_preempt,
+)
 
 METRIC_KEYS = ("loss", "batch", "correct@1", "correct@5")
 
 # TrainConfig fields the port does not run yet: (name, refused when, item).
 _UNPORTED = (
-    ("resume", lambda c: c.resume, "A5: checkpoint/resume"),
-    ("async_checkpoint", lambda c: c.async_checkpoint, "A5: checkpointing"),
     ("recovery.max_retries", lambda c: c.recovery.max_retries > 0,
      "A11: recovery"),
     ("recovery.faults", lambda c: bool(c.recovery.faults),
@@ -127,6 +177,15 @@ _UNPORTED = (
      "A11: status exporter"),
 )
 _STRATEGIES = {"auto": "A11: autotune"}
+# What the pipeline (strategy="spmd_pipeline", PipelineTrainer) does not
+# run of the checkpoint harness.
+_PIPELINE_UNPORTED = (
+    ("resume", lambda c: c.resume, "A7: the pipeline's checkpoint/resume"),
+    ("async_checkpoint", lambda c: c.async_checkpoint,
+     "A7: the pipeline's checkpoint"),
+)
+# Slots a resume considers, newest valid first.
+RESUME_SLOTS = ("ckpt", "preempt")
 
 
 def check_train_config(config: TrainConfig) -> None:
@@ -135,9 +194,10 @@ def check_train_config(config: TrainConfig) -> None:
     if config.strategy in _STRATEGIES:
         raise ValueError(f"strategy={config.strategy!r} is not ported yet "
                          f"(ROADMAP {_STRATEGIES[config.strategy]}); the "
-                         f"port runs 'gspmd', 'ddp', 'fsdp' and "
+                         f"port runs 'gspmd', 'ddp', 'fsdp', 'zero' and "
                          f"'spmd_pipeline'")
-    if config.strategy not in ("gspmd", "ddp", "fsdp", "spmd_pipeline"):
+    if config.strategy not in ("gspmd", "ddp", "fsdp", "zero",
+                               "spmd_pipeline"):
         raise KeyError(f"unknown strategy {config.strategy!r}")
     if config.optimizer.fused and config.strategy == "fsdp":
         raise ValueError(
@@ -183,6 +243,11 @@ def check_train_config(config: TrainConfig) -> None:
 def check_spmd_pipeline_config(config: TrainConfig) -> None:
     """The JAX trainer's refusals for ``strategy="spmd_pipeline"``, with
     its wording, and what of it the port does not run (ROADMAP A7)."""
+    bad = [f"{name} (ROADMAP {item})" for name, refused, item
+           in _PIPELINE_UNPORTED if refused(config)]
+    if bad:
+        raise ValueError(f"not ported yet under strategy='spmd_pipeline': "
+                         f"{', '.join(bad)}")
     if config.device_resident_data:
         raise ValueError("device_resident_data is only supported with "
                          "strategy='gspmd'")
@@ -370,6 +435,7 @@ class Trainer:
         self.device = spec.device
         ddp = None
         fsdp = config.strategy == "fsdp"
+        zero = config.strategy == "zero"
         if config.strategy == "ddp":
             from distributed_model_parallel_tpu_torch.parallel import ddp
         if train_ds is None or eval_ds is None:
@@ -435,7 +501,8 @@ class Trainer:
         self.optimizer = make_optimizer(
             config.optimizer, len(self.train_loader), config.epochs,
             self.model.parameters(),
-            bucket_bytes=bucket_bytes if ddp else None)
+            bucket_bytes=bucket_bytes if ddp else None,
+            zero=spec if zero else None)
         if fsdp:
             self.reducer = fsdp_mod.FsdpReducer(self.model, spec.group,
                                                 self.optimizer.clip)
@@ -463,9 +530,11 @@ class Trainer:
             self._eval_step = ddp.make_ddp_eval_step(self.model, spec, **kw)
         else:
             if not fsdp:
+                # ZeroSGD reduce-scatters the gradients itself.
                 self.reducer = (GradReducer(self.model.parameters(),
                                             spec.group, self.optimizer)
-                                if spec.group is not None else None)
+                                if spec.group is not None and not zero
+                                else None)
             share = dict(reducer=self.reducer, rows=(self._rows.start, bs))
             step = make_train_step(self.model, self.optimizer,
                                    augment=config.data.augment, **share,
@@ -487,6 +556,27 @@ class Trainer:
         self.global_step = 0
         self.best_acc = 0.0
         self.step_log: list[dict] = []
+        self.start_epoch = 0
+        # (epoch, batches consumed): the position a checkpoint records.
+        self._loader_pos = (0, 0)
+        # Called with this trainer at every train-step boundary, before
+        # the preemption poll (an external scheduler may block in it, or
+        # request a stop that the next boundary honours).
+        self.step_hook = None
+        self.preemption = PreemptionGuard()
+        self._writer = spec.rank == 0
+        self.logger = (RunLogger(config.log_dir, config.log_name, meta=dict(
+            workload="cnn", model=config.model.name,
+            strategy=config.strategy, batch_size=bs,
+            mesh=config.mesh.axis_sizes(),
+            steps_per_dispatch=config.steps_per_dispatch
+            if config.device_resident_data else 1))
+            if self._writer else None)
+        self.ckpt = (None if pipe else Checkpointer(
+            config.checkpoint_dir, keep=config.recovery.keep_checkpoints,
+            meta_fn=self._ckpt_meta))
+        if config.resume and any(self.ckpt.exists(n) for n in RESUME_SLOTS):
+            self._resume()
 
     # -------------------------------------------------------------- pipeline
     def _pipeline_stage(self, model_config, params, state):
@@ -579,12 +669,24 @@ class Trainer:
 
     def _log_step(self, epoch: int, step: int, meters: dict,
                   timer: StepTimer) -> None:
-        self.step_log.append(dict(
-            epoch=epoch, step=step, loss=meters["loss"].avg,
-            acc1=meters["acc1"].avg, step_time_s=timer.step.last,
-            data_time_s=timer.data.last,
-            samples_per_s=self.config.data.batch_size
-            / max(timer.step.last, 1e-9)))
+        rec = dict(loss=meters["loss"].avg, acc1=meters["acc1"].avg,
+                   step_time_s=timer.step.last, data_time_s=timer.data.last,
+                   samples_per_s=self.config.data.batch_size
+                   / max(timer.step.last, 1e-9))
+        self.step_log.append(dict(epoch=epoch, step=step, **rec))
+        if self.logger is not None:
+            self.logger.log_step(epoch, step, **rec)
+
+    def _log_line(self, message: str) -> None:
+        if self.logger is not None:
+            self.logger.log_line(message)
+
+    def _stop_requested(self) -> bool:
+        """The train-step boundary: ``step_hook``, then the preemption
+        poll."""
+        if self.step_hook is not None:
+            self.step_hook(self)
+        return self.preemption.requested()
 
     # ----------------------------------------------------------------- steps
     def run_steps(self, idx: torch.Tensor) -> dict:
@@ -608,7 +710,10 @@ class Trainer:
         pending: list = []
         self.train_loader.set_epoch(epoch)
         base = self.train_loader.cursor
+        self._loader_pos = (epoch, base)
         for i, (images, labels) in enumerate(self.train_loader):
+            if self._stop_requested():
+                break
             gi = base + i
             images = self._to_device(images)
             labels = self._to_device(labels)
@@ -616,6 +721,7 @@ class Trainer:
             pending.append(self._train_step(images, labels,
                                             self._generator()))
             self.global_step += 1
+            self._loader_pos = (epoch, gi + 1)
             log_now = gi % self.config.log_every_n_steps == 0
             if log_now or len(pending) >= self._max_inflight:
                 n = len(pending)
@@ -640,15 +746,21 @@ class Trainer:
         bs = self.train_loader.batch_size
         k_steps = max(1, self.config.steps_per_dispatch)
         self.train_loader.set_epoch(epoch)
+        # A resumed cursor is dispatch-aligned when the saving run had
+        # this steps_per_dispatch (saves happen at dispatch boundaries).
         base = self.train_loader.cursor
+        self._loader_pos = (epoch, base)
         idx = self.train_loader.epoch_indices(epoch)
         steps = len(idx) // bs
         idx = self._to_device(idx[:steps * bs].reshape(steps, bs))
         inflight = 0
         for i in range(base, steps, k_steps):
+            if self._stop_requested():
+                break
             chunk = idx[i:i + k_steps]
             timer.data_ready()
             pending.append(self.run_steps(chunk))
+            self._loader_pos = (epoch, i + chunk.shape[0])
             inflight += chunk.shape[0]
             # Log when a multiple of log_every_n_steps falls in [i, i+K).
             log_now = (-i) % self.config.log_every_n_steps < chunk.shape[0]
@@ -685,23 +797,209 @@ class Trainer:
                            timer.data.avg)
 
     def fit(self, epochs: int | None = None) -> list[dict]:
-        """Train epochs ``0 .. epochs - 1`` (default ``config.epochs``)
-        with eval at the ``eval_every`` cadence; returns one history
-        record per epoch, with the JAX trainer's keys. ``best_acc`` tracks
-        the best eval top-1 (no checkpoint is written: ROADMAP A5)."""
+        """Train epochs ``start_epoch .. epochs - 1`` (default
+        ``config.epochs``; ``start_epoch`` is 0, or where a resume or an
+        earlier preempted ``fit`` left off) with eval at the
+        ``eval_every`` cadence, one log line per epoch, and a save of the
+        whole state to the ``"ckpt"`` slot whenever eval top-1 improves
+        (reference ``data_parallel.py:143-171``); returns one history
+        record per epoch run, with the JAX trainer's keys. SIGTERM/SIGINT
+        or ``preemption.request()`` stops the epoch at the next step
+        boundary, saves to the ``"preempt"`` slot (resume continues at
+        that step) and returns the epochs completed. Under
+        ``spmd_pipeline`` nothing is saved (ROADMAP A7)."""
         epochs = epochs if epochs is not None else self.config.epochs
+        pipe = self.ckpt is None
+        if pipe:
+            self._log_line("checkpoint: none is written under "
+                           "strategy='spmd_pipeline' (ROADMAP A7)")
         history = []
-        for epoch in range(epochs):
-            tr = self.train_epoch(epoch)
-            ev = (self.evaluate()
-                  if eval_now(epoch, epochs, self.config.eval_every)
-                  else None)
-            history.append(dict(
-                epoch=epoch, loss_train=tr.loss, acc1_train=tr.acc1,
-                loss_val=ev.loss if ev else None,
-                acc1_val=ev.acc1 if ev else None,
-                time_per_batch=tr.step_time,
-                time_load_per_batch=tr.data_time))
-            if ev is not None and ev.acc1 > self.best_acc:
-                self.best_acc = ev.acc1
+        with self.preemption.installed():
+            epoch = self.start_epoch
+            while epoch < epochs:
+                tr = self.train_epoch(epoch)
+                if self.preemption.requested():
+                    # Resume redoes the rest of this epoch: the saved
+                    # position is the step the stop came at.
+                    self.start_epoch = epoch
+                    if pipe:
+                        self.preemption.reset()
+                        self._log_line(f"preempted at epoch {epoch}, "
+                                       f"global step {self.global_step}: "
+                                       f"no checkpoint (ROADMAP A7)")
+                    else:
+                        checkpoint_on_preempt(
+                            self.preemption,
+                            self.ckpt if self._writer else None,
+                            self._ckpt_tree(), "preempt", self.logger,
+                            epoch, global_step=self.global_step)
+                        self._barrier()
+                    break
+                ev = (self.evaluate()
+                      if eval_now(epoch, epochs, self.config.eval_every)
+                      else None)
+                record = dict(
+                    epoch=epoch, loss_train=tr.loss, acc1_train=tr.acc1,
+                    loss_val=ev.loss if ev else None,
+                    acc1_val=ev.acc1 if ev else None,
+                    time_per_batch=tr.step_time,
+                    time_load_per_batch=tr.data_time)
+                if self.logger is not None:
+                    self.logger.log_epoch(**record)
+                history.append(record)
+                if ev is not None and ev.acc1 > self.best_acc:
+                    self.best_acc = ev.acc1
+                    if not pipe:
+                        self._save(epoch)
+                epoch += 1
+        if self.ckpt is not None:
+            self.ckpt.wait_until_finished()
+        if self.logger is not None:
+            self.logger.finish(epochs_run=len(history))
         return history
+
+    # -- checkpointing (reference data_parallel.py:80-87,143-155) ----------
+    def _barrier(self) -> None:
+        if self.spec.group is not None:
+            mesh_barrier(self.spec)
+
+    def _save(self, epoch: int) -> None:
+        """The best-accuracy save: rank 0 writes, the others wait."""
+        self.start_epoch = epoch + 1
+        tree = self._ckpt_tree()
+        if self._writer:
+            self.ckpt.save(tree, "ckpt",
+                           wait=not self.config.async_checkpoint)
+        self._barrier()
+
+    def _ckpt_meta(self) -> dict:
+        """The manifest stamp of every version: the saving topology and
+        the exact position, readable without a restore."""
+        return {"workload": "cnn", "model": self.config.model.name,
+                "strategy": self.config.strategy,
+                "mesh": {**self.config.mesh.axis_sizes(),
+                         "dcn_data": self.config.mesh.dcn_data},
+                "n_devices": self.config.mesh.num_devices,
+                "global_step": self.global_step}
+
+    def _resume_tree(self) -> dict:
+        """The exact-continuation subtree, from the trainer's own (epoch,
+        consumed) count; the loader is re-synced to it."""
+        ep, cur = self._loader_pos
+        tree = build_resume_tree(ep, cur, len(self.train_loader),
+                                 self.global_step,
+                                 {"retries_left": 0, "lr_scale": 1.0})
+        self.train_loader.load_state_dict(
+            {"epoch": int(tree["loader_epoch"]),
+             "batch_cursor": int(tree["batch_cursor"])})
+        return tree
+
+    @torch.no_grad()
+    def _ckpt_tree(self) -> dict:
+        """The whole state as one tree of numpy arrays in the JAX
+        package's layout, the same whatever the strategy and bucket plan
+        (collectives under ddp/zero/fsdp: every rank calls)."""
+        params, state = params_to_jax(self.model)
+        if self.config.strategy == "ddp":
+            from distributed_model_parallel_tpu_torch.parallel.ddp import (
+                gather_replica_state,
+            )
+
+            state = gather_replica_state(self.model, self.spec)
+        return {"params": params, "batch_stats": state,
+                "momentum": self._momentum_tree(),
+                "opt_count": np.asarray(self.optimizer.count, np.int32),
+                "best_acc": np.asarray(self.best_acc, np.float32),
+                "epoch": np.asarray(self.start_epoch, np.int32),
+                "resume": self._resume_tree()}
+
+    def _momentum_tree(self) -> tuple:
+        """Every leaf's momentum in the JAX layout (zeros before the first
+        update or without momentum): ZeroSGD's slices gathered, an FSDP
+        slice gathered along its shard dim."""
+        opt = self.optimizer
+        index = {id(p): i for i, p in enumerate(opt.params)}
+        full = (opt.full_momentum() if hasattr(opt, "full_momentum")
+                else None)
+
+        def one(leaf):
+            p = leaf.stored
+            i = index[id(p)]
+            mom = full[i] if full is not None else opt.momentum_buffer(i)
+            if mom is None:
+                mom = torch.zeros_like(p, dtype=torch.float32)
+            if leaf.shard_dim is not None:
+                mom = all_gather_concat(mom, self.spec.group,
+                                        axis=leaf.shard_dim)
+            return leaf.to_jax(mom)
+
+        return leaf_tree(self.model, one)
+
+    @torch.no_grad()
+    def _load_tree(self, tree: dict) -> None:
+        """Adopt a restored checkpoint: weights, BN statistics, momentum
+        (this rank's slice under zero/fsdp, its replica's statistics under
+        ddp) and the update count."""
+        params, state = tree["params"], tree["batch_stats"]
+        if self.config.strategy == "fsdp":
+            from distributed_model_parallel_tpu_torch.parallel import fsdp
+
+            fsdp.load_params_from_jax(self.model, params, state)
+        else:
+            if self.config.strategy == "ddp":
+                from distributed_model_parallel_tpu_torch.parallel.ddp import (
+                    replica_state,
+                )
+
+                state = replica_state(state, self.spec.rank)
+            params_from_jax(self.model, params, state, self.device)
+        opt = self.optimizer
+        opt.count = int(tree["opt_count"])
+        if opt.count == 0:
+            return                      # no update has made a trace yet
+        index = {id(p): i for i, p in enumerate(opt.params)}
+        moms = [None] * len(opt.params)
+        for leaf in model_leaves(self.model):
+            moms[index[id(leaf.stored)]] = leaf.local(
+                leaf.from_jax(tree_at(tree["momentum"], leaf)))
+        if hasattr(opt, "load_full_momentum"):
+            opt.load_full_momentum(moms)
+        else:
+            for i, m in enumerate(moms):
+                opt.set_momentum_buffer(i, m)
+
+    def _note_fallback(self, path: str, reason: str) -> None:
+        self._log_line(f"checkpoint fallback: {os.path.basename(path)} "
+                       f"rejected ({reason})")
+
+    def _resume(self) -> None:
+        """Restore the newest valid of ``RESUME_SLOTS`` (a torn version
+        falls back to the one before, a slot with none left to the next
+        slot) and continue where it was saved."""
+        template = self._ckpt_tree()
+        restored = name = None
+        for name in self.ckpt.names_by_recency(RESUME_SLOTS):
+            try:
+                restored = self.ckpt.restore(template, name,
+                                             allow_fallback=True,
+                                             on_fallback=self._note_fallback)
+                break
+            except CheckpointIntegrityError as e:
+                self._log_line(f"resume: slot {name!r} unusable: {e}")
+        if restored is None:
+            raise CheckpointIntegrityError(
+                f"resume: no restorable version of {RESUME_SLOTS} in "
+                f"{self.ckpt.directory}")
+        self._load_tree(restored)
+        self.best_acc = float(restored["best_acc"])
+        self.start_epoch = int(restored["epoch"])
+        ep, cur, gs, _, _ = unpack_resume_tree(restored["resume"])
+        self.train_loader.load_state_dict({"epoch": ep, "batch_cursor": cur})
+        self._loader_pos = (self.train_loader.epoch, self.train_loader.cursor)
+        self.global_step = gs
+        # The best-accuracy slot's epoch lags when later epochs did not
+        # improve; the loader position is where training stood.
+        self.start_epoch = max(self.start_epoch, self.train_loader.epoch)
+        self._log_line(f"resume: slot {name!r} -> epoch {self.start_epoch} "
+                       f"batch {self.train_loader.cursor} (global step "
+                       f"{self.global_step})")

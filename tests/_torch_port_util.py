@@ -1,6 +1,8 @@
 """Shared inputs for the torch-port tests: one small model shape in both
 packages and one numpy parameter tree (from a seed) that feeds both."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import torch
@@ -60,3 +62,20 @@ def both_params(kind: str, seed: int = 0, **kw):
 def t(x) -> torch.Tensor:
     """numpy / JAX array -> CPU tensor."""
     return torch.from_numpy(np.array(x))
+
+
+def run_dirs(root, name: str = "run") -> dict:
+    """A port ``TrainConfig``'s ``log_dir``, ``log_name`` and
+    ``checkpoint_dir`` under ``root`` (a test's temporary directory), so
+    that no test run writes logs or checkpoints into the working
+    directory and runs under one root share neither."""
+    base = os.path.join(str(root), name)
+    return dict(log_dir=os.path.join(base, "log"), log_name=name,
+                checkpoint_dir=os.path.join(base, "checkpoint"))
+
+
+def cli_dirs(root) -> list:
+    """:func:`run_dirs` as ``train_cnn`` flags."""
+    d = run_dirs(root)
+    return ["--log-dir", d["log_dir"], "--checkpoint-dir",
+            d["checkpoint_dir"]]

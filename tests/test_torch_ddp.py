@@ -35,6 +35,7 @@ from distributed_model_parallel_tpu_torch.models import (
 from distributed_model_parallel_tpu_torch.ops import collectives as tcoll
 from distributed_model_parallel_tpu_torch.parallel import workers
 from distributed_model_parallel_tpu_torch.train import trainer as ttrainer
+from tests._torch_port_util import run_dirs
 from tests.conftest import tiny_train_config
 from tests.test_torch_cnn import _close, _close_trees
 
@@ -125,14 +126,15 @@ def jax_gspmd(tmp_path_factory):
                 metrics={k: float(v) for k, v in metrics.items()})
 
 
-def _port_gspmd_config(data):
+def _port_gspmd_config(data, root):
     return tconfig.TrainConfig(
         model=tconfig.ModelConfig(name="tinycnn"),
         data=tconfig.DataConfig(name="synthetic", batch_size=B,
                                 eval_batch_size=B, synthetic_train_size=32,
                                 synthetic_eval_size=B, augment=False),
         optimizer=tconfig.OptimizerConfig(learning_rate=0.1, warmup_steps=0),
-        mesh=tconfig.MeshConfig(data=data), epochs=3, device="cpu")
+        mesh=tconfig.MeshConfig(data=data), epochs=3, device="cpu",
+        **run_dirs(root))
 
 
 @pytest.fixture(scope="module")
@@ -151,7 +153,8 @@ def ranks(jax_ddp, jax_gspmd, tmp_path_factory):
                          timeout_s=300, threads=1, store_dir=store)
     gspmd = tmesh.spawn(
         workers.trainer_runs, N, {"gspmd": dict(
-            config=_port_gspmd_config(N), params=jax_gspmd["params0"],
+            config=_port_gspmd_config(N, store),
+            params=jax_gspmd["params0"],
             state=jax_gspmd["state0"], step=(images, labels))},
         (images, labels), (images, labels), device="cpu", timeout_s=300,
         threads=1, store_dir=store)
@@ -255,13 +258,15 @@ def test_unused_parameter_does_not_hang(ranks, mode):
         assert got["calls"] == (2 if mode == "psum" else 1)
 
 
-def test_gspmd_at_4_ranks_matches_jax_and_one_device(jax_gspmd, ranks):
+def test_gspmd_at_4_ranks_matches_jax_and_one_device(jax_gspmd, ranks,
+                                                     tmp_path):
     """gspmd: BN over the global batch even under bn_mode "local". 4 ranks
     == the JAX trainer's gspmd step at data=4, and == the port's own
     one-device trainer on the same global batch; BN state equal on every
     rank."""
     images, labels = _batch()
-    one = ttrainer.Trainer(_port_gspmd_config(1), params=jax_gspmd["params0"],
+    one = ttrainer.Trainer(_port_gspmd_config(1, tmp_path),
+                           params=jax_gspmd["params0"],
                            state=jax_gspmd["state0"])
     m1 = one._train_step(torch.from_numpy(images), torch.from_numpy(labels),
                          None)

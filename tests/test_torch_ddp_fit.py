@@ -1,8 +1,9 @@
 """The port's data-parallel Trainer, MobileNetV2 with cross-rank BN and
 the CLI, at gloo ranks against the JAX package: ``fit`` histories of
 tinycnn at 4 ranks (ddp with per-replica BN, gspmd per batch and
-device-resident) == the JAX trainer's at ``MeshConfig(data=4)`` from the
-same initial weights; ddp == gspmd without BN; the bucketed strategy;
+device-resident, zero) == the JAX trainer's at ``MeshConfig(data=4)`` from
+the same initial weights, and the final parameters of gspmd and zero ==
+JAX's gspmd fit's; ddp == gspmd without BN; the bucketed strategy;
 one MobileNetV2 step at 2 ranks in float64 (gradients of the global
 batch's loss, BN statistics over both ranks) == JAX's on one device over
 the same 4 rows; ``train_cnn --device cpu --nproc 2``."""
@@ -29,6 +30,7 @@ from distributed_model_parallel_tpu_torch.data.registry import (
 )
 from distributed_model_parallel_tpu_torch.parallel import workers
 from distributed_model_parallel_tpu_torch.train import train_cnn
+from tests._torch_port_util import cli_dirs, run_dirs
 from tests.conftest import tiny_train_config
 from tests.test_torch_cnn import RTOL, _close, _close_trees, _step_inputs
 
@@ -67,7 +69,9 @@ def jax_fits(tmp_path_factory):
         out[strategy] = dict(params0=params, state0=state, history=t.fit(),
                              step_log=steps,
                              state=jax.tree.map(np.asarray,
-                                                t.state.model_state))
+                                                t.state.model_state),
+                             params=jax.tree.map(np.asarray,
+                                                 t.state.params))
     return out
 
 
@@ -107,11 +111,20 @@ def ranks(jax_fits, tmp_path_factory):
         "gspmd_resident": dict(config=_config(device_resident_data=True,
                                               steps_per_dispatch=2),
                                params=g["params0"], state=g["state0"]),
+        "zero": dict(config=_config(strategy="zero"), params=g["params0"],
+                     state=g["state0"]),
+        "zero_fused": dict(
+            config=_config(strategy="zero", optimizer=tconfig.OptimizerConfig(
+                learning_rate=0.1, warmup_steps=2, fused=True)),
+            params=g["params0"], state=g["state0"]),
     }
     for strategy in ("ddp", "gspmd"):
         runs[f"{strategy}_nobn_step"] = dict(
             config=_config(strategy=strategy, model=nobn),
             params=None, state=None, step=(images, labels))
+    root = tmp_path_factory.mktemp("runs")
+    for name, run in runs.items():
+        run["config"] = run["config"].replace(**run_dirs(root, name))
     return tmesh.spawn(workers.trainer_runs, N, runs,
                        (train.images, train.labels),
                        (evals.images, evals.labels), device="cpu",
@@ -122,7 +135,7 @@ def ranks(jax_fits, tmp_path_factory):
 @pytest.mark.parametrize("run,strategy", [
     ("ddp", "ddp"), ("ddp_bucketed", "ddp"),
     ("ddp_grad_bucket_mb_fused", "ddp"), ("gspmd", "gspmd"),
-    ("gspmd_resident", "gspmd")])
+    ("gspmd_resident", "gspmd"), ("zero", "gspmd"), ("zero_fused", "gspmd")])
 def test_fit_matches_jax_trainer(jax_fits, ranks, run, strategy):
     """2 epochs at 4 ranks from the JAX run's initial weights: train and
     eval loss (1e-4) and accuracy (exact) per epoch, the same history on
@@ -160,6 +173,20 @@ def test_step_log_matches_jax_trainer(jax_fits, ranks, run, strategy):
         _close(g["loss"], w["loss"], "loss")
         assert abs(g["acc1"] - w["acc1"]) < 1e-6
         assert g["samples_per_s"] > 0
+
+
+@pytest.mark.parametrize("run", ["gspmd", "zero", "zero_fused"])
+def test_fit_params_match_jax_gspmd(jax_fits, ranks, run):
+    """The final parameters of the 2-epoch fit at 4 ranks == the JAX
+    trainer's gspmd fit from the same weights (1e-4 of scale), on every
+    rank. strategy='zero' is gspmd's SGD with the momentum sharded: each
+    rank updates its quarter of the flat padded vector (its momentum
+    slice, the mean gradient's reduce-scattered slice, weight decay and
+    the schedule's rate) and the slices are gathered back, so a wrong
+    slice offset, scatter order, mean, decay or rate shows here."""
+    want = jax_fits["gspmd"]["params"]
+    for r in ranks:
+        _close_trees(r[run]["params"], want, f"{run} params")
 
 
 def test_ddp_fit_keeps_per_replica_bn_state(jax_fits, ranks):
@@ -227,12 +254,13 @@ def test_mobilenetv2_two_ranks_match_jax_in_float64(mobilenet_2_ranks):
         np.testing.assert_array_equal(a, b)
 
 
-def test_cli_spawns_ranks_and_prints_rank_0(capsys):
+def test_cli_spawns_ranks_and_prints_rank_0(capsys, tmp_path):
     """``train_cnn --device cpu --nproc 2``: two gloo ranks, one JSON
     record per epoch from rank 0; a ddp + sync BN + bucketed run too."""
     base = ["--device", "cpu", "--model", "tinycnn", "--epochs", "2",
             "--batch-size", "16", "--synthetic-train-size", "48",
-            "--synthetic-eval-size", "16", "--fused", "--nproc", "2"]
+            "--synthetic-eval-size", "16", "--fused", "--nproc", "2",
+            *cli_dirs(tmp_path)]
     for extra in ([], ["--strategy", "ddp", "--bn-mode", "sync",
                        "--allreduce", "bucketed", "--bucket-mb", "1"]):
         train_cnn.main(base + extra)

@@ -33,6 +33,7 @@ from distributed_model_parallel_tpu_torch.parallel import fsdp as tfsdp
 from distributed_model_parallel_tpu_torch.parallel import workers
 from distributed_model_parallel_tpu_torch.train import train_cnn
 from distributed_model_parallel_tpu_torch.train import trainer as ttrainer
+from tests._torch_port_util import cli_dirs, run_dirs
 from tests.conftest import tiny_train_config
 from tests.test_torch_cnn import _close
 
@@ -122,6 +123,9 @@ def ranks(jax_fit, tmp_path_factory):
             "fsdp_clip": dict(config=_config(optimizer=clip), **w),
             "gspmd_clip": dict(config=_config(strategy="gspmd",
                                               optimizer=clip), **w)}
+    root = tmp_path_factory.mktemp("runs")
+    for name, run in runs.items():
+        run["config"] = run["config"].replace(**run_dirs(root, name))
     return tmesh.spawn(workers.trainer_runs, N, runs,
                        (train.images, train.labels),
                        (evals.images, evals.labels), device="cpu",
@@ -216,13 +220,14 @@ def test_fsdp_refusals(bad, match):
         ttrainer.check_train_config(cfg)
 
 
-def test_fsdp_at_one_rank_is_gspmd():
+def test_fsdp_at_one_rank_is_gspmd(tmp_path):
     """Without a process group nothing is sharded and the step is the
     one-device step."""
     cfg = dataclasses.replace(_config(mesh=tconfig.MeshConfig()), epochs=1)
     keys = ("loss_train", "acc1_train", "loss_val", "acc1_val")
-    a = ttrainer.Trainer(cfg).fit()
-    b = ttrainer.Trainer(dataclasses.replace(cfg, strategy="gspmd")).fit()
+    a = ttrainer.Trainer(cfg.replace(**run_dirs(tmp_path, "fsdp"))).fit()
+    b = ttrainer.Trainer(cfg.replace(strategy="gspmd",
+                                     **run_dirs(tmp_path, "gspmd"))).fit()
     assert [[h[k] for k in keys] for h in a] == [[h[k] for k in keys]
                                                  for h in b]
 
@@ -230,14 +235,14 @@ def test_fsdp_at_one_rank_is_gspmd():
 @pytest.mark.parametrize("extra", [["--strategy", "fsdp"],
                                    ["--strategy", "ddp",
                                     "--allreduce", "ring"]])
-def test_cli_fsdp_and_ring(capsys, extra):
+def test_cli_fsdp_and_ring(capsys, extra, tmp_path):
     """``train_cnn --device cpu --model tinycnn --nproc 2`` with
     ``--strategy fsdp`` and with ddp over ``--allreduce ring``: one JSON
     record per epoch from rank 0, finite losses."""
     train_cnn.main(["--device", "cpu", "--model", "tinycnn", "--epochs",
                     "2", "--batch-size", "16", "--synthetic-train-size",
                     "48", "--synthetic-eval-size", "16", "--nproc", "2",
-                    *extra])
+                    *cli_dirs(tmp_path), *extra])
     records = [json.loads(x) for x in
                capsys.readouterr().out.strip().splitlines()]
     assert [r["epoch"] for r in records] == [0, 1]

@@ -24,6 +24,7 @@ from distributed_model_parallel_tpu_torch.train import (
     pipeline_trainer as tpipeline_trainer,
 )
 from distributed_model_parallel_tpu_torch.train import train_model_parallel
+from tests._torch_port_util import run_dirs
 from tests.conftest import tiny_train_config
 from tests.test_torch_cnn import _close
 
@@ -99,7 +100,8 @@ def test_spmd_trainer_matches_runner_trainer(jax_fit, tmp_path):
     train, evals = load_dataset(tconfig.DataConfig(**DATA))
     ranks = tmesh.spawn(
         workers.spmd_trainer_fit, 2,
-        _port_config(strategy="spmd_pipeline"), want["params"],
+        _port_config(strategy="spmd_pipeline", **run_dirs(tmp_path)),
+        want["params"],
         want["state"], (train.images, train.labels),
         (evals.images, evals.labels), device="cpu", timeout_s=300,
         threads=1, store_dir=str(tmp_path),
@@ -155,8 +157,9 @@ _CLI = ["--device", "cpu", "--model", "tinycnn", "--epochs", "1",
     ["--auto-partition"], ["--boundaries", "0,2,6"],
     ["--engine", "spmd", "--schedule", "1f1b"],
 ])
-def test_cli_runs_on_the_cpu(capsys, extra):
-    train_model_parallel.main(_CLI + extra)
+def test_cli_runs_on_the_cpu(capsys, extra, tmp_path):
+    train_model_parallel.main(_CLI + extra + [
+        "--log-dir", run_dirs(tmp_path)["log_dir"]])
     records = [json.loads(x) for x in
                capsys.readouterr().out.strip().splitlines()]
     assert [r["epoch"] for r in records] == [0]
@@ -167,7 +170,7 @@ def test_cli_runs_on_the_cpu(capsys, extra):
 @pytest.mark.parametrize("extra,match", [
     (["--dp", "2"], "--dp is an --engine spmd knob"),
     (["--engine", "spmd", "--virtual-stages", "2"], "ROADMAP A7"),
-    (["--resume"], "ROADMAP A5"),
+    (["--resume"], "ROADMAP A7"),
 ])
 def test_cli_refusals(extra, match):
     with pytest.raises(SystemExit, match=match):

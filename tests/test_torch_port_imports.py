@@ -28,8 +28,8 @@ print(" ".join(names), "|", bad)
 """
 
 # Every module of the serving, LM training, CNN training, data-parallel
-# and pipeline slices, ResNet, the remaining data-parallel engines and the
-# sparse-gradient embedding path.
+# and pipeline slices, ResNet, the remaining data-parallel engines, the
+# sparse-gradient embedding path, the zoo and the checkpoint harness.
 _MODULES = {
     "config", "models.transformer", "ops._build", "ops.paged_attention",
     "ops.flash_attention", "serve.engine", "serve.generate", "serve.model",
@@ -44,6 +44,8 @@ _MODULES = {
     "train.train_model_parallel",
     "models.resnet", "models.embedding", "ops.ring_reduce", "ops.sparse",
     "parallel.zero", "parallel.fsdp",
+    "models.zoo", "train.checkpoint", "train.logging_util",
+    "train.preemption",
 }
 
 

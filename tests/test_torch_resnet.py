@@ -251,7 +251,7 @@ def test_get_model_names_and_refusals():
     with pytest.raises(ValueError, match="input_layout"):
         get_model(tconfig.ModelConfig(
             name="resnet18", extra={"input_layout": "hd"}), device="cpu")
-    with pytest.raises(KeyError, match="the zoo: ROADMAP A8"):
-        get_model(tconfig.ModelConfig(name="vgg16"), device="cpu")
+    with pytest.raises(KeyError, match="unknown model 'vgg17'"):
+        get_model(tconfig.ModelConfig(name="vgg17"), device="cpu")
     with pytest.raises(KeyError, match="unknown ResNet"):
         tresnet.build_resnet("resnet101")

@@ -23,6 +23,7 @@ from distributed_model_parallel_tpu_torch import mesh as tmesh
 from distributed_model_parallel_tpu_torch.data.registry import load_dataset
 from distributed_model_parallel_tpu_torch.parallel import ddp as tddp
 from distributed_model_parallel_tpu_torch.parallel import workers
+from tests._torch_port_util import run_dirs
 
 pytestmark = pytest.mark.torch_port
 torch.set_num_threads(1)
@@ -95,6 +96,9 @@ def ranks(tmp_path_factory):
         config=_config(ddp_allreduce=t, optimizer=fused) if f
         else _config(ddp_allreduce=t), params=None, state=None)
         for t in ("ring", "bucketed") for f in (False, True)}
+    root = tmp_path_factory.mktemp("runs")
+    for name, run in runs.items():
+        run["config"] = run["config"].replace(**run_dirs(root, name))
     return tmesh.spawn(
         workers.several, N,
         [("ring_collectives", (xs, tree)),
