@@ -106,7 +106,19 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     3 steps of ``Trainer(strategy="spmd_pipeline")``: each rank's
     parameters, momentum and BN statistics bit for bit the runner's at
     S=2 with the same cut and M; hops and bytes, µs a ring shift of the
-    boundary activation, step time;
+    boundary activation, step time; (c) ``PipelineTrainer`` over the 4
+    stages, gpipe M=4 at the reference's cut, phase 15b's workload
+    (MobileNetV2 bf16, fused SGD, augment on, 4,096 / 1,024 rows at batch
+    256, 2 epochs, cuDNN deterministic): ``fit(2)`` against ``fit``
+    preempted by a ``step_hook`` at step 5 of epoch 1 and finished by
+    ``PipelineTrainer(resume=True)``, bit for bit (parameters, momentum,
+    BN statistics, update counts, global step, history), fused_sgd
+    launches, the "pipeline" slot's best_acc, the text log's lines, save
+    and restore ms and bytes; (d) two SPMD ranks (gloo on one card, NCCL
+    on two): the same gate under gpipe and 1f1b M=4 on 2,048 / 512 rows,
+    then interleaved 1F1B V=2, M=4 at S=2 over 3 steps, each rank's
+    chunks bit for bit the runner's interleaved V=2 at S=2 with the same
+    cut, its hops and bytes a step beside 1F1B's;
 14. ResNet and the remaining data-parallel engines: (a) bench.py's CNN
     workload with ``DMP_BENCH_MODEL=resnet50`` (ResNet-50, CIFAR layout,
     batch 512, bf16 over f32, fused SGD over two buckets, device-resident,
@@ -147,12 +159,23 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     bytes; (c) the same gate at two ranks for ddp and zero (gloo on one
     card, NCCL on two or more), and zero's uninterrupted run against
     gspmd's from the same inputs, parameters, momentum and BN statistics
-    per leaf within 1e-5 relative.
+    per leaf within 1e-5 relative;
+16. the data path: (a) the reference's finetune recipe — MobileNetV2 in
+    the ImageNet layout, bf16 over f32, FusedSGD lr 0.05, batch 128 of
+    32 px rows held on the card and resized to 224 px in every step,
+    device-resident, 10 steps a dispatch, bench.py's timing shape:
+    samples/s, step s, MFU, peak memory, fused_sgd == steps x buckets, a
+    profiled step with the resize's share of device time, the resize on
+    the card against its CPU run; (b) one epoch of 15b's workload on the
+    per-batch host path with the host and device prefetch stages (depth
+    2) bit for bit the epoch without them, the data time a step of each;
+    (c) the C++ row gather at batch 512 of CIFAR-shaped rows against
+    numpy indexing, bit for bit, µs a batch of each.
 
 Prints the card line, each phase's seconds, a ``{"data_parallel": ...}``
 line, a ``{"pipeline": ...}`` line, a ``{"resnet": ...}`` line, a
-``{"dp_engines": ...}`` line, a ``{"harness": ...}`` line, the
-``{"kernels": [...]}`` line and, last,
+``{"dp_engines": ...}`` line, a ``{"harness": ...}`` line, a
+``{"data_path": ...}`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero
 without a card, or when run outside a checkout of the repository.
 ``--sgd-timing-only`` runs phases 1, 2 (the fused SGD kernel) and 10 and
@@ -168,7 +191,8 @@ with more than one card it adds BASELINE.json's pair per engine
 and the gradient reduction's µs a step by CUDA events (not measured for
 fsdp, whose reduce-scatters run inside the backward). ``--harness-only``
 runs phases 1, 2 (the fused SGD kernel) and 15 and prints the
-``{"harness": ...}`` line.
+``{"harness": ...}`` line; ``--data-only`` runs phases 1, 2 and 16 and
+prints the ``{"data_path": ...}`` line.
 """
 
 from __future__ import annotations
@@ -408,6 +432,31 @@ ZOO_PARAMS = {
 # first dispatch boundary after it at 10 steps a dispatch), cuDNN
 # deterministic.
 RES_TRAIN, RES_EVAL, RES_BATCH, RES_PREEMPT_STEP = 4096, 1024, 256, 5
+# The pipeline's harness (phase 13c/13d): 15b's workload and gate through
+# the pipeline. 13c: PipelineTrainer over PP_STAGES stages at the
+# reference's cut, gpipe M=4, RES_TRAIN / RES_EVAL rows. 13d: two SPMD
+# ranks, gpipe and 1f1b M=4, on PPS_TRAIN / PPS_EVAL rows (cut from 15b's
+# 4,096 / 1,024 so that six two-epoch fits over the host-staged gloo hops
+# fit the phase), then interleaved V=2 M=4 for PP_SPMD_STEPS steps
+# against the runner, and 1F1B's hops beside it.
+PPR_M = 4
+PPS_TRAIN, PPS_EVAL = 2048, 512
+# The data path (phase 16): (a) the reference's finetune recipe
+# (Readme.md:186-202, SURVEY.md:309): MobileNetV2 in the ImageNet layout,
+# bf16 over f32, FusedSGD lr 0.05 / momentum 0.9 / wd 1e-4 / 10 warm-up
+# steps, batch 128 of CIFAR-shaped 32 px synthetic rows held on the card
+# (4 x 128) and resized to 224 px in every step, device-resident, 10
+# steps a dispatch, bench.py's timing shape (CNN_WARM_DISPATCHES, then
+# CNN_TIMED_STEPS). FT_RESIZE_ATOL / FT_TIE: the resize on the card
+# against its CPU run on the same batch, as tests/test_torch_data_path.py
+# holds it against jax.image.resize (float values on the 0-255 scale;
+# uint8 equal away from .5 ties). (b) one epoch of 15b's workload on the
+# host path with both prefetch stages against both off. (c) the native
+# row gather at batch 512 of 50,000 CIFAR-shaped rows against numpy
+# indexing, FT_GATHER_REPS batches each.
+FT_BATCH, FT_PX, FT_LR = 128, 224, 0.05
+FT_RESIZE_ATOL, FT_TIE = 1e-3, 1e-3
+FT_GATHER_ROWS, FT_GATHER_BATCH, FT_GATHER_REPS = 50_000, 512, 50
 
 
 # Where the phases' trainers write their logs and checkpoints: one
@@ -1244,15 +1293,15 @@ def cnn_config(tconfig, model: str = "mobilenetv2", **optimizer):
         device="cuda", **run_dirs(model))
 
 
-def cnn_dispatch_indices(n: int, dispatches: int):
+def cnn_dispatch_indices(n: int, dispatches: int, batch: int = CNN_BATCH):
     """bench.py's per-dispatch batches (bench.py:1374-1380): one
-    ``default_rng(0)`` stream of ``integers(0, n, (10, 512))`` draws, on
+    ``default_rng(0)`` stream of ``integers(0, n, (10, batch))`` draws, on
     the card."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(0)
-    return [torch.from_numpy(rng.integers(0, n, (CNN_SPD, CNN_BATCH))
+    return [torch.from_numpy(rng.integers(0, n, (CNN_SPD, batch))
                              .astype(np.int64)).cuda()
             for _ in range(dispatches)]
 
@@ -1739,7 +1788,8 @@ def data_parallel(mesh, trainer_mod, tconfig, card) -> dict:
                           grad_allreduce_us_median=med_us,
                           allreduce_launches_per_step=per_step,
                           buckets=b["buckets"],
-                          fused_sgd_launches=b["fused_sgd"]),
+                          fused_sgd_launches=b["fused_sgd"],
+                          plain_sgd_launches=b["plain_sgd"]),
                ddp=dict(samples_per_s=d["samples_per_s"],
                         grad_allreduce_us_median=dus))
 
@@ -1957,6 +2007,7 @@ def pp_time(models, pipeline, fs, tconfig, devices, cut8, card) -> dict:
                 for d in cards:
                     torch.cuda.reset_peak_memory_stats(d)
                 fs.fused_sgd_kernel.launches = 0
+                fs.plain_sgd_kernel.launches = 0
             t0 = time.perf_counter()
             mm = r.train_step_device(step_generator(1, k, "cuda"), *b)
             t1 = time.perf_counter()
@@ -1968,6 +2019,7 @@ def pp_time(models, pipeline, fs, tconfig, devices, cut8, card) -> dict:
                 losses.append(pipeline.PipelineRunner.finalize_metrics(
                     mm, CNN_BATCH)["loss"])
         launches = fs.fused_sgd_kernel.launches
+        plain = fs.plain_sgd_kernel.launches
         buckets = sum(len(st.optimizer.buckets) for st in r.stages)
         def one_step():
             mm = r.train_step_device(step_generator(1, n, "cuda"),
@@ -1984,7 +2036,8 @@ def pp_time(models, pipeline, fs, tconfig, devices, cut8, card) -> dict:
                                   for d in cards),
                    peak_bytes_per_card={d: torch.cuda.max_memory_allocated(
                        d) for d in cards},
-                   fused_sgd=launches, want=buckets * PP_TIMED_STEPS,
+                   fused_sgd=launches, plain_sgd=plain,
+                   want=buckets * PP_TIMED_STEPS,
                    device_busy_us=sum(row[1] for row in rows) or None,
                    losses=losses)
         out[name] = rec
@@ -1998,12 +2051,14 @@ def pp_time(models, pipeline, fs, tconfig, devices, cut8, card) -> dict:
               f"(the most of any card; per card "
               f"{rec['peak_bytes_per_card']}), "
               f"fused_sgd launches {launches} (want chunks x buckets x steps"
-              f" = {rec['want']}); cudnn.benchmark False")
+              f" = {rec['want']}), plain_sgd {plain} (want 0); "
+              f"cudnn.benchmark False")
         print(f"pp runner {name} losses: {losses}")
-        if launches != rec["want"] or not all(
+        if launches != rec["want"] or plain or not all(
                 math.isfinite(x) for x in losses):
             fail("13a/pipeline", f"{name}: fused_sgd launches {launches} != "
-                                 f"{rec['want']} or non-finite losses")
+                                 f"{rec['want']}, plain_sgd {plain} != 0 or "
+                                 f"non-finite losses")
         del r
         torch.cuda.empty_cache()
     return out
@@ -2190,9 +2245,320 @@ def pp_spmd(mesh, models, pipeline, auto_partition, tconfig, card) -> dict:
     return out
 
 
+def ppr_config(tconfig, root: str, name: str, **kw):
+    """Phase 13c/13d: 15b's workload (resume_config) through the
+    pipeline, gpipe M=PPR_M at the reference's cut unless ``kw`` says
+    otherwise."""
+    return resume_config(tconfig, root, name).replace(**{
+        "mesh": tconfig.MeshConfig(stage=PP_STAGES),
+        "stage_boundaries": PP_CUT, "num_microbatches": PPR_M, **kw})
+
+
+def pp_resume(pipeline_trainer, fs, tconfig, devices, root, card) -> dict:
+    """Phase 13c: ``PipelineTrainer`` over ``devices`` (PP_STAGES stages,
+    gpipe M=PPR_M at the reference's cut), 15b's workload, cuDNN
+    deterministic: ``fit(2)`` against ``fit`` preempted by a
+    ``step_hook`` at step RES_PREEMPT_STEP of epoch 1 and finished by
+    ``PipelineTrainer(resume=True)`` — bit for bit (parameters, momentum,
+    BN statistics, update counts, global step, history); fused_sgd
+    launches counted from 0 over the three fits; the "pipeline" slot's
+    best_acc, the text log's lines; save and restore ms and the
+    checkpoint's bytes (median of 3)."""
+    import numpy as np
+    import torch
+
+    from distributed_model_parallel_tpu_torch.train.checkpoint import (
+        PAYLOAD_FILENAME,
+    )
+
+    phase = "13c/pipeline resume"
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    fs.fused_sgd_kernel.launches = 0
+    fs.plain_sgd_kernel.launches = 0
+    a = pipeline_trainer.PipelineTrainer(ppr_config(tconfig, root, "pp_a"),
+                                         devices)
+    ha = a.fit()
+    steps = len(a.train_loader)
+    target = steps + RES_PREEMPT_STEP
+
+    def hook(t):
+        if t.global_step >= target:
+            t.preemption.request()
+
+    cfg = ppr_config(tconfig, root, "pp_b")
+    b = pipeline_trainer.PipelineTrainer(cfg, devices)
+    b.step_hook = hook
+    hb = b.fit()
+    stopped_at = (b.global_step, b.train_loader.cursor)
+    del b
+    r = pipeline_trainer.PipelineTrainer(cfg.replace(resume=True), devices)
+    hb = hb + r.fit()
+    sync_cards(devices)
+    launches = fs.fused_sgd_kernel.launches
+    plain = fs.plain_sgd_kernel.launches
+    chunks = r.runner.num_chunks
+    want = 2 * 2 * steps * chunks * len(r.runner.stages[0].optimizer.buckets)
+    sa, sr = resume_state(a), resume_state(r)
+    bad = resume_mismatches(sa, sr)
+    same_history = history_matches(ha, hb)
+    lines = open(os.path.join(root, "log", "pp_b.txt")).read()
+    epoch_lines = [x for x in lines.splitlines() if x.startswith("epoch:")]
+    preempt_line = (f"preempted: checkpoint saved at epoch 1, global step "
+                    f"{stopped_at[0]}") in lines
+    resume_line = (f"resume: slot 'pipeline-preempt' -> epoch 1 batch "
+                   f"{stopped_at[1]} (global step {stopped_at[0]})") in lines
+    best = r.ckpt.restore(r._ckpt_tree(), "pipeline")
+    print(f"pp resume [{card}]: PipelineTrainer, {PP_STAGES} stages on "
+          f"{devices}, gpipe M={PPR_M}, cut {list(PP_CUT)}, MobileNetV2 "
+          f"bf16, B {RES_BATCH}, {steps} steps an epoch, preempted at "
+          f"global step {stopped_at[0]} (loader cursor {stopped_at[1]}), "
+          f"resumed to {r.global_step}; B vs A: {bad} of {len(sa)} arrays "
+          f"differ (parameters, BN statistics, momentum, count, step); "
+          f"history equal {same_history}; fused_sgd launches {launches} "
+          f"(want fits x epochs x steps x chunks x buckets = {want}), "
+          f"plain_sgd {plain} (want 0: momentum 0.9); log: "
+          f"{len(epoch_lines)} epoch lines, preemption line "
+          f"{preempt_line}, resume line {resume_line}; 'pipeline' slot "
+          f"best_acc {float(best['best_acc'])} (the run's {r.best_acc})")
+    if bad or not same_history:
+        fail(phase, f"the resumed run differs from the uninterrupted one "
+                    f"({bad} arrays, history {same_history})")
+    if len(epoch_lines) != 2 or not (preempt_line and resume_line):
+        fail(phase, f"log lines {lines!r}")
+    if launches != want or plain:
+        fail(phase, f"fused_sgd launches {launches} != {want} or plain_sgd "
+                    f"{plain} != 0")
+    if float(best["best_acc"]) != np.float32(r.best_acc):
+        fail(phase, "the pipeline slot's best_acc is not the run's")
+    tmpl = r._ckpt_tree()
+    saves, trees, restores = [], [], []
+    for _ in range(3):
+        sync_cards(devices)
+        t0 = time.perf_counter()
+        tree = r._ckpt_tree()
+        t1 = time.perf_counter()
+        path = r.ckpt.save(tree, "bench")
+        t2 = time.perf_counter()
+        r._load_tree(r.ckpt.restore(tmpl, "bench"))
+        sync_cards(devices)
+        t3 = time.perf_counter()
+        trees.append((t1 - t0) * 1e3)
+        saves.append((t2 - t1) * 1e3)
+        restores.append((t3 - t2) * 1e3)
+    for st in r.runner.stages:
+        st.optimizer._check_views()
+    nbytes = os.path.getsize(os.path.join(path, PAYLOAD_FILENAME))
+    print(f"pp resume checkpoint [{card}]: {nbytes} B (every chunk's "
+          f"parameters, momentum and BN statistics); tree (cards to host) "
+          f"{statistics.median(trees)} ms, save {statistics.median(saves)} "
+          f"ms, restore + load into the chunks {statistics.median(restores)}"
+          f" ms (median of 3); each chunk's FusedSGD views intact")
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = bench
+    del a, r
+    torch.cuda.empty_cache()
+    return dict(preempted_at=stopped_at[0], cursor=stopped_at[1],
+                steps=2 * steps, bitwise=True, history_equal=same_history,
+                fused_sgd=launches, plain_sgd=plain, bytes=nbytes,
+                tree_ms=trees,
+                save_ms=saves, restore_ms=restores,
+                best_acc=float(best["best_acc"]))
+
+
+def pp_resume_rank(spec, configs, train, evals, preempt_at, v2_config,
+                   hop_configs) -> dict:
+    """Phase 13d on one of two ranks, cuDNN deterministic: the
+    preempt/resume gate per config (``workers.preempt_resume``), the
+    fused_sgd launches of those runs; then, per ``hop_configs`` entry,
+    PP_SPMD_STEPS steps of ``Trainer(strategy="spmd_pipeline")`` with the
+    hops and bytes counted, and the interleaved run's stage state."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.ops import collectives
+    from distributed_model_parallel_tpu_torch.ops import fused_sgd as fs
+    from distributed_model_parallel_tpu_torch.parallel import workers
+    from distributed_model_parallel_tpu_torch.train import (
+        trainer as trainer_mod,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    fs.fused_sgd_kernel.launches = 0
+    fs.plain_sgd_kernel.launches = 0
+    out = {"runs": workers.preempt_resume(spec, configs, train, evals,
+                                          preempt_at),
+           "fused_sgd": fs.fused_sgd_kernel.launches,
+           "plain_sgd": fs.plain_sgd_kernel.launches,
+           "seconds": time.perf_counter() - t0}
+    for name, cfg in hop_configs.items():
+        t = trainer_mod.Trainer(cfg, spec=spec)
+        collectives.reset_counts()
+        losses = dp_streaming_losses(t, PP_SPMD_STEPS)
+        rec = dict(losses=losses, calls=dict(collectives.calls),
+                   bytes=dict(collectives.wire_bytes), units=t.stage.units)
+        if name == "interleaved":
+            moms = [t.optimizer.momentum_buffer(i)
+                    for i in range(len(t.optimizer.params))]
+            rec["state"] = [x.detach().cpu().numpy().copy() for x in (
+                *t.model.parameters(), *moms, *t.model.buffers())]
+        out[name] = rec
+        del t
+        torch.cuda.empty_cache()
+    return out
+
+
+def pp_spmd_resume(mesh, models, pipeline, auto_partition, tconfig, root,
+                   card) -> dict:
+    """Phase 13d: two SPMD ranks (gloo on one card, NCCL on two or more):
+    the preempt/resume gate under gpipe and 1f1b M=PPR_M at the 2-stage
+    cost-balanced cut, each rank's resumed run == its uninterrupted one
+    bit for bit; interleaved V=2 M=PP_SPMD_M at S=2 over the 4-chunk
+    cost-balanced cut, PP_SPMD_STEPS steps, each rank's chunks bit for bit
+    the runner's interleaved V=2 at S=2 with the same cut; the hops and
+    bytes a step of interleaved beside 1f1b."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.data.loader import BatchLoader
+    from distributed_model_parallel_tpu_torch.data.registry import (
+        load_dataset,
+    )
+    from distributed_model_parallel_tpu_torch.ops.collectives import (
+        tree_flatten,
+    )
+
+    phase = "13d/spmd resume"
+    two = torch.cuda.device_count() >= 2
+    backend = "nccl" if two else "gloo"
+    model = models.get_model(cnn_config(tconfig).model, device="cpu")
+    cut2 = auto_partition.auto_boundaries(
+        model, (auto_partition.microbatch_rows(RES_BATCH, PPR_M), 32, 32,
+                3), 2)
+    cut4 = auto_partition.auto_boundaries(
+        model, (auto_partition.microbatch_rows(CNN_BATCH, PP_SPMD_M), 32,
+                32, 3), 4)
+    mesh2 = tconfig.MeshConfig(stage=2)
+    configs = {s: ppr_config(
+        tconfig, root, f"spmd_{s}", strategy="spmd_pipeline", mesh=mesh2,
+        stage_boundaries=tuple(cut2), pipeline_schedule=s,
+        data=tconfig.DataConfig(
+            name="synthetic", batch_size=RES_BATCH,
+            eval_batch_size=RES_BATCH, image_size=32,
+            synthetic_native_size=32, synthetic_train_size=PPS_TRAIN,
+            synthetic_eval_size=PPS_EVAL)) for s in ("gpipe", "1f1b")}
+    hops = {"1f1b": pp_spmd_config(tconfig, "1f1b", cut2),
+            "interleaved": pp_spmd_config(tconfig, "1f1b", cut4).replace(
+                virtual_stages=2)}
+    train, evals = load_dataset(configs["gpipe"].data)
+    steps = PPS_TRAIN // RES_BATCH
+    ranks = dp_spawn(mesh, pp_resume_rank, 2, phase, configs,
+                     (train.images, train.labels),
+                     (evals.images, evals.labels), steps + RES_PREEMPT_STEP,
+                     hops["interleaved"], hops, backend=backend,
+                     config=mesh2)
+    out = {"backend": backend, "cut2": cut2, "cut4": cut4,
+           "seconds": [r["seconds"] for r in ranks],
+           "fused_sgd": [r["fused_sgd"] for r in ranks],
+           "plain_sgd": [r["plain_sgd"] for r in ranks]}
+    # Per rank: 2 schedules x (the uninterrupted fit + the preempted one
+    # and its resume) x 2 epochs x steps, once per bucket of its stage.
+    want = 2 * 2 * 2 * steps
+    if any(n == 0 or n % want for n in out["fused_sgd"]) or any(
+            out["plain_sgd"]):
+        fail(phase, f"launches a rank: fused_sgd {out['fused_sgd']} (want a "
+                    f"multiple of {want} above 0), plain_sgd "
+                    f"{out['plain_sgd']} (want 0: momentum 0.9)")
+    for s in configs:
+        leaves = [[tree_flatten((x["runs"][s][run]["params"],
+                                 x["runs"][s][run]["momentum"],
+                                 x["runs"][s][run]["state"]))[0]
+                   for run in "ab"] for x in ranks]
+        bad = [resume_mismatches(a, b) for a, b in leaves]
+        counts = [(x["runs"][s]["b"]["count"], x["runs"][s]["b"]["step"])
+                  for x in ranks]
+        same_history = all(history_matches(x["runs"][s]["a"]["history"],
+                                           x["runs"][s]["b"]["history"])
+                           for x in ranks)
+        print(f"pp spmd resume {s}, 2 ranks over {backend} [{card}]: M "
+              f"{PPR_M}, cut {cut2}, B {RES_BATCH}, {steps} steps an epoch, "
+              f"preempted at global step {steps + RES_PREEMPT_STEP}; arrays "
+              f"differing resumed vs uninterrupted {bad} (of "
+              f"{[len(x[0]) for x in leaves]}) per rank; update count, step "
+              f"{counts} (want {2 * steps}); history equal {same_history}")
+        if any(bad) or not same_history or any(
+                c != (2 * steps, 2 * steps) for c in counts):
+            fail(phase, f"{s}: the resumed runs differ")
+        out[s] = dict(differing=bad, steps=counts[0][1], bitwise=True)
+    # Interleaved V=2 at S=2 against the runner, same cut, M, batches.
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    cfg = hops["interleaved"]
+    tr, _ = load_dataset(cfg.data)
+    loader = BatchLoader(tr, CNN_BATCH, shuffle=True, seed=0)
+    devices = ["cuda:0", "cuda:1" if two else "cuda:0"]
+    runner = pp_runner(models, pipeline, tconfig, devices, cfg, m=PP_SPMD_M,
+                       schedule="1f1b", virtual=2, boundaries=cut4,
+                       augment=False, steps_per_epoch=len(loader))
+    loader.set_epoch(0)
+    losses = [float(torch.stack([m["loss"] for m in (
+        runner.train_step_device(None, torch.from_numpy(im).cuda(),
+                                 torch.from_numpy(lb).cuda()))]).mean())
+        for im, lb in loader]
+    rec = {}
+    for s, r in enumerate(ranks):
+        got = r["interleaved"]
+        stages = runner.stages[s::2]
+        units = [runner.model.units[i] for st in stages
+                 for i in range(st.lo, st.hi)]
+        moms = [st.optimizer.momentum_buffer(i) for st in stages
+                for i in range(len(st.optimizer.params))]
+        want = [x.detach().cpu().numpy().copy() for x in (
+            *(p for u in units for p in u.parameters()), *moms,
+            *(b for u in units for b in u.buffers()))]
+        same, gap = pp_bitwise(got["state"], want)
+        rec[s] = dict(same=same, leaves=len(want), gap=gap,
+                      units=got["units"])
+    per_step = {name: {k: ranks[0][name]["calls"].get(k, 0) / PP_SPMD_STEPS
+                       for k in ("p2p_send", "p2p_recv")} for name in hops}
+    byte_step = {name: ranks[0][name]["bytes"].get("p2p_send", 0)
+                 / PP_SPMD_STEPS for name in hops}
+    print(f"pp spmd interleaved [{card}]: V=2 at S=2 over {backend}, 4 "
+          f"chunks at {cut4}, M {PP_SPMD_M}, {PP_SPMD_STEPS} steps of B "
+          f"{CNN_BATCH}, augment off: rank losses "
+          f"{ranks[0]['interleaved']['losses']} vs runner {losses}; each "
+          f"rank's chunks (units {[rec[s]['units'] for s in rec]}) bitwise "
+          f"equal to the runner's interleaved V=2 at S=2: "
+          f"{[(rec[s]['same'], rec[s]['leaves']) for s in rec]} (max |diff|"
+          f" {max(v['gap'] for v in rec.values())})")
+    print(f"pp spmd hops a step [{card}]: stage 0 sends/receives "
+          f"{per_step['1f1b']} hops and sends {byte_step['1f1b']} B under "
+          f"1f1b M={PP_SPMD_M} (2 chunks), {per_step['interleaved']} hops "
+          f"and {byte_step['interleaved']} B interleaved V=2 (4 chunks)")
+    if not (all(v["same"] == v["leaves"] for v in rec.values())
+            and ranks[0]["interleaved"]["losses"] == losses):
+        fail(phase, "interleaved V=2: the ranks are not bitwise the runner")
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = bench
+    del runner
+    torch.cuda.empty_cache()
+    out["interleaved"] = dict(bitwise=True, losses=losses,
+                              hops_per_step=per_step["interleaved"],
+                              bytes_sent_per_step=byte_step["interleaved"])
+    out["1f1b_hops"] = dict(hops_per_step=per_step["1f1b"],
+                            bytes_sent_per_step=byte_step["1f1b"])
+    return out
+
+
 def pipeline_phase(laps, models, cnn_trainer, fs, tconfig, card) -> dict:
     """Phase 13: the runner over ``[cuda:(c % n)]`` for PP_STAGES stages
-    (gates, timing, a fit epoch), then the SPMD engine at 2 stages."""
+    (gates, timing, a fit epoch), the SPMD engine at 2 stages, then the
+    harness: preempt/resume on the runner and at two ranks, interleaved
+    over ranks."""
     import torch
 
     from distributed_model_parallel_tpu_torch import mesh
@@ -2215,6 +2581,16 @@ def pipeline_phase(laps, models, cnn_trainer, fs, tconfig, card) -> dict:
     pp["spmd"] = pp_spmd(mesh, models, pipeline, auto_partition, tconfig,
                          card)
     laps.done("13b/spmd pipeline")
+    import tempfile
+
+    with tempfile.TemporaryDirectory(dir=HERE) as root:
+        pp["resume"] = pp_resume(pipeline_trainer, fs, tconfig, pp_devices,
+                                 root, card)
+        laps.done("13c/pipeline resume")
+        pp["spmd_resume"] = pp_spmd_resume(mesh, models, pipeline,
+                                           auto_partition, tconfig, root,
+                                           card)
+        laps.done("13d/spmd resume")
     return pp
 
 
@@ -2872,19 +3248,17 @@ def resume_config(tconfig, root: str, name: str, **kw):
 
 
 def resume_state(trainer) -> list:
-    """A trainer's parameters, BN statistics and momentum (JAX layout,
-    host copies), then its update count and global step."""
-    import torch
-
-    from distributed_model_parallel_tpu_torch.models import params_to_jax
+    """A trainer's (or a pipeline trainer's, over every chunk) checkpoint
+    tree's parameters, BN statistics and momentum (JAX layout, host
+    copies), then its update count and global step."""
     from distributed_model_parallel_tpu_torch.ops.collectives import (
         tree_flatten,
     )
 
-    with torch.no_grad():
-        trees = (params_to_jax(trainer.model), trainer._momentum_tree())
-    return tree_flatten(trees)[0] + [trainer.optimizer.count,
-                                     trainer.global_step]
+    tree = trainer._ckpt_tree()
+    return tree_flatten((tree["params"], tree["batch_stats"],
+                         tree["momentum"]))[0] + [int(tree["opt_count"]),
+                                                  trainer.global_step]
 
 
 def resume_mismatches(a: list, b: list) -> int:
@@ -2964,6 +3338,7 @@ def resume_phase(trainer_mod, tconfig, root, card) -> dict:
 
     from distributed_model_parallel_tpu_torch.train.checkpoint import (
         PAYLOAD_FILENAME,
+        fallback_note,
     )
 
     phase = "15b/resume"
@@ -3004,7 +3379,7 @@ def resume_phase(trainer_mod, tconfig, root, card) -> dict:
     with open(p, "r+b") as f:
         f.truncate(os.path.getsize(p) // 2)
     r.ckpt.restore(tmpl, "ckpt", allow_fallback=True,
-                   on_fallback=r._note_fallback)
+                   on_fallback=fallback_note(r._log_line))
     log = open(os.path.join(root, "log", "per_batch_b.txt")).read()
     fell_back = (r.ckpt.last_restored_path == older
                  and f"checkpoint fallback: {os.path.basename(newest)} "
@@ -3146,6 +3521,252 @@ def harness_phase(laps, trainer_mod, fs, models, staged, mesh, tconfig,
     return {"zoo": zoo, "resume": resume, "resume_ranks": ranks}
 
 
+def ft_config(tconfig):
+    """Phase 16a: the reference's finetune recipe (FT_*)."""
+    return tconfig.TrainConfig(
+        model=tconfig.ModelConfig(name="mobilenetv2", dtype="bfloat16",
+                                  extra={"input_layout": "imagenet"}),
+        data=tconfig.DataConfig(
+            name="synthetic", batch_size=FT_BATCH, eval_batch_size=FT_BATCH,
+            image_size=FT_PX, synthetic_native_size=32,
+            synthetic_train_size=4 * FT_BATCH, synthetic_eval_size=FT_BATCH),
+        optimizer=tconfig.OptimizerConfig(learning_rate=FT_LR, momentum=0.9,
+                                          weight_decay=1e-4, warmup_steps=10,
+                                          fused=True),
+        device_resident_data=True, steps_per_dispatch=CNN_SPD,
+        device="cuda", **run_dirs("finetune"))
+
+
+def ft_kind(key: str) -> str:
+    """cnn_kind, with the resize's kernels (F.interpolate) apart."""
+    if "upsample" in key.lower() or "interpolate" in key.lower():
+        return "resize (F.interpolate)"
+    return cnn_kind(key)
+
+
+def finetune(trainer_mod, fs, loader_mod, card) -> dict:
+    """Phase 16a: the finetune recipe through ``Trainer.run_steps`` at
+    bench.py's timing shape, every step resizing its 32 px rows to 224 px
+    on the card: samples/s, step s, MFU (3 x FlopCounterMode's forward at
+    224 px), peak memory; fused_sgd == steps x buckets, counted from 0
+    over the timed steps; one profiled step with the resize's share of
+    device time; the resize on the card against its CPU run on the same
+    batch."""
+    import numpy as np
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from distributed_model_parallel_tpu_torch import config as tconfig
+
+    phase = "16a/finetune"
+    torch.backends.cudnn.benchmark = True
+    n_disp = CNN_TIMED_STEPS // CNN_SPD
+    idxs = cnn_dispatch_indices(4 * FT_BATCH, CNN_WARM_DISPATCHES + n_disp,
+                                FT_BATCH)
+    trainer = trainer_mod.Trainer(ft_config(tconfig))
+    for ix in idxs[:CNN_WARM_DISPATCHES]:
+        trainer.run_steps(ix)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fs.fused_sgd_kernel.launches = 0
+    fs.plain_sgd_kernel.launches = 0
+    t0 = time.perf_counter()
+    ms = [trainer.run_steps(ix) for ix in idxs[CNN_WARM_DISPATCHES:]]
+    losses = torch.cat([m["loss"] for m in ms]).cpu().tolist()
+    dt = time.perf_counter() - t0
+    launches = fs.fused_sgd_kernel.launches
+    plain = fs.plain_sgd_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    steps = n_disp * CNN_SPD
+    want = steps * len(trainer.optimizer.buckets)
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        trainer.model.apply(torch.zeros(FT_BATCH, FT_PX, FT_PX, 3,
+                                        dtype=trainer.dtype,
+                                        device=trainer.device),
+                            train=False)
+    flops = 3 * counter.get_total_flops()
+    step_s = dt / steps
+    rec = dict(steps=steps, step_s=step_s,
+               samples_per_s=FT_BATCH * steps / dt,
+               mfu=flops / step_s / BF16_FLOPS_PER_S, flop_per_step=flops,
+               peak_bytes=peak, fused_sgd=launches, plain_sgd=plain,
+               want=want,
+               losses=losses)
+    print(f"finetune [{card}]: MobileNetV2 ImageNet layout, bf16, B "
+          f"{FT_BATCH} of 32 px rows resized to {FT_PX} px on the card, "
+          f"FusedSGD lr {FT_LR}, {steps} steps (after "
+          f"{CNN_WARM_DISPATCHES} warm-up dispatches of {CNN_SPD}), one "
+          f"sync: samples/s {rec['samples_per_s']}, step {step_s} s, MFU "
+          f"({flops} flop per step / step s / {BF16_FLOPS_PER_S:.0f}) "
+          f"{rec['mfu']}, torch.cuda.max_memory_allocated {peak} B; "
+          f"fused_sgd launches {launches} (want steps x buckets = {want}), "
+          f"plain_sgd {plain} (want 0); losses {losses[:3]} .. {losses[-3:]}")
+    if (launches != want or plain
+            or not all(math.isfinite(x) for x in losses)):
+        fail(phase, f"fused_sgd launches {launches} != {want}, plain_sgd "
+                    f"{plain} != 0 or non-finite losses")
+    rows = print_profile("finetune step", lambda: f"loss "
+                         f"{trainer.run_steps(idxs[-1][:1])['loss'].item()}",
+                         card, kind=ft_kind)
+    busy = sum(r[1] for r in rows)
+    resize_us = sum(r[1] for r in rows if ft_kind(r[0]).startswith("resize"))
+    rec["resize_us_profiled"] = resize_us if rows else None
+    rec["device_busy_us_profiled"] = busy if rows else None
+    # The resize alone by CUDA events (the profiler's kernel list has
+    # missed it in one run of two): one step's batch, median of 30.
+    x = trainer.dev_images[:FT_BATCH].view(FT_BATCH, 32, 32, 3)
+    rec["resize_ms"] = time_ms(lambda: loader_mod.resize_batch(x, FT_PX))
+    rec["resize_share_of_step"] = rec["resize_ms"] / (step_s * 1e3)
+    print(f"finetune resize [{card}]: {rec['resize_ms']} ms a step by CUDA "
+          f"events (median of 30), {rec['resize_share_of_step']} of the "
+          f"step; the profiled step: {resize_us} us of {busy} us device "
+          f"time")
+    # The resize on the card against its CPU run, the same batch.
+    gpu = loader_mod.resize_batch(x, FT_PX).cpu().numpy()
+    cpu = loader_mod.resize_batch(x.cpu(), FT_PX).numpy()
+    as_float = lambda t: torch.nn.functional.interpolate(
+        t.permute(0, 3, 1, 2).float(), size=(FT_PX, FT_PX), mode="bilinear",
+        align_corners=False).permute(0, 2, 3, 1).cpu().numpy()
+    fg, fc = as_float(x), as_float(x.cpu())
+    err = float(np.abs(fg - fc).max())
+    away = np.abs(np.abs(fc - np.floor(fc)) - 0.5) > FT_TIE
+    differ = int((gpu != cpu)[away].sum())
+    print(f"finetune resize card vs CPU [{card}]: float max_abs_err {err} "
+          f"(atol {FT_RESIZE_ATOL}), uint8 differing away from .5 ties "
+          f"{differ} of {int(away.sum())} ({int((gpu != cpu).sum())} in "
+          f"all)")
+    if err > FT_RESIZE_ATOL or differ:
+        fail(phase, f"the resize on the card differs from the CPU's: "
+                    f"{err}, {differ}")
+    rec.update(resize_max_abs_err=err, resize_uint8_differing=differ)
+    del trainer
+    torch.cuda.empty_cache()
+    return rec
+
+
+def host_path(trainer_mod, tconfig, root, card) -> dict:
+    """Phase 16b: one epoch of 15b's workload on the per-batch host path,
+    four times in turn — both prefetch stages off, on (depth 2), on, off
+    — cuDNN deterministic: every run's parameters, momentum, BN
+    statistics and history bit for bit the first's; per run the trainer's
+    data time a step (JAX's measure: from one batch's arrival to the
+    next, the step's host enqueue in it) and the fetch a step (the time
+    inside the input stream's ``next()``, median over the epoch)."""
+    import dataclasses
+
+    import torch
+
+    phase = "16b/host path"
+    bench = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    for k, depth in enumerate((0, 2, 2, 0)):
+        cfg = resume_config(tconfig, root, f"host_{k}")
+        cfg = cfg.replace(epochs=1, data=dataclasses.replace(
+            cfg.data, prefetch=depth, device_prefetch=depth))
+        t = trainer_mod.Trainer(cfg)
+        fetch: list = []
+        stream = t._input_stream
+
+        def timed(loader, stream=stream, fetch=fetch):
+            it, times = iter(stream(loader)), []
+            fetch.append(times)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                times.append(time.perf_counter() - t0)
+                yield batch
+
+        t._input_stream = timed
+        hist = t.fit()
+        torch.cuda.synchronize()
+        runs.append(dict(depth=depth, state=resume_state(t), history=hist,
+                         data_s_per_step=hist[0]["time_load_per_batch"],
+                         step_s=hist[0]["time_per_batch"],
+                         fetch_s_per_step=statistics.median(fetch[0])))
+        del t
+    keys = ("loss_train", "acc1_train", "loss_val", "acc1_val")
+    bad = [resume_mismatches(runs[0]["state"], r["state"]) for r in runs]
+    same = all(r["history"][0][k] == runs[0]["history"][0][k]
+               for r in runs for k in keys)
+    n = len(runs[0]["state"])
+    for r in runs:
+        del r["state"], r["history"]
+    print(f"host path [{card}]: MobileNetV2 bf16, B {RES_BATCH}, one epoch "
+          f"per batch, runs prefetch/device_prefetch 0, 2, 2, 0: arrays "
+          f"differing from the first run {bad} (of "
+          f"{n}), history equal {same}; "
+          f"fetch a step (s, median) "
+          f"{[r['fetch_s_per_step'] for r in runs]}; the trainer's data "
+          f"time a step {[r['data_s_per_step'] for r in runs]}, step "
+          f"{[r['step_s'] for r in runs]}")
+    if any(bad) or not same:
+        fail(phase, "the prefetch stages changed the result")
+    torch.backends.cudnn.deterministic = False
+    torch.backends.cudnn.benchmark = bench
+    return {"runs": runs, "bitwise": True}
+
+
+def native_gather(native, card) -> dict:
+    """Phase 16c: the C++ row gather (built here by the host compiler)
+    against numpy indexing at batch FT_GATHER_BATCH of FT_GATHER_ROWS
+    CIFAR-shaped uint8 rows: every batch bit for bit; µs a batch of each
+    (median of FT_GATHER_REPS) at 1, 2 (DataConfig's num_workers) and 4
+    threads."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    src = rng.integers(0, 256, (FT_GATHER_ROWS, 32, 32, 3), np.uint8)
+    idx = rng.integers(0, FT_GATHER_ROWS, (FT_GATHER_REPS, FT_GATHER_BATCH))
+    t0 = time.perf_counter()
+    try:
+        native.load()
+    except RuntimeError as e:
+        fail("16c/native gather", str(e))
+    build_s = time.perf_counter() - t0
+    times = {1: [], 2: [], 4: [], "numpy": []}
+    differ = 0
+    for ix in idx:
+        t0 = time.perf_counter()
+        want = src[ix]
+        times["numpy"].append((time.perf_counter() - t0) * 1e6)
+        for n in (1, 2, 4):
+            t0 = time.perf_counter()
+            got = native.gather_rows(src, ix, n_threads=n)
+            times[n].append((time.perf_counter() - t0) * 1e6)
+            differ += int(not np.array_equal(got, want))
+    us = {str(k): statistics.median(v) for k, v in times.items()}
+    print(f"native gather [{card} host]: batch {FT_GATHER_BATCH} of "
+          f"{FT_GATHER_ROWS} rows of 32x32x3 uint8, {FT_GATHER_REPS} "
+          f"batches: us a batch (median) native at 1/2/4 threads "
+          f"{us['1']} / {us['2']} / {us['4']}, numpy {us['numpy']}; "
+          f"{differ} batches differ; build/load {build_s} s")
+    if differ:
+        fail("16c/native gather", f"{differ} batches differ from numpy's")
+    return {"us": us, "differing": differ, "build_s": build_s}
+
+
+def data_path_phase(laps, trainer_mod, fs, tconfig, card) -> dict:
+    """Phase 16: the finetune recipe on the card, the host path's
+    prefetch stages, the native gather."""
+    import tempfile
+
+    from distributed_model_parallel_tpu_torch.data import loader, native
+
+    out = {"finetune": finetune(trainer_mod, fs, loader, card)}
+    laps.done("16a/finetune")
+    with tempfile.TemporaryDirectory(dir=HERE) as root:
+        out["host"] = host_path(trainer_mod, tconfig, root, card)
+    laps.done("16b/host path")
+    out["gather"] = native_gather(native, card)
+    laps.done("16c/native gather")
+    return out
+
+
 class Laps:
     """Prints each phase's seconds since the previous phase ended."""
 
@@ -3176,6 +3797,11 @@ def main() -> None:
                     help="run phases 1, 2 (the fused SGD kernel only) and "
                          "15 (the zoo, resume, resume at two ranks), print "
                          "the harness's JSON line and stop")
+    ap.add_argument("--data-only", action="store_true",
+                    help="run phases 1, 2 (the fused SGD kernel only) and "
+                         "16 (the finetune recipe at 224 px, the host "
+                         "path's prefetch stages, the native gather), print "
+                         "the data path's JSON line and stop")
     ap.add_argument("--dp-only", action="store_true",
                     help="run phases 1, 2 (the fused SGD kernel only) and "
                          "14b at world = device_count() over NCCL, print "
@@ -3184,7 +3810,7 @@ def main() -> None:
                          "gradient reduction's us a step) per engine")
     args = ap.parse_args()
     only = (args.sgd_timing_only or args.pipeline_only or args.dp_only
-            or args.harness_only)
+            or args.harness_only or args.data_only)
     import atexit
     import shutil
     import tempfile
@@ -3284,6 +3910,10 @@ def main() -> None:
         print(json.dumps({"harness": harness_summary(harness_phase(
             laps, cnn_trainer, fs, models, staged, mesh, tconfig, card)),
             "card": card}))
+        return
+    if args.data_only:
+        print(json.dumps({"data_path": data_path_phase(
+            laps, cnn_trainer, fs, tconfig, card), "card": card}))
         return
     if args.dp_only:
         from distributed_model_parallel_tpu_torch import mesh
@@ -3516,7 +4146,8 @@ def main() -> None:
 
     # -- phase 13: the pipeline -----------------------------------------------
     pp = pipeline_phase(laps, models, cnn_trainer, fs, tconfig, card)
-    pp_launches = sum(r["fused_sgd"] for r in pp["runner"].values())
+    pp_launches = {k: sum(r[k] for r in pp["runner"].values())
+                   for k in ("fused_sgd", "plain_sgd")}
 
     # -- phase 14: ResNet and the remaining data-parallel engines ------------
     torch.backends.cudnn.benchmark = True
@@ -3529,6 +4160,9 @@ def main() -> None:
     # -- phase 15: the zoo, checkpoint/resume, preemption, logs ------------
     harness = harness_phase(laps, cnn_trainer, fs, models, staged, mesh,
                             tconfig, card)
+
+    # -- phase 16: the data path: the finetune recipe, prefetch, gather -----
+    data_path = data_path_phase(laps, cnn_trainer, fs, tconfig, card)
 
     kernels = [{
         "name": "paged_decode",
@@ -3569,10 +4203,8 @@ def main() -> None:
             "replaces": f"distributed_model_parallel_tpu/ops/"
                         f"pallas_optim.py:{line}",
             "launches": sgd_launches[name],
-            "launches_12a_gspmd": (dp["gspmd"]["fused_sgd_launches"]
-                                   if name == "fused_sgd" else 0),
-            "launches_13a_pipeline": pp_launches if name == "fused_sgd"
-            else 0,
+            "launches_12a_gspmd": dp["gspmd"][f"{name}_launches"],
+            "launches_13a_pipeline": pp_launches[name],
             "launches_14a_resnet50": (
                 resnet["launches"]["fused_sgd"] if name == "fused_sgd"
                 else resnet["launches_momentum0"]["plain_sgd"]),
@@ -3585,6 +4217,9 @@ def main() -> None:
                 if name == "fused_sgd" else harness["zoo"][
                     "efficientnetb0_momentum0"]["launches"]["plain_sgd"]),
             "launches_15b_resume": harness["resume"]["launches"][name],
+            "launches_13c_pipeline_resume": pp["resume"][name],
+            "launches_13d_spmd_resume_per_rank": pp["spmd_resume"][name],
+            "launches_16a_finetune": data_path["finetune"][name],
             "max_abs_err": sgd_err,
             **sgd_times[name],
             "in_step_us": sgd_in_step[name],
@@ -3594,6 +4229,7 @@ def main() -> None:
     print(json.dumps({"resnet": resnet, "card": card}))
     print(json.dumps({"dp_engines": dpe, "card": card}))
     print(json.dumps({"harness": harness_summary(harness), "card": card}))
+    print(json.dumps({"data_path": data_path, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -25,8 +25,10 @@ stages:
   unit sequences (``layers``, ``staged``, ``mobilenetv2``, ``resnet``,
   ``tinycnn``, ``get_model``) and the sparse bag-of-words classifier
   (``embedding``);
-* :mod:`.data` — the dataset registry and the loader (batch order on
-  the host, crop/flip and normalize on the device);
+* :mod:`.data` — the dataset registry (synthetic, CIFAR-10, ImageFolder
+  and CUB-200 trees) and the loader (batch order on the host, the native
+  row gather, host and device prefetch; resize, crop/flip and normalize
+  on the device);
 * :mod:`.serve` — paged KV cache, continuous-batching scheduler, the
   paged prefill/decode steps and the engine loop;
 * :mod:`.train` — the LM and CNN trainers, the pipeline trainer, SGD

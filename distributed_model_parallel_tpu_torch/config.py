@@ -105,10 +105,12 @@ class DataConfig:
     synthetic_train_size: int = 2048
     synthetic_eval_size: int = 512
     synthetic_native_size: int | None = None
-    # Host-thread and device prefetch depths. The port's loops upload each
-    # batch when its step needs it (pinned, asynchronous on the card); the
-    # prefetch stages are ROADMAP A3. num_workers and lazy_decode serve the
-    # native gather and the file-backed datasets, which are refused (A3).
+    # Host-thread and device prefetch depths (data/loader.PrefetchLoader,
+    # DevicePrefetchLoader; 0 = off): the next batches are assembled on a
+    # host thread and uploaded on a side stream while the step runs.
+    # num_workers: the native gather's threads and the lazy decode's pool;
+    # lazy_decode: stream a file-backed dataset per batch (None: when its
+    # decoded pixels exceed data/registry.LAZY_AUTO_BYTES).
     prefetch: int = 2
     device_prefetch: int = 2
     use_native: bool = False

@@ -22,6 +22,8 @@ splits every global batch of ``B`` rows: data row ``d`` holds rows
 * :func:`spawn` starts ``N`` ranks as fresh processes (start method
   ``spawn``, a ``file://`` store in a temporary directory), runs a
   function on each and returns their results in rank order;
+* :func:`process_rows` is this process's data row's rows of a global
+  batch, from the mesh it joined (``BatchLoader(shard_by_process=True)``);
 * :func:`local_batch_slice`, :func:`barrier_with_timeout` and
   :func:`best_effort_distributed_init` keep the JAX package's contracts.
 
@@ -52,6 +54,10 @@ from distributed_model_parallel_tpu_torch.config import MeshConfig
 _OTHER_AXES = (("model", "A9: tensor parallelism"),
                ("seq", "A9: sequence parallelism"),
                ("expert", "A9: mixture of experts"))
+
+
+# The mesh this process's group was last laid out as (process_rows).
+_joined: dict = {}
 
 
 def check_mesh_config(config: MeshConfig) -> None:
@@ -208,7 +214,23 @@ def init_process_group(config: MeshConfig | None = None, *,
     dev = _rank_device(device, local_rank, backend)
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=world)
+    _joined["config"] = config
     return MeshSpec(config, rank, dev, backend, **_sub_groups(config, rank))
+
+
+def process_rows(global_batch: int) -> slice:
+    """This process's data row's rows of a global batch, by its place on
+    the data axis of the mesh it joined (:func:`init_process_group`,
+    :func:`make_mesh`): the ranks of one data row share their rows. A
+    process group joined otherwise is all data axis; without one, every
+    row."""
+    if not dist.is_initialized():
+        return slice(None)
+    world = dist.get_world_size()
+    config = _joined.get("config")
+    if config is None or config.data * config.stage != world:
+        config = MeshConfig(data=world)
+    return MeshSpec(config, dist.get_rank()).rows(global_batch)
 
 
 def _check_world(config: MeshConfig, world: int) -> None:
@@ -249,6 +271,7 @@ def make_mesh(config: MeshConfig | None = None, device="cuda") -> MeshSpec:
     else:
         dev = torch.device(kind)
     rank = dist.get_rank()
+    _joined["config"] = config
     return MeshSpec(config, rank, dev, dist.get_backend(),
                     **_sub_groups(config, rank))
 

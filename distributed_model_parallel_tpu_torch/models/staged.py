@@ -189,6 +189,13 @@ class Leaf(NamedTuple):
         plist = self._gathered
         return plist[0].right_inverse(full) if plist is not None else full
 
+    @property
+    def jax_shape(self) -> tuple:
+        """A whole leaf's shape in the JAX layout (reads no value, so a
+        ``meta`` model's leaves have one too)."""
+        return tuple(_TO_JAX[self.kind](torch.empty(
+            self.stored.shape, device="meta")).shape)
+
     def to_jax(self, t: torch.Tensor) -> np.ndarray:
         """A port-layout tensor of this leaf as a float32 JAX-layout
         numpy array."""
@@ -234,6 +241,17 @@ def leaf_tree(model: "StagedModel", fn, *, state: bool = False) -> tuple:
     for leaf in model_leaves(model, state=state):
         subtree(out[leaf.unit], leaf.path)[leaf.name] = fn(leaf)
     return out
+
+
+@torch.no_grad()
+def load_leaves(model: "StagedModel", params, state) -> None:
+    """Copy whole JAX-layout ``params`` and ``state`` trees into
+    ``model``'s leaves at rest, each in place on its own device: a fused
+    bucket's views stay its views, an FSDP-sharded leaf takes this
+    rank's slice. No collective; no module moves."""
+    for tree, stats in ((params, False), (state, True)):
+        for leaf in model_leaves(model, state=stats):
+            leaf.load(tree_at(tree, leaf))
 
 
 def tree_at(tree: Sequence, leaf: Leaf):

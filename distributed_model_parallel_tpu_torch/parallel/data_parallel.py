@@ -33,14 +33,16 @@ def scatter(batch: Any, spec: MeshSpec) -> Any:
 
 @torch.no_grad()
 def _broadcast_coalesced(tensors: list, spec: MeshSpec) -> None:
-    """Rank 0's values into ``tensors`` in place: one broadcast per dtype
-    over their concatenation (broadcast_coalesced)."""
+    """Data row 0's values into ``tensors`` in place: one broadcast per
+    dtype over their concatenation (broadcast_coalesced), over the data
+    axis from this stage's rank in row 0, global rank ``stage_index``
+    (rank 0 at one stage)."""
     by_dtype: dict = {}
     for t in tensors:
         by_dtype.setdefault(t.dtype, []).append(t)
     for group in by_dtype.values():
         flat = torch.cat([t.reshape(-1) for t in group])
-        broadcast_(flat, spec.group, kind="replicate")
+        broadcast_(flat, spec.group, src=spec.stage_index, kind="replicate")
         off = 0
         for t in group:
             t.copy_(flat[off:off + t.numel()].view_as(t))

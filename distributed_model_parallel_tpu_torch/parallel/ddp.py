@@ -125,13 +125,15 @@ def assert_ddp_replicated(model: StagedModel, optimizer,
 def make_ddp_train_step(model: StagedModel, optimizer, spec: MeshSpec, *,
                         mean, std, augment: bool = True,
                         dtype=torch.float32, bucket_bytes: int | None = None,
-                        allreduce: str = "psum"):
+                        allreduce: str = "psum",
+                        resize_to: int | None = None):
     """``step(images_u8, labels, generator=None) -> metrics``: this rank's
     shard → its own augmentation draws (``generator``) → forward with its
     BN state → backward, the Reducer averaging the gradients → the
     optimizer. Metrics are the global batch's (loss ``sum/N``, batch and
     top-k counts summed). The step's ``reducer`` (None without a process
-    group) keeps the reduction's times."""
+    group) keeps the reduction's times. ``resize_to``: as
+    ``make_train_step``'s."""
     allreduce, bucket_bytes = resolve_allreduce(allreduce, bucket_bytes)
     reducer = None
     if spec.group is not None:
@@ -139,7 +141,8 @@ def make_ddp_train_step(model: StagedModel, optimizer, spec: MeshSpec, *,
                               allreduce=allreduce,
                               bucket_bytes=bucket_bytes or DDP_BUCKET_BYTES)
     step = make_train_step(model, optimizer, mean=mean, std=std,
-                           augment=augment, dtype=dtype, reducer=reducer)
+                           augment=augment, dtype=dtype, reducer=reducer,
+                           resize_to=resize_to)
 
     def ddp_step(images_u8, labels, generator=None):
         return reduce_metrics(step(images_u8, labels, generator), spec)
@@ -149,9 +152,10 @@ def make_ddp_train_step(model: StagedModel, optimizer, spec: MeshSpec, *,
 
 
 def make_ddp_eval_step(model: StagedModel, spec: MeshSpec, *, mean, std,
-                       dtype=torch.float32):
+                       dtype=torch.float32, resize_to: int | None = None):
     """``step(images_u8, labels) -> metrics``: this rank's shard with its
     own BN running statistics; metrics of the global batch."""
-    step = make_eval_step(model, mean=mean, std=std, dtype=dtype)
+    step = make_eval_step(model, mean=mean, std=std, dtype=dtype,
+                          resize_to=resize_to)
     return lambda images_u8, labels: reduce_metrics(step(images_u8, labels),
                                                     spec)

@@ -40,7 +40,6 @@ from distributed_model_parallel_tpu_torch.models.staged import (
     StagedModel,
     leaf_tree,
     model_leaves,
-    tree_at,
 )
 from distributed_model_parallel_tpu_torch.ops.collectives import (
     all_gather_concat,
@@ -175,15 +174,6 @@ def local_params_to_jax(model: StagedModel) -> tuple:
 
 
 @torch.no_grad()
-def load_params_from_jax(model: StagedModel, params, state) -> None:
-    """Load whole trees in the JAX package's layout (``params_from_jax``'s)
-    into a sharded model: each sharded leaf takes this rank's slice, the
-    rest and the BN statistics are copied. No collective."""
-    for tree, stats in ((params, False), (state, True)):
-        for leaf in model_leaves(model, state=stats):
-            leaf.load(tree_at(tree, leaf))
-
-
 def sharded_parameters(model: nn.Module) -> list[nn.Parameter]:
     """The slices :func:`shard_model` left as parameters."""
     return [p for name, p in model.named_parameters()

@@ -55,6 +55,7 @@ from distributed_model_parallel_tpu_torch.data.loader import (
     apply_crop_flip,
     draw_crop_flip,
     normalize,
+    resize_batch,
 )
 from distributed_model_parallel_tpu_torch.models.layers import BatchNorm
 from distributed_model_parallel_tpu_torch.models.staged import (
@@ -257,7 +258,8 @@ class PipelineRunner:
 
     ``optimizer``: the chunks' ``OptimizerConfig`` (``steps_per_epoch`` and
     ``epochs`` set its schedule, as ``make_optimizer``'s). ``mean``/``std``
-    normalize the uint8 batches on stage 0's device. ``boundaries``: unit
+    normalize the uint8 batches on stage 0's device, after the resize to
+    ``resize_to`` px (when set) and the augmentation. ``boundaries``: unit
     boundaries of the ``S·V`` chunks (default: equal counts)."""
 
     def __init__(self, model: StagedModel, devices: Sequence, *,
@@ -266,7 +268,8 @@ class PipelineRunner:
                  boundaries: Sequence[int] | None = None,
                  num_microbatches: int = 1, augment: bool = True,
                  schedule: str = "gpipe", virtual_stages: int = 1,
-                 bn_momentum: float = 0.9, dtype=torch.float32):
+                 bn_momentum: float = 0.9, dtype=torch.float32,
+                 resize_to: int | None = None):
         if schedule not in SCHEDULES:
             raise KeyError(f"unknown schedule {schedule!r}; known: "
                            f"{', '.join(SCHEDULES)}")
@@ -286,6 +289,7 @@ class PipelineRunner:
         self.schedule = schedule
         self.bn_momentum = bn_momentum
         self.dtype = dtype
+        self.resize_to = resize_to
         dev0 = self.devices[0]
         self.mean = torch.as_tensor(mean, dtype=dtype, device=dev0)
         self.std = torch.as_tensor(std, dtype=dtype, device=dev0)
@@ -357,6 +361,8 @@ class PipelineRunner:
         dev0 = self.devices[0]
         images = torch.as_tensor(images_u8).to(dev0)
         labels = torch.as_tensor(labels).to(dev0)
+        if self.resize_to is not None:
+            images = resize_batch(images, self.resize_to)
         b = labels.shape[0]
         if b % M:
             raise ValueError(f"batch {b} not divisible by {M} microbatches")
@@ -401,8 +407,10 @@ class PipelineRunner:
         """Forward through every chunk with the BN running statistics;
         metrics on stage 0, as host floats."""
         dev0 = self.devices[0]
-        x = normalize(torch.as_tensor(images_u8).to(dev0), self.mean,
-                      self.std, self.dtype)
+        images = torch.as_tensor(images_u8).to(dev0)
+        if self.resize_to is not None:
+            images = resize_batch(images, self.resize_to)
+        x = normalize(images, self.mean, self.std, self.dtype)
         for st in self.stages:
             x = chunk_forward(self.model, st.lo, st.hi, x.to(st.device),
                               train=False)[1]

@@ -40,8 +40,18 @@ the whole parameter tuple, so ``grad_clip_norm`` clips by the norm over
 every stage: the squared norm is all-reduced over the stage ring
 (``clip_group``). Metrics are the global batch's on every rank.
 
-Not ported yet, and refused by name: interleaved virtual stages over
-ranks (JAX's 1F1B with ``virtual_stages > 1``, ROADMAP A7).
+Interleaved 1F1B (``virtual_stages = V > 1``, JAX's Megatron placement):
+the model splits into ``D = V·S`` chunks and rank ``s`` owns chunks ``s,
+S + s, …``; a microbatch runs chunks ``0 .. D - 1`` in turn, each hop one
+step round the stage ring (the ``(S-1) → 0`` wraparound between a
+rank's chunks rides the same ring), so the logits' hop to stage 0 is the
+ring's too. Each rank runs its forwards in Megatron's order (groups of S
+microbatches through one chunk, then the next chunk; ``M % S == 0``) and
+its backwards in the reverse chunk order, each chunk's in microbatch
+order, so gradients and BN states accumulate as the runner's do; a rank
+keeps at most ``K = min(2D - 1, M·V + D - 1)`` chunk forwards awaiting
+their backward (JAX's stash ring), which bounds the activations it
+holds. BN is pooled per chunk over its microbatches, then over data.
 """
 
 from __future__ import annotations
@@ -55,6 +65,7 @@ import torch
 from distributed_model_parallel_tpu_torch.data.loader import (
     augment_batch,
     normalize,
+    resize_batch,
 )
 from distributed_model_parallel_tpu_torch.mesh import MeshSpec
 from distributed_model_parallel_tpu_torch.models.staged import (
@@ -79,14 +90,6 @@ from distributed_model_parallel_tpu_torch.parallel.pipeline import (
     loss_and_grad,
 )
 from distributed_model_parallel_tpu_torch.train.trainer import METRIC_KEYS
-
-
-def refuse_interleaved(virtual_stages: int) -> None:
-    if virtual_stages != 1:
-        raise ValueError(f"virtual_stages={virtual_stages}: interleaved 1F1B "
-                         f"over ranks is not ported yet (ROADMAP A7: "
-                         f"interleaved 1F1B over ranks); the runner "
-                         f"(parallel/pipeline.py) interleaves in one process")
 
 
 def boundary_specs(model: StagedModel, mbs: int, feat_shape: Sequence[int],
@@ -172,59 +175,130 @@ def _pool_bn_over_axis(state, group, momentum: float):
 
 
 # -- the tick table ------------------------------------------------------------
+#
+# An operation is ``(kind, microbatch, chunk)``: F (the chunk's forward), L
+# (stage 0: the loss, or the eval metrics; chunk None) or B (the chunk's
+# backward). Chunk c runs on stage c % S.
 
 def _stage_ops(s: int, S: int, M: int, schedule: str,
-               train: bool) -> list[tuple[str, int]]:
-    """Stage s's operations in order: F (forward), L (stage 0: the loss,
-    or the eval metrics), B (backward)."""
+               train: bool) -> list[tuple]:
+    """Stage s's operations in order at one chunk a stage."""
     if not train:
-        return [("F", m) for m in range(M)] + (
-            [("L", m) for m in range(M)] if s == 0 else [])
+        return [("F", m, s) for m in range(M)] + (
+            [("L", m, None) for m in range(M)] if s == 0 else [])
     if schedule == "gpipe" or M == 1:
-        ops = [("F", m) for m in range(M)]
+        ops = [("F", m, s) for m in range(M)]
         if s == 0:
-            ops += [("L", m) for m in range(M)]
-        return ops + [("B", m) for m in range(M)]
+            ops += [("L", m, None) for m in range(M)]
+        return ops + [("B", m, s) for m in range(M)]
     warm = min(S - s, M)
-    ops = [("F", m) for m in range(warm)]
+    ops = [("F", m, s) for m in range(warm)]
     for m in range(M):
         if s == 0:
-            ops.append(("L", m))
-        ops.append(("B", m))
+            ops.append(("L", m, None))
+        ops.append(("B", m, s))
         if m + warm < M:
-            ops.append(("F", m + warm))
+            ops.append(("F", m + warm, s))
     return ops
 
 
-def _needs(op, s: int, S: int):
-    kind, m = op
+def _needs(op, D: int):
+    kind, m, c = op
     if kind == "F":
-        return ("act", m, s) if s else None
+        return ("act", m, c) if c else None
     if kind == "L":
         return ("logits", m)
-    return ("dlogits", m) if s == S - 1 else ("grad", m, s)
+    return ("dlogits", m) if c == D - 1 else ("grad", m, c)
 
 
-def _makes(op, s: int, S: int, train: bool):
+def _makes(op, S: int, D: int, train: bool):
     """(message key, destination stage) an operation produces, or None."""
-    kind, m = op
+    kind, m, c = op
     if kind == "F":
-        return (("act", m, s + 1), s + 1) if s < S - 1 else \
+        return (("act", m, c + 1), (c + 1) % S) if c < D - 1 else \
             (("logits", m), 0)
     if kind == "L":
-        return (("dlogits", m), S - 1) if train else None
-    return (("grad", m, s - 1), s - 1) if s else None
+        return (("dlogits", m), (D - 1) % S) if train else None
+    return (("grad", m, c - 1), (c - 1) % S) if c else None
+
+
+def stash_slots(S: int, V: int, M: int) -> int:
+    """The most chunk forwards a rank holds awaiting their backward under
+    interleaved 1F1B: JAX's stash ring, ``min(2D - 1, M·V + D - 1)``."""
+    D = S * V
+    return min(2 * D - 1, M * V + D - 1)
+
+
+def _interleaved_ticks(S: int, V: int, M: int, train: bool) -> list[list]:
+    """The interleaved table: at each tick stage 0 runs a loss whose
+    logits arrived, else each stage the next backward of its order whose
+    gradient arrived, else the next forward of its order whose input
+    arrived (training: while fewer than :func:`stash_slots` forwards
+    await their backward)."""
+    D = S * V
+    if train and M % S:
+        raise ValueError(
+            f"interleaved schedule needs num_microbatches divisible by "
+            f"the stage count: M={M}, S={S} (Megatron constraint)")
+    if train:
+        group = lambda k: (k // D) * S + k % S
+        fwd = [[("F", group(k), ((k // S) % V) * S + s)
+                for k in range(M * V)] for s in range(S)]
+        bwd = [[("B", group(k), (V - 1 - (k // S) % V) * S + s)
+                for k in range(M * V)] for s in range(S)]
+    else:
+        fwd = [[("F", m, v * S + s) for m in range(M) for v in range(V)]
+               for s in range(S)]
+        bwd = [[] for _ in range(S)]
+    loss = [("L", m, None) for m in range(M)]
+    cap = stash_slots(S, V, M) if train else M * V
+    fi, bi, li = [0] * S, [0] * S, 0
+    held, have, ticks = [0] * S, set(), []
+    while li < M or any(fi[s] < len(fwd[s]) or bi[s] < len(bwd[s])
+                        for s in range(S)):
+        row, made = [None] * S, []
+        for s in range(S):
+            op = None
+            if s == 0 and li < M and _needs(loss[li], D) in have:
+                op, li = loss[li], li + 1
+            elif bi[s] < len(bwd[s]) and _needs(bwd[s][bi[s]], D) in have:
+                op = bwd[s][bi[s]]
+                bi[s] += 1
+                held[s] -= 1
+            elif (fi[s] < len(fwd[s]) and held[s] < cap
+                  and _needs(fwd[s][fi[s]], D) in (have | {None})):
+                op = fwd[s][fi[s]]
+                fi[s] += 1
+                held[s] += train
+            if op is not None:
+                row[s] = op
+                out = _makes(op, S, D, train)
+                if out is not None:
+                    made.append(out[0])
+        if not any(row):
+            raise RuntimeError(f"interleaved schedule deadlocks at S={S}, "
+                               f"V={V}, M={M}")
+        have.update(made)
+        ticks.append(row)
+    return ticks
 
 
 def spmd_ticks(S: int, M: int, schedule: str = "gpipe", *,
-               train: bool = True) -> list[list]:
+               train: bool = True, virtual_stages: int = 1) -> list[list]:
     """The static schedule: ``ticks[t][s]`` is stage s's operation at tick
-    t, ``(kind, microbatch)`` or None. Each stage runs its operations in
-    order, one a tick, as soon as the message it needs was delivered at
-    the end of an earlier tick. The same table on every rank."""
+    t, ``(kind, microbatch, chunk)`` or None. Each stage runs its
+    operations in order, one a tick, as soon as the message it needs was
+    delivered at the end of an earlier tick. The same table on every
+    rank. ``virtual_stages > 1``: interleaved 1F1B (1f1b only)."""
     if schedule not in SCHEDULES:
         raise ValueError(f"unknown spmd cnn pipeline schedule {schedule!r};"
                          f" known: {', '.join(SCHEDULES)}")
+    if virtual_stages > 1:
+        if train and schedule != "1f1b":
+            raise ValueError("interleaved virtual stages are a 1f1b "
+                             "schedule feature (gpipe's whole-program AD "
+                             "would gain nothing — no silent ignores)")
+        return _interleaved_ticks(S, virtual_stages, M, train)
     lists = [_stage_ops(s, S, M, schedule, train) for s in range(S)]
     ptr, have, ticks = [0] * S, set(), []
     while any(p < len(ops) for p, ops in zip(ptr, lists)):
@@ -233,11 +307,11 @@ def spmd_ticks(S: int, M: int, schedule: str = "gpipe", *,
             if ptr[s] == len(lists[s]):
                 continue
             op = lists[s][ptr[s]]
-            need = _needs(op, s, S)
+            need = _needs(op, S)
             if need is None or need in have:
                 row[s] = op
                 ptr[s] += 1
-                out = _makes(op, s, S, train)
+                out = _makes(op, S, S, train)
                 if out is not None:
                     made.append(out[0])
         if not any(row):
@@ -251,34 +325,66 @@ def spmd_ticks(S: int, M: int, schedule: str = "gpipe", *,
 # -- one rank's stage ------------------------------------------------------------
 
 class CnnPipelineStage:
-    """This rank's stage of the pipeline: its units of ``model`` (the full
-    staged model, e.g. built from a seed or loaded from JAX weights on the
-    CPU; only ``slices[stage]`` is kept, on ``spec.device``), the peers of
-    its stage ring and the boundary shapes. ``sample_shape``: one image's
-    NHWC shape, or a batch shape whose leading dim is ignored."""
+    """This rank's stage of the pipeline: its chunks' units of ``model``
+    (the full staged model, e.g. built from a seed or loaded from JAX
+    weights on the CPU; only the units of chunks ``s, S + s, …`` of the
+    ``S·virtual_stages`` chunks are kept, on ``spec.device``, as one
+    ``StagedModel``), the peers of its stage ring and the boundary
+    shapes. ``sample_shape``: one image's NHWC shape, or a batch shape
+    whose leading dim is ignored. ``units``: the global indices of the
+    kept units; ``lo, hi``: the first chunk's range (the stage's, at one
+    chunk a stage)."""
 
     def __init__(self, model: StagedModel, spec: MeshSpec, *,
                  sample_shape: Sequence[int],
                  boundaries: Sequence[int] | None = None,
-                 bn_momentum: float = 0.9):
+                 bn_momentum: float = 0.9, virtual_stages: int = 1):
+        if virtual_stages < 1:
+            raise ValueError(f"virtual_stages must be >= 1, got "
+                             f"{virtual_stages}")
         self.spec = spec
         self.S = spec.num_stages
         self.s = spec.stage_index
-        self.slices = stage_slices(model.num_units, self.S, boundaries)
-        self.lo, self.hi = self.slices[self.s]
+        self.V = virtual_stages
+        self.D = self.S * self.V
+        self.slices = stage_slices(model.num_units, self.D, boundaries)
+        self.chunks = list(range(self.s, self.D, self.S))
+        ranges = [self.slices[c] for c in self.chunks]
+        self.lo, self.hi = ranges[0]
+        self.units = [i for lo, hi in ranges for i in range(lo, hi)]
+        # Chunk c's units [a, b) of the local model.
+        self.local: dict[int, tuple[int, int]] = {}
+        off = 0
+        for c, (lo, hi) in zip(self.chunks, ranges):
+            self.local[c] = (off, off + hi - lo)
+            off += hi - lo
         self.feat_shape = tuple(sample_shape[-3:])
         self._meta = meta_copy(model)
         self._specs: dict[int, list] = {}
-        self.model = StagedModel(list(model.units[self.lo:self.hi]),
-                                 name=f"{model.name}[{self.lo}:{self.hi}]")
+        self.model = StagedModel(
+            [model.units[i] for i in self.units],
+            name=f"{model.name}" + "".join(f"[{lo}:{hi}]"
+                                           for lo, hi in ranges))
         self.model.to(spec.device)
         self.bn_momentum = bn_momentum
-        self.bn = MicrobatchBN(list(self.model.modules()))
-        self.n_local = self.hi - self.lo
+        self.chunk_bn = {c: MicrobatchBN([m for u in self.model.units[a:b]
+                                          for m in u.modules()])
+                         for c, (a, b) in self.local.items()}
+        self.n_local = len(self.units)
         if spec.stage_group is not None:
             # The ring's communicator is made by a call every rank joins.
             all_reduce_(torch.zeros((), device=spec.device),
                         spec.stage_group, kind="barrier")
+
+    @property
+    def bns(self) -> list:
+        """Every BatchNorm of the stage, chunk by chunk."""
+        return [bn for c in self.chunks for bn in self.chunk_bn[c].bns]
+
+    def finish_bn(self) -> None:
+        """Pool each chunk's microbatch BN states into its statistics."""
+        for c in self.chunks:
+            self.chunk_bn[c].finish(self.bn_momentum)
 
     def specs(self, mbs: int) -> list:
         if mbs not in self._specs:
@@ -292,7 +398,7 @@ class CnnPipelineStage:
             return specs[key[2]]
         if key[0] == "grad":
             return specs[key[2] + 1]
-        return specs[self.S]                        # logits, dlogits
+        return specs[self.D]                        # logits, dlogits
 
     def run(self, ticks, M: int, mbs: int, *, x=None, labels=None,
             train: bool = True, reducer=None) -> list:
@@ -300,33 +406,34 @@ class CnnPipelineStage:
         ``mbs`` rows: ``x`` (normalized NHWC, M·mbs rows) and ``labels``
         on stage 0 only. Returns stage 0's per-microbatch metrics ([]
         elsewhere). Training accumulates the parameters' gradients and
-        leaves the microbatch BN states in ``self.bn``."""
-        s, S = self.s, self.S
+        leaves the microbatch BN states in ``chunk_bn``."""
+        s, S, D = self.s, self.S, self.D
         inbox: dict = {}
         acts: dict = {}
         metrics: list = [None] * M
         multi = train and M > 1
-        for t, row in enumerate(ticks):
+        for row in ticks:
             sends = []
             op = row[s]
             if op is not None:
-                kind, m = op
-                need = _needs(op, s, S)
+                kind, m, c = op
+                need = _needs(op, D)
                 got = inbox.pop(need) if need is not None else None
                 out = None
                 if kind == "F":
-                    xin = got if s else x[m * mbs:(m + 1) * mbs]
+                    xin = got if c else x[m * mbs:(m + 1) * mbs]
+                    a, b = self.local[c]
                     if multi:
-                        self.bn.begin()
+                        self.chunk_bn[c].begin()
                     if train:
-                        acts[m] = chunk_forward(self.model, 0, self.n_local,
-                                                xin, leaf=s > 0)
-                        out = acts[m][1].detach()
+                        acts[m, c] = chunk_forward(self.model, a, b, xin,
+                                                   leaf=c > 0)
+                        out = acts[m, c][1].detach()
                     else:
-                        out = chunk_forward(self.model, 0, self.n_local, xin,
+                        out = chunk_forward(self.model, a, b, xin,
                                             train=False)[1]
                     if multi:
-                        self.bn.end(m)
+                        self.chunk_bn[c].end(m)
                 elif kind == "L":
                     lab = labels[m * mbs:(m + 1) * mbs]
                     if train:
@@ -334,12 +441,12 @@ class CnnPipelineStage:
                     else:
                         metrics[m] = eval_metrics(got, lab)
                 else:
-                    x_in, y = acts.pop(m)
+                    x_in, y = acts.pop((m, c))
                     ctx = (reducer.no_sync() if reducer is not None
                            and m < M - 1 else contextlib.nullcontext())
                     with ctx:
                         out = chunk_backward(x_in, y, got)
-                made = _makes(op, s, S, train)
+                made = _makes(op, S, D, train)
                 if made is not None:
                     key, dst = made
                     if dst == s:
@@ -350,7 +457,7 @@ class CnnPipelineStage:
             for s2, op2 in enumerate(row):
                 if op2 is None or s2 == s:
                     continue
-                made = _makes(op2, s2, S, train)
+                made = _makes(op2, S, D, train)
                 if made is not None and made[1] == s:
                     shape, dtype = self._key_spec(made[0], mbs)
                     buf = torch.empty(shape, dtype=dtype,
@@ -366,7 +473,7 @@ class CnnPipelineStage:
 
 def _fwd_bwd(stage: CnnPipelineStage, num_microbatches: int, schedule: str):
     M = num_microbatches
-    ticks = spmd_ticks(stage.S, M, schedule)
+    ticks = spmd_ticks(stage.S, M, schedule, virtual_stages=stage.V)
 
     def fwd_bwd(x, labels, b_local: int, reducer=None) -> list:
         if b_local % M:
@@ -389,9 +496,13 @@ def make_cnn_pipeline_apply(stage: CnnPipelineStage, *,
 def make_cnn_1f1b_fwd_bwd(stage: CnnPipelineStage, *,
                           num_microbatches: int = 1,
                           virtual_stages: int = 1):
-    """1F1B over the stage ring (``virtual_stages == 1``): stage s runs
-    ``min(S - s, M)`` forwards, then a backward before each forward."""
-    refuse_interleaved(virtual_stages)
+    """1F1B over the stage ring: at ``virtual_stages == 1`` stage s runs
+    ``min(S - s, M)`` forwards, then a backward before each forward;
+    above it, interleaved 1F1B over the stage's ``virtual_stages`` chunks
+    (the stage must have been built with as many, and ``M % S == 0``)."""
+    if virtual_stages != stage.V:
+        raise ValueError(f"virtual_stages={virtual_stages}, but the stage "
+                         f"was cut into {stage.V} chunk(s) a rank")
     return _fwd_bwd(stage, num_microbatches, "1f1b")
 
 
@@ -399,7 +510,7 @@ def make_cnn_1f1b_fwd_bwd(stage: CnnPipelineStage, *,
 def pool_stage_bn_(stage: CnnPipelineStage, group, momentum: float) -> None:
     """The stage's BN running statistics pooled over the data rows, in
     place."""
-    bns = stage.bn.bns
+    bns = stage.bns
     if not bns:
         return
     tree = [{"mean": bn.running_mean, "var": bn.running_var} for bn in bns]
@@ -429,7 +540,8 @@ def make_spmd_cnn_train_step(stage: CnnPipelineStage, optimizer, *, mean,
                              std, num_microbatches: int = 1,
                              augment: bool = True, schedule: str = "gpipe",
                              virtual_stages: int = 1,
-                             dtype=torch.float32, reducer=None):
+                             dtype=torch.float32, reducer=None,
+                             resize_to: int | None = None):
     """One SPMD training step of this rank's stage:
     ``step(images_u8, labels, generator=None) -> global metrics``, where
     stage 0 passes its data row's rows of the global batch (uint8 NHWC,
@@ -438,7 +550,8 @@ def make_spmd_cnn_train_step(stage: CnnPipelineStage, optimizer, *, mean,
     parameters (``stage.model``); ``reducer`` (a ``GradReducer`` over the
     data sub-group, or None at one data row) averages the gradients over
     the data rows; clipping (``grad_clip_norm``) takes the norm over the
-    whole pipeline."""
+    whole pipeline. ``resize_to``: stage 0 resizes its rows to that many px
+    before the augmentation."""
     if schedule == "1f1b":
         fwd_bwd = make_cnn_1f1b_fwd_bwd(stage,
                                         num_microbatches=num_microbatches,
@@ -467,6 +580,8 @@ def make_spmd_cnn_train_step(stage: CnnPipelineStage, optimizer, *, mean,
         x = None
         if stage.s == 0:
             b_local = labels.shape[0]
+            if resize_to is not None:
+                images_u8 = resize_batch(images_u8, resize_to)
             if augment:
                 rows = spec.rows(b_local * spec.num_data)
                 images_u8 = augment_batch(generator, images_u8,
@@ -481,7 +596,7 @@ def make_spmd_cnn_train_step(stage: CnnPipelineStage, optimizer, *, mean,
         if reducer is not None:
             reducer.finish()
         divide_grads_(optimizer, params, M)
-        stage.bn.finish(stage.bn_momentum)
+        stage.finish_bn()
         if spec.num_data > 1:
             pool_stage_bn_(stage, spec.group, stage.bn_momentum)
         optimizer.step()
@@ -491,7 +606,8 @@ def make_spmd_cnn_train_step(stage: CnnPipelineStage, optimizer, *, mean,
 
 
 def make_spmd_cnn_eval_step(stage: CnnPipelineStage, *, mean, std,
-                            dtype=torch.float32):
+                            dtype=torch.float32,
+                            resize_to: int | None = None):
     """Forward-only through the stage ring with the BN running statistics
     (a rank holds one stage, so evaluation is pipelined too):
     ``step(images_u8, labels, b_local=None) -> global metrics``, stage 0
@@ -499,13 +615,15 @@ def make_spmd_cnn_eval_step(stage: CnnPipelineStage, *, mean, std,
     spec, dev = stage.spec, stage.spec.device
     mean = torch.as_tensor(mean, dtype=dtype, device=dev)
     std = torch.as_tensor(std, dtype=dtype, device=dev)
-    ticks = spmd_ticks(stage.S, 1, train=False)
+    ticks = spmd_ticks(stage.S, 1, train=False, virtual_stages=stage.V)
 
     @torch.no_grad()
     def step(images_u8=None, labels=None, b_local: int | None = None):
         x = None
         if stage.s == 0:
             b_local = labels.shape[0]
+            if resize_to is not None:
+                images_u8 = resize_batch(images_u8, resize_to)
             x = normalize(images_u8, mean, std, dtype)
         micro = stage.run(ticks, 1, b_local, x=x, labels=labels,
                           train=False)

@@ -266,10 +266,11 @@ def spmd_pipeline_steps(spec: MeshSpec, cases: dict, params, state,
     SGD lr 0.1, momentum 0.9, wd 1e-4, no warm-up, the JAX tests'
     ``make_optimizer(..., 10, 10)`` schedule) from the given whole-model
     weights on this rank's stage, over the global batch, then one eval
-    step. A case sets ``M``, ``schedule``, ``bn``, ``fused``, ``clip``,
-    ``boundaries`` and ``steps``. Returns this rank's stage range, its
-    parameters and BN state (JAX layout), momentum traces, the global
-    metrics per step, the eval metrics and the hops counted."""
+    step. A case sets ``M``, ``schedule``, ``V`` (virtual stages),
+    ``bn``, ``fused``, ``clip``, ``boundaries`` and ``steps``. Returns
+    this rank's stage range and units, its parameters and BN state (JAX
+    layout), momentum traces, the global metrics per step, the eval
+    metrics and the hops counted."""
     rows = spec.rows(len(labels))
     im, lb = torch.from_numpy(images[rows]), torch.from_numpy(labels[rows])
     b_local = len(lb)
@@ -280,7 +281,8 @@ def spmd_pipeline_steps(spec: MeshSpec, cases: dict, params, state,
                           device="cpu", axis=spec.group)
         params_from_jax(model, params, state, "cpu")
         stage = sp.CnnPipelineStage(model, spec, sample_shape=images.shape,
-                                    boundaries=c.get("boundaries"))
+                                    boundaries=c.get("boundaries"),
+                                    virtual_stages=c.get("V", 1))
         opt = make_optimizer(
             OptimizerConfig(learning_rate=0.1, warmup_steps=0,
                             fused=c.get("fused", False),
@@ -291,7 +293,8 @@ def spmd_pipeline_steps(spec: MeshSpec, cases: dict, params, state,
         kw = dict(mean=mean, std=std)
         step = sp.make_spmd_cnn_train_step(
             stage, opt, num_microbatches=c.get("M", 1), augment=False,
-            schedule=c.get("schedule", "gpipe"), reducer=reducer, **kw)
+            schedule=c.get("schedule", "gpipe"),
+            virtual_stages=c.get("V", 1), reducer=reducer, **kw)
         ev = sp.make_spmd_cnn_eval_step(stage, **kw)
         C.reset_counts()
         metrics = []
@@ -303,7 +306,7 @@ def spmd_pipeline_steps(spec: MeshSpec, cases: dict, params, state,
         p, st = params_to_jax(stage.model)
         n = len(list(stage.model.parameters()))
         out[name] = dict(
-            lo=stage.lo, hi=stage.hi, params=p, state=st,
+            lo=stage.lo, hi=stage.hi, units=stage.units, params=p, state=st,
             momentum=[_np(opt.momentum_buffer(i)) for i in range(n)],
             metrics=metrics, eval={k: float(v) for k, v in e.items()},
             calls=calls, bytes=nbytes)
@@ -321,6 +324,19 @@ def spmd_trainer_fit(spec: MeshSpec, config, params, state, train: tuple,
     history = t.fit()
     return dict(history=history, lo=t.stage.lo, hi=t.stage.hi,
                 params=params_to_jax(t.model)[0])
+
+
+def sharded_batches(spec: MeshSpec, images: np.ndarray, labels: np.ndarray,
+                    batch_size: int) -> dict:
+    """One epoch of ``BatchLoader(shard_by_process=True)`` on this rank:
+    its data row's rows of every global batch."""
+    from distributed_model_parallel_tpu_torch.data.loader import BatchLoader
+
+    loader = BatchLoader(ArrayDataset(images, labels, 10), batch_size,
+                         shard_by_process=True)
+    batches = list(loader)
+    return dict(rank=spec.rank, images=[b[0] for b in batches],
+                labels=[b[1] for b in batches])
 
 
 # -- the remaining data-parallel engines ------------------------------------
@@ -416,7 +432,8 @@ def preempt_resume(spec: MeshSpec, configs: dict, train: tuple,
     ``uninterrupted`` run ``a`` only. Each run checkpoints to its own
     directory under ``config.checkpoint_dir``. Returns per config and run
     the history, parameters, momentum and every rank's BN state in the
-    JAX layout, the update count and the global step."""
+    JAX layout (under ``spmd_pipeline`` this rank's units, their global
+    indices in ``units``), the update count and the global step."""
     tr, ev = ArrayDataset(*train, 10), ArrayDataset(*evals, 10)
 
     def hook(t):
@@ -438,10 +455,13 @@ def preempt_resume(spec: MeshSpec, configs: dict, train: tuple,
                 t = Trainer(cfg.replace(resume=True), train_ds=tr,
                             eval_ds=ev, spec=spec)
             history += t.fit()
+            pipe = cfg.strategy == "spmd_pipeline"
             with torch.no_grad():
-                params = params_to_jax(t.model)[0]
+                params, state = params_to_jax(t.model)
             out[name][run] = dict(
                 history=history, params=params, momentum=t._momentum_tree(),
-                state=ddp.gather_replica_state(t.model, spec),
+                state=state if pipe else ddp.gather_replica_state(t.model,
+                                                                  spec),
+                units=t.stage.units if pipe else None,
                 count=t.optimizer.count, step=t.global_step)
     return out

@@ -3,14 +3,15 @@ one device, data-parallel over ranks or pipelined over stages.
 
 * :mod:`.lm_trainer` — ``LMTrainConfig``, ``LMTrainer``, the token
   stream and the train step;
-* :mod:`.trainer` — the CNN ``Trainer`` (gspmd, ddp, spmd_pipeline),
+* :mod:`.trainer` — the CNN ``Trainer`` (gspmd, ddp, fsdp, zero,
+  spmd_pipeline),
   its train, eval and device-resident multi-step functions;
 * :mod:`.optim` — SGD with momentum, weight decay and the warmup/cosine
   schedule, per leaf or fused over flat buckets, and the gradient
   Reducer of data parallelism;
 * :mod:`.metrics` — top-k sums and running meters;
 * :mod:`.pipeline_trainer` — ``PipelineTrainer``, the runner's epoch
-  loop;
+  loop with its checkpoint/resume, preemption and run logs;
 * :mod:`.train_lm`, :mod:`.train_cnn`, :mod:`.train_model_parallel` — the
   command lines.
 """

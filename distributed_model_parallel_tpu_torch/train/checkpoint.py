@@ -401,3 +401,62 @@ def unpack_resume_tree(ri: dict) -> tuple[int, int, int, int, float]:
     return (int(ri["loader_epoch"]), int(ri["batch_cursor"]),
             int(ri["global_step"]), int(ri["retries_left"]),
             float(ri["lr_scale"]))
+
+
+# -- what both CNN trainers do around a resume ------------------------------
+
+def manifest_stamp(workload: str, mesh, n_devices: int, global_step: int,
+                   **extra) -> dict:
+    """The ``meta`` of every committed version: the saving topology and
+    the exact position, readable without a restore."""
+    return {"workload": workload, **extra,
+            "mesh": {**mesh.axis_sizes(), "dcn_data": mesh.dcn_data},
+            "n_devices": int(n_devices), "global_step": int(global_step)}
+
+
+def resume_subtree(loader, pos: tuple[int, int], global_step: int) -> dict:
+    """The exact-continuation subtree of a trainer that stands at ``pos``
+    (epoch, batches consumed: the trainer's count, which a prefetch
+    worker running ahead cannot move); ``loader`` is re-synced to it."""
+    tree = build_resume_tree(*pos, len(loader), global_step,
+                             {"retries_left": 0, "lr_scale": 1.0})
+    loader.position(int(tree["loader_epoch"]), int(tree["batch_cursor"]))
+    return tree
+
+
+def fallback_note(log_line: Callable[[str], None]) -> Callable:
+    """The ``on_fallback`` of a resume: one log line per rejected
+    version."""
+    return lambda path, reason: log_line(
+        f"checkpoint fallback: {os.path.basename(path)} rejected ({reason})")
+
+
+def restore_newest(ckpt: Checkpointer, template: Any,
+                   slots: tuple[str, ...],
+                   log_line: Callable[[str], None]) -> tuple[str, Any]:
+    """``(slot, tree)`` of the newest valid version among ``slots``: a
+    torn version falls back to the one before, a slot with none left to
+    the next slot, each logged; raises :class:`CheckpointIntegrityError`
+    when none is restorable."""
+    for name in ckpt.names_by_recency(slots):
+        try:
+            return name, ckpt.restore(template, name, allow_fallback=True,
+                                      on_fallback=fallback_note(log_line))
+        except CheckpointIntegrityError as e:
+            log_line(f"resume: slot {name!r} unusable: {e}")
+    raise CheckpointIntegrityError(
+        f"resume: no restorable version of {slots} in {ckpt.directory}")
+
+
+def resume_position(slot: str, restored: dict, loader,
+                    log_line: Callable[[str], None]) -> tuple[int, int]:
+    """Put ``loader`` where the run restored from ``slot`` stood, log the
+    resume line and return ``(start_epoch, global_step)``. The
+    best-accuracy slot's epoch lags when later epochs did not improve;
+    the loader's position is where training stood."""
+    ep, cur, gs, _, _ = unpack_resume_tree(restored["resume"])
+    loader.load_state_dict({"epoch": ep, "batch_cursor": cur})
+    start_epoch = max(int(restored["epoch"]), loader.epoch)
+    log_line(f"resume: slot {slot!r} -> epoch {start_epoch} batch "
+             f"{loader.cursor} (global step {gs})")
+    return start_epoch, gs

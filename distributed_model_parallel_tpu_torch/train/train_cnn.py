@@ -45,8 +45,14 @@ data_para_{batch}``), and every improvement of eval top-1 saves the
 whole state to ``--checkpoint-dir`` (default ``./checkpoint``, slot
 ``ckpt-{v}``). SIGTERM or Ctrl-C stops at the next step and saves to the
 ``preempt`` slot; ``--resume`` continues from the newest valid of the
-two, mid-epoch. The recovery plane and the other optimizers are not
-ported yet and are refused.
+two, mid-epoch. ``--dataset-type`` takes the reference's datasets
+(``imagenet``/``place365`` ImageFolder trees, ``cub200``, ``cifar10``
+under the data root, the synthetic stand-in of their class count when
+absent); ``--image-size`` other than the data's resizes every batch on
+the device (224: the reference's finetune recipe); ``--prefetch`` and
+``--device-prefetch`` set the host-thread and side-stream upload depths;
+``--use-native`` gathers batches with the C++ row gather. The recovery
+plane and the other optimizers are not ported yet and are refused.
 """
 
 from __future__ import annotations
@@ -75,7 +81,19 @@ def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("data", nargs="?", default="./data", help="dataset root")
     p.add_argument("--dataset-type", "-type", default="synthetic",
-                   choices=("synthetic", "cifar10"))
+                   choices=("synthetic", "cifar10", "imagenet", "cub200",
+                            "place365"))
+    p.add_argument("--image-size", default=32, type=int,
+                   help="train/eval input resolution; when it differs from "
+                        "the dataset's the batch is resized on the device "
+                        "(224 = the reference's finetune recipe)")
+    p.add_argument("--prefetch", default=2, type=int,
+                   help="host prefetch depth (0 disables)")
+    p.add_argument("--device-prefetch", default=2, type=int,
+                   help="batches uploaded ahead on a side stream (0: one "
+                        "upload a step)")
+    p.add_argument("--use-native", action="store_true",
+                   help="assemble batches with the C++ row gather")
     p.add_argument("--device", default="cuda")
     p.add_argument("--model", default="mobilenetv2",
                    choices=("mobilenetv2", "mobilenetv2_nobn", "resnet18",
@@ -149,6 +167,9 @@ def _config(args, world: int):
         model=ModelConfig(name=args.model, dtype=dtype,
                           batchnorm=args.bn_mode),
         data=DataConfig(name=args.dataset_type, root=args.data,
+                        image_size=args.image_size, prefetch=args.prefetch,
+                        device_prefetch=args.device_prefetch,
+                        use_native=args.use_native,
                         batch_size=args.batch_size,
                         eval_batch_size=args.batch_size,
                         augment=not args.no_augment,

@@ -7,26 +7,40 @@
     python -m distributed_model_parallel_tpu_torch.train.train_model_parallel \\
         --device cpu --model tinycnn --engine spmd --stages 2 --dp 2 \\
         --nproc 4 --schedule 1f1b --microbatches 2 --batch-size 32
+    python -m distributed_model_parallel_tpu_torch.train.train_model_parallel \\
+        --device cpu --model tinycnn --engine spmd --stages 2 \\
+        --schedule 1f1b --virtual-stages 2 --microbatches 2 --batch-size 32
     torchrun --nproc-per-node 4 -m \\
         distributed_model_parallel_tpu_torch.train.train_model_parallel \\
-        --engine spmd --stages 4 --microbatches 8 --fused
+        --engine spmd --stages 4 --microbatches 8 --fused --resume
 
 ``--engine runner`` (the default) drives every stage from one process
 (``PipelineTrainer``): ``--stages`` devices, ``cuda:0 .. cuda:S-1``, or
 ``--devices`` to name them (``cuda:0,cuda:0`` shares one card);
 ``--microbatches 1`` is the reference's naive schedule, more give GPipe
 or ``--schedule 1f1b``; ``--virtual-stages V`` interleaves ``V·S``
-chunks. ``--engine spmd`` runs one process per rank of a ``--dp`` x
-``--stages`` mesh (``Trainer(strategy="spmd_pipeline")``): ``--nproc``
-spawns them (rank r on ``cuda:r`` over NCCL; ``--backend gloo`` to share
-cards; ``--device cpu`` runs gloo), or torchrun starts them. Stage
-boundaries: ``--boundaries 0,4,10,16,19`` (the reference's 4-GPU cut of
+chunks (under spmd: interleaved 1F1B over the ranks, ``--schedule 1f1b``
+and microbatches a multiple of the stages). ``--engine spmd`` runs one
+process per rank of a ``--dp`` x ``--stages`` mesh
+(``Trainer(strategy="spmd_pipeline")``): ``--nproc`` spawns them (rank r
+on ``cuda:r`` over NCCL; ``--backend gloo`` to share cards; ``--device
+cpu`` runs gloo), or torchrun starts them. Stage boundaries:
+``--boundaries 0,4,10,16,19`` (the reference's 4-GPU cut of
 MobileNetV2), ``--auto-partition`` (the cost-balanced cut), or equal unit
-counts. The JAX script's refusals hold: ``--dp`` with the runner, and
-virtual stages with spmd. ``--device`` defaults to ``cuda`` (bf16 over
-f32 parameters, cuDNN's autotuner on); ``cpu`` runs f32. Prints one JSON
-record per epoch (rank 0's under spmd). Resume and the resilience hooks
-are not ported yet and are refused.
+counts. The JAX script's refusal of ``--dp`` with the runner holds.
+``--dataset-type`` takes the reference's datasets (``imagenet`` and
+``place365`` as ImageFolder trees, ``cub200``, ``cifar10`` under the
+data root; the synthetic stand-in of their class count when absent);
+``--image-size`` other than the data's resizes every batch on the
+device (224: the reference's finetune recipe); ``--use-native`` gathers
+batches with the C++ row gather. ``--device`` defaults to ``cuda`` (bf16
+over f32 parameters, cuDNN's autotuner on); ``cpu`` runs f32. Prints one
+JSON record per epoch (rank 0's under spmd); the run log goes to
+``--log-dir``/``--log-name`` (default ``./log/{batch}``), a checkpoint
+to ``--checkpoint-dir`` at every eval improvement, and SIGTERM or
+Ctrl-C stops at the next step with a checkpoint that ``--resume``
+continues from, on either engine. The resilience hooks are not ported
+yet and are refused.
 """
 
 from __future__ import annotations
@@ -39,16 +53,22 @@ import sys
 import torch
 
 _REFUSED = {
-    "resume": (bool, "A7: the pipeline's checkpoint/resume"),
     "emergency_every": (lambda v: v != 0, "A11: resilience hooks"),
 }
+DATASETS = ("synthetic", "cifar10", "imagenet", "cub200", "place365")
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("data", nargs="?", default="./data", help="dataset root")
     p.add_argument("--dataset-type", "-type", default="synthetic",
-                   choices=("synthetic", "cifar10"))
+                   choices=DATASETS)
+    p.add_argument("--image-size", default=32, type=int,
+                   help="train/eval input resolution; when it differs from "
+                        "the dataset's the batch is resized on the device "
+                        "(224 = the reference's finetune recipe)")
+    p.add_argument("--use-native", action="store_true",
+                   help="assemble batches with the C++ row gather")
     p.add_argument("--device", default="cuda")
     p.add_argument("--devices", default=None,
                    help="runner: comma-separated stage devices (default: "
@@ -74,8 +94,12 @@ def parse_args(argv=None):
     p.add_argument("--nproc", default=None, type=int,
                    help="spmd: ranks to spawn (default dp x stages)")
     p.add_argument("--backend", default=None, choices=("nccl", "gloo"))
-    p.add_argument("--log-dir", default="./log",
-                   help="--engine spmd: where rank 0 writes the run log")
+    p.add_argument("--log-dir", default="./log")
+    p.add_argument("--log-name", default=None,
+                   help="default: the batch size")
+    p.add_argument("--checkpoint-dir", default="./checkpoint")
+    p.add_argument("--resume", "-r", action="store_true",
+                   help="continue from the newest valid checkpoint")
     p.add_argument("--lr", default=0.4, type=float)
     p.add_argument("--momentum", default=0.9, type=float)
     p.add_argument("--wd", default=1e-4, type=float)
@@ -88,8 +112,7 @@ def parse_args(argv=None):
     p.add_argument("--synthetic-train-size", default=2048, type=int)
     p.add_argument("--synthetic-eval-size", default=512, type=int)
     p.add_argument("--seed", default=0, type=int)
-    # Accepted so they can be refused by name (not ported yet).
-    p.add_argument("--resume", "-r", action="store_true")
+    # Accepted so it can be refused by name (not ported yet).
     p.add_argument("--emergency-every", default=0, type=int)
     return p.parse_args(argv)
 
@@ -111,6 +134,8 @@ def _config(args):
                           dtype=args.dtype or ("float32" if on_cpu
                                                else "bfloat16")),
         data=DataConfig(name=args.dataset_type, root=args.data,
+                        image_size=args.image_size,
+                        use_native=args.use_native,
                         batch_size=args.batch_size,
                         eval_batch_size=args.batch_size,
                         augment=not args.no_augment,
@@ -127,7 +152,10 @@ def _config(args):
         auto_partition=args.auto_partition,
         pipeline_schedule=args.schedule,
         virtual_stages=args.virtual_stages, epochs=args.epochs,
-        seed=args.seed, device=args.device, log_dir=args.log_dir)
+        seed=args.seed, device=args.device, resume=args.resume,
+        log_dir=args.log_dir,
+        log_name=args.log_name or f"{args.batch_size}",
+        checkpoint_dir=args.checkpoint_dir)
 
 
 def _fit_rank(spec, args) -> list[dict]:
@@ -166,11 +194,6 @@ def main(argv=None):
             torch.backends.cudnn.benchmark = True
         records = PipelineTrainer(config, devices).fit()
     else:
-        if args.virtual_stages != 1:
-            raise SystemExit(
-                "--engine spmd runs one stage per rank; virtual stages are "
-                "a runner-engine schedule (interleaved 1F1B over ranks is "
-                "not ported yet: ROADMAP A7)")
         from distributed_model_parallel_tpu_torch import mesh
         from distributed_model_parallel_tpu_torch.train.trainer import (
             check_train_config,

@@ -40,11 +40,19 @@ flat gradient, updates this rank's slice (one fused SGD launch under
 
 The pipeline (``strategy="spmd_pipeline"``, ``MeshConfig(stage=S)``, S ≥
 2; ``parallel/spmd_cnn_pipeline.py``): each rank holds its stage's units
-only and steps its own optimizer; stage 0 of each data row loads that
-row's rows of the batch, draws the global batch's augmentation and takes
-its rows; BN normalizes by each data row's microbatch moments and the
-running statistics are pooled; evaluation runs forward-only through the
+only (its ``virtual_stages`` chunks under interleaved 1F1B) and steps its
+own optimizer; stage 0 of each data row loads that row's rows of the
+batch, draws the global batch's augmentation and takes its rows; BN
+normalizes by each data row's microbatch moments and the running
+statistics are pooled; evaluation runs forward-only through the
 pipeline. Metrics are the global batch's on every rank.
+
+The input: the host assembles batches (``use_native``: the C++ row
+gather) behind a ``prefetch``-deep host thread and a ``device_prefetch``-
+deep upload on a side stream (``data/loader.input_stream``); when
+``image_size`` differs from the data's, every batch is resized on the
+device before augmentation (``data/loader.resize_batch``, the 224 px
+finetune path), on every path.
 
 :class:`Trainer` keeps the JAX trainer's loop shape: metrics stay device
 tensors until a drain at ``max_inflight_steps`` or the log cadence (one
@@ -66,7 +74,10 @@ is saved to the ``"ckpt"`` slot of a ``train/checkpoint.Checkpointer`` in
 package's layout (gathered from the ranks' slices under ``zero`` and
 ``fsdp``; the per-replica BN statistics with a leading replica axis under
 ``ddp``), the optimizer's update count, ``best_acc``, the epoch and the
-exact-continuation subtree (loader epoch and cursor, global step).
+exact-continuation subtree (loader epoch and cursor, global step); under
+``spmd_pipeline`` the writer (data row 0, stage 0) gathers every stage's
+leaves and momentum over its stage ring first, and on resume every rank
+reads the whole tree and keeps its own units.
 ``step_hook`` is called at every train-step boundary of both loops and
 the preemption flag (``train/preemption.py``: SIGTERM/SIGINT or
 ``trainer.preemption.request()``) polled right after; a requested stop
@@ -77,11 +88,9 @@ augmentation draws are stateless). With a process group rank 0 writes and
 logs, the others wait at a barrier; every rank restores. Every rank polls
 its own flag: a preemption must reach every rank (a cluster signals every
 process; a ``step_hook`` requests on every rank at the same step).
-Under ``spmd_pipeline`` no checkpoint is written and ``resume`` and
-``async_checkpoint`` are refused (ROADMAP A7).
 
 Not ported yet, and refused by :func:`check_train_config` where a config
-field asks for them (ROADMAP A6/A7/A11): the other strategies and mesh
+field asks for them (ROADMAP A6/A11): the other strategies and mesh
 axes, recovery, fault injection, the guards, the consistency sentinel,
 emergency checkpoints, elastic restarts (resharded restore), the typed
 telemetry stream and the status exporter.
@@ -90,7 +99,6 @@ telemetry stream and the status exporter.
 from __future__ import annotations
 
 import dataclasses
-import os
 
 import numpy as np
 import torch
@@ -100,9 +108,12 @@ from distributed_model_parallel_tpu_torch.config import TrainConfig
 from distributed_model_parallel_tpu_torch.data.loader import (
     BatchLoader,
     augment_batch,
+    input_stream,
     normalize,
+    resize_batch,
     resolve_input_size,
     step_generator,
+    to_device,
 )
 from distributed_model_parallel_tpu_torch.data.registry import (
     ArrayDataset,
@@ -122,6 +133,7 @@ from distributed_model_parallel_tpu_torch.models import (
 from distributed_model_parallel_tpu_torch.models.staged import (
     StagedModel,
     leaf_tree,
+    load_leaves,
     model_leaves,
     tree_at,
 )
@@ -135,9 +147,11 @@ from distributed_model_parallel_tpu_torch.parallel.data_parallel import (
 )
 from distributed_model_parallel_tpu_torch.train.checkpoint import (
     Checkpointer,
-    CheckpointIntegrityError,
     build_resume_tree,
-    unpack_resume_tree,
+    manifest_stamp,
+    restore_newest,
+    resume_position,
+    resume_subtree,
 )
 from distributed_model_parallel_tpu_torch.train.logging_util import (
     RunLogger,
@@ -177,13 +191,6 @@ _UNPORTED = (
      "A11: status exporter"),
 )
 _STRATEGIES = {"auto": "A11: autotune"}
-# What the pipeline (strategy="spmd_pipeline", PipelineTrainer) does not
-# run of the checkpoint harness.
-_PIPELINE_UNPORTED = (
-    ("resume", lambda c: c.resume, "A7: the pipeline's checkpoint/resume"),
-    ("async_checkpoint", lambda c: c.async_checkpoint,
-     "A7: the pipeline's checkpoint"),
-)
 # Slots a resume considers, newest valid first.
 RESUME_SLOTS = ("ckpt", "preempt")
 
@@ -242,12 +249,7 @@ def check_train_config(config: TrainConfig) -> None:
 
 def check_spmd_pipeline_config(config: TrainConfig) -> None:
     """The JAX trainer's refusals for ``strategy="spmd_pipeline"``, with
-    its wording, and what of it the port does not run (ROADMAP A7)."""
-    bad = [f"{name} (ROADMAP {item})" for name, refused, item
-           in _PIPELINE_UNPORTED if refused(config)]
-    if bad:
-        raise ValueError(f"not ported yet under strategy='spmd_pipeline': "
-                         f"{', '.join(bad)}")
+    its wording."""
     if config.device_resident_data:
         raise ValueError("device_resident_data is only supported with "
                          "strategy='gspmd'")
@@ -266,11 +268,6 @@ def check_spmd_pipeline_config(config: TrainConfig) -> None:
             "only under pipeline_schedule='1f1b' "
             "(spmd_cnn_pipeline.make_cnn_1f1b_fwd_bwd); gpipe's "
             "whole-program AD would gain nothing — no silent ignores")
-    from distributed_model_parallel_tpu_torch.parallel.spmd_cnn_pipeline import (  # noqa: E501
-        refuse_interleaved,
-    )
-
-    refuse_interleaved(config.virtual_stages)
     n_chunks = config.mesh.stage * config.virtual_stages
     b = config.stage_boundaries
     if b is not None and len(b) != n_chunks + 1:
@@ -318,7 +315,8 @@ def make_train_step(model: StagedModel, optimizer, *, mean, std,
                     resize_to: int | None = None,
                     reducer: GradReducer | None = None,
                     rows: tuple[int, int] | None = None):
-    """``step(images_u8, labels, generator=None) -> metrics``: augment
+    """``step(images_u8, labels, generator=None) -> metrics``: resize to
+    ``resize_to`` px (when set) → augment
     (draws from ``generator``) → normalize → forward (``train=True``) →
     loss → backward (``reducer`` averaging the gradients over the ranks)
     → ``optimizer.step()``; metrics are this rank's, 0-d device tensors
@@ -328,14 +326,13 @@ def make_train_step(model: StagedModel, optimizer, *, mean, std,
     on the model's device once, here."""
     if ema_decay is not None:
         raise ValueError("ema_decay is not ported yet (ROADMAP A4)")
-    if resize_to is not None:
-        raise ValueError("the on-device resize (the 224 px input path) is "
-                         "not ported yet (ROADMAP A3)")
     dev = next(model.parameters()).device
     mean = torch.as_tensor(mean, dtype=dtype, device=dev)
     std = torch.as_tensor(std, dtype=dtype, device=dev)
 
     def step(images_u8, labels, generator=None):
+        if resize_to is not None:
+            images_u8 = resize_batch(images_u8, resize_to)
         if augment:
             images_u8 = augment_batch(generator, images_u8, rows=rows)
         images = normalize(images_u8, mean, std, dtype)
@@ -354,17 +351,19 @@ def make_train_step(model: StagedModel, optimizer, *, mean, std,
 def make_multi_step(model: StagedModel, optimizer, *, image_shape, mean,
                     std, augment: bool = True, dtype=torch.float32,
                     seed: int = 1, reducer: GradReducer | None = None,
-                    rows: tuple[int, int] | None = None):
+                    rows: tuple[int, int] | None = None,
+                    resize_to: int | None = None):
     """K train steps per call over a device-resident dataset:
     ``multi(images_flat, labels_all, idx[K, B], first_step) -> metrics``
     stacked over K. Each step gathers its batch from the on-device
     dataset by index and takes the augmentation generator of its global
     step (``first_step + k``, from ``seed``); the per-step math is
     :func:`make_train_step`'s (``reducer``, ``rows``: this rank's share
-    of a global batch). Nothing in the loop waits for the card."""
+    of a global batch; ``resize_to``). Nothing in the loop waits for the
+    card."""
     step = make_train_step(model, optimizer, mean=mean, std=std,
                            augment=augment, dtype=dtype, reducer=reducer,
-                           rows=rows)
+                           rows=rows, resize_to=resize_to)
     h, w, c = image_shape
 
     def multi(images_flat, labels_all, idx, first_step: int):
@@ -380,20 +379,73 @@ def make_multi_step(model: StagedModel, optimizer, *, image_shape, mean,
     return multi
 
 
-def make_eval_step(model: StagedModel, *, mean, std, dtype=torch.float32):
+def make_eval_step(model: StagedModel, *, mean, std, dtype=torch.float32,
+                   resize_to: int | None = None):
     """``step(images_u8, labels) -> metrics`` with BN running statistics
-    and no gradient."""
+    and no gradient (resized to ``resize_to`` px first, when set)."""
     dev = next(model.parameters()).device
     mean = torch.as_tensor(mean, dtype=dtype, device=dev)
     std = torch.as_tensor(std, dtype=dtype, device=dev)
 
     @torch.no_grad()
     def step(images_u8, labels):
+        if resize_to is not None:
+            images_u8 = resize_batch(images_u8, resize_to)
         logits, _ = model.apply(normalize(images_u8, mean, std, dtype),
                                 train=False)
         return _metrics(cross_entropy(logits, labels), logits, labels)
 
     return step
+
+
+def momentum_tree(model: StagedModel, optimizers, group=None) -> tuple:
+    """Every leaf's momentum in the JAX layout, from whichever of
+    ``optimizers`` steps it (zeros before the first update or without
+    momentum): ZeroSGD's slices gathered, an FSDP slice gathered along
+    its shard dim over ``group``."""
+    where = {}
+    for opt in optimizers:
+        full = (opt.full_momentum() if hasattr(opt, "full_momentum")
+                else None)
+        for i, p in enumerate(opt.params):
+            where[id(p)] = (opt, i, full)
+
+    def one(leaf):
+        p = leaf.stored
+        opt, i, full = where[id(p)]
+        mom = full[i] if full is not None else opt.momentum_buffer(i)
+        if mom is None:
+            mom = torch.zeros_like(p, dtype=torch.float32)
+        if leaf.shard_dim is not None:
+            mom = all_gather_concat(mom, group, axis=leaf.shard_dim)
+        return leaf.to_jax(mom)
+
+    return leaf_tree(model, one)
+
+
+@torch.no_grad()
+def load_momentum(model: StagedModel, optimizers, tree) -> None:
+    """Each optimizer's momentum := ``tree``'s (a JAX-layout tree over
+    ``model``'s units), written into the existing traces (a fused
+    bucket's slots in place); an optimizer that has made no update has
+    no trace to write."""
+    index = {}
+    moms = {}
+    for opt in optimizers:
+        moms[id(opt)] = [None] * len(opt.params)
+        for i, p in enumerate(opt.params):
+            index[id(p)] = (opt, i)
+    for leaf in model_leaves(model):
+        opt, i = index[id(leaf.stored)]
+        moms[id(opt)][i] = leaf.local(leaf.from_jax(tree_at(tree, leaf)))
+    for opt in optimizers:
+        if opt.count == 0:
+            continue
+        if hasattr(opt, "load_full_momentum"):
+            opt.load_full_momentum(moms[id(opt)])
+        else:
+            for i, m in enumerate(moms[id(opt)]):
+                opt.set_momentum_buffer(i, m)
 
 
 @dataclasses.dataclass
@@ -441,13 +493,11 @@ class Trainer:
         if train_ds is None or eval_ds is None:
             train_ds, eval_ds = load_dataset(config.data)
         self.train_ds, self.eval_ds = train_ds, eval_ds
-        resize_to, _ = resolve_input_size(train_ds.images.shape,
-                                          config.data.image_size)
-        if resize_to is not None:
-            raise ValueError(f"image_size {config.data.image_size} differs "
-                             f"from the data's {train_ds.images.shape[1]} "
-                             f"px: the on-device resize is not ported yet "
-                             f"(ROADMAP A3)")
+        # The on-device resize when image_size differs from the data's
+        # native resolution: every step upsamples the uint8 batch before
+        # augmentation.
+        resize_to, self._in_hw = resolve_input_size(train_ds.images.shape,
+                                                    config.data.image_size)
         # gspmd normalizes over the global batch whatever bn_mode says; with
         # one rank and no process group the statistics are the local ones.
         pipe = config.strategy == "spmd_pipeline"
@@ -476,13 +526,15 @@ class Trainer:
         eval_bs = min(config.data.eval_batch_size, len(eval_ds))
         # A pipeline's stages past 0 take no rows (stage 0 holds the data).
         loads = not pipe or spec.stage_index == 0
+        host = dict(use_native=config.data.use_native,
+                    num_workers=config.data.num_workers)
         self.train_loader = BatchLoader(
             train_ds, bs, shuffle=config.data.shuffle,
-            seed=config.data.seed, use_native=config.data.use_native,
-            rows=self._rows if loads else slice(0, 0))
+            seed=config.data.seed, rows=self._rows if loads else slice(0, 0),
+            **host)
         self.eval_loader = BatchLoader(
             eval_ds, eval_bs, shuffle=False,
-            rows=spec.rows(eval_bs) if loads else slice(0, 0))
+            rows=spec.rows(eval_bs) if loads else slice(0, 0), **host)
         if ddp:
             allreduce, bucket_bytes = ddp.resolve_allreduce(
                 config.ddp_allreduce, config.ddp_bucket_bytes,
@@ -515,7 +567,8 @@ class Trainer:
             replicate(list(self.model.parameters()) + (
                 [] if ddp and state is not None
                 else list(self.model.buffers())), spec)
-        kw = dict(mean=train_ds.mean, std=train_ds.std, dtype=self.dtype)
+        kw = dict(mean=train_ds.mean, std=train_ds.std, dtype=self.dtype,
+                  resize_to=resize_to)
         self._aug_seed = config.seed + 1
         self._multi_step = None
         if pipe:
@@ -543,6 +596,13 @@ class Trainer:
             ev = make_eval_step(self.model, **kw)
             self._eval_step = lambda *a: reduce_metrics(ev(*a), spec)
             if config.device_resident_data:
+                if getattr(train_ds, "is_lazy", False):
+                    raise ValueError(
+                        "device_resident_data requires materialized pixels "
+                        "but the dataset streams lazily from disk (auto "
+                        "when decoded size exceeds the in-memory cap); set "
+                        "DataConfig.lazy_decode=False to decode eagerly, "
+                        "or drop device_resident_data")
                 n = len(train_ds)
                 self.dev_images = self._to_device(
                     train_ds.images.reshape(n, -1))
@@ -572,9 +632,9 @@ class Trainer:
             steps_per_dispatch=config.steps_per_dispatch
             if config.device_resident_data else 1))
             if self._writer else None)
-        self.ckpt = (None if pipe else Checkpointer(
+        self.ckpt = Checkpointer(
             config.checkpoint_dir, keep=config.recovery.keep_checkpoints,
-            meta_fn=self._ckpt_meta))
+            meta_fn=self._ckpt_meta)
         if config.resume and any(self.ckpt.exists(n) for n in RESUME_SLOTS):
             self._resume()
 
@@ -594,7 +654,8 @@ class Trainer:
                          axis=spec.group)
         if params is not None:
             params_from_jax(full, params, state, "cpu")
-        image_shape = self.train_ds.images.shape[1:]
+        image_shape = (self._in_hw, self._in_hw,
+                       self.train_ds.images.shape[3])
         boundaries = config.stage_boundaries
         if boundaries is None and config.auto_partition:
             micro = auto_partition.microbatch_rows(
@@ -606,7 +667,8 @@ class Trainer:
         self.boundaries = boundaries
         return spmd_cnn_pipeline.CnnPipelineStage(
             full, spec, sample_shape=image_shape, boundaries=boundaries,
-            bn_momentum=config.model.bn_momentum)
+            bn_momentum=config.model.bn_momentum,
+            virtual_stages=config.virtual_stages)
 
     def _pipeline_steps(self, b_local: int, eval_local: int, kw) -> None:
         """The pipeline's train and eval steps; the stages past 0 run
@@ -636,10 +698,13 @@ class Trainer:
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """A host array on the device: pinned and asynchronous on the card,
         so the upload does not wait for the steps already queued."""
-        t = torch.from_numpy(np.ascontiguousarray(a))
-        if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
-        return t.to(self.device)
+        return to_device([a], self.device)[0]
+
+    def _input_stream(self, loader):
+        """``loader``'s batches on the device, behind the host and device
+        prefetch stages of ``config.data``."""
+        return input_stream(loader, self.device, self.config.data.prefetch,
+                            self.config.data.device_prefetch)
 
     def _generator(self):
         """This step's augmentation draws: the global batch's under gspmd,
@@ -711,12 +776,11 @@ class Trainer:
         self.train_loader.set_epoch(epoch)
         base = self.train_loader.cursor
         self._loader_pos = (epoch, base)
-        for i, (images, labels) in enumerate(self.train_loader):
+        for i, (images, labels) in enumerate(
+                self._input_stream(self.train_loader)):
             if self._stop_requested():
                 break
             gi = base + i
-            images = self._to_device(images)
-            labels = self._to_device(labels)
             timer.data_ready()
             pending.append(self._train_step(images, labels,
                                             self._generator()))
@@ -780,9 +844,7 @@ class Trainer:
         meters = {k: AverageMeter(k) for k in ("loss", "acc1", "acc5")}
         timer = StepTimer()
         pending: list = []
-        for images, labels in self.eval_loader:
-            images = self._to_device(images)
-            labels = self._to_device(labels)
+        for images, labels in self._input_stream(self.eval_loader):
             timer.data_ready()
             pending.append(self._eval_step(images, labels))
             if len(pending) >= self._max_inflight:
@@ -806,13 +868,8 @@ class Trainer:
         record per epoch run, with the JAX trainer's keys. SIGTERM/SIGINT
         or ``preemption.request()`` stops the epoch at the next step
         boundary, saves to the ``"preempt"`` slot (resume continues at
-        that step) and returns the epochs completed. Under
-        ``spmd_pipeline`` nothing is saved (ROADMAP A7)."""
+        that step) and returns the epochs completed."""
         epochs = epochs if epochs is not None else self.config.epochs
-        pipe = self.ckpt is None
-        if pipe:
-            self._log_line("checkpoint: none is written under "
-                           "strategy='spmd_pipeline' (ROADMAP A7)")
         history = []
         with self.preemption.installed():
             epoch = self.start_epoch
@@ -822,18 +879,11 @@ class Trainer:
                     # Resume redoes the rest of this epoch: the saved
                     # position is the step the stop came at.
                     self.start_epoch = epoch
-                    if pipe:
-                        self.preemption.reset()
-                        self._log_line(f"preempted at epoch {epoch}, "
-                                       f"global step {self.global_step}: "
-                                       f"no checkpoint (ROADMAP A7)")
-                    else:
-                        checkpoint_on_preempt(
-                            self.preemption,
-                            self.ckpt if self._writer else None,
-                            self._ckpt_tree(), "preempt", self.logger,
-                            epoch, global_step=self.global_step)
-                        self._barrier()
+                    checkpoint_on_preempt(
+                        self.preemption, self.ckpt if self._writer else None,
+                        self._ckpt_tree(), "preempt", self.logger, epoch,
+                        global_step=self.global_step)
+                    self._barrier()
                     break
                 ev = (self.evaluate()
                       if eval_now(epoch, epochs, self.config.eval_every)
@@ -849,11 +899,9 @@ class Trainer:
                 history.append(record)
                 if ev is not None and ev.acc1 > self.best_acc:
                     self.best_acc = ev.acc1
-                    if not pipe:
-                        self._save(epoch)
+                    self._save(epoch)
                 epoch += 1
-        if self.ckpt is not None:
-            self.ckpt.wait_until_finished()
+        self.ckpt.wait_until_finished()
         if self.logger is not None:
             self.logger.finish(epochs_run=len(history))
         return history
@@ -873,32 +921,19 @@ class Trainer:
         self._barrier()
 
     def _ckpt_meta(self) -> dict:
-        """The manifest stamp of every version: the saving topology and
-        the exact position, readable without a restore."""
-        return {"workload": "cnn", "model": self.config.model.name,
-                "strategy": self.config.strategy,
-                "mesh": {**self.config.mesh.axis_sizes(),
-                         "dcn_data": self.config.mesh.dcn_data},
-                "n_devices": self.config.mesh.num_devices,
-                "global_step": self.global_step}
-
-    def _resume_tree(self) -> dict:
-        """The exact-continuation subtree, from the trainer's own (epoch,
-        consumed) count; the loader is re-synced to it."""
-        ep, cur = self._loader_pos
-        tree = build_resume_tree(ep, cur, len(self.train_loader),
-                                 self.global_step,
-                                 {"retries_left": 0, "lr_scale": 1.0})
-        self.train_loader.load_state_dict(
-            {"epoch": int(tree["loader_epoch"]),
-             "batch_cursor": int(tree["batch_cursor"])})
-        return tree
+        return manifest_stamp("cnn", self.config.mesh,
+                              self.config.mesh.num_devices, self.global_step,
+                              model=self.config.model.name,
+                              strategy=self.config.strategy)
 
     @torch.no_grad()
     def _ckpt_tree(self) -> dict:
         """The whole state as one tree of numpy arrays in the JAX
         package's layout, the same whatever the strategy and bucket plan
-        (collectives under ddp/zero/fsdp: every rank calls)."""
+        (collectives under ddp/zero/fsdp: every rank calls; under
+        spmd_pipeline data row 0's ranks gather the stages to the writer,
+        and every other rank's tree holds its own stage only, which is
+        never written)."""
         params, state = params_to_jax(self.model)
         if self.config.strategy == "ddp":
             from distributed_model_parallel_tpu_torch.parallel.ddp import (
@@ -906,100 +941,95 @@ class Trainer:
             )
 
             state = gather_replica_state(self.model, self.spec)
+        momentum = self._momentum_tree()
+        count = self.optimizer.count
+        if self.config.strategy == "spmd_pipeline":
+            params, state, momentum, count = self._gather_stages(
+                params, state, momentum, count)
         return {"params": params, "batch_stats": state,
-                "momentum": self._momentum_tree(),
-                "opt_count": np.asarray(self.optimizer.count, np.int32),
+                "momentum": momentum,
+                "opt_count": np.asarray(count, np.int32),
                 "best_acc": np.asarray(self.best_acc, np.float32),
                 "epoch": np.asarray(self.start_epoch, np.int32),
-                "resume": self._resume_tree()}
+                "resume": resume_subtree(self.train_loader, self._loader_pos,
+                                         self.global_step)}
+
+    def _gather_stages(self, params, state, momentum, count):
+        """This stage's per-unit trees → the whole model's on the writer
+        (data row 0, stage 0), gathered over row 0's stage ring; the other
+        rows hold copies and send nothing, and every rank but the writer
+        keeps its own parts. The stages' update counts must agree."""
+        if self.spec.data_index != 0:
+            return params, state, momentum, count
+        import torch.distributed as dist
+
+        mine = (self.stage.units, params, state, momentum, count)
+        parts = [None] * self.spec.num_stages if self._writer else None
+        dist.gather_object(mine, parts, dst=self.spec.stage_rank(0),
+                           group=self.spec.stage_group)
+        if not self._writer:
+            return params, state, momentum, count
+        n = sum(len(units) for units, *_ in parts)
+        trees = [[None] * n for _ in range(3)]
+        for units, *local, _ in parts:
+            for tree, part in zip(trees, local):
+                for g, unit_tree in zip(units, part):
+                    tree[g] = unit_tree
+        counts = {c for *_, c in parts}
+        if len(counts) != 1:
+            raise RuntimeError(f"the pipeline's stages disagree on the "
+                               f"update count: {sorted(counts)}")
+        return (*(tuple(t) for t in trees), counts.pop())
+
+    def _pipeline_template(self) -> dict:
+        """A checkpoint template of the whole pipelined model (shapes
+        only, from the stage's meta copy of it, no collective): what
+        every rank restores."""
+        meta = self.stage._meta
+        zeros = lambda leaf: np.broadcast_to(np.float32(0), leaf.jax_shape)
+        params = leaf_tree(meta, zeros)
+        return {"params": params,
+                "batch_stats": leaf_tree(meta, zeros, state=True),
+                "momentum": params, "opt_count": np.int32(0),
+                "best_acc": np.float32(0), "epoch": np.int32(0),
+                "resume": build_resume_tree(0, 0, 1, 0, {"retries_left": 0,
+                                                         "lr_scale": 1.0})}
 
     def _momentum_tree(self) -> tuple:
-        """Every leaf's momentum in the JAX layout (zeros before the first
-        update or without momentum): ZeroSGD's slices gathered, an FSDP
-        slice gathered along its shard dim."""
-        opt = self.optimizer
-        index = {id(p): i for i, p in enumerate(opt.params)}
-        full = (opt.full_momentum() if hasattr(opt, "full_momentum")
-                else None)
-
-        def one(leaf):
-            p = leaf.stored
-            i = index[id(p)]
-            mom = full[i] if full is not None else opt.momentum_buffer(i)
-            if mom is None:
-                mom = torch.zeros_like(p, dtype=torch.float32)
-            if leaf.shard_dim is not None:
-                mom = all_gather_concat(mom, self.spec.group,
-                                        axis=leaf.shard_dim)
-            return leaf.to_jax(mom)
-
-        return leaf_tree(self.model, one)
+        """Every leaf's momentum in the JAX layout (:func:`momentum_tree`
+        over this trainer's optimizer)."""
+        return momentum_tree(self.model, [self.optimizer], self.spec.group)
 
     @torch.no_grad()
     def _load_tree(self, tree: dict) -> None:
         """Adopt a restored checkpoint: weights, BN statistics, momentum
         (this rank's slice under zero/fsdp, its replica's statistics under
-        ddp) and the update count."""
+        ddp, its stage's units under spmd_pipeline) and the update count."""
         params, state = tree["params"], tree["batch_stats"]
-        if self.config.strategy == "fsdp":
-            from distributed_model_parallel_tpu_torch.parallel import fsdp
+        momentum = tree["momentum"]
+        if self.config.strategy == "spmd_pipeline":
+            params, state, momentum = (tuple(t[g] for g in self.stage.units)
+                                       for t in (params, state, momentum))
+        elif self.config.strategy == "ddp":
+            from distributed_model_parallel_tpu_torch.parallel.ddp import (
+                replica_state,
+            )
 
-            fsdp.load_params_from_jax(self.model, params, state)
-        else:
-            if self.config.strategy == "ddp":
-                from distributed_model_parallel_tpu_torch.parallel.ddp import (
-                    replica_state,
-                )
-
-                state = replica_state(state, self.spec.rank)
-            params_from_jax(self.model, params, state, self.device)
-        opt = self.optimizer
-        opt.count = int(tree["opt_count"])
-        if opt.count == 0:
-            return                      # no update has made a trace yet
-        index = {id(p): i for i, p in enumerate(opt.params)}
-        moms = [None] * len(opt.params)
-        for leaf in model_leaves(self.model):
-            moms[index[id(leaf.stored)]] = leaf.local(
-                leaf.from_jax(tree_at(tree["momentum"], leaf)))
-        if hasattr(opt, "load_full_momentum"):
-            opt.load_full_momentum(moms)
-        else:
-            for i, m in enumerate(moms):
-                opt.set_momentum_buffer(i, m)
-
-    def _note_fallback(self, path: str, reason: str) -> None:
-        self._log_line(f"checkpoint fallback: {os.path.basename(path)} "
-                       f"rejected ({reason})")
+            state = replica_state(state, self.spec.rank)
+        load_leaves(self.model, params, state)
+        self.optimizer.count = int(tree["opt_count"])
+        load_momentum(self.model, [self.optimizer], momentum)
 
     def _resume(self) -> None:
-        """Restore the newest valid of ``RESUME_SLOTS`` (a torn version
-        falls back to the one before, a slot with none left to the next
-        slot) and continue where it was saved."""
-        template = self._ckpt_tree()
-        restored = name = None
-        for name in self.ckpt.names_by_recency(RESUME_SLOTS):
-            try:
-                restored = self.ckpt.restore(template, name,
-                                             allow_fallback=True,
-                                             on_fallback=self._note_fallback)
-                break
-            except CheckpointIntegrityError as e:
-                self._log_line(f"resume: slot {name!r} unusable: {e}")
-        if restored is None:
-            raise CheckpointIntegrityError(
-                f"resume: no restorable version of {RESUME_SLOTS} in "
-                f"{self.ckpt.directory}")
+        """Restore the newest valid of ``RESUME_SLOTS`` and continue where
+        it was saved (every rank reads the file)."""
+        template = (self._pipeline_template()
+                    if self.config.strategy == "spmd_pipeline"
+                    else self._ckpt_tree())
+        name, restored = restore_newest(self.ckpt, template, RESUME_SLOTS,
+                                        self._log_line)
         self._load_tree(restored)
         self.best_acc = float(restored["best_acc"])
-        self.start_epoch = int(restored["epoch"])
-        ep, cur, gs, _, _ = unpack_resume_tree(restored["resume"])
-        self.train_loader.load_state_dict({"epoch": ep, "batch_cursor": cur})
+        self.start_epoch, self.global_step = resume_position(
+            name, restored, self.train_loader, self._log_line)
         self._loader_pos = (self.train_loader.epoch, self.train_loader.cursor)
-        self.global_step = gs
-        # The best-accuracy slot's epoch lags when later epochs did not
-        # improve; the loader position is where training stood.
-        self.start_epoch = max(self.start_epoch, self.train_loader.epoch)
-        self._log_line(f"resume: slot {name!r} -> epoch {self.start_epoch} "
-                       f"batch {self.train_loader.cursor} (global step "
-                       f"{self.global_step})")

@@ -417,26 +417,21 @@ def test_fit_matches_jax_trainer(jax_fit, fused, resident, tmp_path):
 # (tests/test_torch_ddp*.py, tests/test_torch_*pipeline*.py,
 # test_torch_ring_reduce.py, test_torch_fsdp.py, test_torch_resume.py);
 # their entries here became what is still refused.
-_PIPE2 = dict(strategy="spmd_pipeline", mesh=tconfig.MeshConfig(stage=2))
-
-
 @pytest.mark.parametrize("bad", [
-    dict(async_checkpoint=True, **_PIPE2),
+    dict(optimizer=tconfig.OptimizerConfig(name="adam")),
     dict(optimizer=tconfig.OptimizerConfig(accum_steps=2)),
-    dict(strategy="spmd_pipeline", mesh=tconfig.MeshConfig(stage=2),
-         pipeline_schedule="1f1b", virtual_stages=2),
+    dict(stall_budget_s=1.0),
     dict(strategy="auto"),
     dict(mesh=tconfig.MeshConfig(data=2, dcn_data=2)),
-    dict(resume=True, **_PIPE2),
+    dict(optimizer=tconfig.OptimizerConfig(name="lamb")),
     dict(check_finite_every=1), dict(consistency_every=1),
     dict(emergency_every=5), dict(elastic=True), dict(statusz_port=0),
     dict(strategy="ddp", ddp_allreduce="hierarchical"),
     dict(recovery=tconfig.RecoveryConfig(max_retries=1)),
     dict(recovery=tconfig.RecoveryConfig(faults=("nan_loss@1",))),
     dict(mesh=tconfig.MeshConfig(stage=2, model=2)),
-    dict(data=tconfig.DataConfig(**{**DATA, "use_native": True})),
-    dict(data=tconfig.DataConfig(**{**DATA, "image_size": 64,
-                                     "synthetic_native_size": 32})),
+    dict(optimizer=tconfig.OptimizerConfig(name="lars")),
+    dict(optimizer=tconfig.OptimizerConfig(name="adafactor")),
     dict(optimizer=tconfig.OptimizerConfig(ema_decay=0.999)),
 ])
 def test_unported_trainer_options_raise(bad):

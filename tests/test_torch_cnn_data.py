@@ -71,9 +71,17 @@ def test_cifar10_pickles_read_alike(tmp_path):
         assert t.images.shape[1:] == (32, 32, 3)
 
 
-def test_file_backed_datasets_raise():
-    with pytest.raises(ValueError, match="ROADMAP A3"):
-        treg.load_dataset(TData(name="imagenet"))
+def test_file_backed_datasets_load_like_jax(tmp_path):
+    """``imagenet`` without its tree on disk: the JAX package's 1000-class
+    synthetic stand-in, bit for bit (tests/test_torch_data_path.py holds
+    the decoded trees)."""
+    cfg = dict(name="imagenet", root=str(tmp_path), image_size=8,
+               synthetic_train_size=16, synthetic_eval_size=4)
+    for j, t in zip(jreg.load_dataset(JData(**cfg)),
+                    treg.load_dataset(TData(**cfg))):
+        _same(t.images, j.images)
+        _same(t.labels, j.labels)
+        assert t.num_classes == j.num_classes == 1000
 
 
 @pytest.mark.parametrize("shuffle", [True, False])

@@ -301,8 +301,8 @@ def test_spawn_times_out_and_kills_its_ranks(tmp_path):
 
 
 @pytest.mark.parametrize("call,match", [
-    (lambda: tsp.make_cnn_1f1b_fwd_bwd(None, virtual_stages=2),
-     "ROADMAP A7"),
+    (lambda: tsp.spmd_ticks(2, 3, "1f1b", virtual_stages=2),
+     "Megatron constraint"),
     (lambda: tcoll.hierarchical_psum(torch.ones(2)), "ROADMAP A6"),
     (lambda: tcoll.hierarchical_psum_tree({}), "ROADMAP A6"),
     (lambda: tmesh.make_mesh(tconfig.MeshConfig(data=2, dcn_data=2),

@@ -7,8 +7,7 @@ slot precedence and the torn-version fallback; ``PreemptionGuard``;
 ``RunLogger``'s lines == the JAX ``RunLogger``'s; the resumed history ==
 the JAX trainer's on the same weights within 1e-4 (f32, augment off);
 ``ddp``, ``zero`` and ``fsdp`` at 2 gloo ranks resumed bit for bit;
-``spmd_pipeline`` refusing ``resume`` (ROADMAP A7); the CLI's
-``--resume``."""
+the pipeline CLI's spmd engine resuming; the CLI's ``--resume``."""
 
 import json
 import os
@@ -29,6 +28,7 @@ from distributed_model_parallel_tpu_torch.models import params_to_jax
 from distributed_model_parallel_tpu_torch.parallel import workers
 from distributed_model_parallel_tpu_torch.train import logging_util as tlog
 from distributed_model_parallel_tpu_torch.train import train_cnn
+from distributed_model_parallel_tpu_torch.train import train_model_parallel
 from distributed_model_parallel_tpu_torch.train import trainer as ttrainer
 from distributed_model_parallel_tpu_torch.train.checkpoint import (
     PAYLOAD_FILENAME,
@@ -281,11 +281,21 @@ def test_two_ranks_resume_bit_for_bit(rank_runs, strategy):
         np.testing.assert_array_equal(x, y)
 
 
-def test_spmd_pipeline_refuses_resume_naming_a7(tmp_path):
-    pipe = dict(strategy="spmd_pipeline", mesh=tconfig.MeshConfig(stage=2))
-    for bad in (dict(resume=True), dict(async_checkpoint=True)):
-        with pytest.raises(ValueError, match="ROADMAP A7"):
-            ttrainer.Trainer(_config(tmp_path, "pp", **pipe, **bad))
+def test_spmd_pipeline_cli_resumes(tmp_path, capsys):
+    """The pipeline CLI's spmd engine at 2 gloo ranks: a one-epoch run,
+    then ``--resume`` to two, continuing from the best-accuracy
+    checkpoint rank 0 wrote after gathering both stages."""
+    args = ["--device", "cpu", "--model", "tinycnn", "--engine", "spmd",
+            "--stages", "2", "--microbatches", "2", "--batch-size", "16",
+            "--synthetic-train-size", "48", "--synthetic-eval-size", "16",
+            "--log-dir", str(tmp_path / "log"),
+            "--checkpoint-dir", str(tmp_path / "ckpt")]
+    train_model_parallel.main(args + ["--epochs", "1"])
+    train_model_parallel.main(args + ["--epochs", "2", "--resume"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [json.loads(x)["epoch"] for x in lines] == [0, 1]
+    log = open(tmp_path / "log" / "16.txt").read()
+    assert "resume: slot 'ckpt' -> epoch 1 batch 0 (global step 3)" in log
 
 
 def test_cli_resume(tmp_path, capsys):

@@ -320,13 +320,22 @@ def test_trainer_refusals_match_jax(tmp_path, bad, match):
     assert str(terr.value) == str(jerr.value)
 
 
-def test_interleaved_over_ranks_is_refused_by_name():
+def test_interleaved_over_ranks_config_checks_as_jax():
+    """Interleaved 1F1B over ranks passes the trainer's checks (the
+    mesh, not the option, is what a lone process lacks); gpipe with
+    virtual stages and a cut of the wrong length are refused as JAX
+    refuses them."""
     cfg = tconfig.TrainConfig(model=tconfig.ModelConfig(name="tinycnn"),
                               strategy="spmd_pipeline", device="cpu",
                               mesh=tconfig.MeshConfig(stage=2),
                               pipeline_schedule="1f1b", virtual_stages=2)
-    with pytest.raises(ValueError, match="ROADMAP A7: interleaved 1F1B"):
+    ttrainer.check_train_config(cfg)
+    with pytest.raises(ValueError, match="needs a process group of 2"):
         ttrainer.Trainer(cfg)
+    with pytest.raises(ValueError, match="only under pipeline_schedule"):
+        ttrainer.check_train_config(cfg.replace(pipeline_schedule="gpipe"))
+    with pytest.raises(ValueError, match="provide 5"):
+        ttrainer.check_train_config(cfg.replace(stage_boundaries=(0, 3, 6)))
 
 
 @pytest.mark.parametrize("name,mbs,cut", [("tinycnn", 8, None),
