@@ -170,12 +170,35 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     per-batch host path with the host and device prefetch stages (depth
     2) bit for bit the epoch without them, the data time a step of each;
     (c) the C++ row gather at batch 512 of CIFAR-shaped rows against
-    numpy indexing, bit for bit, µs a batch of each.
+    numpy indexing, bit for bit, µs a batch of each;
+17. the rest of the data-parallel CNN trainer: (a) phase 11's CNN cell
+    under adam, adamw, lamb, lars and adafactor, the first 3 updates and
+    every state tensor on the card against the same chain on the CPU fed
+    the same gradients and parameters (1e-5 a leaf), finite losses over
+    20 more steps, with step s, samples/s, peak memory, state bytes, the
+    optimizer's host ms and CUDA kernels a step; (b) ``accum_steps`` 4 at
+    B 128 against B 512 (mobilenetv2_nobn, f32, cuDNN deterministic), 3
+    updates each from the big run's state, 1e-5 a leaf, ``fused_sgd``
+    and (momentum 0) ``plain_sgd`` launches == updates x buckets, the
+    fused update's µs in a profiled boundary step; (c) the weight
+    average against a float64 host recurrence (1e-6), then adamw +
+    accumulation 2 + EMA 0.99 on 15b's workload preempted mid-
+    accumulation and resumed, every checkpoint array bit for bit, save
+    and restore ms and bytes; (d) ``FusedSGD`` over MobileNetV2's leaves
+    in bf16 (staged into f32 buckets) against the plain version, leaves,
+    momentum and delta bit for bit; (e) fsdp on ResNet-50 f32 at two
+    ranks: at most one unit's whole weights alive in either pass (the
+    live gathered tensors' bytes, and ``memory_allocated`` after the
+    forward beside gspmd's), fsdp vs gspmd within 2e-4/2e-5; ddp
+    ``allreduce="hierarchical"`` against ``"bucketed"`` at four ranks on a
+    ``data=4, dcn_data=2`` mesh (MobileNetV2 f32 B 128, gloo on one card),
+    1e-6 a leaf, replicas bitwise.
 
 Prints the card line, each phase's seconds, a ``{"data_parallel": ...}``
 line, a ``{"pipeline": ...}`` line, a ``{"resnet": ...}`` line, a
 ``{"dp_engines": ...}`` line, a ``{"harness": ...}`` line, a
-``{"data_path": ...}`` line, the ``{"kernels": [...]}`` line and, last,
+``{"data_path": ...}`` line, a ``{"optim": ...}`` line, the
+``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero
 without a card, or when run outside a checkout of the repository.
 ``--sgd-timing-only`` runs phases 1, 2 (the fused SGD kernel) and 10 and
@@ -188,11 +211,16 @@ runner with each stage on its own card and the SPMD engine over NCCL.
 ``device_count()`` over NCCL and prints the ``{"dp_engines": ...}`` line;
 with more than one card it adds BASELINE.json's pair per engine
 (bucketed, ring, ZeRO, fsdp, gspmd): samples/s a card over 10 more steps
-and the gradient reduction's µs a step by CUDA events (not measured for
-fsdp, whose reduce-scatters run inside the backward). ``--harness-only``
+and the gradient reduction's µs a step by CUDA events (fsdp's is
+17e's). ``--harness-only``
 runs phases 1, 2 (the fused SGD kernel) and 15 and prints the
 ``{"harness": ...}`` line; ``--data-only`` runs phases 1, 2 and 16 and
-prints the ``{"data_path": ...}`` line.
+prints the ``{"data_path": ...}`` line; ``--optim-only`` runs phases 1, 2
+and 17 and prints the ``{"optim": ...}`` line. ``--dp-only`` adds 17e at
+world = the card count (fsdp) and 4 ranks (hierarchical) over NCCL with
+four cards, timed: samples/s a card and the reduction's µs a step (fsdp's:
+its reduce-scatters in the backward and the replicated leaves' all-reduce,
+each timed by CUDA events and added).
 """
 
 from __future__ import annotations
@@ -457,6 +485,34 @@ PPS_TRAIN, PPS_EVAL = 2048, 512
 FT_BATCH, FT_PX, FT_LR = 128, 224, 0.05
 FT_RESIZE_ATOL, FT_TIE = 1e-3, 1e-3
 FT_GATHER_ROWS, FT_GATHER_BATCH, FT_GATHER_REPS = 50_000, 512, 50
+# The rest of the data-parallel CNN trainer (phase 17). 17a: the CNN cell
+# of phase 11 (MobileNetV2 CIFAR, bf16 over f32, B 512, device-resident,
+# 10 steps a dispatch) under each optimizer at OPT_LR, no warm-up: the
+# first OPT_GATE_UPDATES updates and every state tensor on the card
+# against the same chain on the CPU fed the same gradients and
+# parameters, per leaf max|card - cpu| / max|cpu| within OPT_CPU_RTOL (f32
+# rounding of the norms' and means' sums, CUDA's rsqrt: ~1e-7); then
+# OPT_STEPS timed steps with finite losses. 17b: accum_steps ACC_K at B
+# ACC_MICRO against one step at B ACC_K x ACC_MICRO (the JAX package's
+# exact-equivalence claim, config.py:78-80), mobilenetv2_nobn in f32,
+# augment off, cuDNN deterministic, ACC_UPDATES updates, each leaf within
+# ACC_RTOL (the convolutions at two batch sizes round differently:
+# ~1e-7). 17c: EMA_STEPS steps of the CNN cell with ema_decay EMA_DECAY
+# against the recurrence on the host in float64 (EMA_RTOL: f32 rounding
+# of three steps), then 15b's workload under RESUME_OPT preempted at
+# global step RES_PREEMPT_STEP of epoch 1 (odd: mid-accumulation). 17e:
+# ddp on a data=4, dcn_data=2 mesh at HIER_BATCH, the hierarchical against
+# the bucketed all-reduce per leaf within HIER_RTOL (four ranks summed in
+# two orders; the fused update's step is lr-scaled, so the gap stays near
+# f32 rounding).
+OPT_LR = {"adam": 1e-3, "adamw": 1e-3, "lamb": 1e-2, "lars": 1.0,
+          "adafactor": 1e-2}
+OPT_GATE_UPDATES, OPT_STEPS, OPT_CPU_RTOL = 3, 20, 1e-5
+ACC_K, ACC_MICRO, ACC_UPDATES, ACC_RTOL, ACC_LR = 4, 128, 3, 1e-5, 0.01
+EMA_DECAY, EMA_STEPS, EMA_RTOL = 0.9, 3, 1e-6
+RESUME_OPT = dict(name="adamw", learning_rate=1e-3, warmup_steps=10,
+                  accum_steps=2, ema_decay=0.99)
+HIER_BATCH, HIER_RTOL = 128, 1e-6
 
 
 # Where the phases' trainers write their logs and checkpoints: one
@@ -2987,11 +3043,9 @@ def dp_engines_rank(spec, timed: bool) -> dict:
     if timed:
         for name, tr in (("gspmd", ref), ("fsdp", sharded)):
             it = iter(batches[DPE_STEPS:])
-            times = (tr.reducer.take_times_us if name == "gspmd"
-                     else (lambda: []))
             timed_runs[name] = dpe_timed(
-                lambda tr=tr, it=it: dpe_steps(tr, [next(it)]), times,
-                DPE_TIMED_STEPS)
+                lambda tr=tr, it=it: dpe_steps(tr, [next(it)]),
+                tr.reducer.take_times_us, DPE_TIMED_STEPS)
     out["fsdp"] = dict(
         losses=losses, ref_losses=ref_losses,
         loss_rel=max(abs(x - y) / abs(y) for x, y in zip(losses,
@@ -3767,6 +3821,628 @@ def data_path_phase(laps, trainer_mod, fs, tconfig, card) -> dict:
     return out
 
 
+# -- phase 17: the rest of the data-parallel CNN trainer ------------------
+
+def opt_state_bytes(opt) -> int:
+    """Bytes of an optimizer's state tensors (its leaf_state; SGD's
+    momentum buffers)."""
+    seen = [t for ts in opt.leaf_state().values() for t in ts
+            if t is not None]
+    seen += [m for m in getattr(opt, "_m", []) if m is not None]
+    return sum(t.numel() * t.element_size() for t in seen)
+
+
+def cuda_kernels_in(run) -> int:
+    """CUDA kernel launches of ``run()`` by ``torch.profiler`` (0 when
+    the profiler records no device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and e.device_time_total > 0)
+
+
+def optimizers_full_width(trainer_mod, adaptive, tconfig, fs,
+                          card) -> dict:
+    """Phase 17a: the CNN cell (MobileNetV2 CIFAR, bf16 over f32, B 512,
+    synthetic 32 px on the card, device-resident) under each of adam,
+    adamw, lamb, lars and adafactor. Gates: the first OPT_GATE_UPDATES
+    updates on the card against the same chain on the CPU fed the same
+    gradients and parameters (each update and every state tensor per leaf
+    within OPT_CPU_RTOL relative); finite losses over OPT_STEPS more
+    steps. Records step s, samples/s, peak memory, optimizer-state bytes,
+    the optimizer's host ms a step and its kernel launches a step."""
+    import torch
+
+    phase = "17a/optimizers"
+    idxs = cnn_dispatch_indices(4 * CNN_BATCH, 1 + OPT_STEPS // CNN_SPD)
+    out = {"launches": {"fused_sgd": 0, "plain_sgd": 0}}
+    fs.fused_sgd_kernel.launches = 0
+    fs.plain_sgd_kernel.launches = 0
+    for name, lr in OPT_LR.items():
+        t = trainer_mod.Trainer(cnn_config(
+            tconfig, name=name, learning_rate=lr, warmup_steps=0,
+            fused=False))
+        opt = t.optimizer
+        cpu_tx = adaptive.make_transform(
+            t.config.optimizer, [p.detach().cpu() for p in opt.params],
+            opt.layouts)
+        card_update = opt.tx.update
+        gaps = []
+
+        def gated(grads, params, lr, count, card_update=card_update,
+                  cpu_tx=cpu_tx, opt=opt, gaps=gaps):
+            g_cpu = [g.detach().cpu() for g in grads]
+            p_cpu = [p.detach().cpu() for p in params]
+            u = card_update(grads, params, lr, count)
+            u_cpu = cpu_tx.update(g_cpu, p_cpu, lr, count)
+            worst = max(rel_gap(a.cpu(), b) for a, b in zip(u, u_cpu))
+            for state, ts in opt.tx.state.items():
+                worst = max([worst] + [
+                    rel_gap(a.cpu(), b)
+                    for a, b in zip(ts, cpu_tx.state[state])
+                    if a is not None])
+            gaps.append(worst)
+            return u
+
+        opt.tx.update = gated
+        m = t.run_steps(idxs[0][:OPT_GATE_UPDATES])
+        gate_losses = m["loss"].cpu().tolist()
+        opt.tx.update = card_update
+        print(f"optimizer {name} card vs CPU [{card}]: MobileNetV2 "
+              f"{len(opt.params)} leaves, {OPT_GATE_UPDATES} updates, per "
+              f"update max over leaves of max|card - cpu| / max|cpu| "
+              f"(updates and {sorted(opt.tx.state)}) {gaps} (gate "
+              f"{OPT_CPU_RTOL})")
+        if len(gaps) != OPT_GATE_UPDATES or not max(gaps) <= OPT_CPU_RTOL:
+            fail(phase, f"{name}: card vs CPU {gaps}")
+        # The timed steps: the optimizer's host time per step (its
+        # enqueue, no sync) around each step() call.
+        host = []
+        step = opt.step
+
+        def timed_step(step=step, host=host):
+            t0 = time.perf_counter()
+            step()
+            host.append(time.perf_counter() - t0)
+
+        opt.step = timed_step
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rec = cnn_run(t, idxs[1:], f"trainer ({name})", card)
+        peak = torch.cuda.max_memory_allocated()
+        opt.step = step
+        out["launches"] = {"fused_sgd": fs.fused_sgd_kernel.launches,
+                           "plain_sgd": fs.plain_sgd_kernel.launches}
+        losses = gate_losses + rec["losses"]
+        if not all(math.isfinite(x) for x in losses):
+            fail(phase, f"{name}: non-finite losses {losses}")
+        launches = cuda_kernels_in(opt.step)
+        row = dict(step_s=rec["step_s"],
+                   samples_per_s=rec["samples_per_s"], peak_bytes=peak,
+                   state_bytes=opt_state_bytes(opt),
+                   host_ms=statistics.median(host) * 1e3,
+                   kernel_launches=launches, cpu_gap=max(gaps),
+                   losses=[losses[0], losses[-1]])
+        print(f"optimizer {name} [{card}]: lr {lr}, {OPT_STEPS} steps: step "
+              f"{row['step_s']} s, samples/s {row['samples_per_s']}, "
+              f"torch.cuda.max_memory_allocated {peak} B, optimizer state "
+              f"{row['state_bytes']} B, optimizer.step host "
+              f"{row['host_ms']} ms a step (median, no sync), {launches} "
+              f"CUDA kernels a step (torch.profiler); loss "
+              f"{losses[0]} -> {losses[-1]}")
+        out[name] = row
+        del t, opt, cpu_tx
+        torch.cuda.empty_cache()
+    return out
+
+
+def accum_pairs(trainer_mod, staged, tconfig, fs, card) -> dict:
+    """Phase 17b: ``accum_steps=ACC_K`` at B ACC_MICRO against one step at
+    B ACC_K x ACC_MICRO a boundary (mobilenetv2_nobn, f32, augment off,
+    cuDNN deterministic, FusedSGD), ACC_UPDATES updates on the same rows,
+    each from the big-batch run's state: every leaf within ACC_RTOL
+    relative after each update; fused_sgd (momentum 0.9) and plain_sgd
+    (momentum 0) launches == updates x buckets; the fused update's µs in
+    a profiled step."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    phase = "17b/accumulation"
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    big = ACC_K * ACC_MICRO
+    rng = np.random.default_rng(3)
+    idx = torch.from_numpy(rng.integers(0, 4 * CNN_BATCH, (
+        ACC_UPDATES, big)).astype(np.int64)).cuda()
+    params = None
+    out = {}
+    for momentum, kernel in ((0.9, "fused_sgd"), (0.0, "plain_sgd")):
+        def cfg(batch, accum, momentum=momentum):
+            c = cnn_config(tconfig, "mobilenetv2_nobn", learning_rate=ACC_LR,
+                           warmup_steps=0, momentum=momentum,
+                           accum_steps=accum)
+            return c.replace(
+                model=tconfig.ModelConfig(name="mobilenetv2_nobn",
+                                          dtype="float32"),
+                data=dataclasses.replace(c.data, batch_size=batch,
+                                         eval_batch_size=batch,
+                                         augment=False),
+                **run_dirs(f"accum_{batch}_{momentum}"))
+
+        a = trainer_mod.Trainer(cfg(big, 1))
+        if params is None:
+            params, state = staged.params_to_jax(a.model)
+        else:
+            a = trainer_mod.Trainer(cfg(big, 1), params=params, state=state)
+        b = trainer_mod.Trainer(cfg(ACC_MICRO, ACC_K), params=params,
+                                state=state)
+        gaps = []
+        fs.fused_sgd_kernel.launches = 0
+        fs.plain_sgd_kernel.launches = 0
+        for u in range(ACC_UPDATES):
+            a.run_steps(idx[u:u + 1])
+            b.run_steps(idx[u].reshape(ACC_K, ACC_MICRO))
+            gaps.append(max(rel_gap(x, y) for x, y in zip(
+                b.model.parameters(), a.model.parameters())))
+            # The next update starts both from a's state, so each gap is
+            # one update's own.
+            with torch.no_grad():
+                for src, dst in ((a.optimizer._p, b.optimizer._p),
+                                 (a.optimizer._m, b.optimizer._m)):
+                    for x, y in zip(src, dst):
+                        if x is not None:
+                            y.copy_(x)
+        torch.cuda.synchronize()
+        buckets = len(b.optimizer.buckets)
+        got = {"fused_sgd": fs.fused_sgd_kernel.launches,
+               "plain_sgd": fs.plain_sgd_kernel.launches}
+        want = {"fused_sgd": 0, "plain_sgd": 0}
+        want[kernel] = 2 * ACC_UPDATES * buckets     # a's and b's updates
+        print(f"accumulation (momentum {momentum}) [{card}]: "
+              f"mobilenetv2_nobn f32, accum_steps {ACC_K} at B {ACC_MICRO} "
+              f"vs B {big}, {ACC_UPDATES} updates: per-leaf max rel gap per "
+              f"update {gaps} (gate {ACC_RTOL}); launches {got} over both "
+              f"runs (want {want}: updates x buckets each, {buckets} "
+              f"bucket(s); {ACC_K * ACC_UPDATES} micro-steps); "
+              f"updates {b.optimizer.count}")
+        if not max(gaps) <= ACC_RTOL or got != want or \
+                b.optimizer.count != ACC_UPDATES:
+            fail(phase, f"momentum {momentum}: gaps {gaps}, launches {got}")
+        rec = dict(rel_gap=gaps, launches=got[kernel] // 2,
+                   buckets=buckets)
+        if kernel == "fused_sgd":
+            micro = idx[0].reshape(ACC_K, ACC_MICRO)
+            rows = print_profile(
+                f"accumulation boundary ({ACC_K} micro-steps)",
+                lambda: f"loss {b.run_steps(micro)['loss'][-1].item()}",
+                card, kind=cnn_kind)
+            rec["update_us"] = sgd_in_step_us(rows, "fused_sgd", card)
+        out[kernel] = rec
+        del a, b
+        torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def ema_and_resume(trainer_mod, tconfig, root, card) -> dict:
+    """Phase 17c: the average against a host recurrence in float64
+    (EMA_STEPS steps of the CNN cell with ema_decay EMA_DECAY, every
+    parameter and BN statistic within EMA_RTOL relative); then a fit with
+    adamw, accum_steps 2 and ema_decay 0.99 on 15b's workload, preempted
+    mid-accumulation and resumed, against the uninterrupted fit: every
+    array of the checkpoint bit for bit; save and restore ms and bytes."""
+    import numpy as np
+    import torch
+
+    from distributed_model_parallel_tpu_torch.train.checkpoint import (
+        PAYLOAD_FILENAME,
+        flatten_tree,
+    )
+
+    phase = "17c/ema"
+    t = trainer_mod.Trainer(cnn_config(tconfig, ema_decay=EMA_DECAY))
+    idx = cnn_dispatch_indices(4 * CNN_BATCH, 1)[0]
+    host = [x.detach().double().cpu() for x in t.ema.live]
+    for k in range(EMA_STEPS):
+        t.run_steps(idx[k:k + 1])
+        host = [(1 - EMA_DECAY) * x.detach().double().cpu() + EMA_DECAY * h
+                for x, h in zip(t.ema.live, host)]
+    gap = max(rel_gap(a.double().cpu(), h) for a, h in zip(t.ema.avg, host))
+    print(f"ema [{card}]: MobileNetV2 bf16 B {CNN_BATCH}, decay {EMA_DECAY}, "
+          f"{EMA_STEPS} steps: {len(host)} averaged tensors (parameters and "
+          f"BN statistics) vs the host recurrence in float64, max per-tensor "
+          f"max|a - b| / max|b| {gap} (gate {EMA_RTOL})")
+    if not gap <= EMA_RTOL:
+        fail(phase, f"ema vs host recurrence {gap}")
+    del t
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    opt = tconfig.OptimizerConfig(**RESUME_OPT)
+
+    def config(name):
+        return resume_config(tconfig, root, name).replace(optimizer=opt)
+
+    a = trainer_mod.Trainer(config("acc_a"))
+    a.fit()
+    steps = len(a.train_loader)
+    target = steps + RES_PREEMPT_STEP            # odd: mid-accumulation
+    cfg = config("acc_b")
+    b = trainer_mod.Trainer(cfg)
+    b.step_hook = (lambda tr: tr.preemption.request()
+                   if tr.global_step >= target else None)
+    b.fit()
+    mini = b.optimizer.accum.mini_step
+    stopped = b.global_step
+    del b
+    r = trainer_mod.Trainer(cfg.replace(resume=True))
+    r.fit()
+    torch.cuda.synchronize()
+    ta, tr = flatten_tree(a._ckpt_tree()), flatten_tree(r._ckpt_tree())
+    bad = [k for k in ta if not np.array_equal(ta[k], tr[k])]
+    print(f"resume adamw + accum 2 + ema 0.99 [{card}]: MobileNetV2 bf16, B "
+          f"{RES_BATCH}, preempted at global step {stopped} (mini_step "
+          f"{mini}: mid-accumulation), resumed to {r.global_step}: "
+          f"{len(bad)} of {len(ta)} checkpoint arrays differ from the "
+          f"uninterrupted fit (parameters, BN statistics, mu, nu, the "
+          f"accumulated mean, counters, averages)")
+    if bad or mini == 0 or set(ta) != set(tr):
+        fail(phase, f"resumed run differs in {bad[:8]} (mini_step {mini})")
+    tmpl = r._ckpt_tree()
+    trees, saves, restores = [], [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = r._ckpt_tree()
+        t1 = time.perf_counter()
+        path = r.ckpt.save(tree, "bench")
+        t2 = time.perf_counter()
+        r._load_tree(r.ckpt.restore(tmpl, "bench"))
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        trees.append((t1 - t0) * 1e3)
+        saves.append((t2 - t1) * 1e3)
+        restores.append((t3 - t2) * 1e3)
+    nbytes = os.path.getsize(os.path.join(path, PAYLOAD_FILENAME))
+    print(f"resume checkpoint adamw + accum + ema [{card}]: {nbytes} B; tree "
+          f"{statistics.median(trees)} ms, save {statistics.median(saves)} "
+          f"ms, restore + load {statistics.median(restores)} ms (median of "
+          f"3)")
+    torch.backends.cudnn.deterministic = False
+    return dict(ema_gap=gap, differing=len(bad), arrays=len(ta),
+                preempted_at=stopped, bytes=nbytes, tree_ms=trees,
+                save_ms=saves, restore_ms=restores)
+
+
+def bf16_leaves(optim, tconfig, models, fs, card) -> dict:
+    """Phase 17d: FusedSGD over MobileNetV2's leaves in bf16 on the card
+    (staged into f32 buckets, the kernel writing the delta) against the
+    plain version on the same card, OPT_GATE_UPDATES updates: leaves,
+    momentum and delta bit for bit; fused_sgd == updates x buckets."""
+    import torch
+
+    phase = "17d/bf16 leaves"
+    base = [p.detach().to(torch.bfloat16) for p in models.get_model(
+        tconfig.ModelConfig(), device="cuda").parameters()]
+    leaves = [torch.nn.Parameter(x.clone()) for x in base]
+    cfg = tconfig.OptimizerConfig(learning_rate=0.1, momentum=0.9,
+                                  weight_decay=1e-4, fused=True)
+    opt = optim.FusedSGD(leaves, cfg, lambda n: 0.1)
+    ref = [x.clone() for x in base]
+    moms = [torch.zeros_like(m) for m in opt._m]
+    dev = base[0].device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    fs.fused_sgd_kernel.launches = 0
+    bad = 0
+    for _ in range(OPT_GATE_UPDATES):
+        grads = [torch.randn(x.shape, device=dev, generator=gen)
+                 .to(torch.bfloat16) for x in base]
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        opt.step()
+        for b, bucket in enumerate(opt.buckets):
+            p32 = torch.cat([ref[i].float().reshape(-1) for i in bucket])
+            g32 = torch.cat([grads[i].float().reshape(-1) for i in bucket])
+            delta = fs.sgd_delta_plain(p32, moms[b], g32, 0.1, 0.9, 1e-4,
+                                       False)
+            off = 0
+            for i in bucket:
+                n = ref[i].numel()
+                ref[i].add_(delta[off:off + n].view(ref[i].shape)
+                            .to(torch.bfloat16))
+                off += n
+            bad += int(not torch.equal(delta, opt.last_deltas[b]))
+            bad += int(not torch.equal(moms[b], opt._m[b]))
+        bad += sum(not torch.equal(p.detach(), x) for p, x in zip(leaves,
+                                                                 ref))
+    torch.cuda.synchronize()
+    launches = fs.fused_sgd_kernel.launches
+    want = OPT_GATE_UPDATES * len(opt.buckets)
+    print(f"bf16 leaves [{card}]: FusedSGD over {len(leaves)} bf16 leaves "
+          f"({len(opt.buckets)} bucket(s)), {OPT_GATE_UPDATES} updates vs "
+          f"the plain version: {bad} of leaves, momentum and delta differ "
+          f"(bit for bit); fused_sgd launches {launches} (want {want})")
+    if bad or launches != want:
+        fail(phase, f"{bad} arrays differ, launches {launches} != {want}")
+    return dict(differing=bad, launches=launches, buckets=len(opt.buckets))
+
+
+def optim_ranks_rank(spec, part: str, timed: bool) -> dict:
+    """Phase 17e on one rank. ``part="fsdp"``: ResNet-50 f32 at DPE_BATCH
+    under fsdp, one step measured for the whole weights it holds (the
+    live gathered tensors' count and bytes, and ``memory_allocated``
+    after the forward beside gspmd's), then fsdp vs gspmd over DPE_STEPS
+    steps from gspmd's state. ``part="hierarchical"``: MobileNetV2 f32 at
+    HIER_BATCH on a data=4, dcn_data=2 mesh, ddp ``"hierarchical"`` vs
+    ``"bucketed"`` with FusedSGD, each step from the bucketed run's
+    state, replicas bitwise. With ``timed``, DPE_TIMED_STEPS more steps
+    of each: samples/s and the reduction's µs a step."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch import config as tconfig
+    from distributed_model_parallel_tpu_torch.data.loader import normalize
+    from distributed_model_parallel_tpu_torch.models.staged import (
+        model_leaves,
+    )
+    from distributed_model_parallel_tpu_torch.ops import fused_sgd as fs
+    from distributed_model_parallel_tpu_torch.parallel import ddp, fsdp
+    from distributed_model_parallel_tpu_torch.train import (
+        trainer as trainer_mod,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    world = spec.num_data
+    n_all = DPE_STEPS + (DPE_TIMED_STEPS if timed else 0)
+    out = {"backend": spec.backend, "world": world}
+    if part == "fsdp":
+        ref, sharded = (trainer_mod.Trainer(dpe_config(
+            tconfig, world, strategy=strategy), spec=spec)
+            for strategy in ("gspmd", "fsdp"))
+        batches = dpe_batches(ref, n_all)
+        leaves = [leaf for leaf in model_leaves(sharded.model)
+                  if leaf.shard_dim is not None]
+        unit_bytes, unit_count = {}, {}
+        for leaf in leaves:
+            n = 4
+            for s in leaf.full_shape(world):
+                n *= s
+            unit_bytes[leaf.unit] = unit_bytes.get(leaf.unit, 0) + n
+            unit_count[leaf.unit] = unit_count.get(leaf.unit, 0) + 1
+        mean = torch.as_tensor(ref.train_ds.mean, device=spec.device)
+        std = torch.as_tensor(ref.train_ds.std, device=spec.device)
+        held = {}
+        for name, tr in (("gspmd", ref), ("fsdp", sharded)):
+            # One step's forward and backward by hand, its update dropped.
+            im, lb = batches[0]
+            x = normalize(im, mean, std, torch.float32)
+            tr.optimizer.zero_grad()
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            ledger = sharded.model.gather_ledger
+            ledger.stats(reset=True)
+            logits, _ = tr.model.apply(x, train=True)
+            torch.cuda.synchronize()
+            held[name] = torch.cuda.memory_allocated() - before
+            fwd = ledger.stats(reset=True)
+            trainer_mod.cross_entropy(logits, lb).backward()
+            torch.cuda.synchronize()
+            if name == "fsdp":
+                bwd = ledger.stats()
+            tr.reducer.finish()
+            tr.optimizer.zero_grad()
+            del logits
+        out["gathered"] = dict(
+            fwd_peak=fwd["peak"], fwd_peak_bytes=fwd["peak_bytes"],
+            bwd_peak=bwd["peak"], bwd_peak_bytes=bwd["peak_bytes"],
+            live_after_forward=fwd["now"], live_after=bwd["now"],
+            held_fsdp=held["fsdp"], held_gspmd=held["gspmd"],
+            max_unit_bytes=max(unit_bytes.values()),
+            max_unit_count=max(unit_count.values()),
+            all_units_bytes=sum(unit_bytes.values()),
+            slice_bytes=fsdp.resident_bytes(sharded.model)["params"])
+        sharded.reducer.take_times_us()
+        losses, ref_losses, close, gaps = [], [], [], []
+        for b in batches[:DPE_STEPS]:
+            ref_losses += dpe_steps(ref, [b])
+            losses += dpe_steps(sharded, [b])
+            got, want = dpe_params(sharded), dpe_params(ref)
+            close.append(all(torch.allclose(x, y, rtol=FSDP_RTOL,
+                                            atol=FSDP_ATOL)
+                             for x, y in zip(got, want)))
+            gaps.append(max(rel_gap(x, y) for x, y in zip(got, want)))
+            dpe_sync_fsdp(ref, sharded, spec)
+        out["fsdp"] = dict(
+            losses=losses, ref_losses=ref_losses,
+            loss_rel=max(abs(x - y) / abs(y)
+                         for x, y in zip(losses, ref_losses)),
+            params_close=all(close), rel_gap=gaps)
+        if timed:
+            it = iter(batches[DPE_STEPS:])
+            sharded.reducer.take_times_us()
+            out["fsdp"]["timed"] = dpe_timed(
+                lambda: dpe_steps(sharded, [next(it)]),
+                sharded.reducer.take_times_us, DPE_TIMED_STEPS)
+        return out
+    # -- hierarchical vs bucketed --------------------------------------
+    def config(allreduce):
+        return hier_config(tconfig, world, allreduce)
+
+    ref, hier = (trainer_mod.Trainer(config(a), spec=spec)
+                 for a in ("bucketed", "hierarchical"))
+    batches = dpe_batches(ref, n_all)
+    fs.fused_sgd_kernel.launches = 0
+    fs.plain_sgd_kernel.launches = 0
+    losses, gaps = {"bucketed": [], "hierarchical": []}, []
+    for b in batches[:DPE_STEPS]:
+        losses["bucketed"] += dpe_steps(ref, [b])
+        losses["hierarchical"] += dpe_steps(hier, [b])
+        ddp.assert_ddp_replicated(hier.model, hier.optimizer, spec)
+        gaps.append(max(rel_gap(x, y) for x, y in zip(
+            hier.model.parameters(), ref.model.parameters())))
+        with torch.no_grad():
+            for src, dst in ((ref.optimizer._p, hier.optimizer._p),
+                             (ref.optimizer._m, hier.optimizer._m)):
+                for x, y in zip(src, dst):
+                    y.copy_(x)
+    torch.cuda.synchronize()
+    out["hierarchical"] = dict(
+        losses=losses, rel_gap=gaps, buckets=len(hier.optimizer.buckets),
+        launches={"fused_sgd": fs.fused_sgd_kernel.launches,
+                  "plain_sgd": fs.plain_sgd_kernel.launches},
+        groups=[torch.distributed.get_process_group_ranks(g)
+                for g in spec.hierarchy])
+    if timed:
+        out["hierarchical"]["timed"] = {}
+        for name, tr in (("bucketed", ref), ("hierarchical", hier)):
+            it = iter(batches[DPE_STEPS:])
+            out["hierarchical"]["timed"][name] = dpe_timed(
+                lambda tr=tr, it=it: dpe_steps(tr, [next(it)]),
+                tr.reducer.take_times_us, DPE_TIMED_STEPS)
+    return out
+
+
+def hier_config(tconfig, world: int, allreduce: str):
+    """Phase 17e's ddp config: MobileNetV2 f32 at HIER_BATCH over a
+    ``data=world, dcn_data=2`` mesh, augment off, FusedSGD lr 0.1."""
+    return tconfig.TrainConfig(
+        model=tconfig.ModelConfig(name="mobilenetv2", dtype="float32"),
+        data=tconfig.DataConfig(
+            name="synthetic", batch_size=HIER_BATCH,
+            eval_batch_size=HIER_BATCH, image_size=32,
+            synthetic_native_size=32, augment=False,
+            synthetic_train_size=(DPE_STEPS + DPE_TIMED_STEPS) * HIER_BATCH,
+            synthetic_eval_size=HIER_BATCH),
+        optimizer=tconfig.OptimizerConfig(learning_rate=0.1, warmup_steps=0,
+                                          fused=True),
+        mesh=tconfig.MeshConfig(data=world, dcn_data=2), strategy="ddp",
+        ddp_allreduce=allreduce, device="cuda",
+        **run_dirs(f"hier_{allreduce}"))
+
+
+def optim_ranks(mesh, tconfig, card, world: int, backend: str) -> dict:
+    """Phase 17e: :func:`optim_ranks_rank`'s fsdp part at 2 ranks (at
+    ``world`` ranks, timed, over NCCL) and its hierarchical part at 4
+    ranks over ``backend``; the parent prints and gates."""
+    phase = "17e/ranks"
+    timed = backend == "nccl"
+    n_fsdp = world if timed else 2
+    where = ("each rank on its own card" if backend == "nccl"
+             else "the ranks sharing the one card")
+    f = dp_spawn(mesh, optim_ranks_rank, n_fsdp, phase, "fsdp", timed,
+                 backend=backend)
+    g = f[0]["gathered"]
+    slices = g["slice_bytes"]
+    print(f"fsdp whole weights [{card}] {n_fsdp} ranks over {backend} "
+          f"({where}): {RN_MODEL} f32, B {DPE_BATCH}, one step: live "
+          f"gathered weights at most {g['fwd_peak']} in the forward and "
+          f"{g['bwd_peak']} in the backward (the largest unit has "
+          f"{g['max_unit_count']}), {g['fwd_peak_bytes']} / "
+          f"{g['bwd_peak_bytes']} B (largest unit's whole weights "
+          f"{g['max_unit_bytes']} B, all units' {g['all_units_bytes']} B, "
+          f"this rank's slices {slices} B); alive after the forward "
+          f"{g['live_after_forward']}, after the step {g['live_after']}; "
+          f"memory_allocated held after the forward: fsdp {g['held_fsdp']} "
+          f"B vs gspmd {g['held_gspmd']} B (difference "
+          f"{g['held_fsdp'] - g['held_gspmd']} B)")
+    bound = g["max_unit_bytes"] + slices
+    if not (max(g["fwd_peak_bytes"], g["bwd_peak_bytes"]) <= bound
+            and g["held_fsdp"] - g["held_gspmd"] <= bound
+            and g["live_after_forward"] == 0 and g["live_after"] == 0
+            and g["bwd_peak"] > 0):
+        fail(phase, f"fsdp holds more than one unit's whole weights: {g}")
+    fr = f[0]["fsdp"]
+    print(f"fsdp vs gspmd [{card}] {n_fsdp} ranks over {backend}, each step "
+          f"from gspmd's state: losses {fr['losses']} vs "
+          f"{fr['ref_losses']} (max rel {fr['loss_rel']}, gate "
+          f"{FSDP_LOSS_RTOL}); gathered params allclose(rtol {FSDP_RTOL}, "
+          f"atol {FSDP_ATOL}) {fr['params_close']} (per-leaf max rel gap "
+          f"per step {fr['rel_gap']})")
+    if not (fr["loss_rel"] <= FSDP_LOSS_RTOL
+            and all(x["fsdp"]["params_close"] for x in f)):
+        fail(phase, "fsdp vs gspmd outside tolerance")
+    out = {"fsdp": dict(gathered=g, loss_rel=fr["loss_rel"],
+                        rel_gap=fr["rel_gap"], ranks=n_fsdp)}
+    if timed:
+        tm = fr["timed"]
+        print(f"fsdp timed [{card}] {n_fsdp} ranks over {backend}: "
+              f"samples/s/card {tm['samples_per_s'] / n_fsdp}, reduction "
+              f"{tm['reduction_us_median']} us a step (median; the "
+              f"backward's reduce-scatters and the replicated leaves' "
+              f"all-reduce, each timed by CUDA events and added)")
+        out["fsdp"]["timed"] = tm
+    h = dp_spawn(mesh, optim_ranks_rank, 4, phase, "hierarchical", timed,
+                 backend=backend,
+                 config=tconfig.MeshConfig(data=4, dcn_data=2))
+    hr = h[0]["hierarchical"]
+    want = DPE_STEPS * hr["buckets"]
+    print(f"ddp hierarchical vs bucketed [{card}] 4 ranks over {backend} "
+          f"(data=4, dcn_data=2; groups {hr['groups']}): MobileNetV2 f32, "
+          f"B {HIER_BATCH}, {DPE_STEPS} steps, FusedSGD, each step from the "
+          f"bucketed run's state: losses {hr['losses']}; per-leaf max rel "
+          f"gap per step {hr['rel_gap']} (gate {HIER_RTOL}); replicas "
+          f"bitwise equal after every step; fused_sgd launches on rank 0 "
+          f"{hr['launches']} over both runs (want {2 * want})")
+    if not max(hr["rel_gap"]) <= HIER_RTOL or \
+            hr["launches"]["fused_sgd"] != 2 * want:
+        fail(phase, f"hierarchical vs bucketed: {hr['rel_gap']}, "
+                    f"launches {hr['launches']}")
+    out["hierarchical"] = dict(rel_gap=hr["rel_gap"],
+                               launches=hr["launches"]["fused_sgd"] // 2,
+                               groups=hr["groups"])
+    if timed:
+        for name, p in hr["timed"].items():
+            print(f"ddp {name} timed [{card}] 4 ranks over {backend}: "
+                  f"samples/s/card {p['samples_per_s'] / 4}, grad reduction "
+                  f"{p['reduction_us_median']} us a step (median, CUDA "
+                  f"events)")
+        out["hierarchical"]["timed"] = hr["timed"]
+    return out
+
+
+def optim_phase(laps, trainer_mod, fs, models, staged, mesh, tconfig,
+                card) -> dict:
+    """Phase 17: 17a-17e (the rest of the data-parallel CNN trainer)."""
+    import tempfile
+
+    import torch
+
+    from distributed_model_parallel_tpu_torch.train import adaptive, optim
+
+    torch.backends.cudnn.benchmark = True
+    out = {"optimizers": optimizers_full_width(trainer_mod, adaptive,
+                                               tconfig, fs, card)}
+    laps.done("17a/optimizers")
+    out["accumulation"] = accum_pairs(trainer_mod, staged, tconfig, fs, card)
+    laps.done("17b/accumulation")
+    root = tempfile.mkdtemp(prefix="optim_", dir=os.environ[RUN_DIR_ENV])
+    out["ema_resume"] = ema_and_resume(trainer_mod, tconfig, root, card)
+    laps.done("17c/ema + resume")
+    out["bf16_leaves"] = bf16_leaves(optim, tconfig, models, fs, card)
+    laps.done("17d/bf16 leaves")
+    two = torch.cuda.device_count() >= 4
+    out["ranks"] = optim_ranks(mesh, tconfig, card,
+                               torch.cuda.device_count(),
+                               "nccl" if two else "gloo")
+    laps.done("17e/ranks")
+    return out
+
+
+def optim_summary(opt: dict) -> dict:
+    """Phase 17's numbers for the JSON line (no per-step losses)."""
+    rows = {k: ({x: y for x, y in v.items() if x != "losses"}
+                if k != "launches" else v)
+            for k, v in opt["optimizers"].items()}
+    return {**opt, "optimizers": rows}
+
+
 class Laps:
     """Prints each phase's seconds since the previous phase ended."""
 
@@ -3807,10 +4483,16 @@ def main() -> None:
                          "14b at world = device_count() over NCCL, print "
                          "the DP engines' JSON line and stop: with four "
                          "cards, BASELINE's pair (samples/s a card, the "
-                         "gradient reduction's us a step) per engine")
+                         "gradient reduction's us a step) per engine, and "
+                         "17e at four ranks")
+    ap.add_argument("--optim-only", action="store_true",
+                    help="run phases 1, 2 (the fused SGD kernel only) and "
+                         "17 (the other optimizers, accumulation, EMA, "
+                         "bf16 leaves, fsdp's re-gather, the two-level data "
+                         "axis), print the optimizers' JSON line and stop")
     args = ap.parse_args()
     only = (args.sgd_timing_only or args.pipeline_only or args.dp_only
-            or args.harness_only or args.data_only)
+            or args.harness_only or args.data_only or args.optim_only)
     import atexit
     import shutil
     import tempfile
@@ -3918,9 +4600,21 @@ def main() -> None:
     if args.dp_only:
         from distributed_model_parallel_tpu_torch import mesh
 
-        print(json.dumps({"dp_engines": dp_engines(
-            mesh, card, torch.cuda.device_count(), "nccl"), "card": card}))
+        world = torch.cuda.device_count()
+        engines = dp_engines(mesh, card, world, "nccl")
         laps.done("14b/dp engines")
+        ranks = optim_ranks(mesh, tconfig, card, world,
+                            "nccl" if world >= 4 else "gloo")
+        laps.done("17e/ranks")
+        print(json.dumps({"dp_engines": engines, "optim_ranks": ranks,
+                          "card": card}))
+        return
+    if args.optim_only:
+        from distributed_model_parallel_tpu_torch import mesh
+
+        print(json.dumps({"optim": optim_summary(optim_phase(
+            laps, cnn_trainer, fs, models, staged, mesh, tconfig, card)),
+            "card": card}))
         return
 
     # -- phase 3: kernel vs plain ---------------------------------------------
@@ -4164,6 +4858,10 @@ def main() -> None:
     # -- phase 16: the data path: the finetune recipe, prefetch, gather -----
     data_path = data_path_phase(laps, cnn_trainer, fs, tconfig, card)
 
+    # -- phase 17: optimizers, accumulation, EMA, fsdp, the dcn axis ---------
+    opt17 = optim_phase(laps, cnn_trainer, fs, models, staged, mesh, tconfig,
+                        card)
+
     kernels = [{
         "name": "paged_decode",
         "route": "cuda",
@@ -4220,6 +4918,12 @@ def main() -> None:
             "launches_13c_pipeline_resume": pp["resume"][name],
             "launches_13d_spmd_resume_per_rank": pp["spmd_resume"][name],
             "launches_16a_finetune": data_path["finetune"][name],
+            "launches_17a_optimizers": opt17["optimizers"]["launches"][name],
+            "launches_17b_accumulation": opt17["accumulation"][name][
+                "launches"],
+            "launches_17e_hierarchical_rank0": (
+                opt17["ranks"]["hierarchical"]["launches"]
+                if name == "fused_sgd" else 0),
             "max_abs_err": sgd_err,
             **sgd_times[name],
             "in_step_us": sgd_in_step[name],
@@ -4230,6 +4934,7 @@ def main() -> None:
     print(json.dumps({"dp_engines": dpe, "card": card}))
     print(json.dumps({"harness": harness_summary(harness), "card": card}))
     print(json.dumps({"data_path": data_path, "card": card}))
+    print(json.dumps({"optim": optim_summary(opt17), "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,8 +20,9 @@ from typing import Any, Mapping, Sequence
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Logical device mesh; axis sizes of 1 disable an axis. The port runs
-    the data axis over a process group of ``data`` ranks (``mesh.py``);
-    ``dcn_data > 1`` and the other axes are refused (ROADMAP A6-A9)."""
+    the data axis over a process group of ``data`` ranks (``mesh.py``),
+    two-level at ``dcn_data > 1``, and the ``stage`` axis; the other axes
+    are refused (ROADMAP A9)."""
 
     data: int = 1
     stage: int = 1
@@ -52,10 +53,11 @@ class MeshConfig:
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     """SGD + cosine annealing + linear warmup, field for field the JAX
-    package's ``OptimizerConfig``. The port runs ``name="sgd"``, with or
-    without ``fused`` (the fused SGD kernel over flat buckets), and refuses
-    ``accum_steps > 1`` and ``ema_decay`` (``train/optim.py``, ROADMAP
-    A4)."""
+    package's ``OptimizerConfig``: ``name`` sgd (with or without
+    ``fused``, the fused SGD kernel over flat buckets), adam, adamw,
+    lamb, lars or adafactor (``train/optim.py``); ``accum_steps`` updates
+    once per k gradients from their mean; ``ema_decay`` averages the
+    weights for evaluation (the CNN ``Trainer``, gspmd and fsdp)."""
 
     name: str = "sgd"
     learning_rate: float = 0.4

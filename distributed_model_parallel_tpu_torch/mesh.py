@@ -13,6 +13,16 @@ its data row across the stages (the pipeline's point-to-point ring). With
 splits every global batch of ``B`` rows: data row ``d`` holds rows
 ``[d·B/D, (d+1)·B/D)``, in the order JAX shards the data axis.
 
+``dcn_data = H > 1`` factors the data axis into ``H`` host rows of ``D/H``
+ranks, host-major, as the JAX package lays out its ``("dcn", data)``
+mesh: data index ``d`` sits in dcn row ``d // (D/H)`` at inner index ``d %
+(D/H)``. Each rank then also belongs to its inner group (its dcn row:
+the fast, within-host links) and its outer group (the ranks of its inner
+index across the rows), the two levels ``ops/collectives.
+hierarchical_psum`` reduces over; ``MeshConfig(data=4, dcn_data=2)`` is a
+2 x 2 grid, ranks {0, 1} in row 0 and {2, 3} in row 1. Everything else
+runs over the whole data group, as JAX runs it over ``("dcn", data)``.
+
 * :func:`init_process_group` joins this process to the group, from
   torchrun's environment (``env://``, ``LOCAL_RANK`` picks the card) or
   from an explicit ``(rank, world, init_method)``, and returns its
@@ -30,9 +40,8 @@ splits every global batch of ``B`` rows: data row ``d`` holds rows
 The backend is never switched behind the caller's back: a CUDA rank runs
 NCCL, one rank per card, unless the caller asks for gloo (several ranks
 sharing one card), and a rank that finds no card raises instead of
-running on the CPU. Not ported yet, and refused by name: ``dcn_data > 1``
-(the two-level data axis across hosts, ROADMAP A6) and the ``model``,
-``seq`` and ``expert`` axes (A9).
+running on the CPU. Not ported yet, and refused by name: the ``model``,
+``seq`` and ``expert`` axes (ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -60,14 +69,20 @@ _OTHER_AXES = (("model", "A9: tensor parallelism"),
 _joined: dict = {}
 
 
+# The name of the cross-host factor of the data axis (the JAX package's).
+DCN_AXIS = "dcn"
+
+
 def check_mesh_config(config: MeshConfig) -> None:
     """Raise, naming the ROADMAP item, for a mesh the port does not run:
-    anything beyond the ``data`` and ``stage`` axes."""
-    if config.dcn_data != 1:
-        raise ValueError(f"MeshConfig(dcn_data={config.dcn_data}): the "
-                         f"two-level data axis across hosts (hierarchical "
-                         f"all-reduce) is not ported yet (ROADMAP A6, "
-                         f"multi-node)")
+    anything beyond the ``data`` axis (two-level or not) and the
+    ``stage`` axis; and, in the JAX package's words, a ``dcn_data`` that
+    does not divide ``data``."""
+    if config.dcn_data < 1:
+        raise ValueError(f"dcn_data must be >= 1, got {config.dcn_data}")
+    if config.data % config.dcn_data:
+        raise ValueError(f"dcn_data={config.dcn_data} must divide "
+                         f"data={config.data}")
     for axis, item in _OTHER_AXES:
         if getattr(config, axis) != 1:
             raise ValueError(f"MeshConfig({axis}={getattr(config, axis)}) "
@@ -79,9 +94,10 @@ def check_mesh_config(config: MeshConfig) -> None:
 class MeshSpec:
     """One rank's view of the ``(data, stage)`` mesh: the mesh config, this
     rank, its device, the backend of its process group (None: a lone
-    process with no group, world 1) and its two sub-groups (None at
+    process with no group, world 1), its two sub-groups (None at
     ``stage == 1``, where the data axis is the whole world and there is
-    no ring)."""
+    no ring) and, at ``dcn_data > 1``, the inner and outer groups of its
+    two-level data axis (None otherwise)."""
 
     config: MeshConfig
     rank: int = 0
@@ -89,6 +105,8 @@ class MeshSpec:
     backend: str | None = None
     data_group: object = None
     stage_group: object = None
+    inner_group: object = None
+    outer_group: object = None
 
     @property
     def num_data(self) -> int:
@@ -105,6 +123,24 @@ class MeshSpec:
     @property
     def stage_axis(self) -> str:
         return self.config.stage_axis
+
+    @property
+    def dcn_axis(self) -> str | None:
+        """The cross-host factor of the data axis (None on one host)."""
+        return DCN_AXIS if self.config.dcn_data > 1 else None
+
+    @property
+    def ici_data_axis(self) -> str:
+        """The within-host factor of the data axis."""
+        return self.config.data_axis
+
+    @property
+    def hierarchy(self) -> tuple | None:
+        """``(inner_group, outer_group)`` of a two-level data axis (None
+        without a process group or at ``dcn_data == 1``)."""
+        if self.backend is None or self.dcn_axis is None:
+            return None
+        return self.inner_group, self.outer_group
 
     @property
     def coords(self) -> tuple[int, int]:
@@ -146,17 +182,40 @@ def mesh_groups(data: int, stage: int) -> tuple[list, list]:
             [[d * stage + s for s in range(stage)] for d in range(data)])
 
 
+def dcn_groups(data: int, stage: int, dcn: int) -> tuple[list, list]:
+    """The global ranks of every inner group (per stage, per dcn row: the
+    row's data indices) and of every outer group (per stage, per inner
+    index: that index across the rows) of a two-level data axis, in the
+    order :func:`init_process_group` creates them."""
+    inner = data // dcn
+    at = lambda row, j, s: (row * inner + j) * stage + s
+    return ([[at(row, j, s) for j in range(inner)]
+             for s in range(stage) for row in range(dcn)],
+            [[at(row, j, s) for row in range(dcn)]
+             for s in range(stage) for j in range(inner)])
+
+
 def _sub_groups(config: MeshConfig, rank: int) -> dict:
     """Create every sub-group of the mesh (each rank must create all of
-    them, in the same order) and return this rank's two; nothing at
-    ``stage == 1``."""
-    if config.stage == 1:
-        return {}
-    data_ranks, stage_ranks = mesh_groups(config.data, config.stage)
+    them, in the same order) and return this rank's: nothing at ``stage
+    == 1`` and ``dcn_data == 1``."""
+    out = {}
     d, s = divmod(rank, config.stage)
-    data_groups = [dist.new_group(r) for r in data_ranks]
-    stage_groups = [dist.new_group(r) for r in stage_ranks]
-    return {"data_group": data_groups[s], "stage_group": stage_groups[d]}
+    if config.stage > 1:
+        data_ranks, stage_ranks = mesh_groups(config.data, config.stage)
+        data_groups = [dist.new_group(r) for r in data_ranks]
+        stage_groups = [dist.new_group(r) for r in stage_ranks]
+        out.update(data_group=data_groups[s], stage_group=stage_groups[d])
+    if config.dcn_data > 1:
+        inner_ranks, outer_ranks = dcn_groups(config.data, config.stage,
+                                              config.dcn_data)
+        inner = [dist.new_group(r) for r in inner_ranks]
+        outer = [dist.new_group(r) for r in outer_ranks]
+        out.update(inner_group=next(g for g, r in zip(inner, inner_ranks)
+                                    if rank in r),
+                   outer_group=next(g for g, r in zip(outer, outer_ranks)
+                                    if rank in r))
+    return out
 
 
 def local_batch_slice(global_batch: int, spec: MeshSpec) -> int:

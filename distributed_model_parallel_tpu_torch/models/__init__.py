@@ -39,7 +39,8 @@ def _cnn_kwargs(config: ModelConfig, axis) -> dict:
                          f"{', '.join(DTYPES)}")
     if config.param_dtype != "float32":
         raise ValueError(f"param_dtype {config.param_dtype!r}: the port "
-                         f"keeps float32 parameters (ROADMAP A4)")
+                         f"keeps float32 parameters, as the JAX package "
+                         f"does (no module of it reads param_dtype)")
     return dict(num_classes=config.num_classes, bn_mode=config.batchnorm,
                 bn_momentum=config.bn_momentum,
                 bn_epsilon=config.bn_epsilon, dtype=DTYPES[config.dtype],

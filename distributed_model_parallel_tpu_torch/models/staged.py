@@ -104,6 +104,8 @@ _FROM_JAX = {"conv": lambda a: a.transpose(3, 2, 0, 1),
              "dense": lambda a: a.T, None: lambda a: a}
 _TO_JAX = {"conv": lambda t: t.permute(2, 3, 1, 0),
            "dense": lambda t: t.t(), None: lambda t: t}
+# The port dim of each JAX dim, per kind (the permutation _TO_JAX applies).
+_JAX_DIMS = {"conv": (2, 3, 1, 0), "dense": (1, 0)}
 
 
 _LEAF_MODULES = (Conv, Dense, BatchNorm)
@@ -188,6 +190,19 @@ class Leaf(NamedTuple):
         full = full.to(self.stored.device)
         plist = self._gathered
         return plist[0].right_inverse(full) if plist is not None else full
+
+    @property
+    def jax_dims(self) -> tuple:
+        """The port dim of each of the leaf's JAX dims."""
+        return _JAX_DIMS.get(self.kind, tuple(range(self.stored.ndim)))
+
+    def full_shape(self, n: int) -> tuple:
+        """The whole leaf's port shape, when its shard dim (if any) is cut
+        over ``n`` ranks (no value read)."""
+        shape = list(self.stored.shape)
+        if self.shard_dim is not None:
+            shape[self.shard_dim] *= n
+        return tuple(shape)
 
     @property
     def jax_shape(self) -> tuple:

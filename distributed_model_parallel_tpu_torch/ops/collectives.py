@@ -21,6 +21,10 @@ each function returns its input's value without a collective.
   ``batch_isend_irecv`` (NCCL groups it, so the order of the hops inside
   a batch cannot deadlock), tensors of static shape on the wire, nothing
   of a shape negotiation;
+* :func:`hierarchical_psum` and :func:`hierarchical_psum_tree` — the
+  two-level all-reduce over a ``(dcn, data)`` axis (``MeshConfig.dcn_data
+  > 1``): reduce-scatter within a dcn row, all-reduce across the rows,
+  all-gather within the row;
 * :func:`unused_param_mask`, :func:`mesh_barrier`.
 
 Trees are tensors, lists, tuples and dicts; dict leaves are taken in
@@ -28,9 +32,6 @@ sorted key order, as ``jax.tree.leaves`` takes them, so bucket plans
 agree with the JAX package's. Every collective is counted, per call, in
 :data:`calls` and :data:`wire_bytes` under its ``kind`` (the bytes this
 rank hands to it), as the kernel wrappers count their launches.
-
-Not ported, and raising by name: ``hierarchical_psum*`` (a two-level data
-axis, ``dcn_data > 1``, ROADMAP A6).
 """
 
 from __future__ import annotations
@@ -181,14 +182,21 @@ def reduce_scatter_mean(x: torch.Tensor, group=None, *,
                         axis: int = 0) -> torch.Tensor:
     """psum_scatter-mean: rank r gets slice r (of ``axis``, split into
     world equal parts) of the mean over ranks."""
+    return reduce_scatter_sum(x, group, axis=axis) / world_size(group)
+
+
+def reduce_scatter_sum(x: torch.Tensor, group=None, *, axis: int = 0,
+                       kind: str = "reduce_scatter") -> torch.Tensor:
+    """psum_scatter: rank r gets slice r (of ``axis``, split into world
+    equal parts) of the sum over ranks, counted under ``kind``."""
     n = world_size(group)
     if x.shape[axis] % n:
         raise ValueError(f"dim {axis} of size {x.shape[axis]} does not "
                          f"split over {n} ranks")
     if n == 1 or not dist.is_initialized():
         return x.clone()
-    calls["reduce_scatter"] += 1
-    wire_bytes["reduce_scatter"] += _nbytes(x)
+    calls[kind] += 1
+    wire_bytes[kind] += _nbytes(x)
     staged = _gloo_cuda(x, group)
     src = x.cpu() if staged else x
     parts = [c.contiguous() for c in src.movedim(axis, 0).chunk(n)]
@@ -196,7 +204,7 @@ def reduce_scatter_mean(x: torch.Tensor, group=None, *,
     dist.reduce_scatter(out, parts, group=group)
     if staged:
         out = out.to(x.device)
-    return (out / n).movedim(0, axis)
+    return out.movedim(0, axis)
 
 
 # -- bucketed all-reduce: the DDP Reducer's coalescing -----------------------
@@ -263,16 +271,43 @@ def bucketed_psum(tree: Any, group=None, *,
     return rebuild(out)
 
 
-def hierarchical_psum(*args, **kwargs):
-    """Two-level all-reduce over ``(dcn, data)``: not ported yet."""
-    raise ValueError("hierarchical_psum needs a two-level data axis "
-                     "(MeshConfig.dcn_data > 1), which is not ported yet "
-                     "(ROADMAP A6, multi-node)")
+def hierarchical_psum(x: torch.Tensor, inner_group, outer_group, *,
+                      mean: bool = False, pad: bool = False) -> torch.Tensor:
+    """Two-level all-reduce over a ``(dcn, data)`` axis
+    (``mesh.MeshSpec.inner_group`` / ``outer_group``): reduce-scatter over
+    the inner group, all-reduce over the outer group, all-gather over the
+    inner group — the sum over every rank of both, each hop counted as the
+    JAX package's ``record_collective`` names it (``reduce_scatter``,
+    ``psum``, ``all_gather``). ``mean`` divides by both sizes. The leading
+    dim must split over the inner group, or ``pad`` pads it with zeros
+    there and cuts the result back."""
+    n_in, n_out = world_size(inner_group), world_size(outer_group)
+    rows = x.shape[0]
+    if pad and rows % n_in:
+        x = torch.nn.functional.pad(x, [0, 0] * (x.ndim - 1)
+                                    + [0, (-rows) % n_in])
+    shard = reduce_scatter_sum(x, inner_group)
+    if dist.is_initialized() and n_out > 1:
+        all_reduce_(shard, outer_group, kind="psum")
+    out = all_gather_concat(shard, inner_group)
+    if mean:
+        out = out / (n_in * n_out)
+    return out[:rows]
 
 
-def hierarchical_psum_tree(*args, **kwargs):
-    """The tree form of :func:`hierarchical_psum`: not ported yet."""
-    hierarchical_psum()
+def hierarchical_psum_tree(tree: Any, inner_group, outer_group, *,
+                           mean: bool = False) -> Any:
+    """:func:`hierarchical_psum` of a gradient tree: every leaf flattened
+    in leaf order into one vector of the promoted leaf dtype, padded to a
+    multiple of the inner group's size, reduced, split back. Sums unless
+    ``mean``."""
+    leaves = tree_flatten(tree)[0]
+    dtype = leaves[0].dtype
+    for x in leaves[1:]:
+        dtype = torch.promote_types(dtype, x.dtype)
+    flat = flatten_padded(tree, world_size(inner_group), dtype=dtype)
+    return unflatten_like(hierarchical_psum(flat, inner_group, outer_group,
+                                            mean=mean), tree)
 
 
 # -- point to point: the pipeline's hops --------------------------------------

@@ -93,8 +93,8 @@ def check_bucket(p: torch.Tensor, m: torch.Tensor | None,
         raise ValueError("p, m and g must all lie on the same CUDA device")
     if any(x.dtype != torch.float32 for x in bufs):
         raise TypeError(f"the fused SGD kernel takes float32 buckets, got "
-                        f"{[x.dtype for x in bufs]} (f32 master weights for "
-                        f"other leaf types: ROADMAP A4)")
+                        f"{[x.dtype for x in bufs]} (train/optim.FusedSGD "
+                        f"stages other leaf types into f32 buckets)")
     if any(x.ndim != 1 or not x.is_contiguous() or x.numel() != p.numel()
            for x in bufs):
         raise ValueError("p, m and g must be contiguous 1-D buckets of one "

@@ -7,14 +7,15 @@ built with ``bn_mode="sync"`` (statistics over the process group).
 Gradients are averaged by the Reducer (``train/optim.GradReducer``): one
 all-reduce per leaf (``allreduce="psum"``) or per flat bucket
 (``"bucketed"``), launched from autograd hooks, or each flat bucket round
-the explicit neighbour ring (``"ring"``, ``ops/ring_reduce.py``: blocking
-hops, run in bucket order when the backward is done), completed before
-gradient clipping and the optimizer, as the JAX step runs ``tx.update``
-after ``psum_mean``. Parameters and the optimizer state stay identical on
-every rank; :func:`assert_ddp_replicated` checks that bit for bit.
-
-Not ported yet, and refused by name: ``allreduce="hierarchical"`` (a
-two-level data axis, ``dcn_data > 1``, ROADMAP A6).
+the explicit neighbour ring (``"ring"``, ``ops/ring_reduce.py``) or the
+two-level data axis (``"hierarchical"``, ``MeshConfig.dcn_data > 1``:
+``ops/collectives.hierarchical_psum``, reduce-scatter within each dcn
+row, all-reduce across the rows, all-gather back); their hops block and
+run in bucket order when the backward is done. The reduction completes
+before gradient clipping and the optimizer, as the JAX step runs
+``tx.update`` after ``psum_mean``. Parameters and the optimizer state
+stay identical on every rank; :func:`assert_ddp_replicated` checks that
+bit for bit.
 """
 
 from __future__ import annotations
@@ -44,21 +45,34 @@ from distributed_model_parallel_tpu_torch.train.trainer import (
 
 
 def resolve_allreduce(allreduce: str = "psum", bucket_bytes: int | None = None,
-                      grad_bucket_mb: float | None = None
-                      ) -> tuple[str, int | None]:
-    """The JAX package's transport rules: ``grad_bucket_mb`` sets the
-    bucket cap, and a cap with ``"psum"`` means ``"bucketed"``. Returns
-    ``(allreduce, bucket_bytes)``."""
+                      grad_bucket_mb: float | None = None,
+                      dcn_data: int = 1) -> tuple[str, int | None]:
+    """The JAX package's transport rules and refusals, in its words:
+    ``grad_bucket_mb`` sets the bucket cap (and has no effect on the
+    hierarchical transport), a cap with ``"psum"`` means ``"bucketed"``,
+    ``"hierarchical"`` needs a two-level data axis (``dcn_data > 1``) and
+    ``"ring"`` a flat one. Returns ``(allreduce, bucket_bytes)``."""
+    if grad_bucket_mb is not None and allreduce == "hierarchical":
+        raise ValueError(
+            "grad_bucket_mb has no effect on the hierarchical transport "
+            "(hierarchical_psum_tree flattens the whole tree into one "
+            "two-level reduction, no size-capped buckets); use "
+            "ddp_allreduce='psum'/'bucketed'/'ring' with it — no silent "
+            "ignores")
     if grad_bucket_mb is not None:
         bucket_bytes = int(grad_bucket_mb * 1024 * 1024)
     if allreduce == "psum" and bucket_bytes is not None:
         allreduce = "bucketed"
-    if allreduce == "hierarchical":
-        raise ValueError("allreduce='hierarchical' needs a two-level data "
-                         "axis (MeshConfig.dcn_data > 1), which is not "
-                         "ported yet (ROADMAP A6, multi-node)")
-    if allreduce not in ("psum", "bucketed", "ring"):
+    if allreduce not in ("psum", "bucketed", "ring", "hierarchical"):
         raise KeyError(f"unknown allreduce {allreduce!r}")
+    if allreduce == "hierarchical" and dcn_data <= 1:
+        raise ValueError(
+            "allreduce='hierarchical' needs a two-level data axis; set "
+            "MeshConfig.dcn_data > 1 (--dcn-data)")
+    if allreduce == "ring" and dcn_data > 1:
+        raise ValueError(
+            "allreduce='ring' permutes over a flat data axis; with "
+            "dcn_data > 1 use 'hierarchical' (or 'psum'/'bucketed')")
     return allreduce, bucket_bytes
 
 
@@ -134,12 +148,15 @@ def make_ddp_train_step(model: StagedModel, optimizer, spec: MeshSpec, *,
     top-k counts summed). The step's ``reducer`` (None without a process
     group) keeps the reduction's times. ``resize_to``: as
     ``make_train_step``'s."""
-    allreduce, bucket_bytes = resolve_allreduce(allreduce, bucket_bytes)
+    allreduce, bucket_bytes = resolve_allreduce(
+        allreduce, bucket_bytes, dcn_data=spec.config.dcn_data)
     reducer = None
     if spec.group is not None:
-        reducer = GradReducer(model.parameters(), spec.group, optimizer,
-                              allreduce=allreduce,
-                              bucket_bytes=bucket_bytes or DDP_BUCKET_BYTES)
+        reducer = GradReducer(
+            model.parameters(), spec.group, optimizer, allreduce=allreduce,
+            bucket_bytes=bucket_bytes or DDP_BUCKET_BYTES,
+            hierarchy=spec.hierarchy if allreduce == "hierarchical"
+            else None)
     step = make_train_step(model, optimizer, mean=mean, std=std,
                            augment=augment, dtype=dtype, reducer=reducer,
                            resize_to=resize_to)

@@ -68,7 +68,10 @@ from distributed_model_parallel_tpu_torch.train.optim import (
     FusedSGD,
     make_optimizer,
 )
-from distributed_model_parallel_tpu_torch.train.trainer import cross_entropy
+from distributed_model_parallel_tpu_torch.train.trainer import (
+    cross_entropy,
+    model_layouts,
+)
 
 SCHEDULES = ("gpipe", "1f1b")
 
@@ -298,7 +301,8 @@ class PipelineRunner:
             dev = self.devices[c % self.num_stages]
             units = [model.units[i].to(dev) for i in range(lo, hi)]
             params = [p for u in units for p in u.parameters()]
-            opt = make_optimizer(optimizer, steps_per_epoch, epochs, params)
+            opt = make_optimizer(optimizer, steps_per_epoch, epochs, params,
+                                 layouts=model_layouts(model, params))
             self.stages.append(StageState(
                 lo, hi, dev, opt,
                 MicrobatchBN([m for u in units for m in u.modules()])))

@@ -165,8 +165,9 @@ def trainer_runs(spec: MeshSpec, runs: dict, train: tuple,
     rank from the given weights over ``train``/``evals`` ((images, labels)
     numpy pairs), then either one train step on this rank's rows of
     ``step`` (images, labels; no augmentation draws) or ``fit()``.
-    Returns the metrics or history, the step log, the parameters and
-    every rank's BN state (leading replica axis)."""
+    Returns the metrics or history, the step log, the parameters,
+    every rank's BN state (leading replica axis) and, under
+    ``ema_decay``, the averages in the JAX layout."""
     tr, ev = ArrayDataset(*train, 10), ArrayDataset(*evals, 10)
     out = {}
     for name, run in runs.items():
@@ -192,6 +193,7 @@ def trainer_runs(spec: MeshSpec, runs: dict, train: tuple,
         with torch.no_grad():
             res["params"] = params_to_jax(t.model)[0]
         res["replica_state"] = ddp.gather_replica_state(t.model, spec)
+        res["ema"] = t._ema_tree() if t.ema is not None else None
         out[name] = res
     return out
 
@@ -385,7 +387,7 @@ def zero_steps(spec: MeshSpec, params: dict, x: np.ndarray, y: np.ndarray,
     """Per case (``OptimizerConfig`` kwargs), ``steps`` ZeRO steps of
     :func:`zero_linear_loss` from ``params`` on this rank's rows of
     ``(x, y)``: the parameters and loss after each step and this rank's
-    momentum slice."""
+    momentum slice (another optimizer's: its state slices, by name)."""
     from distributed_model_parallel_tpu_torch.parallel import zero
 
     rows = spec.rows(len(x))
@@ -403,7 +405,9 @@ def zero_steps(spec: MeshSpec, params: dict, x: np.ndarray, y: np.ndarray,
         out[name] = dict(
             steps=hist, count=state.count,
             momentum=None if state.momentum is None
-            else _np(state.momentum))
+            else _np(state.momentum),
+            state=None if state.tx is None
+            else {k: _np(v[0]) for k, v in state.tx.state.items()})
     return out
 
 
@@ -433,7 +437,9 @@ def preempt_resume(spec: MeshSpec, configs: dict, train: tuple,
     directory under ``config.checkpoint_dir``. Returns per config and run
     the history, parameters, momentum and every rank's BN state in the
     JAX layout (under ``spmd_pipeline`` this rank's units, their global
-    indices in ``units``), the update count and the global step."""
+    indices in ``units``), the update count, the global step and the
+    whole checkpoint tree (``tree``: optimizer state, accumulation and
+    averages included)."""
     tr, ev = ArrayDataset(*train, 10), ArrayDataset(*evals, 10)
 
     def hook(t):
@@ -463,5 +469,72 @@ def preempt_resume(spec: MeshSpec, configs: dict, train: tuple,
                 state=state if pipe else ddp.gather_replica_state(t.model,
                                                                   spec),
                 units=t.stage.units if pipe else None,
-                count=t.optimizer.count, step=t.global_step)
+                count=t.optimizer.count, step=t.global_step,
+                tree=t._ckpt_tree())
     return out
+
+
+def hierarchical_cases(spec: MeshSpec, x: np.ndarray, tree: dict) -> dict:
+    """This rank's rows of ``x`` (its data index's share of the leading
+    dim) and ``tree`` scaled by ``1 + rank`` through ``hierarchical_psum``
+    (sum and mean) and ``hierarchical_psum_tree``, over the mesh's inner
+    and outer groups; the ranks of both groups and the collectives each
+    call counted."""
+    coll = C
+    inner, outer = spec.hierarchy
+    rows = spec.rows(len(x))
+    mine = torch.from_numpy(x[rows])
+    scaled = {k: torch.from_numpy(v) * (1.0 + spec.rank)
+              for k, v in tree.items()}
+    coll.reset_counts()
+    out = {"sum": _np(coll.hierarchical_psum(mine, inner, outer))}
+    out["calls"] = dict(coll.calls)
+    out["mean"] = _np(coll.hierarchical_psum(mine, inner, outer, mean=True))
+    out["tree"] = _np(coll.hierarchical_psum_tree(scaled, inner, outer))
+    out["tree_mean"] = _np(coll.hierarchical_psum_tree(scaled, inner, outer,
+                                                       mean=True))
+    out["inner"] = torch.distributed.get_process_group_ranks(inner)
+    out["outer"] = torch.distributed.get_process_group_ranks(outer)
+    return out
+
+
+def fsdp_gathered(spec: MeshSpec, config, train: tuple) -> dict:
+    """One FSDP train step of ``config`` on this rank's rows of the first
+    global batch of ``train``, with the model's ``fsdp.GatherLedger`` read
+    around
+    the forward and the backward: the whole weights alive at most in
+    each, alive between them and after, the sharded leaves per unit and
+    the largest unit's whole-weight bytes."""
+    from collections import Counter
+
+    from distributed_model_parallel_tpu_torch.data.loader import normalize
+    from distributed_model_parallel_tpu_torch.models.staged import (
+        model_leaves,
+    )
+
+    tr = ArrayDataset(*train, 10)
+    t = Trainer(config, train_ds=tr, eval_ds=tr, spec=spec)
+    leaves = [leaf for leaf in model_leaves(t.model)
+              if leaf.shard_dim is not None]
+    per_unit = Counter(leaf.unit for leaf in leaves)
+    unit_bytes = Counter()
+    for leaf in leaves:
+        unit_bytes[leaf.unit] += int(np.prod(leaf.full_shape(
+            spec.num_data))) * leaf.stored.element_size()
+    rows = spec.rows(config.data.batch_size)
+    images = torch.from_numpy(train[0][rows])
+    labels = torch.from_numpy(train[1][rows]).long()
+    x = normalize(images, torch.as_tensor(tr.mean), torch.as_tensor(tr.std),
+                  torch.float32)
+    ledger = t.model.gather_ledger
+    ledger.stats(reset=True)
+    logits, _ = t.model.apply(x, train=True)
+    fwd = ledger.stats(reset=True)
+    torch.nn.functional.cross_entropy(logits, labels).backward()
+    bwd = ledger.stats()
+    return dict(per_unit=dict(per_unit), n_sharded=len(leaves),
+                max_unit_bytes=max(unit_bytes.values()),
+                fwd_peak=fwd["peak"], between=fwd["now"],
+                bwd_peak=bwd["peak"], after=bwd["now"],
+                bwd_peak_bytes=bwd["peak_bytes"],
+                grads=[p.grad is not None for p in t.model.parameters()])

@@ -6,7 +6,9 @@ the same synthetic token stream, the same stateless batch draws per
 (seed, epoch, step), the same held-out evaluation rule and the same
 history records. The step is :func:`make_train_step` — ``lm_loss``, its
 gradient by autograd (the flash kernels' backward on the card), then the
-SGD update in place. Not ported yet (ROADMAP A9): meshes beyond one
+optimizer's update in place (any of ``train/optim.make_optimizer``'s, with
+``accum_steps``; ``ema_decay`` is refused, as the JAX LM trainer refuses
+it). Not ported yet (ROADMAP A9): meshes beyond one
 device, checkpoint/resume, faults, guards, the consistency sentinel,
 emergency checkpoints, preemption, recovery and the status exporter.
 """
@@ -109,6 +111,10 @@ class LMTrainer:
     def __init__(self, config: LMTrainConfig, params: dict | None = None):
         cfg = config.model
         tfm.check_training_config(cfg)
+        if config.optimizer.ema_decay is not None:
+            raise ValueError(
+                "ema_decay is implemented by the data-parallel Trainer "
+                "(gspmd/fsdp), not the LM trainer — no silent ignores")
         if cfg.max_seq_len < config.seq_len:
             raise ValueError("model max_seq_len < training seq_len")
         self.config = config

@@ -1,29 +1,46 @@
-"""Optimizer: SGD with momentum and weight decay, linear warmup then cosine
-annealing — the port of ``distributed_model_parallel_tpu/train/optim.py``
-for ``name="sgd"``, with and without ``fused``.
+"""Optimizers — the port of
+``distributed_model_parallel_tpu/train/optim.py``: SGD with momentum and
+weight decay (with and without ``fused``), adam, adamw, lamb, lars and
+adafactor, linear warmup then cosine annealing, the global-norm clip and
+gradient accumulation.
 
-The JAX package chains ``clip_by_global_norm`` (optional),
-``add_decayed_weights`` and ``optax.sgd``; :class:`torch.optim.SGD` keeps
-the same order — weight decay added to the raw gradient before the
-momentum buffer, the buffer starting at the first gradient (optax's
-trace), nesterov as ``g + μ·buf``. ``fused=True`` runs the same math as
-:class:`FusedSGD`: one pass per flat parameter bucket through the fused
-SGD kernel (``ops/fused_sgd.py``), the counterpart of
-``ops/pallas_optim.fused_sgd``. The learning rate of update n is
-``schedule(n)``, counted before the increment, as optax's count is.
+The JAX package chains ``clip_by_global_norm`` (optional) and the named
+optimizer, wrapped in ``optax.MultiSteps`` when ``accum_steps > 1``.
+``sgd`` chains ``add_decayed_weights`` and ``optax.sgd``:
+:class:`torch.optim.SGD` keeps the same order — weight decay added to the
+raw gradient before the momentum buffer, the buffer starting at the first
+gradient (optax's trace), nesterov as ``g + μ·buf``. ``fused=True`` runs
+the same math as :class:`FusedSGD`: one pass per flat parameter bucket
+through the fused SGD kernel (``ops/fused_sgd.py``), the counterpart of
+``ops/pallas_optim.fused_sgd``. The other names run
+:class:`AdaptiveOptimizer` over ``train/adaptive.py``'s chains, built as
+optax composes them (no kernel: the JAX package runs them as XLA
+elementwise work). The learning rate of update n is ``schedule(n)``,
+counted before the increment, as optax's count is.
+
+``accum_steps = k > 1`` (:class:`Accumulator`, ``optax.MultiSteps``):
+every ``step()`` folds the gradient into a running mean, ``acc + (g -
+acc) / (n + 1)``; the k-th applies one update from the mean (clipped
+there, once) and zeroes it, and the calls between apply nothing. The
+schedule counts updates: :func:`update_schedule` converts the warmup,
+decay and total lengths, which count gradient computations, to update
+units. Under ``fused`` the mean accumulates into an f32 copy of each
+bucket, and the kernel launches only at a boundary.
 
 :class:`GradReducer` is DDP's Reducer over a process group: autograd
 hooks launch one asynchronous all-reduce per bucket as its gradients are
-ready (or, over the explicit ring, :meth:`GradReducer.finish` sends each
-bucket round it), and :meth:`GradReducer.finish` completes and averages
-them before clipping and the update. Under ``fused`` its buckets are the
-optimizer's own flat gradient buffers, reduced in place.
+ready (or, over the explicit ring or the two-level data axis,
+:meth:`GradReducer.finish` sends each bucket round it), and
+:meth:`GradReducer.finish` completes and averages them before clipping and
+the update. Under ``fused`` its buckets are the optimizer's own flat
+gradient buffers, reduced in place.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import dataclasses
 import math
 import time
 from typing import Callable
@@ -35,6 +52,7 @@ from distributed_model_parallel_tpu_torch.ops import fused_sgd as fs
 from distributed_model_parallel_tpu_torch.ops.collectives import (
     all_reduce_,
     calls,
+    hierarchical_psum,
     plan_buckets,
     wire_bytes,
     world_size,
@@ -42,6 +60,7 @@ from distributed_model_parallel_tpu_torch.ops.collectives import (
 from distributed_model_parallel_tpu_torch.ops.ring_reduce import (
     ring_all_reduce,
 )
+from distributed_model_parallel_tpu_torch.train import adaptive
 
 # fused_sgd's bucket cap (ops/pallas_optim.py): MobileNetV2's 9.2 MB of
 # f32 parameters make one bucket.
@@ -79,48 +98,199 @@ def make_schedule(config: OptimizerConfig, steps_per_epoch: int,
     return schedule
 
 
+def update_schedule(config: OptimizerConfig, steps_per_epoch: int,
+                    epochs: int) -> Callable[[int], float]:
+    """The schedule in update units, as the JAX ``make_optimizer`` builds
+    it: under ``accum_steps = k`` the warmup becomes ``warmup // k``, the
+    decay ``max(1, decay // k)`` and the run ``(steps_per_epoch · epochs)
+    // k`` updates (totals divided over the whole run: accumulation
+    carries over epoch boundaries)."""
+    accum = max(1, config.accum_steps)
+    if accum > 1:
+        config = dataclasses.replace(
+            config, warmup_steps=config.warmup_steps // accum,
+            cosine_decay_steps=(None if config.cosine_decay_steps is None
+                                else max(1, config.cosine_decay_steps
+                                         // accum)))
+    return make_schedule(config, max(1, (steps_per_epoch * epochs) // accum),
+                         1)
+
+
 @torch.no_grad()
-def clip_by_global_norm_(grads: list, max_norm: float, group=None) -> None:
+def clip_by_global_norm_(grads: list, max_norm: float, group=None,
+                         layouts: list | None = None) -> None:
     """optax's ``clip_by_global_norm`` in place: t where ||g|| < max_norm,
     else (t / ||g||) · max_norm — on the device, no host sync. ``group``:
     ``grads`` are this rank's part of a tree spread over the group's ranks
     (a pipeline's stages), and the norm is the whole tree's: the squared
-    sums are all-reduced before the root."""
-    sq = sum(g.float().pow(2).sum() for g in grads)
-    if group is not None:
-        sq = torch.as_tensor(sq, dtype=torch.float32,
-                             device=grads[0].device if grads else None)
-        all_reduce_(sq, group, kind="clip_norm")
+    sums are all-reduced before the root. ``layouts``
+    (``adaptive.LeafLayout`` per gradient): the squared sums of the slices
+    (FSDP's) are all-reduced over their group, the whole leaves' added
+    once."""
+    if layouts is not None and any(lay.shard_dim is not None
+                                   for lay in layouts):
+        parts = [g.float().pow(2).sum() for g in grads]
+        sharded = [lay.shard_dim is not None for lay in layouts]
+        dev = grads[0].device
+        sq = sum((p for p, s in zip(parts, sharded) if s),
+                 torch.zeros((), device=dev))
+        lay = next(x for x in layouts if x.shard_dim is not None)
+        all_reduce_(sq, lay.group, kind="clip_norm")
+        sq = sq + sum((p for p, s in zip(parts, sharded) if not s),
+                      torch.zeros((), device=dev))
+    else:
+        sq = sum(g.float().pow(2).sum() for g in grads)
+        if group is not None:
+            sq = torch.as_tensor(sq, dtype=torch.float32,
+                                 device=grads[0].device if grads else None)
+            all_reduce_(sq, group, kind="clip_norm")
     norm = torch.sqrt(sq)
     keep = norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, g / norm.to(g.dtype) * max_norm))
 
 
-class SGD:
+class Accumulator:
+    """``optax.MultiSteps``' running mean over ``k`` calls: ``acc[i]``
+    mirrors ``like[i]`` (its dtype and shape; a fused bucket's flat f32
+    gradient buffer, or a leaf). :meth:`add` folds one call's gradients
+    in and says whether this call is a boundary (the k-th), where the
+    mean is applied; :meth:`advance` then moves the counters
+    (``mini_step`` cycles through ``0..k-1``, ``gradient_step`` counts the
+    updates) and zeroes the mean after a boundary."""
+
+    def __init__(self, k: int, like: list[torch.Tensor]):
+        self.k = k
+        self.acc = [torch.zeros_like(t) for t in like]
+        self.mini_step = 0
+        self.gradient_step = 0
+
+    @torch.no_grad()
+    def add(self, grads: list[torch.Tensor]) -> bool:
+        n = self.mini_step + 1
+        for a, g in zip(self.acc, grads):
+            a.add_((g - a) / n)
+        return self.mini_step == self.k - 1
+
+    @torch.no_grad()
+    def advance(self, emitted: bool) -> None:
+        if emitted:
+            for a in self.acc:
+                a.zero_()
+            self.gradient_step += 1
+        self.mini_step = (self.mini_step + 1) % self.k
+
+
+class _Optimizer:
+    """What every optimizer of the port shares: the schedule and update
+    count, the clip (``clip``, over ``clip_group``'s ranks or per
+    ``layouts``), the accumulator, and the checkpoint's view of the
+    state. A subclass supplies ``_grads()`` (this call's gradients, in the
+    accumulator's layout) and ``_apply(grads)`` (one update)."""
+
+    def __init__(self, params, config: OptimizerConfig,
+                 schedule: Callable[[int], float], layouts=None):
+        self.params = list(params)
+        self.schedule = schedule
+        self.clip = config.grad_clip_norm
+        self.clip_group = None
+        self.layouts = layouts
+        self.count = 0
+        self.accum_steps = max(1, config.accum_steps)
+        self.accum: Accumulator | None = None
+
+    @property
+    def lr(self) -> float:
+        """The learning rate the next update uses."""
+        return self.schedule(self.count)
+
+    @property
+    def boundary(self) -> bool:
+        """The last :meth:`step` applied an update (``MultiSteps``'
+        ``mini_step == 0``; every step without accumulation)."""
+        return self.accum is None or self.accum.mini_step == 0
+
+    def _accumulator(self, like: list[torch.Tensor]) -> None:
+        if self.accum_steps > 1:
+            self.accum = Accumulator(self.accum_steps, like)
+
+    def _clip(self, grads: list) -> None:
+        if self.clip is not None:
+            clip_by_global_norm_(grads, self.clip, self.clip_group,
+                                 self.layouts)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = self._grads()
+        if self.accum is not None:
+            emit = self.accum.add(grads)
+            if not emit:
+                self.accum.advance(False)
+                return
+            grads = self.accum.acc
+        self._clip(grads)
+        self._apply(grads)
+        self.count += 1
+        if self.accum is not None:
+            self.accum.advance(True)
+
+    # -- the checkpoint's view ------------------------------------------------
+    def leaf_state(self) -> dict[str, list]:
+        """Per-leaf state tensors by name (None where a leaf has none) —
+        what the checkpoint stores besides the momentum: the accumulated
+        mean under ``acc_grads`` (views of the fused buckets' slots)."""
+        return ({"acc_grads": self._leaf_acc()}
+                if self.accum is not None else {})
+
+    def _leaf_acc(self) -> list:
+        return list(self.accum.acc)
+
+    def state_shard_axes(self, name: str) -> list:
+        """Per leaf, the dim of ``leaf_state()[name]`` cut along the
+        leaf's FSDP shard dim (None: whole)."""
+        if self.layouts is None:
+            return [None] * len(self.params)
+        return [lay.shard_dim for lay in self.layouts]
+
+    def counters(self) -> dict[str, int]:
+        """The integer state: the update count, and the accumulator's
+        ``mini_step``/``gradient_step``."""
+        out = {"count": self.count}
+        if self.accum is not None:
+            out.update(mini_step=self.accum.mini_step,
+                       gradient_step=self.accum.gradient_step)
+        return out
+
+    @torch.no_grad()
+    def load_state(self, counters: dict, leaf_state: dict) -> None:
+        """Adopt a checkpoint's :meth:`counters` and :meth:`leaf_state`
+        (each tensor this rank's part, in place)."""
+        self.count = int(counters["count"])
+        if self.accum is not None:
+            self.accum.mini_step = int(counters["mini_step"])
+            self.accum.gradient_step = int(counters["gradient_step"])
+        for name, mine in self.leaf_state().items():
+            for t, v in zip(mine, leaf_state[name]):
+                if t is not None:
+                    t.copy_(v)
+
+
+class SGD(_Optimizer):
     """``torch.optim.SGD`` driven by the schedule, with optax's
     ``clip_by_global_norm`` in front when ``grad_clip_norm`` is set (the
     norm over ``clip_group``'s ranks when it is set). ``step()`` updates
     the parameters in place."""
 
     def __init__(self, params, config: OptimizerConfig,
-                 schedule: Callable[[int], float]):
-        self.params = list(params)
-        self.schedule = schedule
-        self.clip = config.grad_clip_norm
-        self.clip_group = None
-        self.count = 0
+                 schedule: Callable[[int], float], layouts=None):
+        super().__init__(params, config, schedule, layouts)
         momentum = config.momentum or 0.0
         self.opt = torch.optim.SGD(
             self.params, lr=schedule(0), momentum=momentum,
             weight_decay=config.weight_decay,
             # optax ignores nesterov without a momentum trace
             nesterov=bool(config.nesterov and momentum))
-
-    @property
-    def lr(self) -> float:
-        """The learning rate the next update uses."""
-        return self.schedule(self.count)
+        self._accumulator(self.params)
 
     def momentum_buffer(self, i: int) -> torch.Tensor | None:
         """Parameter i's momentum trace (None before its first update)."""
@@ -137,15 +307,19 @@ class SGD:
     def zero_grad(self) -> None:
         self.opt.zero_grad(set_to_none=True)
 
-    def step(self) -> None:
-        if self.clip is not None:
-            clip_by_global_norm_([p.grad for p in self.params
-                                  if p.grad is not None], self.clip,
-                                 self.clip_group)
+    def _grads(self) -> list:
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        return [p.grad for p in self.params]
+
+    def _apply(self, grads) -> None:
+        for p, g in zip(self.params, grads):
+            if g is not p.grad:
+                p.grad.copy_(g)
         for group in self.opt.param_groups:
             group["lr"] = self.lr
         self.opt.step()
-        self.count += 1
 
 
 def _dense(t: torch.Tensor) -> bool:
@@ -161,43 +335,47 @@ def _dense(t: torch.Tensor) -> bool:
     return True
 
 
-class FusedSGD:
+class FusedSGD(_Optimizer):
     """SGD as one fused update per flat parameter bucket
     (``plan_buckets`` of the parameters, ``bucket_bytes`` cap).
 
-    Each bucket owns three contiguous f32 buffers — parameters, gradients
-    and (momentum > 0) the trace — with every slot starting on a 16-byte
-    boundary (:data:`SLOT_ALIGN`; the gaps between slots stay zero). At
-    construction every parameter is rebound to a view of its slot, with
-    its own strides (channels-last
-    conv weights stay channels-last), and its ``.grad`` is set once to a
-    view of the gradient slot: autograd accumulates into it in place and
+    Float32 leaves: each bucket owns three contiguous f32 buffers —
+    parameters, gradients and (momentum > 0) the trace — with every slot
+    starting on a 16-byte boundary (:data:`SLOT_ALIGN`; the gaps between
+    slots stay zero). At construction every parameter is rebound to a
+    view of its slot, with its own strides (channels-last conv weights
+    stay channels-last), and its ``.grad`` is set once to a view of the
+    gradient slot: autograd accumulates into it in place and
     :meth:`zero_grad` zeroes the buckets (DDP's
     ``gradient_as_bucket_view``). So a step is one launch per bucket, with
     no pointer table and no concatenation. :meth:`step` checks on the host
     (no sync) that every parameter and gradient still is its slot, and
     raises if one was replaced (autograd replaces a ``.grad`` whose
     layout it cannot accumulate into; ``.to()`` rebinds parameters).
+    Under accumulation each bucket has an f32 mean buffer too, and the
+    launch at a boundary reads it in place of the gradients.
 
     Buckets on the card launch the kernel (``fused_sgd`` with a trace,
     ``plain_sgd`` without), or raise; their buffers are checked once, here
     (``fs.BucketLauncher``: device, type, shape, length, alignment), and a
     step launches with the kept pointers. On the CPU the plain version
     runs.
-    Leaves that are not float32 are taken only on the CPU, where each
-    step concatenates them in f32 and casts the delta back, as the JAX
-    f32-master path does; on the card they raise (ROADMAP A4).
+
+    Leaves that are not float32 (the JAX package's f32-master
+    convention, ``ops/pallas_optim.py``): each step stages a bucket's
+    leaves and gradients into f32 buffers, folds the weight decay into
+    the staged gradient, and launches the same kernel on a zeroed delta
+    buffer in the parameters' place, so the kernel writes ``-lr·d``; the
+    delta is cast to each leaf's type and added in that type, as
+    ``optax.apply_updates`` adds it (each bucket's last delta stays in
+    ``last_deltas``). The momentum stays f32.
     ``clip_group``, as :class:`SGD`'s.
     """
 
     def __init__(self, params, config: OptimizerConfig,
                  schedule: Callable[[int], float],
-                 bucket_bytes: int = FUSED_BUCKET_BYTES):
-        self.params = list(params)
-        self.schedule = schedule
-        self.clip = config.grad_clip_norm
-        self.clip_group = None
-        self.count = 0
+                 bucket_bytes: int = FUSED_BUCKET_BYTES, layouts=None):
+        super().__init__(params, config, schedule, layouts)
         self.momentum = float(config.momentum or 0.0)
         self.weight_decay = float(config.weight_decay)
         self.nesterov = bool(config.nesterov and self.momentum)
@@ -207,13 +385,10 @@ class FusedSGD:
                              f"{sorted(map(str, devices))}")
         self.device = devices.pop()
         self.flat = all(p.dtype == torch.float32 for p in self.params)
-        if not self.flat and self.device.type != "cpu":
-            raise TypeError("the fused SGD kernel takes float32 parameters; "
-                            "f32 master weights for other leaf types are not "
-                            "ported to the card yet (ROADMAP A4)")
         self.buckets = plan_buckets(self.params, bucket_bytes)
         self._p, self._g, self._m = [], [], []
         self._m_views: list = [None] * len(self.params)
+        self._slot_views: list = []
         align = SLOT_ALIGN if self.flat else 1
         for bucket in self.buckets:
             offsets, n = [], 0
@@ -227,13 +402,16 @@ class FusedSGD:
             pbuf, gbuf = (mk(), mk()) if self.flat else (None, None)
             self._p.append(pbuf)
             self._g.append(gbuf)
+            slots = []
             for i, off in zip(bucket, offsets):
                 p = self.params[i]
                 if not _dense(p):
                     raise ValueError(f"parameter {i} of shape "
                                      f"{tuple(p.shape)} is not dense; it "
                                      f"cannot be a bucket view")
-                view = (lambda buf: buf.as_strided(p.shape, p.stride(), off))
+                view = (lambda buf, p=p, off=off:
+                        buf.as_strided(p.shape, p.stride(), off))
+                slots.append((i, view))
                 if m is not None:
                     self._m_views[i] = view(m)
                 if self.flat:
@@ -241,17 +419,19 @@ class FusedSGD:
                     pv.copy_(p.detach())
                     p.data = pv
                     p.grad = view(gbuf)
+            self._slot_views.append(slots)
         self._slots = ([(p.data_ptr(), p.grad.data_ptr())
                         for p in self.params] if self.flat else None)
+        self.last_deltas: list = [None] * len(self.buckets)
+        cuda = self.device.type == "cuda"
+        self._accumulator(self._g if self.flat else self.params)
         self._launchers = ([fs.BucketLauncher(*b) for b in
                             self.flat_buckets()]
-                           if self.flat and self.device.type == "cuda"
-                           else None)
-
-    @property
-    def lr(self) -> float:
-        """The learning rate the next update uses."""
-        return self.schedule(self.count)
+                           if self.flat and cuda else None)
+        self._acc_launchers = (
+            [fs.BucketLauncher(p, m, a) for p, m, a in
+             zip(self._p, self._m, self.accum.acc)]
+            if self.flat and cuda and self.accum is not None else None)
 
     def flat_buckets(self) -> list[tuple]:
         """(params, momentum or None, grads) flat f32 buffers per bucket
@@ -268,6 +448,15 @@ class FusedSGD:
         without momentum)."""
         if self._m_views[i] is not None:
             self._m_views[i].copy_(value)
+
+    def _leaf_acc(self) -> list:
+        if not self.flat:
+            return list(self.accum.acc)
+        out: list = [None] * len(self.params)
+        for b, slots in enumerate(self._slot_views):
+            for i, view in slots:
+                out[i] = view(self.accum.acc[b])
+        return out
 
     def zero_grad(self) -> None:
         if self.flat:
@@ -287,39 +476,94 @@ class FusedSGD:
                     f"autograd or set to None, or the parameter rebound); "
                     f"the fused update would miss it")
 
-    @torch.no_grad()
-    def step(self) -> None:
+    def _grads(self) -> list:
         if self.flat:
             self._check_views()
-        grads = (self._g if self.flat else
-                 [p.grad if p.grad is not None else torch.zeros_like(p)
-                  for p in self.params])
-        if self.clip is not None:
-            clip_by_global_norm_(grads, self.clip, self.clip_group)
+            return self._g
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in self.params]
+
+    def _apply(self, grads) -> None:
         lr, mu, wd = self.lr, self.momentum, self.weight_decay
+        launchers = (self._launchers if grads is self._g
+                     else self._acc_launchers)
         for b, bucket in enumerate(self.buckets):
             m = self._m[b]
-            if self._launchers is not None:
-                self._launchers[b](lr, mu, wd, self.nesterov)
-            elif not self.flat:
-                self._step_cast_back(bucket, grads, m, lr)
+            if not self.flat:
+                self.last_deltas[b] = self._step_staged(bucket, grads, m, lr)
+            elif launchers is not None:
+                launchers[b](lr, mu, wd, self.nesterov)
             elif m is None:
-                fs.plain_sgd_kernel(self._p[b], self._g[b], lr, wd)
+                fs.plain_sgd_kernel(self._p[b], grads[b], lr, wd)
             else:
-                fs.fused_sgd_kernel(self._p[b], m, self._g[b], lr, mu, wd,
+                fs.fused_sgd_kernel(self._p[b], m, grads[b], lr, mu, wd,
                                     self.nesterov)
-        self.count += 1
 
-    def _step_cast_back(self, bucket, grads, m, lr) -> None:
+    def _step_staged(self, bucket, grads, m, lr) -> torch.Tensor:
+        """One bucket of non-f32 leaves: staged in f32, the kernel's delta
+        cast back and added in each leaf's type; returns the delta."""
         leaves = [self.params[i] for i in bucket]
         p = torch.cat([x.detach().float().reshape(-1) for x in leaves])
         g = torch.cat([grads[i].float().reshape(-1) for i in bucket])
-        delta = fs.sgd_delta_plain(p, m, g, lr, self.momentum,
-                                   self.weight_decay, self.nesterov)
+        if self.weight_decay:
+            g = g + self.weight_decay * p
+        delta = torch.zeros_like(p)
+        if m is None:
+            fs.plain_sgd_kernel(delta, g, lr, 0.0)
+        else:
+            fs.fused_sgd_kernel(delta, m, g, lr, self.momentum, 0.0,
+                                self.nesterov)
         off = 0
         for x in leaves:
             x.add_(delta[off:off + x.numel()].view(x.shape).to(x.dtype))
             off += x.numel()
+        return delta
+
+
+class AdaptiveOptimizer(_Optimizer):
+    """adam, adamw, lamb, lars or adafactor (``train/adaptive.py``'s
+    chain of ``config.name``) over ``params``: ``step()`` clips (when
+    ``grad_clip_norm`` is set), computes the updates at ``lr`` and adds
+    them to the parameters in place. ``layouts``: an
+    ``adaptive.LeafLayout`` per parameter (default: each a whole leaf in
+    the JAX layout)."""
+
+    def __init__(self, params, config: OptimizerConfig,
+                 schedule: Callable[[int], float], layouts=None):
+        super().__init__(params, config, schedule, layouts)
+        self.name = config.name
+        self.tx = adaptive.make_transform(
+            config, [p.detach() for p in self.params], layouts)
+        self._accumulator(self.params)
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def momentum_buffer(self, i: int) -> None:
+        """No SGD momentum: the state is :meth:`leaf_state`'s."""
+        return None
+
+    def set_momentum_buffer(self, i: int, value) -> None:
+        """No SGD momentum to restore (see :meth:`load_state`)."""
+
+    def _grads(self) -> list:
+        return [p.grad if p.grad is not None else torch.zeros_like(p)
+                for p in self.params]
+
+    def _apply(self, grads) -> None:
+        params = [p.detach() for p in self.params]
+        for p, u in zip(params, self.tx.update(grads, params, self.lr,
+                                               self.count)):
+            p.add_(u)
+
+    def leaf_state(self) -> dict[str, list]:
+        return {**self.tx.state, **super().leaf_state()}
+
+    def state_shard_axes(self, name: str) -> list:
+        if name in self.tx.shard_axes:
+            return self.tx.shard_axes[name]
+        return super().state_shard_axes(name)
 
 
 class GradReducer:
@@ -341,11 +585,16 @@ class GradReducer:
     parameters at ``bucket_bytes``, each bucket concatenated into a flat
     copy and split back. ``"psum"``: one all-reduce per parameter, on its
     ``.grad`` in place. ``"ring"``: the buckets of ``"bucketed"``, each
-    summed by ``ops/ring_reduce.ring_all_reduce``; its hops block, so
-    :meth:`finish` runs them, in bucket order on every rank, and the
-    overlap with the backward is lost on this transport. A gradient never
-    produced is taken as zeros. Each bucket's reduction counts one
-    ``reducer`` call.
+    summed by ``ops/ring_reduce.ring_all_reduce``; ``"hierarchical"``
+    (``hierarchy = (inner group, outer group)`` of a two-level data axis):
+    the whole gradient tree as one flat vector in leaf order (the fused
+    optimizer's buckets, one by one, over a flat :class:`FusedSGD`), each
+    reduced by ``ops/collectives.hierarchical_psum``, as the JAX
+    package's ``hierarchical_psum_tree``. Ring and hierarchical hops
+    block, so :meth:`finish` runs them, in bucket order on every rank,
+    and the overlap with the backward is lost on these transports. A
+    gradient never produced is taken as zeros. Each bucket's reduction
+    counts one ``reducer`` call.
 
     Under :meth:`no_sync` (a pipeline's microbatches but the last) the
     hooks launch nothing and the gradients accumulate, as under torch
@@ -358,19 +607,27 @@ class GradReducer:
 
     def __init__(self, params, group, optimizer=None, *,
                  allreduce: str = "bucketed",
-                 bucket_bytes: int = DDP_BUCKET_BYTES):
-        if allreduce not in ("psum", "bucketed", "ring"):
+                 bucket_bytes: int = DDP_BUCKET_BYTES,
+                 hierarchy: tuple | None = None):
+        if allreduce not in ("psum", "bucketed", "ring", "hierarchical"):
             raise KeyError(f"unknown allreduce {allreduce!r}")
+        if (allreduce == "hierarchical") != (hierarchy is not None):
+            raise ValueError("allreduce='hierarchical' takes the two-level "
+                             "axis' (inner, outer) groups, and only it")
         self.params = list(params)
         self.group = group
         self.world = world_size(group)
-        self.ring = allreduce == "ring"
+        self.hierarchy = hierarchy
+        # Transports whose hops block: run from finish(), in bucket order.
+        self.ring = allreduce in ("ring", "hierarchical")
         self.buffers = None
         if allreduce == "psum":
             self.buckets = [[i] for i in reversed(range(len(self.params)))]
         elif isinstance(optimizer, FusedSGD) and optimizer.flat:
             self.buckets = optimizer.buckets
             self.buffers = [g for _, _, g in optimizer.flat_buckets()]
+        elif hierarchy is not None:
+            self.buckets = [list(range(len(self.params)))]
         else:
             self.buckets = plan_buckets(self.params, bucket_bytes)
         self._bucket_of = {i: b for b, idx in enumerate(self.buckets)
@@ -428,6 +685,11 @@ class GradReducer:
         else:
             flat = torch.cat([self._grad(i).reshape(-1) for i in idx])
         self._flat[b] = flat
+        if self.hierarchy is not None:
+            calls["reducer"] += 1
+            wire_bytes["reducer"] += flat.numel() * flat.element_size()
+            flat.copy_(hierarchical_psum(flat, *self.hierarchy, pad=True))
+            return
         if self.ring:
             calls["reducer"] += 1
             wire_bytes["reducer"] += flat.numel() * flat.element_size()
@@ -474,32 +736,36 @@ class GradReducer:
 
 def make_optimizer(config: OptimizerConfig, steps_per_epoch: int,
                    epochs: int, params, *,
-                   bucket_bytes: int | None = None, zero=None):
-    """The SGD chain over ``params`` (:class:`FusedSGD` under ``fused``,
-    with buckets of ``bucket_bytes``, default :data:`FUSED_BUCKET_BYTES`;
-    ``parallel/zero.ZeroSGD`` over the ranks of ``zero``, a MeshSpec).
-    Other names, ``accum_steps > 1`` and ``ema_decay`` are not ported yet
-    (ROADMAP A4) and raise; ``fused`` with another name raises, as in the
-    JAX package."""
+                   bucket_bytes: int | None = None, zero=None,
+                   layouts: list | None = None):
+    """The JAX package's optimizer chain over ``params``: ``sgd``
+    (:class:`FusedSGD` under ``fused``, with buckets of ``bucket_bytes``,
+    default :data:`FUSED_BUCKET_BYTES`; :class:`SGD` otherwise), or adam,
+    adamw, lamb, lars and adafactor (:class:`AdaptiveOptimizer`);
+    ``parallel/zero.ZeroOptimizer`` over the ranks of ``zero``, a
+    MeshSpec. ``accum_steps > 1`` accumulates (:class:`Accumulator`) with
+    the schedule in update units (:func:`update_schedule`). ``layouts``:
+    an ``adaptive.LeafLayout`` per parameter (FSDP's slices, the JAX
+    shapes adafactor factors by). ``fused`` with another name raises, as
+    in the JAX package; ``ema_decay`` is the trainer's."""
     if config.fused and config.name != "sgd":
-        raise ValueError(f"OptimizerConfig.fused implements the sgd recipe "
-                         f"(ops/fused_sgd.py), got name={config.name!r}; "
-                         f"other optimizers are not ported yet (ROADMAP A4)")
-    if config.name != "sgd":
-        raise ValueError(f"optimizer {config.name!r} is not ported yet; the "
-                         f"port runs 'sgd' (ROADMAP A4)")
-    if config.accum_steps != 1:
-        raise ValueError("accum_steps > 1 is not ported yet (ROADMAP A4)")
-    if config.ema_decay is not None:
-        raise ValueError("ema_decay is not ported yet (ROADMAP A4)")
-    schedule = make_schedule(config, max(1, steps_per_epoch * epochs), 1)
+        raise ValueError(
+            f"OptimizerConfig.fused implements the sgd recipe "
+            f"(ops/fused_sgd.py, the port of ops/pallas_optim.fused_sgd), "
+            f"got name={config.name!r} — no silent ignores")
+    if config.name != "sgd" and config.name not in adaptive.NAMES:
+        raise KeyError(f"unknown optimizer {config.name!r}; known: sgd, "
+                       f"adam, adamw, adafactor, lamb, lars")
+    schedule = update_schedule(config, steps_per_epoch, epochs)
     if zero is not None:
         from distributed_model_parallel_tpu_torch.parallel.zero import (
-            ZeroSGD,
+            ZeroOptimizer,
         )
 
-        return ZeroSGD(params, config, schedule, zero)
+        return ZeroOptimizer(params, config, schedule, zero)
+    if config.name != "sgd":
+        return AdaptiveOptimizer(params, config, schedule, layouts)
     if config.fused:
         return FusedSGD(params, config, schedule,
-                        bucket_bytes or FUSED_BUCKET_BYTES)
-    return SGD(params, config, schedule)
+                        bucket_bytes or FUSED_BUCKET_BYTES, layouts)
+    return SGD(params, config, schedule, layouts)

@@ -82,7 +82,10 @@ from distributed_model_parallel_tpu_torch.train.trainer import (
     EpochResult,
     eval_now,
     load_momentum,
+    load_optimizer_state,
     momentum_tree,
+    optimizer_counters,
+    optimizer_state_tree,
 )
 
 # Slots a resume considers, newest valid first.
@@ -219,28 +222,35 @@ class PipelineTrainer:
     def _ckpt_tree(self) -> dict:
         """The whole model's state in the JAX layout with the data-parallel
         ``Trainer``'s keys: every chunk's parameters and BN statistics,
-        each chunk's momentum, their common update count."""
-        counts = {opt.count for opt in self._optimizers()}
-        if len(counts) != 1:
-            raise RuntimeError(f"the chunks' optimizers disagree on the "
-                               f"update count: {sorted(counts)}")
+        each chunk's momentum (or other optimizer state and accumulated
+        mean), their common counters."""
+        counters = optimizer_counters(self._optimizers())
         params, state = params_to_jax(self.runner.model)
-        return {"params": params, "batch_stats": state,
+        tree = {"params": params, "batch_stats": state,
                 "momentum": momentum_tree(self.runner.model,
                                           self._optimizers()),
-                "opt_count": np.asarray(counts.pop(), np.int32),
+                "opt_count": counters.pop("count"),
                 "best_acc": np.asarray(self.best_acc, np.float32),
                 "epoch": np.asarray(self.start_epoch, np.int32),
                 "resume": resume_subtree(self.train_loader, self._loader_pos,
                                          self.global_step)}
+        opt_state = optimizer_state_tree(self.runner.model,
+                                         self._optimizers())
+        if opt_state:
+            tree["opt_state"] = opt_state
+        if counters:
+            tree["accum"] = counters
+        return tree
 
     @torch.no_grad()
     def _load_tree(self, tree: dict) -> None:
         """A restored tree into the chunks' parameters, BN statistics and
         momentum buckets, in place on each chunk's device."""
         load_leaves(self.runner.model, tree["params"], tree["batch_stats"])
-        for opt in self._optimizers():
-            opt.count = int(tree["opt_count"])
+        load_optimizer_state(self.runner.model, self._optimizers(),
+                             tree.get("opt_state", {}),
+                             {"count": tree["opt_count"],
+                              **tree.get("accum", {})})
         load_momentum(self.runner.model, self._optimizers(),
                       tree["momentum"])
 

@@ -17,6 +17,12 @@ counterpart of ``scripts/train_data_parallel.py``.
         --device cuda --model resnet50 --batch-size 512 --fused \\
         --device-data --steps-per-dispatch 10
     python -m distributed_model_parallel_tpu_torch.train.train_cnn \\
+        --device cpu --model tinycnn --optimizer lars --accum-steps 2 \\
+        --ema-decay 0.99 --batch-size 32
+    python -m distributed_model_parallel_tpu_torch.train.train_cnn \\
+        --device cpu --model tinycnn --nproc 4 --dcn-data 2 \\
+        --strategy ddp --allreduce hierarchical --batch-size 32
+    python -m distributed_model_parallel_tpu_torch.train.train_cnn \\
         --device cpu --model shufflenetv2 --epochs 2 --batch-size 32 \\
         --synthetic-train-size 96 --synthetic-eval-size 32 --resume
     torchrun --nproc-per-node 4 -m \\
@@ -29,11 +35,17 @@ f32 parameters (``--dtype`` overrides) with cuDNN's autotuner on; on
 the 16 architectures of the zoo (``models/zoo.py``: vgg11/13/16/19,
 preactresnet18, senet18, googlenet, densenet121, resnext29_2x64d,
 mobilenetv1, dpn92, shufflenetg2, shufflenetv2, efficientnetb0,
-regnetx_200mf, simpledla). ``--fused`` takes the fused SGD kernel.
-``--strategy fsdp`` shards the parameters and momentum over the ranks
-(no ``--fused``); ``--strategy zero`` shards the momentum only;
-``--allreduce ring`` sends ddp's gradient buckets round the explicit
-neighbour ring.
+regnetx_200mf, simpledla). ``--fused`` takes the fused SGD kernel;
+``--optimizer`` adam, adamw, lamb, lars or adafactor another optimizer
+(not with ``--fused``); ``--accum-steps k`` applies one update per k
+batches from their mean gradient; ``--ema-decay d`` keeps an average of
+the weights that eval and the best-accuracy save read (gspmd, fsdp).
+``--strategy fsdp`` shards the parameters and optimizer state over the
+ranks (no ``--fused``); ``--strategy zero`` shards the optimizer state
+only; ``--allreduce ring`` sends ddp's gradient buckets round the
+explicit neighbour ring; ``--dcn-data H`` lays the ranks out as H host
+rows, and ``--allreduce hierarchical`` reduces ddp's gradients within the
+rows, across them, and back.
 ``--nproc N`` spawns N ranks (a ``file://`` store in a temporary
 directory): rank r runs on ``cuda:r`` over NCCL, so N may not exceed the
 cards unless ``--backend gloo`` is given; ``--device cpu`` runs gloo.
@@ -52,7 +64,7 @@ absent); ``--image-size`` other than the data's resizes every batch on
 the device (224: the reference's finetune recipe); ``--prefetch`` and
 ``--device-prefetch`` set the host-thread and side-stream upload depths;
 ``--use-native`` gathers batches with the C++ row gather. The recovery
-plane and the other optimizers are not ported yet and are refused.
+plane is not ported yet and is refused.
 """
 
 from __future__ import annotations
@@ -67,9 +79,6 @@ from distributed_model_parallel_tpu_torch.models.zoo import ZOO_BUILDERS
 
 # flag -> (value that is refused, ROADMAP item), for what is not ported.
 _REFUSED = {
-    "dcn_data": (lambda v: v > 1, "A6: multi-node data parallelism"),
-    "ema_decay": (lambda v: v is not None, "A4: EMA"),
-    "accum_steps": (lambda v: v != 1, "A4: gradient accumulation"),
     "emergency_every": (lambda v: v != 0, "A11: resilience hooks"),
     "elastic": (bool, "A11: resilience hooks"),
     "check_finite_every": (lambda v: v != 0, "A11: resilience hooks"),
@@ -105,6 +114,11 @@ def parse_args(argv=None):
                    help="compute dtype (default: bfloat16 on cuda, float32 "
                         "on cpu)")
     p.add_argument("--lr", default=0.4, type=float)
+    p.add_argument("--optimizer", default="sgd",
+                   choices=("sgd", "adam", "adamw", "adafactor", "lamb",
+                            "lars"),
+                   help="lars/lamb: layerwise-adaptive large-batch training; "
+                        "adafactor: sub-linear optimizer memory")
     p.add_argument("--momentum", default=0.9, type=float)
     p.add_argument("--wd", default=1e-4, type=float)
     p.add_argument("--fused", action="store_true",
@@ -141,10 +155,18 @@ def parse_args(argv=None):
     p.add_argument("--log-name", default=None,
                    help="default: data_para_{batch size}")
     p.add_argument("--checkpoint-dir", default="./checkpoint")
+    p.add_argument("--ema-decay", default=None, type=float,
+                   help="weight EMA decay (e.g. 0.999); eval and best-acc "
+                        "selection use the averaged weights")
+    p.add_argument("--accum-steps", default=1, type=int,
+                   help="gradient accumulation: one optimizer update per k "
+                        "batches (size-b batch at k == size-k*b batch)")
+    p.add_argument("--dcn-data", default=1, type=int,
+                   help="how many data-parallel ways cross the host "
+                        "boundary; must divide --nproc. Lays the ranks out "
+                        "host-major (--allreduce hierarchical reduces over "
+                        "the two levels)")
     # Accepted so they can be refused by name (not ported yet).
-    p.add_argument("--dcn-data", default=1, type=int)
-    p.add_argument("--accum-steps", default=1, type=int)
-    p.add_argument("--ema-decay", default=None, type=float)
     p.add_argument("--emergency-every", default=0, type=int)
     p.add_argument("--check-finite-every", default=0, type=int)
     p.add_argument("--elastic", action="store_true")
@@ -175,12 +197,14 @@ def _config(args, world: int):
                         augment=not args.no_augment,
                         synthetic_train_size=args.synthetic_train_size,
                         synthetic_eval_size=args.synthetic_eval_size),
-        optimizer=OptimizerConfig(learning_rate=args.lr,
+        optimizer=OptimizerConfig(name=args.optimizer, learning_rate=args.lr,
                                   momentum=args.momentum,
                                   weight_decay=args.wd,
                                   warmup_steps=args.warmup_steps,
+                                  accum_steps=args.accum_steps,
+                                  ema_decay=args.ema_decay,
                                   fused=args.fused),
-        mesh=MeshConfig(data=world), strategy=args.strategy,
+        mesh=_mesh(args, world), strategy=args.strategy,
         ddp_allreduce=args.allreduce, grad_bucket_mb=args.bucket_mb,
         epochs=args.epochs, seed=args.seed, resume=args.resume,
         async_checkpoint=args.async_checkpoint, log_dir=args.log_dir,
@@ -188,6 +212,12 @@ def _config(args, world: int):
         checkpoint_dir=args.checkpoint_dir,
         device_resident_data=args.device_data,
         steps_per_dispatch=args.steps_per_dispatch, device=args.device)
+
+
+def _mesh(args, world: int):
+    from distributed_model_parallel_tpu_torch.config import MeshConfig
+
+    return MeshConfig(data=world, dcn_data=args.dcn_data)
 
 
 def _fit(spec, args) -> list[dict]:
@@ -215,8 +245,9 @@ def main(argv=None):
 
     check_train_config(check)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        spec = mesh.init_process_group(device=args.device,
-                                       backend=args.backend)
+        spec = mesh.init_process_group(
+            _mesh(args, int(os.environ["WORLD_SIZE"])), device=args.device,
+            backend=args.backend)
         try:
             records = _fit(spec, args)
         finally:
@@ -225,7 +256,8 @@ def main(argv=None):
             return
     elif args.nproc > 1:
         records = mesh.spawn(_fit, args.nproc, args, device=args.device,
-                             backend=args.backend)[0]
+                             backend=args.backend,
+                             config=_mesh(args, args.nproc))[0]
     else:
         records = _fit(mesh.make_mesh(device=args.device), args)
     for record in records:

@@ -20,7 +20,7 @@ import torch
 
 # flag -> (value that is refused, ROADMAP item), for what is not ported.
 _REFUSED = {
-    "dp": (lambda v: v > 1, "A6: multi-GPU data parallelism"),
+    "dp": (lambda v: v > 1, "A9: the LM's data axis"),
     "pp": (lambda v: v > 1, "A9: spmd_pipeline"),
     "tp": (lambda v: v > 1, "A9: tensor parallelism"),
     "sp": (lambda v: v > 1, "A9: ring/Ulysses attention"),

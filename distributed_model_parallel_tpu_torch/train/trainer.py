@@ -9,11 +9,18 @@ training mode → cross-entropy → backward (autograd; convolutions and
 BatchNorm through cuDNN on the card) → the gradient all-reduce when there
 is a process group (``optim.GradReducer``) → the optimizer update in place
 (``OptimizerConfig(fused=True)``: the fused SGD kernel, one launch per
-flat bucket) → top-1/top-5 sums. Parameters and BN statistics live in
-the model and update in place; the JAX step returns new ones instead.
+flat bucket; adam, adamw, lamb, lars or adafactor by ``name``; under
+``accum_steps = k`` one update every k steps, from the mean gradient) →
+the weight average (``ema_decay``, :class:`Ema`) → top-1/top-5 sums.
+Parameters and BN statistics live in the model and update in place; the
+JAX step returns new ones instead. Under ``ema_decay`` evaluation, and
+so the best-accuracy save, reads the averaged weights and statistics.
 
 Data parallelism (``MeshConfig(data=N)``, one process per rank, see
-``mesh.py``): every rank draws the same global batch order and runs its
+``mesh.py``; ``dcn_data`` lays the ranks out in host rows, every strategy
+still running over the whole data group, and ddp's ``"hierarchical"``
+transport reduces over the two levels): every rank draws the same global
+batch order and runs its
 rows ``[r·B/N, (r+1)·B/N)``; metrics are the global batch's. Under
 ``gspmd`` the program is the global batch's, as XLA partitions it for the
 JAX package: BatchNorm statistics span the global batch whatever
@@ -26,17 +33,23 @@ rank: built from ``config.seed``, then broadcast from rank 0.
 
 FSDP (``strategy="fsdp"``, ``parallel/fsdp.py``) runs gspmd's program
 with the parameters sharded: at rest each rank keeps its slice of every
-sharded leaf and of its momentum (1/N of both); each use all-gathers the
-leaf, its gradient is reduce-scattered back, and the SGD update runs on
-the slices. The JAX package's refusals hold: ``fused`` (the fused kernel
-runs over flat buckets of full parameters), ``grad_bucket_mb`` and
-``consistency_every`` (no replicated state to compare).
+sharded leaf and of its optimizer state and average (1/N of each); each
+use all-gathers the leaf (and the backward gathers it again: only the
+unit being computed holds whole weights), its gradient is
+reduce-scattered back, and the update runs on the slices (the norms of
+lars, lamb, adafactor and the clip summed over the ranks, through each
+parameter's ``adaptive.LeafLayout``). The JAX package's refusals hold:
+``fused`` (the fused kernel runs over flat buckets of full parameters),
+``grad_bucket_mb`` and ``consistency_every`` (no replicated state to
+compare).
 
 ZeRO (``strategy="zero"``, the port's own: the JAX package runs ZeRO
 through ``parallel/zero.make_zero_train_step`` only) is gspmd's program
-with the momentum sharded: ``parallel/zero.ZeroSGD`` reduce-scatters the
-flat gradient, updates this rank's slice (one fused SGD launch under
-``fused``) and all-gathers the parameters back.
+with the optimizer state sharded: ``parallel/zero.ZeroOptimizer``
+reduce-scatters the flat gradient, updates this rank's slice (one fused
+SGD launch under ``fused``; another optimizer's chain over the slice) and
+all-gathers the parameters back; it takes no clipping, accumulation or
+EMA.
 
 The pipeline (``strategy="spmd_pipeline"``, ``MeshConfig(stage=S)``, S ≥
 2; ``parallel/spmd_cnn_pipeline.py``): each rank holds its stage's units
@@ -73,8 +86,11 @@ is saved to the ``"ckpt"`` slot of a ``train/checkpoint.Checkpointer`` in
 ``checkpoint_dir``: parameters, BN statistics and momentum in the JAX
 package's layout (gathered from the ranks' slices under ``zero`` and
 ``fsdp``; the per-replica BN statistics with a leading replica axis under
-``ddp``), the optimizer's update count, ``best_acc``, the epoch and the
-exact-continuation subtree (loader epoch and cursor, global step); under
+``ddp``), the other optimizers' state and the accumulated mean
+(``opt_state``), the optimizer's update count and accumulation counters,
+the averages (``ema_params``, ``ema_batch_stats``), ``best_acc``, the
+epoch and the exact-continuation subtree (loader epoch and cursor, global
+step); under
 ``spmd_pipeline`` the writer (data row 0, stage 0) gathers every stage's
 leaves and momentum over its stage ring first, and on resume every rank
 reads the whole tree and keeps its own units.
@@ -90,7 +106,7 @@ its own flag: a preemption must reach every rank (a cluster signals every
 process; a ``step_hook`` requests on every rank at the same step).
 
 Not ported yet, and refused by :func:`check_train_config` where a config
-field asks for them (ROADMAP A6/A11): the other strategies and mesh
+field asks for them (ROADMAP A9/A11): the other strategies and mesh
 axes, recovery, fault injection, the guards, the consistency sentinel,
 emergency checkpoints, elastic restarts (resharded restore), the typed
 telemetry stream and the status exporter.
@@ -98,10 +114,12 @@ telemetry stream and the status exporter.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from distributed_model_parallel_tpu_torch.config import TrainConfig
@@ -225,13 +243,19 @@ def check_train_config(config: TrainConfig) -> None:
                          f"pipeline's axis: strategy='spmd_pipeline' runs it "
                          f"(or train/pipeline_trainer.PipelineTrainer); "
                          f"{config.strategy!r} runs the data axis only")
+    ema = config.optimizer.ema_decay
+    if ema is not None and not (0.0 <= ema <= 1.0):
+        raise ValueError(f"ema_decay must be in [0, 1], got {ema}")
+    if ema is not None and config.strategy in ("ddp", "spmd_pipeline"):
+        raise ValueError(
+            "ema_decay is supported on the gspmd/fsdp strategies")
     if config.strategy == "ddp":
         from distributed_model_parallel_tpu_torch.parallel.ddp import (
             resolve_allreduce,
         )
 
         resolve_allreduce(config.ddp_allreduce, config.ddp_bucket_bytes,
-                          config.grad_bucket_mb)
+                          config.grad_bucket_mb, config.mesh.dcn_data)
         if config.device_resident_data:
             raise ValueError("device_resident_data is only supported with "
                              "strategy='gspmd' (the ddp path materializes "
@@ -309,9 +333,67 @@ def reduce_metrics(metrics: dict, spec: MeshSpec) -> dict:
     return {k: rows[..., i] for i, k in enumerate(METRIC_KEYS)}
 
 
+class Ema:
+    """The JAX step's exponential moving average of the weights
+    (``TrainState.ema_params``) and of the BatchNorm running statistics
+    (``ema_model_state``), both starting as copies of the live ones: after
+    every update ``avg = s·new + (1 - s)·avg`` with ``s = 1 - decay``
+    (``optax.incremental_update``). Between accumulation boundaries the
+    step size is 0 and the average holds (``MultiSteps``' ``mini_step !=
+    0``); the BatchNorm statistics still move every micro-step. With
+    accumulation JAX's step size is a float32 array, so ``1 - s`` rounds
+    in float32; without, both are Python floats. The parameters are the
+    model's at rest (an FSDP rank's slices)."""
+
+    def __init__(self, model: StagedModel, decay: float, accum: bool):
+        self.decay = float(decay)
+        self.accum = accum
+        self.params = list(model.parameters())
+        self.stats = [getattr(leaf.module, leaf.attr)
+                      for leaf in model_leaves(model, state=True)]
+        self.live = self.params + self.stats
+        self.avg = [t.detach().clone() for t in self.live]
+
+    @property
+    def avg_params(self) -> list[torch.Tensor]:
+        return self.avg[:len(self.params)]
+
+    @property
+    def avg_stats(self) -> list[torch.Tensor]:
+        return self.avg[len(self.params):]
+
+    @torch.no_grad()
+    def update(self, boundary: bool) -> None:
+        """One train step's average (nothing moves off a boundary)."""
+        if not boundary:
+            return
+        if self.accum:
+            s = np.float32(1.0 - self.decay)
+            one_minus = float(np.float32(1.0) - s)
+            s = float(s)
+        else:
+            s = 1.0 - self.decay
+            one_minus = 1.0 - s
+        new = torch._foreach_mul([t.detach() for t in self.live], s)
+        torch._foreach_add_(new, torch._foreach_mul(self.avg, one_minus))
+        torch._foreach_copy_(self.avg, new)
+
+    @contextlib.contextmanager
+    @torch.no_grad()
+    def swapped(self):
+        """The averaged weights and statistics in the model for the
+        duration (evaluation and best-accuracy selection read them)."""
+        saved = [t.detach().clone() for t in self.live]
+        torch._foreach_copy_([t.detach() for t in self.live], self.avg)
+        try:
+            yield
+        finally:
+            torch._foreach_copy_([t.detach() for t in self.live], saved)
+
+
 def make_train_step(model: StagedModel, optimizer, *, mean, std,
                     augment: bool = True, dtype=torch.float32,
-                    ema_decay: float | None = None,
+                    ema: Ema | None = None,
                     resize_to: int | None = None,
                     reducer: GradReducer | None = None,
                     rows: tuple[int, int] | None = None):
@@ -319,13 +401,13 @@ def make_train_step(model: StagedModel, optimizer, *, mean, std,
     ``resize_to`` px (when set) → augment
     (draws from ``generator``) → normalize → forward (``train=True``) →
     loss → backward (``reducer`` averaging the gradients over the ranks)
-    → ``optimizer.step()``; metrics are this rank's, 0-d device tensors
+    → ``optimizer.step()`` (which under accumulation applies an update
+    every ``accum_steps`` calls) → ``ema.update`` (when set); metrics are
+    this rank's, 0-d device tensors
     (sums, like the JAX step's). ``rows = (start, total)``: the images are
     rows ``start ..`` of a global batch of ``total`` whose augmentation
     draws the generator gives. ``mean``/``std`` may be numpy; they are put
     on the model's device once, here."""
-    if ema_decay is not None:
-        raise ValueError("ema_decay is not ported yet (ROADMAP A4)")
     dev = next(model.parameters()).device
     mean = torch.as_tensor(mean, dtype=dtype, device=dev)
     std = torch.as_tensor(std, dtype=dtype, device=dev)
@@ -343,6 +425,8 @@ def make_train_step(model: StagedModel, optimizer, *, mean, std,
         if reducer is not None:
             reducer.finish()
         optimizer.step()
+        if ema is not None:
+            ema.update(optimizer.boundary)
         return _metrics(loss, logits, labels)
 
     return step
@@ -352,18 +436,18 @@ def make_multi_step(model: StagedModel, optimizer, *, image_shape, mean,
                     std, augment: bool = True, dtype=torch.float32,
                     seed: int = 1, reducer: GradReducer | None = None,
                     rows: tuple[int, int] | None = None,
-                    resize_to: int | None = None):
+                    resize_to: int | None = None, ema: Ema | None = None):
     """K train steps per call over a device-resident dataset:
     ``multi(images_flat, labels_all, idx[K, B], first_step) -> metrics``
     stacked over K. Each step gathers its batch from the on-device
     dataset by index and takes the augmentation generator of its global
     step (``first_step + k``, from ``seed``); the per-step math is
     :func:`make_train_step`'s (``reducer``, ``rows``: this rank's share
-    of a global batch; ``resize_to``). Nothing in the loop waits for the
-    card."""
+    of a global batch; ``resize_to``; ``ema``). Nothing in the loop waits
+    for the card."""
     step = make_train_step(model, optimizer, mean=mean, std=std,
                            augment=augment, dtype=dtype, reducer=reducer,
-                           rows=rows, resize_to=resize_to)
+                           rows=rows, resize_to=resize_to, ema=ema)
     h, w, c = image_shape
 
     def multi(images_flat, labels_all, idx, first_step: int):
@@ -448,6 +532,149 @@ def load_momentum(model: StagedModel, optimizers, tree) -> None:
                 opt.set_momentum_buffer(i, m)
 
 
+def model_layouts(model: StagedModel, params: list, group=None) -> list:
+    """An ``adaptive.LeafLayout`` per tensor of ``params`` (the model's
+    parameters at rest, in the optimizer's order): its whole port shape,
+    the port dim of each JAX dim and, for an FSDP slice, its shard dim
+    over ``group``."""
+    from distributed_model_parallel_tpu_torch.ops.collectives import (
+        world_size,
+    )
+    from distributed_model_parallel_tpu_torch.train.adaptive import (
+        LeafLayout,
+    )
+
+    n = world_size(group)
+    by_id = {id(leaf.stored): leaf for leaf in model_leaves(model)}
+    out = []
+    for p in params:
+        leaf = by_id[id(p)]
+        out.append(LeafLayout(leaf.full_shape(n), leaf.jax_dims,
+                              leaf.shard_dim,
+                              group if leaf.shard_dim is not None else None))
+    return out
+
+
+def _state_value(leaf, t: torch.Tensor | None, n: int) -> np.ndarray:
+    """One leaf's state tensor (whole) as a checkpoint array: in the JAX
+    layout when it has the leaf's shape, as it is otherwise (adafactor's
+    factored statistics); optax's ``zeros((1,))`` placeholder for none."""
+    if t is None:
+        return np.zeros((1,), np.float32)
+    if tuple(t.shape) == leaf.full_shape(n):
+        return leaf.to_jax(t)
+    return t.detach().float().cpu().numpy().copy()
+
+
+def optimizer_state_tree(model: StagedModel, optimizers, group=None) -> dict:
+    """``{name: per-unit JAX-layout tree}`` of every leaf state of
+    ``optimizers`` (``leaf_state()``: adam's mu/nu, lars' trace,
+    adafactor's v_row/v_col/v, the accumulated mean ``acc_grads``), each
+    tensor gathered whole (an FSDP slice over ``group``, ZeRO's slices by
+    the optimizer itself). Empty for SGD without accumulation, whose
+    momentum :func:`momentum_tree` holds. Every rank calls."""
+    from distributed_model_parallel_tpu_torch.ops.collectives import (
+        world_size,
+    )
+
+    n = world_size(group)
+    where, states = {}, {}
+    for opt in optimizers:
+        states[id(opt)] = opt.leaf_state()
+        for i, p in enumerate(opt.params):
+            where[id(p)] = (opt, i)
+    names = sorted({k for st in states.values() for k in st})
+    out = {}
+    for name in names:
+        def one(leaf, name=name):
+            opt, i = where[id(leaf.stored)]
+            t = states[id(opt)][name][i]
+            axis = opt.state_shard_axes(name)[i]
+            if t is not None and axis is not None:
+                t = all_gather_concat(t, group, axis=axis)
+            return _state_value(leaf, t, n)
+        out[name] = leaf_tree(model, one)
+    return out
+
+
+def meta_state_template(meta: StagedModel, config, optimizer) -> dict:
+    """:func:`optimizer_state_tree`'s template for the whole model of a
+    pipeline (shapes only, from its meta copy): the names ``optimizer``
+    (one stage's) holds, each leaf's state shaped as the chain over the
+    whole leaf would make it."""
+    from distributed_model_parallel_tpu_torch.train import adaptive
+
+    names = sorted(optimizer.leaf_state())
+    if not names:
+        return {}
+    leaves = model_leaves(meta)
+    tx = (adaptive.make_transform(config, [leaf.stored for leaf in leaves],
+                                  [adaptive.LeafLayout(tuple(
+                                      leaf.stored.shape), leaf.jax_dims)
+                                   for leaf in leaves])
+          if config.name in adaptive.NAMES else None)
+    index = {id(leaf.stored): i for i, leaf in enumerate(leaves)}
+
+    def shape(leaf, name):
+        if name == "acc_grads":
+            return leaf.jax_shape
+        t = tx.state[name][index[id(leaf.stored)]]
+        if t is None:
+            return (1,)
+        if tuple(t.shape) == tuple(leaf.stored.shape):
+            return leaf.jax_shape
+        return tuple(t.shape)
+
+    return {name: leaf_tree(meta, lambda leaf, name=name: np.broadcast_to(
+        np.float32(0), shape(leaf, name))) for name in names}
+
+
+def optimizer_counters(optimizers) -> dict:
+    """The optimizers' integer state (update count, accumulation
+    counters) as checkpoint scalars; they must agree."""
+    seen = {tuple(sorted(opt.counters().items())) for opt in optimizers}
+    if len(seen) != 1:
+        raise RuntimeError(f"the optimizers disagree on the update count "
+                           f"or the accumulation counters: {sorted(seen)}")
+    return {k: np.asarray(v, np.int32) for k, v in seen.pop()}
+
+
+@torch.no_grad()
+def load_optimizer_state(model: StagedModel, optimizers, trees: dict,
+                         counters: dict, group=None) -> None:
+    """Each optimizer's counters and leaf state := a checkpoint's
+    (:func:`optimizer_state_tree`, :func:`optimizer_counters`), each
+    tensor this rank's part of it (a placeholder lands nowhere: the
+    optimizer has no tensor there)."""
+    from distributed_model_parallel_tpu_torch.ops.collectives import (
+        world_size,
+    )
+
+    n = world_size(group)
+    rank = dist.get_rank(group) if n > 1 else 0
+    where, parts = {}, {}
+    for opt in optimizers:
+        parts[id(opt)] = {name: [None] * len(opt.params) for name in trees}
+        for i, p in enumerate(opt.params):
+            where[id(p)] = (opt, i)
+    for name, tree in trees.items():
+        for leaf in model_leaves(model):
+            opt, i = where[id(leaf.stored)]
+            a = tree_at(tree, leaf)
+            full = leaf.full_shape(n)
+            if np.shape(a) == tuple(full[d] for d in leaf.jax_dims):
+                t = leaf.local(leaf.from_jax(a))
+            else:
+                t = torch.from_numpy(np.asarray(a, np.float32).copy())
+                axis = opt.state_shard_axes(name)[i]
+                if axis is not None:
+                    t = t.chunk(n, axis)[rank]
+            parts[id(opt)][name][i] = t
+    counters = {k: int(v) for k, v in counters.items()}
+    for opt in optimizers:
+        opt.load_state(counters, parts[id(opt)])
+
+
 @dataclasses.dataclass
 class EpochResult:
     loss: float
@@ -481,9 +708,12 @@ class Trainer:
         check_train_config(config)
         self.config = config
         self.spec = spec = spec or make_mesh(config.mesh, config.device)
-        if spec.config.data != config.mesh.data:
-            raise ValueError(f"spec has data={spec.num_data}, the config "
-                             f"data={config.mesh.data}")
+        if (spec.config.data, spec.config.dcn_data) != (
+                config.mesh.data, config.mesh.dcn_data):
+            raise ValueError(f"spec has data={spec.num_data}, dcn_data="
+                             f"{spec.config.dcn_data}; the config data="
+                             f"{config.mesh.data}, dcn_data="
+                             f"{config.mesh.dcn_data}")
         self.device = spec.device
         ddp = None
         fsdp = config.strategy == "fsdp"
@@ -538,7 +768,7 @@ class Trainer:
         if ddp:
             allreduce, bucket_bytes = ddp.resolve_allreduce(
                 config.ddp_allreduce, config.ddp_bucket_bytes,
-                config.grad_bucket_mb)
+                config.grad_bucket_mb, config.mesh.dcn_data)
         if fsdp:
             # Rank 0's weights everywhere, then each rank keeps its slices;
             # the optimizer (and its momentum) sees only those.
@@ -550,15 +780,20 @@ class Trainer:
                 replicate(list(self.model.parameters())
                           + list(self.model.buffers()), spec)
             fsdp_mod.shard_model(self.model, spec)
+        params = list(self.model.parameters())
         self.optimizer = make_optimizer(
             config.optimizer, len(self.train_loader), config.epochs,
-            self.model.parameters(),
-            bucket_bytes=bucket_bytes if ddp else None,
-            zero=spec if zero else None)
+            params, bucket_bytes=bucket_bytes if ddp else None,
+            zero=spec if zero else None,
+            layouts=model_layouts(self.model, params,
+                                  spec.group if fsdp else None))
         if fsdp:
-            self.reducer = fsdp_mod.FsdpReducer(self.model, spec.group,
-                                                self.optimizer.clip)
-            self.optimizer.clip = None          # the reducer clips
+            # The optimizer clips over the slices (its layouts know them).
+            self.reducer = fsdp_mod.FsdpReducer(self.model, spec.group)
+        # The averaged weights (gspmd/fsdp; ddp and the pipeline refuse).
+        self.ema = (Ema(self.model, config.optimizer.ema_decay,
+                        self.optimizer.accum is not None)
+                    if config.optimizer.ema_decay is not None else None)
         if (spec.group is not None and not fsdp
                 and (not pipe or spec.num_data > 1)):
             # Rank 0's parameters everywhere (and its BN state, unless each
@@ -569,6 +804,7 @@ class Trainer:
                 else list(self.model.buffers())), spec)
         kw = dict(mean=train_ds.mean, std=train_ds.std, dtype=self.dtype,
                   resize_to=resize_to)
+        ema = dict(ema=self.ema)
         self._aug_seed = config.seed + 1
         self._multi_step = None
         if pipe:
@@ -591,7 +827,7 @@ class Trainer:
             share = dict(reducer=self.reducer, rows=(self._rows.start, bs))
             step = make_train_step(self.model, self.optimizer,
                                    augment=config.data.augment, **share,
-                                   **kw)
+                                   **ema, **kw)
             self._train_step = lambda *a: reduce_metrics(step(*a), spec)
             ev = make_eval_step(self.model, **kw)
             self._eval_step = lambda *a: reduce_metrics(ev(*a), spec)
@@ -611,7 +847,7 @@ class Trainer:
                     self.model, self.optimizer,
                     image_shape=train_ds.images.shape[1:],
                     augment=config.data.augment, seed=self._aug_seed,
-                    **share, **kw)
+                    **share, **ema, **kw)
         self._max_inflight = max(1, config.max_inflight_steps)
         self.global_step = 0
         self.best_acc = 0.0
@@ -841,6 +1077,13 @@ class Trainer:
                            timer.data.avg)
 
     def evaluate(self) -> EpochResult:
+        """One pass over the eval set, with the averaged weights and
+        statistics under ``ema_decay`` (the JAX eval step's ``use_ema``)."""
+        with (self.ema.swapped() if self.ema is not None
+              else contextlib.nullcontext()):
+            return self._evaluate()
+
+    def _evaluate(self) -> EpochResult:
         meters = {k: AverageMeter(k) for k in ("loss", "acc1", "acc5")}
         timer = StepTimer()
         pending: list = []
@@ -933,7 +1176,11 @@ class Trainer:
         (collectives under ddp/zero/fsdp: every rank calls; under
         spmd_pipeline data row 0's ranks gather the stages to the writer,
         and every other rank's tree holds its own stage only, which is
-        never written)."""
+        never written). Beside SGD's momentum it holds, when they exist,
+        the other optimizers' state and the accumulated mean
+        (``opt_state``), the accumulation counters (``accum``) and the
+        averaged weights and statistics (``ema_params``,
+        ``ema_batch_stats``)."""
         params, state = params_to_jax(self.model)
         if self.config.strategy == "ddp":
             from distributed_model_parallel_tpu_torch.parallel.ddp import (
@@ -942,58 +1189,121 @@ class Trainer:
 
             state = gather_replica_state(self.model, self.spec)
         momentum = self._momentum_tree()
-        count = self.optimizer.count
+        opt_state = optimizer_state_tree(self.model, [self.optimizer],
+                                         self.spec.group)
+        counters = optimizer_counters([self.optimizer])
         if self.config.strategy == "spmd_pipeline":
-            params, state, momentum, count = self._gather_stages(
-                params, state, momentum, count)
-        return {"params": params, "batch_stats": state,
+            params, state, momentum, opt_state, counters = (
+                self._gather_stages(params, state, momentum, opt_state,
+                                    counters))
+        tree = {"params": params, "batch_stats": state,
                 "momentum": momentum,
-                "opt_count": np.asarray(count, np.int32),
+                "opt_count": counters.pop("count"),
                 "best_acc": np.asarray(self.best_acc, np.float32),
                 "epoch": np.asarray(self.start_epoch, np.int32),
                 "resume": resume_subtree(self.train_loader, self._loader_pos,
                                          self.global_step)}
+        if opt_state:
+            tree["opt_state"] = opt_state
+        if counters:
+            tree["accum"] = counters
+        if self.ema is not None:
+            tree.update(self._ema_tree())
+        return tree
 
-    def _gather_stages(self, params, state, momentum, count):
+    def _ema_tree(self) -> dict:
+        """The averaged weights and BN statistics in the JAX layout (an
+        FSDP rank's slices gathered; every rank calls)."""
+        group = self.spec.group
+        avg = {id(p): a for p, a in zip(self.ema.params,
+                                        self.ema.avg_params)}
+        stats = {id(t): a for t, a in zip(self.ema.stats,
+                                          self.ema.avg_stats)}
+
+        def param(leaf):
+            t = avg[id(leaf.stored)]
+            if leaf.shard_dim is not None:
+                t = all_gather_concat(t, group, axis=leaf.shard_dim)
+            return leaf.to_jax(t)
+
+        return {"ema_params": leaf_tree(self.model, param),
+                "ema_batch_stats": leaf_tree(
+                    self.model, lambda leaf: leaf.to_jax(
+                        stats[id(leaf.stored)]), state=True)}
+
+    @torch.no_grad()
+    def _load_ema(self, tree: dict) -> None:
+        """The averages := a checkpoint's (this rank's slices)."""
+        for p, a, leaf in zip(self.ema.params, self.ema.avg_params,
+                              self._param_leaves()):
+            a.copy_(leaf.local(leaf.from_jax(tree_at(tree["ema_params"],
+                                                     leaf))))
+        for a, leaf in zip(self.ema.avg_stats,
+                           model_leaves(self.model, state=True)):
+            a.copy_(leaf.from_jax(tree_at(tree["ema_batch_stats"], leaf)))
+
+    def _param_leaves(self) -> list:
+        """The model's leaves in ``ema.params`` order."""
+        by_id = {id(leaf.stored): leaf for leaf in model_leaves(self.model)}
+        return [by_id[id(p)] for p in self.ema.params]
+
+    def _gather_stages(self, params, state, momentum, opt_state, counters):
         """This stage's per-unit trees → the whole model's on the writer
         (data row 0, stage 0), gathered over row 0's stage ring; the other
         rows hold copies and send nothing, and every rank but the writer
-        keeps its own parts. The stages' update counts must agree."""
+        keeps its own parts. The stages' counters must agree."""
         if self.spec.data_index != 0:
-            return params, state, momentum, count
+            return params, state, momentum, opt_state, counters
         import torch.distributed as dist
 
-        mine = (self.stage.units, params, state, momentum, count)
+        mine = (self.stage.units, params, state, momentum, opt_state,
+                counters)
         parts = [None] * self.spec.num_stages if self._writer else None
         dist.gather_object(mine, parts, dst=self.spec.stage_rank(0),
                            group=self.spec.stage_group)
         if not self._writer:
-            return params, state, momentum, count
+            return params, state, momentum, opt_state, counters
         n = sum(len(units) for units, *_ in parts)
         trees = [[None] * n for _ in range(3)]
-        for units, *local, _ in parts:
-            for tree, part in zip(trees, local):
+        opt_trees = {name: [None] * n for name in opt_state}
+        for units, p, st, m, opt, _ in parts:
+            for tree, part in zip(trees, (p, st, m)):
                 for g, unit_tree in zip(units, part):
                     tree[g] = unit_tree
-        counts = {c for *_, c in parts}
-        if len(counts) != 1:
+            for name, part in opt.items():
+                for g, unit_tree in zip(units, part):
+                    opt_trees[name][g] = unit_tree
+        seen = {tuple(sorted((k, int(v)) for k, v in c.items()))
+                for *_, c in parts}
+        if len(seen) != 1:
             raise RuntimeError(f"the pipeline's stages disagree on the "
-                               f"update count: {sorted(counts)}")
-        return (*(tuple(t) for t in trees), counts.pop())
+                               f"update count or the accumulation "
+                               f"counters: {sorted(seen)}")
+        return (*(tuple(t) for t in trees),
+                {k: tuple(v) for k, v in opt_trees.items()}, counters)
 
     def _pipeline_template(self) -> dict:
         """A checkpoint template of the whole pipelined model (shapes
-        only, from the stage's meta copy of it, no collective): what
-        every rank restores."""
+        only, from the stage's meta copy of it and the optimizer's state
+        names, no collective): what every rank restores."""
         meta = self.stage._meta
         zeros = lambda leaf: np.broadcast_to(np.float32(0), leaf.jax_shape)
         params = leaf_tree(meta, zeros)
-        return {"params": params,
+        tree = {"params": params,
                 "batch_stats": leaf_tree(meta, zeros, state=True),
                 "momentum": params, "opt_count": np.int32(0),
                 "best_acc": np.float32(0), "epoch": np.int32(0),
                 "resume": build_resume_tree(0, 0, 1, 0, {"retries_left": 0,
                                                          "lr_scale": 1.0})}
+        opt_state = meta_state_template(meta, self.config.optimizer,
+                                        self.optimizer)
+        if opt_state:
+            tree["opt_state"] = opt_state
+        counters = self.optimizer.counters()
+        counters.pop("count")
+        if counters:
+            tree["accum"] = {k: np.int32(0) for k in counters}
+        return tree
 
     def _momentum_tree(self) -> tuple:
         """Every leaf's momentum in the JAX layout (:func:`momentum_tree`
@@ -1002,14 +1312,18 @@ class Trainer:
 
     @torch.no_grad()
     def _load_tree(self, tree: dict) -> None:
-        """Adopt a restored checkpoint: weights, BN statistics, momentum
-        (this rank's slice under zero/fsdp, its replica's statistics under
-        ddp, its stage's units under spmd_pipeline) and the update count."""
+        """Adopt a restored checkpoint: weights, BN statistics, the
+        optimizer's state (this rank's slice under zero/fsdp, its
+        replica's statistics under ddp, its stage's units under
+        spmd_pipeline), its counters and the averages."""
         params, state = tree["params"], tree["batch_stats"]
         momentum = tree["momentum"]
+        opt_state = tree.get("opt_state", {})
         if self.config.strategy == "spmd_pipeline":
             params, state, momentum = (tuple(t[g] for g in self.stage.units)
                                        for t in (params, state, momentum))
+            opt_state = {k: tuple(t[g] for g in self.stage.units)
+                         for k, t in opt_state.items()}
         elif self.config.strategy == "ddp":
             from distributed_model_parallel_tpu_torch.parallel.ddp import (
                 replica_state,
@@ -1017,17 +1331,38 @@ class Trainer:
 
             state = replica_state(state, self.spec.rank)
         load_leaves(self.model, params, state)
-        self.optimizer.count = int(tree["opt_count"])
+        counters = {"count": tree["opt_count"], **tree.get("accum", {})}
+        load_optimizer_state(self.model, [self.optimizer], opt_state,
+                             counters, self.spec.group)
         load_momentum(self.model, [self.optimizer], momentum)
+        if self.ema is not None:
+            self._load_ema(tree)
 
     def _resume(self) -> None:
         """Restore the newest valid of ``RESUME_SLOTS`` and continue where
-        it was saved (every rank reads the file)."""
+        it was saved (every rank reads the file). A run resumed with
+        ``ema_decay`` toggled behaves as the JAX trainer's: newly enabled,
+        the averages start at the restored weights and statistics; turned
+        off, the saved ones are dropped."""
         template = (self._pipeline_template()
                     if self.config.strategy == "spmd_pipeline"
                     else self._ckpt_tree())
-        name, restored = restore_newest(self.ckpt, template, RESUME_SLOTS,
-                                        self._log_line)
+        ema_keys = ("ema_params", "ema_batch_stats")
+        try:
+            name, restored = restore_newest(self.ckpt, template,
+                                            RESUME_SLOTS, self._log_line)
+        except ValueError:
+            if self.ema is not None:
+                other = {k: v for k, v in template.items()
+                         if k not in ema_keys}
+            else:
+                other = dict(template, ema_params=template["params"],
+                             ema_batch_stats=template["batch_stats"])
+            name, restored = restore_newest(self.ckpt, other, RESUME_SLOTS,
+                                            self._log_line)
+            if self.ema is not None:
+                restored = dict(restored, ema_params=restored["params"],
+                                ema_batch_stats=restored["batch_stats"])
         self._load_tree(restored)
         self.best_acc = float(restored["best_acc"])
         self.start_epoch, self.global_step = resume_position(

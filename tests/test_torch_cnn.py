@@ -413,32 +413,96 @@ def test_fit_matches_jax_trainer(jax_fit, fused, resident, tmp_path):
 
 # Multi-GPU data parallelism (strategy="ddp", data > 1, grad_bucket_mb,
 # sync BN), the pipeline (strategy="spmd_pipeline", the stage axis), the
-# ring transport, FSDP and checkpoint/resume are ported
+# ring transport, FSDP, checkpoint/resume, the other optimizers,
+# accumulation, EMA and the two-level data axis are ported
 # (tests/test_torch_ddp*.py, tests/test_torch_*pipeline*.py,
-# test_torch_ring_reduce.py, test_torch_fsdp.py, test_torch_resume.py);
-# their entries here became what is still refused.
+# test_torch_ring_reduce.py, test_torch_fsdp.py, test_torch_resume.py,
+# test_torch_optimizers.py, test_torch_ema.py,
+# test_torch_hierarchical.py, and test_fit_with_optimizer_matches_jax
+# below); their entries here became what is still refused.
 @pytest.mark.parametrize("bad", [
-    dict(optimizer=tconfig.OptimizerConfig(name="adam")),
-    dict(optimizer=tconfig.OptimizerConfig(accum_steps=2)),
     dict(stall_budget_s=1.0),
     dict(strategy="auto"),
-    dict(mesh=tconfig.MeshConfig(data=2, dcn_data=2)),
-    dict(optimizer=tconfig.OptimizerConfig(name="lamb")),
     dict(check_finite_every=1), dict(consistency_every=1),
     dict(emergency_every=5), dict(elastic=True), dict(statusz_port=0),
-    dict(strategy="ddp", ddp_allreduce="hierarchical"),
     dict(recovery=tconfig.RecoveryConfig(max_retries=1)),
     dict(recovery=tconfig.RecoveryConfig(faults=("nan_loss@1",))),
     dict(mesh=tconfig.MeshConfig(stage=2, model=2)),
-    dict(optimizer=tconfig.OptimizerConfig(name="lars")),
-    dict(optimizer=tconfig.OptimizerConfig(name="adafactor")),
-    dict(optimizer=tconfig.OptimizerConfig(ema_decay=0.999)),
 ])
 def test_unported_trainer_options_raise(bad):
     cfg = tconfig.TrainConfig(model=tconfig.ModelConfig(name="tinycnn"),
                               data=tconfig.DataConfig(**DATA), device="cpu")
     with pytest.raises(ValueError, match="ROADMAP A"):
         ttrainer.Trainer(dataclasses.replace(cfg, **bad))
+
+
+@pytest.mark.parametrize("bad,match", [
+    # A two-level data axis of 2 ranks needs them, as JAX's needs devices.
+    (dict(mesh=tconfig.MeshConfig(data=2, dcn_data=2)),
+     "needs a process group of 2 ranks"),
+    (dict(strategy="ddp", ddp_allreduce="hierarchical"),
+     "allreduce='hierarchical' needs a two-level data axis"),
+    (dict(optimizer=tconfig.OptimizerConfig(ema_decay=1.5)),
+     r"ema_decay must be in \[0, 1\]"),
+    (dict(strategy="ddp", optimizer=tconfig.OptimizerConfig(
+        ema_decay=0.9)), "ema_decay is supported on the gspmd/fsdp"),
+])
+def test_trainer_refusals_in_jax_words(bad, match):
+    """What the JAX trainer refuses, as it words it."""
+    cfg = tconfig.TrainConfig(model=tconfig.ModelConfig(name="tinycnn"),
+                              data=tconfig.DataConfig(**DATA), device="cpu")
+    with pytest.raises(ValueError, match=match):
+        ttrainer.Trainer(dataclasses.replace(cfg, **bad))
+
+
+OPT_CASES = {
+    "adam": dict(name="adam", learning_rate=0.01),
+    "lamb": dict(name="lamb", learning_rate=0.01),
+    "lars": dict(name="lars", learning_rate=0.5),
+    "adafactor": dict(name="adafactor", learning_rate=0.01),
+    "accum": dict(learning_rate=0.1, accum_steps=2),
+    "ema": dict(learning_rate=0.1, ema_decay=0.9),
+}
+
+
+@pytest.fixture(scope="module")
+def jax_opt_fits(tmp_path_factory):
+    """The JAX trainer's tinycnn fits on one device under each case of
+    OPT_CASES: initial weights, history."""
+    out = {}
+    for case, kw in OPT_CASES.items():
+        cfg = tiny_train_config(tmp_path_factory.mktemp(case),
+                                mesh=jconfig.MeshConfig(data=1),
+                                data=jconfig.DataConfig(**DATA), epochs=2,
+                                optimizer=jconfig.OptimizerConfig(
+                                    warmup_steps=2, **kw))
+        t = jtrainer.Trainer(cfg)
+        out[case] = (jax.tree.map(np.asarray, t.state.params),
+                     jax.tree.map(np.asarray, t.state.model_state), t.fit())
+    return out
+
+
+@pytest.mark.parametrize("case", list(OPT_CASES))
+def test_fit_with_optimizer_matches_jax(jax_opt_fits, case, tmp_path):
+    """2 epochs of tinycnn through ``Trainer.fit`` from the JAX run's
+    weights under adam, lamb, lars, adafactor, accum_steps 2 and
+    ema_decay (eval reads the average): loss (1e-4) and accuracy per
+    epoch."""
+    params, state, want = jax_opt_fits[case]
+    cfg = tconfig.TrainConfig(
+        model=tconfig.ModelConfig(name="tinycnn"),
+        data=tconfig.DataConfig(**DATA),
+        optimizer=tconfig.OptimizerConfig(warmup_steps=2,
+                                          **OPT_CASES[case]),
+        epochs=2, log_every_n_steps=1000, device="cpu",
+        **run_dirs(tmp_path))
+    got = ttrainer.Trainer(cfg, params=params, state=state).fit()
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        for k in ("loss_train", "loss_val"):
+            _close(g[k], w[k], k)
+        for k in ("acc1_train", "acc1_val"):
+            assert abs(g[k] - w[k]) < 1e-6, (k, g[k], w[k])
 
 
 # ResNet and the zoo are ported (tests/test_torch_resnet.py,
@@ -460,5 +524,19 @@ def test_cli_prints_one_record_per_epoch(capsys, tmp_path):
     records = [json.loads(x) for x in lines]
     assert [r["epoch"] for r in records] == [0, 1]
     assert all(np.isfinite(r["loss_train"]) for r in records)
-    with pytest.raises(SystemExit, match="ROADMAP A6"):
-        train_cnn.main(["--device", "cpu", "--dcn-data", "2"])
+    with pytest.raises(SystemExit, match="ROADMAP A11"):
+        train_cnn.main(["--device", "cpu", "--elastic"])
+
+
+def test_cli_optimizer_accum_and_ema_flags(capsys, tmp_path):
+    """``--optimizer lars --accum-steps 2 --ema-decay 0.99`` run: one
+    finite record per epoch."""
+    train_cnn.main(["--device", "cpu", "--model", "tinycnn", "--epochs", "2",
+                    "--batch-size", "16", "--synthetic-train-size", "48",
+                    "--synthetic-eval-size", "16", "--optimizer", "lars",
+                    "--accum-steps", "2", "--ema-decay", "0.99",
+                    *cli_dirs(tmp_path)])
+    records = [json.loads(x) for x in
+               capsys.readouterr().out.strip().splitlines()]
+    assert [r["epoch"] for r in records] == [0, 1]
+    assert all(np.isfinite(r["loss_val"]) for r in records)

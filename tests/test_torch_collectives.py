@@ -303,22 +303,26 @@ def test_spawn_times_out_and_kills_its_ranks(tmp_path):
 @pytest.mark.parametrize("call,match", [
     (lambda: tsp.spmd_ticks(2, 3, "1f1b", virtual_stages=2),
      "Megatron constraint"),
-    (lambda: tcoll.hierarchical_psum(torch.ones(2)), "ROADMAP A6"),
-    (lambda: tcoll.hierarchical_psum_tree({}), "ROADMAP A6"),
     (lambda: tmesh.make_mesh(tconfig.MeshConfig(data=2, dcn_data=2),
-                             "cpu"), "ROADMAP A6"),
+                             "cpu"), "needs a process group of 2 ranks"),
     (lambda: tmesh.make_mesh(tconfig.MeshConfig(stage=2), "cpu"),
      "needs a process group of 2 ranks"),
     (lambda: tmesh.make_mesh(tconfig.MeshConfig(data=2), "cpu"),
      "needs a process group of 2 ranks"),
-    (lambda: tddp.resolve_allreduce("hierarchical", 1 << 20), "ROADMAP A6"),
-    (lambda: tddp.resolve_allreduce("hierarchical"), "ROADMAP A6"),
+    (lambda: tddp.resolve_allreduce("hierarchical", 1 << 20),
+     "needs a two-level data axis; set MeshConfig.dcn_data > 1"),
+    (lambda: tddp.resolve_allreduce("hierarchical"),
+     "needs a two-level data axis; set MeshConfig.dcn_data > 1"),
+    (lambda: tmesh.make_mesh(tconfig.MeshConfig(data=4, dcn_data=3), "cpu"),
+     "dcn_data=3 must divide data=4"),
     (lambda: tmesh.spawn(workers.unused_param, 2, device="cuda"),
      "no CUDA device"),
 ])
 def test_refusals_by_name(call, match):
-    """What is not ported raises naming its ROADMAP item; no rank falls
-    back to the CPU when asked for the card."""
+    """What is not ported raises naming its ROADMAP item, what the JAX
+    package refuses raises in its words (a two-level axis without ranks,
+    the hierarchical transport without one); no rank falls back to the
+    CPU when asked for the card."""
     with pytest.raises((ValueError, RuntimeError), match=match):
         call()
 

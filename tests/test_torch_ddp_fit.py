@@ -276,10 +276,12 @@ def test_cli_spawns_ranks_and_prints_rank_0(capsys, tmp_path):
     (dict(grad_bucket_mb=25.0), "grad_bucket_mb"),
     (dict(strategy="fsdp", optimizer=tconfig.OptimizerConfig(fused=True)),
      "OptimizerConfig.fused runs the update over flat"),
-    (dict(strategy="ddp", ddp_allreduce="hierarchical"), "ROADMAP A6"),
+    (dict(strategy="ddp", ddp_allreduce="hierarchical"),
+     "allreduce='hierarchical' needs a two-level data axis"),
     (dict(strategy="fsdp", consistency_every=1),
      "consistency_every needs state replicated"),
-    (dict(mesh=tconfig.MeshConfig(data=2, dcn_data=2)), "ROADMAP A6"),
+    (dict(mesh=tconfig.MeshConfig(data=2, dcn_data=2)),
+     "process group of 2"),
     (dict(mesh=tconfig.MeshConfig(data=2)), "process group of 2"),
 ])
 def test_trainer_refusals(bad, match):

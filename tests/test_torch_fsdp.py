@@ -185,6 +185,62 @@ def test_fsdp_fit_matches_port_gspmd(ranks, run, ref):
         _close_params(r[run]["params"], r[ref]["params"])
 
 
+WIDE = tconfig.ModelConfig(name="tinycnn", extra={"width": 128})
+# The optimizers whose update reads whole-leaf reductions, which a slice
+# must take over its group: the trust ratio (lars; lamb runs the same
+# code after adam's elementwise step, which normalises each element by
+# its own gradient, so an element whose gradient sits at rounding level
+# flips sign between two reduction orders and no fit-level bound holds
+# for it), the factored means (adafactor) and the global-norm clip.
+ADAPTIVE = {"lars": dict(name="lars", learning_rate=0.5),
+            "adafactor": dict(name="adafactor", learning_rate=0.01),
+            "lars_clip": dict(name="lars", learning_rate=0.5,
+                              grad_clip_norm=0.05)}
+
+
+@pytest.fixture(scope="module")
+def adaptive_ranks(tmp_path_factory):
+    """fsdp and gspmd fits of tinycnn at width 128 (3x3 kernels of 128 x
+    128: adafactor factors them, fsdp shards them) under lars, adafactor
+    and lars with the clip, from the same weights."""
+    from distributed_model_parallel_tpu_torch.models import (
+        get_model,
+        params_to_jax,
+    )
+
+    train, evals = load_dataset(tconfig.DataConfig(**DATA))
+    params, state = params_to_jax(get_model(WIDE, device="cpu"))
+    root = tmp_path_factory.mktemp("adaptive")
+    runs = {}
+    for name, opt in ADAPTIVE.items():
+        for strategy in ("fsdp", "gspmd"):
+            runs[f"{strategy}_{name}"] = dict(
+                config=_config(model=WIDE, strategy=strategy,
+                               optimizer=tconfig.OptimizerConfig(
+                                   warmup_steps=2, **opt)).replace(
+                    **run_dirs(root, f"{strategy}_{name}")),
+                params=params, state=state)
+    return tmesh.spawn(workers.trainer_runs, N, runs,
+                       (train.images, train.labels),
+                       (evals.images, evals.labels), device="cpu",
+                       timeout_s=600, threads=1,
+                       store_dir=str(tmp_path_factory.mktemp("store")))
+
+
+@pytest.mark.parametrize("name", list(ADAPTIVE))
+def test_fsdp_adaptive_optimizers_match_gspmd(adaptive_ranks, name):
+    """On slices, the trust ratio and the clip take each whole leaf's
+    norm (squared norms summed over the ranks), and
+    adafactor factors by the whole leaf's shape (row and column means
+    summed over the ranks where the shard dim is reduced): fsdp == gspmd
+    within tests/test_fsdp.py's bounds."""
+    for r in adaptive_ranks:
+        _close_history(r[f"fsdp_{name}"]["history"],
+                       r[f"gspmd_{name}"]["history"])
+        _close_params(r[f"fsdp_{name}"]["params"],
+                      r[f"gspmd_{name}"]["params"])
+
+
 def test_slices_at_rest_are_jax_shards(jax_fit, ranks):
     """Rank r keeps, of every parameter, the JAX package's shard on device
     r of its final parameters (the whole leaf where it stays
@@ -247,3 +303,36 @@ def test_cli_fsdp_and_ring(capsys, extra, tmp_path):
                capsys.readouterr().out.strip().splitlines()]
     assert [r["epoch"] for r in records] == [0, 1]
     assert all(np.isfinite(r["loss_train"]) for r in records)
+
+
+@pytest.fixture(scope="module", params=["tinycnn", "tinycnn_w128"])
+def gathered(request, tmp_path_factory):
+    """One FSDP step per rank with the whole weights counted; width 128
+    shards the head's Dense kernel too (autograd saves its transpose, a
+    view of the gathered weight)."""
+    train, _ = load_dataset(tconfig.DataConfig(**DATA))
+    model = (tconfig.ModelConfig(name="tinycnn", extra={"width": 128})
+             if request.param == "tinycnn_w128"
+             else tconfig.ModelConfig(name="tinycnn"))
+    cfg = _config(model=model).replace(
+        **run_dirs(tmp_path_factory.mktemp("g"), "g"))
+    return tmesh.spawn(workers.fsdp_gathered, N, cfg,
+                       (train.images, train.labels), device="cpu",
+                       timeout_s=300, threads=1,
+                       store_dir=str(tmp_path_factory.mktemp("store")))
+
+
+def test_only_one_unit_holds_whole_weights(gathered):
+    """The forward frees each unit's gathered weights when the unit is
+    done (autograd keeps a note of the slice instead), and the backward
+    gathers them again when it needs them: at most one unit's whole
+    weights are alive in either pass (count and bytes), none between
+    them or after, and every parameter got its gradient."""
+    for r in gathered:
+        most = max(r["per_unit"].values())
+        assert r["n_sharded"] > most          # more than one unit shards
+        assert 0 < r["fwd_peak"] <= most
+        assert 0 < r["bwd_peak"] <= most
+        assert r["bwd_peak_bytes"] <= r["max_unit_bytes"]
+        assert r["between"] == 0 and r["after"] == 0
+        assert all(r["grads"])

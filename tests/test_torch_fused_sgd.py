@@ -189,6 +189,55 @@ def test_bf16_leaves_cast_back_on_cpu_match_jax():
                                    atol=1e-6)
 
 
+@pytest.mark.parametrize("momentum", [0.9, 0.0])
+def test_bf16_leaves_stage_through_the_kernel_wrappers(monkeypatch,
+                                                       momentum):
+    """Non-f32 leaves take the kernel's path on the card: each bucket is
+    staged into f32 (weight decay folded into the gradient) and handed to
+    ``fused_sgd_kernel`` (``plain_sgd_kernel`` at momentum 0) with a
+    zeroed delta buffer in the parameters' place, once a bucket a step;
+    the delta, the momentum and the leaves equal the plain version
+    (``sgd_delta_plain`` on the same staged values) bit for bit. On the
+    CPU the wrappers run the plain version, so this pins the staging."""
+    calls = []
+    for name in ("fused_sgd_kernel", "plain_sgd_kernel"):
+        real = getattr(fs, name)
+        monkeypatch.setattr(fs, name, lambda *a, real=real, name=name, **k: (
+            calls.append((name, a[0].abs().max().item())), real(*a, **k)))
+    base = [torch.from_numpy(a.copy()).bfloat16()
+            for a in jax.tree.leaves(_tree())]
+    leaves = [torch.nn.Parameter(x.clone()) for x in base]
+    cfg = TOpt(fused=True, momentum=momentum, weight_decay=1e-4)
+    opt = toptim.FusedSGD(leaves, cfg, lambda n: 0.1, bucket_bytes=64)
+    assert not opt.flat and len(opt.buckets) > 1
+    moms = [None if m is None else torch.zeros_like(m) for m in opt._m]
+    for g in _grads(3):
+        grads = [torch.from_numpy(a).bfloat16() for a in jax.tree.leaves(g)]
+        for p, x in zip(leaves, grads):
+            p.grad = x
+        calls.clear()
+        opt.step()
+        kernel = "fused_sgd_kernel" if momentum else "plain_sgd_kernel"
+        # one call a bucket, each on a zeroed delta buffer
+        assert calls == [(kernel, 0.0)] * len(opt.buckets)
+        for b, bucket in enumerate(opt.buckets):
+            p32 = torch.cat([base[i].float().reshape(-1) for i in bucket])
+            g32 = torch.cat([grads[i].float().reshape(-1) for i in bucket])
+            delta = fs.sgd_delta_plain(p32, moms[b], g32, 0.1, momentum,
+                                       1e-4, False)
+            assert torch.equal(delta, opt.last_deltas[b])
+            if moms[b] is not None:
+                assert torch.equal(moms[b], opt._m[b])
+            off = 0
+            for i in bucket:
+                n = base[i].numel()
+                base[i].add_(delta[off:off + n].view(base[i].shape)
+                             .to(torch.bfloat16))
+                off += n
+        for p, x in zip(leaves, base):
+            assert torch.equal(p.detach(), x)
+
+
 def test_autograd_accumulates_into_bucket_views():
     """tinycnn's channels-last conv weights as bucket views: two backward
     passes leave every .grad in its slot, equal to plain autograd's."""

@@ -151,12 +151,20 @@ def test_schedule_matches_optax(warmup, decay):
                                atol=1e-7, rtol=0)
 
 
-@pytest.mark.parametrize("bad", [
-    dict(name="adamw"), dict(fused=True, name="adamw"), dict(accum_steps=2),
-    dict(ema_decay=0.999),
+@pytest.mark.parametrize("bad,match", [
+    (dict(fused=True, name="adamw"), "fused implements the sgd recipe"),
+    (dict(ema_decay=0.999), "ema_decay is implemented by the data-parallel"),
 ])
-def test_unported_optimizer_options_raise(bad):
-    with pytest.raises(ValueError, match="ROADMAP A4"):
+def test_unported_optimizer_options_raise(bad, match):
+    """What the JAX package refuses, in its words: ``fused`` with another
+    optimizer (make_optimizer) and EMA on the LM trainer. adamw and
+    accumulation run (test_fit_with_optimizer_matches_jax)."""
+    with pytest.raises(ValueError, match=match):
+        if "ema_decay" in bad:
+            _, tcfg = configs("mha")
+            tlm.LMTrainer(tlm.LMTrainConfig(
+                model=tcfg, device="cpu", n_tokens=500,
+                optimizer=tconfig.OptimizerConfig(**bad)))
         toptim.make_optimizer(tconfig.OptimizerConfig(**bad), 5, 1,
                               [torch.zeros(2, requires_grad=True)])
 
@@ -219,6 +227,30 @@ def test_fit_matches_jax_trainer(tmp_path):
         assert set(a) == {"epoch", "loss_train", "loss_val",
                           "time_per_batch", "time_load_per_batch",
                           "tokens_per_s"} <= set(b)
+        _close([a["loss_train"], a["loss_val"]],
+               [b["loss_train"], b["loss_val"]])
+
+
+@pytest.mark.parametrize("opt", [
+    dict(name="adamw", learning_rate=0.01, weight_decay=1e-2),
+    dict(accum_steps=2),
+])
+def test_fit_with_optimizer_matches_jax(tmp_path, opt):
+    """adamw, and SGD under accum_steps 2 (the schedule in update
+    units), through the LM trainer from the JAX trainer's initial
+    parameters: losses per step and per epoch within 1e-4."""
+    common = dict(optimizer=jconfig.OptimizerConfig(**opt))
+    jc, tc = _lm_configs(tmp_path, **common)
+    tc = dataclasses.replace(tc, optimizer=tconfig.OptimizerConfig(**opt))
+    jt = jlm.LMTrainer(jc)
+    tree = jax.tree.map(np.asarray, jt.params)
+    tt = tlm.LMTrainer(tc, params=ttfm.params_from_jax(tree, tc.model,
+                                                       "cpu"))
+    jhist, thist = jt.fit(), tt.fit()
+    with open(jt.logger.jsonl_path) as fh:
+        jsteps = [r for r in map(json.loads, fh) if r.get("kind") == "step"]
+    _close([r["loss"] for r in tt.step_log], [r["loss"] for r in jsteps])
+    for a, b in zip(thist, jhist):
         _close([a["loss_train"], a["loss_val"]],
                [b["loss_train"], b["loss_val"]])
 

@@ -329,3 +329,51 @@ def test_spmd_resume_at_two_data_rows(tmp_path):
     for s in range(2):                       # rank d·S + s, data rows 0, 1
         for x, y in zip(leaves[s][1], leaves[2 + s][1], strict=True):
             np.testing.assert_array_equal(x, y)
+
+
+OPT = dict(name="adamw", learning_rate=0.01, warmup_steps=2, accum_steps=3)
+
+
+def _flat_differ(a: dict, b: dict) -> int:
+    from distributed_model_parallel_tpu_torch.train.checkpoint import (
+        flatten_tree,
+    )
+
+    fa, fb = flatten_tree(a), flatten_tree(b)
+    assert set(fa) == set(fb)
+    return sum(not np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def test_runner_resumes_optimizer_state_mid_accumulation(tmp_path):
+    """adamw under accum_steps 3 on the runner, preempted at step 4 (one
+    gradient into an accumulation) and resumed: every array of the
+    checkpoint tree (adam's mu/nu, the accumulated mean and its counters
+    included) == the uninterrupted run's, bit for bit."""
+    opt = tconfig.OptimizerConfig(**OPT)
+    a = tpipeline_trainer.PipelineTrainer(
+        _config(tmp_path, "a").replace(optimizer=opt))
+    a.fit()
+    r, _ = _preempted_and_resumed(
+        _config(tmp_path, "b").replace(optimizer=opt))
+    ta = a._ckpt_tree()
+    assert sorted(ta["opt_state"]) == ["acc_grads", "mu", "nu"]
+    assert int(ta["accum"]["mini_step"]) == 0
+    assert _flat_differ(ta, r._ckpt_tree()) == 0
+
+
+def test_spmd_resumes_optimizer_state_mid_accumulation(tmp_path):
+    """The same at 2 gloo SPMD ranks: the writer gathers every stage's
+    optimizer state; each rank's resumed tree == its uninterrupted one."""
+    cfg = _config(tmp_path, "opt").replace(
+        strategy="spmd_pipeline", optimizer=tconfig.OptimizerConfig(**OPT))
+    train, evals = load_dataset(cfg.data)
+    ranks = tmesh.spawn(
+        workers.preempt_resume, 2, {"run": cfg},
+        (train.images, train.labels), (evals.images, evals.labels),
+        PREEMPT_AT, device="cpu", timeout_s=300, threads=1,
+        store_dir=str(tmp_path), config=tconfig.MeshConfig(stage=2))
+    for r in ranks:
+        assert _flat_differ(r["run"]["a"]["tree"], r["run"]["b"]["tree"]) == 0
+        assert r["run"]["b"]["step"] == 2 * STEPS
+    whole = ranks[0]["run"]["a"]["tree"]["opt_state"]["mu"]
+    assert len(whole) == 6 and all(len(u) for u in whole)

@@ -178,5 +178,6 @@ def test_resolve_allreduce_takes_ring():
     assert tddp.resolve_allreduce("ring") == ("ring", None)
     assert tddp.resolve_allreduce("ring", grad_bucket_mb=1.0) == (
         "ring", 1 << 20)
-    with pytest.raises(ValueError, match="A6"):
+    # hierarchical without a dcn axis: refused in the JAX package's words
+    with pytest.raises(ValueError, match="needs a two-level data axis"):
         tddp.resolve_allreduce("hierarchical")

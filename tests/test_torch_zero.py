@@ -1,8 +1,9 @@
 """The port's ZeRO step (``parallel/zero.py``) at 4 gloo ranks against the
 JAX package's ``make_zero_train_step`` at ``MeshConfig(data=4)`` on
 tests/test_zero.py's problem (a linear map, MSE, 16 rows): 3 steps per
-case, losses (rel 1e-5) and parameters (rtol 1e-4, atol 1e-5: JAX's own
-bounds) after each step, each rank's momentum slice == JAX's row r, the
+case (SGD variants, and adamw and lars on the flat slice), losses (rel
+1e-5) and parameters (rtol 1e-4, atol 1e-5: JAX's own bounds) after each
+step, each rank's momentum (or adamw/lars state) slice == JAX's row r, the
 fused path (the plain version of the kernel on the CPU) bitwise the
 unfused one, and ``flatten_padded``/``unflatten_like`` == the JAX
 package's."""
@@ -40,7 +41,14 @@ CASES = {
         optax.sgd(0.05, momentum=0.9, nesterov=True)),
         dict(learning_rate=0.05, momentum=0.9, weight_decay=1e-2,
              nesterov=True)),
+    # Other optimizers run on the flat slice, as JAX's ZeRO runs any tx.
+    "adamw": (lambda: optax.adamw(0.01, weight_decay=1e-2),
+              dict(name="adamw", learning_rate=0.01, weight_decay=1e-2)),
+    "lars": (lambda: optax.lars(0.1, weight_decay=1e-2, momentum=0.9),
+             dict(name="lars", learning_rate=0.1, weight_decay=1e-2,
+                  momentum=0.9)),
 }
+SGD_CASES = ("momentum", "no_momentum", "nesterov_wd")
 
 
 def _problem():
@@ -76,7 +84,11 @@ def jax_side():
         traces = [np.asarray(t.trace) for t in jax.tree.leaves(
             opt, is_leaf=lambda s: isinstance(s, optax.TraceState))
             if isinstance(t, optax.TraceState)]
-        out[name] = dict(steps=hist, trace=traces[0] if traces else None)
+        adam = [s for s in jax.tree.leaves(
+            opt, is_leaf=lambda s: isinstance(s, optax.ScaleByAdamState))
+            if isinstance(s, optax.ScaleByAdamState)]
+        out[name] = dict(steps=hist, trace=traces[0] if traces else None,
+                         adam=adam[0] if adam else None)
     return out
 
 
@@ -86,7 +98,8 @@ def ranks(tmp_path_factory):
     cases = {}
     for name, (_, kw) in CASES.items():
         cases[name] = kw
-        cases[name + "_fused"] = dict(kw, fused=True)
+        if name in SGD_CASES:
+            cases[name + "_fused"] = dict(kw, fused=True)
     return tmesh.spawn(workers.zero_steps, N, params, x, y, cases, STEPS,
                        device="cpu", timeout_s=300, threads=1,
                        store_dir=str(tmp_path_factory.mktemp("store")))
@@ -163,7 +176,21 @@ def test_momentum_slice_is_jax_row(jax_side, ranks, name):
     assert all(rank["no_momentum"]["momentum"] is None for rank in ranks)
 
 
-@pytest.mark.parametrize("name", list(CASES))
+@pytest.mark.parametrize("name,state", [("adamw", "mu"), ("adamw", "nu"),
+                                        ("lars", "trace")])
+def test_optimizer_state_slice_is_jax_row(jax_side, ranks, name, state):
+    """adamw's mu and nu and lars' trace live as rank r's slice of the
+    flat state: JAX's row r (rtol 1e-5)."""
+    want = (jax_side[name]["trace"] if state == "trace"
+            else np.asarray(getattr(jax_side[name]["adam"], state)))
+    assert want.shape == (N, 6)
+    for r, rank in enumerate(ranks):
+        np.testing.assert_allclose(rank[name]["state"][state], want[r],
+                                   rtol=1e-5, atol=1e-7)
+        assert rank[name]["momentum"] is None
+
+
+@pytest.mark.parametrize("name", SGD_CASES)
 def test_fused_path_equals_unfused(ranks, name):
     """``fused=True`` (the kernel's plain version on the CPU) gives the
     unfused path's bits: same parameters, losses and momentum."""
@@ -180,7 +207,7 @@ def test_fused_path_equals_unfused(ranks, name):
 
 def test_zero_refusals():
     spec = tmesh.make_mesh(device="cpu")
-    for kw in (dict(name="adamw"), dict(grad_clip_norm=1.0),
+    for kw in (dict(name="adamw", fused=True), dict(grad_clip_norm=1.0),
                dict(accum_steps=2), dict(ema_decay=0.9)):
         with pytest.raises(ValueError):
             tzero.make_zero_train_step(workers.zero_linear_loss,
