@@ -192,13 +192,38 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     forward beside gspmd's), fsdp vs gspmd within 2e-4/2e-5; ddp
     ``allreduce="hierarchical"`` against ``"bucketed"`` at four ranks on a
     ``data=4, dcn_data=2`` mesh (MobileNetV2 f32 B 128, gloo on one card),
-    1e-6 a leaf, replicas bitwise.
+    1e-6 a leaf, replicas bitwise;
+18. the Transformer LM over a ``(data, model, seq)`` mesh, bench.py's LM
+    model at full width (phase 8's B 2, T 8192, bf16, SGD), every run from
+    phase 8's weights: (a) on one card, remat off, ``"dots"`` and
+    ``"full"``, and the chunked head (1024 tokens a slice) with and
+    without ``"dots"``, 3 steps each — step-0 loss within 2e-2 of phase
+    8b's, peak ``max_memory_allocated`` ordered off > dots > full and the
+    chunked head below the dense one; step s, tokens/s, MFU, peak memory,
+    flash launches by kernel; (b) 4 ranks (gloo sharing the card, or NCCL
+    with a card each), ``MeshConfig(model=2, seq=2)`` with ring
+    attention, ``(data=2, seq=2)`` with Ulysses and ``(data=2,
+    model=2)``, 3 steps each: step-0 loss within 2e-2 of the one-card
+    trainer's, after every step each replicated leaf bitwise equal on
+    every rank and each tensor-parallel slice bitwise equal across its
+    data and seq replicas, each rank's flash launches what its hops imply
+    (ring: rank i of the seq group i + 1 hops a layer) with no plain
+    attention on the card, ring attention on the card against the flash
+    kernels over the whole sequence (o per row within 1e-2, dq/dk/dv
+    within 2e-2); step s, tokens/s and MFU a card, peak memory a rank,
+    the collectives' calls and bytes a step and their µs in one timed
+    step; (c) at 2 layers on the ring mesh under ``"dots"``: ``fit``
+    preempted by a ``step_hook`` at step 3 of epoch 0 and resumed equals
+    the uninterrupted fit bit for bit on every rank (per-step losses, the
+    whole parameters and optimizer state, the global step, the history),
+    the checkpoint's bytes, save and restore ms, and a resume on another
+    split refused naming ROADMAP A11.
 
 Prints the card line, each phase's seconds, a ``{"data_parallel": ...}``
 line, a ``{"pipeline": ...}`` line, a ``{"resnet": ...}`` line, a
 ``{"dp_engines": ...}`` line, a ``{"harness": ...}`` line, a
-``{"data_path": ...}`` line, a ``{"optim": ...}`` line, the
-``{"kernels": [...]}`` line and, last,
+``{"data_path": ...}`` line, a ``{"optim": ...}`` line, a
+``{"lm_mesh": ...}`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero
 without a card, or when run outside a checkout of the repository.
 ``--sgd-timing-only`` runs phases 1, 2 (the fused SGD kernel) and 10 and
@@ -220,7 +245,9 @@ and 17 and prints the ``{"optim": ...}`` line. ``--dp-only`` adds 17e at
 world = the card count (fsdp) and 4 ranks (hierarchical) over NCCL with
 four cards, timed: samples/s a card and the reduction's µs a step (fsdp's:
 its reduce-scatters in the backward and the replicated leaves' all-reduce,
-each timed by CUDA events and added).
+each timed by CUDA events and added). ``--lm-only`` runs phases 1, 2 (the
+flash kernels), 6 and 18 and prints the ``{"lm_mesh": ...}`` line; with
+four cards 18b and 18c run over NCCL at world 4, one rank a card.
 """
 
 from __future__ import annotations
@@ -271,6 +298,9 @@ FLASH_CASES = {
     # a window that is a multiple of neither, over a T that is not a
     # multiple of 128.
     "window300_t1000": dict(t=1000, dh=128, causal=True, window=300),
+    # A ring hop after the first (phase 18): full attention at the shard
+    # length of T 8192 over seq 2.
+    "full_t4096": dict(t=4096, dh=128, causal=False, window=None),
 }
 # o, gated per row: max over (b, t, h) of ||o - o_ref|| / ||o_ref|| over
 # Dh. Row i of o averages ~i/e values of v, so |o| falls from ~2-4 on the
@@ -514,6 +544,43 @@ RESUME_OPT = dict(name="adamw", learning_rate=1e-3, warmup_steps=10,
                   accum_steps=2, ema_decay=0.99)
 HIER_BATCH, HIER_RTOL = 128, 1e-6
 
+
+# The LM over a mesh (phase 18): bench.py's LM model at full width at
+# phase 8's B 2, T 8192 and SGD, each run from phase 8's initial weights.
+# 18a on one card: remat off, "dots", "full", and the chunked head with
+# and without "dots"; LM18_STEPS steps each (the first gated on its loss).
+LM18_STEPS = 3
+LM18_VARIANTS = {
+    "remat_off": {},
+    "remat_dots": dict(remat=True, remat_policy="dots"),
+    "remat_full": dict(remat=True, remat_policy="full"),
+    "chunk1024": dict(loss_chunk=1024),
+    "chunk1024_dots": dict(loss_chunk=1024, remat=True, remat_policy="dots"),
+}
+# 18b: three meshes of 4 ranks (gloo on one card, NCCL on four under
+# --lm-only), LM18_STEPS gated steps then one timed step each.
+LM18_MESHES = {
+    "model2_seq2_ring": (dict(model=2, seq=2),
+                         dict(tp_axis="model", sp_axis="seq")),
+    "data2_seq2_ulysses": (dict(data=2, seq=2),
+                           dict(sp_axis="seq", sp_impl="ulysses")),
+    "data2_model2": (dict(data=2, model=2), dict(tp_axis="model")),
+}
+# Every step's loss against the one-card trainer's (18a remat off) on the
+# same weights, batches and learning rates (18a and 18b both schedule
+# LM18_STEPS + 1 steps: 18b's last one is timed). A mesh sums its partial
+# products (the row-parallel all-reduce, the ring's lse merge) in another
+# bf16 order: 0 to 9e-5 at steps 0-1 on the H100. Control: one step's
+# learning rate 14% off (a 3-step cosine against a 4-step one) moved the
+# step-2 loss by 4.0e-3, so a wrong gradient scale or a wrong head order
+# shows from step 1 on; a dropped shard or a wrong offset moves it by O(1).
+LM18_LOSS_ATOL = 1e-3
+# 18c: the resume gate at 2 layers (the cut: 2 of bench.py's 8, so three
+# fits and their checkpoints of the whole model fit the phase),
+# LM18_RESUME_STEPS steps, preempted at step 3 of epoch 0.
+LM18_RESUME_LAYERS = 2
+LM18_RESUME_STEPS = 5
+LM18_PREEMPT_AT = (0, 3)
 
 # Where the phases' trainers write their logs and checkpoints: one
 # temporary directory of the run, made by main() and removed at exit;
@@ -975,9 +1042,10 @@ def check_training(tfm, lm, fa) -> None:
     torch.cuda.empty_cache()
 
 
-def train_full_width(tfm, lm, fa, lm_model_flops, card) -> dict:
+def train_full_width(tfm, lm, fa, lm_model_flops, card) -> tuple:
     """Phase 8b/8c: the trainer at full width, B 2, T 8192 — the slice's
-    main path. Returns the flash kernels' launch counts of the timed run."""
+    main path. Returns the flash kernels' launch counts of the timed run
+    and its step-0 loss."""
     import dataclasses
 
     import torch
@@ -987,7 +1055,7 @@ def train_full_width(tfm, lm, fa, lm_model_flops, card) -> dict:
         model=cfg, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
         steps_per_epoch=TRAIN_STEPS, epochs=1,
         n_tokens=4 * TRAIN_BATCH * (TRAIN_SEQ + 1), eval_batches=0,
-        device="cuda")
+        device="cuda", **run_dirs("lm8"))
     # Warm-up: one step of a throwaway trainer (kernel libraries loaded,
     # cuBLAS handles and the allocator's pools made).
     warm = lm.LMTrainer(dataclasses.replace(config, steps_per_epoch=1))
@@ -1043,7 +1111,7 @@ def train_full_width(tfm, lm, fa, lm_model_flops, card) -> dict:
                   card)
     del trainer, watched, before
     torch.cuda.empty_cache()
-    return launches
+    return launches, losses[0]
 
 
 def sgd_leaves(model_params, seed):
@@ -4443,6 +4511,494 @@ def optim_summary(opt: dict) -> dict:
     return {**opt, "optimizers": rows}
 
 
+# -- phase 18: the LM over a (data, model, seq) mesh -------------------------
+
+def lm18_config(name: str, mesh: dict | None = None, *, steps: int = 1,
+                **model_kw):
+    """An LMTrainConfig of phase 8's workload (the bench.py LM model at
+    full width, bf16, B 2, T 8192, the default SGD) over ``mesh``, with
+    the model's ``model_kw`` (depth, remat, the chunked head, the axes)."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch import config as tconfig
+    from distributed_model_parallel_tpu_torch.models import transformer as tfm
+    from distributed_model_parallel_tpu_torch.train import lm_trainer as lm
+
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16,
+                                **{**LM_MODEL, **model_kw})
+    return lm.LMTrainConfig(
+        model=cfg, mesh=tconfig.MeshConfig(**(mesh or {})),
+        batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, steps_per_epoch=steps,
+        epochs=1, n_tokens=4 * TRAIN_BATCH * (TRAIN_SEQ + 1), eval_batches=0,
+        device="cuda", **run_dirs(name))
+
+
+def lm18_steps(trainer, n: int) -> tuple[list, list]:
+    """``n`` steps of ``trainer`` on its batches (0, 0) .. (0, n - 1):
+    losses and step seconds (host clock, each step ending in a sync)."""
+    import torch
+
+    losses, times = [], []
+    for s in range(n):
+        toks, tgts = trainer.sample_batch(0, s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(trainer.train_step(toks, tgts))
+        times.append(time.perf_counter() - t0)
+    return losses, times
+
+
+def lm_single_card(fa, lm_model_flops, card, ref_loss) -> dict:
+    """Phase 18a: phase 8's workload on one card with remat off, "dots"
+    and "full", and the chunked head (1024 tokens a slice) with and
+    without "dots", LM18_STEPS steps each from phase 8's weights. Gates:
+    each step-0 loss within LM18_LOSS_ATOL of ``ref_loss`` (phase 8b's;
+    remat off's when phase 8 did not run), every step's loss within
+    LM18_LOSS_ATOL of remat off's, finite losses, the flash kernels
+    launched, and peak memory ordered off > dots > full, the chunked head
+    below the dense one."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.models import transformer as tfm
+    from distributed_model_parallel_tpu_torch.train import lm_trainer as lm
+
+    wrappers = flash_wrappers(fa)
+    out = {}
+    for name, kw in LM18_VARIANTS.items():
+        config = lm18_config(f"lm18a_{name}", steps=LM18_STEPS + 1, **kw)
+        trainer = lm.LMTrainer(config, params=tfm.init_params(
+            config.model, seed=0, device="cuda"))
+        for w in wrappers.values():
+            w.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, times = lm18_steps(trainer, LM18_STEPS)
+        peak = torch.cuda.max_memory_allocated()
+        launches = {n: w.launches for n, w in wrappers.items()}
+        step_s = statistics.median(times[1:])
+        flops = lm_model_flops(config.model, TRAIN_BATCH, TRAIN_SEQ)
+        out[name] = dict(losses=losses, step_s=step_s, times=times,
+                         tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
+                         mfu=flops / step_s / BF16_FLOPS_PER_S,
+                         peak_bytes=peak, launches=launches)
+        print(f"lm 18a {name} [{card}]: step s {step_s} (median of steps "
+              f"1-{LM18_STEPS - 1}; {times}), tokens/s "
+              f"{out[name]['tokens_per_s']}, MFU {out[name]['mfu']}, peak "
+              f"max_memory_allocated {peak} B, flash launches {launches}, "
+              f"losses {losses}")
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    ref = ref_loss if ref_loss is not None else out["remat_off"]["losses"][0]
+    off = out["remat_off"]["losses"]
+    bad = []
+    for name, r in out.items():
+        err = abs(r["losses"][0] - ref)
+        r["loss0_err"] = err
+        r["loss_err_vs_off"] = [abs(a - b) for a, b in zip(r["losses"], off)]
+        if not err <= LM18_LOSS_ATOL:
+            bad.append(f"{name}: step-0 loss {r['losses'][0]} vs {ref} "
+                       f"(|diff| {err} > {LM18_LOSS_ATOL})")
+        if not max(r["loss_err_vs_off"]) <= LM18_LOSS_ATOL:
+            bad.append(f"{name}: losses {r['losses']} vs remat off's {off} "
+                       f"(|diff| {r['loss_err_vs_off']} > {LM18_LOSS_ATOL})")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            bad.append(f"{name}: losses {r['losses']}")
+        if min(r["launches"].values()) < LM_MODEL["n_layers"] * LM18_STEPS:
+            bad.append(f"{name}: flash launches {r['launches']}")
+    peak = {n: r["peak_bytes"] for n, r in out.items()}
+    order = (peak["remat_off"] > peak["remat_dots"] > peak["remat_full"]
+             and peak["chunk1024"] < peak["remat_off"]
+             and peak["chunk1024_dots"] < peak["remat_dots"])
+    print(f"lm 18a: step-0 loss vs {ref}: "
+          + ", ".join(f"{n} {r['loss0_err']:.3e}" for n, r in out.items())
+          + "; every step vs remat off: "
+          + ", ".join(f"{n} {max(r['loss_err_vs_off']):.3e}"
+                      for n, r in out.items())
+          + f" (atol {LM18_LOSS_ATOL}); peak memory off > dots > full and "
+            f"the chunked head below the dense: {order}")
+    if not order:
+        bad.append(f"peak memory not ordered: {peak}")
+    if bad:
+        fail("18a/lm one card", "; ".join(bad))
+    return out
+
+
+def _digests(tree: dict) -> dict:
+    """sha256 of each leaf's bytes (a tree of tensors), by path."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update({f"{k}.{kk}": vv for kk, vv in _digests(v).items()})
+        else:
+            raw = v.detach().contiguous().view(-1).view(torch.uint8)
+            out[k] = hashlib.sha256(raw.cpu().numpy().tobytes()).hexdigest()
+    return out
+
+
+def lm18_ring_check(spec, fa, seed: int = 7) -> dict:
+    """Ring attention over the seq group on the card against the flash
+    kernels over the whole sequence, at the shard shapes of phase 18b's
+    ring mesh (B 2, T 8192, the model rank's 4 heads, Dh 128, bf16): o per
+    row within O_ROW_RTOL, dq/dk/dv within GRAD_RTOL of the whole run's
+    (max|a-b|/max|b|), on this rank's shard."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.ops import ring_attention as ra
+
+    dev = spec.device
+    heads = LM_MODEL["n_heads"] // spec.num_model
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(TRAIN_BATCH, TRAIN_SEQ, heads,
+                               LM_MODEL["d_model"] // LM_MODEL["n_heads"],
+                               generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    t = TRAIN_SEQ // spec.num_seq
+    rows = slice(spec.seq_index * t, (spec.seq_index + 1) * t)
+    ql, kl, vl = (x[:, rows].contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    o = ra.ring_attention(ql, kl, vl, spec.seq_group, causal=True,
+                          impl="auto")
+    o.backward(do[:, rows].contiguous())
+    qw, kw, vw = (x.clone().requires_grad_(True) for x in (q, k, v))
+    ow = fa.flash_attention(qw, kw, vw, causal=True)
+    ow.backward(do)
+    torch.cuda.synchronize(dev)
+    err = {"o_row": row_rel_err(o, ow[:, rows])}
+    for n, a, b in (("dq", ql, qw), ("dk", kl, kw), ("dv", vl, vw)):
+        err[n] = rel_err(a.grad, b.grad[:, rows])
+    return err
+
+
+def lm_mesh_rank(spec, meshes: dict, resume: bool) -> dict:
+    """Phases 18b and 18c on one rank. For each mesh of ``meshes`` (the
+    group laid out anew): on the ring mesh, :func:`lm18_ring_check`; a
+    trainer from phase 8's weights; LM18_STEPS steps with the flash
+    launches and the collectives counted from 0 and any plain attention
+    counted (it must not run), each step followed by a digest of every
+    slice this rank holds; one step more with the collectives timed.
+    Then (``resume``) phase 18c's gate on the ring mesh."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch import mesh as mesh_mod
+    from distributed_model_parallel_tpu_torch.config import MeshConfig
+    from distributed_model_parallel_tpu_torch.models import transformer as tfm
+    from distributed_model_parallel_tpu_torch.ops import collectives as C
+    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
+    from distributed_model_parallel_tpu_torch.ops import ring_attention as ra
+    from distributed_model_parallel_tpu_torch.train import lm_trainer as lm
+    from distributed_model_parallel_tpu_torch.utils.profiling import (
+        lm_model_flops,
+    )
+
+    plain = {"calls": 0}
+
+    def counted(fn):
+        def run(*a, **kw):
+            plain["calls"] += 1
+            return fn(*a, **kw)
+        return run
+
+    for mod, name in ((fa, "flash_forward_plain"), (fa, "flash_bwd_dq_plain"),
+                      (fa, "flash_bwd_dkv_plain"), (fa, "full_attention"),
+                      (ra, "ring_xla")):
+        setattr(mod, name, counted(getattr(mod, name)))
+    wrappers = flash_wrappers(fa)
+    out = {}
+    for name, (mesh, kw) in meshes.items():
+        spec_m = mesh_mod.make_mesh(MeshConfig(**mesh), spec.device)
+        row = {"grid": spec_m.grid}
+        if kw.get("sp_axis") and kw.get("sp_impl", "ring") == "ring":
+            row["ring_check"] = lm18_ring_check(spec_m, fa)
+        config = lm18_config(f"lm18b_{name}", mesh, steps=LM18_STEPS + 1,
+                             **kw)
+        trainer = lm.LMTrainer(config, params=tfm.init_params(
+            config.model, seed=0, device=spec.device), spec=spec_m)
+        for w in wrappers.values():
+            w.launches = 0
+        plain["calls"] = 0
+        C.reset_counts()
+        torch.cuda.synchronize(spec.device)
+        torch.cuda.reset_peak_memory_stats(spec.device)
+        losses, times, digests = [], [], []
+        for s in range(LM18_STEPS):
+            toks, tgts = trainer.sample_batch(0, s)
+            torch.cuda.synchronize(spec.device)
+            t0 = time.perf_counter()
+            losses.append(trainer.train_step(toks, tgts))
+            times.append(time.perf_counter() - t0)
+            digests.append(_digests(trainer.params))
+        row["launches"] = {n: w.launches for n, w in wrappers.items()}
+        row["plain_calls"] = plain["calls"]
+        row["calls"] = {k: v / LM18_STEPS for k, v in C.calls.items()}
+        row["bytes"] = {k: v / LM18_STEPS for k, v in C.wire_bytes.items()}
+        row["peak_bytes"] = torch.cuda.max_memory_allocated(spec.device)
+        C.reset_counts()
+        with C.timed() as secs:
+            toks, tgts = trainer.sample_batch(0, LM18_STEPS)
+            trainer.train_step(toks, tgts)
+        row["us"] = {k: v * 1e6 for k, v in secs.items()}
+        step_s = statistics.median(times[1:])
+        world = spec_m.config.num_devices
+        row.update(losses=losses, times=times, step_s=step_s,
+                   digests=digests,
+                   tokens_per_s_card=TRAIN_BATCH * TRAIN_SEQ / step_s / world,
+                   mfu_card=lm_model_flops(config.model, TRAIN_BATCH,
+                                           TRAIN_SEQ) / world / step_s
+                   / BF16_FLOPS_PER_S)
+        out[name] = row
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    if resume:
+        out["resume"] = lm18_resume(spec)
+    return out
+
+
+def lm18_resume(spec) -> dict:
+    """Phase 18c on one rank: the ring mesh at LM18_RESUME_LAYERS layers
+    under ``remat="dots"``: ``fit`` against ``fit`` preempted by a
+    ``step_hook`` at LM18_PREEMPT_AT and finished by
+    ``LMTrainer(resume=True)`` — per-step losses, the whole parameters and
+    optimizer state, the global step and the history compared bit for bit
+    in this process — the checkpoint's bytes, save and restore ms (rank
+    0, the writer), and a resume of the same checkpoint on another split
+    (it must raise, naming ROADMAP A11)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from distributed_model_parallel_tpu_torch import mesh as mesh_mod
+    from distributed_model_parallel_tpu_torch.config import MeshConfig
+    from distributed_model_parallel_tpu_torch.models import transformer as tfm
+    from distributed_model_parallel_tpu_torch.train import checkpoint as ck
+    from distributed_model_parallel_tpu_torch.train import lm_trainer as lm
+
+    mesh, kw = LM18_MESHES["model2_seq2_ring"]
+    spec_m = mesh_mod.make_mesh(MeshConfig(**mesh), spec.device)
+    model = dict(kw, n_layers=LM18_RESUME_LAYERS, remat=True,
+                 remat_policy="dots")
+    configs = {n: lm18_config(f"lm18c_{n}", mesh, steps=LM18_RESUME_STEPS,
+                              **model) for n in ("full", "cut")}
+    timings = {"save_ms": [], "restore_ms": []}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            timings[key].append((time.perf_counter() - t0) * 1e3)
+            return r
+        return run
+
+    ck.Checkpointer.save = timed(ck.Checkpointer.save, "save_ms")
+    ck.Checkpointer.restore = timed(ck.Checkpointer.restore, "restore_ms")
+
+    def state(tr, history, steps):
+        to_np = lambda t: t.detach().float().cpu().numpy()
+        whole = tr.whole_params()
+        params = {k: (to_np(v) if not isinstance(v, dict) else
+                      {kk: to_np(vv) for kk, vv in v.items()})
+                  for k, v in whole.items()}
+        return dict(history=[{k: h[k] for k in ("epoch", "loss_val")}
+                             for h in history], steps=steps,
+                    params=ck.flatten_tree(params),
+                    opt_state=ck.flatten_tree(tr.opt_state_tree()),
+                    global_step=tr.global_step)
+
+    init = lambda cfg: tfm.init_params(cfg.model, seed=0, device=spec.device)
+    full = lm.LMTrainer(configs["full"], params=init(configs["full"]),
+                        spec=spec_m)
+    a = state(full, full.fit(), [r["loss"] for r in full.step_log])
+    del full
+    cut = lm.LMTrainer(configs["cut"], params=init(configs["cut"]),
+                       spec=spec_m)
+    cut.step_hook = lambda t: (t.preemption.request()
+                               if (t._pos_epoch, t._pos_step)
+                               == LM18_PREEMPT_AT else None)
+    first = cut.fit()
+    steps = [r["loss"] for r in cut.step_log]
+    preempted = cut.global_step
+    del cut
+    resumed = lm.LMTrainer(dataclasses.replace(configs["cut"], resume=True),
+                           spec=spec_m)
+    b = state(resumed, first + resumed.fit(),
+              steps + [r["loss"] for r in resumed.step_log])
+    differing = sum(not np.array_equal(a[key][k], b[key][k])
+                    for key in ("params", "opt_state") for k in a[key])
+    arrays = sum(len(a[key]) for key in ("params", "opt_state"))
+    same = (differing == 0 and a["steps"] == b["steps"]
+            and a["global_step"] == b["global_step"]
+            and a["history"] == b["history"]
+            and set(a["params"]) == set(b["params"]))
+    path = resumed.ckpt._latest_path("lm-preempt")
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    del resumed
+    other_mesh, other_kw = LM18_MESHES["data2_model2"]
+    other = mesh_mod.make_mesh(MeshConfig(**other_mesh), spec.device)
+    try:
+        lm.LMTrainer(dataclasses.replace(
+            configs["cut"], resume=True, mesh=MeshConfig(**other_mesh),
+            model=dataclasses.replace(configs["cut"].model, sp_axis=None)),
+            spec=other)
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(same=same, differing=differing, arrays=arrays,
+                steps=a["steps"], preempted_at_step=preempted,
+                global_step=b["global_step"], bytes=nbytes, **timings,
+                other_split=refusal)
+
+
+def lm_mesh(mesh_mod, card, ref_losses: list, world: int, backend: str,
+            resume: bool) -> dict:
+    """Phase 18b (and 18c with ``resume``): :func:`lm_mesh_rank` on
+    ``world`` ranks (gloo sharing one card, or NCCL with a card each).
+    Gates, per mesh: every step's loss within LM18_LOSS_ATOL of
+    ``ref_losses`` (the one-card trainer's, same weights, batches and
+    learning rates), losses equal on
+    every rank, after every step each replicated leaf bitwise equal on
+    every rank and each slice bitwise equal across its data and seq
+    replicas, each rank's flash launches what its hops imply (ring: rank
+    i of the seq group runs i + 1 hops a layer; otherwise one) and no
+    plain attention; the ring check within phase 6's bounds; 18c bit for
+    bit and its other split refused naming ROADMAP A11."""
+    res = dp_spawn(mesh_mod, lm_mesh_rank, world, "18b/lm mesh",
+                   LM18_MESHES, resume, backend=backend)
+    bad = []
+    layers, steps = LM_MODEL["n_layers"], LM18_STEPS
+    summary = {}
+    for name, (mesh, kw) in LM18_MESHES.items():
+        rows = [r[name] for r in res]
+        r0 = rows[0]
+        errs = [abs(a - b) for a, b in zip(r0["losses"], ref_losses)]
+        if len(errs) != steps or not max(errs) <= LM18_LOSS_ATOL:
+            bad.append(f"{name}: losses {r0['losses']} vs one card "
+                       f"{ref_losses} (|diff| {errs} > {LM18_LOSS_ATOL})")
+        if any(r["losses"] != r0["losses"] for r in rows):
+            bad.append(f"{name}: ranks disagree on the losses")
+        mismatched = 0
+        for s in range(steps):
+            by_model: dict = {}
+            for r in rows:
+                by_model.setdefault(r["grid"][2], []).append(r["digests"][s])
+            for group in by_model.values():
+                mismatched += sum(g != group[0] for g in group[1:])
+            firsts = [g[0] for g in by_model.values()]
+            repl = [k for k in firsts[0]
+                    if not k.startswith("blocks.") or k in (
+                        "blocks.ln1_scale", "blocks.ln1_bias",
+                        "blocks.ln2_scale", "blocks.ln2_bias", "blocks.b2")]
+            mismatched += sum(f[k] != firsts[0][k] for f in firsts[1:]
+                              for k in repl)
+        if mismatched:
+            bad.append(f"{name}: {mismatched} leaf digests differ between "
+                       f"replicas")
+        ring = kw.get("sp_axis") and kw.get("sp_impl", "ring") == "ring"
+        for r in rows:
+            hops = r["grid"][3] + 1 if ring else 1
+            want = layers * steps * hops
+            if any(v != want for v in r["launches"].values()):
+                bad.append(f"{name} rank {r['grid']}: flash launches "
+                           f"{r['launches']}, want {want} each")
+            if r["plain_calls"]:
+                bad.append(f"{name} rank {r['grid']}: {r['plain_calls']} "
+                           f"plain attention calls on the card")
+            if "ring_check" in r:
+                c = r["ring_check"]
+                if not c["o_row"] <= O_ROW_RTOL or not all(
+                        c[n] <= GRAD_RTOL for n in ("dq", "dk", "dv")):
+                    bad.append(f"{name} rank {r['grid']}: ring vs flash "
+                               f"{c}")
+        peak = max(r["peak_bytes"] for r in rows)
+        us = {k: v for k, v in r0["us"].items()}
+        summary[name] = dict(
+            losses=r0["losses"], step_s=r0["step_s"], times=r0["times"],
+            tokens_per_s_card=r0["tokens_per_s_card"],
+            mfu_card=r0["mfu_card"], peak_bytes_rank=peak,
+            launches={str(r["grid"]): r["launches"] for r in rows},
+            calls_per_step=r0["calls"], bytes_per_step=r0["bytes"],
+            us_timed_step=us, loss_err=errs,
+            ring_check={str(r["grid"]): r["ring_check"] for r in rows
+                        if "ring_check" in r}, digests_mismatched=mismatched)
+        print(f"lm 18b {name} [{card}] world {world} over {backend}: step s "
+              f"{r0['step_s']} ({r0['times']}), tokens/s a card "
+              f"{r0['tokens_per_s_card']}, MFU a card {r0['mfu_card']}, peak "
+              f"max_memory_allocated a rank {peak} B; losses "
+              f"{r0['losses']} vs one card {ref_losses} (|diff| {errs}); "
+              f"rank 0 a step: collectives {r0['calls']}, bytes "
+              f"{r0['bytes']}; timed step us {us}; flash launches "
+              + ", ".join(f"{r['grid']} {r['launches']}" for r in rows)
+              + f"; ring check {summary[name]['ring_check']}; replica "
+                f"digests differing {mismatched}")
+    if resume:
+        rs = [r["resume"] for r in res]
+        r0 = rs[0]
+        ok = all(r["same"] for r in rs)
+        refused = all(r["other_split"] and "ROADMAP A11: resharded restore"
+                      in r["other_split"] for r in rs)
+        print(f"lm 18c [{card}]: preempted at step {r0['preempted_at_step']}"
+              f" and resumed == uninterrupted bit for bit on every rank: "
+              f"{ok} ({[r['differing'] for r in rs]} of {r0['arrays']} "
+              f"arrays differing; steps {r0['steps']}); checkpoint "
+              f"{r0['bytes']} B, save ms {r0['save_ms']}, restore ms "
+              f"{r0['restore_ms']}; resume on another split refused: "
+              f"{refused} ({r0['other_split']!r})")
+        if not ok:
+            bad.append(f"18c: resumed run differs: "
+                       f"{[r['differing'] for r in rs]}")
+        if not refused:
+            bad.append(f"18c: resume on another split not refused: "
+                       f"{[r['other_split'] for r in rs]}")
+        summary["resume"] = {k: v for k, v in r0.items()}
+    if bad:
+        fail("18b/lm mesh", "; ".join(bad))
+    return summary
+
+
+def lm_phase(laps, fa, lm_model_flops, mesh_mod, card, ref_loss) -> dict:
+    """Phase 18: 18a on one card, then 18b and 18c over 4 ranks (gloo on
+    the one card; with four cards, NCCL with a card each)."""
+    import torch
+
+    single = lm_single_card(fa, lm_model_flops, card, ref_loss)
+    laps.done("18a/lm one card")
+    four = torch.cuda.device_count() >= 4
+    meshes = lm_mesh(mesh_mod, card, single["remat_off"]["losses"], 4,
+                     "nccl" if four else "gloo", True)
+    laps.done("18b-c/lm mesh")
+    return {"single": single, "mesh": meshes,
+            "backend": "nccl" if four else "gloo"}
+
+
+def lm18_summary(lm18: dict) -> dict:
+    """Phase 18's JSON line: the numbers without the per-step digests."""
+    mesh = {k: {x: y for x, y in v.items() if x != "digests"}
+            for k, v in lm18["mesh"].items()}
+    return {**lm18, "mesh": mesh}
+
+
+def lm_launch_rows(lm18: dict) -> dict:
+    """Phase 18's flash launches by kernel, for the kernels line: 18a per
+    variant, 18b per mesh and rank."""
+    out = {}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        out[name] = {
+            "launches_18a": {v: r["launches"][name]
+                             for v, r in lm18["single"].items()},
+            "launches_18b_per_rank": {
+                m: {g: l[name] for g, l in r["launches"].items()}
+                for m, r in lm18["mesh"].items() if m != "resume"}}
+    return out
+
+
 class Laps:
     """Prints each phase's seconds since the previous phase ended."""
 
@@ -4490,9 +5046,15 @@ def main() -> None:
                          "17 (the other optimizers, accumulation, EMA, "
                          "bf16 leaves, fsdp's re-gather, the two-level data "
                          "axis), print the optimizers' JSON line and stop")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="run phases 1, 2 (the flash kernels only), 6 and "
+                         "18 (the LM over a data x model x seq mesh), print "
+                         "the LM's JSON line and stop: with four cards, "
+                         "18b over NCCL with a card a rank")
     args = ap.parse_args()
     only = (args.sgd_timing_only or args.pipeline_only or args.dp_only
-            or args.harness_only or args.data_only or args.optim_only)
+            or args.harness_only or args.data_only or args.optim_only
+            or args.lm_only)
     import atexit
     import shutil
     import tempfile
@@ -4562,8 +5124,9 @@ def main() -> None:
     # -- phase 2: build -----------------------------------------------------
     t = time.perf_counter()
     try:
-        paths = _build.build_all(("fused_sgd",) if only
-                                 else _build.KERNELS)
+        paths = _build.build_all(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if args.lm_only
+            else ("fused_sgd",) if only else _build.KERNELS)
     except RuntimeError as e:
         fail("2/build", str(e))
     print(f"built {len(paths)} kernel(s) in {time.perf_counter() - t:.2f} s")
@@ -4608,6 +5171,14 @@ def main() -> None:
         laps.done("17e/ranks")
         print(json.dumps({"dp_engines": engines, "optim_ranks": ranks,
                           "card": card}))
+        return
+    if args.lm_only:
+        from distributed_model_parallel_tpu_torch import mesh
+
+        check_flash(fa)
+        laps.done("6/flash")
+        lm18 = lm_phase(laps, fa, lm_model_flops, mesh, card, None)
+        print(json.dumps({"lm_mesh": lm18_summary(lm18), "card": card}))
         return
     if args.optim_only:
         from distributed_model_parallel_tpu_torch import mesh
@@ -4810,7 +5381,8 @@ def main() -> None:
     # -- phase 8: trainer at full width ---------------------------------------
     check_training(tfm, lm, fa)
     laps.done("8a/train check")
-    flash_launches = train_full_width(tfm, lm, fa, lm_model_flops, card)
+    flash_launches, lm8_loss = train_full_width(tfm, lm, fa, lm_model_flops,
+                                                card)
     laps.done("8b-c/trainer")
 
     # -- phases 9-10: fused SGD kernels vs plain, timing ----------------------
@@ -4862,6 +5434,10 @@ def main() -> None:
     opt17 = optim_phase(laps, cnn_trainer, fs, models, staged, mesh, tconfig,
                         card)
 
+    # -- phase 18: the LM over a (data, model, seq) mesh ----------------------
+    lm18 = lm_phase(laps, fa, lm_model_flops, mesh, card, lm8_loss)
+    lm18_rows = lm_launch_rows(lm18)
+
     kernels = [{
         "name": "paged_decode",
         "route": "cuda",
@@ -4888,6 +5464,7 @@ def main() -> None:
             "replaces": f"distributed_model_parallel_tpu/ops/"
                         f"pallas_attention.py:{line}",
             "launches": flash_launches[name],
+            **lm18_rows[name],
             "max_abs_err": flash_errs[name][0],
             "max_row_rel_err": flash_errs[name][1],
             **flash_times[name],
@@ -4935,6 +5512,7 @@ def main() -> None:
     print(json.dumps({"harness": harness_summary(harness), "card": card}))
     print(json.dumps({"data_path": data_path, "card": card}))
     print(json.dumps({"optim": optim_summary(opt17), "card": card}))
+    print(json.dumps({"lm_mesh": lm18_summary(lm18), "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

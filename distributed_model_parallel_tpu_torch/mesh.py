@@ -1,17 +1,25 @@
-"""Process group and ``(data, stage)`` mesh — the port of
+"""Process group and ``(data, stage, model, seq)`` mesh — the port of
 ``distributed_model_parallel_tpu/mesh.py``.
 
 The JAX package lays its devices out as a named ``jax.sharding.Mesh`` in
 one process; the port runs one process per rank, joined by a
 ``torch.distributed`` process group: NCCL on the card, gloo on the CPU.
-The ranks form JAX's device grid over ``(data, stage)``, row-major: rank
-``r`` of ``D·S`` sits at ``data = r // S``, ``stage = r % S``. Each rank
-belongs to two sub-groups: the ranks of its stage across the data rows
-(gradients and BatchNorm statistics are pooled there) and the ranks of
-its data row across the stages (the pipeline's point-to-point ring). With
-``stage == 1`` the data sub-group is the whole world. The data axis
-splits every global batch of ``B`` rows: data row ``d`` holds rows
-``[d·B/D, (d+1)·B/D)``, in the order JAX shards the data axis.
+The ranks form JAX's device grid over ``(data, stage, model, seq)``,
+row-major, as ``make_mesh`` reshapes its devices: rank ``r`` of
+``D·S·M·Q`` sits at ``data = r // (S·M·Q)``, ``stage = r // (M·Q) % S``,
+``model = r // Q % M``, ``seq = r % Q``. Each rank belongs to a sub-group
+per axis: the ranks that differ from it only along that axis. The data
+group pools gradients and BatchNorm statistics, the stage group is the
+pipeline's point-to-point ring, the model group carries the Megatron
+all-reduces of tensor parallelism, and the seq group the ring or Ulysses
+exchanges of sequence parallelism. A rank also belongs to its replica
+group, the ranks that differ from it along ``data`` and ``seq`` (the
+ranks that hold the same parameter slices): the Transformer LM averages
+every gradient there. With ``stage == model == seq == 1`` the data group
+is the whole world. The data axis splits every global batch of ``B``
+rows: data row ``d`` holds rows ``[d·B/D, (d+1)·B/D)``, in the order JAX
+shards the data axis; the seq axis splits the tokens of a row the same
+way.
 
 ``dcn_data = H > 1`` factors the data axis into ``H`` host rows of ``D/H``
 ranks, host-major, as the JAX package lays out its ``("dcn", data)``
@@ -40,8 +48,8 @@ runs over the whole data group, as JAX runs it over ``("dcn", data)``.
 The backend is never switched behind the caller's back: a CUDA rank runs
 NCCL, one rank per card, unless the caller asks for gloo (several ranks
 sharing one card), and a rank that finds no card raises instead of
-running on the CPU. Not ported yet, and refused by name: the ``model``,
-``seq`` and ``expert`` axes (ROADMAP A9).
+running on the CPU. Not ported yet, and refused by name: the ``expert``
+axis (ROADMAP A9: MoE).
 """
 
 from __future__ import annotations
@@ -60,9 +68,7 @@ import torch.distributed as dist
 from distributed_model_parallel_tpu_torch.config import MeshConfig
 
 # Mesh axes the port does not run, and the ROADMAP item that ports each.
-_OTHER_AXES = (("model", "A9: tensor parallelism"),
-               ("seq", "A9: sequence parallelism"),
-               ("expert", "A9: mixture of experts"))
+_OTHER_AXES = (("expert", "A9: MoE"),)
 
 
 # The mesh this process's group was last laid out as (process_rows).
@@ -75,9 +81,10 @@ DCN_AXIS = "dcn"
 
 def check_mesh_config(config: MeshConfig) -> None:
     """Raise, naming the ROADMAP item, for a mesh the port does not run:
-    anything beyond the ``data`` axis (two-level or not) and the
-    ``stage`` axis; and, in the JAX package's words, a ``dcn_data`` that
-    does not divide ``data``."""
+    the ``expert`` axis; and, in the JAX package's words, a ``dcn_data``
+    that does not divide ``data``. Each trainer refuses the axes it does
+    not shard over (the CNN trainers ``model`` and ``seq``, the LM
+    ``stage``)."""
     if config.dcn_data < 1:
         raise ValueError(f"dcn_data must be >= 1, got {config.dcn_data}")
     if config.data % config.dcn_data:
@@ -92,12 +99,15 @@ def check_mesh_config(config: MeshConfig) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """One rank's view of the ``(data, stage)`` mesh: the mesh config, this
-    rank, its device, the backend of its process group (None: a lone
-    process with no group, world 1), its two sub-groups (None at
-    ``stage == 1``, where the data axis is the whole world and there is
-    no ring) and, at ``dcn_data > 1``, the inner and outer groups of its
-    two-level data axis (None otherwise)."""
+    """One rank's view of the ``(data, stage, model, seq)`` mesh: the mesh
+    config, this rank, its device, the backend of its process group (None:
+    a lone process with no group, world 1), its sub-groups and, at
+    ``dcn_data > 1``, the inner and outer groups of its two-level data
+    axis (None otherwise). ``data_group`` is None when the data axis is
+    the whole world (``stage == model == seq == 1``); ``stage_group``,
+    ``model_group`` and ``seq_group`` are None where their axis has size
+    1; ``replica_group`` (data x seq) is None at ``seq == 1``, where it
+    is the data group."""
 
     config: MeshConfig
     rank: int = 0
@@ -107,6 +117,9 @@ class MeshSpec:
     stage_group: object = None
     inner_group: object = None
     outer_group: object = None
+    model_group: object = None
+    seq_group: object = None
+    replica_group: object = None
 
     @property
     def num_data(self) -> int:
@@ -117,12 +130,28 @@ class MeshSpec:
         return self.config.stage
 
     @property
+    def num_model(self) -> int:
+        return self.config.model
+
+    @property
+    def num_seq(self) -> int:
+        return self.config.seq
+
+    @property
     def data_axis(self) -> str:
         return self.config.data_axis
 
     @property
     def stage_axis(self) -> str:
         return self.config.stage_axis
+
+    @property
+    def model_axis(self) -> str:
+        return self.config.model_axis
+
+    @property
+    def seq_axis(self) -> str:
+        return self.config.seq_axis
 
     @property
     def dcn_axis(self) -> str | None:
@@ -143,30 +172,56 @@ class MeshSpec:
         return self.inner_group, self.outer_group
 
     @property
+    def grid(self) -> tuple[int, int, int, int]:
+        """This rank's ``(data, stage, model, seq)`` position in JAX's
+        device grid."""
+        return rank_coords(self.rank, self.config)
+
+    @property
     def coords(self) -> tuple[int, int]:
         """This rank's ``(data, stage)`` position in JAX's device grid."""
-        return divmod(self.rank, self.num_stages)
+        return self.grid[:2]
 
     @property
     def data_index(self) -> int:
-        return self.coords[0]
+        return self.grid[0]
 
     @property
     def stage_index(self) -> int:
-        return self.coords[1]
+        return self.grid[1]
+
+    @property
+    def model_index(self) -> int:
+        return self.grid[2]
+
+    @property
+    def seq_index(self) -> int:
+        return self.grid[3]
 
     @property
     def group(self):
-        """The process group of the data axis — this rank's stage across
-        the data rows (None without a process group)."""
+        """The process group of the data axis — this rank's stage, model
+        and seq position across the data rows (None without a process
+        group)."""
         if self.backend is None:
             return None
         return self.data_group if self.data_group is not None else \
             dist.group.WORLD
 
+    @property
+    def replicas(self):
+        """The process group over which the Transformer LM averages its
+        gradients: the ranks holding the same parameter slices (data x
+        seq; None without a process group)."""
+        if self.replica_group is not None:
+            return self.replica_group
+        return self.group
+
     def stage_rank(self, stage: int) -> int:
-        """The global rank of ``stage`` in this rank's data row."""
-        return self.data_index * self.num_stages + stage
+        """The global rank of ``stage`` in this rank's data row (at this
+        rank's model and seq position)."""
+        d, _, m, q = self.grid
+        return grid_rank((d, stage, m, q), self.config)
 
     def rows(self, global_batch: int) -> slice:
         """This rank's data row's rows of a global batch."""
@@ -174,12 +229,57 @@ class MeshSpec:
         return slice(self.data_index * local, (self.data_index + 1) * local)
 
 
+def _shape(config: MeshConfig) -> tuple[int, int, int, int]:
+    return config.data, config.stage, config.model, config.seq
+
+
+def rank_coords(rank: int, config: MeshConfig) -> tuple[int, int, int, int]:
+    """``(data, stage, model, seq)`` of global ``rank``, row-major."""
+    out = []
+    for n in reversed(_shape(config)):
+        rank, i = divmod(rank, n)
+        out.append(i)
+    return tuple(reversed(out))
+
+
+def grid_rank(coords, config: MeshConfig) -> int:
+    """The global rank at ``(data, stage, model, seq)`` (row-major)."""
+    rank = 0
+    for i, n in zip(coords, _shape(config)):
+        rank = rank * n + i
+    return rank
+
+
+def axis_groups(config: MeshConfig, axes: tuple[int, ...]) -> list[list]:
+    """The global ranks of every sub-group that varies along ``axes``
+    (indices into ``(data, stage, model, seq)``), the other coordinates
+    fixed: groups in row-major order of the fixed coordinates, ranks in
+    row-major order of the varying ones."""
+    import itertools
+
+    shape = _shape(config)
+    fixed = [a for a in range(4) if a not in axes]
+    out = []
+    for f in itertools.product(*(range(shape[a]) for a in fixed)):
+        ranks = []
+        for v in itertools.product(*(range(shape[a]) for a in axes)):
+            c = [0] * 4
+            for a, i in zip(fixed, f):
+                c[a] = i
+            for a, i in zip(axes, v):
+                c[a] = i
+            ranks.append(grid_rank(c, config))
+        out.append(ranks)
+    return out
+
+
 def mesh_groups(data: int, stage: int) -> tuple[list, list]:
     """The global ranks of every data sub-group (one per stage: the ranks
     of that stage across the data rows) and of every stage ring (one per
-    data row), in the order :func:`init_process_group` creates them."""
-    return ([[d * stage + s for d in range(data)] for s in range(stage)],
-            [[d * stage + s for s in range(stage)] for d in range(data)])
+    data row) of a ``(data, stage)`` mesh, in the order
+    :func:`init_process_group` creates them."""
+    config = MeshConfig(data=data, stage=stage)
+    return axis_groups(config, (0,)), axis_groups(config, (1,))
 
 
 def dcn_groups(data: int, stage: int, dcn: int) -> tuple[list, list]:
@@ -195,26 +295,39 @@ def dcn_groups(data: int, stage: int, dcn: int) -> tuple[list, list]:
              for s in range(stage) for j in range(inner)])
 
 
+def _mine(rank: int, groups: list[list]):
+    """Create one process group per rank list (every rank creates all of
+    them, in the same order) and return the one holding ``rank``."""
+    made = [dist.new_group(r) for r in groups]
+    return next(g for g, r in zip(made, groups) if rank in r)
+
+
 def _sub_groups(config: MeshConfig, rank: int) -> dict:
     """Create every sub-group of the mesh (each rank must create all of
-    them, in the same order) and return this rank's: nothing at ``stage
-    == 1`` and ``dcn_data == 1``."""
+    them, in the same order: data, stage, model, seq, replica, then the
+    two levels of the data axis) and return this rank's. An axis of size
+    1 has none; the data axis has none when it is the whole world."""
     out = {}
-    d, s = divmod(rank, config.stage)
-    if config.stage > 1:
-        data_ranks, stage_ranks = mesh_groups(config.data, config.stage)
-        data_groups = [dist.new_group(r) for r in data_ranks]
-        stage_groups = [dist.new_group(r) for r in stage_ranks]
-        out.update(data_group=data_groups[s], stage_group=stage_groups[d])
+    spread = config.stage * config.model * config.seq
+    if spread > 1:
+        out["data_group"] = _mine(rank, axis_groups(config, (0,)))
+    for name, axis, n in (("stage_group", 1, config.stage),
+                          ("model_group", 2, config.model),
+                          ("seq_group", 3, config.seq)):
+        if n > 1:
+            out[name] = _mine(rank, axis_groups(config, (axis,)))
+    if config.seq > 1 and config.data > 1:
+        out["replica_group"] = _mine(rank, axis_groups(config, (0, 3)))
+    elif config.seq > 1:
+        out["replica_group"] = out["seq_group"]
     if config.dcn_data > 1:
+        if config.model * config.seq > 1:
+            raise ValueError("dcn_data > 1 with a model or seq axis is not "
+                             "ported yet (ROADMAP A9)")
         inner_ranks, outer_ranks = dcn_groups(config.data, config.stage,
                                               config.dcn_data)
-        inner = [dist.new_group(r) for r in inner_ranks]
-        outer = [dist.new_group(r) for r in outer_ranks]
-        out.update(inner_group=next(g for g, r in zip(inner, inner_ranks)
-                                    if rank in r),
-                   outer_group=next(g for g, r in zip(outer, outer_ranks)
-                                    if rank in r))
+        out.update(inner_group=_mine(rank, inner_ranks),
+                   outer_group=_mine(rank, outer_ranks))
     return out
 
 
@@ -287,17 +400,22 @@ def process_rows(global_batch: int) -> slice:
         return slice(None)
     world = dist.get_world_size()
     config = _joined.get("config")
-    if config is None or config.data * config.stage != world:
+    if config is None or config.num_devices != world:
         config = MeshConfig(data=world)
     return MeshSpec(config, dist.get_rank()).rows(global_batch)
 
 
 def _check_world(config: MeshConfig, world: int) -> None:
     check_mesh_config(config)
-    if config.data * config.stage != world:
-        raise ValueError(f"MeshConfig(data={config.data}, stage="
-                         f"{config.stage}) needs {config.data * config.stage}"
-                         f" rank(s) but the process group has {world}")
+    if config.num_devices != world:
+        raise ValueError(f"{_describe(config)} needs {config.num_devices} "
+                         f"rank(s) but the process group has {world}")
+
+
+def _describe(config: MeshConfig) -> str:
+    sizes = ", ".join(f"{k}={v}" for k, v in config.axis_sizes().items()
+                      if v != 1 or k == config.data_axis)
+    return f"MeshConfig({sizes})"
 
 
 def make_mesh(config: MeshConfig | None = None, device="cuda") -> MeshSpec:
@@ -313,12 +431,12 @@ def make_mesh(config: MeshConfig | None = None, device="cuda") -> MeshSpec:
     if not dist.is_initialized():
         config = config or MeshConfig()
         check_mesh_config(config)
-        n = config.data * config.stage
+        n = config.num_devices
         if n != 1:
             raise ValueError(
-                f"MeshConfig(data={config.data}, stage={config.stage}) needs "
-                f"a process group of {n} ranks: start them with mesh.spawn, "
-                f"train_cnn / train_model_parallel --nproc, or torchrun")
+                f"{_describe(config)} needs a process group of {n} ranks: "
+                f"start them with mesh.spawn, train_cnn / "
+                f"train_model_parallel / train_lm --nproc, or torchrun")
         return MeshSpec(config, 0, torch.empty(
             0, device=resolve_device(device)).device, None)
     world = dist.get_world_size()

@@ -1,13 +1,25 @@
 """Decoder-only Transformer LM in PyTorch — the serving subset and the
-single-device training forward.
+training forward over a ``(data, model, seq)`` mesh.
 
 Counterpart of ``distributed_model_parallel_tpu/models/transformer.py``:
 the config, the parameter layout, the block pieces the paged
 prefill/decode steps (``serve/model.py``) compose, and the training path
 (``block_apply``, ``blocks_scan``, ``apply``, ``lm_loss``) whose attention
-runs the flash kernels (``ops/flash_attention.py``) on the card. MoE,
-tensor and sequence parallelism, remat, the chunked loss head and
-``generate`` come with later slices and raise here (ROADMAP A9).
+runs the flash kernels (``ops/flash_attention.py``) on the card.
+
+The JAX functions bind ``cfg.tp_axis``/``cfg.sp_axis`` inside a
+``shard_map``; here the training functions take the rank's
+``mesh.MeshSpec`` (``mesh=``), whose model and seq groups those names
+resolve to. Under ``tp_axis`` the block's column-parallel products take
+their input through ``collectives.copy_to_group`` and its row-parallel
+products end in ``collectives.reduce_from_group`` (Megatron's ``f`` and
+``g``); under ``sp_axis`` attention is ring or Ulysses attention
+(``ops/ring_attention.py``) and positions start at the shard's global
+offset. ``remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``: the whole block under ``"full"``, all but
+the products with no batch dims under ``"dots"``), and ``loss_chunk``
+computes the head and its loss in slices recomputed in the backward.
+MoE and ``generate`` come with later slices and raise here (ROADMAP A9).
 
 The parameter tree keeps the JAX package's layout exactly — blocks
 stacked on a leading ``[n_layers]`` axis, ``wqkv: [L, d, H, 3*Dh]`` with
@@ -24,6 +36,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from distributed_model_parallel_tpu_torch.ops.collectives import (
+    copy_to_group,
+    reduce_from_group,
+)
 from distributed_model_parallel_tpu_torch.ops.flash_attention import (
     flash_attention,
     full_attention,
@@ -47,12 +63,8 @@ def resolve_device(device) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The fields of the JAX ``TransformerConfig`` that serving and
-    single-device training read.
-
-    ``tp_axis``/``sp_axis``/``sp_impl``/``moe_experts``/``remat``/
-    ``loss_chunk`` are kept so the engine and the trainer can reject the
-    configurations this port does not run yet, by name.
-    """
+    training read. ``moe_experts`` and ``ep_axis`` are kept so the engine
+    and the trainer can reject MoE by name (ROADMAP A9)."""
 
     vocab_size: int = 1024
     d_model: int = 128
@@ -72,8 +84,13 @@ class TransformerConfig:
     # Sliding-window (local) attention: each token attends the last W
     # positions — the (pos - W, pos] band of ``band_keep``.
     attn_window: int | None = None
+    # Recompute each block in the backward: "full" the whole block,
+    # "dots" all but the outputs of products with no batch dims (JAX's
+    # dots_with_no_batch_dims_saveable).
     remat: bool = False
+    remat_policy: str = "full"
     moe_experts: int = 0
+    ep_axis: str | None = None
     pos_embedding: str = "learned"     # "learned" | "rope"
     rope_theta: float = 10000.0
     # Grouped-query attention: k/v get n_kv_heads heads (must divide
@@ -253,23 +270,26 @@ def _qkv_proj(bp: dict, h: torch.Tensor, cfg: TransformerConfig):
     along the last axis."""
     b, t, d = h.shape
     dh = cfg.head_dim
+    # Head counts from the weights: the local ones under tensor parallelism.
     if cfg.gqa:
-        q = (h @ bp["wq"].reshape(d, -1)).reshape(b, t, cfg.n_heads, dh)
-        kv = (h @ bp["wkv"].reshape(d, -1)).reshape(b, t, cfg.kv_heads,
-                                                    2 * dh)
+        q = (h @ bp["wq"].reshape(d, -1)).reshape(b, t, -1, dh)
+        kv = (h @ bp["wkv"].reshape(d, -1)).reshape(b, t, -1, 2 * dh)
         k, v = kv.split(dh, dim=-1)
     else:
-        qkv = (h @ bp["wqkv"].reshape(d, -1)).reshape(b, t, cfg.n_heads,
-                                                      3 * dh)
+        qkv = (h @ bp["wqkv"].reshape(d, -1)).reshape(b, t, -1, 3 * dh)
         q, k, v = qkv.split(dh, dim=-1)
     return q, k, v
 
 
-def _ffn(bp: dict, h: torch.Tensor) -> torch.Tensor:
+def _ffn(bp: dict, h: torch.Tensor, tp_group=None) -> torch.Tensor:
     """Dense MLP tail. ``jax.nn.gelu`` defaults to the tanh approximation,
-    so this does too."""
+    so this does too. Under tensor parallelism ``w1``/``b1`` hold this
+    rank's columns and ``w2`` its rows: the product's partial sums are
+    all-reduced over ``tp_group``, and ``b2`` is added once, after."""
     y = F.gelu(h @ bp["w1"] + bp["b1"], approximate="tanh")
-    return y @ bp["w2"] + bp["b2"]
+    y = y @ bp["w2"]
+    y = reduce_from_group(y, tp_group)
+    return y + bp["b2"]
 
 
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -278,40 +298,73 @@ def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# training forward (single device)
+# training forward
 # ---------------------------------------------------------------------------
 
+REMAT_POLICIES = ("full", "dots")
+
+
 def check_training_config(cfg: TransformerConfig) -> None:
-    """Raise, by name, on what the single-device training path does not
-    run yet (ROADMAP A9): nothing is silently ignored."""
+    """Raise, by name, on what the training path does not run yet
+    (ROADMAP A9: MoE): nothing is silently ignored."""
     unsupported = {
-        "tp_axis": cfg.tp_axis is not None,
-        "sp_axis": cfg.sp_axis is not None,
-        "sp_impl": cfg.sp_impl != "ring",
         "moe_experts": bool(cfg.moe_experts),
-        "remat": cfg.remat,
-        "loss_chunk": bool(cfg.loss_chunk),
+        "ep_axis": cfg.ep_axis is not None,
     }
     named = [k for k, bad in unsupported.items() if bad]
     if named:
         raise NotImplementedError(
-            f"{', '.join(named)} not ported yet: the port trains one dense "
-            f"model on one device without remat or a chunked loss head "
-            f"(ROADMAP A9)")
+            f"{', '.join(named)} not ported yet (ROADMAP A9: MoE)")
 
 
-def embed(params: dict, tokens: torch.Tensor,
-          cfg: TransformerConfig) -> torch.Tensor:
+def _axis_group(mesh, name: str | None, kind: str):
+    """The process group ``name`` (``cfg.tp_axis``/``cfg.sp_axis``) binds on
+    ``mesh``: its model or seq group (None where the axis has size 1, and
+    when ``name`` is None). A name without a mesh, or one the mesh does
+    not call its model/seq axis, raises (the JAX package's unbound axis
+    name)."""
+    if name is None:
+        return None
+    if mesh is None:
+        raise ValueError(f"{kind}={name!r} names a mesh axis: pass the "
+                         f"rank's mesh.MeshSpec (parallel/spmd_lm.py runs "
+                         f"the mesh)")
+    axis = mesh.model_axis if kind == "tp_axis" else mesh.seq_axis
+    if name != axis:
+        raise ValueError(f"{kind}={name!r} is not an axis of the mesh "
+                         f"(its {kind[:2]} axis is {axis!r})")
+    return mesh.model_group if kind == "tp_axis" else mesh.seq_group
+
+
+def _seq_offset(t: int, cfg: TransformerConfig, mesh) -> int:
+    """Global position of this rank's first token: ``seq_index x T_local``
+    under a seq axis, else 0."""
+    if cfg.sp_axis is None or mesh is None:
+        return 0
+    return mesh.seq_index * t
+
+
+def embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig, *,
+          pos_offset: int = 0) -> torch.Tensor:
     """[B, T] int tokens -> [B, T, d]: the table lookup, plus the learned
-    positions from 0 (RoPE rotates q/k inside attention instead)."""
+    positions from ``pos_offset`` (RoPE rotates q/k inside attention
+    instead, and takes no offset here, as in the JAX package)."""
     if cfg.pos_embedding == "rope":
+        if pos_offset:
+            raise ValueError(
+                "pos_offset is not supported with pos_embedding='rope'; "
+                "use generate() for offset (cached) decoding")
         return params["embed"][tokens]
-    return params["embed"][tokens] + params["pos"][:tokens.shape[1]][None]
+    t = tokens.shape[1]
+    pos = params["pos"][pos_offset:pos_offset + t]
+    return params["embed"][tokens] + pos[None]
 
 
-def _rope_qk(q: torch.Tensor, k: torch.Tensor, cfg: TransformerConfig):
-    """Rotate q/k for the training path: the sequence starts at 0."""
-    positions = torch.arange(q.shape[1], device=q.device)
+def _rope_qk(q: torch.Tensor, k: torch.Tensor, cfg: TransformerConfig,
+             start: int = 0):
+    """Rotate q/k for the training path: the shard starts at global
+    position ``start`` (0 without a seq axis)."""
+    positions = start + torch.arange(q.shape[1], device=q.device)
     return (apply_rope(q, positions, cfg.rope_theta),
             apply_rope(k, positions, cfg.rope_theta))
 
@@ -319,20 +372,35 @@ def _rope_qk(q: torch.Tensor, k: torch.Tensor, cfg: TransformerConfig):
 def _repeat_kv(x: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """kv heads up to the query head count ([..., Hkv, Dh] -> [..., H,
     Dh]): kv head j serves query heads j·G … j·G+G−1 (``jnp.repeat``).
-    Autograd sums dK/dV over each group."""
+    The group factor comes from the local shapes, so it holds under
+    tensor-parallel head sharding. Autograd sums dK/dV over each group."""
     groups = q.shape[2] // x.shape[2]
     return x if groups == 1 else x.repeat_interleave(groups, dim=2)
 
 
-def _attention(q, k, v, cfg: TransformerConfig) -> torch.Tensor:
-    """Causal attention of the training path, [B, T, H, Dh]. "auto" and
-    "flash" go to :func:`flash_attention` (the CUDA kernels for CUDA
-    tensors, their plain versions for CPU tensors); "xla" to the plain
-    :func:`full_attention`. A window needs ``attn_impl="flash"``, as in
-    the JAX package."""
+def _attention(q, k, v, cfg: TransformerConfig, mesh=None) -> torch.Tensor:
+    """Causal attention of the training path, [B, T(_local), H(_local),
+    Dh]. Under ``sp_axis``: ring or Ulysses attention over the mesh's seq
+    group (``cfg.sp_impl``; any name but "ring" is Ulysses, as in the JAX
+    package). Otherwise "auto" and "flash" go to :func:`flash_attention`
+    (the CUDA kernels for CUDA tensors, their plain versions for CPU
+    tensors); "xla" to the plain :func:`full_attention`. A window needs
+    ``attn_impl="flash"`` and no seq axis, as in the JAX package."""
     if cfg.sp_axis is not None:
-        raise NotImplementedError("sequence-parallel (ring/Ulysses) "
-                                  "attention is not ported yet (ROADMAP A9)")
+        if cfg.attn_window is not None:
+            raise ValueError(
+                "attn_window is not supported with sequence parallelism")
+        from distributed_model_parallel_tpu_torch.ops.ring_attention import (
+            ring_attention,
+            ulysses_attention,
+        )
+
+        group = _axis_group(mesh, cfg.sp_axis, "sp_axis")
+        if cfg.sp_impl == "ring":
+            return ring_attention(q, k, v, group, causal=True,
+                                  impl=cfg.attn_impl)
+        return ulysses_attention(q, k, v, group, causal=True,
+                                 impl=cfg.attn_impl)
     if cfg.attn_window is not None:
         if cfg.attn_impl != "flash":
             raise ValueError(
@@ -344,44 +412,101 @@ def _attention(q, k, v, cfg: TransformerConfig) -> torch.Tensor:
     return flash_attention(q, k, v, causal=True)
 
 
-def block_apply(bp: dict, x: torch.Tensor,
-                cfg: TransformerConfig) -> torch.Tensor:
-    """One pre-LN block on [B, T, d] with unstacked parameters ``bp``.
-    The JAX block also returns the MoE stats vector, zeros for a dense
-    block; it comes with MoE (ROADMAP A9)."""
+def block_apply(bp: dict, x: torch.Tensor, cfg: TransformerConfig,
+                mesh=None) -> torch.Tensor:
+    """One pre-LN block on [B, T(_local), d] with unstacked parameters
+    ``bp`` (this rank's slices under tensor parallelism). The JAX block
+    also returns the MoE stats vector, zeros for a dense block; it comes
+    with MoE (ROADMAP A9).
+
+    Tensor parallelism: the normalized input enters the column-parallel
+    products through ``copy_to_group`` (the backward sums the cotangent
+    over the model group, which shard_map's transpose does in JAX); a
+    ``wkv`` replicated under multi-query takes the same operator, since
+    every model rank's heads read it; ``wo`` and ``w2`` end in
+    ``reduce_from_group``."""
+    tp = _axis_group(mesh, cfg.tp_axis, "tp_axis")
     b, t, _ = x.shape
     h = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
+    h = copy_to_group(h, tp)
+    if tp is not None and cfg.gqa and bp["wkv"].shape[1] == cfg.kv_heads:
+        bp = dict(bp, wkv=copy_to_group(bp["wkv"], tp))
     q, k, v = _qkv_proj(bp, h, cfg)
     if cfg.pos_embedding == "rope":
-        q, k = _rope_qk(q, k, cfg)
+        q, k = _rope_qk(q, k, cfg, _seq_offset(t, cfg, mesh))
     k, v = _repeat_kv(k, q), _repeat_kv(v, q)
-    o = _attention(q, k, v, cfg)
-    x = x + o.reshape(b, t, -1) @ bp["wo"]
+    o = _attention(q, k, v, cfg, mesh)
+    o = reduce_from_group(o.reshape(b, t, -1) @ bp["wo"], tp)
+    x = x + o
     h = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
-    return x + _ffn(bp, h)
+    return x + _ffn(bp, copy_to_group(h, tp), tp)
 
 
-def blocks_scan(blocks: dict, x: torch.Tensor,
-                cfg: TransformerConfig) -> torch.Tensor:
-    """All stacked blocks in order (the JAX ``lax.scan``, as a loop)."""
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for ``remat_policy="dots"``: keep
+    the outputs of 2-D matrix products (the weight products, which have
+    no batch dims; ``h @ W`` reaches the dispatcher as ``mm``), recompute
+    everything else (elementwise work, the batched attention products,
+    the kernels and collectives)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: TransformerConfig):
+    """``fn`` wrapped in ``torch.utils.checkpoint`` (non-reentrant) under
+    ``cfg.remat``, as ``jax.checkpoint`` with the policy of
+    ``cfg.remat_policy``; ``fn`` itself without remat."""
+    if not cfg.remat:
+        return fn
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; "
+                         f"known: full, dots")
+    import functools
+
+    from torch.utils.checkpoint import (
+        checkpoint,
+        create_selective_checkpoint_contexts,
+    )
+
+    kw = dict(use_reentrant=False, preserve_rng_state=False)
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: checkpoint(fn, *args, **kw)
+
+
+def blocks_scan(blocks: dict, x: torch.Tensor, cfg: TransformerConfig,
+                mesh=None) -> torch.Tensor:
+    """All stacked blocks in order (the JAX ``lax.scan``, as a loop), each
+    under :func:`_remat`."""
     n_layers = next(iter(blocks.values())).shape[0]
+    apply_one = _remat(lambda bp, x: block_apply(bp, x, cfg, mesh), cfg)
     for layer in range(n_layers):
-        x = block_apply({k: w[layer] for k, w in blocks.items()}, x, cfg)
+        x = apply_one({k: w[layer] for k, w in blocks.items()}, x)
     return x
 
 
-def hidden(params: dict, tokens: torch.Tensor,
-           cfg: TransformerConfig) -> torch.Tensor:
-    """[B, T] tokens -> [B, T, d] pre-head activations (the JAX
-    ``hidden_with_aux`` without the MoE stats, which come with MoE)."""
+def hidden(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+           mesh=None) -> torch.Tensor:
+    """[B, T(_local)] tokens -> [B, T(_local), d] pre-head activations (the
+    JAX ``hidden_with_aux`` without the MoE stats, which come with MoE).
+    Learned positions start at the shard's global offset: JAX embeds
+    outside its shard_map, over the whole sequence."""
     check_training_config(cfg)
-    return blocks_scan(params["blocks"], embed(params, tokens, cfg), cfg)
+    offset = (_seq_offset(tokens.shape[1], cfg, mesh)
+              if cfg.pos_embedding == "learned" else 0)
+    return blocks_scan(params["blocks"],
+                       embed(params, tokens, cfg, pos_offset=offset), cfg,
+                       mesh)
 
 
-def apply(params: dict, tokens: torch.Tensor,
-          cfg: TransformerConfig) -> torch.Tensor:
+def apply(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+          mesh=None) -> torch.Tensor:
     """Full forward: [B, T] tokens -> [B, T, V] logits."""
-    return unembed(params, hidden(params, tokens, cfg))
+    return unembed(params, hidden(params, tokens, cfg, mesh))
 
 
 def token_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -392,10 +517,78 @@ def token_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return -torch.gather(logp, -1, targets[..., None].long())[..., 0].mean()
 
 
+def _chunk_nll_sum(ln_f_scale, ln_f_bias, head, xc, tc):
+    logits = unembed({"ln_f_scale": ln_f_scale, "ln_f_bias": ln_f_bias,
+                      "head": head}, xc)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, tc[..., None].long())[..., 0].sum()
+
+
+def chunked_nll_sum(params: dict, x: torch.Tensor, targets: torch.Tensor,
+                    chunk: int) -> torch.Tensor:
+    """SUM of next-token NLL over ``unembed(x)`` in ``chunk``-token slices,
+    each slice's logits and log-softmax recomputed in the backward
+    (non-reentrant ``torch.utils.checkpoint``), so ``[B, T, V]`` never
+    lives in memory: peak O(B x chunk x V) for one more head forward.
+    Raises, in the JAX package's words, when ``chunk`` does not divide
+    T."""
+    from torch.utils.checkpoint import checkpoint
+
+    b, t, _ = x.shape
+    if t % chunk:
+        raise ValueError(f"seq len {t} not divisible by loss_chunk={chunk}")
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lo in range(0, t, chunk):
+        total = total + checkpoint(
+            _chunk_nll_sum, params["ln_f_scale"], params["ln_f_bias"],
+            params["head"], x[:, lo:lo + chunk], targets[:, lo:lo + chunk],
+            use_reentrant=False, preserve_rng_state=False)
+    return total
+
+
+def chunked_token_loss(params: dict, x: torch.Tensor, targets: torch.Tensor,
+                       chunk: int) -> torch.Tensor:
+    """``token_loss`` over ``unembed(x)`` through :func:`chunked_nll_sum`
+    (the MoE terms come with MoE)."""
+    b, t, _ = x.shape
+    return chunked_nll_sum(params, x, targets, chunk) / (b * t)
+
+
+def local_loss_chunk(cfg: TransformerConfig, t_local: int,
+                     n_seq: int = 1) -> int:
+    """The slice length of this rank's chunked head: ``cfg.loss_chunk``
+    where it divides the local shard, else the largest length that
+    divides both. JAX chunks the whole sequence of ``t_local x n_seq``
+    tokens (its head sits outside the shard_map), so that is what must
+    divide; the loss is the same sum of per-token terms either way."""
+    import math
+
+    chunk, t = cfg.loss_chunk, t_local * n_seq
+    if t % chunk:
+        raise ValueError(f"seq len {t} not divisible by loss_chunk={chunk}")
+    return chunk if t_local % chunk == 0 else math.gcd(chunk, t_local)
+
+
 def lm_loss(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
-            cfg: TransformerConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy through the dense head."""
-    return token_loss(apply(params, tokens, cfg), targets)
+            cfg: TransformerConfig, mesh=None) -> torch.Tensor:
+    """Mean next-token cross-entropy over this rank's tokens, through the
+    dense head or, under ``loss_chunk``, the chunked one. On a mesh the
+    mean over every token is the mean of the ranks' means
+    (``parallel/spmd_lm``: the shards are equal)."""
+    if cfg.loss_chunk:
+        n_seq = mesh.num_seq if (cfg.sp_axis and mesh is not None) else 1
+        chunk = local_loss_chunk(cfg, tokens.shape[1], n_seq)
+        return chunked_token_loss(params, hidden(params, tokens, cfg, mesh),
+                                  targets, chunk)
+    return token_loss(apply(params, tokens, cfg, mesh), targets)
+
+
+def generate(params: dict, cfg: TransformerConfig, prompt, steps: int, **kw):
+    """The JAX package's cached-decoding ``generate``: not ported yet
+    (ROADMAP A9: generate); the serving engine (``serve/engine.py``)
+    decodes over the paged cache."""
+    raise NotImplementedError("generate is not ported yet (ROADMAP A9: "
+                              "generate); decode with serve.Engine")
 
 
 def _filter_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:

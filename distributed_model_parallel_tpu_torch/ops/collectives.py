@@ -25,17 +25,30 @@ each function returns its input's value without a collective.
   two-level all-reduce over a ``(dcn, data)`` axis (``MeshConfig.dcn_data
   > 1``): reduce-scatter within a dcn row, all-reduce across the rows,
   all-gather within the row;
+* :func:`all_to_all_tiled` — ``jax.lax.all_to_all(..., tiled=True)``,
+  the re-shard of Ulysses attention, differentiable (its transpose is the
+  reverse all-to-all);
+* :func:`copy_to_group` and :func:`reduce_from_group` — Megatron's two
+  operators over the model axis: identity forward and all-reduce backward
+  at the input of a column-parallel product, all-reduce forward and
+  identity backward after a row-parallel one (JAX's shard_map writes the
+  first as the transpose of a replicated input, the second as ``psum``);
 * :func:`unused_param_mask`, :func:`mesh_barrier`.
 
 Trees are tensors, lists, tuples and dicts; dict leaves are taken in
 sorted key order, as ``jax.tree.leaves`` takes them, so bucket plans
 agree with the JAX package's. Every collective is counted, per call, in
 :data:`calls` and :data:`wire_bytes` under its ``kind`` (the bytes this
-rank hands to it), as the kernel wrappers count their launches.
+rank hands to it), as the kernel wrappers count their launches. Inside
+:func:`timed`, every counted collective also waits for the device before
+and after it and adds its wall time to :data:`seconds` under its kind
+(instrumentation for a measured step only: it serializes the device).
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from collections import Counter
 from typing import Any, Callable, Sequence
 
@@ -46,11 +59,47 @@ import torch.distributed as dist
 # caller, e.g. to 0 before the run it counts).
 calls: Counter = Counter()
 wire_bytes: Counter = Counter()
+# Seconds spent in each kind while :func:`timed` is on.
+seconds: Counter = Counter()
+_timing = {"on": False}
 
 
 def reset_counts() -> None:
     calls.clear()
     wire_bytes.clear()
+    seconds.clear()
+
+
+@contextlib.contextmanager
+def timed():
+    """Time every counted collective issued inside (see the module
+    docstring)."""
+    _timing["on"] = True
+    try:
+        yield seconds
+    finally:
+        _timing["on"] = False
+
+
+def _sync() -> None:
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def _clock(kind: str):
+    """Add the wall time of the block to ``seconds[kind]`` when timing is
+    on (the device drained on both sides)."""
+    if not _timing["on"]:
+        yield
+        return
+    _sync()
+    t0 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _sync()
+        seconds[kind] += time.perf_counter() - t0
 
 
 def world_size(group=None) -> int:
@@ -73,7 +122,8 @@ def all_reduce_(t: torch.Tensor, group=None, *, kind: str = "all_reduce",
         return None
     calls[kind] += 1
     wire_bytes[kind] += _nbytes(t)
-    return dist.all_reduce(t, group=group, async_op=async_op)
+    with _clock(kind):
+        return dist.all_reduce(t, group=group, async_op=async_op)
 
 
 def broadcast_(t: torch.Tensor, group=None, *, src: int = 0,
@@ -359,11 +409,12 @@ def exchange(sends: Sequence[tuple[torch.Tensor, int]] = (),
             target = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
             unstage.append((buf, target))
         ops.append(dist.P2POp(dist.irecv, target, src, group))
-    if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
-    for buf, host in unstage:
-        buf.copy_(host)
+    with _clock(kind):
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        for buf, host in unstage:
+            buf.copy_(host)
 
 
 def send_to(x: torch.Tensor, dst: int, group=None) -> None:
@@ -398,6 +449,111 @@ def ppermute_shift(x: torch.Tensor, shift: int = 1, group=None
     exchange([(x, peer(i + shift))], [(out, peer(i - shift))], group,
              kind="ppermute")
     return out
+
+
+# -- the model and seq axes: Megatron's operators, Ulysses' re-shard ----------
+
+def _group_size(group) -> int:
+    """Ranks of ``group``; 1 for None (an axis of size 1: no group)."""
+    if group is None or not dist.is_initialized():
+        return 1
+    return dist.get_world_size(group)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        ctx.group, ctx.kind = group, kind
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.contiguous().clone()
+        all_reduce_(g, ctx.group, kind=ctx.kind)
+        return g, None, None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, kind):
+        out = x.contiguous().clone()
+        all_reduce_(out, group, kind=kind)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to_group(x: torch.Tensor, group, *,
+                  kind: str = "tp_all_reduce") -> torch.Tensor:
+    """Megatron's ``f``: ``x`` as it is in the forward, its cotangent
+    summed over ``group`` in the backward (counted under ``kind``). At the
+    input of a column-parallel product it completes the gradient of
+    everything upstream, which each rank computed from its own columns
+    only. ``group`` None (an axis of size 1): ``x`` itself."""
+    if _group_size(group) == 1:
+        return x
+    return _CopyToGroup.apply(x, group, kind)
+
+
+def reduce_from_group(x: torch.Tensor, group, *,
+                      kind: str = "tp_all_reduce") -> torch.Tensor:
+    """Megatron's ``g``: ``x`` summed over ``group`` in the forward
+    (``jax.lax.psum``, counted under ``kind``), its cotangent passed
+    through in the backward. ``group`` None: ``x`` itself."""
+    if _group_size(group) == 1:
+        return x
+    return _ReduceFromGroup.apply(x, group, kind)
+
+
+def _all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int, group,
+                kind: str) -> torch.Tensor:
+    n = _group_size(group)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"dim {split_axis} of size {x.shape[split_axis]} "
+                         f"does not split over {n} ranks")
+    calls[kind] += 1
+    wire_bytes[kind] += _nbytes(x)
+    staged = _gloo_cuda(x, group)
+    src = x.cpu() if staged else x
+    # One all_to_all_single over the split axis moved to the front: chunk
+    # j of it goes to group rank j, and chunk i of what comes back is
+    # group rank i's (gloo runs no list all_to_all).
+    front = src.movedim(split_axis, 0).contiguous()
+    got = torch.empty_like(front)
+    with _clock(kind):
+        dist.all_to_all_single(got, front, group=group)
+    out = torch.cat([c.movedim(0, split_axis) for c in got.chunk(n, 0)],
+                    concat_axis)
+    return out.to(x.device) if staged else out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_axis, concat_axis, group, kind):
+        ctx.args = (split_axis, concat_axis, group, kind)
+        return _all_to_all(x, split_axis, concat_axis, group, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_axis, concat_axis, group, kind = ctx.args
+        return (_all_to_all(g, concat_axis, split_axis, group, kind),
+                None, None, None, None)
+
+
+def all_to_all_tiled(x: torch.Tensor, split_axis: int, concat_axis: int,
+                     group, *, kind: str = "all_to_all") -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``
+    over ``group``: ``x`` cut into n equal chunks along ``split_axis``,
+    chunk j sent to group rank j, the n chunks received concatenated
+    along ``concat_axis`` in group-rank order. Differentiable: the
+    backward is the all-to-all with the two axes swapped. Over gloo a
+    CUDA tensor is staged through host memory. ``group`` None: ``x``
+    itself."""
+    if _group_size(group) == 1:
+        return x
+    return _AllToAll.apply(x, split_axis, concat_axis, group, kind)
 
 
 def mesh_barrier(spec) -> float:

@@ -538,3 +538,171 @@ def fsdp_gathered(spec: MeshSpec, config, train: tuple) -> dict:
                 bwd_peak=bwd["peak"], after=bwd["now"],
                 bwd_peak_bytes=bwd["peak_bytes"],
                 grads=[p.grad is not None for p in t.model.parameters()])
+
+
+# -- the Transformer LM over (data, model, seq) ---------------------------------
+
+def on_meshes(spec: MeshSpec, cases: list) -> list:
+    """Rank functions of this module on other meshes of the same ranks:
+    ``cases`` are ``(MeshConfig, name, args)``; each lays the group out as
+    its mesh (``mesh.make_mesh``: every rank creates the sub-groups) and
+    runs ``name(mesh_spec, *args)``. Their results, in order."""
+    from distributed_model_parallel_tpu_torch import mesh
+
+    out = []
+    for config, name, args in cases:
+        out.append(globals()[name](mesh.make_mesh(config, spec.device),
+                                   *args))
+    return out
+
+
+def _lm_params(tree: dict, cfg) -> dict:
+    """A copy of a numpy parameter tree as the port's tensors (a trainer
+    updates its parameters in place, and one spawn's cases share the
+    unpickled arrays)."""
+    from distributed_model_parallel_tpu_torch.models.transformer import (
+        params_from_jax as lm_params,
+    )
+
+    return lm_params(C.tree_map(np.array, tree), cfg, "cpu")
+
+
+def _seq_shard(a, spec: MeshSpec, requires_grad: bool = False):
+    """This rank's seq shard (dim 1) of a numpy array, as a tensor."""
+    n, i = spec.num_seq, spec.seq_index
+    t = a.shape[1] // n
+    out = torch.from_numpy(np.array(a[:, i * t:(i + 1) * t]))
+    return out.requires_grad_(requires_grad)
+
+
+def seq_attention(spec: MeshSpec, q, k, v, do, sp_impl: str, impl: str,
+                  causal: bool, dtype: str = "float32") -> dict:
+    """Ring (``sp_impl="ring"``, ``impl`` "flash" or "xla") or Ulysses
+    attention over the seq group on this rank's shards of ``q``/``k``/
+    ``v`` ([B, T, H, Dh]), backward from its shard of ``do``: the local
+    o, dq, dk and dv (float32)."""
+    from distributed_model_parallel_tpu_torch.ops import ring_attention as ra
+
+    dt = getattr(torch, dtype)
+    ql, kl, vl = (_seq_shard(a, spec).to(dt).requires_grad_(True)
+                  for a in (q, k, v))
+    fn = ra.ring_attention if sp_impl == "ring" else ra.ulysses_attention
+    o = fn(ql, kl, vl, spec.seq_group, causal=causal, impl=impl)
+    o.backward(_seq_shard(do, spec).to(dt))
+    return dict(o=_np(o), dq=_np(ql.grad), dk=_np(kl.grad),
+                dv=_np(vl.grad))
+
+
+def lm_grads(spec: MeshSpec, config, tree: dict, toks, tgts) -> dict:
+    """The mesh step's loss (the mean over every token) and every
+    gradient after the replica reduction, gathered to whole leaves, at
+    ``tree``'s weights on the global batch (``toks``, ``tgts``)."""
+    from distributed_model_parallel_tpu_torch.parallel import spmd_lm
+    from distributed_model_parallel_tpu_torch.train.lm_trainer import (
+        LMTrainer,
+    )
+
+    tr = LMTrainer(config, params=_lm_params(tree, config.model),
+                   spec=spec)
+    loss = spmd_lm.make_loss_fn(config.model, spec)(tr.params,
+                                                    *tr._shard(toks, tgts))
+    loss.backward()
+    spmd_lm.reduce_grads(tr.leaves, spec)
+    for p in tr.leaves:
+        p.data = p.grad
+    return dict(loss=float(spmd_lm._replica_mean(loss.detach(), spec)),
+                grads=_np(tr.whole_params()))
+
+
+def lm_steps(spec: MeshSpec, config, tree: dict, batches: list) -> dict:
+    """``LMTrainer.train_step`` on each global batch of ``batches`` from
+    ``tree``'s weights: the losses, the whole parameters after, and this
+    rank's slices (for the replica checks)."""
+    from distributed_model_parallel_tpu_torch.train.lm_trainer import (
+        LMTrainer,
+    )
+
+    tr = LMTrainer(config, params=_lm_params(tree, config.model),
+                   spec=spec)
+    losses = [tr.train_step(t, g) for t, g in batches]
+    return dict(losses=losses, params=_np(tr.whole_params()),
+                local=_np(tr.params), grid=spec.grid)
+
+
+def lm_preempt_resume(spec: MeshSpec, configs: dict, tree: dict,
+                      preempt_at: tuple, other_mesh=None) -> dict:
+    """``configs["full"]``'s uninterrupted ``fit`` against ``configs
+    ["cut"]``'s, preempted by a ``step_hook`` at ``preempt_at`` (epoch,
+    step) and finished by a trainer with ``resume=True``: per run the
+    history, the per-step losses, the whole parameters, the optimizer
+    state tree, the global step and (rank 0) the text log's lines. With
+    ``other_mesh``, the message of a resume of the same checkpoint laid
+    out as that mesh (a refusal)."""
+    from distributed_model_parallel_tpu_torch.train.lm_trainer import (
+        LMTrainer,
+    )
+
+    def state(tr, history, steps):
+        out = dict(history=history, steps=steps,
+                   params=_np(tr.whole_params()),
+                   opt_state=tr.opt_state_tree(),
+                   global_step=tr.global_step)
+        if tr.logger is not None:
+            with open(tr.logger.txt_path) as f:
+                out["log"] = f.read().splitlines()
+        return out
+
+    full = LMTrainer(configs["full"],
+                     params=_lm_params(tree, configs["full"].model),
+                     spec=spec)
+    out = {"full": state(full, full.fit(),
+                         [r["loss"] for r in full.step_log])}
+    cut = LMTrainer(configs["cut"],
+                    params=_lm_params(tree, configs["cut"].model),
+                    spec=spec)
+
+    def hook(t):
+        if (t._pos_epoch, t._pos_step) == tuple(preempt_at):
+            t.preemption.request()
+
+    cut.step_hook = hook
+    first = cut.fit()
+    import dataclasses
+
+    resumed = LMTrainer(dataclasses.replace(configs["cut"], resume=True),
+                        spec=spec)
+    out["cut"] = state(resumed, first + resumed.fit(),
+                       [r["loss"] for r in cut.step_log + resumed.step_log])
+    out["preempted_after"] = len(first)
+    if other_mesh is not None:
+        from distributed_model_parallel_tpu_torch import mesh
+
+        other = mesh.make_mesh(other_mesh, spec.device)
+        try:
+            LMTrainer(dataclasses.replace(configs["cut"], resume=True,
+                                          mesh=other_mesh,
+                                          model=configs["other_model"]),
+                      spec=other)
+            out["other_mesh"] = None
+        except ValueError as e:
+            out["other_mesh"] = str(e)
+    return out
+
+
+def lm_barrier_wait(spec: MeshSpec, config, hold_s: float) -> float:
+    """Seconds this rank waits in ``LMTrainer._barrier`` while rank 0
+    arrives ``hold_s`` late (a rank that does not wait could look for a
+    checkpoint the writer has not committed)."""
+    import time
+
+    from distributed_model_parallel_tpu_torch.train.lm_trainer import (
+        LMTrainer,
+    )
+
+    tr = LMTrainer(config, spec=spec)
+    tr._barrier()
+    if spec.rank == 0:
+        time.sleep(hold_s)
+    t0 = time.perf_counter()
+    tr._barrier()
+    return time.perf_counter() - t0

@@ -1,8 +1,9 @@
-"""Training of the port: the Transformer LM on one device, the CNNs on
-one device, data-parallel over ranks or pipelined over stages.
+"""Training of the port: the Transformer LM over a ``(data, model, seq)``
+mesh, the CNNs on one device, data-parallel over ranks or pipelined over
+stages.
 
-* :mod:`.lm_trainer` — ``LMTrainConfig``, ``LMTrainer``, the token
-  stream and the train step;
+* :mod:`.lm_trainer` — ``LMTrainConfig``, ``LMTrainer`` (its step is
+  ``parallel/spmd_lm``) and the token stream;
 * :mod:`.trainer` — the CNN ``Trainer`` (gspmd, ddp, fsdp, zero,
   spmd_pipeline),
   its train, eval and device-resident multi-step functions;
@@ -20,8 +21,6 @@ from distributed_model_parallel_tpu_torch.train.lm_trainer import (
     LMTrainConfig,
     LMTrainer,
     make_token_stream,
-    make_train_step,
 )
 
-__all__ = ["LMTrainConfig", "LMTrainer", "make_token_stream",
-           "make_train_step"]
+__all__ = ["LMTrainConfig", "LMTrainer", "make_token_stream"]

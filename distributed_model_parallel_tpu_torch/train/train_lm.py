@@ -1,40 +1,47 @@
-"""Transformer LM training on one device — the port's counterpart of
-``scripts/train_lm.py``.
+"""Transformer LM training over a ``(data, model, seq)`` mesh — the port's
+counterpart of ``scripts/train_lm.py``.
 
     python -m distributed_model_parallel_tpu_torch.train.train_lm \\
         --device cpu --layers 2 --d-model 64 --seq-len 32 --steps 3
+    python -m distributed_model_parallel_tpu_torch.train.train_lm \\
+        --device cpu --tp 2 --sp 2 --layers 2 --d-model 64
 
 ``--device`` defaults to ``cuda``, where the model runs in bf16 (the flash
 kernels take bf16) and attention goes through the hand-written kernels;
-on ``cpu`` it runs in f32 through their plain versions. Prints one JSON
-record per epoch. Multi-device meshes, MoE, remat, the chunked loss,
-resume and the recovery plane are not ported yet and are refused.
+on ``cpu`` it runs in f32 through their plain versions. ``--dp``,
+``--tp`` and ``--sp`` lay the ranks out as ``MeshConfig(data, model,
+seq)``: ``tp_axis="model"`` when ``--tp > 1``, ``sp_axis="seq"`` when
+``--sp > 1`` (``--sp-impl ulysses`` for the all-to-all). The mesh's
+``dp x tp x sp`` ranks are processes started here (a ``file://`` store;
+rank r on ``cuda:r`` over NCCL, ``--backend gloo`` to share cards, gloo
+on the CPU), or come from torchrun's environment. Rank 0 prints one JSON record
+per epoch and writes the run log and the checkpoints. ``--pp``,
+``--ep``, ``--moe-experts`` and the recovery plane's flags are refused by
+name.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 import torch
 
 # flag -> (value that is refused, ROADMAP item), for what is not ported.
 _REFUSED = {
-    "dp": (lambda v: v > 1, "A9: the LM's data axis"),
     "pp": (lambda v: v > 1, "A9: spmd_pipeline"),
-    "tp": (lambda v: v > 1, "A9: tensor parallelism"),
-    "sp": (lambda v: v > 1, "A9: ring/Ulysses attention"),
+    "microbatches": (lambda v: v > 1, "A9: spmd_pipeline"),
+    "schedule": (lambda v: v != "gpipe", "A9: spmd_pipeline"),
+    "virtual_stages": (lambda v: v > 1, "A9: spmd_pipeline"),
     "ep": (lambda v: v > 1, "A9: MoE"),
     "moe_experts": (lambda v: v > 0, "A9: MoE"),
-    "remat": (bool, "A9: remat"),
-    "loss_chunk": (lambda v: v != 0, "A9: chunked loss head"),
-    "resume": (bool, "A9: checkpoint/resume"),
-    "emergency_every": (lambda v: v != 0, "A9: resilience hooks"),
-    "elastic": (bool, "A9: resilience hooks"),
-    "check_finite_every": (lambda v: v != 0, "A9: resilience hooks"),
-    "consistency_every": (lambda v: v != 0, "A9: resilience hooks"),
-    "recovery_retries": (lambda v: v != 0, "A9: resilience hooks"),
-    "inject_faults": (lambda v: v is not None, "A9: resilience hooks"),
+    "emergency_every": (lambda v: v != 0, "A11: emergency checkpoints"),
+    "elastic": (bool, "A11: elastic restarts"),
+    "check_finite_every": (lambda v: v != 0, "A11: guards"),
+    "consistency_every": (lambda v: v != 0, "A11: consistency sentinel"),
+    "recovery_retries": (lambda v: v != 0, "A11: recovery"),
+    "inject_faults": (lambda v: v is not None, "A11: fault injection"),
 }
 
 
@@ -59,17 +66,86 @@ def parse_args(argv=None):
     p.add_argument("--lr", type=float, default=0.1)
     p.add_argument("--steps", type=int, default=50)
     p.add_argument("--epochs", type=int, default=1)
+    p.add_argument("--dp", type=int, default=1, help="data-parallel ways")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ways (the model axis)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ways (the seq axis)")
+    p.add_argument("--sp-impl", default="ring", choices=("ring", "ulysses"))
+    p.add_argument("--remat", action="store_true",
+                   help="recompute each block in the backward")
+    p.add_argument("--remat-policy", default="full", choices=("full", "dots"))
+    p.add_argument("--loss-chunk", type=int, default=0,
+                   help="chunked cross-entropy head: tokens per slice "
+                        "(0 = dense head)")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--log-dir", default="./log")
+    p.add_argument("--log-name", default="lm")
+    p.add_argument("--checkpoint-dir", default="./checkpoint")
+    p.add_argument("--backend", default=None, choices=("nccl", "gloo"))
     # Accepted so they can be refused by name (not ported yet).
-    for flag in ("--dp", "--pp", "--tp", "--sp", "--ep"):
+    for flag in ("--pp", "--ep", "--microbatches", "--virtual-stages"):
         p.add_argument(flag, type=int, default=1)
-    for flag in ("--moe-experts", "--loss-chunk", "--emergency-every",
+    p.add_argument("--schedule", default="gpipe")
+    for flag in ("--moe-experts", "--emergency-every",
                  "--check-finite-every", "--consistency-every",
                  "--recovery-retries"):
         p.add_argument(flag, type=int, default=0)
-    for flag in ("--remat", "--resume", "--elastic"):
-        p.add_argument(flag, action="store_true")
+    p.add_argument("--elastic", action="store_true")
     p.add_argument("--inject-faults", default=None)
     return p.parse_args(argv)
+
+
+def build_config(args):
+    """The ``LMTrainConfig`` of the parsed flags, wired as JAX's
+    ``scripts/train_lm.py`` wires them."""
+    from distributed_model_parallel_tpu_torch.config import (
+        MeshConfig,
+        OptimizerConfig,
+    )
+    from distributed_model_parallel_tpu_torch.models.transformer import (
+        TransformerConfig,
+    )
+    from distributed_model_parallel_tpu_torch.train.lm_trainer import (
+        LMTrainConfig,
+    )
+
+    # The flash kernels take bf16; the CPU's plain versions run in f32.
+    dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
+    return LMTrainConfig(
+        model=TransformerConfig(
+            vocab_size=args.vocab, d_model=args.d_model, n_heads=args.heads,
+            n_layers=args.layers, d_ff=args.d_ff,
+            max_seq_len=max(args.seq_len, 128),
+            dtype=dtype,
+            tp_axis="model" if args.tp > 1 else None,
+            sp_axis="seq" if args.sp > 1 else None,
+            sp_impl=args.sp_impl,
+            pos_embedding="rope" if args.rope else "learned",
+            n_kv_heads=args.kv_heads, attn_window=args.attn_window,
+            remat=args.remat, remat_policy=args.remat_policy,
+            loss_chunk=args.loss_chunk,
+            attn_impl="flash" if args.attn_window is not None else "auto"),
+        mesh=MeshConfig(data=args.dp, model=args.tp, seq=args.sp),
+        optimizer=OptimizerConfig(learning_rate=args.lr, weight_decay=0.0,
+                                  warmup_steps=10),
+        batch_size=args.batch_size, seq_len=args.seq_len,
+        steps_per_epoch=args.steps, epochs=args.epochs, resume=args.resume,
+        log_dir=args.log_dir, log_name=args.log_name,
+        checkpoint_dir=args.checkpoint_dir, device=args.device)
+
+
+def run(spec, config) -> list:
+    """Fit on this rank; rank 0 prints the records. Returns the history."""
+    from distributed_model_parallel_tpu_torch.train.lm_trainer import (
+        LMTrainer,
+    )
+
+    history = LMTrainer(config, spec=spec).fit()
+    if spec.rank == 0:
+        for record in history:
+            print(json.dumps(record), flush=True)
+    return history
 
 
 def main(argv=None):
@@ -81,32 +157,25 @@ def main(argv=None):
         raise SystemExit(f"not ported yet: {', '.join(refused)}")
     if args.attn_window is not None and args.attn_window < 1:
         raise SystemExit("--attn-window must be >= 1")
-    from distributed_model_parallel_tpu_torch.config import OptimizerConfig
-    from distributed_model_parallel_tpu_torch.models.transformer import (
-        TransformerConfig,
-    )
-    from distributed_model_parallel_tpu_torch.train.lm_trainer import (
-        LMTrainConfig,
-        LMTrainer,
-    )
+    from distributed_model_parallel_tpu_torch import mesh
 
-    # The flash kernels take bf16; the CPU's plain versions run in f32.
-    dtype = torch.float32 if args.device == "cpu" else torch.bfloat16
-    config = LMTrainConfig(
-        model=TransformerConfig(
-            vocab_size=args.vocab, d_model=args.d_model, n_heads=args.heads,
-            n_layers=args.layers, d_ff=args.d_ff,
-            max_seq_len=max(args.seq_len, 128),
-            dtype=dtype,
-            pos_embedding="rope" if args.rope else "learned",
-            n_kv_heads=args.kv_heads, attn_window=args.attn_window,
-            attn_impl="flash" if args.attn_window is not None else "auto"),
-        optimizer=OptimizerConfig(learning_rate=args.lr, weight_decay=0.0,
-                                  warmup_steps=10),
-        batch_size=args.batch_size, seq_len=args.seq_len,
-        steps_per_epoch=args.steps, epochs=args.epochs, device=args.device)
-    for record in LMTrainer(config).fit():
-        print(json.dumps(record), flush=True)
+    config = build_config(args)
+    world = config.mesh.num_devices
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        spec = mesh.init_process_group(config.mesh, device=args.device,
+                                       backend=args.backend)
+        try:
+            run(spec, config)
+        finally:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+        return
+    if world == 1:
+        run(mesh.make_mesh(config.mesh, args.device), config)
+        return
+    mesh.spawn(run, world, config, device=args.device, backend=args.backend,
+               config=config.mesh, timeout_s=24 * 3600.0)
 
 
 if __name__ == "__main__":

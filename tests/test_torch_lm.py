@@ -16,7 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_port_util import SHAPES, both_params, configs, numpy_params, t
+from _torch_port_util import (
+    SHAPES,
+    both_params,
+    configs,
+    numpy_params,
+    run_dirs,
+    t,
+)
 from distributed_model_parallel_tpu import config as jconfig
 from distributed_model_parallel_tpu.mesh import make_mesh
 from distributed_model_parallel_tpu.models import transformer as jtfm
@@ -30,7 +37,9 @@ from distributed_model_parallel_tpu.utils.profiling import (
     lm_model_flops as j_lm_model_flops,
 )
 from distributed_model_parallel_tpu_torch import config as tconfig
+from distributed_model_parallel_tpu_torch import mesh as tmesh
 from distributed_model_parallel_tpu_torch.models import transformer as ttfm
+from distributed_model_parallel_tpu_torch.parallel import spmd_lm
 from distributed_model_parallel_tpu_torch.train import lm_trainer as tlm
 from distributed_model_parallel_tpu_torch.train import optim as toptim
 from distributed_model_parallel_tpu_torch.train import train_lm
@@ -129,7 +138,9 @@ def test_sgd_steps_match_jax_spmd_train_step(opt):
         v.requires_grad_(True)
     optimizer = toptim.make_optimizer(
         tconfig.OptimizerConfig(**OPTIMIZERS[opt]), 5, 1, leaves.values())
-    tstep = tlm.make_train_step(tcfg, optimizer)
+    tstep = spmd_lm.make_spmd_train_step(
+        tcfg, tmesh.make_mesh(tconfig.MeshConfig(), "cpu"), optimizer,
+        list(leaves.values()))
     for seed in (2, 3):
         toks, tgts = _tokens(seed)
         jp, opt_state, jm = jstep(jp, opt_state, jnp.asarray(toks),
@@ -178,7 +189,8 @@ def _lm_configs(tmp_path, kind="mha", **kw):
         model=jcfg, mesh=jconfig.MeshConfig(data=1),
         log_dir=os.path.join(str(tmp_path), "log"),
         checkpoint_dir=os.path.join(str(tmp_path), "ckpt"), **common)
-    return jc, tlm.LMTrainConfig(model=tcfg, device="cpu", **common)
+    return jc, tlm.LMTrainConfig(model=tcfg, device="cpu",
+                                 **run_dirs(tmp_path, "port"), **common)
 
 
 def test_token_stream_and_batches_are_bitwise_equal(tmp_path):
@@ -255,15 +267,44 @@ def test_fit_with_optimizer_matches_jax(tmp_path, opt):
                [b["loss_train"], b["loss_val"]])
 
 
-@pytest.mark.parametrize("bad", [
-    dict(remat=True), dict(loss_chunk=8), dict(sp_axis="seq"),
-    dict(sp_impl="ulysses"), dict(tp_axis="model"), dict(moe_experts=4),
-])
+# remat, loss_chunk, sp_axis, sp_impl and tp_axis are ported: their cases
+# moved to test_formerly_refused_options_train below (the mesh runs are
+# tests/test_torch_lm_mesh.py); MoE stays refused.
+@pytest.mark.parametrize("bad", [dict(moe_experts=4), dict(ep_axis="expert")])
 def test_unported_model_options_raise(bad):
     cfg = ttfm.TransformerConfig(**SHAPES["mha"], **bad)
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         tlm.LMTrainer(tlm.LMTrainConfig(model=cfg, device="cpu",
                                         n_tokens=500))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(remat=True), dict(loss_chunk=8), dict(sp_axis="seq"),
+    dict(sp_impl="ulysses"), dict(tp_axis="model"),
+])
+def test_formerly_refused_options_train(tmp_path, kw):
+    """Options the one-device slice refused run now: on a one-device mesh
+    (seq and model axes of size 1) two steps from the same weights give
+    the plain model's losses within 1e-5."""
+    _, base = configs("mha")
+    losses = []
+    for cfg in (base, dataclasses.replace(base, **kw)):
+        tree = numpy_params(base)        # the trainer updates it in place
+        tt = tlm.LMTrainer(
+            tlm.LMTrainConfig(model=cfg, device="cpu", batch_size=2,
+                              seq_len=16, steps_per_epoch=2, n_tokens=500,
+                              eval_batches=0,
+                              **run_dirs(tmp_path, str(len(losses)))),
+            params=ttfm.params_from_jax(tree, cfg, "cpu"))
+        tt.fit()
+        losses.append([r["loss"] for r in tt.step_log])
+    np.testing.assert_allclose(losses[1], losses[0], atol=1e-5, rtol=0)
+
+
+def test_generate_refused_by_name():
+    _, tcfg = configs("mha")
+    with pytest.raises(NotImplementedError, match="ROADMAP A9: generate"):
+        ttfm.generate({}, tcfg, [1, 2], 3)
 
 
 def test_cuda_without_a_card_raises():
@@ -280,12 +321,15 @@ def test_lm_model_flops_matches_jax(kind):
     assert t_lm_model_flops(tcfg, 3, 40) == j_lm_model_flops(jcfg, 3, 40)
 
 
-def test_cli_trains_on_cpu_and_refuses_unported_flags(capsys):
+def test_cli_trains_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
+    dirs = run_dirs(tmp_path)
     train_lm.main(["--device", "cpu", "--vocab", "64", "--d-model", "32",
                    "--heads", "2", "--layers", "1", "--d-ff", "64",
                    "--seq-len", "16", "--batch-size", "2", "--steps", "2",
-                   "--rope"])
+                   "--rope", "--log-dir", dirs["log_dir"],
+                   "--checkpoint-dir", dirs["checkpoint_dir"]])
     record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert record["epoch"] == 0 and np.isfinite(record["loss_train"])
-    with pytest.raises(SystemExit, match="--pp .*A9.*--resume"):
-        train_lm.main(["--device", "cpu", "--pp", "2", "--resume"])
+    # --resume is ported (tests/test_torch_lm_resume.py); --ep is not.
+    with pytest.raises(SystemExit, match="--pp .*A9.*--ep .*A9: MoE"):
+        train_lm.main(["--device", "cpu", "--pp", "2", "--ep", "2"])
