@@ -98,7 +98,7 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     ``0,4,10,16,19`` bit for bit phase 11's one-device trainer, and gpipe
     M=8 == 1f1b M=8 == interleaved V=2 M=8 (8 chunks at the port's
     cost-balanced cut) bit for bit over two steps; then naive M=1, gpipe
-    M=4 and M=8, 1f1b M=8 and interleaved V=2 M=8 timed (20 steps after 3,
+    M=4 and M=8, 1f1b M=8 and interleaved V=2 M=8 timed (8 steps after 3,
     each synced: step s, samples/s, host enqueue, peak memory, fused_sgd
     launches == chunks x steps) and one ``PipelineTrainer.fit`` epoch;
     (b) the SPMD engine through ``mesh.spawn`` at 2 stages (two ranks on
@@ -143,8 +143,9 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
 15. the reference's harness: (a) each of the 16 zoo models
     (``models/zoo.py``) at its CIFAR widths, bf16 over f32 parameters,
     FusedSGD (lr 0.4, momentum 0.9, wd 1e-4), batch 128 of synthetic
-    32 px data on the card, device-resident: 2 one-step warm-ups, 10
-    steps in one dispatch, one sync — the JAX package's parameter count,
+    32 px data on the card, device-resident, cuDNN's autotuner off: 2
+    one-step warm-ups, 10 steps in one dispatch, one sync — the JAX
+    package's parameter count,
     ``fused_sgd`` launches == steps x buckets on the card, finite losses;
     step s, samples/s and peak memory (over what was allocated before
     the model's Trainer) printed; phase 11a's check on
@@ -156,8 +157,9 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     history), per batch and device-resident at 10 steps a dispatch; the
     ``ckpt`` slot's best_acc, a torn newest version skipped and logged,
     the text log's lines, save and restore ms and the checkpoint's
-    bytes; (c) the same gate at two ranks for ddp and zero (gloo on one
-    card, NCCL on two or more), and zero's uninterrupted run against
+    bytes; (c) on 2,048 / 512 rows, the same gate at two ranks for ddp
+    and zero (gloo on one card, NCCL on two or more), and zero's
+    uninterrupted run against
     gspmd's from the same inputs, parameters, momentum and BN statistics
     per leaf within 1e-5 relative;
 16. the data path: (a) the reference's finetune recipe — MobileNetV2 in
@@ -200,7 +202,10 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     without ``"dots"``, 3 steps each — step-0 loss within 2e-2 of phase
     8b's, peak ``max_memory_allocated`` ordered off > dots > full and the
     chunked head below the dense one; step s, tokens/s, MFU, peak memory,
-    flash launches by kernel; (b) 4 ranks (gloo sharing the card, or NCCL
+    flash launches by kernel; the loss's forward and backward through
+    the plain ``lm_loss`` against ``LMPipeline`` at one stage and one
+    microbatch (the path of every LM step), alternated and timed, the
+    losses within 1e-3; (b) 4 ranks (gloo sharing the card, or NCCL
     with a card each), ``MeshConfig(model=2, seq=2)`` with ring
     attention, ``(data=2, seq=2)`` with Ulysses and ``(data=2,
     model=2)``, 3 steps each: step-0 loss within 2e-2 of the one-card
@@ -217,13 +222,43 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     the uninterrupted fit bit for bit on every rank (per-step losses, the
     whole parameters and optimizer state, the global step, the history),
     the checkpoint's bytes, save and restore ms, and a resume on another
-    split refused naming ROADMAP A11.
+    split refused naming ROADMAP A11;
+19. the LM's stage and expert axes, bench.py's LM model at full width
+    (bf16, phase 8's SGD, remat off, seed 0's weights) and its MoE
+    version (8 experts, top-2, capacity 1.5: benchmarks/moe_sweep_r5.json's
+    configuration): (a) on one card, the references — dense B 4 T 8192
+    under gpipe M 4 and M 1, dense B 8 T 4096 with the 1024-token chunked
+    head under 1f1b M 8, MoE B 2 T 8192 M 2 — 3 gated steps and one timed
+    step each: finite losses, gpipe M 4's every step within 1e-3 of M 1's,
+    flash launches == n_layers x M x steps (the forward twice under
+    1f1b), the drop rate in [0, 1]; ``moe_ffn`` on 4,096 tokens against
+    its plain per-token version with the routing shared (1e-3 of max|y|,
+    below a bf16-vs-f32 control); (b) 4 ranks (gloo sharing the card, or
+    NCCL with a card each): ``(stage 4)`` gpipe M 4 and 1f1b V 2 M 4 (one
+    layer a chunk), ``(stage 2, model 2)`` gpipe and 1f1b M 8 at T 4096
+    with the chunked head, ``(stage 2, expert 2)`` MoE 1f1b V 2 M 2; 3
+    gated steps and one timed each: every step's loss within 1e-3 of its
+    19a reference (same batches and microbatch partition; the MoE mesh's
+    step 2 within LM19_MOE_STEP2_ATOL, its routing decisions that differ
+    from the one card's counted), each slice bitwise equal on every rank
+    holding it after every step, flash launches what each rank's layers,
+    microbatches and schedule imply, no plain attention, 1f1b's peak
+    memory a rank below gpipe's, the MoE mesh's gradient of every leaf
+    after step 0 against the one-card run's (a gradient taken twice shows
+    as a norm ratio of 2); step s, tokens/s
+    and MFU a card, peak memory a rank, the table's bubble, stage hops
+    and all-to-alls a step and their µs; (c) the MoE mesh at 4 layers:
+    ``fit`` preempted at step 3 and resumed equals the uninterrupted fit
+    bit for bit on every rank, the restored slices in the interleaved
+    storage order, the checkpoint's bytes, save and restore ms, and a
+    resume at ``virtual_stages=1`` refused.
 
 Prints the card line, each phase's seconds, a ``{"data_parallel": ...}``
 line, a ``{"pipeline": ...}`` line, a ``{"resnet": ...}`` line, a
 ``{"dp_engines": ...}`` line, a ``{"harness": ...}`` line, a
 ``{"data_path": ...}`` line, a ``{"optim": ...}`` line, a
-``{"lm_mesh": ...}`` line, the ``{"kernels": [...]}`` line and, last,
+``{"lm_mesh": ...}`` line, a ``{"lm_pipe": ...}`` line, the
+``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero
 without a card, or when run outside a checkout of the repository.
 ``--sgd-timing-only`` runs phases 1, 2 (the fused SGD kernel) and 10 and
@@ -246,8 +281,9 @@ world = the card count (fsdp) and 4 ranks (hierarchical) over NCCL with
 four cards, timed: samples/s a card and the reduction's µs a step (fsdp's:
 its reduce-scatters in the backward and the replicated leaves' all-reduce,
 each timed by CUDA events and added). ``--lm-only`` runs phases 1, 2 (the
-flash kernels), 6 and 18 and prints the ``{"lm_mesh": ...}`` line; with
-four cards 18b and 18c run over NCCL at world 4, one rank a card.
+flash kernels), 6, 18 and 19 and prints the ``{"lm_mesh": ...}`` and
+``{"lm_pipe": ...}`` lines; with four cards 18b-c and 19b-c run over NCCL
+at world 4, one rank a card.
 """
 
 from __future__ import annotations
@@ -432,7 +468,9 @@ DP_LOSS_ATOL = 2e-2
 # (each microbatch size would take its own first pass). 13b: the SPMD
 # engine, 2 stages as 2 ranks at the port's cost-balanced 2-stage cut.
 PP_STAGES, PP_CUT = 4, (0, 4, 10, 16, 19)
-PP_WARM_STEPS, PP_TIMED_STEPS = 3, 20
+# 13a times PP_TIMED_STEPS steps of each schedule (cut from 20, so the
+# script with phase 19 stays inside its time).
+PP_WARM_STEPS, PP_TIMED_STEPS = 3, 8
 PP_RUNS = {                       # name -> (M, schedule, virtual stages)
     "naive_m1": (1, "gpipe", 1), "gpipe_m4": (4, "gpipe", 1),
     "gpipe_m8": (8, "gpipe", 1), "1f1b_m8": (8, "1f1b", 1),
@@ -471,10 +509,19 @@ BOW_RTOL, BOW_ATOL = 1e-5, 1e-6
 # bench.py's SGD recipe (lr 0.4, momentum 0.9, wd 1e-4) through FusedSGD,
 # synthetic 32 px data on the card, device-resident: 2 one-step warm-up
 # dispatches (cuDNN's autotuner), then 10 steps in one dispatch and one
-# sync. Cut: batch 128, not bench.py's 512, so 16 models fit the phase's
-# time. ZOO_PARAMS: the JAX package's parameter count of each (jax.
-# eval_shape of its init on the CPU; tests/test_torch_zoo_models.py).
+# sync. Cuts: batch 128, not bench.py's 512, so 16 models fit the phase's
+# time; and only the ZOO_TIMED models are timed, with cuDNN's autotuner
+# on as train_cnn runs. The other 11 run the same steps and gates with
+# the autotuner off and report no time: its first pass over the 16
+# models' ~380 distinct convolutions took 125-173 s, which the script
+# with phase 19 has no room for. ZOO_TIMED: one of each kind of layer
+# (plain 3x3, pre-activation residual, grouped, depthwise, channel
+# split and shuffle), 73 of the ~380 convolutions. ZOO_PARAMS: the JAX
+# package's parameter count of each (jax.eval_shape of its init on the
+# CPU; tests/test_torch_zoo_models.py).
 ZOO_BATCH, ZOO_WARM_DISPATCHES, ZOO_TIMED_STEPS = 128, 2, 10
+ZOO_TIMED = ("vgg16", "preactresnet18", "resnext29_2x64d", "mobilenetv1",
+             "shufflenetv2")
 ZOO_PARAMS = {
     "vgg11": 9228362, "vgg13": 9413066, "vgg16": 14724042,
     "vgg19": 20035018, "preactresnet18": 11171210, "senet18": 11260290,
@@ -550,6 +597,10 @@ HIER_BATCH, HIER_RTOL = 128, 1e-6
 # 18a on one card: remat off, "dots", "full", and the chunked head with
 # and without "dots"; LM18_STEPS steps each (the first gated on its loss).
 LM18_STEPS = 3
+# 18a also times the loss's forward and backward through the plain
+# lm_loss against LMPipeline at one stage and one microbatch, this many
+# alternated runs of each.
+LM18_AB_REPS = 6
 LM18_VARIANTS = {
     "remat_off": {},
     "remat_dots": dict(remat=True, remat_policy="dots"),
@@ -581,6 +632,87 @@ LM18_LOSS_ATOL = 1e-3
 LM18_RESUME_LAYERS = 2
 LM18_RESUME_STEPS = 5
 LM18_PREEMPT_AT = (0, 3)
+
+# Phase 19: the LM's stage and expert axes at full width (bench.py's LM
+# model, bf16, phase 8's SGD, remat off, seed 0's weights), and the MoE
+# model of benchmarks/moe_sweep_r5.json (8 experts, top-2; capacity 1.5,
+# aux 0.05, z 1e-3 are TransformerConfig's defaults).
+LM19_MOE = dict(moe_experts=8, moe_top_k=2)
+LM19_STEPS = 3
+# 19a, one card: name -> (model fields, B, T, M, schedule).
+LM19_REFS = {
+    "dense_b4_gpipe_m4": ({}, 4, 8192, 4, "gpipe"),
+    "dense_b4_m1": ({}, 4, 8192, 1, "gpipe"),
+    "dense_b8_t4096_1f1b_m8": (dict(loss_chunk=1024), 8, 4096, 8, "1f1b"),
+    "moe_b2_m2": (LM19_MOE, 2, 8192, 2, "gpipe"),
+}
+# 19b, 4 ranks: name -> (mesh, model fields, B, T, M, schedule, V, the
+# 19a reference with the same model, batches and microbatch partition).
+# iii runs T 4096 so gpipe's 8 live microbatches fit four ranks on one card.
+LM19_MESHES = {
+    "i_stage4_gpipe": (dict(stage=4), {}, 4, 8192, 4, "gpipe", 1,
+                       "dense_b4_gpipe_m4"),
+    "ii_stage4_1f1b_v2": (dict(stage=4), {}, 4, 8192, 4, "1f1b", 2,
+                          "dense_b4_gpipe_m4"),
+    "iii_stage2_model2_gpipe": (dict(stage=2, model=2),
+                                dict(tp_axis="model", loss_chunk=1024), 8,
+                                4096, 8, "gpipe", 1,
+                                "dense_b8_t4096_1f1b_m8"),
+    "iii_stage2_model2_1f1b": (dict(stage=2, model=2),
+                               dict(tp_axis="model", loss_chunk=1024), 8,
+                               4096, 8, "1f1b", 1, "dense_b8_t4096_1f1b_m8"),
+    "iv_stage2_expert2_moe": (dict(stage=2, expert=2),
+                              dict(LM19_MOE, ep_axis="expert"), 2, 8192, 2,
+                              "1f1b", 2, "moe_b2_m2"),
+}
+# Every step's loss against its 19a reference, as phase 18's bound (a
+# mesh sums its partial products in another bf16 order; a wrong gradient
+# scale moves step 1's loss by ~4e-3, a dropped microbatch by O(1)).
+# Readings on an H100 80GB HBM3 at 700 W: every dense mesh within 2.4e-5;
+# the MoE mesh 0 and 6.1e-4 at steps 0 and 1.
+LM19_LOSS_ATOL = 1e-3
+# The MoE mesh's step 2 (steps 0-1 are held at LM19_LOSS_ATOL): after
+# step 0 the expert weights differ from the one card's by bf16 ulps (the
+# mesh sums each expert gradient over ep·C rows of half cotangents where
+# the card sums C rows: rel 1.4e-4 and 1.5e-4 for w_out and w_in, every
+# other leaf's gradient bitwise equal), and with bf16 router logits many
+# top-k choices are ties, so routing decisions go another way from step
+# 1 on. Readings on an H100 80GB HBM3 at 700 W (19b counts them against
+# the card's, LM19_ROUTES): 0, 2,773 and 12,742 of 262,144 token-choices
+# at steps 0, 1 and 2 (1,374 and 5,812 kept bits), the loss 0, 6.1e-4 and
+# 1.29e-3 from the card's, the same in every run. The bound is over twice
+# the reading; a wrong gradient scale, which moves the loss by ~4e-3,
+# fails it, and fails the gradient gate below on every leaf at step 0.
+LM19_MOE_STEP2_ATOL = 3e-3
+# moe_ffn against the plain per-token version, max|a - b| / max|b f32|.
+# Readings on an H100 at 700 W: 0 (the same bf16 products in the same
+# order); the control, the plain version in bf16 against its f32 experts
+# on the same routing, 6.6e-3. The bound sits below the control, so a
+# change of rounding of that size fails it; a wrong slot, gate or drop
+# moves a token's row by O(1).
+LM19_MOE_RTOL = 1e-3
+# Mesh iv's gradient of every leaf after step 0 against the one-card
+# run's on the same slice: ||g_mesh - g_card|| / ||g_card|| within
+# LM19_GRAD_RTOL and the norm ratio within LM19_GRAD_RATIO (2 where a
+# gradient were taken ep = 2 times, about 0.7 where one of two
+# microbatches' were lost). Readings on an H100 at 700 W: rel 0 and ratio
+# 1 for every leaf but w_in (rel 1.5e-4, ratio 0.999997) and w_out (1.4e-4,
+# 0.999997); the bounds are over 6x the largest.
+LM19_GRAD_RTOL = 1e-3
+LM19_GRAD_RATIO = (0.99, 1.01)
+# Files the one-card MoE run leaves for 19b in the run directory: every
+# leaf's gradient after step 0 (bf16, canonical order) and each MoE
+# layer's routing at steps 0 .. LM19_STEPS - 1.
+LM19_MOE_GRADS = "lm19a_moe_grads.pt"
+LM19_ROUTES = "lm19a_moe_routes.pt"
+# 19c: mesh iv at 4 layers and T 2048 (the cuts: 4 of 8 layers, the
+# fewest V 2 x S 2 allows, and a quarter of the tokens, so three fits and
+# their 2.8 GB checkpoints fit the phase), 5 steps, preempted at step 3 of
+# epoch 0.
+LM19_RESUME_LAYERS = 4
+LM19_RESUME_SEQ = 2048
+LM19_RESUME_STEPS = 5
+LM19_PREEMPT_AT = (0, 3)
 
 # Where the phases' trainers write their logs and checkpoints: one
 # temporary directory of the run, made by main() and removed at exit;
@@ -3270,15 +3402,18 @@ def zoo_config(tconfig, model: str, root: str, **optimizer):
 
 
 def zoo_run(trainer_mod, fs, tconfig, name: str, root: str, card,
-            momentum: float = 0.9) -> dict:
+            momentum: float = 0.9, timed: bool = True) -> dict:
     """One zoo model through ``Trainer.run_steps``: ZOO_WARM_DISPATCHES
-    one-step dispatches (cuDNN's autotuner), then ZOO_TIMED_STEPS steps in
+    one-step dispatches, then ZOO_TIMED_STEPS steps in
     one dispatch, one sync at the end. Gates: the JAX package's parameter
     count, the fused update launched on the card (no plain fallback),
-    launches == steps x buckets, finite losses."""
+    launches == steps x buckets, finite losses. ``timed``: cuDNN's
+    autotuner on, as train_cnn runs, and the steps' time and peak memory
+    reported; else the autotuner off and no time reported."""
     import torch
 
     phase = "15a/zoo"
+    torch.backends.cudnn.benchmark = timed
     # What earlier models and phases still hold, once cycles are freed (a
     # collection inside this model's run would otherwise lower the
     # allocation under the baseline).
@@ -3314,15 +3449,19 @@ def zoo_run(trainer_mod, fs, tconfig, name: str, root: str, card,
     kernel = "fused_sgd" if momentum else "plain_sgd"
     want = {"fused_sgd": 0, "plain_sgd": 0, kernel: ZOO_TIMED_STEPS * buckets}
     rec = dict(params=n, leaves=len(params), buckets=buckets,
-               step_s=dt / ZOO_TIMED_STEPS,
-               samples_per_s=ZOO_BATCH * ZOO_TIMED_STEPS / dt,
-               peak_bytes=torch.cuda.max_memory_allocated() - base,
+               step_s=dt / ZOO_TIMED_STEPS if timed else None,
+               samples_per_s=ZOO_BATCH * ZOO_TIMED_STEPS / dt
+               if timed else None,
+               peak_bytes=torch.cuda.max_memory_allocated() - base
+               if timed else None,
                launches=launches, losses=losses)
+    timing = (f"step {rec['step_s']} s, {rec['samples_per_s']} samples/s, "
+              f"peak {rec['peak_bytes']} B over what was allocated before "
+              f"its Trainer" if timed else
+              "not timed (cuDNN's autotuner off)")
     print(f"zoo {name}{'' if momentum else ' (momentum 0)'} [{card}]: "
           f"{n} parameters, {len(params)} leaves, {buckets} bucket(s); "
-          f"step {rec['step_s']} s, {rec['samples_per_s']} samples/s, peak "
-          f"{rec['peak_bytes']} B over what was allocated before its "
-          f"Trainer; launches {launches} (want {want}); "
+          f"{timing}; launches {launches} (want {want}); "
           f"losses {losses[0]} .. {losses[-1]}")
     if not all(math.isfinite(x) for x in losses):
         fail(phase, f"{name}: non-finite losses {losses}")
@@ -3335,33 +3474,36 @@ def zoo_run(trainer_mod, fs, tconfig, name: str, root: str, card,
 
 
 def zoo_phase(trainer_mod, fs, models, staged, tconfig, root, card) -> dict:
-    """Phase 15a: the 16 zoo models on the card, phase 11a's fused vs
-    ``torch.optim.SGD`` check on EfficientNet-B0 (SE biases under BN) and
-    DenseNet-121 (the most leaves), and one momentum-0 EfficientNet-B0
-    run through ``plain_sgd``."""
+    """Phase 15a: the 16 zoo models on the card (ZOO_TIMED timed with
+    cuDNN's autotuner on, the rest untimed with it off), phase 11a's
+    fused vs ``torch.optim.SGD`` check on EfficientNet-B0 (SE biases
+    under BN) and DenseNet-121 (the most leaves), and one momentum-0
+    EfficientNet-B0 run through ``plain_sgd`` (untimed)."""
     import torch
 
-    torch.backends.cudnn.benchmark = True
-    rows = {name: zoo_run(trainer_mod, fs, tconfig, name, root, card)
+    rows = {name: zoo_run(trainer_mod, fs, tconfig, name, root, card,
+                          timed=name in ZOO_TIMED)
             for name in ZOO_PARAMS}
     for name in ("efficientnetb0", "densenet121"):
         check_cnn_step(trainer_mod, models, staged, tconfig, model=name,
                        phase="15a/zoo")
     m0 = zoo_run(trainer_mod, fs, tconfig, "efficientnetb0", root, card,
-                 momentum=0.0)
+                 momentum=0.0, timed=False)
+    torch.backends.cudnn.benchmark = True
     return {"models": rows, "efficientnetb0_momentum0": m0}
 
 
-def resume_config(tconfig, root: str, name: str, **kw):
+def resume_config(tconfig, root: str, name: str,
+                  rows: tuple = (RES_TRAIN, RES_EVAL), **kw):
     """Phase 15b/c: the reference's workload (MobileNetV2, bf16, fused
-    SGD, augment on) on RES_TRAIN / RES_EVAL synthetic 32 px rows, batch
-    RES_BATCH, 2 epochs; logs and checkpoints under ``root``."""
+    SGD, augment on) on ``rows`` (train, eval) synthetic 32 px rows,
+    batch RES_BATCH, 2 epochs; logs and checkpoints under ``root``."""
     return tconfig.TrainConfig(
         model=tconfig.ModelConfig(name="mobilenetv2", dtype="bfloat16"),
         data=tconfig.DataConfig(
             name="synthetic", batch_size=RES_BATCH, eval_batch_size=RES_BATCH,
             image_size=32, synthetic_native_size=32,
-            synthetic_train_size=RES_TRAIN, synthetic_eval_size=RES_EVAL),
+            synthetic_train_size=rows[0], synthetic_eval_size=rows[1]),
         optimizer=tconfig.OptimizerConfig(learning_rate=0.4,
                                           warmup_steps=10, fused=True),
         epochs=2, log_every_n_steps=1000, device="cuda",
@@ -3564,10 +3706,11 @@ def resume_ranks(mesh, tconfig, root, card) -> dict:
     two = torch.cuda.device_count() >= 2
     backend = "nccl" if two else "gloo"
     configs = {s: resume_config(tconfig, root, f"ranks_{s}", strategy=s,
-                                mesh=tconfig.MeshConfig(data=2))
+                                mesh=tconfig.MeshConfig(data=2),
+                                rows=(PPS_TRAIN, PPS_EVAL))
                for s in ("ddp", "zero", "gspmd")}
     train, evals = load_dataset(configs["ddp"].data)
-    steps = RES_TRAIN // RES_BATCH
+    steps = PPS_TRAIN // RES_BATCH
     r = dp_spawn(mesh, resume_rank, 2, phase, configs,
                  (train.images, train.labels), (evals.images, evals.labels),
                  steps + RES_PREEMPT_STEP, ("gspmd",), backend=backend,
@@ -4624,6 +4767,74 @@ def lm_single_card(fa, lm_model_flops, card, ref_loss) -> dict:
     return out
 
 
+def lm18_pipeline_vs_plain(card) -> dict:
+    """Phase 18a: phase 8's workload on one card (remat off, seed 0's
+    weights, batch (0, 0)), the gradient of the loss through the model's
+    plain ``lm_loss`` and through ``LMPipeline`` at one stage, one
+    microbatch and gpipe — the path every LM step of ``spmd_lm`` takes —
+    alternated LM18_AB_REPS times after a warm-up of each: the forward
+    and backward's seconds (host clock, each ending in a sync), the
+    losses (gated within LM18_LOSS_ATOL) and the gradients' largest
+    relative gap, max|a - b| / max|b| over the leaves."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.models import transformer as tfm
+    from distributed_model_parallel_tpu_torch.parallel import spmd_pipeline
+    from distributed_model_parallel_tpu_torch.train import lm_trainer as lm
+
+    config = lm18_config("lm18a_pipeline_vs_plain")
+    trainer = lm.LMTrainer(config, params=tfm.init_params(
+        config.model, seed=0, device="cuda"))
+    params, cfg, spec = trainer.params, trainer.cfg, trainer.spec
+    toks, tgts = (torch.from_numpy(a).to(spec.device, torch.long)
+                  for a in trainer.sample_batch(0, 0))
+    pipe = spmd_pipeline.LMPipeline(cfg, spec)
+
+    def plain():
+        loss = tfm.lm_loss(params, toks, tgts, cfg, spec)
+        loss.backward()
+        return loss.detach().float()
+
+    def piped():
+        nll, _ = pipe.run(params, toks, tgts)
+        return nll / toks.numel()
+
+    times = {"plain": [], "pipeline": []}
+    losses, grads = {}, {}
+    for rep in range(LM18_AB_REPS + 1):
+        order = (("plain", plain), ("pipeline", piped))
+        for name, fn in order if rep % 2 else order[::-1]:
+            for p in trainer.leaves:
+                p.grad = None
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = fn()
+            torch.cuda.synchronize()
+            if rep:
+                times[name].append(time.perf_counter() - t0)
+            losses[name] = loss.item()
+            grads[name] = [p.grad.float() for p in trainer.leaves]
+    gap = max(((a - b).abs().max() / b.abs().max()).item()
+              for a, b in zip(grads["pipeline"], grads["plain"]))
+    med = {k: statistics.median(v) for k, v in times.items()}
+    out = dict(times=times, median_s=med,
+               ratio=med["pipeline"] / med["plain"], losses=losses,
+               loss_err=abs(losses["pipeline"] - losses["plain"]),
+               grad_max_rel=gap)
+    print(f"lm 18a pipeline vs plain [{card}]: B {TRAIN_BATCH}, T "
+          f"{TRAIN_SEQ}, forward + backward s, median of {LM18_AB_REPS} "
+          f"alternated: plain {med['plain']}, LMPipeline(S 1, M 1, gpipe) "
+          f"{med['pipeline']} (ratio {out['ratio']}; {times}); losses "
+          f"{losses} (|diff| {out['loss_err']}, atol {LM18_LOSS_ATOL}); "
+          f"gradients max rel gap {gap}")
+    del trainer, params, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not out["loss_err"] <= LM18_LOSS_ATOL:
+        fail("18a/lm one card", f"pipeline vs plain loss {losses}")
+    return out
+
+
 def _digests(tree: dict) -> dict:
     """sha256 of each leaf's bytes (a tree of tensors), by path."""
     import hashlib
@@ -4969,12 +5180,13 @@ def lm_phase(laps, fa, lm_model_flops, mesh_mod, card, ref_loss) -> dict:
     import torch
 
     single = lm_single_card(fa, lm_model_flops, card, ref_loss)
+    pipe = lm18_pipeline_vs_plain(card)
     laps.done("18a/lm one card")
     four = torch.cuda.device_count() >= 4
     meshes = lm_mesh(mesh_mod, card, single["remat_off"]["losses"], 4,
                      "nccl" if four else "gloo", True)
     laps.done("18b-c/lm mesh")
-    return {"single": single, "mesh": meshes,
+    return {"single": single, "pipeline_vs_plain": pipe, "mesh": meshes,
             "backend": "nccl" if four else "gloo"}
 
 
@@ -4996,6 +5208,709 @@ def lm_launch_rows(lm18: dict) -> dict:
             "launches_18b_per_rank": {
                 m: {g: l[name] for g, l in r["launches"].items()}
                 for m, r in lm18["mesh"].items() if m != "resume"}}
+    return out
+
+
+# -- phase 19: the LM's stage and expert axes --------------------------------------
+
+class RouteLog:
+    """Each MoE layer's routing in this process while ``active``: per
+    step (:meth:`new_step`), per (canonical layer, microbatch) of a
+    pipeline chunk's forward, the chosen experts and the kept mask, kept
+    on the device until :meth:`host`. ``ops/moe.route`` and
+    ``LMPipeline._forward`` are wrapped (the chunk and microbatch read
+    from the forward's arguments; 1F1B's recompute in the backward is not
+    recorded) until :meth:`close`."""
+
+    def __init__(self):
+        import torch
+
+        from distributed_model_parallel_tpu_torch.ops import moe
+        from distributed_model_parallel_tpu_torch.parallel import (
+            spmd_pipeline,
+        )
+
+        self.steps: list = []
+        self.active = False
+        self._at = None
+        self._saved = (moe.route, spmd_pipeline.LMPipeline._forward)
+        route, forward = self._saved
+        log = self
+
+        def routed(router, x, cfg):
+            out = route(router, x, cfg)
+            if log.active and log._at is not None:
+                pipe, c, m, j = log._at
+                log._at = (pipe, c, m, j + 1)
+                log.steps[-1][c * pipe.lc + j, m] = (out[0].to(torch.int8),
+                                                    out[3].clone())
+            return out
+
+        def forwarded(pipe, params, blocks, tok, tgt, c, got, train,
+                      recompute, held, m):
+            log._at = (pipe, c, m, 0)
+            try:
+                return forward(pipe, params, blocks, tok, tgt, c, got, train,
+                               recompute, held, m)
+            finally:
+                log._at = None
+
+        moe.route = routed
+        spmd_pipeline.LMPipeline._forward = forwarded
+
+    def new_step(self) -> None:
+        self.steps.append({})
+
+    def host(self) -> list:
+        """The recorded steps with every tensor on the host."""
+        return [{k: (e.cpu(), kp.cpu()) for k, (e, kp) in s.items()}
+                for s in self.steps]
+
+    def close(self) -> None:
+        from distributed_model_parallel_tpu_torch.ops import moe
+        from distributed_model_parallel_tpu_torch.parallel import (
+            spmd_pipeline,
+        )
+
+        moe.route, spmd_pipeline.LMPipeline._forward = self._saved
+
+
+def route_diffs(mine: list, card: list) -> list:
+    """Per step, this rank's routing against the one card's on the same
+    layers and microbatches: token-choices whose expert differs, tokens
+    with any such choice, choices whose kept bit differs, and the
+    choices compared."""
+    out = []
+    for s_mine, s_card in zip(mine, card):
+        d = dict(choices_differing=0, tokens_differing=0, kept_differing=0,
+                 choices=0)
+        for key, (e, keep) in s_mine.items():
+            e_card, keep_card = s_card[key]
+            diff = e != e_card
+            d["choices_differing"] += int(diff.sum())
+            d["tokens_differing"] += int(diff.any(1).sum())
+            d["kept_differing"] += int((keep != keep_card).sum())
+            d["choices"] += e.numel()
+        out.append(d)
+    return out
+
+
+def _grad_tree(tree: dict) -> dict:
+    """Each leaf's ``.grad`` on the host, by the tree's paths."""
+    return {k: (_grad_tree(v) if isinstance(v, dict)
+                else v.grad.detach().cpu()) for k, v in tree.items()}
+
+
+def lm19_config(name: str, mesh: dict | None = None, *, batch: int,
+                seq: int, microbatches: int = 1, schedule: str = "gpipe",
+                virtual_stages: int = 1, steps: int = LM19_STEPS + 1,
+                **model_kw):
+    """An LMTrainConfig of phase 19: bench.py's LM model at full width,
+    bf16, the default SGD, over ``mesh`` with the pipeline's schedule and
+    the model's ``model_kw`` (MoE, the axes, the chunked head, depth)."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch import config as tconfig
+    from distributed_model_parallel_tpu_torch.models import transformer as tfm
+    from distributed_model_parallel_tpu_torch.train import lm_trainer as lm
+
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16,
+                                **{**LM_MODEL, **model_kw})
+    return lm.LMTrainConfig(
+        model=cfg, mesh=tconfig.MeshConfig(**(mesh or {})), batch_size=batch,
+        seq_len=seq, num_microbatches=microbatches,
+        pipeline_schedule=schedule, virtual_stages=virtual_stages,
+        steps_per_epoch=steps, epochs=1, n_tokens=4 * batch * (seq + 1),
+        eval_batches=0, device="cuda", **run_dirs(name))
+
+
+def lm19_launches_want(n_layers: int, stages: int, m: int,
+                       schedule: str, steps: int) -> dict:
+    """The flash launches a rank's layers, microbatches and schedule
+    imply: one a layer a microbatch for each kernel, the forward twice
+    under 1f1b (the backward recomputes each chunk from its stash)."""
+    per = n_layers // stages * m * steps
+    return {"flash_fwd": per * (2 if schedule == "1f1b" else 1),
+            "flash_bwd_dq": per, "flash_bwd_dkv": per}
+
+
+def lm19_moe_check(card) -> dict:
+    """``ops/moe.moe_ffn`` on the card (4,096 tokens, E 8, k 2, d 1024,
+    f 4096, bf16, the bench config's capacity) against the plain
+    per-token version with the routing shared, and the control: the
+    plain version in bf16 against itself in f32 on the same routing."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.ops import moe
+
+    cfg = moe.MoEConfig(num_experts=8, d_model=1024, d_ff=4096,
+                        capacity_factor=1.5, top_k=2)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    d, f, E = 1024, 4096, 8
+    p32 = {"router": torch.randn(d, E, generator=gen, device="cuda")
+           * d ** -0.5,
+           "w_in": torch.randn(E, d, f, generator=gen, device="cuda")
+           * d ** -0.5,
+           "w_out": torch.randn(E, f, d, generator=gen, device="cuda")
+           * f ** -0.5}
+    x32 = torch.randn(2, 2048, d, generator=gen, device="cuda")
+    p16 = {k: v.to(torch.bfloat16) for k, v in p32.items()}
+    x16 = x32.to(torch.bfloat16)
+    y, stats = moe.moe_ffn(p16, x16, cfg)
+    routing = moe.route(p16["router"], x16.reshape(-1, d), cfg)
+    naive16 = moe.naive_moe_ffn(p16, x16, cfg, routing)
+    # The control: the same routing (bf16 logits), the experts in f32.
+    naive32 = moe.naive_moe_ffn({k: v.float() for k, v in p16.items()},
+                                x16.float(), cfg, routing)
+    torch.cuda.synchronize()
+    scale = naive32.abs().max().item()
+    out = dict(err=(y.float() - naive16.float()).abs().max().item() / scale,
+               control=(naive16.float() - naive32).abs().max().item()
+               / scale, drop=float(stats[2]),
+               finite=bool(torch.isfinite(y).all()))
+    print(f"lm 19a moe_ffn [{card}] 4,096 tokens, E 8, k 2, d 1024, f 4096, "
+          f"bf16: max|moe_ffn - naive| / max|naive f32| {out['err']:.3e} "
+          f"(rtol {LM19_MOE_RTOL}); control, naive bf16 vs f32 "
+          f"{out['control']:.3e}; drop rate {out['drop']}")
+    if not (out["finite"] and out["err"] <= LM19_MOE_RTOL):
+        fail("19a/lm pipeline one card", f"moe_ffn vs naive {out}")
+    return out
+
+
+def lm19_run(name: str, kw: dict, b: int, t: int, m: int, schedule: str,
+             wrappers: dict, lm_model_flops, card) -> dict:
+    """One 19a run on one card from seed 0's weights: LM19_STEPS gated
+    steps (flash launches counted from 0) and one timed step. An MoE run
+    leaves 19b every leaf's gradient after step 0 (LM19_MOE_GRADS) and
+    its routing in the gated steps (LM19_ROUTES)."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.models import transformer as tfm
+    from distributed_model_parallel_tpu_torch.train import lm_trainer as lm
+
+    config = lm19_config(f"lm19a_{name}", batch=b, seq=t, microbatches=m,
+                         schedule=schedule, **kw)
+    trainer = lm.LMTrainer(config, params=tfm.init_params(
+        config.model, seed=0, device="cuda"))
+    moe = bool(config.model.moe_experts)
+    routes = RouteLog() if moe else None
+    run_dir = os.environ[RUN_DIR_ENV]
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, drops = [], [], []
+    for s in range(LM19_STEPS + 1):
+        toks, tgts = trainer.sample_batch(0, s)
+        if routes is not None:
+            routes.active = s < LM19_STEPS
+            routes.new_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = trainer.train_step(toks, tgts)
+        times.append(time.perf_counter() - t0)
+        if s < LM19_STEPS:
+            losses.append(loss)
+            drops.append(trainer.last_step_metrics.get("moe_drop"))
+        if s == 0 and moe:
+            torch.save(_grad_tree(trainer.params),
+                       os.path.join(run_dir, LM19_MOE_GRADS))
+        if s == LM19_STEPS - 1:
+            launches = {n: w.launches for n, w in wrappers.items()}
+    if routes is not None:
+        routes.close()
+        torch.save(routes.host()[:LM19_STEPS],
+                   os.path.join(run_dir, LM19_ROUTES))
+    peak = torch.cuda.max_memory_allocated()
+    step_s = times[-1]
+    want = lm19_launches_want(LM_MODEL["n_layers"], 1, m, schedule,
+                              LM19_STEPS)
+    r = dict(losses=losses, times=times, step_s=step_s,
+             tokens_per_s=b * t / step_s,
+             mfu=lm_model_flops(config.model, b, t) / step_s
+             / BF16_FLOPS_PER_S, peak_bytes=peak, launches=launches,
+             launches_want=want, drop=drops)
+    print(f"lm 19a {name} [{card}] B {b}, T {t}, M {m}, {schedule}: "
+          f"timed step s {step_s} ({times}), tokens/s {r['tokens_per_s']}, "
+          f"MFU {r['mfu']}, peak max_memory_allocated {peak} B, drop rate "
+          f"{drops}, flash launches {launches} (want {want}), losses "
+          f"{losses}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r
+
+
+def lm19_reference(fa, lm_model_flops, card) -> dict:
+    """Phase 19a: the one-card references (LM19_REFS) by :func:`lm19_run`,
+    then :func:`lm19_moe_check`."""
+    wrappers = flash_wrappers(fa)
+    out, bad = {}, []
+    for name, (kw, b, t, m, schedule) in LM19_REFS.items():
+        r = out[name] = lm19_run(name, kw, b, t, m, schedule, wrappers,
+                                 lm_model_flops, card)
+        if not all(math.isfinite(x) for x in r["losses"]):
+            bad.append(f"{name}: losses {r['losses']}")
+        if r["launches"] != r["launches_want"]:
+            bad.append(f"{name}: flash launches {r['launches']}, want "
+                       f"{r['launches_want']}")
+        if "moe_experts" in kw and not all(0.0 <= x <= 1.0
+                                           for x in r["drop"]):
+            bad.append(f"{name}: drop rate {r['drop']}")
+    m4, m1 = out["dense_b4_gpipe_m4"]["losses"], out["dense_b4_m1"]["losses"]
+    gap = [abs(a - b) for a, b in zip(m4, m1)]
+    print(f"lm 19a: gpipe M 4 vs M 1 on the same batches, every step's "
+          f"|diff| {gap} (atol {LM19_LOSS_ATOL})")
+    if not max(gap) <= LM19_LOSS_ATOL:
+        bad.append(f"gpipe M 4 vs M 1 losses {m4} vs {m1}")
+    if bad:
+        fail("19a/lm pipeline one card", "; ".join(bad))
+    out["moe_ffn"] = lm19_moe_check(card)
+    return out
+
+
+def lm19_grad_check(trainer) -> dict:
+    """Mesh iv after step 0: the gradient of every leaf this rank holds
+    against the one-card MoE run's (LM19_MOE_GRADS) on the same slice
+    (its blocks interleaved and cut as this rank holds them), by path:
+    ``rel`` ||g_mesh - g_card|| / ||g_card|| and ``ratio`` ||g_mesh|| /
+    ||g_card|| (2 for a gradient taken ep = 2 times)."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.parallel import spmd_pipeline
+    from distributed_model_parallel_tpu_torch.parallel import (
+        tensor_parallel as tp,
+    )
+
+    card = torch.load(os.path.join(os.environ[RUN_DIR_ENV], LM19_MOE_GRADS))
+    spec, cfg = trainer.spec, trainer.cfg
+    cuts = tp.param_cuts(cfg, spec)
+    out = {}
+    for key, leaf in trainer.params.items():
+        pairs = ([(f"blocks.{k}", v, card["blocks"][k], cuts["blocks"][k])
+                  for k, v in leaf.items()] if isinstance(leaf, dict)
+                 else [(key, leaf, card[key], cuts[key])])
+        for path, mine, theirs, cut in pairs:
+            if path.startswith("blocks."):
+                theirs = spmd_pipeline.interleave_block_rows(
+                    {"w": theirs}, cfg.n_layers, spec.num_stages,
+                    trainer.config.virtual_stages)["w"]
+            want = tp.cut_leaf(theirs, cut, spec).to(spec.device).float()
+            got = mine.grad.detach().float()
+            n = want.norm()
+            out[path] = dict(rel=((got - want).norm() / n).item(),
+                             ratio=(got.norm() / n).item())
+    return out
+
+
+def lm19_rank(spec, meshes: dict, resume: bool) -> dict:
+    """Phases 19b and 19c on one rank: per mesh of ``meshes`` (the group
+    laid out anew) a trainer from seed 0's weights, LM19_STEPS gated
+    steps with the flash launches and the collectives counted from 0, any
+    plain attention counted (it must not run), a digest of every slice
+    after each step, peak memory; one step more with the collectives
+    timed. Mesh iv also reports every leaf's gradient after step 0 and
+    its routing in the gated steps against the one card's. Then
+    (``resume``) phase 19c."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch import mesh as mesh_mod
+    from distributed_model_parallel_tpu_torch.config import MeshConfig
+    from distributed_model_parallel_tpu_torch.models import transformer as tfm
+    from distributed_model_parallel_tpu_torch.ops import collectives as C
+    from distributed_model_parallel_tpu_torch.ops import flash_attention as fa
+    from distributed_model_parallel_tpu_torch.train import lm_trainer as lm
+    from distributed_model_parallel_tpu_torch.utils.profiling import (
+        lm_model_flops,
+    )
+
+    plain = {"calls": 0}
+
+    def counted(fn):
+        def run(*a, **kw):
+            plain["calls"] += 1
+            return fn(*a, **kw)
+        return run
+
+    for name in ("flash_forward_plain", "flash_bwd_dq_plain",
+                 "flash_bwd_dkv_plain", "full_attention"):
+        setattr(fa, name, counted(getattr(fa, name)))
+    wrappers = flash_wrappers(fa)
+    out = {}
+    for name, (mesh, kw, b, t, m, schedule, v, _) in meshes.items():
+        spec_m = mesh_mod.make_mesh(MeshConfig(**mesh), spec.device)
+        config = lm19_config(f"lm19b_{name}", mesh, batch=b, seq=t,
+                             microbatches=m, schedule=schedule,
+                             virtual_stages=v, **kw)
+        trainer = lm.LMTrainer(config, params=tfm.init_params(
+            config.model, seed=0, device=spec.device), spec=spec_m)
+        moe = bool(config.model.moe_experts)
+        routes = RouteLog() if moe else None
+        for w in wrappers.values():
+            w.launches = 0
+        plain["calls"] = 0
+        C.reset_counts()
+        torch.cuda.synchronize(spec.device)
+        torch.cuda.reset_peak_memory_stats(spec.device)
+        row = {"grid": spec_m.grid, "losses": [], "times": [],
+               "digests": [], "metrics": []}
+        for s in range(LM19_STEPS):
+            toks, tgts = trainer.sample_batch(0, s)
+            if routes is not None:
+                routes.active = True
+                routes.new_step()
+            torch.cuda.synchronize(spec.device)
+            t0 = time.perf_counter()
+            row["losses"].append(trainer.train_step(toks, tgts))
+            row["times"].append(time.perf_counter() - t0)
+            row["metrics"].append(dict(trainer.last_step_metrics))
+            row["digests"].append(_digests(trainer.params))
+            if s == 0 and moe:
+                row["grads_vs_card"] = lm19_grad_check(trainer)
+        if routes is not None:
+            routes.close()
+            row["routes_vs_card"] = route_diffs(routes.host(), torch.load(
+                os.path.join(os.environ[RUN_DIR_ENV], LM19_ROUTES)))
+            del routes
+        row["launches"] = {n: w.launches for n, w in wrappers.items()}
+        row["plain_calls"] = plain["calls"]
+        row["calls"] = {k: c / LM19_STEPS for k, c in C.calls.items()}
+        row["bytes"] = {k: c / LM19_STEPS for k, c in C.wire_bytes.items()}
+        row["peak_bytes"] = torch.cuda.max_memory_allocated(spec.device)
+        C.reset_counts()
+        with C.timed() as secs:
+            trainer.train_step(*trainer.sample_batch(0, LM19_STEPS))
+        row["us"] = {k: x * 1e6 for k, x in secs.items()}
+        step_s = statistics.median(row["times"][1:])
+        world = spec_m.config.num_devices
+        row.update(step_s=step_s, bubble=trainer.pipeline.bubble_share(),
+                   tokens_per_s_card=b * t / step_s / world,
+                   mfu_card=lm_model_flops(config.model, b, t) / world
+                   / step_s / BF16_FLOPS_PER_S)
+        out[name] = row
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    if resume:
+        out["resume"] = lm19_resume(spec)
+    return out
+
+
+def lm19_resume(spec) -> dict:
+    """Phase 19c on one rank: mesh iv at LM19_RESUME_LAYERS layers,
+    ``fit`` against ``fit`` preempted by a ``step_hook`` at
+    LM19_PREEMPT_AT and finished by ``LMTrainer(resume=True)`` —
+    per-step losses, digests of this rank's parameter and optimizer-state
+    slices, the global step and the history compared in this process; the
+    trainer's slices are its rows of the interleaved storage order and
+    the resumed trainer's equal the preempted one's; the checkpoint's bytes, save
+    and restore ms (rank 0, the writer); a resume at
+    ``virtual_stages=1`` (it must raise, naming virtual_stages)."""
+    import dataclasses
+
+    import torch
+
+    from distributed_model_parallel_tpu_torch import mesh as mesh_mod
+    from distributed_model_parallel_tpu_torch.config import MeshConfig
+    from distributed_model_parallel_tpu_torch.models import transformer as tfm
+    from distributed_model_parallel_tpu_torch.parallel import spmd_pipeline
+    from distributed_model_parallel_tpu_torch.parallel import (
+        tensor_parallel as tp,
+    )
+    from distributed_model_parallel_tpu_torch.train import checkpoint as ck
+    from distributed_model_parallel_tpu_torch.train import lm_trainer as lm
+
+    mesh, kw, b, _, m, schedule, v, _ = LM19_MESHES["iv_stage2_expert2_moe"]
+    spec_m = mesh_mod.make_mesh(MeshConfig(**mesh), spec.device)
+    configs = {n: lm19_config(f"lm19c_{n}", mesh, batch=b,
+                              seq=LM19_RESUME_SEQ, microbatches=m,
+                              schedule=schedule,
+                              virtual_stages=v, steps=LM19_RESUME_STEPS,
+                              **dict(kw, n_layers=LM19_RESUME_LAYERS))
+               for n in ("full", "cut")}
+    timings = {"save_ms": [], "restore_ms": []}
+
+    def timed(fn, key):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            r = fn(*a, **k)
+            timings[key].append((time.perf_counter() - t0) * 1e3)
+            return r
+        return run
+
+    ck.Checkpointer.save = timed(ck.Checkpointer.save, "save_ms")
+    ck.Checkpointer.restore = timed(ck.Checkpointer.restore, "restore_ms")
+
+    def state(tr, history, steps):
+        # The epoch's train averages (loss, drop rate) cover the steps its
+        # trainer ran, as in the JAX trainer: the per-step losses hold them.
+        # Each rank compares the slices it holds (no gather).
+        local = lambda t, cuts: t.detach().float().cpu().numpy()
+        return dict(history=[{k: h[k] for k in ("epoch", "loss_val")}
+                             for h in history], steps=steps,
+                    params=_digests(tr.params),
+                    opt_state=_digests(_tensor_tree(
+                        tr.opt_state_tree(local))),
+                    global_step=tr.global_step)
+
+    init = lambda cfg: tfm.init_params(cfg.model, seed=0, device=spec.device)
+    full = lm.LMTrainer(configs["full"], params=init(configs["full"]),
+                        spec=spec_m)
+    a = state(full, full.fit(), [r["loss"] for r in full.step_log])
+    del full
+    canon = init(configs["cut"])
+    cut = lm.LMTrainer(configs["cut"], params=canon, spec=spec_m)
+    # The trainer's slices are its rows of the interleaved storage order.
+    cfg = configs["cut"].model
+    stored = spmd_pipeline.interleave_block_rows(
+        canon["blocks"], cfg.n_layers, spec_m.num_stages, v)
+    cuts = tp.param_cuts(cfg, spec_m)["blocks"]
+    storage_order = all(torch.equal(tp.cut_leaf(stored[k], cuts[k], spec_m),
+                                    cut.params["blocks"][k])
+                        for k in stored)
+    del canon, stored
+    cut.step_hook = lambda tr: (tr.preemption.request()
+                                if (tr._pos_epoch, tr._pos_step)
+                                == LM19_PREEMPT_AT else None)
+    first = cut.fit()
+    steps = [r["loss"] for r in cut.step_log]
+    preempted = cut.global_step
+    at_preempt = _digests(cut.params)
+    del cut
+    resumed = lm.LMTrainer(dataclasses.replace(configs["cut"], resume=True),
+                           spec=spec_m)
+    # The checkpoint restores each rank's storage-order rows.
+    loaded_same = _digests(resumed.params) == at_preempt
+    b_state = state(resumed, first + resumed.fit(),
+                    steps + [r["loss"] for r in resumed.step_log])
+    differing = sum(a[key][k] != b_state[key][k]
+                    for key in ("params", "opt_state") for k in a[key])
+    arrays = sum(len(a[key]) for key in ("params", "opt_state"))
+    same = (differing == 0 and a["steps"] == b_state["steps"]
+            and a["global_step"] == b_state["global_step"]
+            and a["history"] == b_state["history"]
+            and set(a["params"]) == set(b_state["params"]))
+    path = resumed.ckpt._latest_path("lm-preempt")
+    nbytes = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    try:
+        lm.LMTrainer(dataclasses.replace(configs["cut"], resume=True,
+                                         virtual_stages=1), spec=spec_m)
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(same=same, differing=differing, arrays=arrays,
+                loaded_same=loaded_same, storage_order=storage_order,
+                steps=a["steps"], preempted_at_step=preempted,
+                global_step=b_state["global_step"], bytes=nbytes, **timings,
+                other_v=refusal)
+
+
+def _tensor_tree(tree):
+    """A numpy tree (the optimizer state's) as tensors, for digests."""
+    import numpy as np
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _tensor_tree(v) for k, v in tree.items()}
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(tree)))
+
+
+def lm19_mesh(mesh_mod, card, refs: dict, world: int, backend: str,
+              resume: bool) -> dict:
+    """Phase 19b (and 19c with ``resume``): :func:`lm19_rank` on ``world``
+    ranks. Gates, per mesh: every step's loss within LM19_LOSS_ATOL of
+    its 19a reference (same model, batches and microbatch partition);
+    the same losses on every rank; after every step each slice bitwise
+    equal on every rank that holds it; each rank's flash launches what
+    its layers, microbatches and schedule imply, no plain attention; in
+    iii 1f1b's peak memory a rank below gpipe's; in iv every leaf's
+    gradient after step 0 within LM19_GRAD_RTOL of the one-card run's,
+    its norm ratio within LM19_GRAD_RATIO, and step 2's loss within
+    LM19_MOE_STEP2_ATOL (the routing decisions that differ from the one
+    card's are counted and printed); 19c bit for bit, the blocks in
+    storage order, and the virtual_stages=1 resume refused."""
+    from distributed_model_parallel_tpu_torch.config import MeshConfig
+    from distributed_model_parallel_tpu_torch.models import transformer as tfm
+    from distributed_model_parallel_tpu_torch.parallel import (
+        tensor_parallel as tp,
+    )
+
+    res = dp_spawn(mesh_mod, lm19_rank, world, "19b/lm pipeline mesh",
+                   LM19_MESHES, resume, backend=backend)
+    bad, summary = [], {}
+    axis_index = {"stage": 1, "model": 2, "expert": 4}
+    for name, (mesh, kw, b, t, m, schedule, v, ref) in LM19_MESHES.items():
+        rows = [r[name] for r in res]
+        r0 = rows[0]
+        want_l = refs[ref]["losses"]
+        errs = [abs(x - y) for x, y in zip(r0["losses"], want_l)]
+        atol = [LM19_LOSS_ATOL] * LM19_STEPS
+        if "moe_experts" in kw:
+            atol[2:] = [LM19_MOE_STEP2_ATOL] * (LM19_STEPS - 2)
+        if len(errs) != LM19_STEPS or any(e > a for e, a in zip(errs, atol)):
+            bad.append(f"{name}: losses {r0['losses']} vs 19a {ref} "
+                       f"{want_l} (|diff| {errs} > {atol})")
+        if any(r["losses"] != r0["losses"] for r in rows):
+            bad.append(f"{name}: ranks disagree on the losses")
+        spec = mesh_mod.MeshSpec(MeshConfig(**mesh))
+        cfg = tfm.TransformerConfig(**{**LM_MODEL, **kw})
+        cuts = {}
+        for k, c in tp.param_cuts(cfg, spec).items():
+            if isinstance(c, dict):
+                cuts.update({f"{k}.{kk}": cc for kk, cc in c.items()})
+            else:
+                cuts[k] = c
+        mismatched = 0
+        for s in range(LM19_STEPS):
+            held: dict = {}
+            for r in rows:
+                for key, digest in r["digests"][s].items():
+                    sid = (key,) + tuple(r["grid"][axis_index[a]]
+                                         for a, _ in cuts[key])
+                    mismatched += sid in held and held[sid] != digest
+                    held[sid] = digest
+        if mismatched:
+            bad.append(f"{name}: {mismatched} slice digests differ between "
+                       f"the ranks that hold them")
+        want = lm19_launches_want(LM_MODEL["n_layers"], mesh.get("stage", 1),
+                                  m, schedule, LM19_STEPS)
+        for r in rows:
+            if r["launches"] != want:
+                bad.append(f"{name} rank {r['grid']}: flash launches "
+                           f"{r['launches']}, want {want}")
+            if r["plain_calls"]:
+                bad.append(f"{name} rank {r['grid']}: {r['plain_calls']} "
+                           f"plain attention calls on the card")
+            lo, hi = LM19_GRAD_RATIO
+            for k, u in r.get("grads_vs_card", {}).items():
+                if not (u["rel"] <= LM19_GRAD_RTOL
+                        and lo <= u["ratio"] <= hi):
+                    bad.append(f"{name} rank {r['grid']}: {k} gradient vs "
+                               f"one card {u}")
+        peak = max(r["peak_bytes"] for r in rows)
+        hops = {k: r0["calls"].get(k, 0) for k in
+                ("pp_send", "pp_recv", "moe", "tp_all_reduce",
+                 "bucketed_psum", "pp_loss")}
+        hop_bytes = {k: r0["bytes"].get(k, 0) for k in hops}
+        summary[name] = dict(
+            losses=r0["losses"], loss_err=errs, step_s=r0["step_s"],
+            gated_times=r0["times"], tokens_per_s_card=r0["tokens_per_s_card"],
+            mfu_card=r0["mfu_card"], peak_bytes_rank=peak,
+            bubble=r0["bubble"], calls_per_step=hops,
+            bytes_per_step=hop_bytes, us_timed_step=r0["us"],
+            metrics=r0["metrics"],
+            launches={str(r["grid"]): r["launches"] for r in rows},
+            launches_want=want, digests_mismatched=mismatched)
+        if "grads_vs_card" in r0:
+            grads = {}
+            for r in rows:
+                for k, u in r["grads_vs_card"].items():
+                    g = grads.setdefault(k, dict(rel=0.0, ratio=[]))
+                    g["rel"] = max(g["rel"], u["rel"])
+                    g["ratio"] = [min(g["ratio"] + [u["ratio"]]),
+                                  max(g["ratio"] + [u["ratio"]])]
+            # Each stage's layers route on its ranks; expert ranks of a
+            # stage route the same tokens, so the ranks at expert 0 hold
+            # every layer once.
+            routes = [dict(choices_differing=0, tokens_differing=0,
+                           kept_differing=0, choices=0)
+                      for _ in range(LM19_STEPS)]
+            for r in rows:
+                if r["grid"][axis_index["expert"]] == 0:
+                    for acc, d in zip(routes, r["routes_vs_card"]):
+                        for k in acc:
+                            acc[k] += d[k]
+            summary[name].update(grads_vs_card=grads, routes_vs_card=routes)
+        print(f"lm 19b {name} [{card}] world {world} over {backend}, B {b}, "
+              f"T {t}, M {m}, {schedule}, V {v}: step s {r0['step_s']} "
+              f"(median of steps 1-{LM19_STEPS - 1}: {r0['times']}), "
+              f"tokens/s a card "
+              f"{r0['tokens_per_s_card']}, MFU a card {r0['mfu_card']}, peak "
+              f"max_memory_allocated a rank {peak} B, table bubble "
+              f"{r0['bubble']:.4f}; losses {r0['losses']} vs 19a {ref} "
+              f"(|diff| {errs}); rank 0 a step: calls {hops}, bytes "
+              f"{hop_bytes}; timed step us {r0['us']}; flash launches "
+              + ", ".join(f"{r['grid']} {r['launches']}" for r in rows)
+              + f" (want {want}); slice digests differing {mismatched}"
+              + (f"; after step 0, each leaf's gradient vs one card (max "
+                 f"rel, [min, max] norm ratio over the ranks) "
+                 f"{summary[name]['grads_vs_card']}; routing vs one card a "
+                 f"gated step {summary[name]['routes_vs_card']}"
+                 if "grads_vs_card" in summary[name] else "")
+              + (f"; router stats {r0['metrics']}" if cfg.moe_experts
+                 else ""))
+    g, f1 = (summary[f"iii_stage2_model2_{s}"]["peak_bytes_rank"]
+             for s in ("gpipe", "1f1b"))
+    print(f"lm 19b iii: peak a rank 1f1b {f1} B < gpipe {g} B: {f1 < g}")
+    if not f1 < g:
+        bad.append(f"iii: 1f1b peak {f1} not below gpipe's {g}")
+    if resume:
+        rs = [r["resume"] for r in res]
+        r0 = rs[0]
+        ok = all(r["same"] and r["loaded_same"] and r["storage_order"]
+                 for r in rs)
+        refused = all(r["other_v"] and "virtual_stages=1" in r["other_v"]
+                      for r in rs)
+        print(f"lm 19c [{card}]: mesh iv at {LM19_RESUME_LAYERS} layers, "
+              f"preempted at step {r0['preempted_at_step']} and resumed == "
+              f"uninterrupted bit for bit on every rank, the restored slices"
+              f" == the preempted ones, in storage order: {ok} "
+              f"({[r['differing'] for r in rs]} of {r0['arrays']} arrays "
+              f"differing; steps {r0['steps']}); checkpoint {r0['bytes']} B, "
+              f"save ms {r0['save_ms']}, restore ms {r0['restore_ms']}; "
+              f"resume at virtual_stages=1 refused: {refused} "
+              f"({r0['other_v']!r})")
+        if not ok:
+            bad.append(f"19c: resumed run differs: "
+                       f"{[(r['differing'], r['loaded_same'], r['storage_order']) for r in rs]}")
+        if not refused:
+            bad.append(f"19c: virtual_stages=1 resume not refused: "
+                       f"{[r['other_v'] for r in rs]}")
+        summary["resume"] = dict(r0)
+    if bad:
+        fail("19b/lm pipeline mesh", "; ".join(bad))
+    return summary
+
+
+def lm19_phase(laps, fa, lm_model_flops, mesh_mod, card) -> dict:
+    """Phase 19: 19a on one card, then 19b and 19c over 4 ranks (gloo on
+    the one card; with four cards, NCCL with a card each)."""
+    import torch
+
+    refs = lm19_reference(fa, lm_model_flops, card)
+    laps.done("19a/lm pipeline one card")
+    four = torch.cuda.device_count() >= 4
+    backend = "nccl" if four else "gloo"
+    mesh = lm19_mesh(mesh_mod, card, refs, 4, backend, True)
+    laps.done("19b-c/lm pipeline mesh")
+    return {"single": refs, "mesh": mesh, "backend": backend}
+
+
+def lm19_summary(lm19: dict) -> dict:
+    """Phase 19's JSON line: the numbers without the per-step digests."""
+    return {**lm19, "mesh": {k: {x: y for x, y in v.items()
+                                 if x != "digests"}
+                             for k, v in lm19["mesh"].items()}}
+
+
+def lm19_launch_rows(lm19: dict) -> dict:
+    """Phase 19's flash launches by kernel, for the kernels line: 19a per
+    reference, 19b per mesh and rank."""
+    out = {}
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        out[name] = {
+            "launches_19a": {v: r["launches"][name]
+                             for v, r in lm19["single"].items()
+                             if "launches" in r},
+            "launches_19b_per_rank": {
+                m: {g: l[name] for g, l in r["launches"].items()}
+                for m, r in lm19["mesh"].items() if m != "resume"}}
     return out
 
 
@@ -5047,10 +5962,11 @@ def main() -> None:
                          "bf16 leaves, fsdp's re-gather, the two-level data "
                          "axis), print the optimizers' JSON line and stop")
     ap.add_argument("--lm-only", action="store_true",
-                    help="run phases 1, 2 (the flash kernels only), 6 and "
-                         "18 (the LM over a data x model x seq mesh), print "
-                         "the LM's JSON line and stop: with four cards, "
-                         "18b over NCCL with a card a rank")
+                    help="run phases 1, 2 (the flash kernels only), 6, 18 "
+                         "(the LM over a data x model x seq mesh) and 19 "
+                         "(the stage and expert axes), print the LM's JSON "
+                         "lines and stop: with four cards, 18b and 19b over "
+                         "NCCL with a card a rank")
     args = ap.parse_args()
     only = (args.sgd_timing_only or args.pipeline_only or args.dp_only
             or args.harness_only or args.data_only or args.optim_only
@@ -5179,6 +6095,8 @@ def main() -> None:
         laps.done("6/flash")
         lm18 = lm_phase(laps, fa, lm_model_flops, mesh, card, None)
         print(json.dumps({"lm_mesh": lm18_summary(lm18), "card": card}))
+        lm19 = lm19_phase(laps, fa, lm_model_flops, mesh, card)
+        print(json.dumps({"lm_pipe": lm19_summary(lm19), "card": card}))
         return
     if args.optim_only:
         from distributed_model_parallel_tpu_torch import mesh
@@ -5438,6 +6356,10 @@ def main() -> None:
     lm18 = lm_phase(laps, fa, lm_model_flops, mesh, card, lm8_loss)
     lm18_rows = lm_launch_rows(lm18)
 
+    # -- phase 19: the LM's stage and expert axes ---------------------------
+    lm19 = lm19_phase(laps, fa, lm_model_flops, mesh, card)
+    lm19_rows = lm19_launch_rows(lm19)
+
     kernels = [{
         "name": "paged_decode",
         "route": "cuda",
@@ -5465,6 +6387,7 @@ def main() -> None:
                         f"pallas_attention.py:{line}",
             "launches": flash_launches[name],
             **lm18_rows[name],
+            **lm19_rows[name],
             "max_abs_err": flash_errs[name][0],
             "max_row_rel_err": flash_errs[name][1],
             **flash_times[name],
@@ -5513,6 +6436,7 @@ def main() -> None:
     print(json.dumps({"data_path": data_path, "card": card}))
     print(json.dumps({"optim": optim_summary(opt17), "card": card}))
     print(json.dumps({"lm_mesh": lm18_summary(lm18), "card": card}))
+    print(json.dumps({"lm_pipe": lm19_summary(lm19), "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -20,12 +20,12 @@ from typing import Any, Mapping, Sequence
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
     """Logical device mesh; axis sizes of 1 disable an axis. The port runs
-    one rank per device of the ``(data, stage, model, seq)`` grid over a
-    process group (``mesh.py``): the data axis (two-level at ``dcn_data >
-    1``) and the ``stage`` axis on the CNN trainers, the data, ``model``
-    (Megatron tensor parallelism) and ``seq`` (ring or Ulysses attention)
-    axes on the Transformer LM. The ``expert`` axis is refused (ROADMAP
-    A9: MoE)."""
+    one rank per device of the ``(data, stage, model, seq, expert)`` grid
+    over a process group (``mesh.py``): the data axis (two-level at
+    ``dcn_data > 1``) and the ``stage`` axis on the CNN trainers; every
+    axis on the Transformer LM — data, ``stage`` (the SPMD pipeline),
+    ``model`` (Megatron tensor parallelism), ``seq`` (ring or Ulysses
+    attention) and ``expert`` (the MoE experts)."""
 
     data: int = 1
     stage: int = 1

@@ -1,18 +1,23 @@
-"""Process group and ``(data, stage, model, seq)`` mesh — the port of
-``distributed_model_parallel_tpu/mesh.py``.
+"""Process group and ``(data, stage, model, seq, expert)`` mesh — the port
+of ``distributed_model_parallel_tpu/mesh.py``.
 
 The JAX package lays its devices out as a named ``jax.sharding.Mesh`` in
 one process; the port runs one process per rank, joined by a
 ``torch.distributed`` process group: NCCL on the card, gloo on the CPU.
-The ranks form JAX's device grid over ``(data, stage, model, seq)``,
-row-major, as ``make_mesh`` reshapes its devices: rank ``r`` of
-``D·S·M·Q`` sits at ``data = r // (S·M·Q)``, ``stage = r // (M·Q) % S``,
-``model = r // Q % M``, ``seq = r % Q``. Each rank belongs to a sub-group
-per axis: the ranks that differ from it only along that axis. The data
-group pools gradients and BatchNorm statistics, the stage group is the
-pipeline's point-to-point ring, the model group carries the Megatron
-all-reduces of tensor parallelism, and the seq group the ring or Ulysses
-exchanges of sequence parallelism. A rank also belongs to its replica
+The ranks form JAX's device grid over ``(data, stage, model, seq,
+expert)``, row-major, as ``make_mesh`` reshapes its devices: rank ``r``
+of ``D·S·M·Q·E`` sits at ``data = r // (S·M·Q·E)``, ``stage = r //
+(M·Q·E) % S``, ``model = r // (Q·E) % M``, ``seq = r // E % Q``, ``expert
+= r % E``; the expert axis is the innermost, so a mesh with ``expert ==
+1`` keeps the ranks of the four-axis grid. Each rank belongs to a
+sub-group per axis: the ranks that differ from it only along that axis.
+The data group pools gradients and BatchNorm statistics, the stage group
+is the pipeline's point-to-point ring (the CNN engines' ring of a data
+row; the LM's ring of a ``(data, model, seq, expert)`` coordinate), the
+model group carries the Megatron all-reduces of tensor parallelism, the
+seq group the ring or Ulysses exchanges of sequence parallelism, and the
+expert group the all-to-alls of expert parallelism. A rank also belongs
+to its replica
 group, the ranks that differ from it along ``data`` and ``seq`` (the
 ranks that hold the same parameter slices): the Transformer LM averages
 every gradient there. With ``stage == model == seq == 1`` the data group
@@ -48,8 +53,7 @@ runs over the whole data group, as JAX runs it over ``("dcn", data)``.
 The backend is never switched behind the caller's back: a CUDA rank runs
 NCCL, one rank per card, unless the caller asks for gloo (several ranks
 sharing one card), and a rank that finds no card raises instead of
-running on the CPU. Not ported yet, and refused by name: the ``expert``
-axis (ROADMAP A9: MoE).
+running on the CPU.
 """
 
 from __future__ import annotations
@@ -67,10 +71,6 @@ import torch.distributed as dist
 
 from distributed_model_parallel_tpu_torch.config import MeshConfig
 
-# Mesh axes the port does not run, and the ROADMAP item that ports each.
-_OTHER_AXES = (("expert", "A9: MoE"),)
-
-
 # The mesh this process's group was last laid out as (process_rows).
 _joined: dict = {}
 
@@ -80,34 +80,33 @@ DCN_AXIS = "dcn"
 
 
 def check_mesh_config(config: MeshConfig) -> None:
-    """Raise, naming the ROADMAP item, for a mesh the port does not run:
-    the ``expert`` axis; and, in the JAX package's words, a ``dcn_data``
-    that does not divide ``data``. Each trainer refuses the axes it does
-    not shard over (the CNN trainers ``model`` and ``seq``, the LM
-    ``stage``)."""
+    """Raise, in the JAX package's words, on a ``dcn_data`` that does not
+    divide ``data``, and, naming the ROADMAP item, on a two-level data
+    axis beside a model, seq or expert axis. Each trainer refuses the
+    axes it does not shard over (the CNN trainers ``model``, ``seq`` and
+    ``expert``)."""
     if config.dcn_data < 1:
         raise ValueError(f"dcn_data must be >= 1, got {config.dcn_data}")
     if config.data % config.dcn_data:
         raise ValueError(f"dcn_data={config.dcn_data} must divide "
                          f"data={config.data}")
-    for axis, item in _OTHER_AXES:
-        if getattr(config, axis) != 1:
-            raise ValueError(f"MeshConfig({axis}={getattr(config, axis)}) "
-                             f"is not ported yet (ROADMAP {item}); the port "
-                             f"runs the data and stage axes")
+    if config.dcn_data > 1 and config.model * config.seq * config.expert > 1:
+        raise ValueError("dcn_data > 1 with a model, seq or expert axis is "
+                         "not ported yet (ROADMAP A9: dcn_data with the "
+                         "model, seq and expert axes)")
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshSpec:
-    """One rank's view of the ``(data, stage, model, seq)`` mesh: the mesh
-    config, this rank, its device, the backend of its process group (None:
-    a lone process with no group, world 1), its sub-groups and, at
-    ``dcn_data > 1``, the inner and outer groups of its two-level data
-    axis (None otherwise). ``data_group`` is None when the data axis is
-    the whole world (``stage == model == seq == 1``); ``stage_group``,
-    ``model_group`` and ``seq_group`` are None where their axis has size
-    1; ``replica_group`` (data x seq) is None at ``seq == 1``, where it
-    is the data group."""
+    """One rank's view of the ``(data, stage, model, seq, expert)`` mesh:
+    the mesh config, this rank, its device, the backend of its process
+    group (None: a lone process with no group, world 1), its sub-groups
+    and, at ``dcn_data > 1``, the inner and outer groups of its two-level
+    data axis (None otherwise). ``data_group`` is None when the data axis
+    is the whole world (``stage == model == seq == expert == 1``);
+    ``stage_group``, ``model_group``, ``seq_group`` and ``expert_group``
+    are None where their axis has size 1; ``replica_group`` (data x seq)
+    is None at ``seq == 1``, where it is the data group."""
 
     config: MeshConfig
     rank: int = 0
@@ -119,6 +118,7 @@ class MeshSpec:
     outer_group: object = None
     model_group: object = None
     seq_group: object = None
+    expert_group: object = None
     replica_group: object = None
 
     @property
@@ -138,6 +138,10 @@ class MeshSpec:
         return self.config.seq
 
     @property
+    def num_expert(self) -> int:
+        return self.config.expert
+
+    @property
     def data_axis(self) -> str:
         return self.config.data_axis
 
@@ -152,6 +156,10 @@ class MeshSpec:
     @property
     def seq_axis(self) -> str:
         return self.config.seq_axis
+
+    @property
+    def expert_axis(self) -> str:
+        return self.config.expert_axis
 
     @property
     def dcn_axis(self) -> str | None:
@@ -172,9 +180,9 @@ class MeshSpec:
         return self.inner_group, self.outer_group
 
     @property
-    def grid(self) -> tuple[int, int, int, int]:
-        """This rank's ``(data, stage, model, seq)`` position in JAX's
-        device grid."""
+    def grid(self) -> tuple[int, int, int, int, int]:
+        """This rank's ``(data, stage, model, seq, expert)`` position in
+        JAX's device grid."""
         return rank_coords(self.rank, self.config)
 
     @property
@@ -199,6 +207,10 @@ class MeshSpec:
         return self.grid[3]
 
     @property
+    def expert_index(self) -> int:
+        return self.grid[4]
+
+    @property
     def group(self):
         """The process group of the data axis — this rank's stage, model
         and seq position across the data rows (None without a process
@@ -218,10 +230,11 @@ class MeshSpec:
         return self.group
 
     def stage_rank(self, stage: int) -> int:
-        """The global rank of ``stage`` in this rank's data row (at this
-        rank's model and seq position)."""
-        d, _, m, q = self.grid
-        return grid_rank((d, stage, m, q), self.config)
+        """The global rank of ``stage`` on this rank's stage ring (its data
+        row, at its model, seq and expert position)."""
+        c = list(self.grid)
+        c[1] = stage
+        return grid_rank(c, self.config)
 
     def rows(self, global_batch: int) -> slice:
         """This rank's data row's rows of a global batch."""
@@ -229,12 +242,14 @@ class MeshSpec:
         return slice(self.data_index * local, (self.data_index + 1) * local)
 
 
-def _shape(config: MeshConfig) -> tuple[int, int, int, int]:
-    return config.data, config.stage, config.model, config.seq
+def _shape(config: MeshConfig) -> tuple[int, int, int, int, int]:
+    return config.data, config.stage, config.model, config.seq, config.expert
 
 
-def rank_coords(rank: int, config: MeshConfig) -> tuple[int, int, int, int]:
-    """``(data, stage, model, seq)`` of global ``rank``, row-major."""
+def rank_coords(rank: int, config: MeshConfig
+                ) -> tuple[int, int, int, int, int]:
+    """``(data, stage, model, seq, expert)`` of global ``rank``,
+    row-major."""
     out = []
     for n in reversed(_shape(config)):
         rank, i = divmod(rank, n)
@@ -243,7 +258,8 @@ def rank_coords(rank: int, config: MeshConfig) -> tuple[int, int, int, int]:
 
 
 def grid_rank(coords, config: MeshConfig) -> int:
-    """The global rank at ``(data, stage, model, seq)`` (row-major)."""
+    """The global rank at ``(data, stage, model, seq, expert)``
+    (row-major)."""
     rank = 0
     for i, n in zip(coords, _shape(config)):
         rank = rank * n + i
@@ -252,18 +268,19 @@ def grid_rank(coords, config: MeshConfig) -> int:
 
 def axis_groups(config: MeshConfig, axes: tuple[int, ...]) -> list[list]:
     """The global ranks of every sub-group that varies along ``axes``
-    (indices into ``(data, stage, model, seq)``), the other coordinates
+    (indices into ``(data, stage, model, seq, expert)``), the other
+    coordinates
     fixed: groups in row-major order of the fixed coordinates, ranks in
     row-major order of the varying ones."""
     import itertools
 
     shape = _shape(config)
-    fixed = [a for a in range(4) if a not in axes]
+    fixed = [a for a in range(len(shape)) if a not in axes]
     out = []
     for f in itertools.product(*(range(shape[a]) for a in fixed)):
         ranks = []
         for v in itertools.product(*(range(shape[a]) for a in axes)):
-            c = [0] * 4
+            c = [0] * len(shape)
             for a, i in zip(fixed, f):
                 c[a] = i
             for a, i in zip(axes, v):
@@ -304,16 +321,18 @@ def _mine(rank: int, groups: list[list]):
 
 def _sub_groups(config: MeshConfig, rank: int) -> dict:
     """Create every sub-group of the mesh (each rank must create all of
-    them, in the same order: data, stage, model, seq, replica, then the
-    two levels of the data axis) and return this rank's. An axis of size
-    1 has none; the data axis has none when it is the whole world."""
+    them, in the same order: data, stage, model, seq, expert, replica,
+    then the two levels of the data axis) and return this rank's. An axis
+    of size 1 has none; the data axis has none when it is the whole
+    world."""
     out = {}
-    spread = config.stage * config.model * config.seq
+    spread = config.stage * config.model * config.seq * config.expert
     if spread > 1:
         out["data_group"] = _mine(rank, axis_groups(config, (0,)))
     for name, axis, n in (("stage_group", 1, config.stage),
                           ("model_group", 2, config.model),
-                          ("seq_group", 3, config.seq)):
+                          ("seq_group", 3, config.seq),
+                          ("expert_group", 4, config.expert)):
         if n > 1:
             out[name] = _mine(rank, axis_groups(config, (axis,)))
     if config.seq > 1 and config.data > 1:
@@ -321,9 +340,6 @@ def _sub_groups(config: MeshConfig, rank: int) -> dict:
     elif config.seq > 1:
         out["replica_group"] = out["seq_group"]
     if config.dcn_data > 1:
-        if config.model * config.seq > 1:
-            raise ValueError("dcn_data > 1 with a model or seq axis is not "
-                             "ported yet (ROADMAP A9)")
         inner_ranks, outer_ranks = dcn_groups(config.data, config.stage,
                                               config.dcn_data)
         out.update(inner_group=_mine(rank, inner_ranks),

@@ -1,5 +1,5 @@
 """Decoder-only Transformer LM in PyTorch — the serving subset and the
-training forward over a ``(data, model, seq)`` mesh.
+training forward over a ``(data, stage, model, seq, expert)`` mesh.
 
 Counterpart of ``distributed_model_parallel_tpu/models/transformer.py``:
 the config, the parameter layout, the block pieces the paged
@@ -7,19 +7,23 @@ prefill/decode steps (``serve/model.py``) compose, and the training path
 (``block_apply``, ``blocks_scan``, ``apply``, ``lm_loss``) whose attention
 runs the flash kernels (``ops/flash_attention.py``) on the card.
 
-The JAX functions bind ``cfg.tp_axis``/``cfg.sp_axis`` inside a
-``shard_map``; here the training functions take the rank's
-``mesh.MeshSpec`` (``mesh=``), whose model and seq groups those names
-resolve to. Under ``tp_axis`` the block's column-parallel products take
+The JAX functions bind ``cfg.tp_axis``/``cfg.sp_axis``/``cfg.ep_axis``
+inside a ``shard_map``; here the training functions take the rank's
+``mesh.MeshSpec`` (``mesh=``), whose model, seq and expert groups those
+names resolve to. Under ``tp_axis`` the block's column-parallel products take
 their input through ``collectives.copy_to_group`` and its row-parallel
 products end in ``collectives.reduce_from_group`` (Megatron's ``f`` and
 ``g``); under ``sp_axis`` attention is ring or Ulysses attention
 (``ops/ring_attention.py``) and positions start at the shard's global
-offset. ``remat`` recomputes each block in the backward
+offset. With ``moe_experts`` every block's MLP is the top-k routed MoE
+of ``ops/moe.py`` (its experts cut over the expert group under
+``ep_axis``), and every block carries the MoE stats vector
+``[balance, z, drop]`` (zeros for a dense block) into the loss
+(:func:`aux_loss`). ``remat`` recomputes each block in the backward
 (``torch.utils.checkpoint``: the whole block under ``"full"``, all but
 the products with no batch dims under ``"dots"``), and ``loss_chunk``
 computes the head and its loss in slices recomputed in the backward.
-MoE and ``generate`` come with later slices and raise here (ROADMAP A9).
+``generate`` comes with a later slice and raises here (ROADMAP A9).
 
 The parameter tree keeps the JAX package's layout exactly — blocks
 stacked on a leading ``[n_layers]`` axis, ``wqkv: [L, d, H, 3*Dh]`` with
@@ -44,8 +48,12 @@ from distributed_model_parallel_tpu_torch.ops.flash_attention import (
     flash_attention,
     full_attention,
 )
+from distributed_model_parallel_tpu_torch.ops.moe import MoEConfig, moe_ffn
 
 ATTN_IMPLS = ("auto", "xla", "flash")
+# Length of the MoE stats vector every block carries: [load-balance loss,
+# router z-loss, drop rate] (ops/moe.route). Dense blocks carry zeros.
+AUX_STATS = 3
 
 
 def resolve_device(device) -> torch.device:
@@ -63,8 +71,8 @@ def resolve_device(device) -> torch.device:
 @dataclasses.dataclass(frozen=True)
 class TransformerConfig:
     """The fields of the JAX ``TransformerConfig`` that serving and
-    training read. ``moe_experts`` and ``ep_axis`` are kept so the engine
-    and the trainer can reject MoE by name (ROADMAP A9)."""
+    training read (the serving engine refuses MoE, as the JAX one
+    does)."""
 
     vocab_size: int = 1024
     d_model: int = 128
@@ -89,7 +97,14 @@ class TransformerConfig:
     # dots_with_no_batch_dims_saveable).
     remat: bool = False
     remat_policy: str = "full"
+    # Mixture-of-experts MLP (0 = dense): every block's MLP is a top-k
+    # routed MoE (ops/moe.py); ep_axis cuts the experts over the expert
+    # axis. MoE replaces the MLP, so tp_axis then cuts attention only.
     moe_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.5
+    moe_aux_weight: float = 0.05   # load-balance loss weight
+    moe_z_weight: float = 1e-3     # router z-loss weight
     ep_axis: str | None = None
     pos_embedding: str = "learned"     # "learned" | "rope"
     rope_theta: float = 10000.0
@@ -131,6 +146,15 @@ class TransformerConfig:
     def gqa(self) -> bool:
         return self.n_kv_heads is not None
 
+    @property
+    def moe(self):
+        """The ``ops/moe.MoEConfig`` of the blocks' MLP (None: dense)."""
+        if not self.moe_experts:
+            return None
+        return MoEConfig(num_experts=self.moe_experts, d_model=self.d_model,
+                         d_ff=self.d_ff, top_k=self.moe_top_k,
+                         capacity_factor=self.moe_capacity_factor)
+
 
 def param_specs(cfg: TransformerConfig) -> dict:
     """The parameter tree as ``{name: (shape, init)}`` (``blocks`` nested),
@@ -145,11 +169,21 @@ def param_specs(cfg: TransformerConfig) -> dict:
         "wo": ((L, d, d), d ** -0.5),
         "ln2_scale": ((L, d), "ones"),
         "ln2_bias": ((L, d), "zeros"),
-        "w1": ((L, d, f), d ** -0.5),
-        "b1": ((L, f), "zeros"),
-        "w2": ((L, f, d), f ** -0.5),
-        "b2": ((L, d), "zeros"),
     }
+    if cfg.moe_experts:
+        E = cfg.moe_experts
+        blocks.update({
+            "router": ((L, d, E), d ** -0.5),
+            "w_in": ((L, E, d, f), d ** -0.5),
+            "w_out": ((L, E, f, d), f ** -0.5),
+        })
+    else:
+        blocks.update({
+            "w1": ((L, d, f), d ** -0.5),
+            "b1": ((L, f), "zeros"),
+            "w2": ((L, f, d), f ** -0.5),
+            "b2": ((L, d), "zeros"),
+        })
     if cfg.gqa:
         blocks["wq"] = ((L, d, h, dh), d ** -0.5)
         blocks["wkv"] = ((L, d, hkv, 2 * dh), d ** -0.5)
@@ -281,15 +315,25 @@ def _qkv_proj(bp: dict, h: torch.Tensor, cfg: TransformerConfig):
     return q, k, v
 
 
-def _ffn(bp: dict, h: torch.Tensor, tp_group=None) -> torch.Tensor:
-    """Dense MLP tail. ``jax.nn.gelu`` defaults to the tanh approximation,
-    so this does too. Under tensor parallelism ``w1``/``b1`` hold this
-    rank's columns and ``w2`` its rows: the product's partial sums are
-    all-reduced over ``tp_group``, and ``b2`` is added once, after."""
+def _ffn(bp: dict, h: torch.Tensor, tp_group=None, *,
+         cfg: TransformerConfig | None = None, ep_group=None):
+    """The MLP tail: ``(y, aux)``, ``aux`` the f32 MoE stats vector
+    (zeros for the dense MLP). Dense: ``jax.nn.gelu`` defaults to the tanh
+    approximation, so this does too; under tensor parallelism
+    ``w1``/``b1`` hold this rank's columns and ``w2`` its rows, the
+    product's partial sums are all-reduced over ``tp_group``, and ``b2``
+    is added once, after. MoE (a ``router`` in ``bp``; ``cfg`` gives its
+    routing): ``ops/moe.moe_ffn``, the experts cut over ``ep_group``; its
+    leaves are never cut over the model group, whose ranks all run it on
+    the same tokens."""
+    if "router" in bp:
+        y, aux = moe_ffn({k: bp[k] for k in ("router", "w_in", "w_out")},
+                         h, cfg.moe, ep_group)
+        return y, aux.float()
     y = F.gelu(h @ bp["w1"] + bp["b1"], approximate="tanh")
     y = y @ bp["w2"]
     y = reduce_from_group(y, tp_group)
-    return y + bp["b2"]
+    return y + bp["b2"], torch.zeros(AUX_STATS, device=h.device)
 
 
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -305,35 +349,36 @@ REMAT_POLICIES = ("full", "dots")
 
 
 def check_training_config(cfg: TransformerConfig) -> None:
-    """Raise, by name, on what the training path does not run yet
-    (ROADMAP A9: MoE): nothing is silently ignored."""
-    unsupported = {
-        "moe_experts": bool(cfg.moe_experts),
-        "ep_axis": cfg.ep_axis is not None,
-    }
-    named = [k for k, bad in unsupported.items() if bad]
-    if named:
-        raise NotImplementedError(
-            f"{', '.join(named)} not ported yet (ROADMAP A9: MoE)")
+    """Raise, in the JAX package's words, on a config the training path
+    cannot run: the MoE config's ``top_k`` range (``cfg.moe`` builds
+    it)."""
+    cfg.moe
+
+
+# The mesh axis and group each axis-name field binds.
+_AXES = {"tp_axis": ("model_axis", "model_group"),
+         "sp_axis": ("seq_axis", "seq_group"),
+         "ep_axis": ("expert_axis", "expert_group")}
 
 
 def _axis_group(mesh, name: str | None, kind: str):
-    """The process group ``name`` (``cfg.tp_axis``/``cfg.sp_axis``) binds on
-    ``mesh``: its model or seq group (None where the axis has size 1, and
-    when ``name`` is None). A name without a mesh, or one the mesh does
-    not call its model/seq axis, raises (the JAX package's unbound axis
-    name)."""
+    """The process group ``name`` (``cfg.tp_axis``/``sp_axis``/``ep_axis``)
+    binds on ``mesh``: its model, seq or expert group (None where the
+    axis has size 1, and when ``name`` is None). A name without a mesh,
+    or one the mesh does not call its model/seq/expert axis, raises (the
+    JAX package's unbound axis name)."""
     if name is None:
         return None
     if mesh is None:
         raise ValueError(f"{kind}={name!r} names a mesh axis: pass the "
                          f"rank's mesh.MeshSpec (parallel/spmd_lm.py runs "
                          f"the mesh)")
-    axis = mesh.model_axis if kind == "tp_axis" else mesh.seq_axis
+    axis_attr, group_attr = _AXES[kind]
+    axis = getattr(mesh, axis_attr)
     if name != axis:
         raise ValueError(f"{kind}={name!r} is not an axis of the mesh "
                          f"(its {kind[:2]} axis is {axis!r})")
-    return mesh.model_group if kind == "tp_axis" else mesh.seq_group
+    return getattr(mesh, group_attr)
 
 
 def _seq_offset(t: int, cfg: TransformerConfig, mesh) -> int:
@@ -413,18 +458,19 @@ def _attention(q, k, v, cfg: TransformerConfig, mesh=None) -> torch.Tensor:
 
 
 def block_apply(bp: dict, x: torch.Tensor, cfg: TransformerConfig,
-                mesh=None) -> torch.Tensor:
+                mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """One pre-LN block on [B, T(_local), d] with unstacked parameters
-    ``bp`` (this rank's slices under tensor parallelism). The JAX block
-    also returns the MoE stats vector, zeros for a dense block; it comes
-    with MoE (ROADMAP A9).
+    ``bp`` (this rank's slices under tensor and expert parallelism):
+    ``(x, aux)``, ``aux`` the block's MoE stats vector (zeros for a dense
+    block).
 
     Tensor parallelism: the normalized input enters the column-parallel
     products through ``copy_to_group`` (the backward sums the cotangent
     over the model group, which shard_map's transpose does in JAX); a
     ``wkv`` replicated under multi-query takes the same operator, since
     every model rank's heads read it; ``wo`` and ``w2`` end in
-    ``reduce_from_group``."""
+    ``reduce_from_group``. The MoE MLP takes the normalized input as it
+    is (every model rank routes the same tokens)."""
     tp = _axis_group(mesh, cfg.tp_axis, "tp_axis")
     b, t, _ = x.shape
     h = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
@@ -439,7 +485,12 @@ def block_apply(bp: dict, x: torch.Tensor, cfg: TransformerConfig,
     o = reduce_from_group(o.reshape(b, t, -1) @ bp["wo"], tp)
     x = x + o
     h = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
-    return x + _ffn(bp, copy_to_group(h, tp), tp)
+    if cfg.moe_experts:
+        y, aux = _ffn(bp, h, cfg=cfg, ep_group=_axis_group(
+            mesh, cfg.ep_axis, "ep_axis"))
+    else:
+        y, aux = _ffn(bp, copy_to_group(h, tp), tp)
+    return x + y, aux
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -479,42 +530,80 @@ def _remat(fn, cfg: TransformerConfig):
 
 
 def blocks_scan(blocks: dict, x: torch.Tensor, cfg: TransformerConfig,
-                mesh=None) -> torch.Tensor:
+                mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """All stacked blocks in order (the JAX ``lax.scan``, as a loop), each
-    under :func:`_remat`."""
+    under :func:`_remat`: ``(x, aux)``, ``aux`` the mean of the blocks'
+    stats vectors."""
     n_layers = next(iter(blocks.values())).shape[0]
     apply_one = _remat(lambda bp, x: block_apply(bp, x, cfg, mesh), cfg)
+    auxes = []
     for layer in range(n_layers):
-        x = apply_one({k: w[layer] for k, w in blocks.items()}, x)
-    return x
+        x, aux = apply_one({k: w[layer] for k, w in blocks.items()}, x)
+        auxes.append(aux)
+    return x, torch.stack(auxes).mean(0)
+
+
+def embed_local(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+                mesh=None) -> torch.Tensor:
+    """:func:`embed` of this rank's tokens: learned positions start at the
+    shard's global offset (JAX embeds outside its shard_map, over the
+    whole sequence)."""
+    offset = (_seq_offset(tokens.shape[1], cfg, mesh)
+              if cfg.pos_embedding == "learned" else 0)
+    return embed(params, tokens, cfg, pos_offset=offset)
+
+
+def hidden_with_aux(params: dict, tokens: torch.Tensor,
+                    cfg: TransformerConfig, mesh=None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """[B, T(_local)] tokens -> ([B, T(_local), d] pre-head activations,
+    the blocks' mean stats vector)."""
+    check_training_config(cfg)
+    return blocks_scan(params["blocks"], embed_local(params, tokens, cfg,
+                                                     mesh), cfg, mesh)
 
 
 def hidden(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
            mesh=None) -> torch.Tensor:
-    """[B, T(_local)] tokens -> [B, T(_local), d] pre-head activations (the
-    JAX ``hidden_with_aux`` without the MoE stats, which come with MoE).
-    Learned positions start at the shard's global offset: JAX embeds
-    outside its shard_map, over the whole sequence."""
-    check_training_config(cfg)
-    offset = (_seq_offset(tokens.shape[1], cfg, mesh)
-              if cfg.pos_embedding == "learned" else 0)
-    return blocks_scan(params["blocks"],
-                       embed(params, tokens, cfg, pos_offset=offset), cfg,
-                       mesh)
+    """The activations of :func:`hidden_with_aux` alone."""
+    return hidden_with_aux(params, tokens, cfg, mesh)[0]
+
+
+def apply_with_aux(params: dict, tokens: torch.Tensor,
+                   cfg: TransformerConfig, mesh=None
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full forward: [B, T] tokens -> ([B, T, V] logits, stats vector)."""
+    x, aux = hidden_with_aux(params, tokens, cfg, mesh)
+    return unembed(params, x), aux
 
 
 def apply(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
           mesh=None) -> torch.Tensor:
     """Full forward: [B, T] tokens -> [B, T, V] logits."""
-    return unembed(params, hidden(params, tokens, cfg, mesh))
+    return apply_with_aux(params, tokens, cfg, mesh)[0]
 
 
-def token_loss(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross-entropy, log-softmax in f32. The JAX version
-    adds the weighted MoE terms, zero for a dense model; they come with
-    MoE (ROADMAP A9)."""
+def aux_loss(aux: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    """The weighted loss terms of the stats vector: balance and z with
+    their weights; the drop rate is a metric only."""
+    return cfg.moe_aux_weight * aux[0] + cfg.moe_z_weight * aux[1]
+
+
+def token_loss(logits: torch.Tensor, targets: torch.Tensor,
+               aux: torch.Tensor | None = None,
+               cfg: TransformerConfig | None = None) -> torch.Tensor:
+    """Mean next-token cross-entropy, log-softmax in f32, plus
+    :func:`aux_loss` of ``aux`` for an MoE ``cfg`` (a dense model's stats
+    are zeros, which JAX adds and which change nothing)."""
     logp = torch.log_softmax(logits.float(), dim=-1)
-    return -torch.gather(logp, -1, targets[..., None].long())[..., 0].mean()
+    nll = -torch.gather(logp, -1, targets[..., None].long())[..., 0].mean()
+    return _plus_aux(nll, aux, cfg)
+
+
+def _plus_aux(loss: torch.Tensor, aux, cfg) -> torch.Tensor:
+    if aux is None or cfg is None or not cfg.moe_experts:
+        return loss
+    return loss + aux_loss(aux, cfg)
 
 
 def _chunk_nll_sum(ln_f_scale, ln_f_bias, head, xc, tc):
@@ -547,11 +636,13 @@ def chunked_nll_sum(params: dict, x: torch.Tensor, targets: torch.Tensor,
 
 
 def chunked_token_loss(params: dict, x: torch.Tensor, targets: torch.Tensor,
-                       chunk: int) -> torch.Tensor:
-    """``token_loss`` over ``unembed(x)`` through :func:`chunked_nll_sum`
-    (the MoE terms come with MoE)."""
+                       chunk: int, aux: torch.Tensor | None = None,
+                       cfg: TransformerConfig | None = None) -> torch.Tensor:
+    """``token_loss`` over ``unembed(x)`` through :func:`chunked_nll_sum`,
+    plus the MoE terms as :func:`token_loss` adds them."""
     b, t, _ = x.shape
-    return chunked_nll_sum(params, x, targets, chunk) / (b * t)
+    return _plus_aux(chunked_nll_sum(params, x, targets, chunk) / (b * t),
+                     aux, cfg)
 
 
 def local_loss_chunk(cfg: TransformerConfig, t_local: int,
@@ -569,18 +660,27 @@ def local_loss_chunk(cfg: TransformerConfig, t_local: int,
     return chunk if t_local % chunk == 0 else math.gcd(chunk, t_local)
 
 
-def lm_loss(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
-            cfg: TransformerConfig, mesh=None) -> torch.Tensor:
+def lm_loss_with_aux(params: dict, tokens: torch.Tensor,
+                     targets: torch.Tensor, cfg: TransformerConfig,
+                     mesh=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Mean next-token cross-entropy over this rank's tokens, through the
-    dense head or, under ``loss_chunk``, the chunked one. On a mesh the
-    mean over every token is the mean of the ranks' means
-    (``parallel/spmd_lm``: the shards are equal)."""
+    dense head or, under ``loss_chunk``, the chunked one, plus the MoE
+    terms of its stats: ``(loss, stats)``. On a mesh the mean over every
+    token is the mean of the ranks' means (``parallel/spmd_lm``: the
+    shards are equal)."""
     if cfg.loss_chunk:
         n_seq = mesh.num_seq if (cfg.sp_axis and mesh is not None) else 1
         chunk = local_loss_chunk(cfg, tokens.shape[1], n_seq)
-        return chunked_token_loss(params, hidden(params, tokens, cfg, mesh),
-                                  targets, chunk)
-    return token_loss(apply(params, tokens, cfg, mesh), targets)
+        x, aux = hidden_with_aux(params, tokens, cfg, mesh)
+        return chunked_token_loss(params, x, targets, chunk, aux, cfg), aux
+    logits, aux = apply_with_aux(params, tokens, cfg, mesh)
+    return token_loss(logits, targets, aux, cfg), aux
+
+
+def lm_loss(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
+            cfg: TransformerConfig, mesh=None) -> torch.Tensor:
+    """The loss of :func:`lm_loss_with_aux`."""
+    return lm_loss_with_aux(params, tokens, targets, cfg, mesh)[0]
 
 
 def generate(params: dict, cfg: TransformerConfig, prompt, steps: int, **kw):

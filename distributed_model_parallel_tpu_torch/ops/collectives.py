@@ -26,8 +26,9 @@ each function returns its input's value without a collective.
   > 1``): reduce-scatter within a dcn row, all-reduce across the rows,
   all-gather within the row;
 * :func:`all_to_all_tiled` — ``jax.lax.all_to_all(..., tiled=True)``,
-  the re-shard of Ulysses attention, differentiable (its transpose is the
-  reverse all-to-all);
+  the re-shard of Ulysses attention and the expert exchange of MoE
+  (counted apart, under ``kind="moe"``), differentiable (its transpose is
+  the reverse all-to-all);
 * :func:`copy_to_group` and :func:`reduce_from_group` — Megatron's two
   operators over the model axis: identity forward and all-reduce backward
   at the input of a column-parallel product, all-reduce forward and
@@ -531,29 +532,34 @@ def _all_to_all(x: torch.Tensor, split_axis: int, concat_axis: int, group,
 
 class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, split_axis, concat_axis, group, kind):
-        ctx.args = (split_axis, concat_axis, group, kind)
+    def forward(ctx, x, split_axis, concat_axis, group, kind, grad_scale):
+        ctx.args = (split_axis, concat_axis, group, kind, grad_scale)
         return _all_to_all(x, split_axis, concat_axis, group, kind)
 
     @staticmethod
     def backward(ctx, g):
-        split_axis, concat_axis, group, kind = ctx.args
+        split_axis, concat_axis, group, kind, grad_scale = ctx.args
+        if grad_scale != 1.0:
+            g = g * grad_scale
         return (_all_to_all(g, concat_axis, split_axis, group, kind),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 def all_to_all_tiled(x: torch.Tensor, split_axis: int, concat_axis: int,
-                     group, *, kind: str = "all_to_all") -> torch.Tensor:
+                     group, *, kind: str = "all_to_all",
+                     grad_scale: float = 1.0) -> torch.Tensor:
     """``jax.lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``
     over ``group``: ``x`` cut into n equal chunks along ``split_axis``,
     chunk j sent to group rank j, the n chunks received concatenated
     along ``concat_axis`` in group-rank order. Differentiable: the
-    backward is the all-to-all with the two axes swapped. Over gloo a
-    CUDA tensor is staged through host memory. ``group`` None: ``x``
-    itself."""
+    backward is the all-to-all with the two axes swapped, of the
+    cotangent times ``grad_scale`` (the expert exchange's, see
+    ``ops/moe.moe_ffn``). Over gloo a CUDA tensor is staged through host
+    memory. ``group`` None: ``x`` itself."""
     if _group_size(group) == 1:
         return x
-    return _AllToAll.apply(x, split_axis, concat_axis, group, kind)
+    return _AllToAll.apply(x, split_axis, concat_axis, group, kind,
+                           float(grad_scale))
 
 
 def mesh_barrier(spec) -> float:

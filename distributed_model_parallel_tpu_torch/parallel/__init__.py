@@ -15,6 +15,10 @@ group (``mesh.py``) or an explicit device list:
   per-chunk functions both pipeline engines run;
 * :mod:`.spmd_cnn_pipeline` — the SPMD pipeline engine, one process per
   stage over point-to-point hops;
+* :mod:`.schedule` — the static tick tables both SPMD pipelines run;
+* :mod:`.spmd_pipeline`, :mod:`.spmd_lm`, :mod:`.tensor_parallel` — the
+  Transformer LM's stage ring, its step over the whole mesh, and each
+  leaf's cuts over the stage, model and expert axes;
 * :mod:`.auto_partition` — cost-balanced stage boundaries (XLA's FLOP
   count, the JAX package's cuts);
 * :mod:`.workers` — rank functions for ``mesh.spawn`` that run pieces of

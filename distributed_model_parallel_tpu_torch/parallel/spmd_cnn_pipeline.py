@@ -14,8 +14,8 @@ of its data row over ``torch.distributed`` point-to-point
 negotiation is sent. A rank runs only its stage, so JAX's
 ``stage_dispatch`` has no counterpart.
 
-The step runs on a static tick table (:func:`spmd_ticks`), the same on
-every rank: at each tick a stage runs at most one operation — the
+The step runs on a static tick table (``parallel/schedule.spmd_ticks``,
+which the LM's pipeline shares), the same on every rank: at each tick a stage runs at most one operation — the
 forward of a microbatch (``F``), on stage 0 its loss (``L``: logits come
 last → 0, d(logits) go 0 → last, the labels never move, as in the
 runner), or a backward (``B``) — and then every hop produced at that
@@ -81,13 +81,18 @@ from distributed_model_parallel_tpu_torch.parallel.auto_partition import (
     meta_copy,
 )
 from distributed_model_parallel_tpu_torch.parallel.pipeline import (
-    SCHEDULES,
     MicrobatchBN,
     chunk_backward,
     chunk_forward,
     divide_grads_,
     eval_metrics,
     loss_and_grad,
+)
+from distributed_model_parallel_tpu_torch.parallel.schedule import (
+    _makes,
+    _needs,
+    spmd_ticks,
+    stash_slots,  # noqa: F401 - the engine's K, read from here too
 )
 from distributed_model_parallel_tpu_torch.train.trainer import METRIC_KEYS
 
@@ -172,154 +177,6 @@ def _pool_bn_over_axis(state, group, momentum: float):
         return next(it)
 
     return rebuild(state)
-
-
-# -- the tick table ------------------------------------------------------------
-#
-# An operation is ``(kind, microbatch, chunk)``: F (the chunk's forward), L
-# (stage 0: the loss, or the eval metrics; chunk None) or B (the chunk's
-# backward). Chunk c runs on stage c % S.
-
-def _stage_ops(s: int, S: int, M: int, schedule: str,
-               train: bool) -> list[tuple]:
-    """Stage s's operations in order at one chunk a stage."""
-    if not train:
-        return [("F", m, s) for m in range(M)] + (
-            [("L", m, None) for m in range(M)] if s == 0 else [])
-    if schedule == "gpipe" or M == 1:
-        ops = [("F", m, s) for m in range(M)]
-        if s == 0:
-            ops += [("L", m, None) for m in range(M)]
-        return ops + [("B", m, s) for m in range(M)]
-    warm = min(S - s, M)
-    ops = [("F", m, s) for m in range(warm)]
-    for m in range(M):
-        if s == 0:
-            ops.append(("L", m, None))
-        ops.append(("B", m, s))
-        if m + warm < M:
-            ops.append(("F", m + warm, s))
-    return ops
-
-
-def _needs(op, D: int):
-    kind, m, c = op
-    if kind == "F":
-        return ("act", m, c) if c else None
-    if kind == "L":
-        return ("logits", m)
-    return ("dlogits", m) if c == D - 1 else ("grad", m, c)
-
-
-def _makes(op, S: int, D: int, train: bool):
-    """(message key, destination stage) an operation produces, or None."""
-    kind, m, c = op
-    if kind == "F":
-        return (("act", m, c + 1), (c + 1) % S) if c < D - 1 else \
-            (("logits", m), 0)
-    if kind == "L":
-        return (("dlogits", m), (D - 1) % S) if train else None
-    return (("grad", m, c - 1), (c - 1) % S) if c else None
-
-
-def stash_slots(S: int, V: int, M: int) -> int:
-    """The most chunk forwards a rank holds awaiting their backward under
-    interleaved 1F1B: JAX's stash ring, ``min(2D - 1, M·V + D - 1)``."""
-    D = S * V
-    return min(2 * D - 1, M * V + D - 1)
-
-
-def _interleaved_ticks(S: int, V: int, M: int, train: bool) -> list[list]:
-    """The interleaved table: at each tick stage 0 runs a loss whose
-    logits arrived, else each stage the next backward of its order whose
-    gradient arrived, else the next forward of its order whose input
-    arrived (training: while fewer than :func:`stash_slots` forwards
-    await their backward)."""
-    D = S * V
-    if train and M % S:
-        raise ValueError(
-            f"interleaved schedule needs num_microbatches divisible by "
-            f"the stage count: M={M}, S={S} (Megatron constraint)")
-    if train:
-        group = lambda k: (k // D) * S + k % S
-        fwd = [[("F", group(k), ((k // S) % V) * S + s)
-                for k in range(M * V)] for s in range(S)]
-        bwd = [[("B", group(k), (V - 1 - (k // S) % V) * S + s)
-                for k in range(M * V)] for s in range(S)]
-    else:
-        fwd = [[("F", m, v * S + s) for m in range(M) for v in range(V)]
-               for s in range(S)]
-        bwd = [[] for _ in range(S)]
-    loss = [("L", m, None) for m in range(M)]
-    cap = stash_slots(S, V, M) if train else M * V
-    fi, bi, li = [0] * S, [0] * S, 0
-    held, have, ticks = [0] * S, set(), []
-    while li < M or any(fi[s] < len(fwd[s]) or bi[s] < len(bwd[s])
-                        for s in range(S)):
-        row, made = [None] * S, []
-        for s in range(S):
-            op = None
-            if s == 0 and li < M and _needs(loss[li], D) in have:
-                op, li = loss[li], li + 1
-            elif bi[s] < len(bwd[s]) and _needs(bwd[s][bi[s]], D) in have:
-                op = bwd[s][bi[s]]
-                bi[s] += 1
-                held[s] -= 1
-            elif (fi[s] < len(fwd[s]) and held[s] < cap
-                  and _needs(fwd[s][fi[s]], D) in (have | {None})):
-                op = fwd[s][fi[s]]
-                fi[s] += 1
-                held[s] += train
-            if op is not None:
-                row[s] = op
-                out = _makes(op, S, D, train)
-                if out is not None:
-                    made.append(out[0])
-        if not any(row):
-            raise RuntimeError(f"interleaved schedule deadlocks at S={S}, "
-                               f"V={V}, M={M}")
-        have.update(made)
-        ticks.append(row)
-    return ticks
-
-
-def spmd_ticks(S: int, M: int, schedule: str = "gpipe", *,
-               train: bool = True, virtual_stages: int = 1) -> list[list]:
-    """The static schedule: ``ticks[t][s]`` is stage s's operation at tick
-    t, ``(kind, microbatch, chunk)`` or None. Each stage runs its
-    operations in order, one a tick, as soon as the message it needs was
-    delivered at the end of an earlier tick. The same table on every
-    rank. ``virtual_stages > 1``: interleaved 1F1B (1f1b only)."""
-    if schedule not in SCHEDULES:
-        raise ValueError(f"unknown spmd cnn pipeline schedule {schedule!r};"
-                         f" known: {', '.join(SCHEDULES)}")
-    if virtual_stages > 1:
-        if train and schedule != "1f1b":
-            raise ValueError("interleaved virtual stages are a 1f1b "
-                             "schedule feature (gpipe's whole-program AD "
-                             "would gain nothing — no silent ignores)")
-        return _interleaved_ticks(S, virtual_stages, M, train)
-    lists = [_stage_ops(s, S, M, schedule, train) for s in range(S)]
-    ptr, have, ticks = [0] * S, set(), []
-    while any(p < len(ops) for p, ops in zip(ptr, lists)):
-        row, made = [None] * S, []
-        for s in range(S):
-            if ptr[s] == len(lists[s]):
-                continue
-            op = lists[s][ptr[s]]
-            need = _needs(op, S)
-            if need is None or need in have:
-                row[s] = op
-                ptr[s] += 1
-                out = _makes(op, S, S, train)
-                if out is not None:
-                    made.append(out[0])
-        if not any(row):
-            raise RuntimeError(f"{schedule} schedule deadlocks at S={S}, "
-                               f"M={M}")
-        have.update(made)
-        ticks.append(row)
-    return ticks
 
 
 # -- one rank's stage ------------------------------------------------------------

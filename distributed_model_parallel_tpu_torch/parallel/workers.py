@@ -540,7 +540,7 @@ def fsdp_gathered(spec: MeshSpec, config, train: tuple) -> dict:
                 grads=[p.grad is not None for p in t.model.parameters()])
 
 
-# -- the Transformer LM over (data, model, seq) ---------------------------------
+# -- the Transformer LM over (data, stage, model, seq, expert) -----------------
 
 def on_meshes(spec: MeshSpec, cases: list) -> list:
     """Rank functions of this module on other meshes of the same ranks:
@@ -594,9 +594,11 @@ def seq_attention(spec: MeshSpec, q, k, v, do, sp_impl: str, impl: str,
 
 
 def lm_grads(spec: MeshSpec, config, tree: dict, toks, tgts) -> dict:
-    """The mesh step's loss (the mean over every token) and every
-    gradient after the replica reduction, gathered to whole leaves, at
-    ``tree``'s weights on the global batch (``toks``, ``tgts``)."""
+    """The mesh step's loss (the mean over every token, plus the MoE
+    terms), its metrics and every gradient after the mesh's reduction,
+    gathered to whole leaves in the canonical layer order, at ``tree``'s
+    weights on the global batch (``toks``, ``tgts``) — ``config``'s mesh,
+    microbatches, schedule and virtual stages."""
     from distributed_model_parallel_tpu_torch.parallel import spmd_lm
     from distributed_model_parallel_tpu_torch.train.lm_trainer import (
         LMTrainer,
@@ -604,40 +606,98 @@ def lm_grads(spec: MeshSpec, config, tree: dict, toks, tgts) -> dict:
 
     tr = LMTrainer(config, params=_lm_params(tree, config.model),
                    spec=spec)
-    loss = spmd_lm.make_loss_fn(config.model, spec)(tr.params,
-                                                    *tr._shard(toks, tgts))
-    loss.backward()
-    spmd_lm.reduce_grads(tr.leaves, spec)
+    loss_and_grad = spmd_lm.make_loss_and_grad(
+        config.model, spec, tr.leaves,
+        num_microbatches=config.num_microbatches,
+        schedule=config.pipeline_schedule,
+        virtual_stages=config.virtual_stages, cuts=tr._cuts)
+    metrics = {k: float(v) for k, v in loss_and_grad(
+        tr.params, *tr._shard(toks, tgts)).items()}
     for p in tr.leaves:
         p.data = p.grad
-    return dict(loss=float(spmd_lm._replica_mean(loss.detach(), spec)),
+    return dict(loss=metrics["loss"], metrics=metrics,
                 grads=_np(tr.whole_params()))
 
 
 def lm_steps(spec: MeshSpec, config, tree: dict, batches: list) -> dict:
     """``LMTrainer.train_step`` on each global batch of ``batches`` from
-    ``tree``'s weights: the losses, the whole parameters after, and this
-    rank's slices (for the replica checks)."""
+    ``tree``'s weights: the losses and metrics, the whole parameters
+    after, and this rank's slices after each step (for the replica
+    checks)."""
     from distributed_model_parallel_tpu_torch.train.lm_trainer import (
         LMTrainer,
     )
 
     tr = LMTrainer(config, params=_lm_params(tree, config.model),
                    spec=spec)
-    losses = [tr.train_step(t, g) for t, g in batches]
-    return dict(losses=losses, params=_np(tr.whole_params()),
-                local=_np(tr.params), grid=spec.grid)
+    losses, metrics, slices = [], [], []
+    for t, g in batches:
+        losses.append(tr.train_step(t, g))
+        metrics.append(dict(tr.last_step_metrics))
+        slices.append(_np(tr.params))
+    return dict(losses=losses, metrics=metrics,
+                params=_np(tr.whole_params()), local=_np(tr.params),
+                steps_local=slices, grid=spec.grid)
+
+
+def lm_pipeline_grads(spec: MeshSpec, config, tree: dict, toks, tgts,
+                      schedules: list) -> dict:
+    """:func:`lm_grads` under each schedule of ``schedules``."""
+    import dataclasses
+
+    return {schedule: lm_grads(spec, dataclasses.replace(
+        config, pipeline_schedule=schedule), tree, toks, tgts)
+        for schedule in schedules}
+
+
+def moe_exchange(spec: MeshSpec, tree: dict, x, dy, moe_kw: dict,
+                 shard_x: bool, weights: tuple) -> dict:
+    """``ops/moe.moe_ffn`` with this rank's experts of ``tree`` (router
+    [d, E], w_in [E, d, f], w_out [E, f, d]) over the mesh's expert group,
+    on ``x`` ([B, T, d]; this rank's rows of it under ``shard_x``); the
+    backward of ``sum(y * dy) + weights · stats[:2]``. Returns y, the
+    stats, and the gradients of x and of this rank's router and expert
+    slices."""
+    from distributed_model_parallel_tpu_torch.ops.moe import (
+        MoEConfig,
+        moe_ffn,
+    )
+
+    C.reset_counts()
+    cfg = MoEConfig(**moe_kw)
+    n, r = spec.num_expert, spec.expert_index
+    el = cfg.num_experts // n
+    if shard_x:
+        rows = slice(r * x.shape[0] // n, (r + 1) * x.shape[0] // n)
+        x, dy = x[rows], dy[rows]
+    params = {"router": torch.from_numpy(np.array(tree["router"])),
+              "w_in": torch.from_numpy(np.array(
+                  tree["w_in"][r * el:(r + 1) * el])),
+              "w_out": torch.from_numpy(np.array(
+                  tree["w_out"][r * el:(r + 1) * el]))}
+    for v in params.values():
+        v.requires_grad_(True)
+    xt = torch.from_numpy(np.array(x)).requires_grad_(True)
+    y, stats = moe_ffn(params, xt, cfg, spec.expert_group)
+    loss = ((y * torch.from_numpy(np.array(dy))).sum()
+            + weights[0] * stats[0] + weights[1] * stats[1])
+    loss.backward()
+    return dict(y=_np(y), stats=_np(stats), dx=_np(xt.grad),
+                grads={k: _np(v.grad) for k, v in params.items()},
+                calls=dict(C.calls))
 
 
 def lm_preempt_resume(spec: MeshSpec, configs: dict, tree: dict,
-                      preempt_at: tuple, other_mesh=None) -> dict:
+                      preempt_at: tuple, other_mesh=None,
+                      refused: dict | None = None) -> dict:
     """``configs["full"]``'s uninterrupted ``fit`` against ``configs
     ["cut"]``'s, preempted by a ``step_hook`` at ``preempt_at`` (epoch,
     step) and finished by a trainer with ``resume=True``: per run the
     history, the per-step losses, the whole parameters, the optimizer
     state tree, the global step and (rank 0) the text log's lines. With
     ``other_mesh``, the message of a resume of the same checkpoint laid
-    out as that mesh (a refusal)."""
+    out as that mesh (a refusal); with ``refused``, the message of a
+    resume under each of its configs (on the same mesh)."""
     from distributed_model_parallel_tpu_torch.train.lm_trainer import (
         LMTrainer,
     )
@@ -645,6 +705,7 @@ def lm_preempt_resume(spec: MeshSpec, configs: dict, tree: dict,
     def state(tr, history, steps):
         out = dict(history=history, steps=steps,
                    params=_np(tr.whole_params()),
+                   storage=_np(tr.storage_params()),
                    opt_state=tr.opt_state_tree(),
                    global_step=tr.global_step)
         if tr.logger is not None:
@@ -674,6 +735,13 @@ def lm_preempt_resume(spec: MeshSpec, configs: dict, tree: dict,
     out["cut"] = state(resumed, first + resumed.fit(),
                        [r["loss"] for r in cut.step_log + resumed.step_log])
     out["preempted_after"] = len(first)
+    out["refused"] = {}
+    for name, config in (refused or {}).items():
+        try:
+            LMTrainer(dataclasses.replace(config, resume=True), spec=spec)
+            out["refused"][name] = None
+        except ValueError as e:
+            out["refused"][name] = str(e)
     if other_mesh is not None:
         from distributed_model_parallel_tpu_torch import mesh
 

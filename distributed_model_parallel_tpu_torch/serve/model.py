@@ -76,7 +76,7 @@ def paged_block(bp: dict, ck: torch.Tensor, cv: torch.Tensor, layer: int,
                         impl=impl)
     x = x + o.reshape(b, c, -1) @ bp["wo"]
     h = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
-    return x + _ffn(bp, h)
+    return x + _ffn(bp, h)[0]
 
 
 def _layers(params: dict, ck, cv, x, positions, writes, tables, lengths,

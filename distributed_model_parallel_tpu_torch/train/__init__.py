@@ -1,5 +1,5 @@
-"""Training of the port: the Transformer LM over a ``(data, model, seq)``
-mesh, the CNNs on one device, data-parallel over ranks or pipelined over
+"""Training of the port: the Transformer LM over a ``(data, stage, model,
+seq, expert)`` mesh, the CNNs on one device, data-parallel over ranks or pipelined over
 stages.
 
 * :mod:`.lm_trainer` — ``LMTrainConfig``, ``LMTrainer`` (its step is

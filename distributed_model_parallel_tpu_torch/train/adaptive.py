@@ -20,15 +20,16 @@ Whole-leaf reductions — the norms of lars and lamb's trust ratio, the
 RMS of adafactor's block clip and parameter scale, and its factored row
 and column means — read a :class:`LeafLayout` per leaf: the leaf's shape
 in the port's layout, the port dim of each of its JAX dims (adafactor
-factors by the JAX shape, as optax does in the JAX package) and, for an
-FSDP slice, the dim it is sharded along over a process group; a sum over
-a sharded dim is all-reduced over that group, so a slice's update is the
-whole leaf's.
+factors by the JAX shape, as optax does in the JAX package) and, for a
+slice, each dim it is cut along over a process group (FSDP's one cut;
+the LM's cuts over the stage, model and expert axes, up to two at once);
+a sum over a cut dim is all-reduced over that cut's group, so a slice's
+update is the whole leaf's, each distinct slice counted once.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple
+from typing import NamedTuple
 
 import torch
 
@@ -40,13 +41,13 @@ NAMES = ("adam", "adamw", "lamb", "lars", "adafactor")
 class LeafLayout(NamedTuple):
     """How a leaf maps onto the whole leaf of the JAX package: ``shape``
     the whole leaf's shape in the port's layout, ``jax_dims`` the port dim
-    of each JAX dim, ``shard_dim`` the port dim a slice is cut along over
-    ``group`` (None: the leaf is whole)."""
+    of each JAX dim, ``cuts`` every ``(dim, group)`` the slice is cut
+    along, each port dim over its process group (empty: the leaf is
+    whole)."""
 
     shape: tuple
     jax_dims: tuple
-    shard_dim: int | None = None
-    group: Any = None
+    cuts: tuple = ()
 
 
 def plain_layout(t: torch.Tensor) -> LeafLayout:
@@ -55,22 +56,28 @@ def plain_layout(t: torch.Tensor) -> LeafLayout:
 
 
 def _sums(parts: list[torch.Tensor], layouts: list[LeafLayout],
-          sharded: list[bool]) -> list[torch.Tensor]:
-    """``parts[i]`` summed over the ranks of its layout's group where
-    ``sharded[i]``: one all-reduce per group, of every such part."""
-    groups: dict = {}
-    for i, (lay, s) in enumerate(zip(layouts, sharded)):
-        if s:
-            groups.setdefault(id(lay.group), (lay.group, []))[1].append(i)
+          sharded: list[bool], kind: str = "optimizer"
+          ) -> list[torch.Tensor]:
+    """``parts[i]`` summed over the ranks of every group its layout is cut
+    over where ``sharded[i]``: one all-reduce per group, of every part
+    cut over it (a part cut twice, over each of its two groups in
+    turn)."""
     out = list(parts)
-    for group, idx in groups.values():
-        flat = torch.cat([parts[i].reshape(-1) for i in idx])
-        all_reduce_(flat, group, kind="optimizer")
-        off = 0
-        for i in idx:
-            n = parts[i].numel()
-            out[i] = flat[off:off + n].view(parts[i].shape)
-            off += n
+    for level in range(max((len(lay.cuts) for lay, s in
+                            zip(layouts, sharded) if s), default=0)):
+        groups: dict = {}
+        for i, (lay, s) in enumerate(zip(layouts, sharded)):
+            if s and level < len(lay.cuts):
+                group = lay.cuts[level][1]
+                groups.setdefault(id(group), (group, []))[1].append(i)
+        for group, idx in groups.values():
+            flat = torch.cat([out[i].reshape(-1) for i in idx])
+            all_reduce_(flat, group, kind=kind)
+            off = 0
+            for i in idx:
+                n = out[i].numel()
+                out[i] = flat[off:off + n].view(out[i].shape)
+                off += n
     return out
 
 
@@ -79,7 +86,7 @@ def leaf_norms(xs: list[torch.Tensor],
     """``jnp.linalg.norm`` of each whole leaf, ``sqrt(sum(x * x))``, as
     one vector: a slice's squared norm summed over its group first."""
     norms = list(torch._foreach_norm(xs))
-    sharded = [lay.shard_dim is not None for lay in layouts]
+    sharded = [bool(lay.cuts) for lay in layouts]
     if any(sharded):
         sq = _sums([n * n for n in norms], layouts, sharded)
         norms = [q.sqrt() if s else n for q, n, s in zip(sq, norms, sharded)]
@@ -135,8 +142,8 @@ def _bias_correction(decay: float, count: int) -> torch.Tensor:
 class Transform:
     """One optimizer's chain over a fixed list of leaves. ``state`` maps a
     state name to its per-leaf tensors (None where the leaf has none);
-    ``shard_axes[name][i]``: the dim of that state tensor cut along the
-    leaf's shard dim (None: whole)."""
+    ``cut_dims[name][i]``: the dim of that state tensor along each of the
+    leaf's cuts (None where a reduction removed it; empty: whole)."""
 
     def __init__(self, params: list[torch.Tensor],
                  layouts: list[LeafLayout] | None = None):
@@ -144,11 +151,12 @@ class Transform:
         if len(self.layouts) != len(params):
             raise ValueError("one LeafLayout per parameter")
         self.state: dict[str, list] = {}
-        self.shard_axes: dict[str, list] = {}
+        self.cut_dims: dict[str, list] = {}
 
     def _zeros(self, name: str, params) -> None:
         self.state[name] = [torch.zeros_like(p) for p in params]
-        self.shard_axes[name] = [lay.shard_dim for lay in self.layouts]
+        self.cut_dims[name] = [tuple(d for d, _ in lay.cuts)
+                               for lay in self.layouts]
 
     def update(self, grads: list, params: list, lr: float,
                count: int) -> list[torch.Tensor]:
@@ -237,37 +245,32 @@ class Adafactor(Transform):
         self.dims = [factored_dims(lay, min_dim_size) for lay in self.layouts]
         for name in ("v_row", "v_col", "v"):
             self.state[name] = [None] * len(params)
-            self.shard_axes[name] = [None] * len(params)
+            self.cut_dims[name] = [()] * len(params)
         for i, (p, lay, dims) in enumerate(zip(params, self.layouts,
                                                self.dims)):
+            cut = tuple(d for d, _ in lay.cuts)
             if dims is None:
                 self.state["v"][i] = torch.zeros_like(p)
-                self.shard_axes["v"][i] = lay.shard_dim
+                self.cut_dims["v"][i] = cut
                 continue
             d1, d0 = dims
             self.state["v_row"][i] = torch.zeros_like(p.sum(d0))
             self.state["v_col"][i] = torch.zeros_like(p.sum(d1))
-            self.shard_axes["v_row"][i] = _drop(lay.shard_dim, d0)
-            self.shard_axes["v_col"][i] = _drop(lay.shard_dim, d1)
+            self.cut_dims["v_row"][i] = tuple(_drop(d, d0) for d in cut)
+            self.cut_dims["v_col"][i] = tuple(_drop(d, d1) for d in cut)
 
     def _mean(self, x: torch.Tensor, dim: int, lay: LeafLayout,
-              shard_dim: int | None, keepdim: bool = False) -> torch.Tensor:
+              cut_dims: tuple, keepdim: bool = False) -> torch.Tensor:
         """The mean over ``dim`` of the whole leaf's ``x`` (``x`` is cut
-        along ``shard_dim``, when not None)."""
+        along ``cut_dims``, one per cut of ``lay``; None where gone)."""
         s = x.sum(dim, keepdim=keepdim)
-        if shard_dim is not None and dim == shard_dim:
-            s = _sums([s], [lay], [True])[0]
-        return s / self._size(x, dim, lay, shard_dim)
-
-    @staticmethod
-    def _size(x, dim, lay, shard_dim) -> int:
-        if shard_dim is not None and dim == shard_dim:
-            from distributed_model_parallel_tpu_torch.ops.collectives import (
-                world_size,
-            )
-
-            return x.shape[dim] * world_size(lay.group)
-        return x.shape[dim]
+        n = x.shape[dim]
+        for d, (_, group) in zip(cut_dims, lay.cuts):
+            if d == dim:
+                s = _sums([s], [LeafLayout(lay.shape, lay.jax_dims,
+                                           ((d, group),))], [True])[0]
+                n *= _world(group)
+        return s / n
 
     def update(self, grads, params, lr, count):
         t = torch.tensor(count + 1, dtype=torch.float32)
@@ -292,15 +295,16 @@ class Adafactor(Transform):
             if dims is None:
                 continue
             d1, d0 = dims
-            sd = lay.shard_dim
+            cut = tuple(d for d, _ in lay.cuts)
             g_sqr = g * g + self.eps
             st["v_row"][i] = (r * st["v_row"][i]
-                              + one_minus * self._mean(g_sqr, d0, lay, sd))
+                              + one_minus * self._mean(g_sqr, d0, lay, cut))
             st["v_col"][i] = (r * st["v_col"][i]
-                              + one_minus * self._mean(g_sqr, d1, lay, sd))
+                              + one_minus * self._mean(g_sqr, d1, lay, cut))
             reduced_d1 = d1 - 1 if d1 > d0 else d1
             row_mean = self._mean(st["v_row"][i], reduced_d1, lay,
-                                  _drop(sd, d0), keepdim=True)
+                                  tuple(_drop(d, d0) for d in cut),
+                                  keepdim=True)
             row_factor = (st["v_row"][i] / row_mean).pow(-0.5)
             col_factor = st["v_col"][i].pow(-0.5)
             out[i] = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
@@ -318,6 +322,14 @@ class Adafactor(Transform):
             torch._foreach_add_(out, torch._foreach_mul(
                 params, self.weight_decay_rate))
         return torch._foreach_neg(out)
+
+
+def _world(group) -> int:
+    from distributed_model_parallel_tpu_torch.ops.collectives import (
+        world_size,
+    )
+
+    return world_size(group)
 
 
 def _drop(shard_dim: int | None, removed: int) -> int | None:

@@ -1,30 +1,36 @@
-"""Trainer for the Transformer LM over a ``(data, model, seq)`` mesh.
+"""Trainer for the Transformer LM over a ``(data, stage, model, seq,
+expert)`` mesh.
 
-Counterpart of ``distributed_model_parallel_tpu/train/lm_trainer.py``
-with no stage axis, one microbatch and ``gpipe``: the same synthetic
-token stream, the same stateless batch draws per (seed, epoch, step),
-the same held-out evaluation rule, history records and run logs, and
-checkpoint/resume over the slots ``"lm"`` (every epoch) and
-``"lm-preempt"``. One trainer runs on each rank of the mesh's process
-group (``mesh.spawn``, ``train_lm --nproc`` or torchrun), or alone at
+Counterpart of ``distributed_model_parallel_tpu/train/lm_trainer.py``:
+the same synthetic token stream, the same stateless batch draws per
+(seed, epoch, step), the same held-out evaluation rule, history records
+and run logs, and checkpoint/resume over the slots ``"lm"`` (every
+epoch) and ``"lm-preempt"``. One trainer runs on each rank of the mesh's
+process group (``mesh.spawn``, ``train_lm`` or torchrun), or alone at
 world 1. The step is ``parallel/spmd_lm.make_spmd_train_step``: the
 rank's loss on its shard of the batch (Megatron tensor parallelism over
-the model axis, ring or Ulysses attention over the seq axis), its
-gradient by autograd (the flash kernels' backward on the card), the
-gradients averaged over the replica group, then the optimizer's update in
-place (any of ``train/optim.make_optimizer``'s, whole-leaf norms over the
-model group for the slices; ``fused`` and ``ema_decay`` are refused, as
-the JAX LM trainer refuses them).
+the model axis, ring or Ulysses attention over the seq axis, the MoE
+experts over the expert axis), through the SPMD pipeline over the stage
+axis where the mesh or the schedule asks for it (``num_microbatches``,
+``pipeline_schedule``, ``virtual_stages``), its gradient by autograd
+(the flash kernels' backward on the card), completed over the mesh, then
+the optimizer's update in place (any of ``train/optim.make_optimizer``'s,
+whole-leaf norms over every axis a slice is cut along; ``fused`` and
+``ema_decay`` are refused, as the JAX LM trainer refuses them). Under
+``virtual_stages > 1`` the blocks and their optimizer state live in JAX's
+interleaved storage order for the whole run; :meth:`whole_params`
+exports the canonical order. MoE steps log ``moe_balance``, ``moe_z`` and
+``moe_drop``, and each epoch's record ``moe_drop_rate``.
 
 The checkpoint is the JAX trainer's tree: parameters and optimizer state
-as whole leaves in the JAX layout (gathered over the model group to the
-writer, global rank 0), the epoch, ``virtual_stages`` and the
-exact-continuation subtree; every rank restores its own slices. Not
-ported yet, and refused by name: a stage axis, more than one
-microbatch, ``1f1b`` and virtual stages (ROADMAP A9: spmd_pipeline), MoE
-(A9), ``strategy="auto"``, a restore across another mesh split, the
-emergency and "good" slots, elastic restarts, guards, the consistency
-sentinel, recovery, fault injection and the status exporter (A11).
+as whole leaves in the JAX layout and the storage order (gathered over
+the stage, model and expert groups to the writer, global rank 0), the
+epoch, ``virtual_stages`` (a resume with another count is refused, in
+the JAX trainer's words) and the exact-continuation subtree; every rank
+restores its own slices. Not ported yet, and refused by name:
+``strategy="auto"``, a restore across another mesh split, the emergency
+and "good" slots, elastic restarts, guards, the consistency sentinel,
+recovery, fault injection and the status exporter (A11).
 """
 
 from __future__ import annotations
@@ -41,11 +47,9 @@ from distributed_model_parallel_tpu_torch.config import (
     RecoveryConfig,
 )
 from distributed_model_parallel_tpu_torch.models import transformer as tfm
-from distributed_model_parallel_tpu_torch.ops.collectives import (
-    all_gather_concat,
-    all_reduce_,
-)
+from distributed_model_parallel_tpu_torch.ops.collectives import all_reduce_
 from distributed_model_parallel_tpu_torch.parallel import spmd_lm
+from distributed_model_parallel_tpu_torch.parallel import spmd_pipeline
 from distributed_model_parallel_tpu_torch.parallel import (
     tensor_parallel as tp,
 )
@@ -186,7 +190,14 @@ def check_lm_config(config: LMTrainConfig) -> None:
             "the flat concat would gather them to full size every "
             "step — use it on the replicated-param CNN trainer paths "
             "(gspmd/ddp) — no silent ignores")
-    tfm.check_training_config(config.model)
+    spmd_lm.check_spmd_config(config.model, config.mesh,
+                              config.num_microbatches,
+                              config.pipeline_schedule,
+                              config.virtual_stages)
+    # JAX raises this when it traces the step; the port at once.
+    local, m = config.batch_size // config.mesh.data, config.num_microbatches
+    if local % m:
+        raise ValueError(f"local batch {local} not divisible by M={m}")
 
 
 def _paths(params: dict) -> list[tuple]:
@@ -226,19 +237,19 @@ class LMTrainer:
     process joined, or a lone process at world 1). ``params`` (optional):
     a whole parameter tree in the JAX layout on the rank's device, e.g.
     :func:`~..models.transformer.params_from_jax` of another run's
-    weights; default :func:`init_params` from ``seed``. The trainer keeps
-    this rank's slices (``parallel/tensor_parallel.shard_params``);
-    :meth:`whole_params` gathers them back. ``step_log`` holds one record
-    per training step (the JAX trainer's per-step telemetry)."""
+    weights; default :func:`init_params` from ``seed``; in the canonical
+    layer order (the trainer interleaves the blocks' rows under
+    ``virtual_stages > 1``). The trainer keeps this rank's slices
+    (``parallel/tensor_parallel.shard_tree``); :meth:`whole_params`
+    gathers them back. ``step_log`` holds one record per training step
+    (the JAX trainer's per-step telemetry, with the MoE router's stats
+    for an MoE model)."""
 
     def __init__(self, config: LMTrainConfig, params: dict | None = None,
                  spec=None):
         from distributed_model_parallel_tpu_torch import mesh as mesh_mod
 
         check_lm_config(config)
-        spmd_lm.check_spmd_config(config.mesh, config.num_microbatches,
-                                  config.pipeline_schedule,
-                                  config.virtual_stages)
         cfg = config.model
         self.config = config
         self.cfg = cfg
@@ -247,18 +258,20 @@ class LMTrainer:
         self.device = self.spec.device
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        n_model = self.spec.num_model
-        self._dims = tp.param_shard_dims(cfg, n_model)
         if params is None:
             params = tfm.init_params(cfg, seed=config.seed,
                                      device=self.device)
         self._paths = _paths(params)
         if any(_at(params, p).device != self.device for p in self._paths):
             raise ValueError(f"params must lie on {self.device}")
-        self.params = tp.shard_params(params, cfg, n_model,
-                                      self.spec.model_index)
+        params = dict(params, blocks=spmd_pipeline.interleave_block_rows(
+            params["blocks"], cfg.n_layers, self.spec.num_stages,
+            config.virtual_stages))
+        self.params = tp.shard_tree(params, cfg, self.spec)
         del params
         self.leaves = [_at(self.params, p) for p in self._paths]
+        cuts = tp.param_cuts(cfg, self.spec)
+        self._cuts = [_at(cuts, p) for p in self._paths]
         for p in self.leaves:
             p.requires_grad_(True)
         self.optimizer = make_optimizer(
@@ -268,9 +281,14 @@ class LMTrainer:
             cfg, self.spec, self.optimizer, self.leaves,
             num_microbatches=config.num_microbatches,
             schedule=config.pipeline_schedule,
-            virtual_stages=config.virtual_stages)
+            virtual_stages=config.virtual_stages, cuts=self._cuts)
+        # The rank's LM pipeline (None on the plain path): its tables.
+        self.pipeline = self._step.pipeline
         self._eval_loss = spmd_lm.make_spmd_eval_loss(
-            cfg, self.spec, config.num_microbatches)
+            cfg, self.spec, config.num_microbatches,
+            schedule=config.pipeline_schedule,
+            virtual_stages=config.virtual_stages)
+        self.last_step_metrics: dict = {}
 
         self.tokens = make_token_stream(cfg.vocab_size, config.n_tokens,
                                         config.seed)
@@ -345,24 +363,22 @@ class LMTrainer:
         return self._global_step
 
     def _layouts(self) -> list:
-        """An ``adaptive.LeafLayout`` per leaf: the whole JAX shape and, for
-        a tensor-parallel slice, its cut dim over the model group."""
+        """An ``adaptive.LeafLayout`` per leaf: the whole JAX shape and
+        every cut of the slice (its dim and group over the stage, model
+        and expert axes)."""
         from distributed_model_parallel_tpu_torch.train.adaptive import (
             LeafLayout,
         )
 
-        n = self.spec.num_model
         out = []
-        for path, leaf in zip(self._paths, self.leaves):
-            dim = _at(self._dims, path)
-            if dim is None or n == 1:
-                out.append(LeafLayout(tuple(leaf.shape),
-                                      tuple(range(leaf.ndim))))
-                continue
+        for leaf, cuts in zip(self.leaves, self._cuts):
             shape = list(leaf.shape)
-            shape[dim] *= n
+            groups = []
+            for axis, dim in cuts:
+                shape[dim] *= tp.axis_size(self.spec, axis)
+                groups.append((dim, tp.axis_group(self.spec, axis)))
             out.append(LeafLayout(tuple(shape), tuple(range(leaf.ndim)),
-                                  dim, self.spec.model_group))
+                                  tuple(groups)))
         return out
 
     def _log_line(self, message: str) -> None:
@@ -420,7 +436,8 @@ class LMTrainer:
         over every token) read back to the host, after the card has
         finished the step."""
         step_m = self._step(self.params, *self._shard(toks, tgts))
-        loss = float(step_m["loss"])
+        self.last_step_metrics = {k: float(v) for k, v in step_m.items()}
+        loss = self.last_step_metrics["loss"]
         if self.device.type == "cuda":
             # The JAX loop's float(loss) sync ends the step there; here
             # the optimizer's kernels run after the loss, so wait for them.
@@ -431,6 +448,7 @@ class LMTrainer:
         """One training epoch + eval: the history record, or None when a
         preemption stopped the epoch (the checkpoint already written)."""
         meter = AverageMeter("loss")
+        drop_meter = AverageMeter("moe_drop")
         timer = StepTimer()
         tokens_per_step = self.config.batch_size * self.config.seq_len
         if epoch != self._pos_epoch:
@@ -444,13 +462,18 @@ class LMTrainer:
             timer.data_ready()
             loss = self.train_step(toks, tgts)
             meter.update(loss)
+            moe = {k: v for k, v in self.last_step_metrics.items()
+                   if k.startswith("moe_")}
+            if "moe_drop" in moe:
+                drop_meter.update(moe["moe_drop"])
             self._pos_step = step_i + 1
             self._global_step += 1
             timer.step_done()
             self.step_log.append(dict(
                 epoch=epoch, step=step_i, loss=loss,
                 step_time_s=timer.step.last, data_time_s=timer.data.last,
-                tokens_per_s=tokens_per_step / max(timer.step.last, 1e-9)))
+                tokens_per_s=tokens_per_step / max(timer.step.last, 1e-9),
+                **moe))
         if self.preemption.requested():
             # Partial epoch: save for resume at this epoch and stop.
             self.start_epoch = epoch
@@ -466,11 +489,15 @@ class LMTrainer:
             loss_val = self.evaluate()
         else:
             loss_val = None
-        return dict(epoch=epoch, loss_train=meter.avg, loss_val=loss_val,
-                    time_per_batch=timer.step.avg,
-                    time_load_per_batch=timer.data.avg,
-                    tokens_per_s=tokens_per_step
-                    / max(timer.step.avg, 1e-9))
+        record = dict(epoch=epoch, loss_train=meter.avg, loss_val=loss_val,
+                      time_per_batch=timer.step.avg,
+                      time_load_per_batch=timer.data.avg,
+                      tokens_per_s=tokens_per_step
+                      / max(timer.step.avg, 1e-9))
+        if drop_meter.count:
+            # The share of token-choices dropped at capacity this epoch.
+            record["moe_drop_rate"] = drop_meter.avg
+        return record
 
     def fit(self, epochs: int | None = None) -> list[dict]:
         """Train epochs ``start_epoch .. epochs - 1`` (default
@@ -512,31 +539,71 @@ class LMTrainer:
             one.item()
 
     def _ckpt_meta(self) -> dict:
-        """Manifest stamp: the saving topology and the exact position."""
+        """Manifest stamp: the saving topology, the virtual stages (the
+        blocks' storage order) and the exact position."""
         return manifest_stamp("lm", self.config.mesh,
                               self.config.mesh.num_devices,
-                              self._global_step)
+                              self._global_step,
+                              virtual_stages=self.config.virtual_stages)
 
-    def _gather(self, t: torch.Tensor, dim) -> torch.Tensor:
-        if dim is None or self.spec.num_model == 1:
-            return t
-        return all_gather_concat(t.detach().contiguous(),
-                                 self.spec.model_group, axis=dim)
+    def _check_virtual_stages(self, ckpt_v: int) -> None:
+        """Refuse, in the JAX trainer's words, a checkpoint whose blocks
+        are in another interleaved storage order."""
+        if ckpt_v != self.config.virtual_stages:
+            raise ValueError(
+                f"checkpoint was written with virtual_stages={ckpt_v} "
+                f"(blocks+opt-state rows in that interleaved storage "
+                f"order) but this run has virtual_stages="
+                f"{self.config.virtual_stages}; convert the blocks with "
+                f"parallel.spmd_pipeline.deinterleave_block_rows/"
+                f"interleave_block_rows (optimizer state rows too) or "
+                f"resume with the matching V")
+
+    def _gather(self, t: torch.Tensor, cuts: tuple) -> torch.Tensor:
+        """The whole leaf of a slice cut by ``cuts`` (dims of ``t``)."""
+        return tp.gather_leaf(t, cuts, self.spec)
+
+    @torch.no_grad()
+    def storage_params(self) -> dict:
+        """The parameters as whole leaves in the JAX layout and the run's
+        storage order (gathered over the stage, model and expert groups;
+        every rank calls)."""
+        return _tree(self._paths, [self._gather(p, c) for p, c in
+                                   zip(self.leaves, self._cuts)])
 
     @torch.no_grad()
     def whole_params(self) -> dict:
-        """The parameters as whole leaves in the JAX layout (gathered over
-        the model group; every rank calls)."""
-        return _tree(self._paths, [
-            self._gather(p, _at(self._dims, path))
-            for path, p in zip(self._paths, self.leaves)])
+        """The parameters as whole leaves in the JAX layout and the
+        canonical layer order (JAX's ``_canonical_params``; every rank
+        calls)."""
+        out = self.storage_params()
+        out["blocks"] = spmd_pipeline.deinterleave_block_rows(
+            out["blocks"], self.cfg.n_layers, self.spec.num_stages,
+            self.config.virtual_stages)
+        return out
+
+    def _whole_host(self, t: torch.Tensor, cuts: tuple) -> np.ndarray:
+        """The whole leaf of a slice as a checkpoint array (a gather: every
+        rank calls)."""
+        return _host(self._gather(t, cuts))
+
+    def _whole_shape(self, t: torch.Tensor, cuts: tuple) -> np.ndarray:
+        """A zero-cost stand-in with the whole leaf's shape (the restore's
+        template reads keys and shapes only; no gather)."""
+        shape = list(t.shape)
+        for axis, dim in cuts:
+            shape[dim] *= tp.axis_size(self.spec, axis)
+        return np.broadcast_to(np.zeros((), np.float32), shape)
 
     @torch.no_grad()
-    def opt_state_tree(self) -> dict:
+    def opt_state_tree(self, fetch=None) -> dict:
         """The optimizer's state as whole leaves (numpy, the JAX layout):
         the update count, SGD's momentum, every ``leaf_state()`` tensor
         (adam's mu/nu, lars' trace, adafactor's statistics, the
-        accumulated mean), the accumulation counters. Every rank calls."""
+        accumulated mean), the accumulation counters. Every rank calls.
+        ``fetch(slice, cuts)`` makes each leaf (default: the gathered
+        whole leaf)."""
+        fetch = fetch or self._whole_host
         opt = self.optimizer
         counters = opt.counters()
         out = {"count": np.asarray(counters.pop("count"), np.int32)}
@@ -545,28 +612,37 @@ class LMTrainer:
                             for k, v in counters.items()}
         if hasattr(opt, "opt") and opt.opt.defaults.get("momentum"):
             moms = []
-            for i, (path, p) in enumerate(zip(self._paths, self.leaves)):
+            for i, (p, cuts) in enumerate(zip(self.leaves, self._cuts)):
                 m = opt.momentum_buffer(i)
                 m = torch.zeros_like(p) if m is None else m
-                moms.append(_host(self._gather(m, _at(self._dims, path))))
+                moms.append(fetch(m, cuts))
             out["momentum"] = _tree(self._paths, moms)
         for name, tensors in sorted(opt.leaf_state().items()):
-            axes = opt.state_shard_axes(name)
             out[name] = _tree(self._paths, [
-                np.zeros((1,), np.float32) if t is None
-                else _host(self._gather(t, axis))
-                for t, axis in zip(tensors, axes)])
+                np.zeros((1,), np.float32) if t is None else fetch(t, cuts)
+                for t, cuts in zip(tensors, self._state_cuts(name))])
         return out
 
-    def _ckpt_tree(self) -> dict:
+    def _state_cuts(self, name: str) -> list:
+        """Per leaf, the cuts of ``leaf_state()[name]``: the leaf's, each
+        at the dim the state tensor keeps it (a reduced dim drops its
+        cut)."""
+        dims = self.optimizer.state_cut_dims(name)
+        return [tuple((axis, d) for (axis, _), d in zip(cuts, ds)
+                      if d is not None)
+                for cuts, ds in zip(self._cuts, dims)]
+
+    def _ckpt_tree(self, template: bool = False) -> dict:
         """The JAX trainer's checkpoint tree (``_ckpt_tree``): whole
-        parameters and optimizer state, epoch, ``virtual_stages`` and the
-        exact-continuation subtree. Every rank calls (the gathers are
-        collectives); the writer saves it."""
-        whole = self.whole_params()
-        params = _tree(self._paths, [_host(_at(whole, p))
-                                     for p in self._paths])
-        return {"params": params, "opt_state": self.opt_state_tree(),
+        parameters (in storage order) and optimizer state, epoch,
+        ``virtual_stages`` and the exact-continuation subtree. Every rank
+        calls (the gathers are collectives); the writer saves it. With
+        ``template`` the leaves are shape stand-ins, gathered from no
+        one (a restore's template)."""
+        fetch = self._whole_shape if template else self._whole_host
+        params = _tree(self._paths, [fetch(p, c) for p, c in
+                                     zip(self.leaves, self._cuts)])
+        return {"params": params, "opt_state": self.opt_state_tree(fetch),
                 "epoch": np.asarray(self.start_epoch, np.int32),
                 "virtual_stages": np.asarray(self.config.virtual_stages,
                                              np.int32),
@@ -575,37 +651,36 @@ class LMTrainer:
                     self.config.steps_per_epoch, self._global_step,
                     {"retries_left": 0, "lr_scale": 1.0})}
 
-    def _slice(self, a: np.ndarray, like: torch.Tensor, dim) -> torch.Tensor:
+    def _slice(self, a: np.ndarray, like: torch.Tensor,
+               cuts: tuple) -> torch.Tensor:
         """This rank's part of a whole checkpoint array, as ``like``'s
         dtype on its device."""
-        t = torch.from_numpy(np.asarray(a, np.float32).copy())
-        if dim is not None and self.spec.num_model > 1:
-            t = t.chunk(self.spec.num_model, dim)[self.spec.model_index]
+        t = tp.cut_leaf(torch.from_numpy(np.asarray(a, np.float32).copy()),
+                        cuts, self.spec)
         return t.to(device=like.device, dtype=like.dtype)
 
     @torch.no_grad()
     def _load_tree(self, tree: dict) -> None:
         """Adopt a restored checkpoint: this rank's slices of the
         parameters and of the optimizer's state, and its counters."""
-        dims = [_at(self._dims, p) for p in self._paths]
-        for p, path, dim in zip(self.leaves, self._paths, dims):
-            p.copy_(self._slice(_at(tree["params"], path), p, dim))
+        for p, path, cuts in zip(self.leaves, self._paths, self._cuts):
+            p.copy_(self._slice(_at(tree["params"], path), p, cuts))
         opt = self.optimizer
         state = tree["opt_state"]
         counters = {"count": int(state["count"]),
                     **{k: int(v) for k, v in state.get("accum", {}).items()}}
         parts = {}
         for name, tensors in opt.leaf_state().items():
-            axes = opt.state_shard_axes(name)
             parts[name] = [None if t is None else self._slice(
-                _at(state[name], path), t, axis)
-                for t, path, axis in zip(tensors, self._paths, axes)]
+                _at(state[name], path), t, cuts)
+                for t, path, cuts in zip(tensors, self._paths,
+                                         self._state_cuts(name))]
         opt.load_state(counters, parts)
         if "momentum" in state and counters["count"] > 0:
-            for i, (p, path, dim) in enumerate(zip(self.leaves, self._paths,
-                                                   dims)):
+            for i, (p, path, cuts) in enumerate(zip(
+                    self.leaves, self._paths, self._cuts)):
                 opt.set_momentum_buffer(i, self._slice(
-                    _at(state["momentum"], path), p, dim))
+                    _at(state["momentum"], path), p, cuts))
 
     def _resume(self) -> None:
         """Restore the newest valid of ``RESUME_SLOTS`` on every rank (each
@@ -617,7 +692,14 @@ class LMTrainer:
                 f"resume: the newest checkpoint is slot {newest!r}, which "
                 f"the emergency/recovery planes write; restoring from it "
                 f"is not ported yet (ROADMAP A11: emergency checkpoints)")
-        name, restored = restore_newest(self.ckpt, self._ckpt_tree(),
+        # The newest version's stamp says its storage order before the
+        # gathers and the read of a whole restore.
+        stamped = read_manifest_meta(self.ckpt._latest_path(newest)).get(
+            "virtual_stages")
+        if stamped is not None:
+            self._check_virtual_stages(int(stamped))
+        name, restored = restore_newest(self.ckpt,
+                                        self._ckpt_tree(template=True),
                                         RESUME_SLOTS, self._log_line)
         saved = read_manifest_meta(self.ckpt.last_restored_path).get("mesh")
         current = self._ckpt_meta()["mesh"]
@@ -626,11 +708,7 @@ class LMTrainer:
                 f"resume: slot {name!r} was written on mesh {saved}, this "
                 f"run's mesh is {current}; a restore onto another split is "
                 f"not ported yet (ROADMAP A11: resharded restore)")
-        ckpt_v = int(restored["virtual_stages"])
-        if ckpt_v != self.config.virtual_stages:
-            raise ValueError(
-                f"checkpoint was written with virtual_stages={ckpt_v} but "
-                f"this run has virtual_stages={self.config.virtual_stages}")
+        self._check_virtual_stages(int(restored["virtual_stages"]))
         self._load_tree(restored)
         self.start_epoch = int(restored["epoch"])
         (self._pos_epoch, self._pos_step, self._global_step,

@@ -125,17 +125,29 @@ def clip_by_global_norm_(grads: list, max_norm: float, group=None,
     (a pipeline's stages), and the norm is the whole tree's: the squared
     sums are all-reduced before the root. ``layouts``
     (``adaptive.LeafLayout`` per gradient): the squared sums of the slices
-    (FSDP's) are all-reduced over their group, the whole leaves' added
-    once."""
-    if layouts is not None and any(lay.shard_dim is not None
-                                   for lay in layouts):
+    (FSDP's; the LM's over the stage, model and expert axes) are
+    all-reduced over the groups they are cut over, the whole leaves'
+    added once."""
+    if layouts is not None and any(lay.cuts for lay in layouts):
+        from distributed_model_parallel_tpu_torch.train.adaptive import (
+            _sums,
+        )
+
         parts = [g.float().pow(2).sum() for g in grads]
-        sharded = [lay.shard_dim is not None for lay in layouts]
+        sharded = [bool(lay.cuts) for lay in layouts]
+        # One partial sum per distinct set of cut groups, completed over
+        # each of them: a slice is counted once, a replica never twice.
+        keys: dict = {}
+        for p, lay, s in zip(parts, layouts, sharded):
+            if s:
+                key = tuple(id(g) for _, g in lay.cuts)
+                part, _ = keys.get(key, (0.0, lay))
+                keys[key] = (part + p, lay)
+        done = _sums([v[0] for v in keys.values()],
+                     [v[1] for v in keys.values()], [True] * len(keys),
+                     kind="clip_norm")
         dev = grads[0].device
-        sq = sum((p for p, s in zip(parts, sharded) if s),
-                 torch.zeros((), device=dev))
-        lay = next(x for x in layouts if x.shard_dim is not None)
-        all_reduce_(sq, lay.group, kind="clip_norm")
+        sq = sum(done, torch.zeros((), device=dev))
         sq = sq + sum((p for p, s in zip(parts, sharded) if not s),
                       torch.zeros((), device=dev))
     else:
@@ -250,7 +262,15 @@ class _Optimizer:
         leaf's FSDP shard dim (None: whole)."""
         if self.layouts is None:
             return [None] * len(self.params)
-        return [lay.shard_dim for lay in self.layouts]
+        return [lay.cuts[0][0] if lay.cuts else None for lay in self.layouts]
+
+    def state_cut_dims(self, name: str) -> list:
+        """Per leaf, the dim of ``leaf_state()[name]`` along each of the
+        leaf's cuts (a tuple, one entry a cut; None where the state
+        reduced it away)."""
+        if self.layouts is None:
+            return [()] * len(self.params)
+        return [tuple(d for d, _ in lay.cuts) for lay in self.layouts]
 
     def counters(self) -> dict[str, int]:
         """The integer state: the update count, and the accumulator's
@@ -561,9 +581,15 @@ class AdaptiveOptimizer(_Optimizer):
         return {**self.tx.state, **super().leaf_state()}
 
     def state_shard_axes(self, name: str) -> list:
-        if name in self.tx.shard_axes:
-            return self.tx.shard_axes[name]
+        if name in self.tx.cut_dims:
+            return [dims[0] if dims else None
+                    for dims in self.tx.cut_dims[name]]
         return super().state_shard_axes(name)
+
+    def state_cut_dims(self, name: str) -> list:
+        if name in self.tx.cut_dims:
+            return self.tx.cut_dims[name]
+        return super().state_cut_dims(name)
 
 
 class GradReducer:

@@ -1,23 +1,29 @@
-"""Transformer LM training over a ``(data, model, seq)`` mesh — the port's
-counterpart of ``scripts/train_lm.py``.
+"""Transformer LM training over a ``(data, stage, model, seq, expert)``
+mesh — the port's counterpart of ``scripts/train_lm.py``.
 
     python -m distributed_model_parallel_tpu_torch.train.train_lm \\
         --device cpu --layers 2 --d-model 64 --seq-len 32 --steps 3
     python -m distributed_model_parallel_tpu_torch.train.train_lm \\
         --device cpu --tp 2 --sp 2 --layers 2 --d-model 64
+    python -m distributed_model_parallel_tpu_torch.train.train_lm \\
+        --device cpu --pp 2 --ep 2 --moe-experts 4 --microbatches 2 \\
+        --schedule 1f1b --virtual-stages 2 --layers 4 --d-model 64
 
 ``--device`` defaults to ``cuda``, where the model runs in bf16 (the flash
 kernels take bf16) and attention goes through the hand-written kernels;
 on ``cpu`` it runs in f32 through their plain versions. ``--dp``,
-``--tp`` and ``--sp`` lay the ranks out as ``MeshConfig(data, model,
-seq)``: ``tp_axis="model"`` when ``--tp > 1``, ``sp_axis="seq"`` when
-``--sp > 1`` (``--sp-impl ulysses`` for the all-to-all). The mesh's
-``dp x tp x sp`` ranks are processes started here (a ``file://`` store;
-rank r on ``cuda:r`` over NCCL, ``--backend gloo`` to share cards, gloo
-on the CPU), or come from torchrun's environment. Rank 0 prints one JSON record
-per epoch and writes the run log and the checkpoints. ``--pp``,
-``--ep``, ``--moe-experts`` and the recovery plane's flags are refused by
-name.
+``--pp``, ``--tp``, ``--sp`` and ``--ep`` lay the ranks out as
+``MeshConfig(data, stage, model, seq, expert)``: ``tp_axis="model"`` when
+``--tp > 1``, ``sp_axis="seq"`` when ``--sp > 1`` (``--sp-impl ulysses``
+for the all-to-all), ``ep_axis="expert"`` when ``--ep > 1`` (the
+``--moe-experts`` experts cut over it, ``--moe-top-k`` a token).
+``--microbatches``, ``--schedule`` (gpipe, 1f1b) and ``--virtual-stages``
+set the pipeline's schedule, with the JAX script's checks. The mesh's
+``dp x pp x tp x sp x ep`` ranks are processes started here (a
+``file://`` store; rank r on ``cuda:r`` over NCCL, ``--backend gloo`` to
+share cards, gloo on the CPU), or come from torchrun's environment. Rank
+0 prints one JSON record per epoch and writes the run log and the
+checkpoints. The recovery plane's flags are refused by name.
 """
 
 from __future__ import annotations
@@ -30,12 +36,6 @@ import torch
 
 # flag -> (value that is refused, ROADMAP item), for what is not ported.
 _REFUSED = {
-    "pp": (lambda v: v > 1, "A9: spmd_pipeline"),
-    "microbatches": (lambda v: v > 1, "A9: spmd_pipeline"),
-    "schedule": (lambda v: v != "gpipe", "A9: spmd_pipeline"),
-    "virtual_stages": (lambda v: v > 1, "A9: spmd_pipeline"),
-    "ep": (lambda v: v > 1, "A9: MoE"),
-    "moe_experts": (lambda v: v > 0, "A9: MoE"),
     "emergency_every": (lambda v: v != 0, "A11: emergency checkpoints"),
     "elastic": (bool, "A11: elastic restarts"),
     "check_finite_every": (lambda v: v != 0, "A11: guards"),
@@ -72,6 +72,21 @@ def parse_args(argv=None):
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel ways (the seq axis)")
     p.add_argument("--sp-impl", default="ring", choices=("ring", "ulysses"))
+    p.add_argument("--pp", type=int, default=1,
+                   help="pipeline stages (the stage axis)")
+    p.add_argument("--ep", type=int, default=1,
+                   help="expert-parallel ways (shards --moe-experts)")
+    p.add_argument("--moe-experts", type=int, default=0,
+                   help="experts per MoE layer (0 = dense MLP)")
+    p.add_argument("--moe-top-k", type=int, default=2)
+    p.add_argument("--moe-z-weight", type=float, default=0.0,
+                   help="router z-loss weight")
+    p.add_argument("--microbatches", type=int, default=1)
+    p.add_argument("--schedule", default="gpipe", choices=("gpipe", "1f1b"),
+                   help="the pipeline's schedule")
+    p.add_argument("--virtual-stages", type=int, default=1,
+                   help="interleaved virtual stages (1f1b; microbatches "
+                        "a multiple of --pp)")
     p.add_argument("--remat", action="store_true",
                    help="recompute each block in the backward")
     p.add_argument("--remat-policy", default="full", choices=("full", "dots"))
@@ -84,10 +99,7 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint-dir", default="./checkpoint")
     p.add_argument("--backend", default=None, choices=("nccl", "gloo"))
     # Accepted so they can be refused by name (not ported yet).
-    for flag in ("--pp", "--ep", "--microbatches", "--virtual-stages"):
-        p.add_argument(flag, type=int, default=1)
-    p.add_argument("--schedule", default="gpipe")
-    for flag in ("--moe-experts", "--emergency-every",
+    for flag in ("--emergency-every",
                  "--check-finite-every", "--consistency-every",
                  "--recovery-retries"):
         p.add_argument(flag, type=int, default=0)
@@ -121,15 +133,22 @@ def build_config(args):
             tp_axis="model" if args.tp > 1 else None,
             sp_axis="seq" if args.sp > 1 else None,
             sp_impl=args.sp_impl,
+            moe_experts=args.moe_experts, moe_top_k=args.moe_top_k,
+            moe_z_weight=args.moe_z_weight,
+            ep_axis="expert" if args.ep > 1 else None,
             pos_embedding="rope" if args.rope else "learned",
             n_kv_heads=args.kv_heads, attn_window=args.attn_window,
             remat=args.remat, remat_policy=args.remat_policy,
             loss_chunk=args.loss_chunk,
             attn_impl="flash" if args.attn_window is not None else "auto"),
-        mesh=MeshConfig(data=args.dp, model=args.tp, seq=args.sp),
+        mesh=MeshConfig(data=args.dp, stage=args.pp, model=args.tp,
+                        seq=args.sp, expert=args.ep),
         optimizer=OptimizerConfig(learning_rate=args.lr, weight_decay=0.0,
                                   warmup_steps=10),
         batch_size=args.batch_size, seq_len=args.seq_len,
+        num_microbatches=args.microbatches,
+        pipeline_schedule=args.schedule,
+        virtual_stages=args.virtual_stages,
         steps_per_epoch=args.steps, epochs=args.epochs, resume=args.resume,
         log_dir=args.log_dir, log_name=args.log_name,
         checkpoint_dir=args.checkpoint_dir, device=args.device)
@@ -155,6 +174,13 @@ def main(argv=None):
                if bad(getattr(args, k))]
     if refused:
         raise SystemExit(f"not ported yet: {', '.join(refused)}")
+    if args.layers % max(args.pp, 1):
+        raise SystemExit("--layers must be divisible by --pp")
+    if args.ep > 1 and args.moe_experts % args.ep:
+        raise SystemExit("--moe-experts must be divisible by --ep")
+    if args.moe_experts and not (1 <= args.moe_top_k <= args.moe_experts):
+        raise SystemExit(
+            f"--moe-top-k must be in [1, --moe-experts={args.moe_experts}]")
     if args.attn_window is not None and args.attn_window < 1:
         raise SystemExit("--attn-window must be >= 1")
     from distributed_model_parallel_tpu_torch import mesh

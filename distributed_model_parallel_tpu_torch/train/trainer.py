@@ -236,14 +236,14 @@ def check_train_config(config: TrainConfig) -> None:
             "compare; strategy='fsdp' shards params + optimizer state over "
             "it — no redundancy, no cross-replica check. No silent ignores")
     check_mesh_config(config.mesh)
-    for axis in ("model", "seq"):
+    for axis in ("model", "seq", "expert"):
         n = getattr(config.mesh, axis)
         if n != 1:
             raise ValueError(
                 f"MeshConfig({axis}={n}) is not ported for the CNN trainers "
-                f"(ROADMAP A9: the CNN trainers over the model and seq "
-                f"axes); the port shards the Transformer LM over them "
-                f"(train/lm_trainer.LMTrainer)")
+                f"(ROADMAP A9: the CNN trainers over the model, seq and "
+                f"expert axes); the port shards the Transformer LM over "
+                f"them (train/lm_trainer.LMTrainer)")
     if config.strategy == "spmd_pipeline":
         check_spmd_pipeline_config(config)
     elif config.mesh.stage != 1:
@@ -558,8 +558,8 @@ def model_layouts(model: StagedModel, params: list, group=None) -> list:
     for p in params:
         leaf = by_id[id(p)]
         out.append(LeafLayout(leaf.full_shape(n), leaf.jax_dims,
-                              leaf.shard_dim,
-                              group if leaf.shard_dim is not None else None))
+                              ((leaf.shard_dim, group),)
+                              if leaf.shard_dim is not None else ()))
     return out
 
 

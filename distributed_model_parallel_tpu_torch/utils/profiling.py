@@ -10,8 +10,9 @@ def lm_model_flops(cfg, batch: int, seq: int, causal: bool = True) -> float:
     at ``batch`` sequences of ``seq`` tokens.
 
     * dense matmuls: ``6 * N_mm * tokens``, ``N_mm`` the matmul parameters
-      touched per token (q/kv/o projections, MLP, LM head; embeddings and
-      elementwise work excluded; MoE is not ported, ROADMAP A9);
+      touched per token (q/kv/o projections, the MLP or the top-k routed
+      experts' slice plus the router, LM head; embeddings and elementwise
+      work excluded);
     * attention scores/values: fwd ``4*B*H*pairs*hd`` + bwd twice that,
       ``pairs`` the attended (q, k) positions — ``T*(T+1)/2`` causal,
       banded under a sliding window;
@@ -23,8 +24,9 @@ def lm_model_flops(cfg, batch: int, seq: int, causal: bool = True) -> float:
     L, f, V = cfg.n_layers, cfg.d_ff, cfg.vocab_size
     attn_proj = d * H * hd + d * kv * 2 * hd + H * hd * d
     if cfg.moe_experts:
-        raise NotImplementedError("MoE is not ported yet (ROADMAP A9)")
-    mlp = 2 * d * f
+        mlp = cfg.moe_top_k * 2 * d * f + d * cfg.moe_experts
+    else:
+        mlp = 2 * d * f
     n_mm = L * (attn_proj + mlp) + d * V
     tokens = batch * seq
     dense = 6 * n_mm * tokens

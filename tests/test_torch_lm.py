@@ -269,13 +269,31 @@ def test_fit_with_optimizer_matches_jax(tmp_path, opt):
 
 # remat, loss_chunk, sp_axis, sp_impl and tp_axis are ported: their cases
 # moved to test_formerly_refused_options_train below (the mesh runs are
-# tests/test_torch_lm_mesh.py); MoE stays refused.
+# tests/test_torch_lm_mesh.py). MoE is ported too: its two cases, which
+# raised, now train.
 @pytest.mark.parametrize("bad", [dict(moe_experts=4), dict(ep_axis="expert")])
-def test_unported_model_options_raise(bad):
-    cfg = ttfm.TransformerConfig(**SHAPES["mha"], **bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tlm.LMTrainer(tlm.LMTrainConfig(model=cfg, device="cpu",
-                                        n_tokens=500))
+def test_unported_model_options_raise(tmp_path, bad):
+    """The model options that raised run now (the expert axis's meshes are
+    tests/test_torch_lm_moe_mesh.py): on a one-device mesh from the JAX
+    trainer's weights, the per-step losses, and for MoE the router's stats
+    and each epoch's drop rate, equal the JAX LMTrainer's within 1e-4."""
+    jc, tc = _lm_configs(tmp_path)
+    jc = dataclasses.replace(jc, model=dataclasses.replace(jc.model, **bad))
+    tc = dataclasses.replace(tc, model=dataclasses.replace(tc.model, **bad))
+    jt = jlm.LMTrainer(jc)
+    tt = tlm.LMTrainer(tc, params=ttfm.params_from_jax(
+        jax.tree.map(np.asarray, jt.params), tc.model, "cpu"))
+    jhist, thist = jt.fit(), tt.fit()
+    with open(jt.logger.jsonl_path) as fh:
+        jsteps = [r for r in map(json.loads, fh) if r.get("kind") == "step"]
+    _close([r["loss"] for r in tt.step_log], [r["loss"] for r in jsteps])
+    if bad.get("moe_experts"):
+        assert all({"moe_balance", "moe_z", "moe_drop"} <= set(r)
+                   for r in tt.step_log)
+        _close([h["moe_drop_rate"] for h in thist],
+               [h["moe_drop_rate"] for h in jhist])
+    else:
+        assert "moe_drop_rate" not in thist[0]
 
 
 @pytest.mark.parametrize("kw", [
@@ -330,6 +348,9 @@ def test_cli_trains_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
                    "--checkpoint-dir", dirs["checkpoint_dir"]])
     record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert record["epoch"] == 0 and np.isfinite(record["loss_train"])
-    # --resume is ported (tests/test_torch_lm_resume.py); --ep is not.
-    with pytest.raises(SystemExit, match="--pp .*A9.*--ep .*A9: MoE"):
-        train_lm.main(["--device", "cpu", "--pp", "2", "--ep", "2"])
+    # --resume, --pp and --ep are ported (tests/test_torch_lm_resume.py,
+    # test_torch_lm_pipeline_resume.py); the recovery plane's flags are not.
+    with pytest.raises(SystemExit, match="--emergency-every .*A11.*--elastic"
+                                         " .*A11: elastic restarts"):
+        train_lm.main(["--device", "cpu", "--emergency-every", "2",
+                       "--elastic"])

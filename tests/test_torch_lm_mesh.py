@@ -236,16 +236,28 @@ def test_chunk_jax_refuses_raises(chunk):
 
 
 def test_unported_pipeline_options_raise():
-    """What ROADMAP A9 leaves for spmd_pipeline raises by name."""
-    mesh = tconfig.MeshConfig()
+    """The pipeline's options run now (tests/test_torch_spmd_pipeline_lm.
+    py); what the step still refuses raises in the JAX package's words:
+    virtual stages under gpipe, an unknown schedule, an interleaved
+    microbatch count the stages do not divide, and a layer count the
+    stages do not split."""
     from distributed_model_parallel_tpu_torch.parallel import spmd_lm
 
-    for kw in (dict(num_microbatches=2), dict(schedule="1f1b"),
-               dict(virtual_stages=2)):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP A9: spmd_pipeline"):
-            spmd_lm.check_spmd_config(mesh, **kw)
+    cfg = ttfm.TransformerConfig(**dict(_shape("rope"), n_layers=4))
+    for mesh, kw in ((tconfig.MeshConfig(), dict(num_microbatches=2)),
+                     (tconfig.MeshConfig(), dict(schedule="1f1b")),
+                     (tconfig.MeshConfig(stage=2),
+                      dict(schedule="1f1b", num_microbatches=2,
+                           virtual_stages=2))):
+        spmd_lm.check_spmd_config(cfg, mesh, **kw)
+    with pytest.raises(ValueError, match="1f1b schedule feature"):
+        spmd_lm.check_spmd_config(cfg, tconfig.MeshConfig(),
+                                  virtual_stages=2)
     with pytest.raises(ValueError, match="unknown spmd pipeline schedule"):
-        spmd_lm.check_spmd_config(mesh, schedule="zb")
-    with pytest.raises(NotImplementedError, match="stage=2"):
-        spmd_lm.check_spmd_config(tconfig.MeshConfig(stage=2))
+        spmd_lm.check_spmd_config(cfg, tconfig.MeshConfig(), schedule="zb")
+    with pytest.raises(ValueError, match="Megatron constraint"):
+        spmd_lm.check_spmd_config(cfg, tconfig.MeshConfig(stage=2),
+                                  num_microbatches=3, schedule="1f1b",
+                                  virtual_stages=2)
+    with pytest.raises(ValueError, match="does not split over 3 stages"):
+        spmd_lm.check_spmd_config(cfg, tconfig.MeshConfig(stage=3))

@@ -9,7 +9,8 @@ ranks (``(model 2, seq 2)`` ring under ``remat="dots"``, adamw). At
 ``LMTrainer``'s fit from the same weights (1e-4), and the text log's
 lines against the JAX ``RunLogger``'s (the same lines, numbers within
 1e-4, times aside). A resume under another split, and everything A9 and
-A11 leave for later, raise by name."""
+A11 leave for later, raise by name; so do the schedules and MoE configs
+the JAX trainer refuses, in its words."""
 
 import dataclasses
 import os
@@ -198,15 +199,18 @@ def test_resume_under_another_split_raises(runs):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh=tconfig.MeshConfig(stage=2)), "A9: spmd_pipeline"),
-    (dict(num_microbatches=2), "A9: spmd_pipeline"),
-    (dict(pipeline_schedule="1f1b"), "A9: spmd_pipeline"),
-    (dict(virtual_stages=2), "A9: spmd_pipeline"),
-    (dict(model=ttfm.TransformerConfig(**SHAPES["mha"], moe_experts=4)),
-     "A9: MoE"),
-    (dict(model=ttfm.TransformerConfig(**SHAPES["mha"], ep_axis="expert")),
-     "A9: MoE"),
-    (dict(mesh=tconfig.MeshConfig(expert=2)), "A9: MoE"),
+    # The pipeline and MoE run now; what they refuse raises in JAX's words.
+    (dict(mesh=tconfig.MeshConfig(stage=3)), "does not split over 3"),
+    (dict(num_microbatches=3), "local batch 8 not divisible by M=3"),
+    (dict(pipeline_schedule="zb"), "unknown spmd pipeline schedule"),
+    (dict(virtual_stages=2), "1f1b schedule feature"),
+    (dict(model=ttfm.TransformerConfig(**SHAPES["mha"], moe_experts=4,
+                                       moe_top_k=5)),
+     r"top_k=5 must be in \[1, num_experts=4\]"),
+    (dict(mesh=tconfig.MeshConfig(data=2, model=2, dcn_data=2)),
+     "A9: dcn_data with the model, seq and expert axes"),
+    (dict(mesh=tconfig.MeshConfig(data=2, expert=2, dcn_data=2)),
+     "A9: dcn_data with the model, seq and expert axes"),
     (dict(strategy="auto"), "A11: autotune"),
     (dict(emergency_every=2), "A11: emergency checkpoints"),
     (dict(elastic=True), "A11: elastic restarts"),

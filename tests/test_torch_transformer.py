@@ -83,7 +83,7 @@ def test_qkv_proj_ffn_unembed_match_jax(kind):
         _close(got, ref)
     ref_ffn, _ = jtfm._ffn(jbp, jnp.asarray(h), jcfg, tp_axis=None,
                            ep_axis=None)
-    _close(ttfm._ffn(tbp, t(h)), ref_ffn)
+    _close(ttfm._ffn(tbp, t(h))[0], ref_ffn)
     _close(ttfm.unembed(tp, t(h)), jtfm.unembed(jp, jnp.asarray(h)))
 
 
