@@ -252,13 +252,31 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     bit for bit on every rank, the restored slices in the interleaved
     storage order, the checkpoint's bytes, save and restore ms, and a
     resume at ``virtual_stages=1`` refused.
+20. Decoding: (a) ``models/transformer.generate`` at bench.py's decode
+    geometry (the phase-5 model, B 8, prompt 128, 512 greedy tokens):
+    flash forward launches == n_layers (the batched prefill), paged_decode
+    launches == n_layers x 511, the prefill's and first decode step's
+    logits through the kernels within LOGITS_ATOL of the plain path's and
+    of a chunked prefill's; the MoE variant (8 experts, top-2) against the
+    plain path with the kernel run's routing replayed; tokens/s under
+    bench.py's name, per-token latency, bench.py's byte model as the
+    bound, peak memory, greedy agreement with the plain path. (b)
+    ``generate_sharded`` on (data 2, model 2) at 64 tokens (four gloo
+    ranks sharing the card; in the default run 19b's ranks do it): each
+    rank's cache holds 4 of 8 kv heads, first-step logits within
+    LOGITS_ATOL of 20a's rows, the TP all-reduces a token. (c) the engine
+    on a chat trace with the prefix cache and speculative decoding
+    (spec_k 4): cache on == off bit for bit, spec on == off in tokens
+    except at a near-tie of the spec-off step (printed), exact pages after
+    the drain, the paged kernel's window-row entry bit for bit the
+    one-token launches (W 2, 4, 5) and against its plain version, timed.
 
 Prints the card line, each phase's seconds, a ``{"data_parallel": ...}``
 line, a ``{"pipeline": ...}`` line, a ``{"resnet": ...}`` line, a
 ``{"dp_engines": ...}`` line, a ``{"harness": ...}`` line, a
 ``{"data_path": ...}`` line, a ``{"optim": ...}`` line, a
-``{"lm_mesh": ...}`` line, a ``{"lm_pipe": ...}`` line, the
-``{"kernels": [...]}`` line and, last,
+``{"lm_mesh": ...}`` line, a ``{"lm_pipe": ...}`` line, a ``{"decode":
+...}`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero
 without a card, or when run outside a checkout of the repository.
 ``--sgd-timing-only`` runs phases 1, 2 (the fused SGD kernel) and 10 and
@@ -283,7 +301,10 @@ its reduce-scatters in the backward and the replicated leaves' all-reduce,
 each timed by CUDA events and added). ``--lm-only`` runs phases 1, 2 (the
 flash kernels), 6, 18 and 19 and prints the ``{"lm_mesh": ...}`` and
 ``{"lm_pipe": ...}`` lines; with four cards 18b-c and 19b-c run over NCCL
-at world 4, one rank a card.
+at world 4, one rank a card. ``--serve-only`` runs phases 1, 2 (the
+paged-decode and flash forward kernels), 3-5 and 20 and prints the
+``{"decode": ...}`` line and the paged kernel's rows of the
+``{"kernels": ...}`` line; with four cards 20b runs over NCCL.
 """
 
 from __future__ import annotations
@@ -304,6 +325,8 @@ MODEL = dict(vocab_size=32_000, d_model=1024, n_heads=8, n_layers=8,
              d_ff=4096, max_seq_len=640, pos_embedding="rope")
 GEOMETRY = dict(n_slots=8, page_size=16, n_pages=(8 + 1) * 40,
                 max_seq_len=640, prefill_chunk=32)
+# New tokens a request in phase 5's profiled engine run.
+PROFILE_GEN = 16
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12          # H100 SXM, float32 outside tensor cores
 # Kernel vs plain: bf16 output, f32 accumulation in both; the plain
@@ -714,6 +737,31 @@ LM19_RESUME_SEQ = 2048
 LM19_RESUME_STEPS = 5
 LM19_PREEMPT_AT = (0, 3)
 
+# Phase 20 (decoding beyond the engine). 20a: bench.py's decode workload
+# (bench.py:369-386: MODEL at bf16, B 8, prompt 128, 512 new tokens,
+# greedy; the prompt random from a seed, not bench's zeros, so the rows
+# differ); a chunked-prefill run (2 steps: only its first logits are
+# gated) and the 8-expert top-2 MoE variant at 64 new tokens. 20b:
+# generate_sharded on (data 2, model 2) at 64 new tokens. 20c: phase 5's
+# model and geometry under a chat-like trace, spec_k 4.
+GEN_B, GEN_PROMPT, GEN_STEPS = 8, 128, 512
+GEN_CHUNK = 32
+GEN_MOE = dict(moe_experts=8, moe_top_k=2)
+GEN_MOE_STEPS = 64
+# The plain path's runs beside them: long enough for the agreement count
+# (on an H100 the rows agreed 3-105 tokens of 512), not the whole 512
+# (cut: each plain step costs a kernel step's time).
+GEN_PLAIN_STEPS, GEN_PLAIN_MOE_STEPS = 128, 16
+GEN_MESH = dict(data=2, model=2)
+GEN_MESH_STEPS = 64
+SPEC_K = 4
+SPEC_WIDTHS = (2, 4, 5)
+# A spec-on token may differ from the spec-off one only at a bf16 near-tie
+# of the spec-off decode step: top-2 logit gap below 2^-7 |top logit|
+# (the verify step's products run at B·W rows, not B, so cuBLAS may reduce
+# them in another order).
+SPEC_TIE_RTOL = 2.0 ** -7
+
 # Where the phases' trainers write their logs and checkpoints: one
 # temporary directory of the run, made by main() and removed at exit;
 # spawned ranks inherit the variable.
@@ -883,10 +931,12 @@ def print_profile(label: str, run, card, kind=lm_kind) -> list:
 
 
 def profile_engine(Engine, params, cfg, serve, prompts, gens, card) -> None:
-    """The same engine workload once more under ``torch.profiler``."""
+    """The same engine workload once more under ``torch.profiler``, each
+    request cut to PROFILE_GEN new tokens (cut: the profiler took 42 s to
+    gather the trace of the whole 59-step run)."""
     eng = Engine(params, cfg, serve)
     for i, (p, g) in enumerate(zip(prompts, gens)):
-        eng.submit(p, g, seed=i)
+        eng.submit(p, min(g, PROFILE_GEN), seed=i)
 
     def run():
         eng.run()
@@ -5503,7 +5553,8 @@ def lm19_grad_check(trainer) -> dict:
     return out
 
 
-def lm19_rank(spec, meshes: dict, resume: bool) -> dict:
+def lm19_rank(spec, meshes: dict, resume: bool, decode: bool = False
+              ) -> dict:
     """Phases 19b and 19c on one rank: per mesh of ``meshes`` (the group
     laid out anew) a trainer from seed 0's weights, LM19_STEPS gated
     steps with the flash launches and the collectives counted from 0, any
@@ -5511,7 +5562,9 @@ def lm19_rank(spec, meshes: dict, resume: bool) -> dict:
     after each step, peak memory; one step more with the collectives
     timed. Mesh iv also reports every leaf's gradient after step 0 and
     its routing in the gated steps against the one card's. Then
-    (``resume``) phase 19c."""
+    (``resume``) phase 19c, and (``decode``) phase 20b's rank work on the
+    group laid out as GEN_MESH (:func:`gen_sharded_run`; 20b gates it
+    after 20a), which so shares this spawn."""
     import torch
 
     from distributed_model_parallel_tpu_torch import mesh as mesh_mod
@@ -5593,6 +5646,9 @@ def lm19_rank(spec, meshes: dict, resume: bool) -> dict:
         torch.cuda.empty_cache()
     if resume:
         out["resume"] = lm19_resume(spec)
+    if decode:
+        out["decode"] = gen_sharded_run(mesh_mod.make_mesh(
+            MeshConfig(**GEN_MESH), spec.device))
     return out
 
 
@@ -5722,7 +5778,7 @@ def _tensor_tree(tree):
 
 
 def lm19_mesh(mesh_mod, card, refs: dict, world: int, backend: str,
-              resume: bool) -> dict:
+              resume: bool, decode: bool = False) -> dict:
     """Phase 19b (and 19c with ``resume``): :func:`lm19_rank` on ``world``
     ranks. Gates, per mesh: every step's loss within LM19_LOSS_ATOL of
     its 19a reference (same model, batches and microbatch partition);
@@ -5742,7 +5798,7 @@ def lm19_mesh(mesh_mod, card, refs: dict, world: int, backend: str,
     )
 
     res = dp_spawn(mesh_mod, lm19_rank, world, "19b/lm pipeline mesh",
-                   LM19_MESHES, resume, backend=backend)
+                   LM19_MESHES, resume, decode, backend=backend)
     bad, summary = [], {}
     axis_index = {"stage": 1, "model": 2, "expert": 4}
     for name, (mesh, kw, b, t, m, schedule, v, ref) in LM19_MESHES.items():
@@ -5875,20 +5931,25 @@ def lm19_mesh(mesh_mod, card, refs: dict, world: int, backend: str,
         summary["resume"] = dict(r0)
     if bad:
         fail("19b/lm pipeline mesh", "; ".join(bad))
+    if decode:
+        summary["decode_ranks"] = [r["decode"] for r in res]
     return summary
 
 
-def lm19_phase(laps, fa, lm_model_flops, mesh_mod, card) -> dict:
+def lm19_phase(laps, fa, lm_model_flops, mesh_mod, card,
+               decode: bool = False) -> dict:
     """Phase 19: 19a on one card, then 19b and 19c over 4 ranks (gloo on
-    the one card; with four cards, NCCL with a card each)."""
+    the one card; with four cards, NCCL with a card each); with
+    ``decode`` the same ranks then run 20b's rank work
+    (``mesh["decode_ranks"]``)."""
     import torch
 
     refs = lm19_reference(fa, lm_model_flops, card)
     laps.done("19a/lm pipeline one card")
     four = torch.cuda.device_count() >= 4
     backend = "nccl" if four else "gloo"
-    mesh = lm19_mesh(mesh_mod, card, refs, 4, backend, True)
-    laps.done("19b-c/lm pipeline mesh")
+    mesh = lm19_mesh(mesh_mod, card, refs, 4, backend, True, decode)
+    laps.done("19b-c/lm pipeline mesh" + (", 20b's ranks" if decode else ""))
     return {"single": refs, "mesh": mesh, "backend": backend}
 
 
@@ -5914,91 +5975,695 @@ def lm19_launch_rows(lm19: dict) -> dict:
     return out
 
 
-class Laps:
-    """Prints each phase's seconds since the previous phase ended."""
+def greedy_agreement(a: list, b: list) -> list:
+    """Per row, the tokens of ``a`` that equal ``b``'s before the first
+    difference."""
+    out = []
+    for ra, rb in zip(a, b):
+        n = 0
+        for x, y in zip(ra, rb):
+            if x != y:
+                break
+            n += 1
+        out.append(n)
+    return out
 
-    def __init__(self):
-        self.mark = time.perf_counter()
 
-    def done(self, phase: str) -> None:
-        now = time.perf_counter()
-        print(f"phase {phase}: {now - self.mark:.2f} s")
-        self.mark = now
+def decode_bytes(tfm, cfg, n_params: int, batch: int, t0: int,
+                 steps: int) -> int:
+    """bench.py's decode byte model (``bench_decode``): every parameter read
+    once a step (bf16) plus each step's read of the K and V cache up to
+    its ``DECODE_READ_SEG`` boundary, and one whole read for the
+    prefill's emit."""
+    total = t0 + steps
+    seg = tfm.DECODE_READ_SEG
+    read_sum = sum(min(total, (p // seg + 1) * seg)
+                   for p in range(t0, total - 1)) + total
+    kv = cfg.n_layers * batch * read_sum * cfg.kv_heads * cfg.head_dim * 4
+    return 2 * n_params * steps + kv
 
 
-def main() -> None:
-    import argparse
+def gen_prompt(vocab: int):
+    import numpy as np
 
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--sgd-timing-only", action="store_true",
-                    help="run phases 1, 2 (the fused SGD kernel only) and "
-                         "10, print their JSON line and stop: the phase-10 "
-                         "measure run against another checkout's port "
-                         "(copy this script into it)")
-    ap.add_argument("--pipeline-only", action="store_true",
-                    help="run phases 1, 2 (the fused SGD kernel only) and "
-                         "13, print the pipeline's JSON line and stop: with "
-                         "four cards, each stage of the runner on its own "
-                         "card and the SPMD engine over NCCL")
-    ap.add_argument("--harness-only", action="store_true",
-                    help="run phases 1, 2 (the fused SGD kernel only) and "
-                         "15 (the zoo, resume, resume at two ranks), print "
-                         "the harness's JSON line and stop")
-    ap.add_argument("--data-only", action="store_true",
-                    help="run phases 1, 2 (the fused SGD kernel only) and "
-                         "16 (the finetune recipe at 224 px, the host "
-                         "path's prefetch stages, the native gather), print "
-                         "the data path's JSON line and stop")
-    ap.add_argument("--dp-only", action="store_true",
-                    help="run phases 1, 2 (the fused SGD kernel only) and "
-                         "14b at world = device_count() over NCCL, print "
-                         "the DP engines' JSON line and stop: with four "
-                         "cards, BASELINE's pair (samples/s a card, the "
-                         "gradient reduction's us a step) per engine, and "
-                         "17e at four ranks")
-    ap.add_argument("--optim-only", action="store_true",
-                    help="run phases 1, 2 (the fused SGD kernel only) and "
-                         "17 (the other optimizers, accumulation, EMA, "
-                         "bf16 leaves, fsdp's re-gather, the two-level data "
-                         "axis), print the optimizers' JSON line and stop")
-    ap.add_argument("--lm-only", action="store_true",
-                    help="run phases 1, 2 (the flash kernels only), 6, 18 "
-                         "(the LM over a data x model x seq mesh) and 19 "
-                         "(the stage and expert axes), print the LM's JSON "
-                         "lines and stop: with four cards, 18b and 19b over "
-                         "NCCL with a card a rank")
-    args = ap.parse_args()
-    only = (args.sgd_timing_only or args.pipeline_only or args.dp_only
-            or args.harness_only or args.data_only or args.optim_only
-            or args.lm_only)
-    import atexit
-    import shutil
-    import tempfile
+    return np.random.default_rng(20).integers(
+        0, vocab, (GEN_B, GEN_PROMPT)).astype(np.int64)
 
-    os.environ[RUN_DIR_ENV] = tempfile.mkdtemp(prefix=".chip_smoke_run_",
-                                               dir=HERE)
-    atexit.register(shutil.rmtree, os.environ[RUN_DIR_ENV], True)
-    # -- phase 1: device ----------------------------------------------------
-    laps = Laps()
+
+def generate_phase(tfm, pa, fa, card) -> dict:
+    """Phase 20a: ``generate`` at bench.py's decode geometry, through the
+    kernels (the flash forward for the batched prefill, the paged-decode
+    kernel for each one-token step) and through the plain path; a chunked
+    prefill; the MoE variant."""
+    import dataclasses
+
     import torch
 
-    if not torch.cuda.is_available():
-        fail("1/device", "torch.cuda.is_available() is False")
-    sys.path.insert(0, HERE)
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, **MODEL)
+    params = tfm.init_params(cfg, seed=0, device="cuda")
+    prompt = torch.from_numpy(gen_prompt(cfg.vocab_size)).cuda()
+    tfm.generate(params, cfg, prompt, 4)            # cuBLAS/allocator warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pa.paged_attention_kernel.launches = 0
+    fa.flash_forward_kernel.launches = 0
+    t0 = time.perf_counter()
+    toks, logits = tfm.generate(params, cfg, prompt, GEN_STEPS,
+                                return_logits=2)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"paged_decode": pa.paged_attention_kernel.launches,
+                "flash_fwd": fa.flash_forward_kernel.launches}
+    peak = torch.cuda.max_memory_allocated()
+    cache_shape = list(tfm.generate.cache_shape)
+    want = {"paged_decode": cfg.n_layers * (GEN_STEPS - 1),
+            "flash_fwd": cfg.n_layers}
+    print(f"generate: launches {launches} (want {want}); cache {cache_shape}")
+    if launches != want:
+        fail("20a/generate", f"kernel launches {launches} != {want}")
+    if toks.shape != (GEN_B, GEN_PROMPT + GEN_STEPS) or not bool(
+            ((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        fail("20a/generate", f"tokens of shape {tuple(toks.shape)} or out "
+                             f"of the vocabulary")
+    ptoks, plogits = tfm.generate(params, cfg, prompt, GEN_PLAIN_STEPS,
+                                  impl="plain", return_logits=2)
+    ctoks, clogits = tfm.generate(params, cfg, prompt, 2,
+                                  prefill_chunk=GEN_CHUNK, return_logits=2)
+    torch.cuda.synchronize()
+    for name, x in (("kernel", logits), ("plain", plogits),
+                    ("chunked", clogits)):
+        if not torch.isfinite(x).all():
+            fail("20a/generate", f"non-finite {name} logits")
+    err = (logits.float() - plogits.float()).abs().amax((0, 2)).tolist()
+    cerr = (clogits.float() - logits.float()).abs().amax((0, 2)).tolist()
+    agree = greedy_agreement(toks[:, GEN_PROMPT:].tolist(),
+                             ptoks[:, GEN_PROMPT:].tolist())
+    print(f"generate: prefill and first decode step logits, kernels vs "
+          f"plain max_abs_err {err}, chunked ({GEN_CHUNK}) vs batched "
+          f"{cerr} (atol {LOGITS_ATOL}; |logits| max "
+          f"{plogits.float().abs().max().item()}); greedy tokens equal to "
+          f"the plain path's before the first difference, per row: {agree} "
+          f"of {GEN_PLAIN_STEPS}")
+    if not max(err) <= LOGITS_ATOL:
+        fail("20a/generate", f"kernel vs plain logits {err} > {LOGITS_ATOL}")
+    if not max(cerr) <= LOGITS_ATOL:
+        fail("20a/generate", f"chunked vs batched logits {cerr} > "
+                             f"{LOGITS_ATOL}")
+    n_params = sum(v.numel() for v in params["blocks"].values()) + sum(
+        v.numel() for k, v in params.items() if k != "blocks")
+    nbytes = decode_bytes(tfm, cfg, n_params, GEN_B, GEN_PROMPT, GEN_STEPS)
+    bound_s = nbytes / HBM_BYTES_PER_S
+    out = {"lm_decode_bs8_tokens_per_sec_per_chip":
+           GEN_B * GEN_STEPS / wall,
+           "wall_s": wall, "token_latency_ms": wall / GEN_STEPS * 1e3,
+           "bound_s": bound_s, "bound_bytes": nbytes,
+           "share_of_bound": bound_s / wall,
+           "peak_bytes": peak, "cache_shape": cache_shape,
+           "launches": launches, "logits_err": err, "chunked_err": cerr,
+           "agree_plain": agree}
+    print(f"generate [{card}]: lm_decode_bs8_tokens_per_sec_per_chip "
+          f"{out['lm_decode_bs8_tokens_per_sec_per_chip']}, per-token "
+          f"latency {out['token_latency_ms']} ms, {wall} s for {GEN_STEPS} "
+          f"steps; bench.py's byte model {nbytes} B -> bound {bound_s} s at "
+          f"3.35 TB/s ({out['share_of_bound']:.1%} of it); peak "
+          f"max_memory_allocated {peak} B")
+    out["ref_logits"] = logits[:, 0].float().cpu().numpy()
+    out["ref_tokens"] = toks.cpu().numpy()
+    del params, toks, ptoks, ctoks
+    torch.cuda.empty_cache()
+
+    # MoE: routing is discrete, and a bf16 router tie that the two paths'
+    # attention roundings resolve differently moves a token to another
+    # expert (and, at a full queue, drops another token). So the kernels
+    # are held against the plain path with the kernel run's routing
+    # replayed (the same experts, queue slots and drops; the gates from the
+    # plain path's own router), and the free-running plain path's flips
+    # and logits are printed beside it.
+    from distributed_model_parallel_tpu_torch.ops import moe
+
+    mcfg = dataclasses.replace(cfg, **GEN_MOE)
+    mparams = tfm.init_params(mcfg, seed=0, device="cuda")
+    replay = RouteReplay(moe, count=mcfg.n_layers)       # the prefill's
     try:
-        import distributed_model_parallel_tpu_torch as port
-    except ImportError as e:
-        fail("1/device", f"the port package is not beside this script "
-                         f"({e}); run from a checkout of the repository")
-    if not os.path.abspath(port.__file__).startswith(HERE + os.sep):
-        fail("1/device", f"the port was imported from {port.__file__}, "
-                         f"not from this checkout")
+        torch.cuda.synchronize()
+        replay.mode = "record"
+        t0 = time.perf_counter()
+        mtoks, mlogits = tfm.generate(mparams, mcfg, prompt, GEN_MOE_STEPS,
+                                      return_logits=1)
+        torch.cuda.synchronize()
+        mwall = time.perf_counter() - t0
+        replay.mode = "replay"
+        _, rlogits = tfm.generate(mparams, mcfg, prompt, 1, impl="plain",
+                                  return_logits=1)
+        replay.mode = "compare"
+        mp, mplogits = tfm.generate(mparams, mcfg, prompt, GEN_PLAIN_MOE_STEPS,
+                                    impl="plain", return_logits=1)
+        torch.cuda.synchronize()
+    finally:
+        replay.close()
+    if not all(torch.isfinite(x).all() for x in (mlogits, rlogits,
+                                                  mplogits)):
+        fail("20a/generate", "non-finite MoE logits")
+    merr = (mlogits.float() - rlogits.float()).abs().max().item()
+    ferr = (mlogits.float() - mplogits.float()).abs().max().item()
+    magree = greedy_agreement(mtoks[:, GEN_PROMPT:].tolist(),
+                              mp[:, GEN_PROMPT:].tolist())
+    prefill_choices = mcfg.n_layers * GEN_B * GEN_PROMPT * mcfg.moe_top_k
+    out["moe"] = {"logits_err_same_routing": merr,
+                  "logits_err_free": ferr,
+                  "prefill_flips": replay.flips["compare"],
+                  "prefill_choices": prefill_choices,
+                  "agree_plain": magree,
+                  "tokens_per_s": GEN_B * GEN_MOE_STEPS / mwall,
+                  "wall_s": mwall}
+    print(f"generate MoE ({GEN_MOE}) [{card}]: prefill logits, kernels vs "
+          f"plain with the kernel run's routing replayed: max_abs_err "
+          f"{merr} (atol {LOGITS_ATOL}); free-running plain path: "
+          f"{replay.flips['compare']} of {prefill_choices} prefill routing "
+          f"choices differ ({replay.flips['replay']} under replay), logits "
+          f"max_abs_err {ferr}, greedy agreement per row {magree} of "
+          f"{GEN_PLAIN_MOE_STEPS}; tokens/s {out['moe']['tokens_per_s']}")
+    if not merr <= LOGITS_ATOL:
+        fail("20a/generate", f"MoE kernel vs plain logits (same routing) "
+                             f"{merr} > {LOGITS_ATOL}")
+    del mparams
+    torch.cuda.empty_cache()
+    return out
+
+
+class RouteReplay:
+    """Wraps ``ops/moe.route`` until :meth:`close`. ``mode`` "record" keeps
+    each call's routing in order; "replay" returns the recorded choices
+    (experts, queue slots, kept mask, capacity, stats) of the next
+    recorded call with the gates taken from this call's own router
+    probabilities at those experts; "compare" routes freely. Under
+    "replay" and "compare" ``flips[mode]`` counts, over the first
+    ``count`` calls, the (token, choice) entries whose own top-k differs
+    from the recorded call's."""
+
+    def __init__(self, moe, count: int):
+        self.moe, self.route, self.count = moe, moe.route, count
+        self.mode, self.calls, self.at = None, [], {}
+        self.flips = {"replay": 0, "compare": 0}
+        moe.route = self._route
+
+    def _route(self, router, x, cfg):
+        import torch
+
+        out = self.route(router, x, cfg)
+        if self.mode == "record":
+            self.calls.append(out)
+            return out
+        if self.mode not in self.flips:
+            return out
+        i = self.at.get(self.mode, 0)
+        self.at[self.mode] = i + 1
+        if i >= len(self.calls):
+            return out
+        rec = self.calls[i]
+        if i < self.count:
+            self.flips[self.mode] += int((rec[0] != out[0]).sum())
+        if self.mode == "compare":
+            return out
+        probs = torch.softmax(x @ router, dim=-1)
+        gates = torch.gather(probs, 1, rec[0])
+        if cfg.top_k > 1 and cfg.normalize_gates:
+            gates = gates / gates.sum(-1, keepdim=True)
+        return (rec[0], gates, *rec[2:])
+
+    def close(self) -> None:
+        self.moe.route = self.route
+
+
+def gen_sharded_run(spec) -> dict:
+    """Phase 20b's work on one rank of the (data 2, model 2) mesh:
+    ``generate_sharded`` at full width (the rank cuts its model slice of
+    the same seeded weights as 20a) on 20a's prompt, with the TP
+    all-reduces counted and each timed with the device drained on both
+    sides. Returns its rows' first-step logits and the whole tokens for
+    :func:`gen_sharded` to hold against 20a's."""
+    import torch
+
     from distributed_model_parallel_tpu_torch.models import (
         transformer as tfm,
     )
-    from distributed_model_parallel_tpu_torch.ops import _build
+    from distributed_model_parallel_tpu_torch.ops import collectives as C
+    from distributed_model_parallel_tpu_torch.ops import (
+        paged_attention as pa,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, tp_axis="model",
+                                **MODEL)
+    params = tfm.init_params(cfg, seed=0, device=spec.device)
+    prompt = gen_prompt(cfg.vocab_size)
+    tfm.generate_sharded(params, cfg, prompt, 1, spec)        # warm-up
+    torch.cuda.synchronize()
+    C.reset_counts()
+    pa.paged_attention_kernel.launches = 0
+    t0 = time.perf_counter()
+    with C.timed():
+        toks, logits = tfm.generate_sharded(params, cfg, prompt,
+                                            GEN_MESH_STEPS, spec,
+                                            return_logits=1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"rank": spec.rank, "backend": spec.backend,
+           "rows": (spec.rows(GEN_B).start, spec.rows(GEN_B).stop),
+           "cache_shape": list(tfm.generate.cache_shape),
+           "logits": logits[:, 0].float().cpu().numpy(),
+           "tokens": toks.cpu().numpy(),
+           "tp_calls": C.calls["tp_all_reduce"],
+           "tp_bytes": C.wire_bytes["tp_all_reduce"],
+           "tp_s": C.seconds["tp_all_reduce"],
+           "paged_decode": pa.paged_attention_kernel.launches,
+           "wall_s": wall}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def gen_sharded(mesh, ref: dict, card, backend: str,
+                ranks: list | None = None) -> dict:
+    """Phase 20b: :func:`gen_sharded_run` on four ranks over (data 2,
+    model 2) — ``ranks`` when 19b's spawn already ran it, else a spawn of
+    its own. Gates: each rank's cache holds 4 of the 8 kv heads and half
+    the rows, its first-step logits within LOGITS_ATOL of 20a's rows,
+    every rank returns the same whole batch, paged_decode launches ==
+    n_layers x (steps - 1)."""
+    import numpy as np
+
+    from distributed_model_parallel_tpu_torch.config import MeshConfig
+
+    if ranks is None:
+        world = GEN_MESH["data"] * GEN_MESH["model"]
+        ranks = dp_spawn(mesh, gen_sharded_run, world,
+                         "20b/generate_sharded", backend=backend,
+                         config=MeshConfig(**GEN_MESH))
+    hkv = MODEL["n_heads"] // GEN_MESH["model"]
+    page = 16                          # models/transformer.CACHE_PAGE
+    want = [MODEL["n_layers"], GEN_B // GEN_MESH["data"],
+            -(-(GEN_PROMPT + GEN_MESH_STEPS) // page) * page, hkv,
+            MODEL["d_model"] // MODEL["n_heads"]]
+    n = GEN_PROMPT + GEN_MESH_STEPS
+    errs = []
+    for r in ranks:
+        lo, hi = r["rows"]
+        finite = bool(np.isfinite(r["logits"]).all())
+        err = float(np.abs(r["logits"] - ref["ref_logits"][lo:hi]).max())
+        errs.append(err)
+        if r["cache_shape"] != want:
+            fail("20b/generate_sharded", f"rank {r['rank']} cache "
+                                         f"{r['cache_shape']} != {want}")
+        if not (finite and err <= LOGITS_ATOL):
+            fail("20b/generate_sharded",
+                 f"rank {r['rank']} first-step logits vs 20a's rows {err} > "
+                 f"{LOGITS_ATOL} (finite {finite})")
+        if (r["tokens"] != ranks[0]["tokens"]).any():
+            fail("20b/generate_sharded", f"rank {r['rank']}'s tokens differ "
+                                         f"from rank 0's")
+        if r["paged_decode"] != MODEL["n_layers"] * (GEN_MESH_STEPS - 1):
+            fail("20b/generate_sharded", f"rank {r['rank']} paged_decode "
+                                         f"launches {r['paged_decode']}")
+    r0 = ranks[0]
+    agree = greedy_agreement(r0["tokens"][:, GEN_PROMPT:].tolist(),
+                             ref["ref_tokens"][:, GEN_PROMPT:n].tolist())
+    out = {"backend": r0["backend"], "cache_shape": r0["cache_shape"],
+           "logits_err": errs, "agree_20a": agree,
+           "tp_all_reduce_calls_per_token": r0["tp_calls"] / GEN_MESH_STEPS,
+           "tp_all_reduce_bytes_per_token": r0["tp_bytes"] / GEN_MESH_STEPS,
+           "tp_all_reduce_us_per_token": r0["tp_s"] / GEN_MESH_STEPS * 1e6,
+           "wall_s": [r["wall_s"] for r in ranks]}
+    print(f"generate_sharded {GEN_MESH} over {r0['backend']} [{card}]: cache "
+          f"a rank {r0['cache_shape']} ({hkv} of {MODEL['n_heads']} kv "
+          f"heads); first-step logits vs 20a's rows {errs} (atol "
+          f"{LOGITS_ATOL}); greedy tokens equal to 20a's before the first "
+          f"difference, per row {agree} of {GEN_MESH_STEPS}; TP all-reduces "
+          f"a token (rank 0, the prefill's included): "
+          f"{out['tp_all_reduce_calls_per_token']} calls, "
+          f"{out['tp_all_reduce_bytes_per_token']} B, "
+          f"{out['tp_all_reduce_us_per_token']} us (timed one by one, the "
+          f"device drained around each); wall a rank {out['wall_s']} s")
+    return out
+
+
+def chat_trace(vocab: int, first_wave: list | None = None):
+    """Phase 20c's requests, in two waves: two 64-token system prompts,
+    each opening four requests (a user part of 8-40 tokens), and two
+    follow-ups that repeat the first wave's replies after the system
+    prompt. ``first_wave``: the first wave's generated tokens (of the
+    reference run), which the follow-ups quote. Returns ``(wave1,
+    wave2)``, lists of ``(rid, prompt, max_new, seed)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(2020)
+    system = [rng.integers(0, vocab, 64).tolist() for _ in range(2)]
+
+    def user():
+        return rng.integers(0, vocab, int(rng.integers(8, 41))).tolist()
+
+    wave1 = [("a0", system[0] + user(), 48, 0),
+             ("b0", system[1] + user(), 48, 1)]
+    wave2 = [("a1", system[0] + user(), 40, 2),
+             ("a2", system[0] + user(), 40, 3),
+             ("b1", system[1] + user(), 40, 4),
+             ("b2", system[1] + user(), 40, 5)]
+    if first_wave is not None:
+        wave2 += [("a3", system[0] + first_wave[0][:32], 40, 6),
+                  ("b3", system[1] + first_wave[1][:32], 40, 7)]
+    return wave1, wave2
+
+
+def run_trace(Engine, ServeConfig, params, cfg, trace, **serve_kw):
+    """One engine over both waves of ``trace``; returns ``(engine,
+    {rid: request}, {rid: slot}, verify dispatches)``."""
+    eng = Engine(params, cfg, ServeConfig(**GEOMETRY, **serve_kw))
+    slots: dict = {}
+    admit = eng.sched.admit
+
+    def admit_and_note(now):
+        got = admit(now)
+        slots.update({r.rid: r.slot for r in got})
+        return got
+
+    eng.sched.admit = admit_and_note
+    verified = [0]
+    for w, step in list(eng._verify.items()):
+        def counted(*a, _step=step, **kw):
+            verified[0] += 1
+            return _step(*a, **kw)
+        eng._verify[w] = counted
+    reqs = {}
+    for wave in trace:
+        for rid, prompt, gen, seed in wave:
+            reqs[rid] = eng.submit(prompt, gen, rid=rid, seed=seed)
+        eng.run()
+    if not all(r.state.value == "completed" for r in reqs.values()):
+        states = [(r.rid, r.state.value, r.error) for r in reqs.values()]
+        fail("20c/engine", f"requests not completed: {states}")
+    return eng, reqs, slots, verified[0]
+
+
+def spec_divergences(reqs: dict, ref: dict, ref_slots: dict,
+                     gaps: dict) -> list:
+    """Where a run's tokens first differ from the reference (spec off) run's,
+    per request: ``(rid, index, gap, top)``, the spec-off decode step's
+    top-2 logit gap and top logit at that position."""
+    out = []
+    for rid, r in reqs.items():
+        a, b = ref[rid].generated, r.generated
+        j = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            if len(a) != len(b):
+                out.append((rid, min(len(a), len(b)), None, None))
+            continue
+        if j == 0:
+            out.append((rid, 0, None, None))        # the prefill's token
+            continue
+        pos = len(ref[rid].prompt) + j - 1
+        top, gap = gaps.get((ref_slots[rid], pos, a[j - 1]), (None, None))
+        out.append((rid, j, gap, top))
+    return out
+
+
+def spec_rows_check(pa, card) -> dict:
+    """The window-row entry: each window row bit for bit the one-token
+    launch at its position (W 2, 4, 5; MHA and GQA 4; rows at page and
+    split edges and at the table's end, where the last rows clamp), and
+    against its plain version (gather, f32) within KERNEL_ATOL; then its
+    timing at W 5 beside the plain version, SDPA and the bound."""
+    import torch
+
+    page, n, n_pool, dh = 16, 40, GEOMETRY["n_pages"], 128
+    span = n * page
+    base = [0, 63, 64, 127, 255, 383, 630, 639]
+
+    def case(w, hkv, positions, seed):
+        """make_case with every slot a window row reads written (the
+        window reaches positions + W - 1, clamped to the table)."""
+        reach = [min(p + w - 1, span - 1) for p in positions]
+        _, kp, vp, tables, _ = make_case(8, 8, hkv, dh, page, n, n_pool,
+                                         reach, seed)
+        qw = torch.randn((8, w, 8, dh), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(
+                             seed)).to(torch.bfloat16)
+        pos = torch.tensor(positions, dtype=torch.int32, device="cuda")
+        return qw, kp, vp, tables, pos
+
+    max_err, bitwise = 0.0, True
+    for ci, hkv in enumerate((8, 2)):
+        for w in SPEC_WIDTHS:
+            qw, kp, vp, tables, pos = case(w, hkv, base, 30 + ci)
+            got = pa.paged_attention_rows_kernel(qw, kp, vp, tables, pos)
+            rows = (pos[:, None].long() + torch.arange(w, device="cuda")
+                    ).clamp(max=span - 1)
+            want = pa.paged_attention_gather(
+                qw.float(), kp.float(), vp.float(), tables, rows,
+                (pos.long() + w).clamp(max=span)).to(torch.bfloat16)
+            for i in range(w):
+                one = pa.paged_attention_kernel(
+                    qw[:, i:i + 1].contiguous(), kp, vp, tables,
+                    rows[:, i].to(torch.int32).contiguous())
+                bitwise &= torch.equal(one, got[:, i:i + 1])
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            max_err = max(max_err, err)
+            print(f"paged_decode_rows hkv {hkv} W {w}: max_abs_err {err} "
+                  f"(atol {KERNEL_ATOL}); every window row == the one-token "
+                  f"launch at its position: {bitwise}")
+    if not bitwise:
+        fail("20c/verify kernel", "a window row differs from the one-token "
+                                  "launch at its position")
+    if not max_err <= KERNEL_ATOL:
+        fail("20c/verify kernel", f"max_abs_err {max_err} > {KERNEL_ATOL}")
+    w = SPEC_K + 1
+    qw, kp, vp, tables, pos = case(w, 8, [0, span - w, 15, 16, 100, 255, 383,
+                                          512], 40)
+    rows = pos[:, None].long() + torch.arange(w, device="cuda")
+    lengths = pos.long() + w
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+    ms = time_ms(lambda: pa.paged_attention_rows_kernel(qw, kp, vp, tables,
+                                                        pos), flush=flush)
+    plain_ms = time_ms(lambda: pa.paged_attention_gather(
+        qw, kp, vp, tables, rows, lengths), flush=flush)
+    t_all = n * page
+    kr = kp[tables.long()].reshape(8, t_all, 8, dh).transpose(1, 2)
+    vr = vp[tables.long()].reshape(8, t_all, 8, dh).transpose(1, 2)
+    kr, vr = kr.contiguous(), vr.contiguous()
+    qh = qw.transpose(1, 2).contiguous()                    # [B, H, W, Dh]
+    mask = (torch.arange(t_all, device="cuda")[None, None, :]
+            <= rows[:, :, None])[:, None]                   # [B,1,W,T]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    library_ms = time_ms(lambda: sdpa(qh, kr, vr, attn_mask=mask),
+                         flush=flush)
+    tokens_read = sum(int(p) + w for p in pos.tolist())    # K/V once a row
+    pairs = sum(int(p) + i + 1 for p in pos.tolist() for i in range(w))
+    elt = 2
+    bytes_moved = (2 * tokens_read * 8 * dh * elt + 2 * qw.numel() * elt
+                   + tables.numel() * 4 + pos.numel() * 4)
+    flops = 4 * pairs * 8 * dh
+    bound_ms, bound_by = max((bytes_moved / HBM_BYTES_PER_S * 1e3, "bytes"),
+                             (flops / F32_FLOPS_PER_S * 1e3, "operations"))
+    print(f"paged_decode_rows timing W {w} [{card}]: kernel {ms} ms, plain "
+          f"{plain_ms} ms, sdpa {library_ms} ms, bound {bound_ms} ms "
+          f"({bound_by}: {bytes_moved} B, {flops} flop); {bound_ms / ms:.1%} "
+          f"of bound")
+    del flush, kr, vr
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def spec_phase(card) -> dict:
+    """Phase 20c: the engine with the prefix cache and speculative decoding
+    at phase 5's model and geometry on the chat trace. Four runs — (cache,
+    spec) off/off, on/off, on/on, off/on — after a recording run of
+    off/off that keeps every decode step's top-2 logits. Gates: cache on
+    == off bit for bit; spec on == off in tokens, except at a near-tie of
+    the spec-off step (SPEC_TIE_RTOL); exact page accounting after the
+    drain; the window-row entry (``spec_rows_check``); each kernel's
+    launches == n_layers x its dispatches."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.models import (
+        transformer as tfm,
+    )
+    from distributed_model_parallel_tpu_torch.ops import (
+        paged_attention as pa,
+    )
+    from distributed_model_parallel_tpu_torch.serve import (
+        Engine,
+        ServeConfig,
+    )
+    from distributed_model_parallel_tpu_torch.serve import model as smodel
+
+    rows = spec_rows_check(pa, card)
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, **MODEL)
+    params = tfm.init_params(cfg, seed=0, device="cuda")
+    wave1, _ = chat_trace(cfg.vocab_size)
+    warm = Engine(params, cfg, ServeConfig(**GEOMETRY, spec_k=SPEC_K))
+    warm.submit(wave1[0][1], 8)
+    warm.run()
+    # The recording run: every decode step's top-2 logits by (slot,
+    # position, input token).
+    decode_logits = smodel.decode_logits
+    gaps: dict = {}
+
+    def recording(params, ck, cv, tokens, positions, tables, active, cfg,
+                  **kw):
+        logits = decode_logits(params, ck, cv, tokens, positions, tables,
+                               active, cfg, **kw)
+        top = torch.topk(logits.float(), 2, dim=-1).values.cpu()
+        for b in range(len(active)):
+            if active[b]:
+                gaps[(b, int(positions[b]), int(tokens[b]))] = (
+                    float(top[b, 0]), float(top[b, 0] - top[b, 1]))
+        return logits
+
+    smodel.decode_logits = recording
+    try:
+        first, _ = chat_trace(cfg.vocab_size)
+        _, reqs, _, _ = run_trace(Engine, ServeConfig, params, cfg, [first])
+        trace = chat_trace(cfg.vocab_size,
+                           [reqs[r[0]].generated for r in first])
+        gaps.clear()
+        _, rec, rec_slots, _ = run_trace(Engine, ServeConfig, params, cfg,
+                                         trace)
+    finally:
+        smodel.decode_logits = decode_logits
+    runs, out = {}, {"runs": {}}
+    launches = {"paged_decode": 0, "paged_decode_rows": 0}
+    for name, kw in (("off_off", {}), ("on_off", dict(prefix_cache=True)),
+                     ("on_on", dict(prefix_cache=True, spec_k=SPEC_K)),
+                     ("off_on", dict(spec_k=SPEC_K))):
+        pa.paged_attention_kernel.launches = 0
+        pa.paged_attention_rows_kernel.launches = 0
+        eng, reqs, slots, verified = run_trace(Engine, ServeConfig, params,
+                                               cfg, trace, **kw)
+        torch.cuda.synchronize()
+        s = eng.summary()
+        n_paged = pa.paged_attention_kernel.launches
+        n_rows = pa.paged_attention_rows_kernel.launches
+        want = (cfg.n_layers * (s["decode_steps"] - verified),
+                cfg.n_layers * verified)
+        if (n_paged, n_rows) != want:
+            fail("20c/engine", f"{name}: launches paged_decode {n_paged}, "
+                               f"rows {n_rows} != {want}")
+        if kw.get("spec_k"):
+            launches["paged_decode"] += n_paged
+            launches["paged_decode_rows"] += n_rows
+        used = eng.cache.pool.used_pages
+        held = len(eng.cache.prefix) if eng.cache.prefix is not None else 0
+        if used != held or eng.cache.shared_pages:
+            fail("20c/engine", f"{name}: {used} pages held after the drain, "
+                               f"the tree holds {held}")
+        freed = eng.clear_cache()
+        runs[name] = reqs
+        out["runs"][name] = {
+            "tokens_per_s": s["tokens_per_s"],
+            "cache_hit_rate": s["cache_hit_rate"],
+            "draft_accept_rate": s["draft_accept_rate"],
+            "draft_tokens_proposed": s["draft_tokens_proposed"],
+            "decode_rounds": s["decode_steps"], "verify_rounds": verified,
+            "tokens": s["tokens_generated"], "tree_pages_freed": freed,
+            "launches": {"paged_decode": n_paged, "paged_decode_rows": n_rows}}
+        print(f"engine 20c {name} [{card}]: tokens/s {s['tokens_per_s']}, "
+              f"cache_hit_rate {s['cache_hit_rate']}, draft_accept_rate "
+              f"{s['draft_accept_rate']} ({s['draft_tokens_accepted']} of "
+              f"{s['draft_tokens_proposed']}), {s['decode_steps']} decode "
+              f"rounds ({verified} verify), launches paged_decode {n_paged}, "
+              f"paged_decode_rows {n_rows}; pages after the drain: {used} "
+              f"(the tree's {held}), all free after clear_cache")
+    for name, reqs in runs.items():
+        same_as_rec = all(reqs[r].generated == rec[r].generated
+                          for r in reqs)
+        if name == "off_off" and not same_as_rec:
+            fail("20c/engine", "the recording run decoded other tokens")
+    if any(runs["on_off"][r].generated != runs["off_off"][r].generated
+           for r in runs["off_off"]):
+        fail("20c/engine", "prefix cache on != off")
+    print("engine 20c: prefix cache on == off, tokens bit for bit "
+          f"({sum(len(r.generated) for r in runs['on_off'].values())} "
+          f"tokens)")
+    out["divergences"] = {}
+    for name in ("on_on", "off_on"):
+        div = spec_divergences(runs[name], rec, rec_slots, gaps)
+        out["divergences"][name] = div
+        for rid, j, gap, top in div:
+            ok = gap is not None and gap < SPEC_TIE_RTOL * abs(top)
+            print(f"engine 20c {name}: {rid} differs from spec off at token "
+                  f"{j}: spec-off top-2 gap {gap}, top logit {top} (near-tie "
+                  f"bound {None if top is None else SPEC_TIE_RTOL * abs(top)}"
+                  f"): {'a near-tie' if ok else 'NOT a near-tie'}")
+            if not ok:
+                fail("20c/engine", f"{name}: {rid} diverges at token {j} "
+                                   f"without a near-tie (gap {gap})")
+        print(f"engine 20c {name}: spec on == off in tokens except "
+              f"{len(div)} near-tie divergence(s)")
+    if not launches["paged_decode_rows"]:
+        fail("20c/engine", "the verify step never ran")
+    out["rows_kernel"] = rows
+    out["launches"] = launches
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def gen_phases(laps, mesh, card, backend: str,
+               sharded_ranks: list | None = None) -> dict:
+    """Phase 20: 20a ``generate``, 20b ``generate_sharded`` (its ranks'
+    results ``sharded_ranks`` when 19b's spawn ran them), 20c the engine's
+    prefix cache and speculative decoding."""
+    from distributed_model_parallel_tpu_torch.models import (
+        transformer as tfm,
+    )
     from distributed_model_parallel_tpu_torch.ops import (
         flash_attention as fa,
+    )
+    from distributed_model_parallel_tpu_torch.ops import (
+        paged_attention as pa,
+    )
+
+    gen = generate_phase(tfm, pa, fa, card)
+    laps.done("20a/generate")
+    sharded = gen_sharded(mesh, gen, card, backend, sharded_ranks)
+    laps.done("20b/generate_sharded")
+    spec = spec_phase(card)
+    laps.done("20c/prefix cache, spec")
+    gen.pop("ref_logits")
+    gen.pop("ref_tokens")
+    return {"generate": gen, "generate_sharded": sharded, "engine": spec}
+
+
+def decode_kernel_rows(paged: dict, dec: dict) -> list:
+    """The ``kernels`` line's rows of row 1 of the kernel table: the
+    paged-decode kernel (launches of phase 5's engine; 20a's generate and
+    20c's spec-on runs beside them) and its window-row entry (launches of
+    20c's spec-on runs)."""
+    src = "distributed_model_parallel_tpu_torch/ops/csrc/paged_decode.cu"
+    tpu = "distributed_model_parallel_tpu/ops/paged_attention.py:115"
+    spec = dec["engine"]
+    return [
+        {"name": "paged_decode", "route": "cuda", "source": src,
+         "replaces": tpu, **paged,
+         "launches_20a_generate": dec["generate"]["launches"][
+             "paged_decode"],
+         "launches_20c_spec": spec["launches"]["paged_decode"]},
+        {"name": "paged_decode_rows", "route": "cuda", "source": src,
+         "replaces": tpu,
+         "launches": spec["launches"]["paged_decode_rows"],
+         **spec["rows_kernel"]},
+    ]
+
+
+def serve_phases(laps, card) -> dict:
+    """Phases 3-5: the paged-decode kernel against its plain version, its
+    timing, and the engine at full width. Returns the kernel's numbers
+    (the ``kernels`` line's ``paged_decode`` row)."""
+    import numpy as np
+    import torch
+
+    from distributed_model_parallel_tpu_torch.models import (
+        transformer as tfm,
     )
     from distributed_model_parallel_tpu_torch.ops import (
         paged_attention as pa,
@@ -6014,97 +6679,6 @@ def main() -> None:
     from distributed_model_parallel_tpu_torch.serve.paged_kv import (
         PagedKVCache,
     )
-    from distributed_model_parallel_tpu_torch.train import (
-        lm_trainer as lm,
-    )
-    from distributed_model_parallel_tpu_torch.utils.profiling import (
-        lm_model_flops,
-    )
-    from distributed_model_parallel_tpu_torch import config as tconfig
-    from distributed_model_parallel_tpu_torch import models
-    from distributed_model_parallel_tpu_torch.models import staged
-    from distributed_model_parallel_tpu_torch.ops import fused_sgd as fs
-    from distributed_model_parallel_tpu_torch.train import optim
-    from distributed_model_parallel_tpu_torch.train import (
-        trainer as cnn_trainer,
-    )
-
-    card = card_line()
-    print(f"card: {card}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    print("set torch.backends.cuda.matmul.allow_tf32=False, "
-          "torch.backends.cudnn.allow_tf32=False")
-    laps.done("1/device")
-
-    # -- phase 2: build -----------------------------------------------------
-    t = time.perf_counter()
-    try:
-        paths = _build.build_all(
-            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if args.lm_only
-            else ("fused_sgd",) if only else _build.KERNELS)
-    except RuntimeError as e:
-        fail("2/build", str(e))
-    print(f"built {len(paths)} kernel(s) in {time.perf_counter() - t:.2f} s")
-    for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if any(w in line for w in ("entry function", "registers",
-                                       "spill", "warning",
-                                       "Performance Loss")):
-                print(f"  {name}: {line.strip()}")
-    laps.done("2/build")
-    if args.sgd_timing_only:
-        mnv2 = [p.detach() for p in models.get_model(
-            tconfig.ModelConfig(), device="cuda").parameters()]
-        print(json.dumps({"sgd_timing": time_fused_sgd(
-            fs, optim, tconfig, mnv2, card)}))
-        laps.done("10/fused sgd timing")
-        return
-    if args.pipeline_only:
-        torch.backends.cudnn.benchmark = True      # as phase 11 leaves it
-        print(json.dumps({"pipeline": pipeline_phase(
-            laps, models, cnn_trainer, fs, tconfig, card), "card": card}))
-        return
-    if args.harness_only:
-        from distributed_model_parallel_tpu_torch import mesh
-
-        print(json.dumps({"harness": harness_summary(harness_phase(
-            laps, cnn_trainer, fs, models, staged, mesh, tconfig, card)),
-            "card": card}))
-        return
-    if args.data_only:
-        print(json.dumps({"data_path": data_path_phase(
-            laps, cnn_trainer, fs, tconfig, card), "card": card}))
-        return
-    if args.dp_only:
-        from distributed_model_parallel_tpu_torch import mesh
-
-        world = torch.cuda.device_count()
-        engines = dp_engines(mesh, card, world, "nccl")
-        laps.done("14b/dp engines")
-        ranks = optim_ranks(mesh, tconfig, card, world,
-                            "nccl" if world >= 4 else "gloo")
-        laps.done("17e/ranks")
-        print(json.dumps({"dp_engines": engines, "optim_ranks": ranks,
-                          "card": card}))
-        return
-    if args.lm_only:
-        from distributed_model_parallel_tpu_torch import mesh
-
-        check_flash(fa)
-        laps.done("6/flash")
-        lm18 = lm_phase(laps, fa, lm_model_flops, mesh, card, None)
-        print(json.dumps({"lm_mesh": lm18_summary(lm18), "card": card}))
-        lm19 = lm19_phase(laps, fa, lm_model_flops, mesh, card)
-        print(json.dumps({"lm_pipe": lm19_summary(lm19), "card": card}))
-        return
-    if args.optim_only:
-        from distributed_model_parallel_tpu_torch import mesh
-
-        print(json.dumps({"optim": optim_summary(optim_phase(
-            laps, cnn_trainer, fs, models, staged, mesh, tconfig, card)),
-            "card": card}))
-        return
 
     # -- phase 3: kernel vs plain ---------------------------------------------
     page, n, n_pool, dh = 16, 40, GEOMETRY["n_pages"], 128
@@ -6193,8 +6767,6 @@ def main() -> None:
     cfg = tfm.TransformerConfig(dtype=torch.bfloat16, **MODEL)
     params = tfm.init_params(cfg, seed=0, device="cuda")
     serve = ServeConfig(policy="continuous", **GEOMETRY)
-    import numpy as np
-
     rng = np.random.default_rng(1234)
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(16, 97)))
                .tolist() for _ in range(8)]
@@ -6246,7 +6818,7 @@ def main() -> None:
     tables_np = np.zeros((8, cache.pages_per_seq), np.int32)
     first, positions = [], []
     for i, (p, g) in enumerate(zip(prompts, gens)):
-        cache.try_admit(i, len(p) + g)
+        cache.try_admit(i, p, len(p) + g)
         tables_np[i] = cache.table_array(i)
         c = serve.prefill_chunk
         for lo in range(0, len(p), c):
@@ -6283,10 +6855,214 @@ def main() -> None:
           f"{summary['ttft_s']['p99']} s, per-token latency p50 "
           f"{summary['token_latency_s']['p50']} s, "
           f"{summary['tokens_generated']} tokens in {summary['wall_s']} s")
+    laps.done("5a/engine")
     profile_engine(Engine, params, cfg, serve, prompts, gens, card)
     del params, cache, ck2, cv2, lk, lp, eng, solo
     torch.cuda.empty_cache()
-    laps.done("5/engine")
+    laps.done("5b/engine profile")
+    return dict(launches=launches, max_abs_err=max_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms, ms_b1_long_row=ms_b1)
+
+
+class Laps:
+    """Prints each phase's seconds since the previous phase ended."""
+
+    def __init__(self):
+        self.mark = time.perf_counter()
+
+    def done(self, phase: str) -> None:
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - self.mark:.2f} s")
+        self.mark = now
+
+
+def main() -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--sgd-timing-only", action="store_true",
+                    help="run phases 1, 2 (the fused SGD kernel only) and "
+                         "10, print their JSON line and stop: the phase-10 "
+                         "measure run against another checkout's port "
+                         "(copy this script into it)")
+    ap.add_argument("--pipeline-only", action="store_true",
+                    help="run phases 1, 2 (the fused SGD kernel only) and "
+                         "13, print the pipeline's JSON line and stop: with "
+                         "four cards, each stage of the runner on its own "
+                         "card and the SPMD engine over NCCL")
+    ap.add_argument("--harness-only", action="store_true",
+                    help="run phases 1, 2 (the fused SGD kernel only) and "
+                         "15 (the zoo, resume, resume at two ranks), print "
+                         "the harness's JSON line and stop")
+    ap.add_argument("--data-only", action="store_true",
+                    help="run phases 1, 2 (the fused SGD kernel only) and "
+                         "16 (the finetune recipe at 224 px, the host "
+                         "path's prefetch stages, the native gather), print "
+                         "the data path's JSON line and stop")
+    ap.add_argument("--dp-only", action="store_true",
+                    help="run phases 1, 2 (the fused SGD kernel only) and "
+                         "14b at world = device_count() over NCCL, print "
+                         "the DP engines' JSON line and stop: with four "
+                         "cards, BASELINE's pair (samples/s a card, the "
+                         "gradient reduction's us a step) per engine, and "
+                         "17e at four ranks")
+    ap.add_argument("--optim-only", action="store_true",
+                    help="run phases 1, 2 (the fused SGD kernel only) and "
+                         "17 (the other optimizers, accumulation, EMA, "
+                         "bf16 leaves, fsdp's re-gather, the two-level data "
+                         "axis), print the optimizers' JSON line and stop")
+    ap.add_argument("--lm-only", action="store_true",
+                    help="run phases 1, 2 (the flash kernels only), 6, 18 "
+                         "(the LM over a data x model x seq mesh) and 19 "
+                         "(the stage and expert axes), print the LM's JSON "
+                         "lines and stop: with four cards, 18b and 19b over "
+                         "NCCL with a card a rank")
+    ap.add_argument("--serve-only", action="store_true",
+                    help="run phases 1, 2 (the paged-decode and flash "
+                         "forward kernels only), 3-5 (the paged-decode "
+                         "kernel and the engine) and 20 (generate, "
+                         "generate_sharded, the prefix cache and "
+                         "speculative decoding), print the decode JSON "
+                         "line and stop: with four cards, 20b over NCCL "
+                         "with a card a rank")
+    args = ap.parse_args()
+    only = (args.sgd_timing_only or args.pipeline_only or args.dp_only
+            or args.harness_only or args.data_only or args.optim_only
+            or args.lm_only or args.serve_only)
+    import atexit
+    import shutil
+    import tempfile
+
+    os.environ[RUN_DIR_ENV] = tempfile.mkdtemp(prefix=".chip_smoke_run_",
+                                               dir=HERE)
+    atexit.register(shutil.rmtree, os.environ[RUN_DIR_ENV], True)
+    # -- phase 1: device ----------------------------------------------------
+    laps = Laps()
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("1/device", "torch.cuda.is_available() is False")
+    sys.path.insert(0, HERE)
+    try:
+        import distributed_model_parallel_tpu_torch as port
+    except ImportError as e:
+        fail("1/device", f"the port package is not beside this script "
+                         f"({e}); run from a checkout of the repository")
+    if not os.path.abspath(port.__file__).startswith(HERE + os.sep):
+        fail("1/device", f"the port was imported from {port.__file__}, "
+                         f"not from this checkout")
+    from distributed_model_parallel_tpu_torch.models import (
+        transformer as tfm,
+    )
+    from distributed_model_parallel_tpu_torch.ops import _build
+    from distributed_model_parallel_tpu_torch.ops import (
+        flash_attention as fa,
+    )
+    from distributed_model_parallel_tpu_torch.train import (
+        lm_trainer as lm,
+    )
+    from distributed_model_parallel_tpu_torch.utils.profiling import (
+        lm_model_flops,
+    )
+    from distributed_model_parallel_tpu_torch import config as tconfig
+    from distributed_model_parallel_tpu_torch import models
+    from distributed_model_parallel_tpu_torch.models import staged
+    from distributed_model_parallel_tpu_torch.ops import fused_sgd as fs
+    from distributed_model_parallel_tpu_torch.train import optim
+    from distributed_model_parallel_tpu_torch.train import (
+        trainer as cnn_trainer,
+    )
+
+    card = card_line()
+    print(f"card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("set torch.backends.cuda.matmul.allow_tf32=False, "
+          "torch.backends.cudnn.allow_tf32=False")
+    laps.done("1/device")
+
+    # -- phase 2: build -----------------------------------------------------
+    t = time.perf_counter()
+    try:
+        paths = _build.build_all(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if args.lm_only
+            else ("paged_decode", "flash_fwd") if args.serve_only
+            else ("fused_sgd",) if only else _build.KERNELS)
+    except RuntimeError as e:
+        fail("2/build", str(e))
+    print(f"built {len(paths)} kernel(s) in {time.perf_counter() - t:.2f} s")
+    for name, log in _build.build_logs.items():
+        for line in log.splitlines():
+            if any(w in line for w in ("entry function", "registers",
+                                       "spill", "warning",
+                                       "Performance Loss")):
+                print(f"  {name}: {line.strip()}")
+    laps.done("2/build")
+    if args.sgd_timing_only:
+        mnv2 = [p.detach() for p in models.get_model(
+            tconfig.ModelConfig(), device="cuda").parameters()]
+        print(json.dumps({"sgd_timing": time_fused_sgd(
+            fs, optim, tconfig, mnv2, card)}))
+        laps.done("10/fused sgd timing")
+        return
+    if args.pipeline_only:
+        torch.backends.cudnn.benchmark = True      # as phase 11 leaves it
+        print(json.dumps({"pipeline": pipeline_phase(
+            laps, models, cnn_trainer, fs, tconfig, card), "card": card}))
+        return
+    if args.harness_only:
+        from distributed_model_parallel_tpu_torch import mesh
+
+        print(json.dumps({"harness": harness_summary(harness_phase(
+            laps, cnn_trainer, fs, models, staged, mesh, tconfig, card)),
+            "card": card}))
+        return
+    if args.data_only:
+        print(json.dumps({"data_path": data_path_phase(
+            laps, cnn_trainer, fs, tconfig, card), "card": card}))
+        return
+    if args.dp_only:
+        from distributed_model_parallel_tpu_torch import mesh
+
+        world = torch.cuda.device_count()
+        engines = dp_engines(mesh, card, world, "nccl")
+        laps.done("14b/dp engines")
+        ranks = optim_ranks(mesh, tconfig, card, world,
+                            "nccl" if world >= 4 else "gloo")
+        laps.done("17e/ranks")
+        print(json.dumps({"dp_engines": engines, "optim_ranks": ranks,
+                          "card": card}))
+        return
+    if args.lm_only:
+        from distributed_model_parallel_tpu_torch import mesh
+
+        check_flash(fa)
+        laps.done("6/flash")
+        lm18 = lm_phase(laps, fa, lm_model_flops, mesh, card, None)
+        print(json.dumps({"lm_mesh": lm18_summary(lm18), "card": card}))
+        lm19 = lm19_phase(laps, fa, lm_model_flops, mesh, card)
+        print(json.dumps({"lm_pipe": lm19_summary(lm19), "card": card}))
+        return
+    if args.serve_only:
+        from distributed_model_parallel_tpu_torch import mesh
+
+        paged = serve_phases(laps, card)
+        four = torch.cuda.device_count() >= 4
+        dec = gen_phases(laps, mesh, card, "nccl" if four else "gloo")
+        print(json.dumps({"decode": dec, "card": card}))
+        print(json.dumps({"kernels": decode_kernel_rows(paged, dec)}))
+        return
+    if args.optim_only:
+        from distributed_model_parallel_tpu_torch import mesh
+
+        print(json.dumps({"optim": optim_summary(optim_phase(
+            laps, cnn_trainer, fs, models, staged, mesh, tconfig, card)),
+            "card": card}))
+        return
+
+    # -- phases 3-5: the paged-decode kernel, its timing, the engine ------
+    paged = serve_phases(laps, card)
 
     # -- phase 6: flash kernels vs plain --------------------------------------
     flash_errs = check_flash(fa)
@@ -6357,25 +7133,15 @@ def main() -> None:
     lm18_rows = lm_launch_rows(lm18)
 
     # -- phase 19: the LM's stage and expert axes ---------------------------
-    lm19 = lm19_phase(laps, fa, lm_model_flops, mesh, card)
+    lm19 = lm19_phase(laps, fa, lm_model_flops, mesh, card, decode=True)
+    # 20b's ranks ran in 19b's spawn (the spawn is most of 20b's own time).
+    sharded_ranks = lm19["mesh"].pop("decode_ranks")
     lm19_rows = lm19_launch_rows(lm19)
 
-    kernels = [{
-        "name": "paged_decode",
-        "route": "cuda",
-        "source": "distributed_model_parallel_tpu_torch/ops/csrc/"
-                  "paged_decode.cu",
-        "replaces": "distributed_model_parallel_tpu/ops/paged_attention.py"
-                    ":115",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
-        "ms_b1_long_row": ms_b1,
-    }]
+    # -- phase 20: generate, generate_sharded, prefix cache, spec ----------
+    dec = gen_phases(laps, mesh, card, "gloo", sharded_ranks)
+
+    kernels = decode_kernel_rows(paged, dec)
     for name, line in (("flash_fwd", 112), ("flash_bwd_dq", 199),
                        ("flash_bwd_dkv", 278)):
         kernels.append({
@@ -6386,6 +7152,9 @@ def main() -> None:
             "replaces": f"distributed_model_parallel_tpu/ops/"
                         f"pallas_attention.py:{line}",
             "launches": flash_launches[name],
+            **({"launches_20a_generate":
+                dec["generate"]["launches"]["flash_fwd"]}
+               if name == "flash_fwd" else {}),
             **lm18_rows[name],
             **lm19_rows[name],
             "max_abs_err": flash_errs[name][0],
@@ -6437,6 +7206,7 @@ def main() -> None:
     print(json.dumps({"optim": optim_summary(opt17), "card": card}))
     print(json.dumps({"lm_mesh": lm18_summary(lm18), "card": card}))
     print(json.dumps({"lm_pipe": lm19_summary(lm19), "card": card}))
+    print(json.dumps({"decode": dec, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

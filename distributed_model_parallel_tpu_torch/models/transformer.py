@@ -23,7 +23,10 @@ of ``ops/moe.py`` (its experts cut over the expert group under
 (``torch.utils.checkpoint``: the whole block under ``"full"``, all but
 the products with no batch dims under ``"dots"``), and ``loss_chunk``
 computes the head and its loss in slices recomputed in the backward.
-``generate`` comes with a later slice and raises here (ROADMAP A9).
+:func:`generate` decodes over a dense KV cache (the one-token attention
+through the paged-decode kernel, the batched prefill through the flash
+forward), and :func:`generate_sharded` runs it on each rank of a
+``(data, model)`` mesh.
 
 The parameter tree keeps the JAX package's layout exactly — blocks
 stacked on a leading ``[n_layers]`` axis, ``wqkv: [L, d, H, 3*Dh]`` with
@@ -49,6 +52,11 @@ from distributed_model_parallel_tpu_torch.ops.flash_attention import (
     full_attention,
 )
 from distributed_model_parallel_tpu_torch.ops.moe import MoEConfig, moe_ffn
+from distributed_model_parallel_tpu_torch.ops.paged_attention import (
+    attend_rows,
+    paged_attention_gather,
+    paged_attention_kernel,
+)
 
 ATTN_IMPLS = ("auto", "xla", "flash")
 # Length of the MoE stats vector every block carries: [load-balance loss,
@@ -683,14 +691,6 @@ def lm_loss(params: dict, tokens: torch.Tensor, targets: torch.Tensor,
     return lm_loss_with_aux(params, tokens, targets, cfg, mesh)[0]
 
 
-def generate(params: dict, cfg: TransformerConfig, prompt, steps: int, **kw):
-    """The JAX package's cached-decoding ``generate``: not ported yet
-    (ROADMAP A9: generate); the serving engine (``serve/engine.py``)
-    decodes over the paged cache."""
-    raise NotImplementedError("generate is not ported yet (ROADMAP A9: "
-                              "generate); decode with serve.Engine")
-
-
 def _filter_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
     """Mask all but the k highest logits to -inf ([B, V])."""
     kth = torch.topk(logits, k, dim=-1).values[:, -1:]
@@ -725,8 +725,14 @@ def validate_sampling(cfg: TransformerConfig, temperature: float,
 def _draw_seed(seed: int, position: int) -> int:
     """The generator seed of one (request seed, position) draw: a
     request's stream depends on nothing else, so it does not depend on
-    who shares the batch."""
-    return ((seed & 0xFFFFFFFF) << 32) | (position & 0xFFFFFFFF)
+    who shares the batch. The CPU generator keeps only the low 32 bits of
+    its seed, so the pair is mixed (splitmix64) and folded to 32 bits."""
+    x = (((seed & 0xFFFFFFFF) << 32) | (position & 0xFFFFFFFF))
+    x = (x + 0x9E3779B97F4A7C15) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    x ^= x >> 31
+    return (x ^ (x >> 32)) & 0xFFFFFFFF
 
 
 def make_sampler(cfg: TransformerConfig, temperature: float,
@@ -755,3 +761,332 @@ def make_sampler(cfg: TransformerConfig, temperature: float,
         return torch.argmax(logits + noise.to(logits.device), dim=-1)
 
     return sample
+
+
+# ---------------------------------------------------------------------------
+# cached decoding
+# ---------------------------------------------------------------------------
+
+# Decode read-boundary segment size: the plain decode attention of a
+# segment's positions reads the cache prefix up to the next multiple of
+# this, as the JAX package's segments do (bench.py's decode byte model is
+# built on it). The kernel reads only [0, pos] of each row, segment or not.
+DECODE_READ_SEG = 256
+# The dense cache's page size: a layer's slab [B, T_pad, Hkv, Dh] (T_pad a
+# multiple of it) is read by the paged-decode kernel as the page pool
+# [B·N, page, Hkv, Dh], N = T_pad / page, row b's table b·N + arange(N).
+CACHE_PAGE = 16
+DECODE_IMPLS = ("kernel", "plain")
+
+
+def _local_kv_heads(params: dict, cfg: TransformerConfig) -> int:
+    """The kv heads this rank's weights hold (the local count under tensor
+    parallelism)."""
+    blocks = params["blocks"]
+    return blocks["wkv"].shape[2] if cfg.gqa else blocks["wqkv"].shape[2]
+
+
+def dense_cache(params: dict, cfg: TransformerConfig, batch: int,
+                total: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Zeroed K and V caches ``[L, B, T_pad, Hkv, Dh]`` on the params'
+    device, ``T_pad`` = ``total`` rounded up to :data:`CACHE_PAGE`; Hkv
+    is the local kv head count (the GQA and tensor-parallel memory
+    saving)."""
+    t_pad = -(-total // CACHE_PAGE) * CACHE_PAGE
+    shape = (cfg.n_layers, batch, t_pad, _local_kv_heads(params, cfg),
+             cfg.head_dim)
+    ck = torch.zeros(shape, dtype=cfg.dtype, device=params["embed"].device)
+    return ck, torch.zeros_like(ck)
+
+
+class _CacheStep:
+    """What every layer of one cached step shares: the query positions
+    ([C] on the device), and for the kernel the slab's page tables and
+    each row's query position (int32 on the device)."""
+
+    def __init__(self, positions, ck: torch.Tensor, kernel: bool):
+        dev = ck.device
+        self.host = torch.as_tensor(positions, dtype=torch.long).cpu()
+        self.dev = self.host.to(dev)
+        b, t_pad = ck.shape[1], ck.shape[2]
+        self.t_pad, self.kernel = t_pad, kernel
+        if kernel:
+            n = t_pad // CACHE_PAGE
+            self.tables = (torch.arange(b, dtype=torch.int32)[:, None] * n
+                           + torch.arange(n, dtype=torch.int32)[None]
+                           ).to(dev)
+            self.pos = torch.full((b,), int(self.host[-1]),
+                                  dtype=torch.int32).to(dev)
+
+
+def _cached_attention(q: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor,
+                      layer: int, step: _CacheStep, cfg: TransformerConfig,
+                      read_len: int | None) -> torch.Tensor:
+    """q [B, C, H, Dh] at ``step``'s positions over ``layer``'s written
+    slab. Kernel route (a CUDA cache under ``impl="kernel"``): one token
+    through the paged-decode kernel over the slab viewed as pages (it reads
+    [0, pos] of each row), C > 1 through the gather path over the same
+    view. Plain route: :func:`ops.paged_attention.attend_rows` over the
+    first ``read_len`` positions (the whole slab when None), as the JAX
+    package slices its segments."""
+    b, c = q.shape[:2]
+    sk, sv = ck[layer], cv[layer]                    # [B, T_pad, Hkv, Dh]
+    last = int(step.host[-1])
+    if step.kernel:
+        pk = sk.view(-1, CACHE_PAGE, *sk.shape[2:])
+        pv = sv.view(-1, CACHE_PAGE, *sv.shape[2:])
+        if c == 1:
+            return paged_attention_kernel(q.contiguous(), pk, pv,
+                                          step.tables, step.pos,
+                                          cfg.attn_window)
+        return paged_attention_gather(
+            q, pk, pv, step.tables, step.dev[None].expand(b, c),
+            torch.full((b,), last + 1, device=q.device), cfg.attn_window)
+    rl = step.t_pad if read_len is None else min(read_len, step.t_pad)
+    return attend_rows(q, sk[:, :rl], sv[:, :rl],
+                       step.dev[None].expand(b, c),
+                       torch.full((b,), last + 1, device=q.device),
+                       cfg.attn_window)
+
+
+def _cached_block(bp: dict, ck: torch.Tensor, cv: torch.Tensor, layer: int,
+                  x: torch.Tensor, positions, cfg: TransformerConfig, *,
+                  tp_group=None, read_len: int | None = None,
+                  impl: str = "kernel", step: _CacheStep | None = None
+                  ) -> torch.Tensor:
+    """One block for C contiguous positions over the stacked dense cache.
+
+    x: [B, C, d]; positions: [C] absolute, contiguous; ck/cv:
+    [L, B, T_pad, Hkv, Dh] (the local kv heads only), ``layer``'s slab
+    written in place at ``positions`` (RoPE applied before the write, so
+    the cache holds rotated keys). Scores are grouped (query head h reads
+    kv head h // G) under the ``band_keep`` mask, which also hides the
+    unwritten tail; ``read_len`` bounds the plain route's read (callers
+    guarantee every attended position lies below it). Under ``tp_group``
+    the products after ``wo`` and the dense FFN end in
+    ``collectives.reduce_from_group``, as in :func:`block_apply`; a MoE
+    FFN runs on the tokens present with its experts replicated. ``step``
+    carries what the layers of one step share (made here when None).
+    Returns the new x."""
+    if step is None:
+        step = _CacheStep(positions, ck, impl == "kernel" and ck.is_cuda)
+    b, c = x.shape[:2]
+    p0 = int(step.host[0])
+    h = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
+    q, k, v = _qkv_proj(bp, h, cfg)        # q [B,C,H,Dh], kv [B,C,Hkv,Dh]
+    if cfg.pos_embedding == "rope":
+        q = apply_rope(q, step.dev, cfg.rope_theta)
+        k = apply_rope(k, step.dev, cfg.rope_theta)
+    ck[layer, :, p0:p0 + c] = k.to(ck.dtype)
+    cv[layer, :, p0:p0 + c] = v.to(cv.dtype)
+    o = _cached_attention(q, ck, cv, layer, step, cfg, read_len)
+    x = x + reduce_from_group(o.reshape(b, c, -1) @ bp["wo"], tp_group)
+    h = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
+    y, _ = _ffn(bp, h, tp_group, cfg=cfg, ep_group=None)
+    return x + y
+
+
+def _prefill_block(bp: dict, ck: torch.Tensor, cv: torch.Tensor, layer: int,
+                   x: torch.Tensor, cfg: TransformerConfig, *, tp_group,
+                   impl: str) -> torch.Tensor:
+    """The batched prefill of one block over the whole prompt [B, T0, d]:
+    its K/V written to ``layer``'s slab at [0, T0), causal (banded under
+    ``attn_window``) attention over the broadcast kv heads through the
+    flash forward (its plain version for CPU tensors) under
+    ``impl="kernel"``, the plain ``full_attention`` under ``"plain"``."""
+    b, t, _ = x.shape
+    h = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
+    q, k, v = _qkv_proj(bp, h, cfg)
+    if cfg.pos_embedding == "rope":
+        q, k = _rope_qk(q, k, cfg)
+    ck[layer, :, :t] = k.to(ck.dtype)
+    cv[layer, :, :t] = v.to(cv.dtype)
+    kr, vr = _repeat_kv(k, q), _repeat_kv(v, q)
+    attend = flash_attention if impl == "kernel" else full_attention
+    o = attend(q, kr, vr, causal=True, window=cfg.attn_window)
+    x = x + reduce_from_group(o.reshape(b, t, -1) @ bp["wo"], tp_group)
+    h = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
+    y, _ = _ffn(bp, h, tp_group, cfg=cfg, ep_group=None)
+    return x + y
+
+
+def _row_seed(seed: int, row: int) -> int:
+    """The sampling seed of batch row ``row`` (its global index) of a
+    ``generate`` call seeded ``seed``."""
+    return (seed * 0x9E3779B1 + row) & 0xFFFFFFFF
+
+
+def check_generate(cfg: TransformerConfig, t0: int, steps: int,
+                   prefill_chunk: int | None) -> None:
+    """The JAX ``generate``'s refusals, in its words."""
+    total = t0 + steps
+    if steps < 1:
+        raise ValueError("steps must be >= 1")
+    if total > cfg.max_seq_len:
+        raise ValueError(f"prompt + steps = {total} exceeds max_seq_len "
+                         f"{cfg.max_seq_len}")
+    if prefill_chunk is not None:
+        if prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got "
+                             f"{prefill_chunk}")
+        if t0 % prefill_chunk:
+            raise ValueError(f"prompt length {t0} not divisible by "
+                             f"prefill_chunk={prefill_chunk}")
+
+
+@torch.no_grad()
+def generate(params: dict, cfg: TransformerConfig, prompt, steps: int, *,
+             seed: int = 0, temperature: float = 0.0,
+             top_k: int | None = None, top_p: float | None = None,
+             prefill_chunk: int | None = None, mesh=None,
+             row_offset: int = 0, impl: str = "kernel",
+             return_logits: int = 0):
+    """Autoregressive decoding over a dense per-layer KV cache.
+
+    prompt: [B, T0] ints -> [B, T0 + steps] int64 tokens on the params'
+    device. Greedy at ``temperature`` 0, else sampling at that temperature
+    filtered by ``top_k`` and/or ``top_p`` (the engine's
+    :func:`make_sampler`). The prompt fills the cache in one batched
+    forward, or in ``prefill_chunk``-token slices against the growing cache
+    (the prompt length must be a multiple); then one cached step per new
+    position, in read-boundary segments of :data:`DECODE_READ_SEG`.
+
+    On the card (``impl="kernel"``) the batched prefill's attention runs the
+    flash forward kernel and each one-token step's attention the
+    paged-decode kernel over the cache viewed as pages; chunked prefill's
+    slices take the gather path. ``impl="plain"`` runs the plain versions
+    on the card; CPU tensors always do. MoE blocks run ``ops/moe.moe_ffn``
+    with the experts replicated, capacity taken from the tokens present.
+
+    ``mesh``: the rank's ``mesh.MeshSpec`` when ``cfg.tp_axis`` is set; the
+    params are then its slices (:func:`generate_sharded`), the cache holds
+    the local kv heads, and the products after ``wo`` and the FFN are
+    all-reduced over the model group.
+
+    Sampling: JAX draws the whole batch from one key. Here a row's draw
+    depends only on (``seed``, the row's global index ``row_offset + b``,
+    the position), through ``_row_seed`` and ``_draw_seed``, so a data
+    split does not change a row's stream. Sampled tokens cannot match
+    JAX's bits; greedy tokens are what the two packages compare.
+
+    ``return_logits=n`` also returns the logits of the first n sampling
+    steps (the prefill's, then the decode steps'), ``[B, n, V]``. The
+    shape of the last cache built is kept in ``generate.cache_shape``.
+    """
+    if impl not in DECODE_IMPLS:
+        raise ValueError(f"unknown decode impl {impl!r}; known: "
+                         f"{', '.join(DECODE_IMPLS)}")
+    dev = params["embed"].device
+    prompt = torch.as_tensor(prompt).to(device=dev, dtype=torch.long)
+    b, t0 = prompt.shape
+    check_generate(cfg, t0, steps, prefill_chunk)
+    total = t0 + steps
+    sample = make_sampler(cfg, temperature, top_k, top_p)
+    tp = _axis_group(mesh, cfg.tp_axis, "tp_axis")
+    ck, cv = dense_cache(params, cfg, b, total)
+    generate.cache_shape = tuple(ck.shape)
+    kernel = impl == "kernel" and ck.is_cuda
+    blocks = [layer_params(params, li) for li in range(cfg.n_layers)]
+    seeds = [_row_seed(seed, row_offset + r) for r in range(b)]
+    kept: list[torch.Tensor] = []
+    learned = cfg.pos_embedding == "learned"
+
+    def embed_at(tokens: torch.Tensor, start: int) -> torch.Tensor:
+        # RoPE rotates q/k inside the blocks and takes no offset here.
+        return embed(params, tokens, cfg, pos_offset=start if learned else 0)
+
+    def pick(logits: torch.Tensor, pos: int) -> torch.Tensor:
+        if len(kept) < return_logits:
+            kept.append(logits)
+        return sample(logits, seeds, [pos] * b).to(dev)
+
+    if prefill_chunk is not None:
+        for lo in range(0, t0, prefill_chunk):
+            step = _CacheStep(range(lo, lo + prefill_chunk), ck, kernel)
+            x = embed_at(prompt[:, lo:lo + prefill_chunk], lo)
+            for li, bp in enumerate(blocks):
+                x = _cached_block(bp, ck, cv, li, x, None, cfg, tp_group=tp,
+                                  step=step)
+    else:
+        x = embed_at(prompt, 0)
+        for li, bp in enumerate(blocks):
+            x = _prefill_block(bp, ck, cv, li, x, cfg, tp_group=tp,
+                               impl=impl)
+    tok = pick(unembed(params, x[:, -1:])[:, 0], t0 - 1)   # position t0
+    out = [prompt, tok[:, None]]
+    # Positions t0 .. total-2 consume tokens t0 .. total-2 and emit tokens
+    # t0+1 .. total-1. A segment's positions all lie below its boundary
+    # ``hi``, so the plain route reads [0, hi) of the cache.
+    p = t0
+    while p < total - 1:
+        hi = min(total, (p // DECODE_READ_SEG + 1) * DECODE_READ_SEG)
+        p_end = min(total - 1, hi)
+        for pos in range(p, p_end):
+            step = _CacheStep((pos,), ck, kernel)
+            x = embed_at(tok[:, None], pos)
+            for li, bp in enumerate(blocks):
+                x = _cached_block(bp, ck, cv, li, x, None, cfg, tp_group=tp,
+                                  read_len=hi, step=step)
+            tok = pick(unembed(params, x)[:, 0], pos)
+            out.append(tok[:, None])
+        p = p_end
+    tokens = torch.cat(out, dim=1)
+    if return_logits:
+        return tokens, torch.stack(kept, dim=1)
+    return tokens
+
+
+generate.cache_shape = None
+
+
+@torch.no_grad()
+def generate_sharded(params: dict, cfg: TransformerConfig, prompt,
+                     steps: int, spec, *, seed: int = 0,
+                     temperature: float = 0.0, top_k: int | None = None,
+                     top_p: float | None = None,
+                     prefill_chunk: int | None = None, impl: str = "kernel",
+                     return_logits: int = 0):
+    """:func:`generate` on each rank of a ``(data, model)`` mesh: every rank
+    passes the whole params and the whole prompt [B, T0] and gets the whole
+    result [B, T0 + steps] back, as JAX's ``out_specs=P(data)`` assembles
+    it.
+
+    The rank cuts its model-axis slices (``parallel/tensor_parallel.
+    shard_tree``: heads and FFN columns; a ``wkv`` that
+    ``kv_heads_shardable`` cannot split stays replicated), takes its data
+    row's prompt rows, decodes them with the model group (its cache holds
+    the local kv heads; the products after ``wo`` and the FFN are
+    all-reduced), and all-gathers the rows over the data group. Greedy
+    tokens equal the replicated :func:`generate`'s; a row's sampled stream
+    depends on its global index, not on the split. ``return_logits`` gives
+    this rank's rows' logits beside the whole tokens."""
+    from distributed_model_parallel_tpu_torch.ops.collectives import (
+        all_gather_concat,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.tensor_parallel import (
+        shard_tree,
+    )
+
+    if cfg.moe_experts and cfg.ep_axis:
+        raise ValueError("expert-parallel decode is not implemented; "
+                         "decode with experts replicated (ep_axis=None)")
+    if spec.num_stages > 1 or spec.num_seq > 1 or spec.num_expert > 1:
+        raise ValueError("generate_sharded runs on a (data, model) mesh; "
+                         "decode keeps the blocks layer-stacked and the "
+                         "sequence whole")
+    local = shard_tree(params, cfg, spec)
+    prompt = torch.as_tensor(prompt)
+    rows = spec.rows(prompt.shape[0])
+    got = generate(local, cfg, prompt[rows], steps, seed=seed,
+                   temperature=temperature, top_k=top_k, top_p=top_p,
+                   prefill_chunk=prefill_chunk, mesh=spec,
+                   row_offset=rows.start, impl=impl,
+                   return_logits=return_logits)
+    tokens = got[0] if return_logits else got
+    if spec.num_data > 1:
+        # gloo moves host tensors: stage a CUDA result through host memory.
+        staged = tokens.is_cuda and spec.backend == "gloo"
+        whole = all_gather_concat(tokens.cpu() if staged else tokens,
+                                  spec.group)
+        tokens = whole.to(tokens.device)
+    return (tokens, got[1]) if return_logits else tokens

@@ -46,6 +46,15 @@
 //     No atomics: the result is the same run to run.
 // The merge's scratch traffic (a few hundred KB) is the design's cost; it
 // is not counted in the byte bound.
+//
+// Window rows (paged_decode_rows, the speculative verify step): q is
+// [B, W, H, Dh] and row b's window row i is the query at positions[b] + i.
+// Each (b, i) is one more row of the grid — x = (b·W + i)·Hkv + kvh — and
+// runs the code above unchanged over [0, positions[b] + i] through row b's
+// table, with the split count of that table. So window row i equals a
+// one-row launch at positions[b] + i bit for bit. A position past the
+// table (a window row beyond a request's valid rows) is clamped to the
+// table's last slot: the kernel never reads past the table.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -106,20 +115,23 @@ struct Smem {
   }
 };
 
-// q [B, H, Dh]; k_pool/v_pool [P, page, Hkv, Dh]; tables [B, N] int32;
-// positions [B] int32; part_ml [B, H, S, 2] and part_acc [B, H, S, Dh]
-// f32 scratch. window <= 0 means no window. blockDim.x == Dh.
+// q [B, W, H, Dh]; k_pool/v_pool [P, page, Hkv, Dh]; tables [B, N] int32;
+// positions [B] int32 (window row i of row b sits at positions[b] + i);
+// part_ml [B·W, H, S, 2] and part_acc [B·W, H, S, Dh] f32 scratch. window
+// <= 0 means no window. blockDim.x == Dh.
 template <typename T>
 __global__ void paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                                           const T* __restrict__ v_pool,
                                           const int* __restrict__ tables,
                                           const int* __restrict__ positions,
                                           float* __restrict__ part_ml,
-                                          float* __restrict__ part_acc, int H, int Hkv, int Dh,
-                                          int P, int page, int N, int window, float scale) {
+                                          float* __restrict__ part_acc, int W, int H, int Hkv,
+                                          int Dh, int P, int page, int N, int window,
+                                          float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / Hkv;
-  const int b = blockIdx.x / Hkv;
+  const int row = blockIdx.x / Hkv;  // b·W + i: the query row
+  const int b = row / W;             // its table row
   const int kvh = blockIdx.x % Hkv;
   const int split = blockIdx.y;
   const int S = gridDim.y;
@@ -138,12 +150,12 @@ __global__ void paged_decode_split_kernel(const T* __restrict__ q, const T* __re
   const int ldk = plan.ldk;
   const int kv_tile = page * ldk;
 
-  const int pos = positions[b];
+  const int pos = min(positions[b] + row % W, N * page - 1);
   const int lo = window > 0 ? max(0, pos - window + 1) : 0;
   const int first = max(lo / page, split * kPagesPerSplit);
   const int last = min(min(pos / page, N - 1), (split + 1) * kPagesPerSplit - 1);
-  // Partial results of head kvh·G + g of row b, split `split`.
-  const size_t part0 = ((size_t)b * H + (size_t)kvh * G) * S + split;
+  // Partial results of head kvh·G + g of query row `row`, split `split`.
+  const size_t part0 = ((size_t)row * H + (size_t)kvh * G) * S + split;
   if (first > last) {
     if (tid < G) {
       part_ml[2 * (part0 + (size_t)tid * S)] = -INFINITY;
@@ -180,7 +192,7 @@ __global__ void paged_decode_split_kernel(const T* __restrict__ q, const T* __re
 
   load_page(first, 0);
   for (int g = 0; g < G; ++g)
-    q_s[g * plan.ldq + tid] = to_f32(q[((size_t)b * H + kvh * G + g) * Dh + tid]);
+    q_s[g * plan.ldq + tid] = to_f32(q[((size_t)row * H + kvh * G + g) * Dh + tid]);
   if (tid < G) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -309,11 +321,12 @@ __global__ void paged_decode_merge_kernel(const float* __restrict__ part_ml,
 
 template <typename T>
 int launch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
-           const void* positions, void* out, float* part, int B, int H, int Hkv, int Dh, int P,
-           int page, int N, int window, float scale, cudaStream_t stream) {
+           const void* positions, void* out, float* part, int B, int W, int H, int Hkv, int Dh,
+           int P, int page, int N, int window, float scale, cudaStream_t stream) {
   const int S = (N + kPagesPerSplit - 1) / kPagesPerSplit;
+  const int rows = B * W;
   float* part_ml = part;
-  float* part_acc = part + (size_t)B * H * S * 2;
+  float* part_acc = part + (size_t)rows * H * S * 2;
   const Smem<T> plan(H / Hkv, Dh, page);
   if (plan.bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -321,15 +334,32 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
         (int)plan.bytes);
     if (e != cudaSuccess) return (int)e;
   }
-  paged_decode_split_kernel<T><<<dim3(B * Hkv, S), Dh, plan.bytes, stream>>>(
+  paged_decode_split_kernel<T><<<dim3(rows * Hkv, S), Dh, plan.bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
       static_cast<const int*>(tables), static_cast<const int*>(positions),
-      part_ml, part_acc, H, Hkv, Dh, P, page, N, window, scale);
+      part_ml, part_acc, W, H, Hkv, Dh, P, page, N, window, scale);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  paged_decode_merge_kernel<T><<<B * H, Dh, 0, stream>>>(
+  paged_decode_merge_kernel<T><<<rows * H, Dh, 0, stream>>>(
       part_ml, part_acc, static_cast<T*>(out), S, Dh);
   return (int)cudaGetLastError();
+}
+
+int dispatch(const void* q, const void* k_pool, const void* v_pool, const void* tables,
+             const void* positions, void* out, void* part, int B, int W, int H, int Hkv, int Dh,
+             int P, int page, int N, int window, float scale, int is_bf16, void* stream) {
+  if (W < 1 || Hkv < 1 || H % Hkv != 0 || H / Hkv > kMaxGroup || Dh % 32 != 0 || Dh < 32 ||
+      Dh > 1024 || page < 1 || N < 1 || (N + kPagesPerSplit - 1) / kPagesPerSplit > 65535 ||
+      (long long)B * W * Hkv > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* f = static_cast<float*>(part);
+  if (is_bf16)
+    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, positions, out, f, B, W, H, Hkv, Dh,
+                                 P, page, N, window, scale, s);
+  return launch<float>(q, k_pool, v_pool, tables, positions, out, f, B, W, H, Hkv, Dh, P, page,
+                       N, window, scale, s);
 }
 
 }  // namespace
@@ -338,8 +368,8 @@ int launch(const void* q, const void* k_pool, const void* v_pool, const void* ta
 // B * H * splits * (2 + Dh) f32 of scratch.
 extern "C" int paged_decode_splits(int N) { return (N + kPagesPerSplit - 1) / kPagesPerSplit; }
 
-// Plain C entry point (loaded with ctypes). part is f32 scratch:
-// part_ml [B, H, S, 2], then part_acc [B, H, S, Dh], with
+// Plain C entry point (loaded with ctypes): one query token a row. part is
+// f32 scratch: part_ml [B, H, S, 2], then part_acc [B, H, S, Dh], with
 // S = paged_decode_splits(N). Returns the first cudaGetLastError() of the
 // two launches, or cudaErrorInvalidValue for shapes the kernel does not
 // take; the Python wrapper raises on any non-zero value.
@@ -347,15 +377,18 @@ extern "C" int paged_decode(const void* q, const void* k_pool, const void* v_poo
                             const void* tables, const void* positions, void* out, void* part,
                             int B, int H, int Hkv, int Dh, int P, int page, int N, int window,
                             float scale, int is_bf16, void* stream) {
-  if (Hkv < 1 || H % Hkv != 0 || H / Hkv > kMaxGroup || Dh % 32 != 0 || Dh < 32 ||
-      Dh > 1024 || page < 1 || N < 1 || paged_decode_splits(N) > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* f = static_cast<float*>(part);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, positions, out, f, B, H, Hkv, Dh, P,
-                                 page, N, window, scale, s);
-  return launch<float>(q, k_pool, v_pool, tables, positions, out, f, B, H, Hkv, Dh, P, page, N,
-                       window, scale, s);
+  return dispatch(q, k_pool, v_pool, tables, positions, out, part, B, 1, H, Hkv, Dh, P, page, N,
+                  window, scale, is_bf16, stream);
+}
+
+// W query rows a table row (q [B, W, H, Dh], row i at positions[b] + i):
+// the same two launches over B·W query rows; part holds B·W·H·S·(2 + Dh)
+// f32.
+extern "C" int paged_decode_rows(const void* q, const void* k_pool, const void* v_pool,
+                                 const void* tables, const void* positions, void* out,
+                                 void* part, int B, int W, int H, int Hkv, int Dh, int P,
+                                 int page, int N, int window, float scale, int is_bf16,
+                                 void* stream) {
+  return dispatch(q, k_pool, v_pool, tables, positions, out, part, B, W, H, Hkv, Dh, P, page, N,
+                  window, scale, is_bf16, stream);
 }

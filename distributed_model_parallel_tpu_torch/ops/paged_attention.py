@@ -13,7 +13,12 @@ plus a per-sequence page table; this module reads it:
   kernel ``csrc/paged_decode.cu`` for single-token decode (the
   counterpart of the Pallas ``_paged_decode_kernel``): a row's pages are
   split over CTAs of a fixed number of pages and a second launch merges
-  the splits.
+  the splits;
+* :func:`paged_attention_rows_kernel` — the same kernel's window-row
+  entry (``paged_decode_rows``) for the speculative verify step: W query
+  rows a table row at consecutive positions, each computed exactly as a
+  one-row launch at its position, so a verify row equals the decode
+  step's attention bit for bit.
 
 Masking is sanitizing, not just causal: positions past a row's length
 are zeroed in K/V *and* banded out of the scores, so stale page contents
@@ -90,14 +95,18 @@ def paged_attention_gather(q: torch.Tensor, k_pool: torch.Tensor,
     return attend_rows(q, kr, vr, positions, lengths, window)
 
 
-def _kernel_fns():
-    """The kernel's C entry and its split count, ``paged_decode_splits(N)``
-    (a row's N table pages split over CTAs of a fixed number of pages)."""
+def _kernel_fns(rows: bool = False):
+    """The kernel's C entry (``paged_decode``, or ``paged_decode_rows``
+    under ``rows``, which takes the window width W after B) and its split
+    count, ``paged_decode_splits(N)`` (a row's N table pages split over
+    CTAs of a fixed number of pages)."""
     lib = _build.load("paged_decode")
-    fn, splits = lib.paged_decode, lib.paged_decode_splits
+    fn = lib.paged_decode_rows if rows else lib.paged_decode
+    splits = lib.paged_decode_splits
     if fn.argtypes is None:
         fn.restype = splits.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * (9 if rows
+                                                               else 8)
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         splits.argtypes = [ctypes.c_int]
     return fn, splits
@@ -139,7 +148,56 @@ def paged_attention_kernel(q: torch.Tensor, k_pool: torch.Tensor,
         return paged_attention_gather(q, k_pool, v_pool, tables,
                                       positions[:, None], positions + 1,
                                       window)
-    b, _, h, dh = q.shape
+    out = _launch_checked(q, k_pool, v_pool, tables, positions, window)
+    paged_attention_kernel.launches += 1
+    return out
+
+
+paged_attention_kernel.launches = 0
+
+
+def paged_attention_rows_kernel(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor, tables: torch.Tensor,
+                                positions: torch.Tensor,
+                                window: int | None = None) -> torch.Tensor:
+    """W query rows a table row through the kernel's window-row entry.
+    q: [B, W, H, Dh]; pools [P, page, Hkv, Dh]; tables [B, N] int32;
+    positions [B] int32: row b's window row i is the query at
+    ``positions[b] + i`` and attends [0, positions[b] + i] (band-clamped
+    under ``window``), exactly as :func:`paged_attention_kernel` at that
+    position computes it, bit for bit. A row past the table is clamped to
+    its last slot (its output is the caller's to discard). Returns
+    [B, W, H, Dh].
+
+    A CPU ``q`` takes the plain version (:func:`paged_attention_gather`
+    with positions ``positions[b] + i`` and lengths ``positions + W``,
+    clamped to the table); a CUDA ``q`` launches the kernel or raises.
+    ``paged_attention_rows_kernel.launches`` counts wrapper calls that
+    launched."""
+    if q.ndim != 4:
+        raise ValueError(f"q must be [B, W, H, Dh], got {tuple(q.shape)}")
+    w = q.shape[1]
+    if q.device.type == "cpu":
+        span = tables.shape[1] * k_pool.shape[1]
+        rows = (positions[:, None] + torch.arange(w)).clamp(max=span - 1)
+        return paged_attention_gather(q, k_pool, v_pool, tables, rows,
+                                      (positions + w).clamp(max=span),
+                                      window)
+    out = _launch_checked(q, k_pool, v_pool, tables, positions, window)
+    paged_attention_rows_kernel.launches += 1
+    return out
+
+
+paged_attention_rows_kernel.launches = 0
+
+
+def _launch_checked(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, tables: torch.Tensor,
+                    positions: torch.Tensor, window: int | None
+                    ) -> torch.Tensor:
+    """Check a CUDA call's operands and launch the split and merge passes
+    over q's ``B x W`` query rows (W = 1: the one-token entry)."""
+    b, w, h, dh = q.shape
     if k_pool.ndim != 4 or v_pool.shape != k_pool.shape:
         raise ValueError(f"pools must be [P, page, Hkv, Dh] and alike, got "
                          f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
@@ -169,22 +227,19 @@ def paged_attention_kernel(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("q, pools, tables and positions must be contiguous")
     if any(x.data_ptr() % 16 for x in (q, k_pool, v_pool)):
         raise ValueError("q and pools must be 16-byte aligned")
-    fn, splits = _kernel_fns()
+    fn, splits = _kernel_fns(rows=w > 1)
     n = tables.shape[1]
     out = torch.empty_like(q)
-    # f32 scratch of the split pass: (m, l) and acc[Dh] per (b, h, split).
-    part = torch.empty(b * h * splits(n) * (2 + dh), dtype=torch.float32,
-                       device=q.device)
+    # f32 scratch of the split pass: (m, l) and acc[Dh] per (query row, h,
+    # split).
+    part = torch.empty(b * w * h * splits(n) * (2 + dh),
+                       dtype=torch.float32, device=q.device)
     _call(fn, (q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                tables.data_ptr(), positions.data_ptr(), out.data_ptr(),
-               part.data_ptr(), b, h, hkv, dh, n_pool, page, n,
-               0 if window is None else int(window), float(dh ** -0.5),
-               int(q.dtype == torch.bfloat16)), q.device)
-    paged_attention_kernel.launches += 1
+               part.data_ptr(), b, *((w,) if w > 1 else ()), h, hkv, dh,
+               n_pool, page, n, 0 if window is None else int(window),
+               float(dh ** -0.5), int(q.dtype == torch.bfloat16)), q.device)
     return out
-
-
-paged_attention_kernel.launches = 0
 
 
 def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,

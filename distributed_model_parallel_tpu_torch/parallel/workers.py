@@ -774,3 +774,22 @@ def lm_barrier_wait(spec: MeshSpec, config, hold_s: float) -> float:
     t0 = time.perf_counter()
     tr._barrier()
     return time.perf_counter() - t0
+
+
+def generate_cases(spec: MeshSpec, cases: list) -> list:
+    """``models/transformer.generate_sharded`` on this rank for each case
+    ``(cfg_kw, tree, prompt, steps, kw)`` (a numpy parameter tree, the
+    whole prompt): the whole tokens it returns, the shape of its local
+    cache, and the TP all-reduces it issued."""
+    from distributed_model_parallel_tpu_torch.models import transformer as tfm
+
+    out = []
+    for cfg_kw, tree, prompt, steps, kw in cases:
+        cfg = tfm.TransformerConfig(**cfg_kw)
+        C.reset_counts()
+        tokens = tfm.generate_sharded(_lm_params(tree, cfg), cfg, prompt,
+                                      steps, spec, **kw)
+        out.append({"tokens": tokens.numpy(),
+                    "cache_shape": tfm.generate.cache_shape,
+                    "tp_all_reduce": C.calls["tp_all_reduce"]})
+    return out

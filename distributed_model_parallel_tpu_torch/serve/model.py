@@ -8,13 +8,18 @@ Counterpart of ``distributed_model_parallel_tpu/serve/model.py``:
 * the **decode step** advances every slot one token at the engine's fixed
   slot width, idle rows computed and masked (writes dropped), so a
   request's tokens do not depend on who shares the batch: same shapes,
-  row-independent math, its own pages.
+  row-independent math, its own pages;
+* the **verify step** (speculative decoding) forwards W tokens a slot —
+  the last committed token and W - 1 drafts — and emits the model's own
+  choice at every window position.
 
 PyTorch runs eagerly, so a step is a plain function, not a compiled
 program. The host-side index work (which tokens write where) is done on
 the CPU from the host's tables before the step touches the device; the
 pools ``ck``/``cv`` are updated in place. Decode attention goes through
-the paged kernel (``impl="kernel"``); prefill chunks take the gather path.
+the paged kernel (``impl="kernel"``), the verify step's through the same
+kernel's window-row entry (each window row computed as a one-token launch
+at its position would); prefill chunks take the gather path.
 """
 
 from __future__ import annotations
@@ -33,7 +38,10 @@ from distributed_model_parallel_tpu_torch.models.transformer import (
     unembed,
 )
 from distributed_model_parallel_tpu_torch.ops.paged_attention import (
+    IMPLS,
     paged_attention,
+    paged_attention_gather,
+    paged_attention_rows_kernel,
 )
 
 
@@ -50,16 +58,39 @@ def write_index(pages: torch.Tensor, offsets: torch.Tensor,
                                         offsets[rows, cols]))
 
 
+def verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                     v_pool: torch.Tensor, tables: torch.Tensor,
+                     positions: torch.Tensor, lengths: torch.Tensor,
+                     window: int | None = None,
+                     impl: str = "kernel") -> torch.Tensor:
+    """The verify step's attention: W consecutive query rows a slot
+    (``positions[b] = positions[b, 0] + arange(W)``). ``impl="kernel"``
+    calls the paged kernel's window-row entry (its plain version on CPU
+    tensors), so window row i is the decode step's attention at that
+    position bit for bit; ``"plain"`` the gather path."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown paged-attention impl {impl!r}; known: "
+                         f"{', '.join(IMPLS)}")
+    if impl == "kernel":
+        return paged_attention_rows_kernel(q, k_pool, v_pool, tables,
+                                           positions[:, 0].contiguous(),
+                                           window)
+    return paged_attention_gather(q, k_pool, v_pool, tables, positions,
+                                  lengths, window)
+
+
 def paged_block(bp: dict, ck: torch.Tensor, cv: torch.Tensor, layer: int,
                 x: torch.Tensor, positions: torch.Tensor, writes: tuple,
                 tables: torch.Tensor, lengths: torch.Tensor,
-                cfg: TransformerConfig, *, impl: str) -> torch.Tensor:
+                cfg: TransformerConfig, *, impl: str,
+                attend=paged_attention) -> torch.Tensor:
     """One transformer block over the paged cache.
 
     x: [B, C, d]; positions: [B, C] int32 absolute; writes: the
     :func:`write_index` of this step; tables: [B, N] int32; lengths: [B]
     valid K prefix after this step's writes; ck/cv: [L, P, page, Hkv, Dh]
-    pools, written in place at ``layer``.
+    pools, written in place at ``layer``. ``attend`` reads the pools
+    (:func:`verify_attention` for the verify step).
     """
     b, c = x.shape[:2]
     h = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
@@ -71,19 +102,20 @@ def paged_block(bp: dict, ck: torch.Tensor, cv: torch.Tensor, layer: int,
     rows, cols, pages, offsets = writes
     ck[layer].index_put_((pages, offsets), k[rows, cols].to(ck.dtype))
     cv[layer].index_put_((pages, offsets), v[rows, cols].to(cv.dtype))
-    o = paged_attention(q.contiguous(), ck[layer], cv[layer], tables,
-                        positions, lengths, window=cfg.attn_window,
-                        impl=impl)
+    o = attend(q.contiguous(), ck[layer], cv[layer], tables, positions,
+               lengths, window=cfg.attn_window, impl=impl)
     x = x + o.reshape(b, c, -1) @ bp["wo"]
     h = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
     return x + _ffn(bp, h)[0]
 
 
 def _layers(params: dict, ck, cv, x, positions, writes, tables, lengths,
-            cfg: TransformerConfig, impl: str) -> torch.Tensor:
+            cfg: TransformerConfig, impl: str,
+            attend=paged_attention) -> torch.Tensor:
     for li in range(cfg.n_layers):
         x = paged_block(layer_params(params, li), ck, cv, li, x, positions,
-                        writes, tables, lengths, cfg, impl=impl)
+                        writes, tables, lengths, cfg, impl=impl,
+                        attend=attend)
     return x
 
 
@@ -147,6 +179,34 @@ def decode_logits(params: dict, ck, cv, tokens, positions, tables, active,
     return unembed(params, x)[:, 0]
 
 
+def verify_logits(params: dict, ck, cv, tokens, positions, n_valid, tables,
+                  active, cfg: TransformerConfig, *, page_size: int,
+                  n_pages: int, impl: str, device) -> torch.Tensor:
+    """W tokens for every row of the fixed-width batch: ``tokens`` [B, W]
+    at ``positions[b] + arange(W)`` through ``tables`` [B, N], the first
+    ``n_valid[b]`` real, ``active`` [B] bool (all host). Writes past
+    ``n_valid`` and every write of an idle row are dropped through
+    out-of-range page ids. Returns logits [B, W, V]."""
+    tokens = torch.as_tensor(tokens).long()
+    width = tokens.shape[1]
+    base = torch.as_tensor(positions).long()
+    n_valid = torch.as_tensor(n_valid).long()
+    tables = torch.as_tensor(tables).long()
+    active = torch.as_tensor(active).bool()
+    pos = base[:, None] + torch.arange(width)[None]            # [B, W]
+    valid = (torch.arange(width)[None] < n_valid[:, None]) & active[:, None]
+    logical = torch.clamp(pos // page_size, 0, tables.shape[1] - 1)
+    pages = torch.gather(tables, 1, logical)
+    writes = write_index(pages, pos % page_size, valid, n_pages, device)
+    pos_d = pos.to(device=device, dtype=torch.int32)
+    lengths = (base + n_valid).to(device)
+    tables_d = tables.to(device=device, dtype=torch.int32)
+    x = _embed_rows(params, tokens.to(device), pos_d, cfg)
+    x = _layers(params, ck, cv, x, pos_d, writes, tables_d, lengths, cfg,
+                impl, attend=verify_attention)
+    return unembed(params, x)
+
+
 def make_prefill_step(cfg: TransformerConfig, *, page_size: int,
                       n_pages: int, chunk: int, impl: str = "kernel",
                       temperature: float = 0.0, top_k: int | None = None,
@@ -193,5 +253,47 @@ def make_decode_step(cfg: TransformerConfig, *, page_size: int,
                                active, cfg, page_size=page_size,
                                n_pages=n_pages, impl=impl, device=dev)
         return sampler(logits, seeds, list(map(int, positions)))
+
+    return step
+
+
+def make_verify_step(cfg: TransformerConfig, *, page_size: int,
+                     n_pages: int, width: int, impl: str = "kernel",
+                     temperature: float = 0.0, top_k: int | None = None,
+                     top_p: float | None = None, device="cuda"):
+    """Speculative-decoding verification: ``width`` tokens a slot in one
+    batched forward (the last committed token and ``width - 1`` drafts),
+    the model's own choice emitted at every window position.
+
+    Returns ``step(params, ck, cv, tokens [B, W], positions [B], n_valid
+    [B], tables [B, N], active [B] bool, seeds [B]) -> out [B, W]`` (pools
+    updated in place): ``out[b, i]`` is the token the model picks for
+    position ``positions[b] + i + 1`` given the window through ``i``,
+    sampled at (seed, ``positions[b] + i``) — the decode step's draw for
+    that position. ``n_valid`` clamps a row's window (a request near its
+    token budget); writes past it and every write of an idle row are
+    dropped. Under ``impl="kernel"`` each window row's attention is the
+    decode step's at its position bit for bit (the kernel's window-row
+    entry); the products run at B·W rows, not B, so a bf16 near-tie may
+    still resolve differently from the decode step.
+    """
+    dev = resolve_device(device)
+    sampler = make_sampler(cfg, temperature, top_k, top_p)
+
+    def step(params, ck, cv, tokens, positions, n_valid, tables, active,
+             seeds=None):
+        tokens = torch.as_tensor(tokens)
+        if tokens.shape[1] != width:
+            raise ValueError(f"verify step takes {width}-token windows")
+        logits = verify_logits(params, ck, cv, tokens, positions, n_valid,
+                               tables, active, cfg, page_size=page_size,
+                               n_pages=n_pages, impl=impl, device=dev)
+        b = logits.shape[0]
+        flat = logits.reshape(b * width, -1)
+        if temperature <= 0:
+            return sampler(flat).reshape(b, width)
+        pos = [int(p) + i for p in positions for i in range(width)]
+        rows = [int(s) for s in seeds for _ in range(width)]
+        return sampler(flat, rows, pos).reshape(b, width)
 
     return step

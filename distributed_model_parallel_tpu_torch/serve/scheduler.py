@@ -1,16 +1,20 @@
 """Iteration-level (continuous) batching scheduler.
 
 Counterpart of ``distributed_model_parallel_tpu/serve/scheduler.py``
-(without priorities, deadlines, queue bounds, migration and request
-tracing — later slices). The decode batch is a fixed set of slots, and
-scheduling happens per engine iteration: a finishing sequence's slot and
-pages go to a waiting request mid-batch, and long prompts prefill in
-chunks interleaved with decode steps.
+(without priorities, deadlines, queue bounds, withdraw, migration and
+request tracing — later slices). The decode batch is a fixed set of
+slots, and scheduling happens per engine iteration: a finishing
+sequence's slot and pages go to a waiting request mid-batch, and long
+prompts prefill in chunks interleaved with decode steps.
 
 Admission is FIFO with head-of-line blocking, gated on the page pool: a
 request is admitted only when a slot is free and the pool holds pages for
-its whole worst case (``prompt + max_new_tokens``). Reservation is
-allocation, so decode never runs out of pages mid-flight.
+its whole worst case (``prompt + max_new_tokens``). With a prefix cache
+the bill is counted after sharing: a cached prefix's pages are retained,
+not allocated, and tree-only pages count as reclaimable, so a cold
+request on a warm pool queues exactly when its reservation exceeds free
+plus evictable pages. Reservation is allocation, so decode never runs
+out of pages mid-flight.
 ``policy="static"`` refills only once the whole batch has drained — the
 baseline continuous batching is compared against.
 """
@@ -50,10 +54,18 @@ class Request:                     # objects in slots/queues, not values
     generated: list[int] = dataclasses.field(default_factory=list)
     error: str | None = None
     prefill_cursor: int = 0          # prompt tokens already prefilled
+    cached_prompt_tokens: int = 0    # prefix served from the radix tree
     slot: int | None = None
     t_admitted: float | None = None
     t_first_token: float | None = None
     t_done: float | None = None
+
+    @property
+    def prefill_tokens(self) -> list[int]:
+        """What prefill processes before decode starts: the prompt (a
+        journal replay's committed tokens join it when the journal is
+        ported)."""
+        return self.prompt
 
     @property
     def prompt_len(self) -> int:
@@ -122,10 +134,11 @@ class Scheduler:
     def admit(self, now: float) -> list[Request]:
         """Move arrived requests into free slots (continuous), or refill
         the whole batch once it has fully drained (static), allocating
-        each admitted request's full page reservation. The first arrived
-        request in queue order is the candidate; when it does not fit,
-        admission waits (head-of-line blocking: deterministic and
-        starvation-free)."""
+        each admitted request's page reservation after sharing
+        (``cache.try_admit``; the cached token count lands in
+        ``cached_prompt_tokens``). The first arrived request in queue
+        order is the candidate; when it does not fit, admission waits
+        (head-of-line blocking: deterministic and starvation-free)."""
         if self.policy == "static" and any(
                 r is not None for r in self.slots):
             return []
@@ -134,9 +147,13 @@ class Scheduler:
             if self.slots[slot] is not None:
                 continue
             req = next((r for r in self.queue if r.arrival_s <= now), None)
-            if req is None or not self.cache.try_admit(req.rid,
-                                                       req.total_capacity):
+            if req is None:
                 break
+            got = self.cache.try_admit(req.rid, req.prefill_tokens,
+                                       req.total_capacity)
+            if got is None:
+                break
+            req.cached_prompt_tokens = got
             self.queue.remove(req)
             req.slot = slot
             req.state = RequestState.PREFILL

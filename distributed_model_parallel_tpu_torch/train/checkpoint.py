@@ -355,6 +355,24 @@ class Checkpointer:
             + "; ".join(f"{os.path.basename(p)} ({r[:160]})"
                         for p, r in rejected))
 
+    def restore_subtree(self, target: Any, name: str = "ckpt") -> Any:
+        """The leaves of ``target``'s keys from the newest committed version
+        of ``name`` (numpy leaves; the rest of the checkpoint is not read
+        into the result): JAX's partial restore, e.g. the params of an LM
+        checkpoint for decoding. A key the checkpoint lacks, or a shape
+        that differs, raises ``ValueError``; FileNotFoundError if absent."""
+        self.wait_until_finished()
+        path = self._latest_path(name)
+        if path is None:
+            raise FileNotFoundError(self._path(name))
+        flat = _read_payload(path)
+        want = flatten_tree(target)
+        missing = sorted(set(want) - set(flat))
+        if missing:
+            raise ValueError(f"checkpoint {path} lacks {missing[:8]}")
+        self.last_restored_path = path
+        return unflatten_like(target, {k: flat[k] for k in want})
+
     def exists(self, name: str = "ckpt") -> bool:
         self.wait_until_finished()
         return self._latest_path(name) is not None

@@ -320,9 +320,21 @@ def test_formerly_refused_options_train(tmp_path, kw):
 
 
 def test_generate_refused_by_name():
+    """``generate`` is ported (tests/test_torch_generate.py); what it still
+    refuses, it refuses by the JAX package's words, before touching the
+    params."""
     _, tcfg = configs("mha")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9: generate"):
-        ttfm.generate({}, tcfg, [1, 2], 3)
+    params = {"embed": torch.zeros(1)}
+    with pytest.raises(ValueError, match="steps must be >= 1"):
+        ttfm.generate(params, tcfg, [[1, 2]], 0)
+    with pytest.raises(ValueError, match="exceeds max_seq_len"):
+        ttfm.generate(params, tcfg, [[1, 2]], tcfg.max_seq_len)
+    with pytest.raises(ValueError, match="not divisible by prefill_chunk"):
+        ttfm.generate(params, tcfg, [[1, 2, 3]], 3, prefill_chunk=2)
+    moe = dataclasses.replace(tcfg, moe_experts=4, ep_axis="expert")
+    with pytest.raises(ValueError, match="expert-parallel decode is not "
+                                         "implemented"):
+        ttfm.generate_sharded(params, moe, [[1, 2]], 3, None)
 
 
 def test_cuda_without_a_card_raises():

@@ -45,7 +45,7 @@ _MODULES = {
     "models.resnet", "models.embedding", "ops.ring_reduce", "ops.sparse",
     "parallel.zero", "parallel.fsdp",
     "models.zoo", "train.checkpoint", "train.logging_util",
-    "train.preemption",
+    "train.preemption", "serve.prefix_cache", "serve.spec",
 }
 
 

@@ -185,8 +185,10 @@ def test_cache_tables_and_admission(port_model):
     cache = PagedKVCache(cfg, n_pages=5, page_size=4, max_seq_len=16,
                          device="cpu")
     assert tuple(cache.ck.shape) == (2, 5, 4, 4, 8)
-    assert cache.try_admit("a", 9)                # 3 pages
-    assert not cache.try_admit("b", 9)            # only 2 free: queue
+    # try_admit(sid, prompt tokens, capacity): the cached token count (0
+    # without a prefix cache), or None when the request must queue.
+    assert cache.try_admit("a", [1] * 5, 9) == 0  # 3 pages
+    assert cache.try_admit("b", [1] * 5, 9) is None  # only 2 free: queue
     assert "b" not in cache._tables
     assert cache.table_array("a").tolist() == [0, 1, 2, 0]
     with pytest.raises(PagePoolError, match="max_seq_len"):
