@@ -270,13 +270,37 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     except at a near-tie of the spec-off step (printed), exact pages after
     the drain, the paged kernel's window-row entry bit for bit the
     one-token launches (W 2, 4, 5) and against its plain version, timed.
+21. The engine's overload controls and planes, at bench.py's
+    serving-overload widths (vocab 8192, d 512, 4 layers, bf16; 48
+    requests): (a) a closed-loop capacity run, then the same population
+    at 2x (bench.py's factor) and 3x capacity with a 0.3x tail through an
+    engine with deadlines, priorities, the bounded queue and brownout
+    armed — every request not completed shed typed, no failure, the
+    arrived backlog within ``max_queue`` every iteration, completed tokens
+    == the capacity run's (a prefix where clamped), brownout resolves in
+    both and fires at 3x (``OVL_FACTORS``' note), the metering
+    gate and the trace joiner clean on the stream, paged_decode launches
+    == n_layers x decode rounds with no plain path, warmup loaded and
+    launched the kernel first; goodput, capacity, shed fraction, TTFT
+    p99 and a profiled device busy share printed (bench.py's 0.8 goodput
+    band printed, not gated); (b) spec_k 4 with a journal: a run killed
+    half-way, its journal folded and every pending intent replayed on a
+    fresh engine — in f32 no request lost, one terminal an intent, tokens
+    == the uninterrupted run's; in bf16 the replays that trip the
+    re-sampled-token assertion counted with their top-2 gaps (reported);
+    (c) drain engine A with requests mid-prefill and mid-decode (prefix
+    cache on), enqueue them on B: tokens == the unmigrated run's bit for
+    bit, A's pool empty, a hop meter record and an export/import rtrace
+    pair a move; (d) during (a), /healthz, /statusz and /metrics of the
+    status exporter on 127.0.0.1 answer 200 with the engine's provider.
 
 Prints the card line, each phase's seconds, a ``{"data_parallel": ...}``
 line, a ``{"pipeline": ...}`` line, a ``{"resnet": ...}`` line, a
 ``{"dp_engines": ...}`` line, a ``{"harness": ...}`` line, a
 ``{"data_path": ...}`` line, a ``{"optim": ...}`` line, a
 ``{"lm_mesh": ...}`` line, a ``{"lm_pipe": ...}`` line, a ``{"decode":
-...}`` line, the ``{"kernels": [...]}`` line and, last,
+...}`` line, a ``{"serve_planes": ...}`` line, the ``{"kernels": [...]}``
+line and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero
 without a card, or when run outside a checkout of the repository.
 ``--sgd-timing-only`` runs phases 1, 2 (the fused SGD kernel) and 10 and
@@ -302,9 +326,10 @@ each timed by CUDA events and added). ``--lm-only`` runs phases 1, 2 (the
 flash kernels), 6, 18 and 19 and prints the ``{"lm_mesh": ...}`` and
 ``{"lm_pipe": ...}`` lines; with four cards 18b-c and 19b-c run over NCCL
 at world 4, one rank a card. ``--serve-only`` runs phases 1, 2 (the
-paged-decode and flash forward kernels), 3-5 and 20 and prints the
-``{"decode": ...}`` line and the paged kernel's rows of the
-``{"kernels": ...}`` line; with four cards 20b runs over NCCL.
+paged-decode and flash forward kernels), 3-5, 20 and 21 and prints the
+``{"decode": ...}`` and ``{"serve_planes": ...}`` lines and the paged
+kernel's rows of the ``{"kernels": ...}`` line; with four cards 20b runs
+over NCCL.
 """
 
 from __future__ import annotations
@@ -761,6 +786,40 @@ SPEC_WIDTHS = (2, 4, 5)
 # (the verify step's products run at B·W rows, not B, so cuBLAS may reduce
 # them in another order).
 SPEC_TIE_RTOL = 2.0 ** -7
+# Phase 21 (the engine's overload controls and planes): bench.py's
+# serving-overload workload (bench.py:1126-1320) — the trace of
+# build_serve_trace at its defaults (bench.py:543-591: 48 requests at 50
+# a second, prompts 16-96, generation 16-256 exponential with mean a
+# quarter of the range, seeds 0..47), its model (bench.py:571-578: vocab
+# 8192, d 512, 8 heads, 4 layers, d_ff 2048, RoPE, bf16; random weights
+# from seed 0) and geometry (:1165-1169: 8 slots, page 16, a pool of
+# (slots + 1) x pages a sequence, chunk 32); a 0.3x tail, every third
+# request batch, the budgets of :1202-1215.
+OVL_MODEL = dict(vocab_size=8192, d_model=512, n_heads=8, n_layers=4,
+                 d_ff=2048, max_seq_len=96 + 256, pos_embedding="rope")
+OVL_TRACE = dict(n=48, rate=50.0, prompt=(16, 96), gen=(16, 256), seed=0)
+OVL_GEOMETRY = dict(n_slots=8, page_size=16, n_pages=(8 + 1) * 22,
+                    max_seq_len=352, prefill_chunk=32)
+# bench.py's factor 2.0 rarely loads the port's engine enough for the
+# TTFT burn rule: its prefill and decode iterations cost about the same
+# (host-bound), and on a virtual clock of equal iterations (SimClock)
+# both packages' engines never fire brownout at 2.0 and always at 2.5
+# and 3.0 on this trace. Both run; the brownout-fires gate is held at
+# OVL_GATED_FACTOR.
+OVL_FACTORS, OVL_GATED_FACTOR, OVL_BAND = (2.0, 3.0), 3.0, 0.8
+# Iterations of the capacity engine under the profiler (device busy share;
+# a cut: the whole run's trace would cost the profiler tens of seconds).
+OVL_PROFILE_ITERS = 24
+# 21b: the journal drill at 21a's widths with spec_k 4, f32 (the gate)
+# and one bf16 pass (reported), on the trace's first 32 requests (a cut
+# for the script's time limit); the engine is killed half-way through
+# the uninterrupted run's iterations.
+JRN_SPEC_K = 4
+JRN_REQS = 32
+# 21c: drain/import at 21a's model, the prefix cache on: 8 requests, a
+# 64-token system prompt before each trace prompt's first 32 tokens,
+# 48 new tokens at most.
+MIG_REQS, MIG_SYSTEM, MIG_USER, MIG_GEN = 8, 64, 32, 48
 
 # Where the phases' trainers write their logs and checkpoints: one
 # temporary directory of the run, made by main() and removed at exit;
@@ -898,12 +957,14 @@ def print_profile(label: str, run, card, kind=lm_kind) -> list:
     stream, so their times add), then by ``kind(kernel name)``. ``run``
     returns a note for the summary line. Informational: a profile without
     device events prints "not measured". Returns the (kernel name, device
-    us, count) rows."""
+    us, count) rows. CUDA activity only: every row is a kernel, and the
+    host's operator events added to the run's wall and cost the profiler
+    tens of seconds to gather (24-30 s for phase 5b's engine run on an
+    H100 host)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         note = run()
         torch.cuda.synchronize()
@@ -6634,11 +6695,11 @@ def gen_phases(laps, mesh, card, backend: str,
     return {"generate": gen, "generate_sharded": sharded, "engine": spec}
 
 
-def decode_kernel_rows(paged: dict, dec: dict) -> list:
+def decode_kernel_rows(paged: dict, dec: dict, planes: dict) -> list:
     """The ``kernels`` line's rows of row 1 of the kernel table: the
-    paged-decode kernel (launches of phase 5's engine; 20a's generate and
-    20c's spec-on runs beside them) and its window-row entry (launches of
-    20c's spec-on runs)."""
+    paged-decode kernel (launches of phase 5's engine; 20a's generate,
+    20c's spec-on runs and 21a's capacity and overload runs beside them)
+    and its window-row entry (launches of 20c's spec-on runs)."""
     src = "distributed_model_parallel_tpu_torch/ops/csrc/paged_decode.cu"
     tpu = "distributed_model_parallel_tpu/ops/paged_attention.py:115"
     spec = dec["engine"]
@@ -6647,7 +6708,8 @@ def decode_kernel_rows(paged: dict, dec: dict) -> list:
          "replaces": tpu, **paged,
          "launches_20a_generate": dec["generate"]["launches"][
              "paged_decode"],
-         "launches_20c_spec": spec["launches"]["paged_decode"]},
+         "launches_20c_spec": spec["launches"]["paged_decode"],
+         "launches_21a_overload": planes["overload"]["launches"]},
         {"name": "paged_decode_rows", "route": "cuda", "source": src,
          "replaces": tpu,
          "launches": spec["launches"]["paged_decode_rows"],
@@ -6865,6 +6927,676 @@ def serve_phases(laps, card) -> dict:
                 library_ms=library_ms, ms_b1_long_row=ms_b1)
 
 
+def serve_trace(vocab: int) -> list:
+    """bench.py's ``build_serve_trace`` at its defaults (``OVL_TRACE``):
+    Poisson arrivals, prompts uniform in the range, generation lengths
+    exponential with mean a quarter of the range, clipped; the draws in
+    bench.py's order from one seeded generator."""
+    import numpy as np
+
+    c = OVL_TRACE
+    rng = np.random.default_rng(c["seed"])
+    (p_lo, p_hi), (g_lo, g_hi) = c["prompt"], c["gen"]
+    t, trace = 0.0, []
+    for i in range(c["n"]):
+        t += float(rng.exponential(1.0 / c["rate"]))
+        prompt = [int(x) for x in
+                  rng.integers(0, vocab, rng.integers(p_lo, p_hi + 1))]
+        gen = int(min(g_hi, g_lo + rng.exponential((g_hi - g_lo) / 4)))
+        trace.append(dict(arrival_s=t, prompt=prompt, max_new_tokens=gen,
+                          seed=i))
+    return trace
+
+
+class PlainDecodeCount:
+    """Counts, while active, the paged attention's plain version called
+    on one-token CUDA queries — the decode kernel's plain path, which the
+    engine must never take on the card."""
+
+    def __enter__(self):
+        from distributed_model_parallel_tpu_torch.ops import (
+            paged_attention as pa,
+        )
+        from distributed_model_parallel_tpu_torch.serve import (
+            model as smodel,
+        )
+
+        self.n = 0
+        self._mods = (pa, smodel)
+        orig = pa.paged_attention_gather
+        self._orig = orig
+
+        def counting(q, *args, **kw):
+            if q.is_cuda and q.shape[1] == 1:
+                self.n += 1
+            return orig(q, *args, **kw)
+
+        for m in self._mods:
+            m.paged_attention_gather = counting
+        return self
+
+    def __exit__(self, *exc):
+        for m in self._mods:
+            m.paged_attention_gather = self._orig
+        return False
+
+
+def device_busy(run) -> dict:
+    """``run()`` under ``torch.profiler`` (CUDA activity only): the
+    kernels' device time over the run's wall (one stream, so kernel times
+    add). ``{"busy_share": None}`` when the profile holds no device
+    events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    busy_us = sum(e.device_time_total for e in prof.key_averages()
+                  if e.device_time_total > 0
+                  and e.device_type.name == "CUDA")
+    return {"wall_us": wall_us, "busy_us": busy_us,
+            "busy_share": busy_us / wall_us if busy_us else None}
+
+
+def scrape_statusz(url: str, provider: str) -> dict:
+    """One GET of /healthz, /statusz and /metrics on the local exporter:
+    status codes, the provider's payload, the metrics text's size."""
+    import urllib.request
+
+    out = {}
+    for path in ("/healthz", "/statusz", "/metrics"):
+        with urllib.request.urlopen(url + path, timeout=10) as resp:
+            body = resp.read().decode("utf-8")
+            out[path] = resp.status
+        if path == "/statusz":
+            out["provider"] = json.loads(body)["providers"].get(provider)
+        if path == "/metrics":
+            out["metrics_lines"] = len(body.splitlines())
+            out["ttft_series"] = "serve_ttft_s_count" in body
+    return out
+
+
+def overload_drill(laps, card) -> dict:
+    """Phase 21a (and 21d inside it): bench.py's ``bench_serve_overload``
+    on the port. A closed-loop capacity run of the trace, then the same
+    population open-loop at each of OVL_FACTORS x capacity (a 0.3x tail
+    after 3/4 of it) through an engine with every overload control armed.
+    Gates (bench.py:1250-1272 and the planes'), each run: typed sheds
+    account for every request that did not complete, no failure; the
+    arrived backlog within ``max_queue`` at every iteration; completed
+    tokens == the capacity run's (a clamped request's: a prefix);
+    brownout ends at level 0, and fires at OVL_GATED_FACTOR; the paged
+    kernel launched n_layers x decode rounds, never the plain path;
+    warmup loaded and launched the kernel first. On the stream of all the
+    runs: the metering gate and the trace joiner. 21d scrapes the
+    exporter once, mid-way through the first overload run."""
+    import numpy as np
+    import torch
+
+    from distributed_model_parallel_tpu_torch.models import (
+        transformer as tfm,
+    )
+    from distributed_model_parallel_tpu_torch.ops import (
+        paged_attention as pa,
+    )
+    from distributed_model_parallel_tpu_torch.serve import (
+        Engine,
+        ServeConfig,
+    )
+    from distributed_model_parallel_tpu_torch.serve import (
+        capacity as capacity_mod,
+    )
+    from distributed_model_parallel_tpu_torch.utils import statusz
+    from distributed_model_parallel_tpu_torch.utils import (
+        telemetry as tel_mod,
+    )
+
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, **OVL_MODEL)
+    params = tfm.init_params(cfg, seed=0, device="cuda")
+    trace = serve_trace(cfg.vocab_size)
+    base = dict(OVL_GEOMETRY)
+    tel = tel_mod.TelemetryRun(
+        os.path.join(os.environ[RUN_DIR_ENV], "serve21.jsonl"),
+        run="serve21", meta=dict(trace="overload", n_requests=len(trace),
+                                 overload_factors=list(OVL_FACTORS)))
+    server = statusz.maybe_serve(0)
+
+    def warm(eng, label):
+        from distributed_model_parallel_tpu_torch.ops import _build
+
+        pa.paged_attention_kernel.launches = 0
+        eng.warmup()
+        torch.cuda.synchronize()
+        if "paged_decode" not in _build._libs or \
+                pa.paged_attention_kernel.launches != cfg.n_layers:
+            fail("21a/overload", f"{label}: warmup did not load and launch "
+                                 f"the paged kernel ({sorted(_build._libs)}, "
+                                 f"{pa.paged_attention_kernel.launches} "
+                                 f"launches)")
+        pa.paged_attention_kernel.launches = 0
+        pa.paged_attention_rows_kernel.launches = 0
+
+    def gated_run(eng, label):
+        with PlainDecodeCount() as plain:
+            s = eng.run()
+        torch.cuda.synchronize()
+        want = cfg.n_layers * s["decode_steps"]
+        got = pa.paged_attention_kernel.launches
+        if got != want or plain.n or pa.paged_attention_rows_kernel.launches:
+            fail("21a/overload", f"{label}: paged_decode launches {got} != "
+                                 f"{want} (n_layers x decode rounds), plain "
+                                 f"decode calls {plain.n}")
+        return s, got
+
+    # -- capacity: closed loop, nothing sheds
+    cap_eng = Engine(params, cfg, ServeConfig(**base), telemetry=tel)
+    warm(cap_eng, "capacity")
+    for i, r in enumerate(trace):
+        cap_eng.submit(r["prompt"], r["max_new_tokens"], rid=f"o{i}",
+                       seed=r["seed"])
+    cap, launches = gated_run(cap_eng, "capacity")
+    capacity = cap["tokens_per_s"]
+    wall_a = max(cap["wall_s"], 1e-3)
+    reference = {q.rid: list(q.generated) for q in cap_eng.results()}
+    if cap["requests_completed"] != len(trace):
+        fail("21a/overload", f"capacity run completed "
+                             f"{cap['requests_completed']} of {len(trace)}")
+    print(f"overload 21a capacity [{card}]: {cap['tokens_generated']} tokens "
+          f"in {cap['wall_s']} s, {capacity} tokens/s, "
+          f"{cap['decode_steps']} decode rounds, TTFT p99 "
+          f"{cap['ttft_s'].get('p99')} s")
+    n_over = max(1, int(len(trace) * 0.75))
+    mean_tokens = sum(len(v) for v in reference.values()) / len(reference)
+    serve = ServeConfig(
+        **base, queue_budget_s=max(0.15 * wall_a, 0.05),
+        deadline_s=max(1.2 * wall_a, 0.4), max_queue=2 * base["n_slots"],
+        brownout=True, brownout_ttft_target_s=max(0.08 * wall_a, 0.02),
+        brownout_budget=0.25, brownout_window_s=max(0.10 * wall_a, 0.06),
+        brownout_max_new=max(8, int(mean_tokens / 2)),
+        brownout_hold_iters=4)
+    out = {"capacity_tokens_per_s": capacity, "capacity_wall_s": cap["wall_s"],
+           "capacity_ttft_p99_s": cap["ttft_s"].get("p99"),
+           "queue_budget_s": serve.queue_budget_s,
+           "deadline_s": serve.deadline_s, "max_queue": serve.max_queue,
+           "ttft_target_s": serve.brownout_ttft_target_s,
+           "goodput_band": OVL_BAND, "gated_factor": OVL_GATED_FACTOR}
+    scrape: dict = {}
+    for factor in OVL_FACTORS:
+        # The same population at factor x capacity, then a cool-down.
+        rng = np.random.default_rng(OVL_TRACE["seed"] + 1)
+        t, arrivals = 0.0, []
+        for i in range(len(trace)):
+            rate = (factor if i < n_over else 0.3) * capacity / mean_tokens
+            t += float(rng.exponential(1.0 / rate))
+            arrivals.append(t)
+        eng = Engine(params, cfg, serve, telemetry=tel)
+        warm(eng, f"{factor}x")
+        state = {"bounded": True, "max_backlog": 0}
+
+        def hook(it, eng=eng, state=state):
+            # eng._now is the previous iteration's clock, at which that
+            # iteration's overflow trim ran: its arrived backlog is
+            # within the bound.
+            backlog = eng.sched.arrived_backlog(eng._now)
+            state["max_backlog"] = max(state["max_backlog"], backlog)
+            state["bounded"] &= backlog <= serve.max_queue
+            if not scrape and it >= 50:
+                scrape.update(scrape_statusz(server.url, eng._provider),
+                              keys=set(eng._status()))
+
+        eng.step_hook = hook
+        for i, (r, arr) in enumerate(zip(trace, arrivals)):
+            eng.submit(r["prompt"], r["max_new_tokens"], rid=f"o{i}",
+                       seed=r["seed"], arrival_s=arr,
+                       priority="batch" if i % 3 == 2 else "interactive")
+        over, n = gated_run(eng, f"{factor}x")
+        launches += n
+        results = {q.rid: q for q in eng.results()}
+        phase1 = [results[f"o{i}"] for i in range(n_over)]
+        t_end = max((q.t_done for q in phase1 if q.t_done is not None),
+                    default=None)
+        completed = [q for q in results.values()
+                     if q.state.value == "completed"]
+        goodput = (sum(len(q.generated) for q in completed
+                       if eng._in_deadline(q) and q.t_done <= t_end) / t_end
+                   if t_end else 0.0)
+        bo = over["brownout"] or {}
+        ttfts = [eng._ttft(q) for q in completed]
+        run = {
+            "goodput_tokens_per_s": goodput,
+            "goodput_fraction": goodput / capacity if capacity else None,
+            "goodput_band_met": bool(capacity
+                                     and goodput >= OVL_BAND * capacity),
+            "shed_fraction": over["requests_shed"] / len(trace),
+            "requests_completed": over["requests_completed"],
+            "requests_shed": over["requests_shed"],
+            "requests_rejected": over["requests_rejected"],
+            "requests_failed": over["requests_failed"],
+            "shed_by_reason": over["shed_by_reason"],
+            "brownout_max_level": bo.get("max_level_seen"),
+            "brownout_final_level": bo.get("level"),
+            "brownout_transitions": bo.get("transitions"),
+            "ttft_p50_s": over["ttft_s"].get("p50"),
+            "ttft_p99_s": over["ttft_s"].get("p99"),
+            "ttft_over_target": sum(x > serve.brownout_ttft_target_s
+                                    for x in ttfts),
+            "iteration_s_p50": over["iteration_s"].get("p50"),
+            "arrivals_end_s": [arrivals[n_over - 1], arrivals[-1]],
+            "max_arrived_backlog": state["max_backlog"],
+            "wall_s": over["wall_s"], "decode_rounds": over["decode_steps"],
+            "meter_write_s": eng.meter.write_s,   # metering's own host time
+        }
+        out[f"x{factor:g}"] = run
+        print(f"overload 21a {factor:g}x [{card}]: goodput {goodput} "
+              f"tokens/s, goodput fraction {run['goodput_fraction']} (band "
+              f"{OVL_BAND}: met {run['goodput_band_met']}), shed_fraction "
+              f"{run['shed_fraction']}, shed_by_reason "
+              f"{over['shed_by_reason']}, brownout max level "
+              f"{bo.get('max_level_seen')} over {bo.get('transitions')} "
+              f"transitions (final {bo.get('level')}), TTFT p50 / p99 "
+              f"{run['ttft_p50_s']} / {run['ttft_p99_s']} s "
+              f"({run['ttft_over_target']} of {len(ttfts)} over the "
+              f"{serve.brownout_ttft_target_s} s target), iteration p50 "
+              f"{run['iteration_s_p50']} s (capacity run "
+              f"{cap['iteration_s'].get('p50')}), max arrived backlog "
+              f"{state['max_backlog']} of {serve.max_queue}, "
+              f"{over['decode_steps']} decode rounds in {over['wall_s']} s")
+        shed = {q.rid for q in results.values() if q.shed_reason}
+        unaccounted = [q.rid for q in results.values()
+                       if q.state.value != "completed" and q.rid not in shed]
+        if unaccounted or over["requests_failed"]:
+            fail("21a/overload", f"{factor}x: requests without a typed shed "
+                                 f"{unaccounted}, failed "
+                                 f"{over['requests_failed']}")
+        if not state["bounded"]:
+            fail("21a/overload", f"{factor}x: arrived backlog "
+                                 f"{state['max_backlog']} > max_queue")
+        for q in completed:
+            ref = reference[q.rid]
+            if q.generated != ref[:len(q.generated)] or (
+                    q.max_new_requested is None and q.generated != ref):
+                fail("21a/overload", f"{factor}x: {q.rid} decoded other "
+                                     f"tokens than the capacity run")
+        if bo.get("level") or (factor == OVL_GATED_FACTOR
+                               and not bo.get("max_level_seen")):
+            fail("21a/overload", f"{factor}x: brownout did not fire and "
+                                 f"resolve: {bo}")
+    tel.finish()
+    statusz.shutdown()
+    records = tel_mod.read_records(tel.path)
+    shed_recs = {r["request"] for r in records if r.get("kind") == "shed"}
+    n_shed = sum(out[f"x{f:g}"]["requests_shed"] for f in OVL_FACTORS)
+    violations = capacity_mod.check_invariants(records)
+    traces = tel_mod.join_request_traces(records)
+    orphans = [(tl["request"], tl["orphan_reasons"])
+               for tl in traces.values() if tl["orphan"]]
+    n_runs = 1 + len(OVL_FACTORS)
+    if (violations or orphans or len(traces) != n_runs * len(trace)
+            or len([r for r in records if r.get("kind") == "shed"])
+            != n_shed):
+        fail("21a/overload", f"metering gate {violations[:5]}; "
+                             f"{len(traces)} traces for {n_runs} x "
+                             f"{len(trace)} requests, orphans {orphans[:5]}; "
+                             f"{len(shed_recs)} shed records for {n_shed}")
+    print(f"overload 21a: every request completed or shed typed (a shed "
+          f"record each), backlogs bounded, tokens == the capacity run's, "
+          f"brownout resolved (fired at {OVL_GATED_FACTOR:g}x); metering "
+          f"gate and trace joiner clean over {len(records)} records "
+          f"({len(traces)} traces); paged_decode launches {launches} == "
+          f"n_layers x decode rounds, no plain path")
+    if (any(scrape.get(p) != 200 for p in ("/healthz", "/statusz",
+                                           "/metrics"))
+            or set(scrape.get("provider") or ()) != scrape.get("keys")
+            or not scrape.get("ttft_series")):
+        fail("21d/statusz", f"scrape during 21a: {scrape}")
+    prov = scrape["provider"]
+    print(f"statusz 21d: /healthz /statusz /metrics 200 mid-run; provider "
+          f"serve-continuous: queue_depth {prov['queue_depth']}, "
+          f"page_occupancy {prov['page_occupancy']}, brownout_level "
+          f"{prov['brownout_level']}, requests_shed {prov['requests_shed']}; "
+          f"{scrape['metrics_lines']} metrics lines")
+    # Device busy share: the capacity engine's first OVL_PROFILE_ITERS
+    # iterations under the profiler.
+    prof_eng = Engine(params, cfg, ServeConfig(**base), slo_metrics=False)
+    for i, r in enumerate(trace[:base["n_slots"]]):
+        prof_eng.submit(r["prompt"], r["max_new_tokens"], rid=f"p{i}",
+                        seed=r["seed"])
+    busy = device_busy(lambda: prof_eng.run(
+        max_iterations=OVL_PROFILE_ITERS, record_summary=False))
+    print(f"overload 21a [{card}]: device busy {busy['busy_share']} of the "
+          f"wall over {OVL_PROFILE_ITERS} profiled capacity iterations")
+    out.update(launches=launches, records=len(records),
+               statusz={p: scrape[p] for p in ("/healthz", "/statusz",
+                                               "/metrics")},
+               device_busy_share=busy["busy_share"],
+               device_busy_iterations=OVL_PROFILE_ITERS)
+    del params
+    torch.cuda.empty_cache()
+    laps.done("21a,d/overload drill, statusz")
+    return out
+
+
+def replay_requests(Request, state) -> list:
+    """A request per pending intent of a folded journal, rebuilt from the
+    intent (as the JAX fleet's ``recover`` does): its committed tokens
+    are the journal's watermarks, and a request with any replays them."""
+    out = []
+    for rid in state.pending():
+        rec = state.intents[rid]
+        req = Request(rid=rid, prompt=[int(t) for t in rec["prompt"]],
+                      max_new_tokens=int(rec["max_new_tokens"]),
+                      arrival_s=float(rec.get("arrival_s", 0.0)),
+                      seed=int(rec["seed"]), priority=rec["priority"],
+                      queue_budget_s=rec.get("queue_budget_s"),
+                      deadline_s=rec.get("deadline_s"),
+                      tenant=rec.get("tenant"))
+        req.trace_id = rec.get("trace")
+        req.generated = list(state.tokens.get(rid, []))
+        req.replay = bool(req.generated)
+        out.append(req)
+    return out
+
+
+def journal_drill(laps, card) -> dict:
+    """Phase 21b: the write-ahead journal on the card. At 21a's widths
+    with spec_k JRN_SPEC_K: an uninterrupted run is the reference; a
+    journaled run is stopped half-way through the reference's iterations
+    and ``kill()``-ed (no drain, no terminal); the journal is folded and
+    every pending intent re-admitted on a fresh engine as a replay
+    request. Gates, in f32: no accepted request lost, one terminal an
+    intent, every token == the reference's, the kernels' launches ==
+    n_layers x rounds. Then the same in bf16, each replay on an engine of
+    its own so that an assertion trip is counted per request with the
+    top-2 gap of its re-sampled logits (reported, not gated)."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.models import (
+        transformer as tfm,
+    )
+    from distributed_model_parallel_tpu_torch.ops import (
+        paged_attention as pa,
+    )
+    from distributed_model_parallel_tpu_torch.serve import (
+        Engine,
+        EngineKilled,
+        Request,
+        ServeConfig,
+    )
+    from distributed_model_parallel_tpu_torch.serve import (
+        journal as journal_mod,
+    )
+    from distributed_model_parallel_tpu_torch.serve import model as smodel
+
+    trace = serve_trace(OVL_MODEL["vocab_size"])[:JRN_REQS]
+    serve = ServeConfig(**OVL_GEOMETRY, spec_k=JRN_SPEC_K)
+    run_dir = os.environ[RUN_DIR_ENV]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype is torch.float32 else "bf16"
+        cfg = tfm.TransformerConfig(dtype=dtype, **OVL_MODEL)
+        params = tfm.init_params(cfg, seed=0, device="cuda")
+
+        def submit(eng, journal=None):
+            reqs = []
+            for i, r in enumerate(trace):
+                req = eng.submit(r["prompt"], r["max_new_tokens"],
+                                 rid=f"j{i}", seed=r["seed"])
+                if journal is not None:
+                    journal.intent(req)
+                reqs.append(req)
+            return reqs
+
+        ref_eng = Engine(params, cfg, serve)
+        ref_eng.warmup()
+        submit(ref_eng)
+        pa.paged_attention_kernel.launches = 0
+        pa.paged_attention_rows_kernel.launches = 0
+        ref = ref_eng.run()
+        torch.cuda.synchronize()
+        n_launch = (pa.paged_attention_kernel.launches
+                    + pa.paged_attention_rows_kernel.launches)
+        if n_launch != cfg.n_layers * ref["decode_steps"]:
+            fail("21b/journal", f"{tag}: launches {n_launch} != n_layers x "
+                                f"{ref['decode_steps']} rounds")
+        want = {q.rid: list(q.generated) for q in ref_eng.results()}
+        kill_at = ref["iterations"] // 2
+        path = os.path.join(run_dir, f"journal21-{tag}.jsonl")
+        j = journal_mod.RequestJournal(path)
+        killed = Engine(params, cfg, serve, journal=j)
+        submit(killed, j)
+        killed.run(max_iterations=kill_at)
+        killed.kill()
+        done_before = {q.rid for q in killed.results() if q.done}
+        st = journal_mod.fold(path)
+        lost = replay_requests(Request, st)
+        n_replay = sum(q.replay for q in lost)
+        if set(st.terminals) != done_before or not n_replay:
+            fail("21b/journal", f"{tag}: journal terminals "
+                                f"{len(st.terminals)} vs {len(done_before)} "
+                                f"done; {n_replay} replays")
+        del killed
+        if dtype is torch.float32:
+            fresh = Engine(params, cfg, serve,
+                           journal=journal_mod.RequestJournal(path))
+            for q in lost:
+                fresh.enqueue(q, force=True)
+            pa.paged_attention_kernel.launches = 0
+            pa.paged_attention_rows_kernel.launches = 0
+            try:
+                s = fresh.run()
+            except EngineKilled as e:
+                fail("21b/journal", f"f32 replay died: {e.__cause__}")
+            torch.cuda.synchronize()
+            n_launch = (pa.paged_attention_kernel.launches
+                        + pa.paged_attention_rows_kernel.launches)
+            fresh.journal.close()
+            final = journal_mod.fold(path)
+            terms = {}
+            for rec in journal_mod.read_records(path):
+                if rec.get("kind") == "terminal":
+                    terms[rec["rid"]] = terms.get(rec["rid"], 0) + 1
+            got = {q.rid: q.generated for q in lost}
+            mism = [rid for rid, toks in got.items() if toks != want[rid]]
+            if (final.pending() or set(final.intents) != set(want)
+                    or any(n != 1 for n in terms.values())
+                    or set(terms) != set(want)):
+                fail("21b/journal", f"f32: pending {final.pending()}, "
+                                    f"terminals {terms}")
+            if mism or final.tokens != want:
+                fail("21b/journal", f"f32: replayed tokens differ from the "
+                                    f"uninterrupted run for {mism}")
+            if n_launch != cfg.n_layers * s["decode_steps"]:
+                fail("21b/journal", f"f32 replay: launches {n_launch} != "
+                                    f"n_layers x {s['decode_steps']}")
+            out["f32"] = {
+                "requests": len(trace), "kill_at_iteration": kill_at,
+                "reference_iterations": ref["iterations"],
+                "completed_before_kill": len(done_before),
+                "replayed": n_replay, "readmitted_cold": len(lost) - n_replay,
+                "replayed_tokens": sum(len(q.generated) for q in lost),
+                "journal_records": len(journal_mod.read_records(path)),
+                "tokens_equal": True,
+                "draft_accept_rate": ref["draft_accept_rate"]}
+            print(f"journal 21b f32 [{card}]: {len(trace)} requests, killed "
+                  f"after iteration {kill_at} of {ref['iterations']} "
+                  f"({len(done_before)} done); {n_replay} replayed from "
+                  f"their watermarks, {len(lost) - n_replay} re-admitted "
+                  f"cold; every intent one terminal, every token == the "
+                  f"uninterrupted run's; launches == n_layers x rounds")
+        else:
+            # Each replay alone, through its final prefill chunk; the last
+            # chunk's logits recorded for the top-2 gap.
+            prefill_logits = smodel.prefill_logits
+            last = {}
+
+            def recording(*a, **kw):
+                logits = prefill_logits(*a, **kw)
+                last["top"] = torch.topk(logits.float()[0], 2).values.cpu()
+                return logits
+
+            smodel.prefill_logits = recording
+            trips = []
+            try:
+                for q in lost:
+                    if not q.replay:
+                        continue
+                    one = Engine(params, cfg, serve, slo_metrics=False,
+                                 meter=False)
+                    one.enqueue(q, force=True)
+                    chunks = -(-len(q.prefill_tokens)
+                               // serve.prefill_chunk)
+                    try:
+                        one.run(max_iterations=chunks)
+                    except EngineKilled as e:
+                        if not isinstance(e.__cause__, AssertionError):
+                            raise
+                        top = last["top"]
+                        trips.append({
+                            "rid": q.rid, "position": len(q.prefill_tokens),
+                            "gap": float(top[0] - top[1]),
+                            "top": float(top[0])})
+            finally:
+                smodel.prefill_logits = prefill_logits
+            out["bf16"] = {"replayed": n_replay, "trips": len(trips),
+                           "trip_gaps": trips}
+            print(f"journal 21b bf16 [{card}]: {n_replay} replays, "
+                  f"{len(trips)} trip the re-sampled-token assertion; top-2 "
+                  f"gaps {[(t['rid'], t['gap'], t['top']) for t in trips]}")
+        del params
+        torch.cuda.empty_cache()
+    laps.done("21b/journal, kill, replay")
+    return out
+
+
+def migration_drill(laps, card) -> dict:
+    """Phase 21c: ``drain()`` engine A ("a") at the first iteration where
+    one request is mid-prefill and another mid-decode, ``enqueue`` every
+    request on engine B ("b"), the prefix cache on, both engines on one
+    stream. Gates: tokens == the unmigrated run's bit for bit; A's pages
+    all free after ``drain`` + ``clear_cache``; a ``hop`` meter record for
+    each move, an ``export`` and an ``import`` rtrace for each request
+    that held pages."""
+    import numpy as np
+    import torch
+
+    from distributed_model_parallel_tpu_torch.models import (
+        transformer as tfm,
+    )
+    from distributed_model_parallel_tpu_torch.ops import (
+        paged_attention as pa,
+    )
+    from distributed_model_parallel_tpu_torch.serve import (
+        Engine,
+        ServeConfig,
+    )
+    from distributed_model_parallel_tpu_torch.utils import (
+        telemetry as tel_mod,
+    )
+
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, **OVL_MODEL)
+    params = tfm.init_params(cfg, seed=0, device="cuda")
+    trace = serve_trace(cfg.vocab_size)[:MIG_REQS]
+    system = np.random.default_rng(2121).integers(
+        0, cfg.vocab_size, MIG_SYSTEM).tolist()
+    reqs_spec = [(system + r["prompt"][:MIG_USER],
+                  min(r["max_new_tokens"], MIG_GEN), r["seed"])
+                 for r in trace]
+    serve = ServeConfig(**OVL_GEOMETRY, prefix_cache=True)
+
+    def submit(eng):
+        return [eng.submit(p, g, rid=f"m{i}", seed=s)
+                for i, (p, g, s) in enumerate(reqs_spec)]
+
+    ref_eng = Engine(params, cfg, serve)
+    ref_eng.warmup()
+    ref_reqs = submit(ref_eng)
+    ref_eng.run()
+    want = [q.generated for q in ref_reqs]
+    tel = tel_mod.TelemetryRun(
+        os.path.join(os.environ[RUN_DIR_ENV], "migrate21.jsonl"),
+        run="migrate21")
+    a = Engine(params, cfg, serve, telemetry=tel, replica="a")
+    b = Engine(params, cfg, serve, telemetry=tel, replica="b")
+    reqs = submit(a)
+    drain_at = None
+    t0 = time.monotonic()
+    for it in range(64):
+        a.step_once(time.monotonic() - t0, t0)
+        states = {q.state.value for q in reqs if q.slot is not None}
+        mid_prefill = any(q.state.value == "prefill"
+                          and q.cached_prompt_tokens < q.prefill_cursor
+                          for q in reqs)
+        if mid_prefill and "decode" in states:
+            drain_at = it + 1
+            break
+    if drain_at is None:
+        fail("21c/migrate", "no iteration had a request mid-prefill and "
+                            "another mid-decode")
+    n_prefill = sum(q.state.value == "prefill" for q in reqs)
+    n_decode = sum(q.state.value == "decode" for q in reqs)
+    moved = a.drain()
+    resident = [q.rid for q in moved if q.resume is not None]
+    freed = a.clear_cache()
+    if a.cache.pool.used_pages:
+        fail("21c/migrate", f"{a.cache.pool.used_pages} pages held on A")
+    for q in moved:
+        b.enqueue(q, force=True)
+    pa.paged_attention_kernel.launches = 0
+    b.run()
+    torch.cuda.synchronize()
+    tel.finish()
+    got = [q.generated for q in reqs]
+    if got != want:
+        bad = [q.rid for q, w in zip(reqs, want) if q.generated != w]
+        fail("21c/migrate", f"migrated tokens differ from the unmigrated "
+                            f"run for {bad}")
+    records = tel_mod.read_records(tel.path)
+    hops = [r["request"] for r in records
+            if r.get("kind") == "meter" and r.get("event") == "hop"]
+    ev = {}
+    for r in records:
+        if r.get("kind") == "rtrace" and r["event"] in ("export", "import"):
+            ev.setdefault(r["event"], []).append(r["request"])
+    if (sorted(hops) != sorted(q.rid for q in moved)
+            or sorted(ev.get("export", [])) != sorted(resident)
+            or sorted(ev.get("import", [])) != sorted(resident)):
+        fail("21c/migrate", f"hop records {hops}, rtraces {ev}, resident "
+                            f"{resident}")
+    traces = tel_mod.join_request_traces(records)
+    linked = sum(len(tl["hops"]) for tl in traces.values())
+    if any(tl["orphan"] for tl in traces.values()) or linked != len(resident):
+        fail("21c/migrate", f"trace joiner: {linked} hops for "
+                            f"{len(resident)} exports")
+    out = {"drain_at_iteration": drain_at, "moved": len(moved),
+           "with_pages": len(resident), "mid_prefill": n_prefill,
+           "mid_decode": n_decode, "tree_pages_freed": freed,
+           "tokens": sum(map(len, got)), "tokens_equal": True,
+           "b_launches": pa.paged_attention_kernel.launches}
+    print(f"migrate 21c [{card}]: drained A after iteration {drain_at} "
+          f"({n_prefill} in prefill, {n_decode} in decode, "
+          f"{len(resident)} with pages); A's pool empty after clear_cache "
+          f"({freed} tree pages freed); {len(hops)} hop meter records, "
+          f"{len(resident)} export/import rtrace pairs linked as hops; "
+          f"tokens == the unmigrated run's bit for bit ({out['tokens']})")
+    del params
+    torch.cuda.empty_cache()
+    laps.done("21c/drain, import")
+    return out
+
+
+def planes_phase(laps, card) -> dict:
+    """Phase 21: the serving engine's overload controls and planes on the
+    card — 21a the overload drill (21d the status exporter inside it),
+    21b the journal's kill and replay, 21c drain and import between two
+    engines."""
+    return {"overload": overload_drill(laps, card),
+            "journal": journal_drill(laps, card),
+            "migrate": migration_drill(laps, card)}
+
+
 class Laps:
     """Prints each phase's seconds since the previous phase ended."""
 
@@ -6921,11 +7653,12 @@ def main() -> None:
     ap.add_argument("--serve-only", action="store_true",
                     help="run phases 1, 2 (the paged-decode and flash "
                          "forward kernels only), 3-5 (the paged-decode "
-                         "kernel and the engine) and 20 (generate, "
+                         "kernel and the engine), 20 (generate, "
                          "generate_sharded, the prefix cache and "
-                         "speculative decoding), print the decode JSON "
-                         "line and stop: with four cards, 20b over NCCL "
-                         "with a card a rank")
+                         "speculative decoding) and 21 (the engine's "
+                         "overload controls and planes), print the decode "
+                         "and serve_planes JSON lines and stop: with four "
+                         "cards, 20b over NCCL with a card a rank")
     args = ap.parse_args()
     only = (args.sgd_timing_only or args.pipeline_only or args.dp_only
             or args.harness_only or args.data_only or args.optim_only
@@ -7050,8 +7783,11 @@ def main() -> None:
         paged = serve_phases(laps, card)
         four = torch.cuda.device_count() >= 4
         dec = gen_phases(laps, mesh, card, "nccl" if four else "gloo")
+        planes = planes_phase(laps, card)
         print(json.dumps({"decode": dec, "card": card}))
-        print(json.dumps({"kernels": decode_kernel_rows(paged, dec)}))
+        print(json.dumps({"serve_planes": planes, "card": card}))
+        print(json.dumps({"kernels": decode_kernel_rows(paged, dec,
+                                                        planes)}))
         return
     if args.optim_only:
         from distributed_model_parallel_tpu_torch import mesh
@@ -7141,7 +7877,10 @@ def main() -> None:
     # -- phase 20: generate, generate_sharded, prefix cache, spec ----------
     dec = gen_phases(laps, mesh, card, "gloo", sharded_ranks)
 
-    kernels = decode_kernel_rows(paged, dec)
+    # -- phase 21: the engine's overload controls and planes ----------------
+    planes = planes_phase(laps, card)
+
+    kernels = decode_kernel_rows(paged, dec, planes)
     for name, line in (("flash_fwd", 112), ("flash_bwd_dq", 199),
                        ("flash_bwd_dkv", 278)):
         kernels.append({
@@ -7207,6 +7946,7 @@ def main() -> None:
     print(json.dumps({"lm_mesh": lm18_summary(lm18), "card": card}))
     print(json.dumps({"lm_pipe": lm19_summary(lm19), "card": card}))
     print(json.dumps({"decode": dec, "card": card}))
+    print(json.dumps({"serve_planes": planes, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -136,7 +136,8 @@ def prefill_logits(params: dict, ck, cv, tokens, pos0: int, n_valid: int,
     """One prompt chunk (``tokens`` [1, C], host) at positions
     ``pos0 .. pos0 + C - 1`` of which the first ``n_valid`` are real,
     through page table ``table`` [N] (host). Writes the valid tokens' K/V
-    and returns the last valid position's logits [1, V]."""
+    and returns the last valid position's logits [1, V] (position 0's
+    when ``n_valid`` is 0: the engine's inert warmup chunk)."""
     chunk = torch.as_tensor(tokens).shape[-1]
     table = torch.as_tensor(table).long()
     ar = torch.arange(chunk)
@@ -151,7 +152,8 @@ def prefill_logits(params: dict, ck, cv, tokens, pos0: int, n_valid: int,
     x = _embed_rows(params, toks, pos_d, cfg)
     x = _layers(params, ck, cv, x, pos_d, writes, tables_d, lengths, cfg,
                 impl)
-    return unembed(params, x[:, n_valid - 1:n_valid])[:, 0]
+    last = max(n_valid, 1) - 1
+    return unembed(params, x[:, last:last + 1])[:, 0]
 
 
 def decode_logits(params: dict, ck, cv, tokens, positions, tables, active,

@@ -1,8 +1,7 @@
 """Paged KV cache: a device page pool + host-side page tables.
 
-Counterpart of ``distributed_model_parallel_tpu/serve/paged_kv.py``,
-without request migration (``export_request``/``import_request`` come
-with the fleet). The cache is a pool of fixed-size pages —
+Counterpart of ``distributed_model_parallel_tpu/serve/paged_kv.py``. The
+cache is a pool of fixed-size pages —
 ``[L, n_pages, page_size, Hkv, Dh]`` per K and V on the device — and each
 sequence owns exactly ``ceil(len / page_size)`` pages, recorded in a
 host-side page table. Pages return to the free list the moment their
@@ -18,6 +17,12 @@ Allocation is deterministic (FIFO free list): the same submit/finish
 order gives the same physical placement. Pages are not cleared on free:
 the attention read masks past-length positions to exact 0, so stale
 contents are unreachable by construction.
+
+Live migration moves a request's written K/V **by value**:
+:meth:`PagedKVCache.export_request` copies its pages to host tensors of
+the pool's own dtype (``bf16`` has no numpy dtype, so the payload stays
+a torch tensor) and :meth:`PagedKVCache.import_request` writes them into
+fresh pages of another pool.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import torch
 from distributed_model_parallel_tpu_torch.models.transformer import (
     resolve_device,
 )
+from distributed_model_parallel_tpu_torch.utils import tracing
 
 
 class PagePoolError(RuntimeError):
@@ -300,6 +306,70 @@ class PagedKVCache:
     @property
     def shared_pages(self) -> int:
         return self.pool.shared_pages
+
+    # -- live request migration (Engine.drain) -----------------------------
+
+    def export_request(self, sid, n_tokens: int, *, req=None, sink=None,
+                       trace_fields=None):
+        """Copy the K/V **contents** of ``sid``'s first ``n_tokens``
+        written positions to host tensors ``(k, v)`` of shape
+        ``[L, pages, page_size, Hkv, Dh]`` in the pool's dtype — whole
+        pages, values only. Shared prefix pages are exported by value
+        like any other, so the payload holds no reference to this pool.
+        The caller guarantees every exported position is written (the
+        engine's drain passes the committed-and-written prefix). A traced
+        ``req`` (and its stream ``sink``) gets an ``export`` rtrace."""
+        table = self._tables[sid]
+        n = self.pages_needed(n_tokens)
+        if n > len(table):
+            raise PagePoolError(
+                f"sequence {sid!r}: exporting {n_tokens} tokens spans "
+                f"{n} pages but the table holds {len(table)}")
+        idx = torch.as_tensor(table[:n], dtype=torch.long,
+                              device=self.ck.device)
+        # One gather and one copy to the host per pool.
+        k = self.ck.index_select(1, idx).cpu()
+        v = self.cv.index_select(1, idx).cpu()
+        if req is not None:
+            tracing.rtrace(req, "export", sink=sink, pages=n,
+                           n_tokens=n_tokens, **(trace_fields or {}))
+        return k, v
+
+    def import_request(self, sid, k, v, capacity: int, *,
+                       req=None, sink=None, trace_fields=None) -> bool:
+        """Admit a migrated sequence: reserve ``capacity`` positions of
+        **fresh** pages (evicting tree-only pages if the room is needed —
+        the exported K/V is authoritative, so nothing is shared on
+        arrival) and write the exported page contents into them. Returns
+        ``False`` without side effects when the reservation does not fit
+        (the scheduler keeps the request queued, as for a cold admission
+        that finds no pages). A traced ``req``/``sink`` records an
+        ``import`` rtrace on success only."""
+        need = self.pages_needed(capacity)
+        avail = self.pool.free_pages
+        if self.prefix is not None:
+            avail += self.prefix.evictable_pages()
+        if need > avail:
+            return False
+        n = int(k.shape[1])
+        if n > need:
+            raise PagePoolError(
+                f"sequence {sid!r}: payload carries {n} pages but the "
+                f"reservation is only {need}")
+        self.open(sid)
+        short = need - self.pool.free_pages
+        if short > 0:
+            self.prefix.evict(short)
+        self.ensure(sid, capacity)
+        if n:
+            idx = torch.as_tensor(self._tables[sid][:n], dtype=torch.long,
+                                  device=self.ck.device)
+            self.ck.index_copy_(1, idx, k.to(self.ck.device, self.ck.dtype))
+            self.cv.index_copy_(1, idx, v.to(self.cv.device, self.cv.dtype))
+        if req is not None:
+            tracing.rtrace(req, "import", sink=sink, pages=n,
+                           **(trace_fields or {}))
+        return True
 
     def cached_prefix_tokens(self, tokens: list[int]) -> int:
         """Usable cached-prefix length of ``tokens`` (side-effect free; 0

@@ -29,7 +29,8 @@ print(" ".join(names), "|", bad)
 
 # Every module of the serving, LM training, CNN training, data-parallel
 # and pipeline slices, ResNet, the remaining data-parallel engines, the
-# sparse-gradient embedding path, the zoo and the checkpoint harness.
+# sparse-gradient embedding path, the zoo and the checkpoint harness, and
+# the serving engine's overload controls and planes.
 _MODULES = {
     "config", "models.transformer", "ops._build", "ops.paged_attention",
     "ops.flash_attention", "serve.engine", "serve.generate", "serve.model",
@@ -46,6 +47,9 @@ _MODULES = {
     "parallel.zero", "parallel.fsdp",
     "models.zoo", "train.checkpoint", "train.logging_util",
     "train.preemption", "serve.prefix_cache", "serve.spec",
+    "utils.tracing", "utils.telemetry", "utils.metering", "utils.alerts",
+    "utils.health", "utils.statusz", "serve.traffic", "serve.overload",
+    "serve.journal", "serve.capacity",
 }
 
 
