@@ -284,23 +284,39 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     launched the kernel first; goodput, capacity, shed fraction, TTFT
     p99 and a profiled device busy share printed (bench.py's 0.8 goodput
     band printed, not gated); (b) spec_k 4 with a journal: a run killed
-    half-way, its journal folded and every pending intent replayed on a
-    fresh engine — in f32 no request lost, one terminal an intent, tokens
-    == the uninterrupted run's; in bf16 the replays that trip the
+    half-way and every pending intent of its journal replayed by
+    ``ServeFleet.recover`` on one replica — in f32 no request lost, one
+    terminal an intent, tokens == the uninterrupted run's; in bf16 the replays that trip the
     re-sampled-token assertion counted with their top-2 gaps (reported);
     (c) drain engine A with requests mid-prefill and mid-decode (prefix
     cache on), enqueue them on B: tokens == the unmigrated run's bit for
     bit, A's pool empty, a hop meter record and an export/import rtrace
     pair a move; (d) during (a), /healthz, /statusz and /metrics of the
     status exporter on 127.0.0.1 answer 200 with the engine's provider.
+22. The serving fleet, at bench.py's fleet cell (21's model, trace and
+    geometry; 2 replicas, every slot on cuda:0 on a one-card host): (a) a
+    clean pass (tokens/s a card, TTFT) and the kill drill — r1 killed at
+    round 40 and revived 20 rounds later: the kill fired, no request
+    failed, tokens == the clean pass's bit for bit, r1 grew back, the
+    post-kill TTFT p99 within max(4 x the reference, 0.5 s); (b) in f32
+    the crash drill (``crash_replica("r1")``, the journal re-admitting its
+    requests) and ``ServeFleet.recover`` from a journal abandoned
+    half-way — none lost, one terminal each, tokens == a clean pass's —
+    then the crash drill once in bf16 with the replays that re-sample
+    another token counted (reported); (c) 4 replicas in 2 cells on a
+    SimClock, ``kill_cell`` then ``partition`` on the last cell, 24
+    requests: none lost, the cell back on exactly its slots, nothing routed
+    into the partition, tokens == a clean 4-replica pass. Every pass:
+    paged_decode launches == n_layers x the decode rounds summed over the
+    replicas, no plain path; a profiled device busy share.
 
 Prints the card line, each phase's seconds, a ``{"data_parallel": ...}``
 line, a ``{"pipeline": ...}`` line, a ``{"resnet": ...}`` line, a
 ``{"dp_engines": ...}`` line, a ``{"harness": ...}`` line, a
 ``{"data_path": ...}`` line, a ``{"optim": ...}`` line, a
 ``{"lm_mesh": ...}`` line, a ``{"lm_pipe": ...}`` line, a ``{"decode":
-...}`` line, a ``{"serve_planes": ...}`` line, the ``{"kernels": [...]}``
-line and, last,
+...}`` line, a ``{"serve_planes": ...}`` line, a ``{"fleet": ...}`` line,
+the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero
 without a card, or when run outside a checkout of the repository.
 ``--sgd-timing-only`` runs phases 1, 2 (the fused SGD kernel) and 10 and
@@ -326,14 +342,15 @@ each timed by CUDA events and added). ``--lm-only`` runs phases 1, 2 (the
 flash kernels), 6, 18 and 19 and prints the ``{"lm_mesh": ...}`` and
 ``{"lm_pipe": ...}`` lines; with four cards 18b-c and 19b-c run over NCCL
 at world 4, one rank a card. ``--serve-only`` runs phases 1, 2 (the
-paged-decode and flash forward kernels), 3-5, 20 and 21 and prints the
-``{"decode": ...}`` and ``{"serve_planes": ...}`` lines and the paged
-kernel's rows of the ``{"kernels": ...}`` line; with four cards 20b runs
-over NCCL.
+paged-decode and flash forward kernels), 3-5 and 20-22 and prints the
+``{"decode": ...}``, ``{"serve_planes": ...}`` and ``{"fleet": ...}``
+lines and the paged kernel's rows of the ``{"kernels": ...}`` line; with
+four cards 20b runs over NCCL.
 """
 
 from __future__ import annotations
 
+import copy
 import gc
 import json
 import math
@@ -538,16 +555,18 @@ RN_IMAGENET_BATCH, RN_IMAGENET_PX = 32, 224
 # The DP engines (phase 14b): ResNet-50 in f32 (the gates are the JAX
 # package's f32 bounds), global batch 128, augment off, SGD lr 0.01 /
 # momentum 0.9 / wd 1e-4 without warm-up (at 0.1 the loss climbs from 2.6
-# to 36 in 3 steps), DPE_STEPS steps per case from the
-# same weights and batches. DPE_RTOL: ring vs bucketed and ZeRO vs gspmd,
-# per leaf max|a - b| / max|b| after every step — two ranks sum two
+# to 36 in 3 steps), DPE_STEPS steps per case from the same weights and
+# batches (2, cut from 3 for the script's time limit: momentum and ZeRO's
+# sharded trace act from the second step on). DPE_RTOL: ring vs bucketed
+# and ZeRO vs gspmd, per leaf max|a - b| / max|b| after every step — two
+# ranks sum two
 # values in either order to the same bits, so any gap is a fault of the
 # transport or of the slice update, not of rounding. fsdp vs gspmd:
 # tests/test_fsdp.py's bounds (losses rel 2e-4; params rtol 2e-4, atol
 # 2e-5). The sparse BOW at BowConfig's defaults (vocab 10,000, embed 64,
 # 10 classes), 512 rows x 64 tokens, 5 steps at lr 0.1 against dense SGD
 # on the global batch: tests/test_sparse_embedding.py's bounds.
-DPE_BATCH, DPE_STEPS, DPE_TIMED_STEPS, DPE_LR = 128, 3, 10, 0.01
+DPE_BATCH, DPE_STEPS, DPE_TIMED_STEPS, DPE_LR = 128, 2, 10, 0.01
 DPE_RTOL = 1e-5
 FSDP_LOSS_RTOL, FSDP_RTOL, FSDP_ATOL = 2e-4, 2e-4, 2e-5
 BOW_ROWS, BOW_TOKENS, BOW_STEPS, BOW_LR = 512, 64, 5, 0.1
@@ -562,14 +581,14 @@ BOW_RTOL, BOW_ATOL = 1e-5, 1e-6
 # on as train_cnn runs. The other 11 run the same steps and gates with
 # the autotuner off and report no time: its first pass over the 16
 # models' ~380 distinct convolutions took 125-173 s, which the script
-# with phase 19 has no room for. ZOO_TIMED: one of each kind of layer
-# (plain 3x3, pre-activation residual, grouped, depthwise, channel
-# split and shuffle), 73 of the ~380 convolutions. ZOO_PARAMS: the JAX
+# with phase 19 has no room for. ZOO_TIMED: a plain 3x3 network and a
+# depthwise one (cut from five, one of each kind of layer, for the
+# script's time limit: each timed model pays its own autotuner pass).
+# ZOO_PARAMS: the JAX
 # package's parameter count of each (jax.eval_shape of its init on the
 # CPU; tests/test_torch_zoo_models.py).
 ZOO_BATCH, ZOO_WARM_DISPATCHES, ZOO_TIMED_STEPS = 128, 2, 10
-ZOO_TIMED = ("vgg16", "preactresnet18", "resnext29_2x64d", "mobilenetv1",
-             "shufflenetv2")
+ZOO_TIMED = ("vgg16", "mobilenetv1")
 ZOO_PARAMS = {
     "vgg11": 9228362, "vgg13": 9413066, "vgg16": 14724042,
     "vgg19": 20035018, "preactresnet18": 11171210, "senet18": 11260290,
@@ -590,10 +609,12 @@ RES_TRAIN, RES_EVAL, RES_BATCH, RES_PREEMPT_STEP = 4096, 1024, 256, 5
 # reference's cut, gpipe M=4, RES_TRAIN / RES_EVAL rows. 13d: two SPMD
 # ranks, gpipe and 1f1b M=4, on PPS_TRAIN / PPS_EVAL rows (cut from 15b's
 # 4,096 / 1,024 so that six two-epoch fits over the host-staged gloo hops
-# fit the phase), then interleaved V=2 M=4 for PP_SPMD_STEPS steps
+# fit the phase; 1,536 rows are 6 steps an epoch, the fewest that still
+# hold step RES_PREEMPT_STEP of epoch 1), then interleaved V=2 M=4 for
+# PP_SPMD_STEPS steps
 # against the runner, and 1F1B's hops beside it.
 PPR_M = 4
-PPS_TRAIN, PPS_EVAL = 2048, 512
+PPS_TRAIN, PPS_EVAL = 1536, 256
 # The data path (phase 16): (a) the reference's finetune recipe
 # (Readme.md:186-202, SURVEY.md:309): MobileNetV2 in the ImageNet layout,
 # bf16 over f32, FusedSGD lr 0.05 / momentum 0.9 / wd 1e-4 / 10 warm-up
@@ -643,8 +664,10 @@ HIER_BATCH, HIER_RTOL = 128, 1e-6
 # The LM over a mesh (phase 18): bench.py's LM model at full width at
 # phase 8's B 2, T 8192 and SGD, each run from phase 8's initial weights.
 # 18a on one card: remat off, "dots", "full", and the chunked head with
-# and without "dots"; LM18_STEPS steps each (the first gated on its loss).
-LM18_STEPS = 3
+# and without "dots"; LM18_STEPS steps each (the first gated on its loss;
+# 2, cut from 3 for the script's time limit: a wrong gradient scale or
+# head order shows from step 1 on, below).
+LM18_STEPS = 2
 # 18a also times the loss's forward and backward through the plain
 # lm_loss against LMPipeline at one stage and one microbatch, this many
 # alternated runs of each.
@@ -676,23 +699,34 @@ LM18_MESHES = {
 LM18_LOSS_ATOL = 1e-3
 # 18c: the resume gate at 2 layers (the cut: 2 of bench.py's 8, so three
 # fits and their checkpoints of the whole model fit the phase),
-# LM18_RESUME_STEPS steps, preempted at step 3 of epoch 0.
+# LM18_RESUME_STEPS steps, preempted at step 2 of epoch 0 (4 and 2, cut
+# from 5 and 3 for the script's time limit; the resumed run still takes
+# a step after the restore).
 LM18_RESUME_LAYERS = 2
-LM18_RESUME_STEPS = 5
-LM18_PREEMPT_AT = (0, 3)
+LM18_RESUME_STEPS = 4
+LM18_PREEMPT_AT = (0, 2)
 
 # Phase 19: the LM's stage and expert axes at full width (bench.py's LM
 # model, bf16, phase 8's SGD, remat off, seed 0's weights), and the MoE
 # model of benchmarks/moe_sweep_r5.json (8 experts, top-2; capacity 1.5,
 # aux 0.05, z 1e-3 are TransformerConfig's defaults).
 LM19_MOE = dict(moe_experts=8, moe_top_k=2)
+# The (stage 2, model 2) and (stage 2, expert 2) meshes iii and iv, and
+# their 19a references, at 4 of the 8 layers, the fewest V 2 x S 2 allows
+# (a cut for the script's time limit: over gloo on one card their steps
+# took 2.4-7.2 s at 8 layers, each layer's TP all-reduces or expert
+# all-to-alls host-staged).
+LM19_CUT_LAYERS = 4
 LM19_STEPS = 3
 # 19a, one card: name -> (model fields, B, T, M, schedule).
 LM19_REFS = {
     "dense_b4_gpipe_m4": ({}, 4, 8192, 4, "gpipe"),
     "dense_b4_m1": ({}, 4, 8192, 1, "gpipe"),
-    "dense_b8_t4096_1f1b_m8": (dict(loss_chunk=1024), 8, 4096, 8, "1f1b"),
-    "moe_b2_m2": (LM19_MOE, 2, 8192, 2, "gpipe"),
+    "dense_b8_t4096_1f1b_m8": (dict(loss_chunk=1024,
+                                    n_layers=LM19_CUT_LAYERS), 8, 4096, 8,
+                               "1f1b"),
+    "moe_b2_m2": (dict(LM19_MOE, n_layers=LM19_CUT_LAYERS), 2, 8192, 2,
+                  "gpipe"),
 }
 # 19b, 4 ranks: name -> (mesh, model fields, B, T, M, schedule, V, the
 # 19a reference with the same model, batches and microbatch partition).
@@ -703,14 +737,17 @@ LM19_MESHES = {
     "ii_stage4_1f1b_v2": (dict(stage=4), {}, 4, 8192, 4, "1f1b", 2,
                           "dense_b4_gpipe_m4"),
     "iii_stage2_model2_gpipe": (dict(stage=2, model=2),
-                                dict(tp_axis="model", loss_chunk=1024), 8,
+                                dict(tp_axis="model", loss_chunk=1024,
+                                     n_layers=LM19_CUT_LAYERS), 8,
                                 4096, 8, "gpipe", 1,
                                 "dense_b8_t4096_1f1b_m8"),
     "iii_stage2_model2_1f1b": (dict(stage=2, model=2),
-                               dict(tp_axis="model", loss_chunk=1024), 8,
+                               dict(tp_axis="model", loss_chunk=1024,
+                                    n_layers=LM19_CUT_LAYERS), 8,
                                4096, 8, "1f1b", 1, "dense_b8_t4096_1f1b_m8"),
     "iv_stage2_expert2_moe": (dict(stage=2, expert=2),
-                              dict(LM19_MOE, ep_axis="expert"), 2, 8192, 2,
+                              dict(LM19_MOE, ep_axis="expert",
+                                   n_layers=LM19_CUT_LAYERS), 2, 8192, 2,
                               "1f1b", 2, "moe_b2_m2"),
 }
 # Every step's loss against its 19a reference, as phase 18's bound (a
@@ -725,10 +762,11 @@ LM19_LOSS_ATOL = 1e-3
 # the card sums C rows: rel 1.4e-4 and 1.5e-4 for w_out and w_in, every
 # other leaf's gradient bitwise equal), and with bf16 router logits many
 # top-k choices are ties, so routing decisions go another way from step
-# 1 on. Readings on an H100 80GB HBM3 at 700 W (19b counts them against
-# the card's, LM19_ROUTES): 0, 2,773 and 12,742 of 262,144 token-choices
-# at steps 0, 1 and 2 (1,374 and 5,812 kept bits), the loss 0, 6.1e-4 and
-# 1.29e-3 from the card's, the same in every run. The bound is over twice
+# 1 on. Readings on an H100 80GB HBM3 at 700 W at 8 layers (19b counts
+# them against the card's, LM19_ROUTES): 0, 2,773 and 12,742 of 262,144
+# token-choices at steps 0, 1 and 2 (1,374 and 5,812 kept bits), the
+# loss 0, 6.1e-4 and 1.29e-3 from the card's, the same in every run. The
+# bound is over twice
 # the reading; a wrong gradient scale, which moves the loss by ~4e-3,
 # fails it, and fails the gradient gate below on every leaf at step 0.
 LM19_MOE_STEP2_ATOL = 3e-3
@@ -755,12 +793,13 @@ LM19_MOE_GRADS = "lm19a_moe_grads.pt"
 LM19_ROUTES = "lm19a_moe_routes.pt"
 # 19c: mesh iv at 4 layers and T 2048 (the cuts: 4 of 8 layers, the
 # fewest V 2 x S 2 allows, and a quarter of the tokens, so three fits and
-# their 2.8 GB checkpoints fit the phase), 5 steps, preempted at step 3 of
-# epoch 0.
+# their 2.8 GB checkpoints fit the phase), 4 steps, preempted at step 2 of
+# epoch 0 (cut from 5 and 3 for the script's time limit; the resumed run
+# still takes a step after the restore).
 LM19_RESUME_LAYERS = 4
 LM19_RESUME_SEQ = 2048
-LM19_RESUME_STEPS = 5
-LM19_PREEMPT_AT = (0, 3)
+LM19_RESUME_STEPS = 4
+LM19_PREEMPT_AT = (0, 2)
 
 # Phase 20 (decoding beyond the engine). 20a: bench.py's decode workload
 # (bench.py:369-386: MODEL at bf16, B 8, prompt 128, 512 new tokens,
@@ -820,6 +859,20 @@ JRN_REQS = 32
 # 64-token system prompt before each trace prompt's first 32 tokens,
 # 48 new tokens at most.
 MIG_REQS, MIG_SYSTEM, MIG_USER, MIG_GEN = 8, 64, 32, 48
+# Phase 22: bench.py's fleet cell (bench_serve_fleet, bench.py:895-1072)
+# at 21a's model, trace and geometry: 2 replicas, r1 killed (22a) or
+# hard-crashed (22b) at fleet round 40 and revived 20 rounds later;
+# post-kill TTFT p99 within max(4 x the reference, 0.5 s) (:925-942).
+FLEET_REPLICAS, FLEET_KILL_ROUND, FLEET_REVIVE = 2, 40, 20
+FLEET_TTFT_FACTOR, FLEET_TTFT_FLOOR = 4.0, 0.5
+# 22c: 4 replicas in 2 cells on a SimClock (one round = 0.02 s), the
+# trace's first 24 requests; the last cell killed at cell-site poll 10
+# and revived 10 rounds later, then partitioned at poll 30 for 10 polls.
+FLEET_CELL_REPLICAS, FLEET_CELLS, FLEET_CELL_REQS = 4, 2, 24
+FLEET_CELL_KILL, FLEET_CELL_REVIVE = 10, 10
+FLEET_CELL_PARTITION, FLEET_CELL_PARTITION_POLLS = 30, 10
+# Busy fleet rounds under the profiler (device busy share).
+FLEET_PROFILE_ROUNDS = 16
 
 # Where the phases' trainers write their logs and checkpoints: one
 # temporary directory of the run, made by main() and removed at exit;
@@ -2070,22 +2123,69 @@ def dp_two_rank(spec) -> dict:
     return out
 
 
-def dp_spawn(mesh, fn, nproc: int, phase: str, *args, **kw):
-    """``mesh.spawn`` of a phase's rank function; a failed or hung rank
-    fails the phase."""
+class RideAlong:
+    """An earlier phase's rank work carried by a later phase's spawn of as
+    many ranks over the same backend (every spawn pays each rank's
+    process start: interpreter, imports, CUDA context): ``fn(spec,
+    *args)`` on the group laid out as ``config`` (None: as the
+    carrier's). :meth:`finish`, called once the carrier has run, hands
+    the ranks' results to ``gate`` — the earlier phase's own gating,
+    which fills that phase's record in place."""
+
+    def __init__(self, fn, config, args: tuple, gate):
+        self.fn, self.config, self.args, self.gate = fn, config, args, gate
+        self.results = None
+
+    def finish(self):
+        return self.gate(self.results)
+
+
+def rank_jobs(spec, fn, args: tuple, rides: list) -> list:
+    """A carrier spawn's rank function: its own ``fn(spec, *args)``, then
+    each ride's on the group laid out anew as the ride's mesh."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch import mesh as mesh_mod
+
+    out = [fn(spec, *args)]
+    for ride_fn, config, ride_args in rides:
+        # Each job starts from an emptied allocator cache, as in a spawn
+        # of its own.
+        gc.collect()
+        torch.cuda.empty_cache()
+        ride_spec = (spec if config is None
+                     else mesh_mod.make_mesh(config, spec.device))
+        out.append(ride_fn(ride_spec, *ride_args))
+    return out
+
+
+def dp_spawn(mesh, fn, nproc: int, phase: str, *args, rides=(), **kw):
+    """``mesh.spawn`` of a phase's rank function (and of the ``rides``
+    it carries, each :class:`RideAlong`'s ``results`` set); a failed or
+    hung rank fails the phase."""
     try:
-        return mesh.spawn(fn, nproc, *args, device="cuda", timeout_s=600,
-                          **kw)
+        if not rides:
+            return mesh.spawn(fn, nproc, *args, device="cuda",
+                              timeout_s=600, **kw)
+        res = mesh.spawn(rank_jobs, nproc, fn, args,
+                         [(r.fn, r.config, r.args) for r in rides],
+                         device="cuda", timeout_s=600, **kw)
     except (RuntimeError, TimeoutError, ValueError) as e:
         fail(phase, f"{type(e).__name__}: {e}")
+    for i, ride in enumerate(rides, 1):
+        ride.results = [x[i] for x in res]
+    return [x[0] for x in res]
 
 
-def data_parallel(mesh, trainer_mod, tconfig, card) -> dict:
+def data_parallel(mesh, trainer_mod, tconfig, card,
+                  rides: list | None = None) -> dict:
     """Phase 12: the CNN slice through the port's process group. 12a:
     world = device_count() over NCCL — the world-1 gate against the
     one-device trainer of phase 11, bench.py's workload through gspmd,
     20 ddp steps; 12b: two ranks (sharing the one card over gloo, or two
-    cards over NCCL), ddp with per-replica and synchronized BN."""
+    cards over NCCL), ddp with per-replica and synchronized BN — in a
+    spawn of its own, or, with ``rides``, carried by 14b's (``"two_ranks"``
+    is filled when the ride finishes)."""
     import numpy as np
     import torch
 
@@ -2163,8 +2263,24 @@ def data_parallel(mesh, trainer_mod, tconfig, card) -> dict:
     two_cards = world >= 2
     backend = "nccl" if two_cards else "gloo"
     torch.cuda.empty_cache()
-    r = dp_spawn(mesh, dp_two_rank, 2, "12b/two ranks",
-                 backend=backend)[0]
+    if rides is not None:
+        rides.append(RideAlong(dp_two_rank, None, (),
+                               lambda ranks: dp_two_rank_gate(
+                                   out, a, ranks[0], world, card)))
+        return out
+    return dp_two_rank_gate(out, a, dp_spawn(mesh, dp_two_rank, 2,
+                                             "12b/two ranks",
+                                             backend=backend)[0],
+                            world, card)
+
+
+def dp_two_rank_gate(out: dict, a: dict, r: dict, world: int,
+                     card) -> dict:
+    """Phase 12b's gates on rank 0's :func:`dp_two_rank` result ``r``
+    (``a``: 12a's rank 0, whose one-rank losses the step-0 gate reads);
+    fills ``out``."""
+    two_cards = world >= 2
+    backend = "nccl" if two_cards else "gloo"
     where = "two cards" if two_cards else "both ranks on the one card"
     for bn in ("local", "sync"):
         x = r[bn]
@@ -2522,11 +2638,14 @@ def pp_spmd_rank(spec, cut) -> dict:
     return out
 
 
-def pp_spmd(mesh, models, pipeline, auto_partition, tconfig, card) -> dict:
+def pp_spmd(mesh, models, pipeline, auto_partition, tconfig, card,
+            rides: list | None = None) -> dict:
     """Phase 13b: the SPMD engine at stage 2 through mesh.spawn (two ranks
     on the one card over gloo, or two cards over NCCL), gpipe and 1f1b
     M=4, each rank's parameters, momentum and BN statistics after 3 steps
-    against the runner at S=2, the same cut, M and batches, bit for bit."""
+    against the runner at S=2, the same cut, M and batches, bit for bit.
+    In a spawn of its own, or, with ``rides``, carried by 14b's (the
+    record is filled when the ride finishes)."""
     import torch
 
     from distributed_model_parallel_tpu_torch.data.loader import BatchLoader
@@ -2539,77 +2658,89 @@ def pp_spmd(mesh, models, pipeline, auto_partition, tconfig, card) -> dict:
     cut = auto_partition.auto_boundaries(
         models.get_model(cnn_config(tconfig).model, device="cpu"),
         (auto_partition.microbatch_rows(CNN_BATCH, PP_SPMD_M), 32, 32, 3), 2)
-    ranks = dp_spawn(mesh, pp_spmd_rank, 2, "13b/spmd pipeline", cut,
-                     backend=backend, config=tconfig.MeshConfig(stage=2))
-    bench = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.deterministic = True
-    devices = ["cuda:0", "cuda:1" if two_cards else "cuda:0"]
-    out = {"backend": backend, "cut": cut,
-           "where": "two cards" if two_cards else "both ranks on the one card"}
-    for schedule in ("gpipe", "1f1b"):
-        cfg = pp_spmd_config(tconfig, schedule, cut)
-        train, _ = load_dataset(cfg.data)
-        loader = BatchLoader(train, CNN_BATCH, shuffle=True, seed=0)
-        runner = pp_runner(models, pipeline, tconfig, devices, cfg,
-                           m=PP_SPMD_M, schedule=schedule, boundaries=cut,
-                           augment=False, steps_per_epoch=len(loader))
-        loader.set_epoch(0)
-        # The ranks' loss: the mean of the microbatch losses in f32.
-        losses = [float(torch.stack([m["loss"] for m in (
-            runner.train_step_device(None, torch.from_numpy(im).cuda(),
-                                     torch.from_numpy(lb).cuda()))]).mean())
-            for im, lb in loader]
-        want = []
-        for st in runner.stages:
-            moms = [st.optimizer.momentum_buffer(i)
-                    for i in range(len(st.optimizer.params))]
-            units = [runner.model.units[i] for i in range(st.lo, st.hi)]
-            want.append([x.detach().cpu().numpy().copy() for x in (
-                *(p for u in units for p in u.parameters()), *moms,
-                *(b for u in units for b in u.buffers()))])
-        rec = {}
-        for s, r in enumerate(ranks):
-            got = r[schedule]
-            same, gap = pp_bitwise(got["state"], want[s])
-            rec[s] = dict(same=same, leaves=len(want[s]), gap=gap)
-            if (got["lo"], got["hi"]) != (runner.stages[s].lo,
-                                          runner.stages[s].hi):
-                fail("13b/spmd pipeline", "a rank holds the wrong units")
-        r0 = ranks[0][schedule]
-        step_s = [statistics.median(r[schedule]["step_s"]) for r in ranks]
-        print(f"pp spmd {schedule} [{card}]: 2 stages as 2 ranks, backend "
-              f"{backend} ({out['where']}), cut {cut}, M {PP_SPMD_M}, "
-              f"{PP_SPMD_STEPS} steps of B {CNN_BATCH}, augment off: rank "
-              f"losses {r0['losses']} vs runner {losses}; parameters, "
-              f"momentum and BN buffers bitwise equal to the runner's at "
-              f"S=2: stage 0 {rec[0]['same']}/{rec[0]['leaves']}, stage 1 "
-              f"{rec[1]['same']}/{rec[1]['leaves']} (max |diff| "
-              f"{max(rec[0]['gap'], rec[1]['gap'])})")
-        print(f"pp spmd {schedule} hops [{card}]: stage 0 sent "
-              f"{r0['calls'].get('p2p_send', 0)} hops "
-              f"({r0['bytes'].get('p2p_send', 0)} B), received "
-              f"{r0['calls'].get('p2p_recv', 0)} "
-              f"({r0['bytes'].get('p2p_recv', 0)} B) in {PP_SPMD_STEPS} "
-              f"steps; a ring shift of the boundary activation "
-              f"({r0['hop_bytes']} B) {r0['hop_us']} us (median of "
-              f"{PP_HOPS}, synced, {backend}); step s per rank {step_s} "
-              f"(median of epoch 1's {len(r0['step_s'])} steps, each "
-              f"synced)")
-        ok = (all(v["same"] == v["leaves"] for v in rec.values())
-              and r0["losses"] == losses)
-        if not ok:
-            fail("13b/spmd pipeline", f"{schedule}: the ranks are not "
-                                      f"bitwise the runner at S=2")
-        out[schedule] = dict(losses=losses, step_s=step_s,
-                             hop_us=r0["hop_us"], hop_bytes=r0["hop_bytes"],
-                             hops_sent=r0["calls"].get("p2p_send", 0),
-                             bytes_sent=r0["bytes"].get("p2p_send", 0),
-                             bitwise=True)
-        del runner
-    torch.backends.cudnn.deterministic = False
-    torch.backends.cudnn.benchmark = bench
-    return out
+    config = tconfig.MeshConfig(stage=2)
+    result: dict = {}
+
+    def gate(ranks):
+        bench = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+        devices = ["cuda:0", "cuda:1" if two_cards else "cuda:0"]
+        out = {"backend": backend, "cut": cut,
+               "where": ("two cards" if two_cards
+                         else "both ranks on the one card")}
+        for schedule in ("gpipe", "1f1b"):
+            cfg = pp_spmd_config(tconfig, schedule, cut)
+            train, _ = load_dataset(cfg.data)
+            loader = BatchLoader(train, CNN_BATCH, shuffle=True, seed=0)
+            runner = pp_runner(models, pipeline, tconfig, devices, cfg,
+                               m=PP_SPMD_M, schedule=schedule, boundaries=cut,
+                               augment=False, steps_per_epoch=len(loader))
+            loader.set_epoch(0)
+            # The ranks' loss: the mean of the microbatch losses in f32.
+            losses = [float(torch.stack([m["loss"] for m in (
+                runner.train_step_device(
+                    None, torch.from_numpy(im).cuda(),
+                    torch.from_numpy(lb).cuda()))]).mean())
+                for im, lb in loader]
+            want = []
+            for st in runner.stages:
+                moms = [st.optimizer.momentum_buffer(i)
+                        for i in range(len(st.optimizer.params))]
+                units = [runner.model.units[i] for i in range(st.lo, st.hi)]
+                want.append([x.detach().cpu().numpy().copy() for x in (
+                    *(p for u in units for p in u.parameters()), *moms,
+                    *(b for u in units for b in u.buffers()))])
+            rec = {}
+            for s, r in enumerate(ranks):
+                got = r[schedule]
+                same, gap = pp_bitwise(got["state"], want[s])
+                rec[s] = dict(same=same, leaves=len(want[s]), gap=gap)
+                if (got["lo"], got["hi"]) != (runner.stages[s].lo,
+                                              runner.stages[s].hi):
+                    fail("13b/spmd pipeline", "a rank holds the wrong units")
+            r0 = ranks[0][schedule]
+            step_s = [statistics.median(r[schedule]["step_s"]) for r in ranks]
+            print(f"pp spmd {schedule} [{card}]: 2 stages as 2 ranks, backend "
+                  f"{backend} ({out['where']}), cut {cut}, M {PP_SPMD_M}, "
+                  f"{PP_SPMD_STEPS} steps of B {CNN_BATCH}, augment off: rank "
+                  f"losses {r0['losses']} vs runner {losses}; parameters, "
+                  f"momentum and BN buffers bitwise equal to the runner's at "
+                  f"S=2: stage 0 {rec[0]['same']}/{rec[0]['leaves']}, stage 1 "
+                  f"{rec[1]['same']}/{rec[1]['leaves']} (max |diff| "
+                  f"{max(rec[0]['gap'], rec[1]['gap'])})")
+            print(f"pp spmd {schedule} hops [{card}]: stage 0 sent "
+                  f"{r0['calls'].get('p2p_send', 0)} hops "
+                  f"({r0['bytes'].get('p2p_send', 0)} B), received "
+                  f"{r0['calls'].get('p2p_recv', 0)} "
+                  f"({r0['bytes'].get('p2p_recv', 0)} B) in {PP_SPMD_STEPS} "
+                  f"steps; a ring shift of the boundary activation "
+                  f"({r0['hop_bytes']} B) {r0['hop_us']} us (median of "
+                  f"{PP_HOPS}, synced, {backend}); step s per rank {step_s} "
+                  f"(median of epoch 1's {len(r0['step_s'])} steps, each "
+                  f"synced)")
+            ok = (all(v["same"] == v["leaves"] for v in rec.values())
+                  and r0["losses"] == losses)
+            if not ok:
+                fail("13b/spmd pipeline", f"{schedule}: the ranks are not "
+                                          f"bitwise the runner at S=2")
+            out[schedule] = dict(losses=losses, step_s=step_s,
+                                 hop_us=r0["hop_us"],
+                                 hop_bytes=r0["hop_bytes"],
+                                 hops_sent=r0["calls"].get("p2p_send", 0),
+                                 bytes_sent=r0["bytes"].get("p2p_send", 0),
+                                 bitwise=True)
+            del runner
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = bench
+        result.update(out)
+        return result
+
+    if rides is not None:
+        rides.append(RideAlong(pp_spmd_rank, config, (cut,), gate))
+        return result
+    return gate(dp_spawn(mesh, pp_spmd_rank, 2, "13b/spmd pipeline", cut,
+                         backend=backend, config=config))
 
 
 def ppr_config(tconfig, root: str, name: str, **kw):
@@ -2780,14 +2911,16 @@ def pp_resume_rank(spec, configs, train, evals, preempt_at, v2_config,
 
 
 def pp_spmd_resume(mesh, models, pipeline, auto_partition, tconfig, root,
-                   card) -> dict:
+                   card, rides: list | None = None) -> dict:
     """Phase 13d: two SPMD ranks (gloo on one card, NCCL on two or more):
     the preempt/resume gate under gpipe and 1f1b M=PPR_M at the 2-stage
     cost-balanced cut, each rank's resumed run == its uninterrupted one
     bit for bit; interleaved V=2 M=PP_SPMD_M at S=2 over the 4-chunk
     cost-balanced cut, PP_SPMD_STEPS steps, each rank's chunks bit for bit
     the runner's interleaved V=2 at S=2 with the same cut; the hops and
-    bytes a step of interleaved beside 1f1b."""
+    bytes a step of interleaved beside 1f1b. In a spawn of its own, or,
+    with ``rides``, carried by 14b's (the record is filled when the ride
+    finishes)."""
     import torch
 
     from distributed_model_parallel_tpu_torch.data.loader import BatchLoader
@@ -2822,110 +2955,125 @@ def pp_spmd_resume(mesh, models, pipeline, auto_partition, tconfig, root,
                 virtual_stages=2)}
     train, evals = load_dataset(configs["gpipe"].data)
     steps = PPS_TRAIN // RES_BATCH
-    ranks = dp_spawn(mesh, pp_resume_rank, 2, phase, configs,
-                     (train.images, train.labels),
-                     (evals.images, evals.labels), steps + RES_PREEMPT_STEP,
-                     hops["interleaved"], hops, backend=backend,
-                     config=mesh2)
-    out = {"backend": backend, "cut2": cut2, "cut4": cut4,
-           "seconds": [r["seconds"] for r in ranks],
-           "fused_sgd": [r["fused_sgd"] for r in ranks],
-           "plain_sgd": [r["plain_sgd"] for r in ranks]}
-    # Per rank: 2 schedules x (the uninterrupted fit + the preempted one
-    # and its resume) x 2 epochs x steps, once per bucket of its stage.
-    want = 2 * 2 * 2 * steps
-    if any(n == 0 or n % want for n in out["fused_sgd"]) or any(
-            out["plain_sgd"]):
-        fail(phase, f"launches a rank: fused_sgd {out['fused_sgd']} (want a "
-                    f"multiple of {want} above 0), plain_sgd "
-                    f"{out['plain_sgd']} (want 0: momentum 0.9)")
-    for s in configs:
-        leaves = [[tree_flatten((x["runs"][s][run]["params"],
-                                 x["runs"][s][run]["momentum"],
-                                 x["runs"][s][run]["state"]))[0]
-                   for run in "ab"] for x in ranks]
-        bad = [resume_mismatches(a, b) for a, b in leaves]
-        counts = [(x["runs"][s]["b"]["count"], x["runs"][s]["b"]["step"])
-                  for x in ranks]
-        same_history = all(history_matches(x["runs"][s]["a"]["history"],
-                                           x["runs"][s]["b"]["history"])
-                           for x in ranks)
-        print(f"pp spmd resume {s}, 2 ranks over {backend} [{card}]: M "
-              f"{PPR_M}, cut {cut2}, B {RES_BATCH}, {steps} steps an epoch, "
-              f"preempted at global step {steps + RES_PREEMPT_STEP}; arrays "
-              f"differing resumed vs uninterrupted {bad} (of "
-              f"{[len(x[0]) for x in leaves]}) per rank; update count, step "
-              f"{counts} (want {2 * steps}); history equal {same_history}")
-        if any(bad) or not same_history or any(
-                c != (2 * steps, 2 * steps) for c in counts):
-            fail(phase, f"{s}: the resumed runs differ")
-        out[s] = dict(differing=bad, steps=counts[0][1], bitwise=True)
-    # Interleaved V=2 at S=2 against the runner, same cut, M, batches.
-    bench = torch.backends.cudnn.benchmark
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.deterministic = True
-    cfg = hops["interleaved"]
-    tr, _ = load_dataset(cfg.data)
-    loader = BatchLoader(tr, CNN_BATCH, shuffle=True, seed=0)
-    devices = ["cuda:0", "cuda:1" if two else "cuda:0"]
-    runner = pp_runner(models, pipeline, tconfig, devices, cfg, m=PP_SPMD_M,
-                       schedule="1f1b", virtual=2, boundaries=cut4,
-                       augment=False, steps_per_epoch=len(loader))
-    loader.set_epoch(0)
-    losses = [float(torch.stack([m["loss"] for m in (
-        runner.train_step_device(None, torch.from_numpy(im).cuda(),
-                                 torch.from_numpy(lb).cuda()))]).mean())
-        for im, lb in loader]
-    rec = {}
-    for s, r in enumerate(ranks):
-        got = r["interleaved"]
-        stages = runner.stages[s::2]
-        units = [runner.model.units[i] for st in stages
-                 for i in range(st.lo, st.hi)]
-        moms = [st.optimizer.momentum_buffer(i) for st in stages
-                for i in range(len(st.optimizer.params))]
-        want = [x.detach().cpu().numpy().copy() for x in (
-            *(p for u in units for p in u.parameters()), *moms,
-            *(b for u in units for b in u.buffers()))]
-        same, gap = pp_bitwise(got["state"], want)
-        rec[s] = dict(same=same, leaves=len(want), gap=gap,
-                      units=got["units"])
-    per_step = {name: {k: ranks[0][name]["calls"].get(k, 0) / PP_SPMD_STEPS
-                       for k in ("p2p_send", "p2p_recv")} for name in hops}
-    byte_step = {name: ranks[0][name]["bytes"].get("p2p_send", 0)
-                 / PP_SPMD_STEPS for name in hops}
-    print(f"pp spmd interleaved [{card}]: V=2 at S=2 over {backend}, 4 "
-          f"chunks at {cut4}, M {PP_SPMD_M}, {PP_SPMD_STEPS} steps of B "
-          f"{CNN_BATCH}, augment off: rank losses "
-          f"{ranks[0]['interleaved']['losses']} vs runner {losses}; each "
-          f"rank's chunks (units {[rec[s]['units'] for s in rec]}) bitwise "
-          f"equal to the runner's interleaved V=2 at S=2: "
-          f"{[(rec[s]['same'], rec[s]['leaves']) for s in rec]} (max |diff|"
-          f" {max(v['gap'] for v in rec.values())})")
-    print(f"pp spmd hops a step [{card}]: stage 0 sends/receives "
-          f"{per_step['1f1b']} hops and sends {byte_step['1f1b']} B under "
-          f"1f1b M={PP_SPMD_M} (2 chunks), {per_step['interleaved']} hops "
-          f"and {byte_step['interleaved']} B interleaved V=2 (4 chunks)")
-    if not (all(v["same"] == v["leaves"] for v in rec.values())
-            and ranks[0]["interleaved"]["losses"] == losses):
-        fail(phase, "interleaved V=2: the ranks are not bitwise the runner")
-    torch.backends.cudnn.deterministic = False
-    torch.backends.cudnn.benchmark = bench
-    del runner
-    torch.cuda.empty_cache()
-    out["interleaved"] = dict(bitwise=True, losses=losses,
-                              hops_per_step=per_step["interleaved"],
-                              bytes_sent_per_step=byte_step["interleaved"])
-    out["1f1b_hops"] = dict(hops_per_step=per_step["1f1b"],
-                            bytes_sent_per_step=byte_step["1f1b"])
-    return out
+    args = (configs, (train.images, train.labels),
+            (evals.images, evals.labels), steps + RES_PREEMPT_STEP,
+            hops["interleaved"], hops)
+    result: dict = {}
+
+    def gate(ranks):
+        out = {"backend": backend, "cut2": cut2, "cut4": cut4,
+               "seconds": [r["seconds"] for r in ranks],
+               "fused_sgd": [r["fused_sgd"] for r in ranks],
+               "plain_sgd": [r["plain_sgd"] for r in ranks]}
+        # Per rank: 2 schedules x (the uninterrupted fit + the preempted one
+        # and its resume) x 2 epochs x steps, once per bucket of its stage.
+        want = 2 * 2 * 2 * steps
+        if any(n == 0 or n % want for n in out["fused_sgd"]) or any(
+                out["plain_sgd"]):
+            fail(phase, f"launches a rank: fused_sgd {out['fused_sgd']} "
+                        f"(want a multiple of {want} above 0), plain_sgd "
+                        f"{out['plain_sgd']} (want 0: momentum 0.9)")
+        for s in configs:
+            leaves = [[tree_flatten((x["runs"][s][run]["params"],
+                                     x["runs"][s][run]["momentum"],
+                                     x["runs"][s][run]["state"]))[0]
+                       for run in "ab"] for x in ranks]
+            bad = [resume_mismatches(a, b) for a, b in leaves]
+            counts = [(x["runs"][s]["b"]["count"], x["runs"][s]["b"]["step"])
+                      for x in ranks]
+            same_history = all(history_matches(x["runs"][s]["a"]["history"],
+                                               x["runs"][s]["b"]["history"])
+                               for x in ranks)
+            print(f"pp spmd resume {s}, 2 ranks over {backend} [{card}]: M "
+                  f"{PPR_M}, cut {cut2}, B {RES_BATCH}, {steps} steps an "
+                  f"epoch, preempted at global step "
+                  f"{steps + RES_PREEMPT_STEP}; arrays "
+                  f"differing resumed vs uninterrupted {bad} (of "
+                  f"{[len(x[0]) for x in leaves]}) per rank; update count, "
+                  f"step "
+                  f"{counts} (want {2 * steps}); history equal {same_history}")
+            if any(bad) or not same_history or any(
+                    c != (2 * steps, 2 * steps) for c in counts):
+                fail(phase, f"{s}: the resumed runs differ")
+            out[s] = dict(differing=bad, steps=counts[0][1], bitwise=True)
+        # Interleaved V=2 at S=2 against the runner, same cut, M, batches.
+        bench = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = False
+        torch.backends.cudnn.deterministic = True
+        cfg = hops["interleaved"]
+        tr, _ = load_dataset(cfg.data)
+        loader = BatchLoader(tr, CNN_BATCH, shuffle=True, seed=0)
+        devices = ["cuda:0", "cuda:1" if two else "cuda:0"]
+        runner = pp_runner(models, pipeline, tconfig, devices, cfg,
+                           m=PP_SPMD_M,
+                           schedule="1f1b", virtual=2, boundaries=cut4,
+                           augment=False, steps_per_epoch=len(loader))
+        loader.set_epoch(0)
+        losses = [float(torch.stack([m["loss"] for m in (
+            runner.train_step_device(None, torch.from_numpy(im).cuda(),
+                                     torch.from_numpy(lb).cuda()))]).mean())
+            for im, lb in loader]
+        rec = {}
+        for s, r in enumerate(ranks):
+            got = r["interleaved"]
+            stages = runner.stages[s::2]
+            units = [runner.model.units[i] for st in stages
+                     for i in range(st.lo, st.hi)]
+            moms = [st.optimizer.momentum_buffer(i) for st in stages
+                    for i in range(len(st.optimizer.params))]
+            want = [x.detach().cpu().numpy().copy() for x in (
+                *(p for u in units for p in u.parameters()), *moms,
+                *(b for u in units for b in u.buffers()))]
+            same, gap = pp_bitwise(got["state"], want)
+            rec[s] = dict(same=same, leaves=len(want), gap=gap,
+                          units=got["units"])
+        per_step = {name: {k: ranks[0][name]["calls"].get(k, 0) / PP_SPMD_STEPS
+                           for k in ("p2p_send", "p2p_recv")} for name in hops}
+        byte_step = {name: ranks[0][name]["bytes"].get("p2p_send", 0)
+                     / PP_SPMD_STEPS for name in hops}
+        print(f"pp spmd interleaved [{card}]: V=2 at S=2 over {backend}, 4 "
+              f"chunks at {cut4}, M {PP_SPMD_M}, {PP_SPMD_STEPS} steps of B "
+              f"{CNN_BATCH}, augment off: rank losses "
+              f"{ranks[0]['interleaved']['losses']} vs runner {losses}; each "
+              f"rank's chunks (units {[rec[s]['units'] for s in rec]}) "
+              f"bitwise "
+              f"equal to the runner's interleaved V=2 at S=2: "
+              f"{[(rec[s]['same'], rec[s]['leaves']) for s in rec]} (max "
+              f"|diff|"
+              f" {max(v['gap'] for v in rec.values())})")
+        print(f"pp spmd hops a step [{card}]: stage 0 sends/receives "
+              f"{per_step['1f1b']} hops and sends {byte_step['1f1b']} B under "
+              f"1f1b M={PP_SPMD_M} (2 chunks), {per_step['interleaved']} hops "
+              f"and {byte_step['interleaved']} B interleaved V=2 (4 chunks)")
+        if not (all(v["same"] == v["leaves"] for v in rec.values())
+                and ranks[0]["interleaved"]["losses"] == losses):
+            fail(phase, "interleaved V=2: the ranks are not bitwise the "
+                        "runner")
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = bench
+        del runner
+        torch.cuda.empty_cache()
+        out["interleaved"] = dict(bitwise=True, losses=losses,
+                                  hops_per_step=per_step["interleaved"],
+                                  bytes_sent_per_step=byte_step["interleaved"])
+        out["1f1b_hops"] = dict(hops_per_step=per_step["1f1b"],
+                                bytes_sent_per_step=byte_step["1f1b"])
+        result.update(out)
+        return result
+
+    if rides is not None:
+        rides.append(RideAlong(pp_resume_rank, mesh2, args, gate))
+        return result
+    return gate(dp_spawn(mesh, pp_resume_rank, 2, phase, *args,
+                         backend=backend, config=mesh2))
 
 
-def pipeline_phase(laps, models, cnn_trainer, fs, tconfig, card) -> dict:
+def pipeline_phase(laps, models, cnn_trainer, fs, tconfig, card,
+                   rides: list | None = None) -> dict:
     """Phase 13: the runner over ``[cuda:(c % n)]`` for PP_STAGES stages
     (gates, timing, a fit epoch), the SPMD engine at 2 stages, then the
     harness: preempt/resume on the runner and at two ranks, interleaved
-    over ranks."""
+    over ranks (13b and 13d carried by 14b's spawn with ``rides``)."""
     import torch
 
     from distributed_model_parallel_tpu_torch import mesh
@@ -2946,18 +3094,20 @@ def pipeline_phase(laps, models, cnn_trainer, fs, tconfig, card) -> dict:
     pp["fit"] = pp_fit(pipeline_trainer, fs, tconfig, pp_devices, card)
     laps.done("13a/pipeline runner")
     pp["spmd"] = pp_spmd(mesh, models, pipeline, auto_partition, tconfig,
-                         card)
+                         card, rides)
     laps.done("13b/spmd pipeline")
     import tempfile
 
-    with tempfile.TemporaryDirectory(dir=HERE) as root:
-        pp["resume"] = pp_resume(pipeline_trainer, fs, tconfig, pp_devices,
-                                 root, card)
-        laps.done("13c/pipeline resume")
-        pp["spmd_resume"] = pp_spmd_resume(mesh, models, pipeline,
-                                           auto_partition, tconfig, root,
-                                           card)
-        laps.done("13d/spmd resume")
+    # Under the run's directory (removed at exit): a carried 13d writes
+    # there after this phase returns.
+    root = tempfile.mkdtemp(prefix="pp_resume_", dir=os.environ[RUN_DIR_ENV])
+    pp["resume"] = pp_resume(pipeline_trainer, fs, tconfig, pp_devices,
+                             root, card)
+    laps.done("13c/pipeline resume")
+    pp["spmd_resume"] = pp_spmd_resume(mesh, models, pipeline,
+                                       auto_partition, tconfig, root, card,
+                                       rides)
+    laps.done("13d/spmd resume")
     return pp
 
 
@@ -3400,14 +3550,15 @@ def dp_engines_rank(spec, timed: bool) -> dict:
     return out
 
 
-def dp_engines(mesh, card, world: int, backend: str) -> dict:
+def dp_engines(mesh, card, world: int, backend: str, rides=()) -> dict:
     """Phase 14b (14c under ``--dp-only``): :func:`dp_engines_rank` on
-    ``world`` ranks over ``backend``; the parent prints and gates."""
+    ``world`` ranks over ``backend``, carrying ``rides``; the parent
+    prints and gates (the rides' gates are their callers')."""
     timed = backend == "nccl" and world > 1
     where = ("each rank on its own card" if backend == "nccl"
              else "both ranks on the one card")
     r = dp_spawn(mesh, dp_engines_rank, world, "14b/dp engines", timed,
-                 backend=backend)
+                 backend=backend, rides=rides)
     a = r[0]
     tag = f"[{card}] {world} ranks over {backend} ({where})"
     ring = a["ring"]
@@ -3794,14 +3945,17 @@ def resume_rank(spec, configs, train, evals, preempt_at,
     return out
 
 
-def resume_ranks(mesh, tconfig, root, card) -> dict:
+def resume_ranks(mesh, tconfig, root, card,
+                 rides: list | None = None) -> dict:
     """Phase 15c: the preempt/resume gate at two ranks for ddp and zero
     (gloo on one card, NCCL on two or more): each rank's resumed run ==
     its uninterrupted one bit for bit, and the ranks agree. Beside them an
     uninterrupted gspmd run from the same inputs, which zero's must equal
     per leaf within DPE_RTOL (ZeRO is gspmd's SGD with the momentum
     sharded: a wrong slice, scatter order, mean, decay or rate shows
-    there and not in a run compared with itself)."""
+    there and not in a run compared with itself). In a spawn of its own,
+    or, with ``rides``, carried by 14b's (the record is filled when the
+    ride finishes)."""
     import torch
 
     from distributed_model_parallel_tpu_torch.data.registry import (
@@ -3822,51 +3976,65 @@ def resume_ranks(mesh, tconfig, root, card) -> dict:
                for s in ("ddp", "zero", "gspmd")}
     train, evals = load_dataset(configs["ddp"].data)
     steps = PPS_TRAIN // RES_BATCH
-    r = dp_spawn(mesh, resume_rank, 2, phase, configs,
-                 (train.images, train.labels), (evals.images, evals.labels),
-                 steps + RES_PREEMPT_STEP, ("gspmd",), backend=backend,
-                 config=tconfig.MeshConfig(data=2))
-    out = {"backend": backend, "seconds": [x["seconds"] for x in r]}
-    gaps = []
-    for x in r:
-        za, ga = x["zero"]["a"], x["gspmd"]["a"]
-        for key in ("params", "momentum", "state"):
-            gaps += [rel_gap(torch.from_numpy(np.asarray(a, np.float32)),
-                             torch.from_numpy(np.asarray(b, np.float32)))
-                     for a, b in zip(tree_flatten(za[key])[0],
-                                     tree_flatten(ga[key])[0], strict=True)]
-    print(f"resume zero vs gspmd, 2 ranks over {backend} [{card}]: "
-          f"uninterrupted fit(2), max per-leaf max|a - b| / max|b| over "
-          f"parameters, momentum and BN statistics {max(gaps)} (bound "
-          f"{DPE_RTOL}; {sum(g == 0 for g in gaps)} of {len(gaps)} leaves "
-          f"bitwise equal); update count, step "
-          f"{[(x['zero']['a']['count'], x['gspmd']['a']['count']) for x in r]}")
-    if not max(gaps) <= DPE_RTOL:
-        fail(phase, f"zero differs from gspmd: {max(gaps)} > {DPE_RTOL}")
-    out["zero_vs_gspmd_max_rel"] = max(gaps)
-    for s in ("ddp", "zero"):
-        leaves = [[tree_flatten((x[s][run]["params"], x[s][run]["momentum"],
-                                 x[s][run]["state"]))[0] for run in "ab"]
+    config = tconfig.MeshConfig(data=2)
+    args = (configs, (train.images, train.labels),
+            (evals.images, evals.labels), steps + RES_PREEMPT_STEP,
+            ("gspmd",))
+    result: dict = {}
+
+    def gate(r):
+        out = {"backend": backend, "seconds": [x["seconds"] for x in r]}
+        gaps = []
+        for x in r:
+            za, ga = x["zero"]["a"], x["gspmd"]["a"]
+            for key in ("params", "momentum", "state"):
+                gaps += [rel_gap(
+                    torch.from_numpy(np.asarray(a, np.float32)),
+                    torch.from_numpy(np.asarray(b, np.float32)))
+                    for a, b in zip(tree_flatten(za[key])[0],
+                                    tree_flatten(ga[key])[0], strict=True)]
+        counts = [(x["zero"]["a"]["count"], x["gspmd"]["a"]["count"])
                   for x in r]
-        bad = [resume_mismatches(a, b) for a, b in leaves]
-        across = resume_mismatches(leaves[0][1], leaves[1][1])
-        counts = [(x[s]["b"]["count"], x[s]["b"]["step"]) for x in r]
-        same_history = all(history_matches(x[s]["a"]["history"],
-                                           x[s]["b"]["history"]) for x in r)
-        print(f"resume {s}, 2 ranks over {backend} [{card}]: arrays "
-              f"differing resumed vs uninterrupted {bad} (of "
-              f"{len(leaves[0][0])}) per rank; rank 0's resumed arrays "
-              f"vs rank 1's: {across} differ; update count, step "
-              f"{counts} (want {2 * steps}); history equal {same_history}")
-        if any(bad) or not same_history or any(
-                c != (2 * steps, 2 * steps) for c in counts):
-            fail(phase, f"{s}: the resumed runs differ")
-        params = [tree_flatten(x[s]["b"]["params"])[0] for x in r]
-        if resume_mismatches(*params):
-            fail(phase, f"{s}: the ranks' parameters differ")
-        out[s] = dict(differing=bad, rank_params_equal=True,
-                      steps=counts[0][1])
-    return out
+        print(f"resume zero vs gspmd, 2 ranks over {backend} [{card}]: "
+              f"uninterrupted fit(2), max per-leaf max|a - b| / max|b| over "
+              f"parameters, momentum and BN statistics {max(gaps)} (bound "
+              f"{DPE_RTOL}; {sum(g == 0 for g in gaps)} of {len(gaps)} "
+              f"leaves bitwise equal); update count, step {counts}")
+        if not max(gaps) <= DPE_RTOL:
+            fail(phase, f"zero differs from gspmd: {max(gaps)} > {DPE_RTOL}")
+        out["zero_vs_gspmd_max_rel"] = max(gaps)
+        for s in ("ddp", "zero"):
+            leaves = [[tree_flatten((x[s][run]["params"],
+                                     x[s][run]["momentum"],
+                                     x[s][run]["state"]))[0] for run in "ab"]
+                      for x in r]
+            bad = [resume_mismatches(a, b) for a, b in leaves]
+            across = resume_mismatches(leaves[0][1], leaves[1][1])
+            counts = [(x[s]["b"]["count"], x[s]["b"]["step"]) for x in r]
+            same_history = all(history_matches(x[s]["a"]["history"],
+                                               x[s]["b"]["history"])
+                               for x in r)
+            print(f"resume {s}, 2 ranks over {backend} [{card}]: arrays "
+                  f"differing resumed vs uninterrupted {bad} (of "
+                  f"{len(leaves[0][0])}) per rank; rank 0's resumed arrays "
+                  f"vs rank 1's: {across} differ; update count, step "
+                  f"{counts} (want {2 * steps}); history equal {same_history}")
+            if any(bad) or not same_history or any(
+                    c != (2 * steps, 2 * steps) for c in counts):
+                fail(phase, f"{s}: the resumed runs differ")
+            params = [tree_flatten(x[s]["b"]["params"])[0] for x in r]
+            if resume_mismatches(*params):
+                fail(phase, f"{s}: the ranks' parameters differ")
+            out[s] = dict(differing=bad, rank_params_equal=True,
+                          steps=counts[0][1])
+        result.update(out)
+        return result
+
+    if rides is not None:
+        rides.append(RideAlong(resume_rank, config, args, gate))
+        return result
+    return gate(dp_spawn(mesh, resume_rank, 2, phase, *args,
+                         backend=backend, config=config))
 
 
 def harness_summary(harness: dict) -> dict:
@@ -3878,9 +4046,10 @@ def harness_summary(harness: dict) -> dict:
 
 
 def harness_phase(laps, trainer_mod, fs, models, staged, mesh, tconfig,
-                  card) -> dict:
+                  card, ranks: dict | None = None) -> dict:
     """Phase 15 (15a zoo, 15b resume, 15c resume at two ranks), its
-    temporary logs and checkpoints removed after."""
+    temporary logs and checkpoints removed after; ``ranks``: 15c's record
+    when 15c rode an earlier spawn (:func:`resume_ranks` with rides)."""
     import tempfile
 
     with tempfile.TemporaryDirectory(dir=HERE) as root:
@@ -3892,8 +4061,9 @@ def harness_phase(laps, trainer_mod, fs, models, staged, mesh, tconfig,
         resume["launches"] = {"fused_sgd": fs.fused_sgd_kernel.launches,
                               "plain_sgd": fs.plain_sgd_kernel.launches}
         laps.done("15b/resume")
-        ranks = resume_ranks(mesh, tconfig, root, card)
-        laps.done("15c/resume ranks")
+        if ranks is None:
+            ranks = resume_ranks(mesh, tconfig, root, card)
+            laps.done("15c/resume ranks")
     return {"zoo": zoo, "resume": resume, "resume_ranks": ranks}
 
 
@@ -4649,17 +4819,22 @@ def hier_config(tconfig, world: int, allreduce: str):
         **run_dirs(f"hier_{allreduce}"))
 
 
-def optim_ranks(mesh, tconfig, card, world: int, backend: str) -> dict:
+def optim_ranks(mesh, tconfig, card, world: int, backend: str,
+                rides: list | None = None, fsdp: list | None = None) -> dict:
     """Phase 17e: :func:`optim_ranks_rank`'s fsdp part at 2 ranks (at
     ``world`` ranks, timed, over NCCL) and its hierarchical part at 4
-    ranks over ``backend``; the parent prints and gates."""
+    ranks over ``backend``, each in a spawn of its own, or: ``fsdp``, the
+    fsdp part's rank results from an earlier carrier (14b's), and with
+    ``rides`` the hierarchical part carried by 19b's spawn
+    (``"hierarchical"`` is filled when the ride finishes); the parent
+    prints and gates."""
     phase = "17e/ranks"
     timed = backend == "nccl"
     n_fsdp = world if timed else 2
     where = ("each rank on its own card" if backend == "nccl"
              else "the ranks sharing the one card")
-    f = dp_spawn(mesh, optim_ranks_rank, n_fsdp, phase, "fsdp", timed,
-                 backend=backend)
+    f = fsdp or dp_spawn(mesh, optim_ranks_rank, n_fsdp, phase, "fsdp",
+                         timed, backend=backend)
     g = f[0]["gathered"]
     slices = g["slice_bytes"]
     print(f"fsdp whole weights [{card}] {n_fsdp} ranks over {backend} "
@@ -4700,9 +4875,24 @@ def optim_ranks(mesh, tconfig, card, world: int, backend: str) -> dict:
               f"backward's reduce-scatters and the replicated leaves' "
               f"all-reduce, each timed by CUDA events and added)")
         out["fsdp"]["timed"] = tm
-    h = dp_spawn(mesh, optim_ranks_rank, 4, phase, "hierarchical", timed,
-                 backend=backend,
-                 config=tconfig.MeshConfig(data=4, dcn_data=2))
+    config = tconfig.MeshConfig(data=4, dcn_data=2)
+    if rides is not None:
+        rides.append(RideAlong(optim_ranks_rank, config,
+                               ("hierarchical", timed),
+                               lambda h: hierarchical_gate(out, h, card,
+                                                           backend, timed)))
+        return out
+    return hierarchical_gate(out, dp_spawn(mesh, optim_ranks_rank, 4, phase,
+                                           "hierarchical", timed,
+                                           backend=backend, config=config),
+                             card, backend, timed)
+
+
+def hierarchical_gate(out: dict, h: list, card, backend: str,
+                      timed: bool) -> dict:
+    """Phase 17e's hierarchical gates on the 4 ranks' results ``h``;
+    fills ``out``."""
+    phase = "17e/ranks"
     hr = h[0]["hierarchical"]
     want = DPE_STEPS * hr["buckets"]
     print(f"ddp hierarchical vs bucketed [{card}] 4 ranks over {backend} "
@@ -4730,8 +4920,11 @@ def optim_ranks(mesh, tconfig, card, world: int, backend: str) -> dict:
 
 
 def optim_phase(laps, trainer_mod, fs, models, staged, mesh, tconfig,
-                card) -> dict:
-    """Phase 17: 17a-17e (the rest of the data-parallel CNN trainer)."""
+                card, rides: list | None = None,
+                fsdp: list | None = None) -> dict:
+    """Phase 17: 17a-17e (the rest of the data-parallel CNN trainer; 17e's
+    fsdp part's rank results ``fsdp`` from 14b's spawn, its hierarchical
+    part carried by 19b's with ``rides``)."""
     import tempfile
 
     import torch
@@ -4752,7 +4945,7 @@ def optim_phase(laps, trainer_mod, fs, models, staged, mesh, tconfig,
     two = torch.cuda.device_count() >= 4
     out["ranks"] = optim_ranks(mesh, tconfig, card,
                                torch.cuda.device_count(),
-                               "nccl" if two else "gloo")
+                               "nccl" if two else "gloo", rides, fsdp)
     laps.done("17e/ranks")
     return out
 
@@ -5180,9 +5373,10 @@ def lm18_resume(spec) -> dict:
 
 
 def lm_mesh(mesh_mod, card, ref_losses: list, world: int, backend: str,
-            resume: bool) -> dict:
+            resume: bool, ranks: list | None = None) -> dict:
     """Phase 18b (and 18c with ``resume``): :func:`lm_mesh_rank` on
-    ``world`` ranks (gloo sharing one card, or NCCL with a card each).
+    ``world`` ranks (gloo sharing one card, or NCCL with a card each), or
+    its results ``ranks`` from a spawn that ran it beside other work.
     Gates, per mesh: every step's loss within LM18_LOSS_ATOL of
     ``ref_losses`` (the one-card trainer's, same weights, batches and
     learning rates), losses equal on
@@ -5192,8 +5386,8 @@ def lm_mesh(mesh_mod, card, ref_losses: list, world: int, backend: str,
     i of the seq group runs i + 1 hops a layer; otherwise one) and no
     plain attention; the ring check within phase 6's bounds; 18c bit for
     bit and its other split refused naming ROADMAP A11."""
-    res = dp_spawn(mesh_mod, lm_mesh_rank, world, "18b/lm mesh",
-                   LM18_MESHES, resume, backend=backend)
+    res = ranks or dp_spawn(mesh_mod, lm_mesh_rank, world, "18b/lm mesh",
+                            LM18_MESHES, resume, backend=backend)
     bad = []
     layers, steps = LM_MODEL["n_layers"], LM18_STEPS
     summary = {}
@@ -5285,20 +5479,34 @@ def lm_mesh(mesh_mod, card, ref_losses: list, world: int, backend: str,
     return summary
 
 
-def lm_phase(laps, fa, lm_model_flops, mesh_mod, card, ref_loss) -> dict:
+def lm_phase(laps, fa, lm_model_flops, mesh_mod, card, ref_loss,
+             rides: list | None = None) -> dict:
     """Phase 18: 18a on one card, then 18b and 18c over 4 ranks (gloo on
-    the one card; with four cards, NCCL with a card each)."""
+    the one card; with four cards, NCCL with a card each) — in a spawn of
+    their own, or, with ``rides``, carried by 19b's spawn (``"mesh"`` is
+    filled when the ride finishes)."""
     import torch
 
     single = lm_single_card(fa, lm_model_flops, card, ref_loss)
     pipe = lm18_pipeline_vs_plain(card)
     laps.done("18a/lm one card")
     four = torch.cuda.device_count() >= 4
-    meshes = lm_mesh(mesh_mod, card, single["remat_off"]["losses"], 4,
-                     "nccl" if four else "gloo", True)
-    laps.done("18b-c/lm mesh")
+    backend = "nccl" if four else "gloo"
+    meshes: dict = {}
+
+    def gate(ranks):
+        meshes.update(lm_mesh(mesh_mod, card, single["remat_off"]["losses"],
+                              4, backend, True, ranks=ranks))
+        return meshes
+
+    if rides is not None:
+        rides.append(RideAlong(lm_mesh_rank, None, (LM18_MESHES, True),
+                               gate))
+    else:
+        gate(None)
+        laps.done("18b-c/lm mesh")
     return {"single": single, "pipeline_vs_plain": pipe, "mesh": meshes,
-            "backend": "nccl" if four else "gloo"}
+            "backend": backend}
 
 
 def lm18_summary(lm18: dict) -> dict:
@@ -5534,7 +5742,7 @@ def lm19_run(name: str, kw: dict, b: int, t: int, m: int, schedule: str,
                    os.path.join(run_dir, LM19_ROUTES))
     peak = torch.cuda.max_memory_allocated()
     step_s = times[-1]
-    want = lm19_launches_want(LM_MODEL["n_layers"], 1, m, schedule,
+    want = lm19_launches_want(config.model.n_layers, 1, m, schedule,
                               LM19_STEPS)
     r = dict(losses=losses, times=times, step_s=step_s,
              tokens_per_s=b * t / step_s,
@@ -5839,7 +6047,7 @@ def _tensor_tree(tree):
 
 
 def lm19_mesh(mesh_mod, card, refs: dict, world: int, backend: str,
-              resume: bool, decode: bool = False) -> dict:
+              resume: bool, decode: bool = False, rides=()) -> dict:
     """Phase 19b (and 19c with ``resume``): :func:`lm19_rank` on ``world``
     ranks. Gates, per mesh: every step's loss within LM19_LOSS_ATOL of
     its 19a reference (same model, batches and microbatch partition);
@@ -5859,7 +6067,8 @@ def lm19_mesh(mesh_mod, card, refs: dict, world: int, backend: str,
     )
 
     res = dp_spawn(mesh_mod, lm19_rank, world, "19b/lm pipeline mesh",
-                   LM19_MESHES, resume, decode, backend=backend)
+                   LM19_MESHES, resume, decode, backend=backend,
+                   rides=rides)
     bad, summary = [], {}
     axis_index = {"stage": 1, "model": 2, "expert": 4}
     for name, (mesh, kw, b, t, m, schedule, v, ref) in LM19_MESHES.items():
@@ -5895,7 +6104,7 @@ def lm19_mesh(mesh_mod, card, refs: dict, world: int, backend: str,
         if mismatched:
             bad.append(f"{name}: {mismatched} slice digests differ between "
                        f"the ranks that hold them")
-        want = lm19_launches_want(LM_MODEL["n_layers"], mesh.get("stage", 1),
+        want = lm19_launches_want(cfg.n_layers, mesh.get("stage", 1),
                                   m, schedule, LM19_STEPS)
         for r in rows:
             if r["launches"] != want:
@@ -5998,19 +6207,23 @@ def lm19_mesh(mesh_mod, card, refs: dict, world: int, backend: str,
 
 
 def lm19_phase(laps, fa, lm_model_flops, mesh_mod, card,
-               decode: bool = False) -> dict:
+               decode: bool = False, rides=()) -> dict:
     """Phase 19: 19a on one card, then 19b and 19c over 4 ranks (gloo on
     the one card; with four cards, NCCL with a card each); with
     ``decode`` the same ranks then run 20b's rank work
-    (``mesh["decode_ranks"]``)."""
+    (``mesh["decode_ranks"]``), and after it the ``rides`` of earlier
+    phases (18b-c, 17e's hierarchical part), each gated when done."""
     import torch
 
     refs = lm19_reference(fa, lm_model_flops, card)
     laps.done("19a/lm pipeline one card")
     four = torch.cuda.device_count() >= 4
     backend = "nccl" if four else "gloo"
-    mesh = lm19_mesh(mesh_mod, card, refs, 4, backend, True, decode)
-    laps.done("19b-c/lm pipeline mesh" + (", 20b's ranks" if decode else ""))
+    mesh = lm19_mesh(mesh_mod, card, refs, 4, backend, True, decode, rides)
+    for ride in rides:
+        ride.finish()
+    laps.done("19b-c/lm pipeline mesh" + (", 20b's ranks" if decode else "")
+              + (", the rides of 18b-c and 17e" if rides else ""))
     return {"single": refs, "mesh": mesh, "backend": backend}
 
 
@@ -6695,11 +6908,13 @@ def gen_phases(laps, mesh, card, backend: str,
     return {"generate": gen, "generate_sharded": sharded, "engine": spec}
 
 
-def decode_kernel_rows(paged: dict, dec: dict, planes: dict) -> list:
+def decode_kernel_rows(paged: dict, dec: dict, planes: dict,
+                       fleet: dict) -> list:
     """The ``kernels`` line's rows of row 1 of the kernel table: the
     paged-decode kernel (launches of phase 5's engine; 20a's generate,
-    20c's spec-on runs and 21a's capacity and overload runs beside them)
-    and its window-row entry (launches of 20c's spec-on runs)."""
+    20c's spec-on runs, 21a's capacity and overload runs and phase 22's
+    fleet passes beside them) and its window-row entry (launches of 20c's
+    spec-on runs)."""
     src = "distributed_model_parallel_tpu_torch/ops/csrc/paged_decode.cu"
     tpu = "distributed_model_parallel_tpu/ops/paged_attention.py:115"
     spec = dec["engine"]
@@ -6709,7 +6924,8 @@ def decode_kernel_rows(paged: dict, dec: dict, planes: dict) -> list:
          "launches_20a_generate": dec["generate"]["launches"][
              "paged_decode"],
          "launches_20c_spec": spec["launches"]["paged_decode"],
-         "launches_21a_overload": planes["overload"]["launches"]},
+         "launches_21a_overload": planes["overload"]["launches"],
+         "launches_22_fleet": fleet["launches"]},
         {"name": "paged_decode_rows", "route": "cuda", "source": src,
          "replaces": tpu,
          "launches": spec["launches"]["paged_decode_rows"],
@@ -7279,34 +7495,13 @@ def overload_drill(laps, card) -> dict:
     return out
 
 
-def replay_requests(Request, state) -> list:
-    """A request per pending intent of a folded journal, rebuilt from the
-    intent (as the JAX fleet's ``recover`` does): its committed tokens
-    are the journal's watermarks, and a request with any replays them."""
-    out = []
-    for rid in state.pending():
-        rec = state.intents[rid]
-        req = Request(rid=rid, prompt=[int(t) for t in rec["prompt"]],
-                      max_new_tokens=int(rec["max_new_tokens"]),
-                      arrival_s=float(rec.get("arrival_s", 0.0)),
-                      seed=int(rec["seed"]), priority=rec["priority"],
-                      queue_budget_s=rec.get("queue_budget_s"),
-                      deadline_s=rec.get("deadline_s"),
-                      tenant=rec.get("tenant"))
-        req.trace_id = rec.get("trace")
-        req.generated = list(state.tokens.get(rid, []))
-        req.replay = bool(req.generated)
-        out.append(req)
-    return out
-
-
 def journal_drill(laps, card) -> dict:
     """Phase 21b: the write-ahead journal on the card. At 21a's widths
     with spec_k JRN_SPEC_K: an uninterrupted run is the reference; a
     journaled run is stopped half-way through the reference's iterations
-    and ``kill()``-ed (no drain, no terminal); the journal is folded and
-    every pending intent re-admitted on a fresh engine as a replay
-    request. Gates, in f32: no accepted request lost, one terminal an
+    and ``kill()``-ed (no drain, no terminal); ``ServeFleet.recover``
+    re-admits every pending intent of the journal on a one-replica fleet,
+    at its watermark. Gates, in f32: no accepted request lost, one terminal an
     intent, every token == the reference's, the kernels' launches ==
     n_layers x rounds. Then the same in bf16, each replay on an engine of
     its own so that an assertion trip is counted per request with the
@@ -7322,13 +7517,12 @@ def journal_drill(laps, card) -> dict:
     from distributed_model_parallel_tpu_torch.serve import (
         Engine,
         EngineKilled,
-        Request,
         ServeConfig,
+        ServeFleet,
     )
     from distributed_model_parallel_tpu_torch.serve import (
         journal as journal_mod,
     )
-    from distributed_model_parallel_tpu_torch.serve import model as smodel
 
     trace = serve_trace(OVL_MODEL["vocab_size"])[:JRN_REQS]
     serve = ServeConfig(**OVL_GEOMETRY, spec_k=JRN_SPEC_K)
@@ -7371,7 +7565,12 @@ def journal_drill(laps, card) -> dict:
         killed.kill()
         done_before = {q.rid for q in killed.results() if q.done}
         st = journal_mod.fold(path)
-        lost = replay_requests(Request, st)
+        # The restart: ServeFleet.recover rebuilds a request per pending
+        # intent at its journaled watermark, on one replica.
+        restart = ServeFleet.recover(
+            params, cfg, serve, 1, journal=journal_mod.RequestJournal(path),
+            devices=fleet_devices(1))
+        lost = restart.results()
         n_replay = sum(q.replay for q in lost)
         if set(st.terminals) != done_before or not n_replay:
             fail("21b/journal", f"{tag}: journal terminals "
@@ -7379,25 +7578,20 @@ def journal_drill(laps, card) -> dict:
                                 f"done; {n_replay} replays")
         del killed
         if dtype is torch.float32:
-            fresh = Engine(params, cfg, serve,
-                           journal=journal_mod.RequestJournal(path))
-            for q in lost:
-                fresh.enqueue(q, force=True)
             pa.paged_attention_kernel.launches = 0
             pa.paged_attention_rows_kernel.launches = 0
             try:
-                s = fresh.run()
+                restart.run()
             except EngineKilled as e:
                 fail("21b/journal", f"f32 replay died: {e.__cause__}")
             torch.cuda.synchronize()
             n_launch = (pa.paged_attention_kernel.launches
                         + pa.paged_attention_rows_kernel.launches)
-            fresh.journal.close()
+            rounds = restart.replicas[0].engine._decode_steps
+            restart.close()
+            restart.journal.close()
             final = journal_mod.fold(path)
-            terms = {}
-            for rec in journal_mod.read_records(path):
-                if rec.get("kind") == "terminal":
-                    terms[rec["rid"]] = terms.get(rec["rid"], 0) + 1
+            terms = terminal_counts(path)
             got = {q.rid: q.generated for q in lost}
             mism = [rid for rid, toks in got.items() if toks != want[rid]]
             if (final.pending() or set(final.intents) != set(want)
@@ -7408,9 +7602,9 @@ def journal_drill(laps, card) -> dict:
             if mism or final.tokens != want:
                 fail("21b/journal", f"f32: replayed tokens differ from the "
                                     f"uninterrupted run for {mism}")
-            if n_launch != cfg.n_layers * s["decode_steps"]:
+            if n_launch != cfg.n_layers * rounds:
                 fail("21b/journal", f"f32 replay: launches {n_launch} != "
-                                    f"n_layers x {s['decode_steps']}")
+                                    f"n_layers x {rounds}")
             out["f32"] = {
                 "requests": len(trace), "kill_at_iteration": kill_at,
                 "reference_iterations": ref["iterations"],
@@ -7427,39 +7621,10 @@ def journal_drill(laps, card) -> dict:
                   f"cold; every intent one terminal, every token == the "
                   f"uninterrupted run's; launches == n_layers x rounds")
         else:
-            # Each replay alone, through its final prefill chunk; the last
-            # chunk's logits recorded for the top-2 gap.
-            prefill_logits = smodel.prefill_logits
-            last = {}
-
-            def recording(*a, **kw):
-                logits = prefill_logits(*a, **kw)
-                last["top"] = torch.topk(logits.float()[0], 2).values.cpu()
-                return logits
-
-            smodel.prefill_logits = recording
-            trips = []
-            try:
-                for q in lost:
-                    if not q.replay:
-                        continue
-                    one = Engine(params, cfg, serve, slo_metrics=False,
-                                 meter=False)
-                    one.enqueue(q, force=True)
-                    chunks = -(-len(q.prefill_tokens)
-                               // serve.prefill_chunk)
-                    try:
-                        one.run(max_iterations=chunks)
-                    except EngineKilled as e:
-                        if not isinstance(e.__cause__, AssertionError):
-                            raise
-                        top = last["top"]
-                        trips.append({
-                            "rid": q.rid, "position": len(q.prefill_tokens),
-                            "gap": float(top[0] - top[1]),
-                            "top": float(top[0])})
-            finally:
-                smodel.prefill_logits = prefill_logits
+            restart.close()
+            restart.journal.close()
+            trips = replay_trips(params, cfg, serve,
+                                 [q for q in lost if q.replay])
             out["bf16"] = {"replayed": n_replay, "trips": len(trips),
                            "trip_gaps": trips}
             print(f"journal 21b bf16 [{card}]: {n_replay} replays, "
@@ -7597,6 +7762,435 @@ def planes_phase(laps, card) -> dict:
             "migrate": migration_drill(laps, card)}
 
 
+def fleet_devices(n: int) -> list:
+    """The pool of a phase-22 fleet: n slots, replica i on card
+    i mod the card count (all on cuda:0 on a one-card host)."""
+    import torch
+
+    return [torch.device("cuda", i % torch.cuda.device_count())
+            for i in range(n)]
+
+
+def fleet_pass(fleet, cfg, trace, *, hook=None, label: str) -> tuple:
+    """Run ``fleet`` over ``trace`` (submitted as f0, f1, ...; empty for a
+    fleet ``ServeFleet.recover`` filled), the paged kernel's count at 0
+    just before; returns ``(summary, paged launches)``. Gates: the
+    launches == n_layers x the decode rounds summed over the replicas'
+    engines, those a ``hook(fleet, rnd)`` discarded included (the hook
+    returns their rounds: a crash), and no plain decode call."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.ops import (
+        paged_attention as pa,
+    )
+
+    dead = {"rounds": 0}
+    if hook is not None:
+        fleet.step_hook = lambda rnd: dead.__setitem__(
+            "rounds", dead["rounds"] + (hook(fleet, rnd) or 0))
+    for i, r in enumerate(trace):
+        fleet.submit(r["prompt"], r["max_new_tokens"], rid=f"f{i}",
+                     arrival_s=r["arrival_s"], seed=r["seed"])
+    pa.paged_attention_kernel.launches = 0
+    with PlainDecodeCount() as plain:
+        summary = fleet.run()
+    torch.cuda.synchronize()
+    launches = pa.paged_attention_kernel.launches
+    rounds = dead["rounds"] + sum(r.engine._decode_steps
+                                  for r in fleet.replicas)
+    fleet.close()
+    if launches != cfg.n_layers * rounds or plain.n:
+        fail("22/fleet", f"{label}: paged_decode launches {launches} != "
+                         f"n_layers x {rounds} decode rounds summed over the "
+                         f"replicas, plain decode calls {plain.n}")
+    return summary, launches
+
+
+def tokens_of(fleet) -> dict:
+    return {q.rid: list(q.generated) for q in fleet.results()}
+
+
+def terminal_counts(path: str) -> dict:
+    from distributed_model_parallel_tpu_torch.serve import journal
+
+    out: dict = {}
+    for rec in journal.read_records(path):
+        if rec.get("kind") == "terminal":
+            out[rec["rid"]] = out.get(rec["rid"], 0) + 1
+    return out
+
+
+def replay_trips(params, cfg, serve, replays) -> list:
+    """Each replayed request alone on a fresh engine, through its final
+    prefill chunk: the ones whose re-sampled last token differs from the
+    journaled one trip the engine's replay assertion; each trip with the
+    top-2 gap of that chunk's logits."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.serve import (
+        Engine,
+        EngineKilled,
+    )
+    from distributed_model_parallel_tpu_torch.serve import model as smodel
+
+    prefill_logits = smodel.prefill_logits
+    last = {}
+
+    def recording(*a, **kw):
+        logits = prefill_logits(*a, **kw)
+        last["top"] = torch.topk(logits.float()[0], 2).values.cpu()
+        return logits
+
+    smodel.prefill_logits = recording
+    trips = []
+    try:
+        for q in replays:
+            one = Engine(params, cfg, serve, slo_metrics=False, meter=False)
+            one.enqueue(q, force=True)
+            try:
+                one.run(max_iterations=-(-len(q.prefill_tokens)
+                                         // serve.prefill_chunk))
+            except EngineKilled as e:
+                if not isinstance(e.__cause__, AssertionError):
+                    raise
+                top = last["top"]
+                trips.append({"rid": q.rid,
+                              "position": len(q.prefill_tokens),
+                              "gap": float(top[0] - top[1]),
+                              "top": float(top[0])})
+    finally:
+        smodel.prefill_logits = prefill_logits
+    return trips
+
+
+def fleet_phase(laps, card) -> dict:
+    """Phase 22: bench.py's fleet cell (``bench_serve_fleet``,
+    bench.py:895-1072) on the port's ``ServeFleet``: 21a's model, trace
+    and geometry through FLEET_REPLICAS replicas (one card: every slot on
+    cuda:0).
+
+    22a: a clean pass, then the kill drill (``r1`` killed at round
+    FLEET_KILL_ROUND, revived FLEET_REVIVE rounds later); bench.py's
+    gates: the kill fired, no request failed, every token == the clean
+    pass's, ``r1`` grew back, the post-kill TTFT p99 within
+    max(FLEET_TTFT_FACTOR x the reference, FLEET_TTFT_FLOOR). 22b, in f32
+    (a bf16 replay can flip an exact tie, PERF.md §7): a clean pass, the
+    crash drill (``crash_replica("r1")`` at the kill round, the journal
+    re-admitting its requests) and ``ServeFleet.recover`` from a journal
+    abandoned half-way: no request lost, one terminal each, tokens == the
+    clean pass's; then the crash drill once in bf16, with the replays
+    that re-sample another token counted (reported, not gated). 22c: 4
+    replicas in 2 cells on a SimClock, ``kill_cell`` then ``partition``
+    on the last cell, FLEET_CELL_REQS requests: none lost, the cell back
+    on exactly its slots, the partition's residents complete, tokens ==
+    a clean 4-replica pass. Every pass: paged launches == n_layers x the
+    decode rounds summed over the replicas, never the plain path."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.models import (
+        transformer as tfm,
+    )
+    from distributed_model_parallel_tpu_torch.serve import (
+        Engine,
+        EngineKilled,
+        ServeConfig,
+        ServeFleet,
+        SimClock,
+    )
+    from distributed_model_parallel_tpu_torch.serve import (
+        journal as journal_mod,
+    )
+    from distributed_model_parallel_tpu_torch.serve.scheduler import (
+        summarize,
+    )
+    from distributed_model_parallel_tpu_torch.utils import (
+        telemetry as tel_mod,
+    )
+
+    run_dir = os.environ[RUN_DIR_ENV]
+    trace = serve_trace(OVL_MODEL["vocab_size"])
+    serve = ServeConfig(**OVL_GEOMETRY)
+    n_cards = len(set(fleet_devices(FLEET_REPLICAS)))
+    cfg = tfm.TransformerConfig(dtype=torch.bfloat16, **OVL_MODEL)
+    params = tfm.init_params(cfg, seed=0, device="cuda")
+    for dev in sorted(set(fleet_devices(FLEET_CELL_REPLICAS)), key=str):
+        Engine(params, cfg, serve, device=dev, slo_metrics=False).warmup()
+    tel = tel_mod.TelemetryRun(os.path.join(run_dir, "fleet22.jsonl"),
+                               run="fleet22", meta=dict(trace="fleet"))
+    launches = 0
+
+    def fleet(params, cfg, n=FLEET_REPLICAS, **kw):
+        return ServeFleet(params, cfg, serve, n, devices=fleet_devices(n),
+                          **kw)
+
+    # -- 22a: clean pass, kill drill ------------------------------------------
+    clean_fleet = fleet(params, cfg, telemetry=tel)
+    clean, n = fleet_pass(clean_fleet, cfg, trace, label="22a clean")
+    launches += n
+    want = tokens_of(clean_fleet)
+
+    def kill(fleet, rnd):
+        if rnd == FLEET_KILL_ROUND:
+            fleet.kill_replica("r1")
+
+    drill_fleet = fleet(params, cfg, telemetry=tel, revive_after=FLEET_REVIVE)
+    drill, n = fleet_pass(drill_fleet, cfg, trace, hook=kill,
+                          label="22a kill drill")
+    launches += n
+    if "r1" not in drill_fleet.kill_times:
+        fail("22a/fleet", f"the kill never fired: the trace drained in "
+                          f"{drill['rounds']} rounds")
+    if clean["requests_failed"] or drill["requests_failed"] or len(want) != \
+            len(trace) or clean["requests_completed"] != len(trace):
+        fail("22a/fleet", f"requests failed: clean "
+                          f"{clean['requests_failed']}, drill "
+                          f"{drill['requests_failed']}")
+    bad = [rid for rid, toks in tokens_of(drill_fleet).items()
+           if toks != want[rid]]
+    if bad:
+        fail("22a/fleet", f"tokens differ from the clean pass after the "
+                          f"kill for {bad}")
+    if any(rep.state != "live" for rep in drill_fleet.replicas):
+        fail("22a/fleet", "the killed replica did not grow back")
+    kill_t = drill_fleet.kill_times["r1"]
+    done = [q for q in drill_fleet.results()
+            if q.t_first_token is not None and q.t_admitted is not None]
+    pre = summarize([max(0.0, q.t_first_token - q.arrival_s)
+                     for q in done if q.t_admitted < kill_t])
+    post = summarize([max(0.0, q.t_first_token - q.arrival_s)
+                      for q in done if q.t_admitted >= kill_t])
+    ref = max([x for x in (pre.get("p99"), clean["ttft_s"].get("p99"))
+               if x is not None], default=None)
+    bound = (max(ref * FLEET_TTFT_FACTOR, FLEET_TTFT_FLOOR)
+             if ref is not None else None)
+    if post.get("p99") is not None and bound is not None \
+            and post["p99"] > bound:
+        fail("22a/fleet", f"post-kill TTFT p99 {post['p99']} s > {bound} s")
+    out = {"replicas": FLEET_REPLICAS, "cards": n_cards,
+           "tokens_per_s_per_card": clean["tokens_per_s"] / n_cards,
+           "drill_tokens_per_s_per_card": drill["tokens_per_s"] / n_cards,
+           "tokens": clean["tokens_generated"],
+           "clean_wall_s": clean["wall_s"], "clean_rounds": clean["rounds"],
+           "drill_rounds": drill["rounds"],
+           "migrations": drill["migrations"],
+           "ttft_p50_s": clean["ttft_s"].get("p50"),
+           "ttft_p99_s": clean["ttft_s"].get("p99"),
+           "pre_kill_ttft_p50_s": pre.get("p50"),
+           "pre_kill_ttft_p99_s": pre.get("p99"),
+           "post_kill_ttft_p50_s": post.get("p50"),
+           "post_kill_ttft_p99_s": post.get("p99"),
+           "post_kill_ttft_bound_s": bound,
+           "kill_round": FLEET_KILL_ROUND, "revive_rounds": FLEET_REVIVE}
+    print(f"fleet 22a [{card}]: {FLEET_REPLICAS} replicas on {n_cards} "
+          f"card(s); clean {clean['tokens_generated']} tokens in "
+          f"{clean['wall_s']} s, {out['tokens_per_s_per_card']} tokens/s a "
+          f"card over {clean['rounds']} rounds, TTFT p50 / p99 "
+          f"{out['ttft_p50_s']} / {out['ttft_p99_s']} s; kill drill "
+          f"{out['drill_tokens_per_s_per_card']} tokens/s a card, "
+          f"{drill['migrations']} migrations, {drill['rounds']} rounds, "
+          f"TTFT p50 / p99 before the kill {pre.get('p50')} / "
+          f"{pre.get('p99')} s, after {post.get('p50')} / {post.get('p99')} "
+          f"s (bound {bound} s); every token == the clean pass's, r1 grew "
+          f"back")
+    laps.done("22a/fleet, kill drill")
+
+    # -- 22b: crash drill and restart, f32 ------------------------------------
+    cfg32 = tfm.TransformerConfig(dtype=torch.float32, **OVL_MODEL)
+    params32 = tfm.init_params(cfg32, seed=0, device="cuda")
+    clean32_fleet = fleet(params32, cfg32)
+    clean32, n = fleet_pass(clean32_fleet, cfg32, trace,
+                            label="22b clean f32")
+    launches += n
+    want32 = tokens_of(clean32_fleet)
+
+    def crash(fleet, rnd, replays=None):
+        if rnd != FLEET_KILL_ROUND:
+            return 0
+        steps = fleet.replicas[1].engine._decode_steps
+        fleet.crash_replica("r1")
+        if replays is not None:
+            # Copies: the fleet goes on to run the re-admitted requests.
+            replays.extend(copy.deepcopy(q) for rep in fleet.replicas
+                           for q in rep.engine.sched.queue if q.replay)
+        return steps
+
+    path = os.path.join(run_dir, "fleet22-crash.jsonl")
+    crash_fleet = fleet(params32, cfg32, revive_after=FLEET_REVIVE,
+                        journal=journal_mod.RequestJournal(path))
+    crashed, n = fleet_pass(crash_fleet, cfg32, trace, hook=crash,
+                            label="22b crash drill")
+    launches += n
+    crash_fleet.journal.close()
+    terms = terminal_counts(path)
+    got = tokens_of(crash_fleet)
+    if (crashed["replica_crashes"] != 1 or crashed["requests_failed"]
+            or crashed["requests_completed"] != len(trace)
+            or set(terms) != set(want32)
+            or any(c != 1 for c in terms.values())):
+        fail("22b/crash", f"crashes {crashed['replica_crashes']}, failed "
+                          f"{crashed['requests_failed']}, completed "
+                          f"{crashed['requests_completed']}, terminals "
+                          f"{terms}")
+    bad = [rid for rid, toks in got.items() if toks != want32[rid]]
+    if bad:
+        fail("22b/crash", f"tokens differ from the clean pass for {bad}")
+    # The restart: a journaled fleet abandoned half-way (no drain), then
+    # ServeFleet.recover from the journal alone.
+    rpath = os.path.join(run_dir, "fleet22-recover.jsonl")
+    first = fleet(params32, cfg32, journal=journal_mod.RequestJournal(rpath))
+    for i, r in enumerate(trace):
+        first.submit(r["prompt"], r["max_new_tokens"], rid=f"f{i}",
+                     arrival_s=r["arrival_s"], seed=r["seed"])
+    first.run(max_rounds=clean32["rounds"] // 2)
+    first.close()
+    before = {q.rid: list(q.generated) for q in first.results()
+              if q.state.value == "completed"}
+    del first
+    second = ServeFleet.recover(params32, cfg32, serve, FLEET_REPLICAS,
+                                journal=journal_mod.RequestJournal(rpath),
+                                devices=fleet_devices(FLEET_REPLICAS))
+    restarted, n = fleet_pass(second, cfg32, (), label="22b recover")
+    second.journal.close()
+    launches += n
+    after = tokens_of(second)
+    terms = terminal_counts(rpath)
+    if (restarted["requests_failed"] or set(before) & set(after)
+            or {**before, **after} != want32 or set(terms) != set(want32)
+            or any(c != 1 for c in terms.values())):
+        fail("22b/recover", f"{len(before)} done before the restart, "
+                            f"{len(after)} after "
+                            f"({sorted(set(before) & set(after))} served "
+                            f"twice), failed "
+                            f"{restarted['requests_failed']}, terminals "
+                            f"{len(terms)}")
+    out.update(
+        crash={"recovered": crashed["crash_recovered"],
+               "recovery_time_s": crashed["recovery_time_s"],
+               "rounds": crashed["rounds"], "tokens_equal": True},
+        recover={"abandoned_at_round": clean32["rounds"] // 2,
+                 "done_before": len(before), "recovered": len(after),
+                 "recovery_time_s": restarted["recovery_time_s"],
+                 "rounds": restarted["rounds"], "tokens_equal": True})
+    print(f"fleet 22b f32 [{card}]: crash drill: r1 hard-crashed at round "
+          f"{FLEET_KILL_ROUND}, {crashed['crash_recovered']} requests "
+          f"re-admitted from the journal in {crashed['recovery_time_s']} s "
+          f"(recovery_time_s); recover: abandoned after round "
+          f"{clean32['rounds'] // 2} ({len(before)} done), {len(after)} "
+          f"finished by the restarted fleet, recovery_time_s "
+          f"{restarted['recovery_time_s']}; no request lost, one terminal "
+          f"each, every token == the clean pass's")
+    del params32, clean32_fleet, crash_fleet, second
+    # The crash drill once in bf16: replays that re-sample another token
+    # (an exact bf16 tie) trip the engine's replay assertion.
+    replays: list = []
+    bpath = os.path.join(run_dir, "fleet22-crash-bf16.jsonl")
+    bf = fleet(params, cfg, revive_after=FLEET_REVIVE,
+               journal=journal_mod.RequestJournal(bpath))
+    bf.step_hook = lambda rnd: crash(bf, rnd, replays)
+    for i, r in enumerate(trace):
+        bf.submit(r["prompt"], r["max_new_tokens"], rid=f"f{i}",
+                  arrival_s=r["arrival_s"], seed=r["seed"])
+    try:
+        bs = bf.run()
+        died = None
+    except EngineKilled as e:
+        bs, died = None, f"{type(e.__cause__).__name__}: {e.__cause__}"
+    bf.close()
+    trips = replay_trips(params, cfg, serve, replays)
+    bf_bad = (None if bs is None else
+              [rid for rid, toks in tokens_of(bf).items()
+               if toks != want[rid]])
+    out["crash_bf16"] = {"replays": len(replays), "trips": trips,
+                         "fleet_died": died, "tokens_differ": bf_bad}
+    print(f"fleet 22b bf16 [{card}]: crash drill: {len(replays)} replays, "
+          f"{len(trips)} re-sampled another token (rid, gap, top) "
+          f"{[(t['rid'], t['gap'], t['top']) for t in trips]}; the fleet "
+          + (f"died: {died}" if died else
+             f"finished, {len(bf_bad)} requests differ from the clean bf16 "
+             f"pass {bf_bad}"))
+    laps.done("22b/crash drill, recover")
+
+    # -- 22c: cells ---------------------------------------------------------
+    sub = trace[:FLEET_CELL_REQS]
+    kw = dict(n=FLEET_CELL_REPLICAS, cells=FLEET_CELLS)
+    cell_clean = fleet(params, cfg, clock=SimClock(), **kw)
+    cs, n = fleet_pass(cell_clean, cfg, sub, label="22c clean")
+    launches += n
+    wantc = tokens_of(cell_clean)
+    ctel = tel_mod.TelemetryRun(os.path.join(run_dir, "fleet22-cells.jsonl"),
+                                run="fleet22-cells")
+    faults = (f"kill_cell@{FLEET_CELL_KILL}",
+              f"partition@{FLEET_CELL_PARTITION}:{FLEET_CELL_PARTITION_POLLS}")
+    cell_fleet = fleet(params, cfg, clock=SimClock(), telemetry=ctel,
+                       faults=faults, revive_after=FLEET_CELL_REVIVE, **kw)
+    cd, n = fleet_pass(cell_fleet, cfg, sub, label="22c cell drill")
+    launches += n
+    ctel.finish()
+    recs = tel_mod.read_records(ctel.path)
+    ev = {r["event"]: r for r in recs if r.get("kind") == "cell"}
+    victim = cell_fleet.cells.cells[-1]
+    members = list(cell_fleet.cells.members(victim))
+    held = cell_fleet.pool.assignments()
+    routed_in = ([r["request"] for r in recs if r.get("kind") == "router"
+                  and ev["partition"]["round"] <= r["round"]
+                  < ev["heal"]["round"] and r["replica"] in members]
+                 if {"partition", "heal"} <= set(ev) else None)
+    if (cd["requests_failed"] or cd["requests_completed"] != len(sub)
+            or cs["requests_completed"] != len(sub)
+            or tokens_of(cell_fleet) != wantc):
+        fail("22c/cells", f"lost or changed requests: failed "
+                          f"{cd['requests_failed']}, completed "
+                          f"{cd['requests_completed']} of {len(sub)}")
+    if (not {"kill", "grow-back", "partition", "heal"} <= set(ev)
+            or any(held.get(f"serve-{r.name}") != r.device_ids
+                   or r.state != "live" for r in cell_fleet.replicas)
+            or not ev["partition"]["residents"] or routed_in):
+        fail("22c/cells", f"cell records {sorted(ev)}, slices {held}, "
+                          f"partition {ev.get('partition')}, routed into the "
+                          f"partition {routed_in}")
+    out["cells"] = {
+        "replicas": FLEET_CELL_REPLICAS, "cells": FLEET_CELLS,
+        "requests": len(sub), "rounds": cd["rounds"],
+        "clean_rounds": cs["rounds"], "migrations": cd["migrations"],
+        "failovers": cd["router"]["failovers"],
+        "kill_round": ev["kill"]["round"],
+        "grow_back_round": ev["grow-back"]["round"],
+        "partition_round": ev["partition"]["round"],
+        "heal_round": ev["heal"]["round"],
+        "partition_residents": ev["partition"]["residents"],
+        "drained_at_heal": ev["heal"]["drained"], "tokens_equal": True}
+    print(f"fleet 22c [{card}]: {FLEET_CELL_REPLICAS} replicas in "
+          f"{FLEET_CELLS} cells on a SimClock, {len(sub)} requests: cell "
+          f"{victim} killed at round {ev['kill']['round']} "
+          f"({cd['migrations']} migrations), grown back at round "
+          f"{ev['grow-back']['round']} onto exactly its slots; partitioned "
+          f"at round {ev['partition']['round']} with "
+          f"{ev['partition']['residents']} residents, healed at round "
+          f"{ev['heal']['round']} ({ev['heal']['drained']} of them done), "
+          f"none routed in meanwhile; none lost, tokens == the clean "
+          f"4-replica pass's")
+    laps.done("22c/cells")
+
+    # Device busy share over FLEET_PROFILE_ROUNDS busy fleet rounds.
+    prof = fleet(params, cfg, slo_metrics=False)
+    for i, r in enumerate(trace[:2 * OVL_GEOMETRY["n_slots"]]):
+        prof.submit(r["prompt"], r["max_new_tokens"], rid=f"p{i}",
+                    seed=r["seed"])
+    busy = device_busy(lambda: prof.run(max_rounds=FLEET_PROFILE_ROUNDS,
+                                        record_summary=False))
+    prof.close()
+    out.update(launches=launches, device_busy_share=busy["busy_share"],
+               device_busy_rounds=FLEET_PROFILE_ROUNDS)
+    print(f"fleet 22 [{card}]: device busy {busy['busy_share']} of the wall "
+          f"over {FLEET_PROFILE_ROUNDS} profiled rounds; paged_decode "
+          f"launches {launches} == n_layers x the decode rounds of every "
+          f"pass, no plain path")
+    del params, prof
+    torch.cuda.empty_cache()
+    laps.done("22/profile")
+    return out
+
+
 class Laps:
     """Prints each phase's seconds since the previous phase ended."""
 
@@ -7655,10 +8249,11 @@ def main() -> None:
                          "forward kernels only), 3-5 (the paged-decode "
                          "kernel and the engine), 20 (generate, "
                          "generate_sharded, the prefix cache and "
-                         "speculative decoding) and 21 (the engine's "
-                         "overload controls and planes), print the decode "
-                         "and serve_planes JSON lines and stop: with four "
-                         "cards, 20b over NCCL with a card a rank")
+                         "speculative decoding), 21 (the engine's "
+                         "overload controls and planes) and 22 (the serving "
+                         "fleet), print the decode, serve_planes and fleet "
+                         "JSON lines and stop: with four cards, 20b over "
+                         "NCCL with a card a rank")
     args = ap.parse_args()
     only = (args.sgd_timing_only or args.pipeline_only or args.dp_only
             or args.harness_only or args.data_only or args.optim_only
@@ -7784,10 +8379,12 @@ def main() -> None:
         four = torch.cuda.device_count() >= 4
         dec = gen_phases(laps, mesh, card, "nccl" if four else "gloo")
         planes = planes_phase(laps, card)
+        fleet = fleet_phase(laps, card)
         print(json.dumps({"decode": dec, "card": card}))
         print(json.dumps({"serve_planes": planes, "card": card}))
-        print(json.dumps({"kernels": decode_kernel_rows(paged, dec,
-                                                        planes)}))
+        print(json.dumps({"fleet": fleet, "card": card}))
+        print(json.dumps({"kernels": decode_kernel_rows(paged, dec, planes,
+                                                        fleet)}))
         return
     if args.optim_only:
         from distributed_model_parallel_tpu_torch import mesh
@@ -7837,11 +8434,15 @@ def main() -> None:
     # -- phase 12: data parallelism over the port's process group ------------
     from distributed_model_parallel_tpu_torch import mesh
 
-    dp = data_parallel(mesh, cnn_trainer, tconfig, card)
+    # 12b, 13b and 13d (and 15c, 17e's fsdp part) ride 14b's spawn of two
+    # ranks, 17e's hierarchical part and 18b-c ride 19b's of four
+    # (RideAlong: every spawn pays each rank's process start).
+    rides2, rides4 = [], []
+    dp = data_parallel(mesh, cnn_trainer, tconfig, card, rides2)
     laps.done("12/data parallel")
 
     # -- phase 13: the pipeline -----------------------------------------------
-    pp = pipeline_phase(laps, models, cnn_trainer, fs, tconfig, card)
+    pp = pipeline_phase(laps, models, cnn_trainer, fs, tconfig, card, rides2)
     pp_launches = {k: sum(r[k] for r in pp["runner"].values())
                    for k in ("fused_sgd", "plain_sgd")}
 
@@ -7849,27 +8450,42 @@ def main() -> None:
     torch.backends.cudnn.benchmark = True
     resnet = train_resnet(cnn_trainer, fs, models, staged, tconfig, card)
     laps.done("14a/resnet")
+    import tempfile
+
     two_cards = torch.cuda.device_count() >= 2
-    dpe = dp_engines(mesh, card, 2, "nccl" if two_cards else "gloo")
-    laps.done("14b/dp engines")
+    # 15c and, on one card (both over gloo), 17e's fsdp part ride 14b's
+    # spawn too; their gates run at 14b and 17e.
+    ranks15 = resume_ranks(mesh, tconfig, tempfile.mkdtemp(
+        prefix="resume_ranks_", dir=os.environ[RUN_DIR_ENV]), card, rides2)
+    fsdp17 = (None if two_cards else
+              RideAlong(optim_ranks_rank, None, ("fsdp", False),
+                        lambda f: f))
+    if fsdp17 is not None:
+        rides2.append(fsdp17)
+    dpe = dp_engines(mesh, card, 2, "nccl" if two_cards else "gloo", rides2)
+    for ride in rides2:
+        ride.finish()
+    laps.done("14b/dp engines, the rides of 12b, 13b, 13d, 15c, 17e")
 
     # -- phase 15: the zoo, checkpoint/resume, preemption, logs ------------
     harness = harness_phase(laps, cnn_trainer, fs, models, staged, mesh,
-                            tconfig, card)
+                            tconfig, card, ranks15)
 
     # -- phase 16: the data path: the finetune recipe, prefetch, gather -----
     data_path = data_path_phase(laps, cnn_trainer, fs, tconfig, card)
 
     # -- phase 17: optimizers, accumulation, EMA, fsdp, the dcn axis ---------
     opt17 = optim_phase(laps, cnn_trainer, fs, models, staged, mesh, tconfig,
-                        card)
+                        card, rides4,
+                        fsdp17.results if fsdp17 is not None else None)
 
     # -- phase 18: the LM over a (data, model, seq) mesh ----------------------
-    lm18 = lm_phase(laps, fa, lm_model_flops, mesh, card, lm8_loss)
-    lm18_rows = lm_launch_rows(lm18)
+    lm18 = lm_phase(laps, fa, lm_model_flops, mesh, card, lm8_loss, rides4)
 
     # -- phase 19: the LM's stage and expert axes ---------------------------
-    lm19 = lm19_phase(laps, fa, lm_model_flops, mesh, card, decode=True)
+    lm19 = lm19_phase(laps, fa, lm_model_flops, mesh, card, decode=True,
+                      rides=rides4)
+    lm18_rows = lm_launch_rows(lm18)
     # 20b's ranks ran in 19b's spawn (the spawn is most of 20b's own time).
     sharded_ranks = lm19["mesh"].pop("decode_ranks")
     lm19_rows = lm19_launch_rows(lm19)
@@ -7880,7 +8496,10 @@ def main() -> None:
     # -- phase 21: the engine's overload controls and planes ----------------
     planes = planes_phase(laps, card)
 
-    kernels = decode_kernel_rows(paged, dec, planes)
+    # -- phase 22: the serving fleet ----------------------------------------
+    fleet = fleet_phase(laps, card)
+
+    kernels = decode_kernel_rows(paged, dec, planes, fleet)
     for name, line in (("flash_fwd", 112), ("flash_bwd_dq", 199),
                        ("flash_bwd_dkv", 278)):
         kernels.append({
@@ -7947,6 +8566,7 @@ def main() -> None:
     print(json.dumps({"lm_pipe": lm19_summary(lm19), "card": card}))
     print(json.dumps({"decode": dec, "card": card}))
     print(json.dumps({"serve_planes": planes, "card": card}))
+    print(json.dumps({"fleet": fleet, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -17,17 +17,31 @@
 * :mod:`.capacity` — cost tables and billing invariants over the
   metering records;
 * :mod:`.traffic` — seeded traffic programs and the virtual clock;
+* :mod:`.router` — the SLO-aware replica picker (p2c over load, prefix
+  affinity, home cells);
+* :mod:`.cells` — the cell directory and the home-cell hash;
+* :mod:`.fleet` — N engine replicas on a device pool behind the router:
+  health quarantine, drain and migration, grow-back, cell faults, hard
+  crashes recovered from the journal, and the fleet restart
+  (``ServeFleet.recover``);
 * :mod:`.generate` — the command-line entry point.
 
-Still to come with the serving fleet: the router, the multi-replica
-fleet and its cells, the serve-side fault injector, the device pool, and
-the fleet's crash recovery (``crash_replica``, ``recover``).
+Still to come (ROADMAP A11): the orchestrator's tenant scheduler, which
+would co-schedule a fleet with training on one pool, and the serving
+CLIs (``dmp_soak``'s fleet scenarios among them).
 """
 
+from distributed_model_parallel_tpu_torch.serve.cells import (  # noqa: F401
+    CellDirectory,
+)
 from distributed_model_parallel_tpu_torch.serve.engine import (  # noqa: F401
     Engine,
     EngineKilled,
     ServeConfig,
+)
+from distributed_model_parallel_tpu_torch.serve.fleet import (  # noqa: F401
+    Replica,
+    ServeFleet,
 )
 from distributed_model_parallel_tpu_torch.serve.model import (  # noqa: F401
     make_verify_step,
@@ -43,6 +57,9 @@ from distributed_model_parallel_tpu_torch.serve.paged_kv import (  # noqa: F401
 )
 from distributed_model_parallel_tpu_torch.serve.prefix_cache import (  # noqa: F401
     PrefixCache,
+)
+from distributed_model_parallel_tpu_torch.serve.router import (  # noqa: F401
+    Router,
 )
 from distributed_model_parallel_tpu_torch.serve.scheduler import (  # noqa: F401
     Request,

@@ -47,13 +47,14 @@ engine never adds a device synchronization of its own.
 
 A killed engine never drops requests silently: every in-flight and
 queued request is marked failed with a typed error before the exception
-propagates as :class:`EngineKilled`.
+propagates as :class:`EngineKilled`, and a flight-recorder bundle
+(``utils/flightrec.py``) is written when a recorder is installed.
 
-Still owed by the serving fleet: the fleet, its router and cells (which
-drive engines through ``step_once``, ``try_enqueue``, ``drain`` and
-``enqueue``), the serve-side fault injector, the device pool, and the
-fleet's crash recovery (``crash_replica``, ``recover``: re-admitting a
-folded journal's pending intents as replay requests).
+The serving fleet (``serve/fleet.py``) drives engines through
+``step_once``, ``try_enqueue``, ``drain``, ``enqueue(force=True)``,
+``clear_cache`` and ``kill``. Still owed (ROADMAP A11): the
+orchestrator's scheduler and tenants, which would co-schedule a fleet
+with training.
 """
 
 from __future__ import annotations
@@ -92,7 +93,11 @@ from distributed_model_parallel_tpu_torch.serve.scheduler import (
     summarize,
 )
 from distributed_model_parallel_tpu_torch.serve.spec import NGramProposer
-from distributed_model_parallel_tpu_torch.utils import statusz, tracing
+from distributed_model_parallel_tpu_torch.utils import (
+    flightrec,
+    statusz,
+    tracing,
+)
 from distributed_model_parallel_tpu_torch.utils.metering import EngineMeter
 from distributed_model_parallel_tpu_torch.utils.telemetry import registry
 from distributed_model_parallel_tpu_torch.utils.tracing import span
@@ -549,15 +554,16 @@ class Engine:
     def kill(self, reason: str = "injected-crash") -> None:
         """Hard-crash this engine: no drain, no per-request terminal — the
         engine, its pool and its tree are simply abandoned by the caller.
-        The only exhaust is a typed failure record carrying the journal
-        position (the exact replay point); re-serving the lost requests is
-        the journal's job."""
+        The exhaust is a typed failure record carrying the journal
+        position (the exact replay point) and a flight-recorder bundle;
+        re-serving the lost requests is the journal's job."""
         if self.telemetry is not None:
             self.telemetry.failure(
                 "replica-crashed", detail=reason,
                 iteration=self._iterations, **self._trace_fields,
                 **({"journal": self.journal.position()}
                    if self.journal is not None else {}))
+        flightrec.dump("replica-crashed", telemetry_run=self.telemetry)
 
     # -- the loop -----------------------------------------------------------
 
@@ -595,6 +601,9 @@ class Engine:
                     iteration=self._iterations,
                     **({"journal": self.journal.position()}
                        if self.journal is not None else {}))
+            # The state at the moment of death (no-op without a recorder).
+            flightrec.dump("engine-killed", telemetry_run=self.telemetry,
+                           error=e)
             if not isinstance(e, Exception):
                 raise
             raise EngineKilled(

@@ -102,3 +102,69 @@ def typed_records(engine, kinds=("shed", "brownout"),
     return [{k: r[k] for k in keys if k in r}
             for r in ttelemetry.read_records(engine.telemetry.path)
             if r.get("kind") in kinds]
+
+
+# The fleets' packages side by side: (ServeFleet, ServeConfig, traffic,
+# telemetry, journal) of the JAX package and of the port.
+def _fleet_modules(tag):
+    if tag == "jax":
+        from distributed_model_parallel_tpu.serve import ServeFleet
+        return ServeFleet, JServe, jtraffic, jtelemetry, jjournal
+    from distributed_model_parallel_tpu_torch.serve import ServeFleet
+    return ServeFleet, ServeConfig, ttraffic, ttelemetry, tjournal
+
+
+def fleet(tag, model, n=2, *, n_devices=8, tmp_path=None, name="fleet",
+          journal=None, sim=True, serve_kw=None, **kw):
+    """A ``ServeFleet`` of package ``tag`` (``"jax"`` or ``"port"``) with
+    ``n`` replicas over ``ServeConfig(**GEOMETRY, **serve_kw)`` on a
+    ``SimClock(0.02)``. The JAX fleet's pool is ``n_devices`` of
+    conftest's host devices (``n_devices`` stand-ins with an ``id`` past
+    8); the port's is ``n_devices`` slots on the CPU, so both ledgers
+    hold the same ids. ``tmp_path`` attaches a telemetry stream
+    (``<tag>-<name>.jsonl``), ``journal`` a ``RequestJournal`` at that
+    path. The rest of ``kw`` goes to the constructor."""
+    jcfg, tcfg, jp, tp = model
+    F, S, clk, tel, jr = _fleet_modules(tag)
+    if tag == "jax":
+        cfg, params = jcfg, jp
+        if n_devices != 8:
+            from distributed_model_parallel_tpu.orchestrator.scheduler import (
+                DevicePool,
+            )
+
+            kw["pool"] = DevicePool([_Dev(i) for i in range(n_devices)])
+    else:
+        import torch
+
+        cfg, params = tcfg, tp
+        kw["devices"] = [torch.device("cpu")] * n_devices
+    if tmp_path is not None:
+        kw["telemetry"] = tel.TelemetryRun(
+            os.path.join(str(tmp_path), f"{tag}-{name}.jsonl"), run=name,
+            track_compiles=False, device={"platform": "cpu"})
+    if journal is not None:
+        kw["journal"] = jr.RequestJournal(journal)
+    if sim:
+        kw["clock"] = clk.SimClock(0.02)
+    return F(params, cfg, S(**{**GEOMETRY, **(serve_kw or {})}), n, **kw)
+
+
+class _Dev:
+    """A JAX pool entry for fleets wider than conftest's 8 host devices
+    (the JAX fleet reads only ``.id``)."""
+
+    def __init__(self, i):
+        self.id = i
+
+
+def fleet_records(fleet, kinds, drop=("ts",)) -> list:
+    """The fleet stream's records of ``kinds``, less ``drop`` keys (the
+    stream is finished first)."""
+    fleet.telemetry.finish()
+    read = (ttelemetry.read_records
+            if type(fleet).__module__.startswith(
+                "distributed_model_parallel_tpu_torch")
+            else jtelemetry.read_records)
+    return [{k: v for k, v in r.items() if k not in drop}
+            for r in read(fleet.telemetry.path) if r.get("kind") in kinds]

@@ -29,8 +29,9 @@ print(" ".join(names), "|", bad)
 
 # Every module of the serving, LM training, CNN training, data-parallel
 # and pipeline slices, ResNet, the remaining data-parallel engines, the
-# sparse-gradient embedding path, the zoo and the checkpoint harness, and
-# the serving engine's overload controls and planes.
+# sparse-gradient embedding path, the zoo and the checkpoint harness, the
+# serving engine's overload controls and planes, and the serving fleet
+# (device pool, fault injector, flight recorder, cells, router, fleet).
 _MODULES = {
     "config", "models.transformer", "ops._build", "ops.paged_attention",
     "ops.flash_attention", "serve.engine", "serve.generate", "serve.model",
@@ -50,6 +51,8 @@ _MODULES = {
     "utils.tracing", "utils.telemetry", "utils.metering", "utils.alerts",
     "utils.health", "utils.statusz", "serve.traffic", "serve.overload",
     "serve.journal", "serve.capacity",
+    "orchestrator", "orchestrator.scheduler", "utils.faults",
+    "utils.flightrec", "serve.cells", "serve.router", "serve.fleet",
 }
 
 
