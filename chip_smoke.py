@@ -221,8 +221,9 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     preempted by a ``step_hook`` at step 3 of epoch 0 and resumed equals
     the uninterrupted fit bit for bit on every rank (per-step losses, the
     whole parameters and optimizer state, the global step, the history),
-    the checkpoint's bytes, save and restore ms, and a resume on another
-    split refused naming ROADMAP A11;
+    the checkpoint's bytes, save and restore ms, and the checkpoint
+    resumed on another split, ``(data 2, model 2)``: the same whole
+    parameters and optimizer state bit for bit, at the same global step;
 19. the LM's stage and expert axes, bench.py's LM model at full width
     (bf16, phase 8's SGD, remat off, seed 0's weights) and its MoE
     version (8 experts, top-2, capacity 1.5: benchmarks/moe_sweep_r5.json's
@@ -309,6 +310,31 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     into the partition, tokens == a clean 4-replica pass. Every pass:
     paged_decode launches == n_layers x the decode rounds summed over the
     replicas, no plain path; a profiled device busy share.
+23. The trainers' resilience plane, cuDNN deterministic: (a) one rank,
+    bench.py's CNN geometry (MobileNetV2, bf16, fused SGD, B 512) on
+    4,096 synthetic rows (8 steps an epoch), 2 epochs: a fault plan of
+    ``save_fail`` (the good slot's first save: recorded, retried),
+    ``tear_save`` (the save after epoch 0, torn) and ``nan_loss`` in
+    epoch 1 under ``check_finite_every`` 1, ``max_retries`` 1,
+    ``lr_shrink`` 0.5 — the records in order (save failed, save retried,
+    non-finite, checkpoint torn, fallback, restored), the run complete,
+    finite parameters still the fused buckets' views, fused_sgd launches
+    == the steps run; then a ``stall`` past ``stall_budget_s`` with
+    ``stall_exit``: a checkpoint-and-exit whose resume ends bit for bit
+    where an uninterrupted run does; (b) 4 ranks riding 19b's spawn
+    (MobileNetV2 bf16 under ddp, B 128, 512 rows): a ``bitflip`` repaired
+    by the consistency sentinel within one cadence, the final parameters
+    bit for bit an uninjected run's; the sentinel's
+    ``consistency_check_s`` share of step time at cadence 10 (printed); a
+    ``preempt`` at world 4 (gspmd, MobileNetV2 without BN) resumed at 4
+    (bit for bit the uninterrupted run) and at 2 (ranks 0-1 as a two-rank
+    mesh: the exact global step, through the resharded restore);
+    ``desync`` at world 2 (no quorum, the good-slot restore, completion);
+    ddp's stacked BN statistics restored at another world:
+    ``TopologyMismatchError``; (c) the LM at bench.py's width (B 2, T
+    8192) at 2 layers: ``nan_params`` caught by ``check_finite``, the
+    good slot restored at half the LR, the epoch completed; each flash
+    kernel launched n_layers x the steps run.
 
 Prints the card line, each phase's seconds, a ``{"data_parallel": ...}``
 line, a ``{"pipeline": ...}`` line, a ``{"resnet": ...}`` line, a
@@ -316,7 +342,7 @@ line, a ``{"pipeline": ...}`` line, a ``{"resnet": ...}`` line, a
 ``{"data_path": ...}`` line, a ``{"optim": ...}`` line, a
 ``{"lm_mesh": ...}`` line, a ``{"lm_pipe": ...}`` line, a ``{"decode":
 ...}`` line, a ``{"serve_planes": ...}`` line, a ``{"fleet": ...}`` line,
-the ``{"kernels": [...]}`` line and, last,
+a ``{"resilience": ...}`` line, the ``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero
 without a card, or when run outside a checkout of the repository.
 ``--sgd-timing-only`` runs phases 1, 2 (the fused SGD kernel) and 10 and
@@ -345,7 +371,9 @@ at world 4, one rank a card. ``--serve-only`` runs phases 1, 2 (the
 paged-decode and flash forward kernels), 3-5 and 20-22 and prints the
 ``{"decode": ...}``, ``{"serve_planes": ...}`` and ``{"fleet": ...}``
 lines and the paged kernel's rows of the ``{"kernels": ...}`` line; with
-four cards 20b runs over NCCL.
+four cards 20b runs over NCCL. ``--resilience-only`` runs phases 1, 2 (the
+fused SGD and flash kernels) and 23 (23b in a spawn of its own: NCCL
+with four cards, gloo on one) and prints the ``{"resilience": ...}`` line.
 """
 
 from __future__ import annotations
@@ -5282,7 +5310,8 @@ def lm18_resume(spec) -> dict:
     optimizer state, the global step and the history compared bit for bit
     in this process — the checkpoint's bytes, save and restore ms (rank
     0, the writer), and a resume of the same checkpoint on another split
-    (it must raise, naming ROADMAP A11)."""
+    (a resharded restore: the same whole parameters and optimizer state,
+    bit for bit, at the same global step)."""
     import dataclasses
 
     import numpy as np
@@ -5311,7 +5340,9 @@ def lm18_resume(spec) -> dict:
         return run
 
     ck.Checkpointer.save = timed(ck.Checkpointer.save, "save_ms")
-    ck.Checkpointer.restore = timed(ck.Checkpointer.restore, "restore_ms")
+    # A resume reads through restore_resharded (the elastic slot ladder).
+    ck.Checkpointer.restore_resharded = timed(
+        ck.Checkpointer.restore_resharded, "restore_ms")
 
     def state(tr, history, steps):
         to_np = lambda t: t.detach().float().cpu().numpy()
@@ -5356,20 +5387,22 @@ def lm18_resume(spec) -> dict:
     del resumed
     other_mesh, other_kw = LM18_MESHES["data2_model2"]
     other = mesh_mod.make_mesh(MeshConfig(**other_mesh), spec.device)
-    try:
-        lm.LMTrainer(dataclasses.replace(
-            configs["cut"], resume=True, mesh=MeshConfig(**other_mesh),
-            model=dataclasses.replace(configs["cut"].model, sp_axis=None)),
-            spec=other)
-        refusal = None
-    except ValueError as e:
-        refusal = str(e)
+    moved = lm.LMTrainer(dataclasses.replace(
+        configs["cut"], resume=True, mesh=MeshConfig(**other_mesh),
+        model=dataclasses.replace(configs["cut"].model, sp_axis=None)),
+        spec=other)
+    o = state(moved, [], [])
+    other_split = dict(
+        global_step=o["global_step"],
+        differing=sum(not np.array_equal(b[key][k], o[key][k])
+                      for key in ("params", "opt_state") for k in b[key]))
+    del moved
     gc.collect()
     torch.cuda.empty_cache()
     return dict(same=same, differing=differing, arrays=arrays,
                 steps=a["steps"], preempted_at_step=preempted,
                 global_step=b["global_step"], bytes=nbytes, **timings,
-                other_split=refusal)
+                other_split=other_split)
 
 
 def lm_mesh(mesh_mod, card, ref_losses: list, world: int, backend: str,
@@ -5385,7 +5418,7 @@ def lm_mesh(mesh_mod, card, ref_losses: list, world: int, backend: str,
     replicas, each rank's flash launches what its hops imply (ring: rank
     i of the seq group runs i + 1 hops a layer; otherwise one) and no
     plain attention; the ring check within phase 6's bounds; 18c bit for
-    bit and its other split refused naming ROADMAP A11."""
+    bit and its checkpoint resumed on another split bit for bit."""
     res = ranks or dp_spawn(mesh_mod, lm_mesh_rank, world, "18b/lm mesh",
                             LM18_MESHES, resume, backend=backend)
     bad = []
@@ -5458,20 +5491,22 @@ def lm_mesh(mesh_mod, card, ref_losses: list, world: int, backend: str,
         rs = [r["resume"] for r in res]
         r0 = rs[0]
         ok = all(r["same"] for r in rs)
-        refused = all(r["other_split"] and "ROADMAP A11: resharded restore"
-                      in r["other_split"] for r in rs)
+        moved = all(r["other_split"]["differing"] == 0
+                    and r["other_split"]["global_step"] == r["global_step"]
+                    for r in rs)
         print(f"lm 18c [{card}]: preempted at step {r0['preempted_at_step']}"
               f" and resumed == uninterrupted bit for bit on every rank: "
               f"{ok} ({[r['differing'] for r in rs]} of {r0['arrays']} "
               f"arrays differing; steps {r0['steps']}); checkpoint "
               f"{r0['bytes']} B, save ms {r0['save_ms']}, restore ms "
-              f"{r0['restore_ms']}; resume on another split refused: "
-              f"{refused} ({r0['other_split']!r})")
+              f"{r0['restore_ms']}; resumed on (data 2, model 2) from the "
+              f"ring mesh's checkpoint, bit for bit: {moved} "
+              f"({r0['other_split']!r})")
         if not ok:
             bad.append(f"18c: resumed run differs: "
                        f"{[r['differing'] for r in rs]}")
-        if not refused:
-            bad.append(f"18c: resume on another split not refused: "
+        if not moved:
+            bad.append(f"18c: resume on another split differs: "
                        f"{[r['other_split'] for r in rs]}")
         summary["resume"] = {k: v for k, v in r0.items()}
     if bad:
@@ -5964,7 +5999,9 @@ def lm19_resume(spec) -> dict:
         return run
 
     ck.Checkpointer.save = timed(ck.Checkpointer.save, "save_ms")
-    ck.Checkpointer.restore = timed(ck.Checkpointer.restore, "restore_ms")
+    # A resume reads through restore_resharded (the elastic slot ladder).
+    ck.Checkpointer.restore_resharded = timed(
+        ck.Checkpointer.restore_resharded, "restore_ms")
 
     def state(tr, history, steps):
         # The epoch's train averages (loss, drop rate) cover the steps its
@@ -8191,6 +8228,383 @@ def fleet_phase(laps, card) -> dict:
     return out
 
 
+# -- phase 23: the trainers' resilience plane ----------------------------------
+
+RES23_BATCH, RES23_ROWS = 512, 4096          # 23a: 8 steps an epoch
+RES23_PLAN = ("save_fail@0", "tear_save@2", "nan_loss@10")
+RES23_STALL = ("stall@2:1.5",)               # 23a: the sync site's 3rd poll
+RES23_STALL_BUDGET_S = 0.5
+RANKS23_BATCH, RANKS23_ROWS = 128, 512       # 23b: 4 steps an epoch
+RANKS23_OVERHEAD_STEPS = 20                  # at cadence 10
+# 23b's drills under ddp (BN statistics per replica, one bucketed
+# gradient all-reduce a step) and the preemption under gspmd without BN
+# (replicated state that reshards): gspmd's cross-replica BN statistics
+# cost ~100 collectives a step, each staged through the host over gloo.
+RANKS23_DDP = dict(strategy="ddp", ddp_allreduce="bucketed")
+RANKS23_PREEMPT_MODEL = "mobilenetv2_nobn"
+RANKS23_KILL_AT = 4 + 1                      # step 1 of epoch 1
+LM23_LAYERS, LM23_STEPS = 2, 3
+LM23_PLAN = ("nan_params@1",)
+
+
+def res23_config(tconfig, root: str, name: str, *, batch: int = RES23_BATCH,
+                 rows: int = RES23_ROWS, **kw):
+    """Phase 23's CNN workload: MobileNetV2, bf16, fused SGD, synthetic
+    32 px rows, 2 epochs, the host input path; logs and checkpoints under
+    ``root``."""
+    base = dict(
+        model=tconfig.ModelConfig(name="mobilenetv2", dtype="bfloat16"),
+        data=tconfig.DataConfig(
+            name="synthetic", batch_size=batch, eval_batch_size=batch,
+            image_size=32, synthetic_native_size=32,
+            synthetic_train_size=rows, synthetic_eval_size=batch),
+        optimizer=tconfig.OptimizerConfig(learning_rate=0.4,
+                                          warmup_steps=10, fused=True),
+        epochs=2, log_every_n_steps=1000, device="cuda",
+        log_dir=os.path.join(root, "log"), log_name=name,
+        checkpoint_dir=os.path.join(root, f"ckpt_{name}"))
+    base.update(kw)
+    return tconfig.TrainConfig(**base)
+
+
+def plane_records(records: list) -> list:
+    """The ``[kind, what]`` resilience records of a run's ``.jsonl``
+    records, in order."""
+    return [[r["kind"], r.get("error") or r.get("action") or r.get("status")]
+            for r in records if r["kind"] in ("failure", "recovery",
+                                              "consistency")]
+
+
+def jsonl(trainer) -> list:
+    with open(trainer.logger.jsonl_path) as f:
+        return [json.loads(line) for line in f]
+
+
+def resilience_single(trainer_mod, tconfig, fs, root, card) -> dict:
+    """Phase 23a (see the module docstring)."""
+    import torch
+
+    phase = "23a/resilience one rank"
+    steps = [0]
+
+    def count(_t):
+        steps[0] += 1
+
+    recovery = tconfig.RecoveryConfig
+    cfg = res23_config(tconfig, root, "r23_drills", check_finite_every=1,
+                       eval_every=10,
+                       recovery=recovery(max_retries=1, lr_shrink=0.5,
+                                         faults=RES23_PLAN))
+    t = trainer_mod.Trainer(cfg)
+    t.step_hook = count
+    views = [p.data_ptr() for p in t.model.parameters()]
+    buckets = len(t.optimizer.buckets)
+    fs.fused_sgd_kernel.launches = fs.plain_sgd_kernel.launches = 0
+    t0 = time.perf_counter()
+    history = t.fit()
+    torch.cuda.synchronize()
+    drill_s = time.perf_counter() - t0
+    launches = {"fused_sgd": fs.fused_sgd_kernel.launches,
+                "plain_sgd": fs.plain_sgd_kernel.launches}
+    records = plane_records(jsonl(t))
+    want = [["failure", "checkpoint-save-failed"],
+            ["recovery", "save-retried"], ["failure", "non-finite"],
+            ["failure", "checkpoint-torn"],
+            ["recovery", "checkpoint-fallback"], ["recovery", "restored"]]
+    finite = all(bool(torch.isfinite(p).all()) for p in t.model.parameters())
+    kept = views == [p.data_ptr() for p in t.model.parameters()]
+    print(f"resilience 23a drills [{card}]: {steps[0]} steps run in "
+          f"{drill_s:.2f} s, epochs {[h['epoch'] for h in history]}, "
+          f"records {records}, lr {t.config.optimizer.learning_rate}, "
+          f"fused_sgd launches {launches['fused_sgd']} ({buckets} bucket), "
+          f"finite {finite}, bucket views kept {kept}")
+    if records != want:
+        fail(phase, f"records {records}, want {want}")
+    if [h["epoch"] for h in history] != [0, 1] or not finite or not kept:
+        fail(phase, f"history {history}, finite {finite}, views {kept}")
+    if (launches["fused_sgd"] != steps[0] * buckets
+            or launches["plain_sgd"]):
+        fail(phase, f"launches {launches}, want {steps[0] * buckets} "
+                    f"fused_sgd")
+    del t
+    # The stall: checkpoint-and-exit, then the resume == uninterrupted.
+    a = trainer_mod.Trainer(res23_config(tconfig, root, "r23_clean",
+                                         max_inflight_steps=1))
+    a.fit()
+    stall = res23_config(tconfig, root, "r23_stall", max_inflight_steps=1,
+                         stall_budget_s=RES23_STALL_BUDGET_S,
+                         recovery=recovery(max_retries=1, stall_exit=True,
+                                           faults=RES23_STALL))
+    b = trainer_mod.Trainer(stall)
+    stopped = b.fit()
+    stopped_at = b.global_step
+    stall_records = plane_records(jsonl(b))
+    del b
+    r = trainer_mod.Trainer(stall.replace(resume=True,
+                                          recovery=recovery()))
+    r.fit()
+    torch.cuda.synchronize()
+    bad = resume_mismatches(resume_state(a), resume_state(r))
+    print(f"resilience 23a stall [{card}]: stalled {RES23_STALL} past "
+          f"{RES23_STALL_BUDGET_S} s, stopped at global step {stopped_at} "
+          f"(epochs done {len(stopped)}), records {stall_records}; resumed "
+          f"to {r.global_step}: {bad} of {len(resume_state(a))} arrays "
+          f"differ from the uninterrupted run")
+    if stopped or stall_records != [["failure", "stall"]] or bad:
+        fail(phase, f"stall drill: stopped {stopped}, records "
+                    f"{stall_records}, {bad} arrays differ")
+    return dict(steps=steps[0], records=records, launches=launches,
+                drill_s=drill_s, stopped_at=stopped_at,
+                stall_resume_bitwise=not bad)
+
+
+def resilience_rank(spec, root: str) -> dict:
+    """Phase 23b on each of 4 ranks (see the module docstring); ranks 0-1
+    also form a two-rank mesh (a sub-group) for the world-2 drills while
+    ranks 2-3 wait. Returns small host values."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch import config as tconfig
+    from distributed_model_parallel_tpu_torch.mesh import MeshSpec
+    from distributed_model_parallel_tpu_torch.ops.collectives import (
+        mesh_barrier,
+    )
+    from distributed_model_parallel_tpu_torch.train import chaos
+    from distributed_model_parallel_tpu_torch.train.checkpoint import (
+        TopologyMismatchError,
+    )
+    from distributed_model_parallel_tpu_torch.train.trainer import Trainer
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    R, M = tconfig.RecoveryConfig, tconfig.MeshConfig
+    mesh4 = M(data=4)
+
+    def cfg(name, **kw):
+        return res23_config(tconfig, root, name, **{
+            "batch": RANKS23_BATCH, "rows": RANKS23_ROWS, **kw})
+
+    def same(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a["params"],
+                                                        b["params"]))
+
+    def slim(run):
+        out = {k: v for k, v in run.items() if k not in ("params",
+                                                         "records")}
+        out["records"] = plane_records(run["records"])
+        return out
+
+    out = {}
+    kw = dict(mesh=mesh4, consistency_every=1, max_inflight_steps=1,
+              **RANKS23_DDP)
+    clean, hit = chaos.drill_rank(spec, [
+        (cfg("r23_clean", recovery=R(max_retries=1), **kw), True),
+        (cfg("r23_bitflip", recovery=R(max_retries=1,
+                                       faults=("bitflip@1",)), **kw), True)])
+    out["bitflip"] = dict(parity=same(clean, hit), **slim(hit))
+    (ov,) = chaos.overhead_rank(spec, [(cfg(
+        "r23_overhead", mesh=mesh4, epochs=1,
+        rows=RANKS23_BATCH * RANKS23_OVERHEAD_STEPS, max_inflight_steps=1,
+        log_every_n_steps=1, **RANKS23_DDP), 10)])
+    out["overhead"] = ov
+    pk = dict(mesh=mesh4, max_inflight_steps=1, emergency_every=2,
+              model=tconfig.ModelConfig(name=RANKS23_PREEMPT_MODEL,
+                                        dtype="bfloat16"))
+    killed = cfg("r23_kill", recovery=R(faults=(
+        f"preempt@{RANKS23_KILL_AT}",)), **pk)
+    base, kill = chaos.drill_rank(spec, [(cfg("r23_base", **pk), True),
+                                         (killed, False)])
+    ck = killed.checkpoint_dir
+    if spec.rank == 0:
+        shutil.copytree(ck, ck + "_half")
+    mesh_barrier(spec)
+    (r4,) = chaos.drill_rank(spec, [(cfg("r23_resume4", checkpoint_dir=ck,
+                                         resume=True, **pk), True)])
+    out["preempt"] = dict(kill=slim(kill), resume4=slim(r4),
+                          parity4=same(base, r4),
+                          base_step=base["global_step"])
+    sub = dist.new_group([0, 1])
+    ddp4 = cfg("r23_ddp", mesh=mesh4, recovery=R(faults=("preempt@1",)),
+               **RANKS23_DDP)
+    chaos.drill_rank(spec, [(ddp4, False)])
+    mesh_barrier(spec)
+    if spec.rank < 2:
+        spec2 = MeshSpec(M(data=2), spec.rank, spec.device, spec.backend,
+                         data_group=sub)
+        pk2 = dict(pk, mesh=M(data=2))
+        (r2,) = chaos.drill_rank(spec2, [(cfg(
+            "r23_resume2", checkpoint_dir=ck + "_half", resume=True,
+            **pk2), False)])
+        out["preempt"]["resume2"] = slim(r2)
+        (ds,) = chaos.drill_rank(spec2, [(cfg(
+            "r23_desync", mesh=M(data=2), consistency_every=1,
+            max_inflight_steps=1, **RANKS23_DDP,
+            recovery=R(max_retries=2, faults=("desync@1",))), False)])
+        out["desync"] = slim(ds)
+        try:
+            Trainer(ddp4.replace(mesh=M(data=2), resume=True,
+                                 recovery=R()), spec=spec2)
+            out["topology"] = None
+        except TopologyMismatchError as e:
+            out["topology"] = dict(
+                n=len(e.conflicts), first=[e.conflicts[0][0],
+                                           list(e.conflicts[0][1]),
+                                           list(e.conflicts[0][2])],
+                value_error=isinstance(e, ValueError))
+    mesh_barrier(spec)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        flags
+    return out
+
+
+def resilience_ranks_gate(res: list, card: str) -> dict:
+    """Phase 23b's gates over the ranks' results; its numbers."""
+    phase = "23b/resilience ranks"
+    r0 = res[0]
+    bf = r0["bitflip"]
+    parity = all(r["bitflip"]["parity"] for r in res)
+    kept = all(r["bitflip"]["views_kept"] for r in res)
+    print(f"resilience 23b bitflip [{card}]: records {bf['records']}, "
+          f"repairs {bf['repairs']}, final parameters == the uninjected "
+          f"run's on every rank {parity}, bucket views kept {kept}")
+    if not (parity and kept) or bf["records"] != [
+            ["consistency", "divergence"], ["failure", "replica-divergence"],
+            ["consistency", "repaired"], ["recovery", "replica-rebroadcast"]]:
+        fail(phase, f"bitflip: {bf}")
+    ov = r0["overhead"]
+    total = sum(ov["times"])
+    share = ov["check_s"] / max(total, 1e-12)
+    print(f"resilience 23b sentinel [{card}]: {ov['checks']} checks at "
+          f"cadence 10 over {len(ov['times'])} steps, "
+          f"{ov['check_s'] / max(ov['checks'], 1) * 1e3:.2f} ms a check, "
+          f"{share * 100:.2f}% of the step time "
+          f"({total / max(len(ov['times']), 1) * 1e3:.1f} ms a step)")
+    pre = r0["preempt"]
+    kill, r4, r2 = pre["kill"], pre["resume4"], pre["resume2"]
+    parity4 = all(r["preempt"]["parity4"] for r in res)
+    print(f"resilience 23b preempt [{card}]: killed at global step "
+          f"{kill['global_step']} (loader {kill['loader']}), emergency "
+          f"saves {kill['saves']}; resumed at 4 from {r4['position']} to "
+          f"{r4['global_step']}, bit for bit {parity4}; at 2 from "
+          f"{r2['position']} to {r2['global_step']}")
+    if (kill["global_step"] != RANKS23_KILL_AT + 1
+            or kill["loader"]["batch_cursor"] == 0
+            or r4["position"]["global_step"] != kill["global_step"]
+            or not parity4 or r2["position"] != r4["position"]
+            or r2["global_step"] != pre["base_step"]):
+        fail(phase, f"preempt: {pre}")
+    ds = r0["desync"]
+    print(f"resilience 23b desync [{card}]: records {ds['records']}, "
+          f"epochs {[h['epoch'] for h in ds['history']]}")
+    if (["consistency", "no-quorum"] not in ds["records"]
+            or ["recovery", "restored"] not in ds["records"]
+            or [h["epoch"] for h in ds["history"]] != [0, 1]):
+        fail(phase, f"desync: {ds}")
+    topo = r0["topology"]
+    print(f"resilience 23b topology [{card}]: ddp's world-4 checkpoint at "
+          f"world 2: TopologyMismatchError {topo}")
+    if (topo is None or topo["value_error"] or topo["first"][1][0] != 4
+            or topo["first"][2][0] != 2):
+        fail(phase, f"topology: {topo}")
+    return dict(bitflip=dict(parity=parity, repairs=bf["repairs"]),
+                sentinel=dict(checks=ov["checks"], check_s=ov["check_s"],
+                              steps=len(ov["times"]), step_s=total,
+                              share=share),
+                preempt=dict(killed_at=kill["global_step"],
+                             resumed4=r4["global_step"],
+                             resumed2=r2["global_step"]),
+                desync=ds["records"], topology=topo)
+
+
+def resilience_lm(fa, tconfig, card) -> dict:
+    """Phase 23c (see the module docstring)."""
+    import dataclasses
+
+    import torch
+
+    from distributed_model_parallel_tpu_torch.train import lm_trainer as lm
+
+    phase = "23c/resilience lm"
+    base = lm18_config("r23_lm", n_layers=LM23_LAYERS, steps=LM23_STEPS)
+    cfg = dataclasses.replace(
+        base, check_finite_every=1,
+        recovery=tconfig.RecoveryConfig(max_retries=1, lr_shrink=0.5,
+                                        faults=LM23_PLAN))
+    t = lm.LMTrainer(cfg)
+    steps = [0]
+    t.step_hook = lambda _t: steps.__setitem__(0, steps[0] + 1)
+    kernels = flash_wrappers(fa)
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    history = t.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = {n: k.launches for n, k in kernels.items()}
+    records = plane_records(jsonl(t))
+    print(f"resilience 23c [{card}]: LM d {LM_MODEL['d_model']}, "
+          f"{LM23_LAYERS} layers, B {TRAIN_BATCH}, T {TRAIN_SEQ}: "
+          f"{steps[0]} steps run in {fit_s:.2f} s, records {records}, "
+          f"losses {[round(h['loss_train'], 4) for h in history]}, lr "
+          f"{t.config.optimizer.learning_rate}, flash launches {launches}")
+    want = [["failure", "non-finite"], ["recovery", "restored"]]
+    if (records != want or len(history) != 1
+            or not math.isfinite(history[0]["loss_train"])):
+        fail(phase, f"records {records}, history {history}")
+    if any(n != steps[0] * LM23_LAYERS for n in launches.values()):
+        fail(phase, f"launches {launches}, want {steps[0] * LM23_LAYERS} "
+                    f"each")
+    return dict(steps=steps[0], launches=launches, fit_s=fit_s,
+                records=records)
+
+
+def resilience_phase(laps, trainer_mod, fs, fa, tconfig, card,
+                     ranks: dict) -> dict:
+    """Phase 23: 23a and 23c here beside 23b's record (its ranks rode a
+    spawn of four)."""
+    import tempfile
+
+    import torch
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    root = tempfile.mkdtemp(prefix="resilience_",
+                            dir=os.environ[RUN_DIR_ENV])
+    single = resilience_single(trainer_mod, tconfig, fs, root, card)
+    laps.done("23a/resilience one rank")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        flags
+    lm23 = resilience_lm(fa, tconfig, card)
+    laps.done("23c/resilience lm")
+    return {"single": single, "ranks": ranks, "lm": lm23}
+
+
+def resilience_ride(card: str):
+    """Phase 23b as a :class:`RideAlong` of a spawn of four ranks; its
+    gated record lands in ``ride.record``."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="resilience_ranks_",
+                            dir=os.environ[RUN_DIR_ENV])
+    ride = RideAlong(resilience_rank, None, (root,), None)
+    ride.record = None
+
+    def gate(results):
+        ride.record = resilience_ranks_gate(results, card)
+        return ride.record
+
+    ride.gate = gate
+    return ride
+
+
 class Laps:
     """Prints each phase's seconds since the previous phase ended."""
 
@@ -8254,10 +8668,15 @@ def main() -> None:
                          "fleet), print the decode, serve_planes and fleet "
                          "JSON lines and stop: with four cards, 20b over "
                          "NCCL with a card a rank")
+    ap.add_argument("--resilience-only", action="store_true",
+                    help="run phases 1, 2 (the fused SGD and flash "
+                         "kernels) and 23 (the trainers' resilience plane; "
+                         "23b in a spawn of four ranks of its own), print "
+                         "the resilience JSON line and stop")
     args = ap.parse_args()
     only = (args.sgd_timing_only or args.pipeline_only or args.dp_only
             or args.harness_only or args.data_only or args.optim_only
-            or args.lm_only or args.serve_only)
+            or args.lm_only or args.serve_only or args.resilience_only)
     import atexit
     import shutil
     import tempfile
@@ -8316,6 +8735,8 @@ def main() -> None:
         paths = _build.build_all(
             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if args.lm_only
             else ("paged_decode", "flash_fwd") if args.serve_only
+            else ("fused_sgd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+            if args.resilience_only
             else ("fused_sgd",) if only else _build.KERNELS)
     except RuntimeError as e:
         fail("2/build", str(e))
@@ -8385,6 +8806,22 @@ def main() -> None:
         print(json.dumps({"fleet": fleet, "card": card}))
         print(json.dumps({"kernels": decode_kernel_rows(paged, dec, planes,
                                                         fleet)}))
+        return
+    if args.resilience_only:
+        import tempfile
+
+        from distributed_model_parallel_tpu_torch import mesh
+
+        four = torch.cuda.device_count() >= 4
+        res = dp_spawn(mesh, resilience_rank, 4, "23b/resilience ranks",
+                       tempfile.mkdtemp(prefix="resilience_ranks_",
+                                        dir=os.environ[RUN_DIR_ENV]),
+                       backend="nccl" if four else "gloo")
+        ranks23 = resilience_ranks_gate(res, card)
+        laps.done("23b/resilience ranks")
+        print(json.dumps({"resilience": resilience_phase(
+            laps, cnn_trainer, fs, fa, tconfig, card, ranks23),
+            "card": card}))
         return
     if args.optim_only:
         from distributed_model_parallel_tpu_torch import mesh
@@ -8483,6 +8920,9 @@ def main() -> None:
     lm18 = lm_phase(laps, fa, lm_model_flops, mesh, card, lm8_loss, rides4)
 
     # -- phase 19: the LM's stage and expert axes ---------------------------
+    # 23b's ranks ride 19b's spawn of four too; its record is gated there.
+    res23 = resilience_ride(card)
+    rides4.append(res23)
     lm19 = lm19_phase(laps, fa, lm_model_flops, mesh, card, decode=True,
                       rides=rides4)
     lm18_rows = lm_launch_rows(lm18)
@@ -8498,6 +8938,10 @@ def main() -> None:
 
     # -- phase 22: the serving fleet ----------------------------------------
     fleet = fleet_phase(laps, card)
+
+    # -- phase 23: the trainers' resilience plane ---------------------------
+    resil = resilience_phase(laps, cnn_trainer, fs, fa, tconfig, card,
+                             res23.record)
 
     kernels = decode_kernel_rows(paged, dec, planes, fleet)
     for name, line in (("flash_fwd", 112), ("flash_bwd_dq", 199),
@@ -8515,6 +8959,7 @@ def main() -> None:
                if name == "flash_fwd" else {}),
             **lm18_rows[name],
             **lm19_rows[name],
+            "launches_23c_resilience": resil["lm"]["launches"][name],
             "max_abs_err": flash_errs[name][0],
             "max_row_rel_err": flash_errs[name][1],
             **flash_times[name],
@@ -8551,6 +8996,7 @@ def main() -> None:
             "launches_17e_hierarchical_rank0": (
                 opt17["ranks"]["hierarchical"]["launches"]
                 if name == "fused_sgd" else 0),
+            "launches_23a_resilience": resil["single"]["launches"][name],
             "max_abs_err": sgd_err,
             **sgd_times[name],
             "in_step_us": sgd_in_step[name],
@@ -8567,6 +9013,7 @@ def main() -> None:
     print(json.dumps({"decode": dec, "card": card}))
     print(json.dumps({"serve_planes": planes, "card": card}))
     print(json.dumps({"fleet": fleet, "card": card}))
+    print(json.dumps({"resilience": resil, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -124,8 +124,17 @@ class DataConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RecoveryConfig:
-    """Automatic failure recovery; off by default. The port refuses
-    ``max_retries > 0`` and fault plans (ROADMAP A5/A11)."""
+    """Automatic failure recovery (``train/resilience.RecoverySupervisor``);
+    off by default. ``max_retries > 0`` keeps a "last good" checkpoint slot
+    and, on a non-finite detection (``check_finite_every > 0``) or a
+    no-quorum replica divergence (``consistency_every > 0``), restores it
+    and retries the epoch, multiplying the learning rate by ``lr_shrink``
+    on a non-finite one; ``keep_checkpoints`` committed versions a slot;
+    ``stall_exit`` turns a stall past ``stall_budget_s`` into a
+    checkpoint-and-exit; ``watchdog_interval_s`` is the watchdog's log
+    cadence; ``barrier_timeout_s`` bounds each consistency check's
+    blocking operations; ``faults`` is a fault plan (``utils/faults.py``,
+    ``"kind@at[:param]"`` entries)."""
 
     max_retries: int = 0
     lr_shrink: float = 1.0

@@ -695,9 +695,10 @@ def lm_preempt_resume(spec: MeshSpec, configs: dict, tree: dict,
     step) and finished by a trainer with ``resume=True``: per run the
     history, the per-step losses, the whole parameters, the optimizer
     state tree, the global step and (rank 0) the text log's lines. With
-    ``other_mesh``, the message of a resume of the same checkpoint laid
-    out as that mesh (a refusal); with ``refused``, the message of a
-    resume under each of its configs (on the same mesh)."""
+    ``other_mesh``, a resume of the same checkpoint laid out as that mesh
+    (a resharded restore): its whole parameters, optimizer state and
+    global step; with ``refused``, the message of a resume under each of
+    its configs (on the same mesh)."""
     from distributed_model_parallel_tpu_torch.train.lm_trainer import (
         LMTrainer,
     )
@@ -746,14 +747,13 @@ def lm_preempt_resume(spec: MeshSpec, configs: dict, tree: dict,
         from distributed_model_parallel_tpu_torch import mesh
 
         other = mesh.make_mesh(other_mesh, spec.device)
-        try:
-            LMTrainer(dataclasses.replace(configs["cut"], resume=True,
-                                          mesh=other_mesh,
-                                          model=configs["other_model"]),
-                      spec=other)
-            out["other_mesh"] = None
-        except ValueError as e:
-            out["other_mesh"] = str(e)
+        tr = LMTrainer(dataclasses.replace(configs["cut"], resume=True,
+                                           mesh=other_mesh,
+                                           model=configs["other_model"]),
+                       spec=other)
+        out["other_mesh"] = dict(params=_np(tr.whole_params()),
+                                 opt_state=tr.opt_state_tree(),
+                                 global_step=tr.global_step)
     return out
 
 

@@ -26,9 +26,18 @@ framework-free parts are kept here (the port imports nothing of it):
   returns and writes on one background thread; the manifest is written
   at :meth:`Checkpointer.wait_until_finished`, as the JAX package's is.
 
-Resharded restore across world sizes and the topology check
-(``restore_resharded``, ``_check_topology``) and the fault injector's
-save sites are not ported yet (ROADMAP A11).
+* ``restore_resharded`` restores a checkpoint written on any mesh: every
+  leaf is whole in the file and every rank cuts its own slices, so a
+  restore onto another split needs only the global shapes to agree. They
+  are checked first (:meth:`Checkpointer._check_topology`, from the
+  ``.npy`` headers, no payload read): state that encodes the saving
+  topology (ddp's per-replica BN statistics, stacked over the replicas)
+  raises :class:`TopologyMismatchError` naming both shapes, through the
+  fallback loop, since every version of the run shares the conflict;
+* ``injector`` (``utils/faults.FaultInjector``) serves the ``save``
+  site's faults: ``save_fail`` leaves a torn version directory and
+  raises ``InjectedFaultError``, ``tear_save`` commits and then
+  truncates the files.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ import re
 import shutil
 import time
 import uuid
+import zipfile
 import zlib
 from typing import Any, Callable
 
@@ -51,6 +61,31 @@ PAYLOAD_FILENAME = "state.npz"
 
 class CheckpointIntegrityError(RuntimeError):
     """No committed checkpoint version survived verification/restore."""
+
+
+class TopologyMismatchError(RuntimeError):
+    """A checkpoint's *global* array shapes conflict with the restore
+    target's — state that depends on the saving topology (ddp's
+    per-replica BatchNorm statistics carry a leading replica axis) cannot
+    be resharded onto a mesh of another degree. ``conflicts`` lists
+    ``(key, saved shape, target shape)``; deliberately NOT a
+    ``ValueError``, so template-layout retries let it through."""
+
+    def __init__(self, conflicts: list, *, saved_mesh=None,
+                 current_mesh=None):
+        self.conflicts = list(conflicts)
+        self.saved_mesh = saved_mesh
+        self.current_mesh = current_mesh
+        detail = "; ".join(
+            f"{path}: checkpoint {tuple(saved)} vs target {tuple(want)}"
+            for path, saved, want in self.conflicts[:8])
+        mesh = ""
+        if saved_mesh or current_mesh:
+            mesh = (f" (saved on mesh {saved_mesh}, restoring on "
+                    f"{current_mesh})")
+        super().__init__(
+            f"checkpoint global shapes conflict with the restore target on "
+            f"{len(self.conflicts)} leaves{mesh}: {detail}")
 
 
 def _file_crc32(path: str, chunk: int = 1 << 20) -> int:
@@ -168,6 +203,22 @@ def unflatten_like(template: Any, flat: dict, prefix: str = "") -> Any:
     return got
 
 
+def _payload_shapes(path: str) -> dict[str, tuple]:
+    """``{key: shape}`` of a version's payload from the ``.npy`` headers
+    inside the ``.npz`` (no array is read)."""
+    out = {}
+    with zipfile.ZipFile(os.path.join(path, PAYLOAD_FILENAME)) as z:
+        for name in z.namelist():
+            with z.open(name) as f:
+                fmt = np.lib.format
+                read = (fmt.read_array_header_1_0
+                        if fmt.read_magic(f) == (1, 0)
+                        else fmt.read_array_header_2_0)
+                shape, _, _ = read(f)
+            out[name[:-4] if name.endswith(".npy") else name] = tuple(shape)
+    return out
+
+
 def _read_payload(path: str) -> dict[str, np.ndarray]:
     with np.load(os.path.join(path, PAYLOAD_FILENAME),
                  allow_pickle=False) as z:
@@ -211,11 +262,13 @@ class Checkpointer:
     read (an older one than the newest after a fallback)."""
 
     def __init__(self, directory: str, *, keep: int = 2,
-                 meta_fn: Callable[[], dict] | None = None):
+                 meta_fn: Callable[[], dict] | None = None,
+                 injector=None):
         self.directory = os.path.abspath(directory)
         self.keep = max(1, int(keep))
         os.makedirs(self.directory, exist_ok=True)
         self.meta_fn = meta_fn
+        self._injector = injector
         self._pool: concurrent.futures.ThreadPoolExecutor | None = None
         self._futures: list = []
         self._pending_manifest: list[tuple[str, dict]] = []
@@ -271,6 +324,21 @@ class Checkpointer:
             stamp.update(meta)
         first = versions[-1] + 1 if versions else 0
         path = self._path(name, first)
+        faults = (self._injector.poll("save")
+                  if self._injector is not None else [])
+        if any(f.kind == "save_fail" for f in faults):
+            # Die "mid-write": a version directory the scan sees as
+            # committed, holding no restorable checkpoint.
+            from distributed_model_parallel_tpu_torch.utils.faults import (
+                InjectedFaultError,
+            )
+
+            os.makedirs(path, exist_ok=True)
+            with open(os.path.join(path, "_DMP_TORN"), "w") as f:
+                f.write("injected save failure\n")
+            raise InjectedFaultError(f"injected save failure for {path}")
+        if any(f.kind == "tear_save" for f in faults):
+            wait = True
 
         def commit() -> str:
             v = first
@@ -285,6 +353,12 @@ class Checkpointer:
         if wait:
             path = commit()
             _manifest_if_kept(path, stamp)
+            if any(f.kind == "tear_save" for f in faults):
+                from distributed_model_parallel_tpu_torch.utils.faults import (
+                    tear_checkpoint,
+                )
+
+                tear_checkpoint(path)
             return path
         if self._pool is None:
             self._pool = concurrent.futures.ThreadPoolExecutor(
@@ -319,12 +393,57 @@ class Checkpointer:
         FileNotFoundError if absent. With ``allow_fallback`` each
         candidate is verified first and a torn one skipped
         (``on_fallback(path, reason)`` sees each rejection)."""
+        return self._restore(target, name, allow_fallback, on_fallback,
+                             None, topology=False)
+
+    def _check_topology(self, path: str, target: Any) -> None:
+        """Raise :class:`TopologyMismatchError` when the version's global
+        leaf shapes conflict with ``target``'s. Missing or extra keys are
+        left to the restore (a template-layout problem, not a topology
+        one); an unreadable payload is left to the fallback."""
+        try:
+            saved = _payload_shapes(path)
+        except Exception:  # noqa: BLE001 - a torn version: the restore sees it
+            return
+        want = {k: tuple(np.shape(v)) for k, v in flatten_tree(target).items()}
+        conflicts = [(k, saved[k], want[k]) for k in sorted(want)
+                     if k in saved and tuple(saved[k]) != want[k]]
+        if conflicts:
+            raise TopologyMismatchError(
+                conflicts, saved_mesh=read_manifest_meta(path).get("mesh"))
+
+    def restore_resharded(self, target: Any, name: str = "ckpt", *,
+                          allow_fallback: bool = True,
+                          on_fallback: Callable[[str, str], None] | None = None,
+                          verify_memo: dict | None = None) -> Any:
+        """:meth:`restore` onto this run's mesh, whatever mesh the version
+        was written on (the leaves are whole; the caller cuts its
+        slices). Global shapes are checked first and a conflict raises
+        :class:`TopologyMismatchError` through the fallback loop. Torn
+        versions fall back as in :meth:`restore`. ``verify_memo`` caches
+        each path's manifest check (a crc32 sweep of the files) across
+        calls: an elastic resume tries several templates on one slot."""
+        return self._restore(target, name, allow_fallback, on_fallback,
+                             verify_memo, topology=True)
+
+    def _restore(self, target: Any, name: str, allow_fallback: bool,
+                 on_fallback: Callable[[str, str], None] | None,
+                 verify_memo: dict | None, *, topology: bool) -> Any:
         self.wait_until_finished()
         candidates = self._candidate_paths(name)
         if not candidates:
             raise FileNotFoundError(self._path(name))
 
+        def verify(path):
+            if verify_memo is None:
+                return verify_manifest(path)
+            if path not in verify_memo:
+                verify_memo[path] = verify_manifest(path)
+            return verify_memo[path]
+
         def load(path):
+            if topology:
+                self._check_topology(path, target)
             out = unflatten_like(target, _read_payload(path))
             self.last_restored_path = path
             return out
@@ -333,7 +452,7 @@ class Checkpointer:
             return load(candidates[0])
         rejected: list[tuple[str, str]] = []
         for path in candidates:
-            reason = verify_manifest(path)
+            reason = verify(path)
             if reason is None:
                 # Verified intact: a failure here is a template problem,
                 # which an older version of the same run cannot fix.
@@ -343,6 +462,8 @@ class Checkpointer:
                 if on_fallback is not None:
                     on_fallback(path, reason)
                 continue
+            if topology:
+                self._check_topology(path, target)
             try:
                 return load(path)
             except Exception as e:  # noqa: BLE001 - unverifiable version
@@ -400,9 +521,8 @@ def build_resume_tree(epoch: int, cursor: int, epoch_len: int,
                       global_step: int, budgets: dict) -> dict:
     """The subtree every trainer checkpoint carries: the loader position,
     normalized (a fully consumed epoch is the start of the next), the
-    global step and the recovery budgets (``retries_left``, ``lr_scale``:
-    0 and 1.0 until recovery is ported, ROADMAP A11, as the JAX package
-    stores them without it)."""
+    global step and the recovery supervisor's live budgets
+    (``retries_left``, ``lr_scale``: ``RecoverySupervisor.budgets()``)."""
     ep, cur = int(epoch), int(cursor)
     if cur >= epoch_len:
         ep, cur = ep + 1, 0
@@ -432,12 +552,13 @@ def manifest_stamp(workload: str, mesh, n_devices: int, global_step: int,
             "n_devices": int(n_devices), "global_step": int(global_step)}
 
 
-def resume_subtree(loader, pos: tuple[int, int], global_step: int) -> dict:
+def resume_subtree(loader, pos: tuple[int, int], global_step: int,
+                   budgets: dict) -> dict:
     """The exact-continuation subtree of a trainer that stands at ``pos``
     (epoch, batches consumed: the trainer's count, which a prefetch
-    worker running ahead cannot move); ``loader`` is re-synced to it."""
-    tree = build_resume_tree(*pos, len(loader), global_step,
-                             {"retries_left": 0, "lr_scale": 1.0})
+    worker running ahead cannot move) with the supervisor's ``budgets``;
+    ``loader`` is re-synced to it."""
+    tree = build_resume_tree(*pos, len(loader), global_step, budgets)
     loader.position(int(tree["loader_epoch"]), int(tree["batch_cursor"]))
     return tree
 
@@ -447,23 +568,6 @@ def fallback_note(log_line: Callable[[str], None]) -> Callable:
     version."""
     return lambda path, reason: log_line(
         f"checkpoint fallback: {os.path.basename(path)} rejected ({reason})")
-
-
-def restore_newest(ckpt: Checkpointer, template: Any,
-                   slots: tuple[str, ...],
-                   log_line: Callable[[str], None]) -> tuple[str, Any]:
-    """``(slot, tree)`` of the newest valid version among ``slots``: a
-    torn version falls back to the one before, a slot with none left to
-    the next slot, each logged; raises :class:`CheckpointIntegrityError`
-    when none is restorable."""
-    for name in ckpt.names_by_recency(slots):
-        try:
-            return name, ckpt.restore(template, name, allow_fallback=True,
-                                      on_fallback=fallback_note(log_line))
-        except CheckpointIntegrityError as e:
-            log_line(f"resume: slot {name!r} unusable: {e}")
-    raise CheckpointIntegrityError(
-        f"resume: no restorable version of {slots} in {ckpt.directory}")
 
 
 def resume_position(slot: str, restored: dict, loader,

@@ -27,10 +27,19 @@ as whole leaves in the JAX layout and the storage order (gathered over
 the stage, model and expert groups to the writer, global rank 0), the
 epoch, ``virtual_stages`` (a resume with another count is refused, in
 the JAX trainer's words) and the exact-continuation subtree; every rank
-restores its own slices. Not ported yet, and refused by name:
-``strategy="auto"``, a restore across another mesh split, the emergency
-and "good" slots, elastic restarts, guards, the consistency sentinel,
-recovery, fault injection and the status exporter (A11).
+restores whole leaves and cuts its own slices, so a checkpoint of another
+mesh split restores too (``restore_resharded`` checks the global shapes).
+
+The resilience plane, as the JAX LM trainer wires it: the guards around
+the per-step loss read (``check_finite_every``, ``stall_budget_s``), the
+recovery supervisor's ``"lm-good"`` slot with bounded retries and the LR
+shrink, the step, sync and save fault sites (corruption on one data
+replica, a bitflip on shard 0 of a leaf cut over the model, stage or
+expert axis), the consistency sentinel over the data replicas (the
+copy-rotated bitsum for leaves replicated over the other axes), the
+``"lm-emergency"`` slot and ``elastic`` (the data axis refitted to the
+live world). Not ported yet, and refused by name: ``strategy="auto"`` and
+the status exporter (A11).
 """
 
 from __future__ import annotations
@@ -53,12 +62,15 @@ from distributed_model_parallel_tpu_torch.parallel import spmd_pipeline
 from distributed_model_parallel_tpu_torch.parallel import (
     tensor_parallel as tp,
 )
+from distributed_model_parallel_tpu_torch.train.guards import (
+    NonFiniteError,
+    ReplicaDivergenceError,
+)
 from distributed_model_parallel_tpu_torch.train.checkpoint import (
     Checkpointer,
     build_resume_tree,
     manifest_stamp,
     read_manifest_meta,
-    restore_newest,
     unpack_resume_tree,
 )
 from distributed_model_parallel_tpu_torch.train.logging_util import RunLogger
@@ -72,6 +84,7 @@ from distributed_model_parallel_tpu_torch.train.preemption import (
     checkpoint_on_preempt,
 )
 from distributed_model_parallel_tpu_torch.train.trainer import eval_now
+from distributed_model_parallel_tpu_torch.utils import health
 
 
 def make_token_stream(vocab_size: int, n_tokens: int, seed: int = 0
@@ -139,27 +152,14 @@ class LMTrainConfig:
     device: str = "cuda"
 
 
-# Fields of the planes, refused by name until they are ported.
+# Fields refused by name until they are ported.
 _UNPORTED = (
-    ("emergency_every", lambda c: c.emergency_every != 0,
-     "A11: emergency checkpoints"),
-    ("elastic", lambda c: c.elastic, "A11: elastic restarts"),
-    ("check_finite_every", lambda c: c.check_finite_every != 0,
-     "A11: guards"),
-    ("stall_budget_s", lambda c: c.stall_budget_s is not None,
-     "A11: guards"),
-    ("consistency_every", lambda c: c.consistency_every != 0,
-     "A11: consistency sentinel"),
-    ("recovery.max_retries", lambda c: c.recovery.max_retries > 0,
-     "A11: recovery"),
-    ("recovery.faults", lambda c: bool(c.recovery.faults),
-     "A11: fault injection"),
     ("statusz_port", lambda c: c.statusz_port is not None,
-     "A11: status exporter"),
+     "A11: status exporter (its trainer registry needs autotune)"),
 )
-# Slots a resume reads, and the planes' slots it refuses (A11).
-RESUME_SLOTS = ("lm", "lm-preempt")
-PLANE_SLOTS = ("lm-emergency", "lm-good")
+# Slots a resume reads, newest valid first (the supervisor's good slot the
+# last resort).
+RESUME_SLOTS = ("lm", "lm-preempt", "lm-emergency", "lm-good")
 
 
 def check_lm_config(config: LMTrainConfig) -> None:
@@ -243,13 +243,26 @@ class LMTrainer:
     (``parallel/tensor_parallel.shard_tree``); :meth:`whole_params`
     gathers them back. ``step_log`` holds one record per training step
     (the JAX trainer's per-step telemetry, with the MoE router's stats
-    for an MoE model)."""
+    for an MoE model). With ``elastic`` and no ``spec`` the data axis is
+    refitted to the live world first."""
 
     def __init__(self, config: LMTrainConfig, params: dict | None = None,
                  spec=None):
         from distributed_model_parallel_tpu_torch import mesh as mesh_mod
 
         check_lm_config(config)
+        self.elastic_decision = None
+        if config.elastic and spec is None:
+            from distributed_model_parallel_tpu_torch.train.elastic import (
+                fit_mesh_to_devices,
+                live_device_count,
+            )
+
+            mesh_cfg, self.elastic_decision = fit_mesh_to_devices(
+                config.mesh, live_device_count(),
+                batch_size=config.batch_size)
+            config = dataclasses.replace(config, mesh=mesh_cfg)
+            check_lm_config(config)
         cfg = config.model
         self.config = config
         self.cfg = cfg
@@ -345,18 +358,72 @@ class LMTrainer:
                       model_flops_per_step=lm_model_flops(
                           cfg, config.batch_size, config.seq_len))
         ) if self._writer else None
-        self.ckpt = Checkpointer(config.checkpoint_dir,
-                                 keep=config.recovery.keep_checkpoints,
-                                 meta_fn=self._ckpt_meta)
+        self._build_plane()
         self.start_epoch = 0
         # The exact-continuation position: the next (epoch, step) the loop
         # samples; batches are stateless in (seed, epoch, step).
         self._pos_epoch = 0
         self._pos_step = 0
         self._global_step = 0
-        if config.resume and any(self.ckpt.exists(n)
-                                 for n in RESUME_SLOTS + PLANE_SLOTS):
+        if (self.elastic_decision is not None
+                and self.elastic_decision.changed):
+            self._log_line(self.elastic_decision.describe())
+        if config.resume and any(self.ckpt.exists(n) for n in RESUME_SLOTS):
             self._resume()
+
+    def _build_plane(self) -> None:
+        """The resilience plane (JAX ``lm_trainer.py:292-340``). Rank 0
+        writes; every rank runs the policy."""
+        from distributed_model_parallel_tpu_torch.train.consistency import (
+            ConsistencySentinel,
+        )
+        from distributed_model_parallel_tpu_torch.train.elastic import (
+            EmergencyCheckpointer,
+        )
+        from distributed_model_parallel_tpu_torch.train.guards import (
+            GuardRunner,
+        )
+        from distributed_model_parallel_tpu_torch.train.logging_util import (
+            NullLogger,
+        )
+        from distributed_model_parallel_tpu_torch.train.resilience import (
+            RecoverySupervisor,
+        )
+        from distributed_model_parallel_tpu_torch.utils.faults import (
+            FaultInjector,
+            validate_corruption_plan,
+        )
+
+        config, spec = self.config, self.spec
+        plane_log = self.logger if self.logger is not None else NullLogger()
+        self.faults = FaultInjector(config.recovery.faults)
+        validate_corruption_plan(self.faults.plan, spec.num_data,
+                                 context=f"dp={spec.num_data}")
+        self._device_ids = (spec.rank,)
+        self.ckpt = Checkpointer(config.checkpoint_dir,
+                                 keep=config.recovery.keep_checkpoints,
+                                 meta_fn=self._ckpt_meta,
+                                 injector=self.faults)
+        self.resilience = RecoverySupervisor(
+            config.recovery, logger=plane_log, ckpt=self.ckpt,
+            preemption=self.preemption, slot="lm-good", injector=self.faults,
+            check_finite_every=config.check_finite_every,
+            consistency_every=config.consistency_every,
+            device_ids=self._device_ids, writer=self._writer,
+            barrier=self._barrier)
+        self.guards = GuardRunner(
+            check_finite_every=config.check_finite_every,
+            stall_budget_s=config.stall_budget_s, logger=plane_log,
+            watchdog_interval_s=config.recovery.watchdog_interval_s,
+            on_stall=self.resilience.on_stall, injector=self.faults,
+            device_ids=self._device_ids)
+        self.sentinel = ConsistencySentinel(
+            config.consistency_every, spec, logger=plane_log,
+            guards=self.guards,
+            barrier_timeout_s=config.recovery.barrier_timeout_s)
+        self.emergency = EmergencyCheckpointer(
+            self.ckpt, "lm-emergency", config.emergency_every,
+            logger=plane_log, writer=self._writer, barrier=self._barrier)
 
     @property
     def global_step(self) -> int:
@@ -434,15 +501,135 @@ class LMTrainer:
     def train_step(self, toks: np.ndarray, tgts: np.ndarray) -> float:
         """One update on a global host batch; returns the loss (the mean
         over every token) read back to the host, after the card has
-        finished the step."""
+        finished the step. The step site's faults are served between the
+        step and the read, and the read is the guarded sync point."""
         step_m = self._step(self.params, *self._shard(toks, tgts))
-        self.last_step_metrics = {k: float(v) for k, v in step_m.items()}
+        if self.faults.enabled:
+            step_m = self._poll_step_faults(step_m)
+        with self.guards.watch():
+            self.last_step_metrics = {k: float(v) for k, v in step_m.items()}
+            if self.device.type == "cuda":
+                # The JAX loop's float(loss) sync ends the step there;
+                # here the optimizer's kernels run after the loss.
+                torch.cuda.synchronize(self.device)
         loss = self.last_step_metrics["loss"]
-        if self.device.type == "cuda":
-            # The JAX loop's float(loss) sync ends the step there; here
-            # the optimizer's kernels run after the loss, so wait for them.
-            torch.cuda.synchronize(self.device)
+        if self.guards.enabled:
+            self.guards.after_sync({"loss": loss}, 1, params=self.leaves)
+        if self.sentinel.enabled:
+            self.sentinel.after_sync(1, self._sentinel_leaves)
         return loss
+
+    # -------------------------------------------------- the plane's hooks
+    def _poll_step_faults(self, step_m: dict) -> dict:
+        """Serve the step site's planned faults: poison this step's
+        metrics or the parameters (in place), corrupt one data replica's
+        parameters, or request a preemption."""
+        from distributed_model_parallel_tpu_torch.utils.faults import (
+            CORRUPTION_KINDS,
+            corrupt_one_replica,
+            poison,
+        )
+
+        for spec in self.faults.poll("step"):
+            if spec.kind == "preempt":
+                self.preemption.request()
+            elif spec.kind == "nan_loss":
+                step_m = {k: (poison(v) if isinstance(v, torch.Tensor)
+                              else float("nan")) for k, v in step_m.items()}
+            elif spec.kind == "nan_params":
+                poison(self.leaves)
+            elif spec.kind in CORRUPTION_KINDS:
+                order = self._jax_order()
+                corrupt_one_replica(
+                    [self.leaves[i] for i in order], self.spec.num_data,
+                    self.spec.data_index, spec.kind, spec.param,
+                    shard_index=[self._shard_index(self._cuts[i])
+                                 for i in order])
+        return step_m
+
+    def _jax_order(self) -> list:
+        """Leaf indices in the JAX tree's order (dict keys sorted)."""
+        return sorted(range(len(self._paths)),
+                      key=lambda i: [str(k) for k in self._paths[i]])
+
+    def _axis_index(self, axis: str) -> int:
+        return {"stage": self.spec.stage_index,
+                "model": self.spec.model_index,
+                "seq": self.spec.seq_index,
+                "expert": self.spec.expert_index}[axis]
+
+    def _shard_index(self, cuts: tuple) -> int:
+        """This rank's row-major index over the axes ``cuts`` cut along."""
+        idx = 0
+        for axis, _ in cuts:
+            idx = idx * tp.axis_size(self.spec, axis) + self._axis_index(axis)
+        return idx
+
+    def _copy_index(self, cuts: tuple) -> int:
+        """This rank's row-major index over the non-data axes the leaf is
+        NOT cut along (stage, model, seq, expert order): the rotation of
+        its bitsum in the sentinel's fingerprint."""
+        cut = {axis for axis, _ in cuts}
+        idx = 0
+        for axis, n in (("stage", self.spec.num_stages),
+                        ("model", self.spec.num_model),
+                        ("seq", self.spec.num_seq),
+                        ("expert", self.spec.num_expert)):
+            if axis not in cut:
+                idx = idx * n + self._axis_index(axis)
+        return idx
+
+    def _sentinel_leaves(self) -> list:
+        """The parameters and optimizer state, in the JAX tree's order,
+        each with its copy index."""
+        from distributed_model_parallel_tpu_torch.train.consistency import (
+            StateLeaf,
+        )
+
+        order = self._jax_order()
+        label = lambda path: "".join(f"[{k!r}]" for k in path)
+        out = [StateLeaf(f"['params']{label(self._paths[i])}",
+                         self.leaves[i],
+                         copy_index=self._copy_index(self._cuts[i]))
+               for i in order]
+        opt = self.optimizer
+        for i in order:
+            m = opt.momentum_buffer(i)
+            if m is not None:
+                out.append(StateLeaf(
+                    f"['opt_state']['momentum']{label(self._paths[i])}", m,
+                    copy_index=self._copy_index(self._cuts[i])))
+        for name, tensors in sorted(opt.leaf_state().items()):
+            cuts = self._state_cuts(name)
+            out += [StateLeaf(
+                f"['opt_state'][{name!r}]{label(self._paths[i])}",
+                tensors[i], copy_index=self._copy_index(cuts[i]))
+                for i in order if tensors[i] is not None]
+        return out
+
+    def _restore_good(self) -> None:
+        """Recovery restore of the "lm-good" slot into this rank's slices
+        in place; the position rides along, budgets stay live."""
+        restored = self.ckpt.restore(
+            self._ckpt_tree(template=True), self.resilience.slot,
+            allow_fallback=True, on_fallback=self.resilience.note_fallback)
+        self._load_tree(restored)
+        (self._pos_epoch, self._pos_step, self._global_step,
+         _, _) = unpack_resume_tree(restored["resume"])
+
+    def _apply_lr_shrink(self, factor: float) -> None:
+        """Recovery-time LR shrink: the optimizer's schedule rebuilt from
+        the configured LR times ``factor`` (its state carries over)."""
+        from distributed_model_parallel_tpu_torch.train.optim import (
+            update_schedule,
+        )
+
+        opt = dataclasses.replace(
+            self.config.optimizer,
+            learning_rate=self.config.optimizer.learning_rate * factor)
+        self.config = dataclasses.replace(self.config, optimizer=opt)
+        self.optimizer.schedule = update_schedule(
+            opt, self.config.steps_per_epoch, self.config.epochs)
 
     def _train_one_epoch(self, epoch: int, epochs: int) -> dict | None:
         """One training epoch + eval: the history record, or None when a
@@ -469,11 +656,18 @@ class LMTrainer:
             self._pos_step = step_i + 1
             self._global_step += 1
             timer.step_done()
+            health.observe_step_warmed(self, self._device_ids,
+                                       timer.step.last, 1)
             self.step_log.append(dict(
                 epoch=epoch, step=step_i, loss=loss,
                 step_time_s=timer.step.last, data_time_s=timer.data.last,
                 tokens_per_s=tokens_per_step / max(timer.step.last, 1e-9),
                 **moe))
+            self.emergency.after_step(1, self._ckpt_tree)
+        if self.sentinel.enabled:
+            # The tail steps the cadence missed, before the epoch is
+            # declared clean (or a preemption save is written).
+            self.sentinel.flush(self._sentinel_leaves)
         if self.preemption.requested():
             # Partial epoch: save for resume at this epoch and stop.
             self.start_epoch = epoch
@@ -509,9 +703,22 @@ class LMTrainer:
         epochs = epochs if epochs is not None else self.config.epochs
         history = []
         with self.preemption.installed():
+            self.resilience.begin(self._ckpt_tree)
             epoch = self.start_epoch
             while epoch < epochs:
-                record = self._train_one_epoch(epoch, epochs)
+                try:
+                    record = self._train_one_epoch(epoch, epochs)
+                except NonFiniteError as e:
+                    if self.resilience.recover_nonfinite(
+                            e, epoch=epoch, restore=self._restore_good,
+                            shrink_lr=self._apply_lr_shrink):
+                        continue        # state restored: redo the epoch
+                    raise
+                except ReplicaDivergenceError as e:
+                    if self.resilience.recover_divergence(
+                            e, epoch=epoch, restore=self._restore_good):
+                        continue
+                    raise
                 if record is None:
                     break
                 if self.logger is not None:
@@ -522,6 +729,8 @@ class LMTrainer:
                 if self._writer:
                     self.ckpt.save(tree, "lm")
                 self._barrier()
+                # A checked epoch: the recovery restore point.
+                self.resilience.note_good(self._ckpt_tree)
                 epoch += 1
         if self.logger is not None:
             self.logger.finish(epochs_run=len(history))
@@ -649,7 +858,7 @@ class LMTrainer:
                 "resume": build_resume_tree(
                     self._pos_epoch, self._pos_step,
                     self.config.steps_per_epoch, self._global_step,
-                    {"retries_left": 0, "lr_scale": 1.0})}
+                    self.resilience.budgets())}
 
     def _slice(self, a: np.ndarray, like: torch.Tensor,
                cuts: tuple) -> torch.Tensor:
@@ -676,44 +885,53 @@ class LMTrainer:
                 for t, path, cuts in zip(tensors, self._paths,
                                          self._state_cuts(name))]
         opt.load_state(counters, parts)
-        if "momentum" in state and counters["count"] > 0:
+        if "momentum" in state:
+            # A checkpoint of no update yet creates no trace, but
+            # overwrites one made since (a recovery restore).
             for i, (p, path, cuts) in enumerate(zip(
                     self.leaves, self._paths, self._cuts)):
-                opt.set_momentum_buffer(i, self._slice(
-                    _at(state["momentum"], path), p, cuts))
+                if counters["count"] > 0 or opt.momentum_buffer(i) is not None:
+                    opt.set_momentum_buffer(i, self._slice(
+                        _at(state["momentum"], path), p, cuts))
 
     def _resume(self) -> None:
         """Restore the newest valid of ``RESUME_SLOTS`` on every rank (each
-        reads the file and keeps its slices) and continue where it was
-        saved. A checkpoint written on another mesh split is refused."""
-        newest = self.ckpt.newest_name(RESUME_SLOTS + PLANE_SLOTS)
-        if newest in PLANE_SLOTS:
-            raise ValueError(
-                f"resume: the newest checkpoint is slot {newest!r}, which "
-                f"the emergency/recovery planes write; restoring from it "
-                f"is not ported yet (ROADMAP A11: emergency checkpoints)")
+        reads whole leaves and keeps its slices, whatever mesh split wrote
+        them; ``restore_resharded`` checks the global shapes) and
+        continue where it was saved, with the saving run's budgets."""
+        from distributed_model_parallel_tpu_torch.train.elastic import (
+            elastic_restore,
+        )
+
+        newest = self.ckpt.newest_name(RESUME_SLOTS)
         # The newest version's stamp says its storage order before the
-        # gathers and the read of a whole restore.
+        # read of a whole restore.
         stamped = read_manifest_meta(self.ckpt._latest_path(newest)).get(
             "virtual_stages")
         if stamped is not None:
             self._check_virtual_stages(int(stamped))
-        name, restored = restore_newest(self.ckpt,
-                                        self._ckpt_tree(template=True),
-                                        RESUME_SLOTS, self._log_line)
-        saved = read_manifest_meta(self.ckpt.last_restored_path).get("mesh")
-        current = self._ckpt_meta()["mesh"]
-        if saved is not None and saved != current:
-            raise ValueError(
-                f"resume: slot {name!r} was written on mesh {saved}, this "
-                f"run's mesh is {current}; a restore onto another split is "
-                f"not ported yet (ROADMAP A11: resharded restore)")
+        name, restored = elastic_restore(
+            self.ckpt, (self._ckpt_tree(template=True),), RESUME_SLOTS,
+            on_fallback=self.resilience.note_fallback)
         self._check_virtual_stages(int(restored["virtual_stages"]))
         self._load_tree(restored)
         self.start_epoch = int(restored["epoch"])
         (self._pos_epoch, self._pos_step, self._global_step,
-         _, _) = unpack_resume_tree(restored["resume"])
+         retries, lr_scale) = unpack_resume_tree(restored["resume"])
+        self.resilience.restore_budgets(retries, lr_scale)
+        if lr_scale != 1.0:
+            self._apply_lr_shrink(lr_scale)
         self.start_epoch = max(self.start_epoch, self._pos_epoch)
+        saved = read_manifest_meta(self.ckpt.last_restored_path).get("mesh")
+        current = self._ckpt_meta()["mesh"]
+        resharded = saved is not None and saved != current
+        if self.logger is not None:
+            self.logger.telemetry.resume(
+                slot=name, epoch=self.start_epoch,
+                loader_epoch=self._pos_epoch, batch_cursor=self._pos_step,
+                global_step=self._global_step, mesh=current,
+                **({"saved_mesh": saved} if resharded else {}))
         self._log_line(
             f"resume: slot {name!r} -> epoch {self.start_epoch} "
-            f"step {self._pos_step} (global step {self._global_step})")
+            f"step {self._pos_step} (global step {self._global_step})"
+            + (f", resharded from mesh {saved}" if resharded else ""))

@@ -6,11 +6,12 @@ character the JAX ``RunLogger``'s, and plain JSON records in
 ``run_end``, one object a line with a ``kind`` key.
 
 The JAX package's ``.jsonl`` is the typed telemetry stream of
-``utils/telemetry.py`` (spans, memory watermarks, failure/recovery
-records) that its report script renders; that stream is not ported yet
-(ROADMAP A11): these records carry the same keys for ``epoch`` and
-``step`` and no more. Echoed lines go to standard error: standard output
-carries the CLIs' JSON records.
+``utils/telemetry.py``; here ``RunLogger.telemetry`` writes the records
+the resilience plane emits into the same file — ``failure``,
+``recovery``, ``consistency``, ``resume``, ``fault`` and ``event``, with
+the JAX records' keys (spans and memory watermarks are not written).
+Echoed lines go to standard error: standard output carries the CLIs'
+JSON records.
 """
 
 from __future__ import annotations
@@ -27,6 +28,48 @@ def _plain(v: Any) -> Any:
     return v.item() if hasattr(v, "item") else v
 
 
+class RunStream:
+    """The typed records of a run, appended to its logger's ``.jsonl``:
+    the subset of ``utils/telemetry.TelemetryRun``'s methods the trainers'
+    resilience plane calls."""
+
+    def __init__(self, logger: "RunLogger"):
+        self._logger = logger
+        self.jsonl_path = logger.jsonl_path
+
+    def record(self, kind: str, **fields: Any) -> None:
+        self._logger._record(kind, **fields)
+
+    def event(self, message: str) -> None:
+        self.record("event", message=message)
+
+    def failure(self, error: str, **fields: Any) -> None:
+        self.record("failure", error=error, **fields)
+
+    def recovery(self, action: str, **fields: Any) -> None:
+        self.record("recovery", action=action, **fields)
+
+    def consistency(self, status: str, **fields: Any) -> None:
+        self.record("consistency", status=status, **fields)
+
+    def resume(self, slot: str, **fields: Any) -> None:
+        self.record("resume", slot=slot, **fields)
+
+
+class NullLogger:
+    """The logger of a rank that does not write (rank 0 writes): every
+    line and record is dropped, so the plane's code runs the same on
+    every rank."""
+
+    jsonl_path = None
+
+    def __init__(self):
+        self.telemetry = self
+
+    def __getattr__(self, name: str):
+        return lambda *a, **k: None
+
+
 class RunLogger:
     def __init__(self, log_dir: str, name: str, *, echo: bool = True,
                  meta: Mapping[str, Any] | None = None):
@@ -35,6 +78,7 @@ class RunLogger:
         self.jsonl_path = os.path.join(log_dir, f"{name}.jsonl")
         self.echo = echo
         self.run = name
+        self.telemetry = RunStream(self)
         self._record("run_start", meta=dict(meta or {}))
 
     def _record(self, kind: str, **fields: Any) -> None:

@@ -24,14 +24,20 @@ in the JAX layout and each chunk's momentum — to the ``"pipeline"`` slot
 whenever eval top-1 improves and to ``"pipeline-preempt"`` when a
 preemption (SIGTERM/SIGINT or ``preemption.request()``, polled at every
 train-step boundary right after ``step_hook(self)``) stops ``fit``;
-``resume=True`` restores the newest valid of the two into the chunks'
-tensors in place and continues mid-epoch at the saved step.
+``resume=True`` restores the newest valid of :data:`RESUME_SLOTS` into
+the chunks' tensors in place and continues mid-epoch at the saved step.
 
-Not ported yet, and refused by name where a config field asks for them
-(ROADMAP A11): fault injection, recovery, the guards, the consistency
-sentinel, emergency checkpoints, elastic restarts, the status exporter
-and ``strategy="auto"``; ``ema_decay`` is refused as the JAX trainer
-refuses it.
+The resilience plane, as the JAX pipeline trainer wires it: the guards
+around every drain (``check_finite_every``, ``stall_budget_s``), the
+recovery supervisor's ``"pipeline-good"`` slot with bounded retries and
+the LR shrink (each chunk's schedule rebuilt), the step, sync and save
+fault sites, the ``"pipeline-emergency"`` slot, and a finiteness-only
+consistency sentinel: one controller holds one copy of every stage, so
+there is no replica to compare with. Corruption faults are refused.
+
+Not ported yet, and refused by name: the status exporter and
+``strategy="auto"``; ``ema_decay`` is refused as the JAX trainer refuses
+it.
 """
 
 from __future__ import annotations
@@ -64,13 +70,18 @@ from distributed_model_parallel_tpu_torch.parallel.pipeline import (
 from distributed_model_parallel_tpu_torch.train.checkpoint import (
     Checkpointer,
     manifest_stamp,
-    restore_newest,
     resume_position,
     resume_subtree,
+    unpack_resume_tree,
+)
+from distributed_model_parallel_tpu_torch.train.guards import (
+    NonFiniteError,
+    ReplicaDivergenceError,
 )
 from distributed_model_parallel_tpu_torch.train.logging_util import (
     RunLogger,
 )
+from distributed_model_parallel_tpu_torch.train.optim import update_schedule
 from distributed_model_parallel_tpu_torch.train.metrics import AverageMeter
 from distributed_model_parallel_tpu_torch.train.preemption import (
     PreemptionGuard,
@@ -88,8 +99,10 @@ from distributed_model_parallel_tpu_torch.train.trainer import (
     optimizer_state_tree,
 )
 
-# Slots a resume considers, newest valid first.
-RESUME_SLOTS = ("pipeline", "pipeline-preempt")
+# Slots a resume considers, newest valid first (the supervisor's good slot
+# the last resort).
+RESUME_SLOTS = ("pipeline", "pipeline-preempt", "pipeline-emergency",
+                "pipeline-good")
 
 
 def check_pipeline_config(config: TrainConfig) -> None:
@@ -204,11 +217,60 @@ class PipelineTrainer:
                       n_stages=len(self.devices),
                       num_microbatches=config.num_microbatches,
                       pipeline_schedule=config.pipeline_schedule))
-        self.ckpt = Checkpointer(config.checkpoint_dir,
-                                 keep=config.recovery.keep_checkpoints,
-                                 meta_fn=self._ckpt_meta)
+        self._build_plane()
         if config.resume and any(self.ckpt.exists(n) for n in RESUME_SLOTS):
             self._resume()
+
+    def _build_plane(self) -> None:
+        """The resilience plane (JAX ``pipeline_trainer.py:156-200``)."""
+        from distributed_model_parallel_tpu_torch.train.consistency import (
+            ConsistencySentinel,
+        )
+        from distributed_model_parallel_tpu_torch.train.elastic import (
+            EmergencyCheckpointer,
+        )
+        from distributed_model_parallel_tpu_torch.train.guards import (
+            GuardRunner,
+        )
+        from distributed_model_parallel_tpu_torch.train.resilience import (
+            RecoverySupervisor,
+        )
+        from distributed_model_parallel_tpu_torch.utils.faults import (
+            FaultInjector,
+            validate_corruption_plan,
+        )
+
+        config = self.config
+        self.faults = FaultInjector(config.recovery.faults)
+        validate_corruption_plan(
+            self.faults.plan, 1,
+            context="the single-controller pipeline (one copy per stage)")
+        self.ckpt = Checkpointer(config.checkpoint_dir,
+                                 keep=config.recovery.keep_checkpoints,
+                                 meta_fn=self._ckpt_meta,
+                                 injector=self.faults)
+        self._device_ids = tuple(range(len(self.devices)))
+        self.resilience = RecoverySupervisor(
+            config.recovery, logger=self.logger, ckpt=self.ckpt,
+            preemption=self.preemption, slot="pipeline-good",
+            injector=self.faults,
+            check_finite_every=config.check_finite_every,
+            consistency_every=config.consistency_every,
+            device_ids=self._device_ids)
+        self.guards = GuardRunner(
+            check_finite_every=config.check_finite_every,
+            stall_budget_s=config.stall_budget_s, logger=self.logger,
+            watchdog_interval_s=config.recovery.watchdog_interval_s,
+            on_stall=self.resilience.on_stall, injector=self.faults,
+            device_ids=self._device_ids)
+        # One copy of every stage: finiteness only.
+        self.sentinel = ConsistencySentinel(
+            config.consistency_every, None, logger=self.logger,
+            guards=self.guards,
+            barrier_timeout_s=config.recovery.barrier_timeout_s)
+        self.emergency = EmergencyCheckpointer(
+            self.ckpt, "pipeline-emergency", config.emergency_every,
+            logger=self.logger)
 
     # -- checkpointing -------------------------------------------------------
     def _ckpt_meta(self) -> dict:
@@ -233,7 +295,8 @@ class PipelineTrainer:
                 "best_acc": np.asarray(self.best_acc, np.float32),
                 "epoch": np.asarray(self.start_epoch, np.int32),
                 "resume": resume_subtree(self.train_loader, self._loader_pos,
-                                         self.global_step)}
+                                         self.global_step,
+                                         self.resilience.budgets())}
         opt_state = optimizer_state_tree(self.runner.model,
                                          self._optimizers())
         if opt_state:
@@ -255,15 +318,97 @@ class PipelineTrainer:
                       tree["momentum"])
 
     def _resume(self) -> None:
-        """Restore the newest valid of ``RESUME_SLOTS`` and continue where
-        it was saved."""
-        name, restored = restore_newest(self.ckpt, self._ckpt_tree(),
-                                        RESUME_SLOTS, self.logger.log_line)
+        """Restore the newest valid of ``RESUME_SLOTS`` (torn versions and
+        slots fall back) and continue where it was saved, with the saving
+        run's recovery budgets."""
+        from distributed_model_parallel_tpu_torch.train.elastic import (
+            elastic_restore,
+        )
+
+        name, restored = elastic_restore(
+            self.ckpt, (self._ckpt_tree(),), RESUME_SLOTS,
+            on_fallback=self.resilience.note_fallback)
         self._load_tree(restored)
         self.best_acc = float(restored["best_acc"])
         self.start_epoch, self.global_step = resume_position(
             name, restored, self.train_loader, self.logger.log_line)
         self._loader_pos = (self.train_loader.epoch, self.train_loader.cursor)
+        _, _, _, retries, lr_scale = unpack_resume_tree(restored["resume"])
+        self.resilience.restore_budgets(retries, lr_scale)
+        if lr_scale != 1.0:
+            self._apply_lr_shrink(lr_scale)
+        self.logger.telemetry.resume(
+            slot=name, epoch=self.start_epoch,
+            loader_epoch=self.train_loader.epoch,
+            batch_cursor=self.train_loader.cursor,
+            global_step=self.global_step, mesh=self._ckpt_meta()["mesh"])
+
+    # -- the resilience plane's hooks -------------------------------------
+    def _restore_good(self) -> None:
+        """Recovery restore of the "pipeline-good" slot into the chunks'
+        tensors in place; the position rides along, budgets stay live."""
+        restored = self.ckpt.restore(
+            self._ckpt_tree(), self.resilience.slot, allow_fallback=True,
+            on_fallback=self.resilience.note_fallback)
+        self._load_tree(restored)
+        self.best_acc = float(restored["best_acc"])
+        ep, cur, gs, _, _ = unpack_resume_tree(restored["resume"])
+        self.train_loader.load_state_dict({"epoch": ep, "batch_cursor": cur})
+        self._loader_pos = (self.train_loader.epoch, self.train_loader.cursor)
+        self.global_step = gs
+
+    def _apply_lr_shrink(self, factor: float) -> None:
+        """Recovery-time LR shrink: every chunk's schedule rebuilt from the
+        configured LR times ``factor``."""
+        import dataclasses
+
+        opt = self.config.optimizer
+        opt = dataclasses.replace(opt,
+                                  learning_rate=opt.learning_rate * factor)
+        self.config = self.config.replace(optimizer=opt)
+        for st in self.runner.stages:
+            st.optimizer.schedule = update_schedule(
+                opt, len(self.train_loader), self.config.epochs)
+
+    def _params(self) -> list:
+        return list(self.runner.model.parameters())
+
+    def _poll_step_faults(self, pending: list) -> None:
+        """Serve the step site's planned faults: poison the last queued
+        metrics or the chunks' parameters (in place), or request a
+        preemption."""
+        from distributed_model_parallel_tpu_torch.utils.faults import poison
+
+        for spec in self.faults.poll("step"):
+            if spec.kind == "preempt":
+                self.preemption.request()
+            elif spec.kind == "nan_loss" and pending:
+                poison(pending[-1][0])
+            elif spec.kind == "nan_params":
+                poison(self._params())
+
+    def _sentinel_leaves(self) -> list:
+        """The chunks' parameters, BN statistics and optimizer state (the
+        finiteness fingerprint)."""
+        from distributed_model_parallel_tpu_torch.models.staged import (
+            model_leaves,
+        )
+        from distributed_model_parallel_tpu_torch.train.consistency import (
+            StateLeaf,
+        )
+
+        model = self.runner.model
+        out = [StateLeaf(f"['params'][{i}]", p)
+               for i, p in enumerate(self._params())]
+        out += [StateLeaf(f"['batch_stats'][{i}]",
+                          getattr(leaf.module, leaf.attr))
+                for i, leaf in enumerate(model_leaves(model, state=True))]
+        for c, opt in enumerate(self._optimizers()):
+            for i in range(len(opt.params)):
+                m = opt.momentum_buffer(i)
+                if m is not None:
+                    out.append(StateLeaf(f"['momentum'][{c}][{i}]", m))
+        return out
 
     def _run_epoch(self, epoch: int, train: bool) -> EpochResult:
         meters = {k: AverageMeter(k) for k in ("loss", "acc1", "acc5")}
@@ -283,9 +428,19 @@ class PipelineTrainer:
             meters["acc5"].update(m["correct@5"] / b * 100, int(b))
 
         def drain():
-            for mm, b in pending:
-                update(self.runner.finalize_metrics(mm, b), b)
+            # The blocking read is the sync point: guarded.
+            with self.guards.watch():
+                finalized = [(self.runner.finalize_metrics(mm, b), b)
+                             for mm, b in pending]
             pending.clear()
+            if self.guards.enabled and finalized:
+                self.guards.after_sync([m for m, _ in finalized],
+                                       len(finalized), params=self._params())
+            if train and self.sentinel.enabled and finalized:
+                self.sentinel.after_sync(len(finalized),
+                                         self._sentinel_leaves)
+            for m, b in finalized:
+                update(m, b)
 
         max_inflight = max(1, self.config.max_inflight_steps)
         t_epoch = time.perf_counter()
@@ -310,15 +465,24 @@ class PipelineTrainer:
                     gen, images, labels), float(labels.shape[0])))
                 self.global_step += 1
                 self._loader_pos = (epoch, gi + 1)
+                if self.faults.enabled:
+                    self._poll_step_faults(pending)
                 log_now = gi % self.config.log_every_n_steps == 0
                 if log_now or len(pending) >= max_inflight:
                     drain()
+                self.emergency.after_step(1, self._ckpt_tree)
                 if log_now:
                     now = time.perf_counter()
                     d_steps = max(1, n_steps - win_steps)
                     step_s = max(0.0, now - win_wall
                                  - (data_s - win_data)) / d_steps
                     win_wall, win_data, win_steps = now, data_s, n_steps
+                    from distributed_model_parallel_tpu_torch.utils import (
+                        health,
+                    )
+
+                    health.observe_step_warmed(self, self._device_ids,
+                                               step_s, d_steps)
                     rec = dict(loss=meters["loss"].avg,
                                acc1=meters["acc1"].avg, step_time_s=step_s,
                                data_time_s=last_data_s,
@@ -331,6 +495,8 @@ class PipelineTrainer:
                 update(m, m["batch"])
             t_mark = time.perf_counter()
         drain()
+        if train and self.sentinel.enabled:
+            self.sentinel.flush(self._sentinel_leaves)
         wall = time.perf_counter() - t_epoch
         return EpochResult(meters["loss"].avg, meters["acc1"].avg,
                            meters["acc5"].avg,
@@ -351,9 +517,22 @@ class PipelineTrainer:
         epochs = epochs if epochs is not None else self.config.epochs
         history = []
         with self.preemption.installed():
+            self.resilience.begin(self._ckpt_tree)
             epoch = self.start_epoch
             while epoch < epochs:
-                tr = self._run_epoch(epoch, train=True)
+                try:
+                    tr = self._run_epoch(epoch, train=True)
+                except NonFiniteError as e:
+                    if self.resilience.recover_nonfinite(
+                            e, epoch=epoch, restore=self._restore_good,
+                            shrink_lr=self._apply_lr_shrink):
+                        continue        # state restored: redo the epoch
+                    raise
+                except ReplicaDivergenceError as e:
+                    if self.resilience.recover_divergence(
+                            e, epoch=epoch, restore=self._restore_good):
+                        continue
+                    raise
                 if self.preemption.requested():
                     # Resume redoes the rest of this epoch.
                     self.start_epoch = epoch
@@ -378,6 +557,8 @@ class PipelineTrainer:
                     self.start_epoch = epoch + 1
                     self.ckpt.save(self._ckpt_tree(), "pipeline",
                                    wait=not self.config.async_checkpoint)
+                # A checked epoch: the recovery restore point.
+                self.resilience.note_good(self._ckpt_tree)
                 epoch += 1
         self.ckpt.wait_until_finished()
         self.logger.finish(epochs_run=len(history))

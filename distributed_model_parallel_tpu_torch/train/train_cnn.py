@@ -63,8 +63,11 @@ under the data root, the synthetic stand-in of their class count when
 absent); ``--image-size`` other than the data's resizes every batch on
 the device (224: the reference's finetune recipe); ``--prefetch`` and
 ``--device-prefetch`` set the host-thread and side-stream upload depths;
-``--use-native`` gathers batches with the C++ row gather. The recovery
-plane is not ported yet and is refused.
+``--use-native`` gathers batches with the C++ row gather. The resilience
+flags are the JAX script's: ``--check-finite-every``, ``--stall-budget``,
+``--consistency-every``, ``--barrier-timeout``, ``--recovery-retries``,
+``--recovery-lr-shrink``, ``--stall-exit``, ``--inject-faults PLAN``,
+``--emergency-every`` and ``--elastic`` (``train/resilience.py``).
 """
 
 from __future__ import annotations
@@ -76,14 +79,6 @@ import os
 import torch
 
 from distributed_model_parallel_tpu_torch.models.zoo import ZOO_BUILDERS
-
-# flag -> (value that is refused, ROADMAP item), for what is not ported.
-_REFUSED = {
-    "emergency_every": (lambda v: v != 0, "A11: resilience hooks"),
-    "elastic": (bool, "A11: resilience hooks"),
-    "check_finite_every": (lambda v: v != 0, "A11: resilience hooks"),
-    "inject_faults": (lambda v: v is not None, "A11: resilience hooks"),
-}
 
 
 def parse_args(argv=None):
@@ -166,11 +161,11 @@ def parse_args(argv=None):
                         "boundary; must divide --nproc. Lays the ranks out "
                         "host-major (--allreduce hierarchical reduces over "
                         "the two levels)")
-    # Accepted so they can be refused by name (not ported yet).
-    p.add_argument("--emergency-every", default=0, type=int)
-    p.add_argument("--check-finite-every", default=0, type=int)
-    p.add_argument("--elastic", action="store_true")
-    p.add_argument("--inject-faults", default=None)
+    from distributed_model_parallel_tpu_torch.train.resilience import (
+        add_cli_flags,
+    )
+
+    add_cli_flags(p)
     return p.parse_args(argv)
 
 
@@ -181,6 +176,9 @@ def _config(args, world: int):
         ModelConfig,
         OptimizerConfig,
         TrainConfig,
+    )
+    from distributed_model_parallel_tpu_torch.train.resilience import (
+        config_fields,
     )
 
     on_cpu = torch.device(args.device).type == "cpu"
@@ -211,7 +209,8 @@ def _config(args, world: int):
         log_name=args.log_name or f"data_para_{args.batch_size}",
         checkpoint_dir=args.checkpoint_dir,
         device_resident_data=args.device_data,
-        steps_per_dispatch=args.steps_per_dispatch, device=args.device)
+        steps_per_dispatch=args.steps_per_dispatch, device=args.device,
+        **config_fields(args))
 
 
 def _mesh(args, world: int):
@@ -231,11 +230,6 @@ def _fit(spec, args) -> list[dict]:
 
 def main(argv=None):
     args = parse_args(argv)
-    refused = [f"--{k.replace('_', '-')} (ROADMAP {item})"
-               for k, (bad, item) in _REFUSED.items()
-               if bad(getattr(args, k))]
-    if refused:
-        raise SystemExit(f"not ported yet: {', '.join(refused)}")
     from distributed_model_parallel_tpu_torch import mesh
 
     check = _config(args, args.nproc)

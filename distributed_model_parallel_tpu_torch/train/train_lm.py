@@ -23,7 +23,8 @@ set the pipeline's schedule, with the JAX script's checks. The mesh's
 ``file://`` store; rank r on ``cuda:r`` over NCCL, ``--backend gloo`` to
 share cards, gloo on the CPU), or come from torchrun's environment. Rank
 0 prints one JSON record per epoch and writes the run log and the
-checkpoints. The recovery plane's flags are refused by name.
+checkpoints. The resilience flags are the JAX script's
+(``train/resilience.add_cli_flags``).
 """
 
 from __future__ import annotations
@@ -33,16 +34,6 @@ import json
 import os
 
 import torch
-
-# flag -> (value that is refused, ROADMAP item), for what is not ported.
-_REFUSED = {
-    "emergency_every": (lambda v: v != 0, "A11: emergency checkpoints"),
-    "elastic": (bool, "A11: elastic restarts"),
-    "check_finite_every": (lambda v: v != 0, "A11: guards"),
-    "consistency_every": (lambda v: v != 0, "A11: consistency sentinel"),
-    "recovery_retries": (lambda v: v != 0, "A11: recovery"),
-    "inject_faults": (lambda v: v is not None, "A11: fault injection"),
-}
 
 
 def parse_args(argv=None):
@@ -98,13 +89,11 @@ def parse_args(argv=None):
     p.add_argument("--log-name", default="lm")
     p.add_argument("--checkpoint-dir", default="./checkpoint")
     p.add_argument("--backend", default=None, choices=("nccl", "gloo"))
-    # Accepted so they can be refused by name (not ported yet).
-    for flag in ("--emergency-every",
-                 "--check-finite-every", "--consistency-every",
-                 "--recovery-retries"):
-        p.add_argument(flag, type=int, default=0)
-    p.add_argument("--elastic", action="store_true")
-    p.add_argument("--inject-faults", default=None)
+    from distributed_model_parallel_tpu_torch.train.resilience import (
+        add_cli_flags,
+    )
+
+    add_cli_flags(p)
     return p.parse_args(argv)
 
 
@@ -120,6 +109,9 @@ def build_config(args):
     )
     from distributed_model_parallel_tpu_torch.train.lm_trainer import (
         LMTrainConfig,
+    )
+    from distributed_model_parallel_tpu_torch.train.resilience import (
+        config_fields,
     )
 
     # The flash kernels take bf16; the CPU's plain versions run in f32.
@@ -151,7 +143,8 @@ def build_config(args):
         virtual_stages=args.virtual_stages,
         steps_per_epoch=args.steps, epochs=args.epochs, resume=args.resume,
         log_dir=args.log_dir, log_name=args.log_name,
-        checkpoint_dir=args.checkpoint_dir, device=args.device)
+        checkpoint_dir=args.checkpoint_dir, device=args.device,
+        **config_fields(args))
 
 
 def run(spec, config) -> list:
@@ -169,11 +162,6 @@ def run(spec, config) -> list:
 
 def main(argv=None):
     args = parse_args(argv)
-    refused = [f"--{k.replace('_', '-')} (ROADMAP {item})"
-               for k, (bad, item) in _REFUSED.items()
-               if bad(getattr(args, k))]
-    if refused:
-        raise SystemExit(f"not ported yet: {', '.join(refused)}")
     if args.layers % max(args.pp, 1):
         raise SystemExit("--layers must be divisible by --pp")
     if args.ep > 1 and args.moe_experts % args.ep:

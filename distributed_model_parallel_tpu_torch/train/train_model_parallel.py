@@ -39,8 +39,9 @@ JSON record per epoch (rank 0's under spmd); the run log goes to
 ``--log-dir``/``--log-name`` (default ``./log/{batch}``), a checkpoint
 to ``--checkpoint-dir`` at every eval improvement, and SIGTERM or
 Ctrl-C stops at the next step with a checkpoint that ``--resume``
-continues from, on either engine. The resilience hooks are not ported
-yet and are refused.
+continues from, on either engine. The resilience flags are the JAX
+script's (``train/resilience.add_cli_flags``; the runner takes no
+``--elastic``).
 """
 
 from __future__ import annotations
@@ -52,9 +53,6 @@ import sys
 
 import torch
 
-_REFUSED = {
-    "emergency_every": (lambda v: v != 0, "A11: resilience hooks"),
-}
 DATASETS = ("synthetic", "cifar10", "imagenet", "cub200", "place365")
 
 
@@ -112,8 +110,11 @@ def parse_args(argv=None):
     p.add_argument("--synthetic-train-size", default=2048, type=int)
     p.add_argument("--synthetic-eval-size", default=512, type=int)
     p.add_argument("--seed", default=0, type=int)
-    # Accepted so it can be refused by name (not ported yet).
-    p.add_argument("--emergency-every", default=0, type=int)
+    from distributed_model_parallel_tpu_torch.train.resilience import (
+        add_cli_flags,
+    )
+
+    add_cli_flags(p, data_parallel=False)
     return p.parse_args(argv)
 
 
@@ -124,6 +125,9 @@ def _config(args):
         ModelConfig,
         OptimizerConfig,
         TrainConfig,
+    )
+    from distributed_model_parallel_tpu_torch.train.resilience import (
+        config_fields,
     )
 
     on_cpu = torch.device(args.device).type == "cpu"
@@ -155,7 +159,7 @@ def _config(args):
         seed=args.seed, device=args.device, resume=args.resume,
         log_dir=args.log_dir,
         log_name=args.log_name or f"{args.batch_size}",
-        checkpoint_dir=args.checkpoint_dir)
+        checkpoint_dir=args.checkpoint_dir, **config_fields(args))
 
 
 def _fit_rank(spec, args) -> list[dict]:
@@ -168,11 +172,6 @@ def _fit_rank(spec, args) -> list[dict]:
 
 def main(argv=None):
     args = parse_args(argv)
-    refused = [f"--{k.replace('_', '-')} (ROADMAP {item})"
-               for k, (bad, item) in _REFUSED.items()
-               if bad(getattr(args, k))]
-    if refused:
-        raise SystemExit(f"not ported yet: {', '.join(refused)}")
     if args.boundaries is not None and args.auto_partition:
         print("warning: explicit --boundaries override --auto-partition",
               file=sys.stderr)

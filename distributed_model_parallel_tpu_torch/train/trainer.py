@@ -98,18 +98,30 @@ reads the whole tree and keeps its own units.
 the preemption flag (``train/preemption.py``: SIGTERM/SIGINT or
 ``trainer.preemption.request()``) polled right after; a requested stop
 saves to the ``"preempt"`` slot and ``fit`` returns. ``resume=True``
-restores the newest valid of ``("ckpt", "preempt")`` and continues
-mid-epoch, so a resumed run equals an uninterrupted one bit for bit (the
-augmentation draws are stateless). With a process group rank 0 writes and
-logs, the others wait at a barrier; every rank restores. Every rank polls
-its own flag: a preemption must reach every rank (a cluster signals every
-process; a ``step_hook`` requests on every rank at the same step).
+restores the newest valid of :data:`RESUME_SLOTS` (through
+``restore_resharded``: a checkpoint of another data degree restores onto
+this one, and ddp's per-replica statistics raise
+``TopologyMismatchError``) and continues mid-epoch, so a resumed run
+equals an uninterrupted one bit for bit (the augmentation draws are
+stateless). With a process group rank 0 writes and logs, the others wait
+at a barrier; every rank restores. Every rank polls its own flag: a
+preemption must reach every rank (a cluster signals every process; a
+``step_hook`` requests on every rank at the same step).
+
+The resilience plane, as the JAX trainer wires it: ``check_finite_every``
+and ``stall_budget_s`` (``train/guards.GuardRunner`` around every drain),
+``recovery`` (``train/resilience.RecoverySupervisor``: the ``"good"``
+slot, bounded retries, the LR shrink — a new schedule, read by the fused
+kernel at its next launch, no bucket rebuilt), ``recovery.faults``
+(``utils/faults.py``: the step, sync and save sites), ``consistency_every``
+(``train/consistency.ConsistencySentinel``), ``emergency_every`` (the
+``"emergency"`` slot) and ``elastic`` (the data axis refitted to the live
+world). Restore, repair and injected faults write into the existing
+tensors in place, so a fused optimizer's bucket views stay its views.
 
 Not ported yet, and refused by :func:`check_train_config` where a config
-field asks for them (ROADMAP A9/A11): the other strategies and mesh
-axes, recovery, fault injection, the guards, the consistency sentinel,
-emergency checkpoints, elastic restarts (resharded restore), the typed
-telemetry stream and the status exporter.
+field asks for them (ROADMAP A9/A11): the other mesh axes,
+``strategy="auto"`` and the status exporter.
 """
 
 from __future__ import annotations
@@ -167,11 +179,18 @@ from distributed_model_parallel_tpu_torch.train.checkpoint import (
     Checkpointer,
     build_resume_tree,
     manifest_stamp,
-    restore_newest,
+    read_manifest_meta,
     resume_position,
     resume_subtree,
+    unpack_resume_tree,
+)
+from distributed_model_parallel_tpu_torch.train.guards import (
+    NonFiniteError,
+    ReplicaDivergenceError,
+    named_leaves,
 )
 from distributed_model_parallel_tpu_torch.train.logging_util import (
+    NullLogger,
     RunLogger,
 )
 from distributed_model_parallel_tpu_torch.train.metrics import (
@@ -182,6 +201,7 @@ from distributed_model_parallel_tpu_torch.train.metrics import (
 from distributed_model_parallel_tpu_torch.train.optim import (
     GradReducer,
     make_optimizer,
+    update_schedule,
 )
 from distributed_model_parallel_tpu_torch.train.preemption import (
     PreemptionGuard,
@@ -192,25 +212,14 @@ METRIC_KEYS = ("loss", "batch", "correct@1", "correct@5")
 
 # TrainConfig fields the port does not run yet: (name, refused when, item).
 _UNPORTED = (
-    ("recovery.max_retries", lambda c: c.recovery.max_retries > 0,
-     "A11: recovery"),
-    ("recovery.faults", lambda c: bool(c.recovery.faults),
-     "A11: fault injection"),
-    ("check_finite_every", lambda c: c.check_finite_every != 0,
-     "A11: guards"),
-    ("stall_budget_s", lambda c: c.stall_budget_s is not None,
-     "A11: guards"),
-    ("consistency_every", lambda c: c.consistency_every != 0,
-     "A11: consistency sentinel"),
-    ("emergency_every", lambda c: c.emergency_every != 0,
-     "A11: emergency checkpoints"),
-    ("elastic", lambda c: c.elastic, "A11: elastic restarts"),
     ("statusz_port", lambda c: c.statusz_port is not None,
-     "A11: status exporter"),
+     "A11: status exporter (its trainer registry needs autotune)"),
 )
 _STRATEGIES = {"auto": "A11: autotune"}
-# Slots a resume considers, newest valid first.
-RESUME_SLOTS = ("ckpt", "preempt")
+# Slots a resume considers, newest valid first: the best-accuracy save,
+# the preemption save, the step-cadence emergency save and, last resort,
+# the recovery supervisor's "good" slot.
+RESUME_SLOTS = ("ckpt", "preempt", "emergency", "good")
 
 
 def check_train_config(config: TrainConfig) -> None:
@@ -519,8 +528,9 @@ def momentum_tree(model: StagedModel, optimizers, group=None) -> tuple:
 def load_momentum(model: StagedModel, optimizers, tree) -> None:
     """Each optimizer's momentum := ``tree``'s (a JAX-layout tree over
     ``model``'s units), written into the existing traces (a fused
-    bucket's slots in place); an optimizer that has made no update has
-    no trace to write."""
+    bucket's slots in place). A checkpoint of no update yet (zeros)
+    creates no trace, but overwrites one the run has made since (a
+    recovery restore of the state before the first update)."""
     index = {}
     moms = {}
     for opt in optimizers:
@@ -531,12 +541,11 @@ def load_momentum(model: StagedModel, optimizers, tree) -> None:
         opt, i = index[id(leaf.stored)]
         moms[id(opt)][i] = leaf.local(leaf.from_jax(tree_at(tree, leaf)))
     for opt in optimizers:
-        if opt.count == 0:
-            continue
         if hasattr(opt, "load_full_momentum"):
             opt.load_full_momentum(moms[id(opt)])
-        else:
-            for i, m in enumerate(moms[id(opt)]):
+            continue
+        for i, m in enumerate(moms[id(opt)]):
+            if opt.count > 0 or opt.momentum_buffer(i) is not None:
                 opt.set_momentum_buffer(i, m)
 
 
@@ -714,6 +723,19 @@ class Trainer:
                  eval_ds: ArrayDataset | None = None,
                  params=None, state=None, spec: MeshSpec | None = None):
         check_train_config(config)
+        self.elastic_decision = None
+        if config.elastic and spec is None:
+            # The degraded-restart path: the largest data degree the live
+            # world supports (an explicit spec is the caller's topology).
+            from distributed_model_parallel_tpu_torch.train.elastic import (
+                fit_mesh_to_devices,
+                live_device_count,
+            )
+
+            mesh_cfg, self.elastic_decision = fit_mesh_to_devices(
+                config.mesh, live_device_count(),
+                batch_size=config.data.batch_size)
+            config = config.replace(mesh=mesh_cfg)
         self.config = config
         self.spec = spec = spec or make_mesh(config.mesh, config.device)
         if (spec.config.data, spec.config.dcn_data) != (
@@ -876,11 +898,69 @@ class Trainer:
             steps_per_dispatch=config.steps_per_dispatch
             if config.device_resident_data else 1))
             if self._writer else None)
-        self.ckpt = Checkpointer(
-            config.checkpoint_dir, keep=config.recovery.keep_checkpoints,
-            meta_fn=self._ckpt_meta)
+        self._build_plane()
+        if (self.elastic_decision is not None
+                and self.elastic_decision.changed):
+            self._log_line(self.elastic_decision.describe())
         if config.resume and any(self.ckpt.exists(n) for n in RESUME_SLOTS):
             self._resume()
+
+    def _build_plane(self) -> None:
+        """The resilience plane (JAX ``trainer.py:520-605``): the fault
+        injector, the checkpointer serving its save site, the recovery
+        supervisor, the guards, the consistency sentinel and the
+        emergency slot. Rank 0 writes; every rank runs the policy."""
+        from distributed_model_parallel_tpu_torch.train.consistency import (
+            ConsistencySentinel,
+        )
+        from distributed_model_parallel_tpu_torch.train.elastic import (
+            EmergencyCheckpointer,
+        )
+        from distributed_model_parallel_tpu_torch.train.guards import (
+            GuardRunner,
+        )
+        from distributed_model_parallel_tpu_torch.train.resilience import (
+            RecoverySupervisor,
+        )
+        from distributed_model_parallel_tpu_torch.utils.faults import (
+            FaultInjector,
+            validate_corruption_plan,
+        )
+
+        config, spec = self.config, self.spec
+        plane_log = self.logger if self.logger is not None else NullLogger()
+        self._device_ids = (spec.rank,)
+        self.faults = FaultInjector(config.recovery.faults)
+        validate_corruption_plan(
+            self.faults.plan,
+            0 if config.strategy == "fsdp" else spec.num_data,
+            context=f"strategy={config.strategy!r}")
+        self.ckpt = Checkpointer(
+            config.checkpoint_dir, keep=config.recovery.keep_checkpoints,
+            meta_fn=self._ckpt_meta, injector=self.faults)
+        self.resilience = RecoverySupervisor(
+            config.recovery, logger=plane_log, ckpt=self.ckpt,
+            preemption=self.preemption, slot="good", injector=self.faults,
+            check_finite_every=config.check_finite_every,
+            consistency_every=config.consistency_every,
+            device_ids=self._device_ids, writer=self._writer,
+            barrier=self._barrier)
+        self.guards = GuardRunner(
+            check_finite_every=config.check_finite_every,
+            stall_budget_s=config.stall_budget_s, logger=plane_log,
+            watchdog_interval_s=config.recovery.watchdog_interval_s,
+            on_stall=self.resilience.on_stall, injector=self.faults,
+            device_ids=self._device_ids)
+        self.sentinel = ConsistencySentinel(
+            config.consistency_every, spec, logger=plane_log,
+            guards=self.guards,
+            barrier_timeout_s=config.recovery.barrier_timeout_s,
+            part=(spec.stage_index
+                  if config.strategy == "spmd_pipeline" else 0))
+        self.emergency = EmergencyCheckpointer(
+            self.ckpt, "emergency", config.emergency_every,
+            logger=plane_log, wait=not config.async_checkpoint,
+            writer=self._writer, barrier=self._barrier)
 
     # -------------------------------------------------------------- pipeline
     def _pipeline_stage(self, model_config, params, state):
@@ -959,15 +1039,27 @@ class Trainer:
         return step_generator(self._aug_seed, self.global_step, self.device,
                               rank)
 
-    def _drain(self, pending: list, meters: dict) -> None:
+    def _drain(self, pending: list, meters: dict, *,
+               sentinel: bool = False) -> None:
         """Fold the queued device metrics into the meters: one host read
-        for the whole window. Entries may stack K steps."""
+        for the whole window, the trainer's sync point (entries may stack
+        K steps). The guards run here: the read sits under the stall
+        watchdog, the values (and, at their cadence, the parameters) are
+        checked for finiteness; with ``sentinel`` (training drains) the
+        consistency sentinel advances too."""
         if not pending:
             return
-        rows = torch.cat([
-            torch.stack([m[k].float() for k in METRIC_KEYS], -1)
-            .reshape(-1, len(METRIC_KEYS)) for m in pending]).cpu().numpy()
+        with self.guards.watch():
+            rows = torch.cat([
+                torch.stack([m[k].float() for k in METRIC_KEYS], -1)
+                .reshape(-1, len(METRIC_KEYS))
+                for m in pending]).cpu().numpy()
         pending.clear()
+        if self.guards.enabled:
+            self.guards.after_sync(rows, len(rows),
+                                   params=list(self.model.parameters()))
+        if sentinel and self.sentinel.enabled:
+            self.sentinel.after_sync(len(rows), self._sentinel_leaves)
         loss, batch, c1, c5 = rows.astype(np.float64).T
         b_tot = float(batch.sum())
         if b_tot > 0:
@@ -1030,16 +1122,23 @@ class Trainer:
                                             self._generator()))
             self.global_step += 1
             self._loader_pos = (epoch, gi + 1)
+            if self.faults.enabled:
+                self._poll_step_faults(pending)
             log_now = gi % self.config.log_every_n_steps == 0
             if log_now or len(pending) >= self._max_inflight:
                 n = len(pending)
-                self._drain(pending, meters)
+                self._drain(pending, meters, sentinel=True)
                 timer.window_done(n)
+                self._health_window(n, timer)
             if log_now:
                 self._log_step(epoch, gi, meters, timer)
+            self.emergency.after_step(1, self._ckpt_tree)
         n = len(pending)
-        self._drain(pending, meters)
+        self._drain(pending, meters, sentinel=True)
         timer.window_done(n)
+        self._health_window(n, timer)
+        if self.sentinel.enabled:
+            self.sentinel.flush(self._sentinel_leaves)
         return EpochResult(meters["loss"].avg, meters["acc1"].avg,
                            meters["acc5"].avg, timer.step.avg,
                            timer.data.avg)
@@ -1069,17 +1168,25 @@ class Trainer:
             timer.data_ready()
             pending.append(self.run_steps(chunk))
             self._loader_pos = (epoch, i + chunk.shape[0])
+            if self.faults.enabled:
+                # One step-site poll a dispatch (K fused steps).
+                self._poll_step_faults(pending)
             inflight += chunk.shape[0]
             # Log when a multiple of log_every_n_steps falls in [i, i+K).
             log_now = (-i) % self.config.log_every_n_steps < chunk.shape[0]
             if log_now or len(pending) >= self._max_inflight:
-                self._drain(pending, meters)
+                self._drain(pending, meters, sentinel=True)
                 timer.window_done(inflight)
+                self._health_window(inflight, timer)
                 inflight = 0
             if log_now:
                 self._log_step(epoch, i, meters, timer)
-        self._drain(pending, meters)
+            self.emergency.after_step(chunk.shape[0], self._ckpt_tree)
+        self._drain(pending, meters, sentinel=True)
         timer.window_done(inflight)
+        self._health_window(inflight, timer)
+        if self.sentinel.enabled:
+            self.sentinel.flush(self._sentinel_leaves)
         return EpochResult(meters["loss"].avg, meters["acc1"].avg,
                            meters["acc5"].avg, timer.step.avg,
                            timer.data.avg)
@@ -1123,9 +1230,22 @@ class Trainer:
         epochs = epochs if epochs is not None else self.config.epochs
         history = []
         with self.preemption.installed():
+            self.resilience.begin(self._ckpt_tree)
             epoch = self.start_epoch
             while epoch < epochs:
-                tr = self.train_epoch(epoch)
+                try:
+                    tr = self.train_epoch(epoch)
+                except NonFiniteError as e:
+                    if self.resilience.recover_nonfinite(
+                            e, epoch=epoch, restore=self._restore_good,
+                            shrink_lr=self._apply_lr_shrink):
+                        continue        # state restored: redo the epoch
+                    raise
+                except ReplicaDivergenceError as e:
+                    if self.resilience.recover_divergence(
+                            e, epoch=epoch, restore=self._restore_good):
+                        continue
+                    raise
                 if self.preemption.requested():
                     # Resume redoes the rest of this epoch: the saved
                     # position is the step the stop came at.
@@ -1151,6 +1271,8 @@ class Trainer:
                 if ev is not None and ev.acc1 > self.best_acc:
                     self.best_acc = ev.acc1
                     self._save(epoch)
+                # A checked epoch: the recovery restore point.
+                self.resilience.note_good(self._ckpt_tree)
                 epoch += 1
         self.ckpt.wait_until_finished()
         if self.logger is not None:
@@ -1210,7 +1332,8 @@ class Trainer:
                 "best_acc": np.asarray(self.best_acc, np.float32),
                 "epoch": np.asarray(self.start_epoch, np.int32),
                 "resume": resume_subtree(self.train_loader, self._loader_pos,
-                                         self.global_step)}
+                                         self.global_step,
+                                         self.resilience.budgets())}
         if opt_state:
             tree["opt_state"] = opt_state
         if counters:
@@ -1347,32 +1470,148 @@ class Trainer:
             self._load_ema(tree)
 
     def _resume(self) -> None:
-        """Restore the newest valid of ``RESUME_SLOTS`` and continue where
-        it was saved (every rank reads the file). A run resumed with
+        """Restore the newest valid of ``RESUME_SLOTS`` (torn versions and
+        slots fall back; ``restore_resharded``: any data degree) and
+        continue where it was saved, with the saving run's recovery
+        budgets (every rank reads the file). A run resumed with
         ``ema_decay`` toggled behaves as the JAX trainer's: newly enabled,
         the averages start at the restored weights and statistics; turned
         off, the saved ones are dropped."""
+        from distributed_model_parallel_tpu_torch.train.elastic import (
+            elastic_restore,
+        )
+
         template = (self._pipeline_template()
                     if self.config.strategy == "spmd_pipeline"
                     else self._ckpt_tree())
         ema_keys = ("ema_params", "ema_batch_stats")
-        try:
-            name, restored = restore_newest(self.ckpt, template,
-                                            RESUME_SLOTS, self._log_line)
-        except ValueError:
-            if self.ema is not None:
-                other = {k: v for k, v in template.items()
-                         if k not in ema_keys}
-            else:
-                other = dict(template, ema_params=template["params"],
-                             ema_batch_stats=template["batch_stats"])
-            name, restored = restore_newest(self.ckpt, other, RESUME_SLOTS,
-                                            self._log_line)
-            if self.ema is not None:
-                restored = dict(restored, ema_params=restored["params"],
-                                ema_batch_stats=restored["batch_stats"])
+        if self.ema is not None:
+            other = {k: v for k, v in template.items() if k not in ema_keys}
+        else:
+            other = dict(template, ema_params=template["params"],
+                         ema_batch_stats=template["batch_stats"])
+        name, restored = elastic_restore(
+            self.ckpt, (template, other), RESUME_SLOTS,
+            on_fallback=self.resilience.note_fallback)
+        if self.ema is not None and "ema_params" not in restored:
+            restored = dict(restored, ema_params=restored["params"],
+                            ema_batch_stats=restored["batch_stats"])
         self._load_tree(restored)
         self.best_acc = float(restored["best_acc"])
         self.start_epoch, self.global_step = resume_position(
             name, restored, self.train_loader, self._log_line)
         self._loader_pos = (self.train_loader.epoch, self.train_loader.cursor)
+        _, _, _, retries, lr_scale = unpack_resume_tree(restored["resume"])
+        self.resilience.restore_budgets(retries, lr_scale)
+        if lr_scale != 1.0:
+            # The saving run's cumulative recovery shrink, on the base LR.
+            self._apply_lr_shrink(lr_scale)
+        saved = (read_manifest_meta(self.ckpt.last_restored_path)
+                 if self.ckpt.last_restored_path else {}).get("mesh")
+        current = self._ckpt_meta()["mesh"]
+        if self.logger is not None:
+            self.logger.telemetry.resume(
+                slot=name, epoch=self.start_epoch,
+                loader_epoch=self.train_loader.epoch,
+                batch_cursor=self.train_loader.cursor,
+                global_step=self.global_step, mesh=current,
+                **({"saved_mesh": saved}
+                   if saved and saved != current else {}))
+        if saved and saved != current:
+            self._log_line(f"resume: resharded from mesh {saved}")
+
+    # -- the resilience plane's hooks -------------------------------------
+    def _restore_good(self) -> None:
+        """Recovery restore: the supervisor's "good" slot back into the
+        tensors in place (torn versions fall back); the position rides
+        along, the budgets stay live."""
+        restored = self.ckpt.restore(
+            self._ckpt_tree(), self.resilience.slot, allow_fallback=True,
+            on_fallback=self.resilience.note_fallback)
+        self._load_tree(restored)
+        self.best_acc = float(restored["best_acc"])
+        ep, cur, gs, _, _ = unpack_resume_tree(restored["resume"])
+        self.train_loader.load_state_dict({"epoch": ep, "batch_cursor": cur})
+        self._loader_pos = (self.train_loader.epoch, self.train_loader.cursor)
+        self.global_step = gs
+
+    def _apply_lr_shrink(self, factor: float) -> None:
+        """Recovery-time LR shrink: the configured LR times ``factor`` and
+        the optimizer's schedule rebuilt from it. The fused kernel reads
+        the rate at each launch (``FusedSGD.lr``), so no bucket moves."""
+        opt = self.config.optimizer
+        opt = dataclasses.replace(opt,
+                                  learning_rate=opt.learning_rate * factor)
+        self.config = self.config.replace(optimizer=opt)
+        self.optimizer.schedule = update_schedule(
+            opt, len(self.train_loader), self.config.epochs)
+
+    def _poll_step_faults(self, pending: list) -> None:
+        """Serve the step site's planned faults: poison the last metrics or
+        the parameters (in place), corrupt one replica's parameters, or
+        request a preemption."""
+        from distributed_model_parallel_tpu_torch.utils.faults import (
+            CORRUPTION_KINDS,
+            corrupt_one_replica,
+            poison,
+        )
+
+        for spec in self.faults.poll("step"):
+            if spec.kind == "preempt":
+                self.preemption.request()
+            elif spec.kind == "nan_loss" and pending:
+                poison(pending[-1])
+            elif spec.kind == "nan_params":
+                poison(list(self.model.parameters()))
+            elif spec.kind in CORRUPTION_KINDS:
+                corrupt_one_replica(self._jax_order_params(),
+                                    self.spec.num_data,
+                                    self.spec.data_index, spec.kind,
+                                    spec.param)
+
+    def _jax_order_params(self) -> list:
+        """The parameters in the JAX tree's leaf order (units in order,
+        dict keys sorted): the order a fault's leaf index counts in."""
+        leaves = model_leaves(self.model)
+        count = iter(range(len(leaves)))
+        return [leaves[i].stored for _, i in named_leaves(
+            leaf_tree(self.model, lambda leaf: next(count)))]
+
+    def _sentinel_leaves(self) -> list:
+        """What the consistency sentinel fingerprints: the parameters, BN
+        statistics, optimizer state and averages. ddp's per-replica BN
+        statistics and ZeRO's optimizer slices differ across replicas by
+        design (``data_sharded``)."""
+        from distributed_model_parallel_tpu_torch.train.consistency import (
+            StateLeaf,
+        )
+
+        ddp = self.config.strategy == "ddp"
+        zero = self.config.strategy == "zero"
+        out = [StateLeaf(f"['params'][{i}]", p)
+               for i, p in enumerate(self._jax_order_params())]
+        out += [StateLeaf(f"['batch_stats'][{i}]",
+                          getattr(leaf.module, leaf.attr), data_sharded=ddp)
+                for i, leaf in enumerate(model_leaves(self.model,
+                                                      state=True))]
+        opt = self.optimizer
+        for i in range(len(opt.params)):
+            m = opt.momentum_buffer(i)
+            if m is not None:
+                out.append(StateLeaf(f"['momentum'][{i}]", m))
+        for name, tensors in sorted(opt.leaf_state().items()):
+            out += [StateLeaf(f"['opt_state'][{name!r}][{i}]", t,
+                              data_sharded=zero)
+                    for i, t in enumerate(tensors) if t is not None]
+        if self.ema is not None:
+            out += [StateLeaf(f"['ema'][{i}]", a)
+                    for i, a in enumerate(self.ema.avg)]
+        return out
+
+    def _health_window(self, n_steps: int, timer: StepTimer) -> None:
+        """A drained window's per-step wall time to the device-health
+        sentinel (no-op unless a monitor is installed)."""
+        from distributed_model_parallel_tpu_torch.utils import health
+
+        health.observe_step_warmed(self, self._device_ids, timer.step.last,
+                                   n_steps)

@@ -1,5 +1,5 @@
-"""Deterministic, config-driven fault injection: the plan parser and the
-serving side.
+"""Deterministic, config-driven fault injection: the plan parser, the
+serving side and the training side.
 
 Counterpart of ``distributed_model_parallel_tpu/utils/faults.py`` (no
 framework code; the port's own copy). A fault plan names exactly which
@@ -27,19 +27,42 @@ Serve-side kinds (``kind`` → hook site → effect when fired):
                           victim cell; its residents keep decoding
 ================== ====== =================================================
 
+Train-side kinds (the trainers poll ``step``, ``GuardRunner.watch``
+polls ``sync``, ``train/checkpoint.Checkpointer.save`` polls ``save``):
+
+================== ====== =================================================
+``nan_loss``       step   poison that step's metrics with NaN
+``nan_params``     step   poison the live parameters with NaN, in place
+``preempt``        step   request a graceful preemption
+``stall``          sync   sleep ``param`` s inside the guarded drain
+``save_fail``      save   leave a torn version directory and raise
+                          :class:`InjectedFaultError`
+``tear_save``      save   let the save commit, then truncate its files
+``bitflip``        step   flip the lowest exponent bit of element 0 of
+                          float leaf ``param`` on ONE data replica
+``desync``         step   multiply one replica's float leaves by
+                          ``1 + param`` (default 1e-3)
+``grad_skew``      step   add ``param`` (default 1e-3) to one replica's
+                          float leaves
+``slow_device``    step   PERSISTENT: every later step sleeps a ramp
+``flaky_sync``     sync   PERSISTENT: every second later sync sleeps
+================== ====== =================================================
+
 Each ``poll(site)`` advances that site's occurrence counter; a spec fires
 when its ``at`` index matches — once, independent of the wall clock.
-The training side's corruption and checkpoint helpers (``poison``,
-``validate_corruption_plan``, ``corrupt_one_replica``,
-``tear_checkpoint``) wait for the port of the trainers' resilience work
-(ROADMAP A11).
+
+The JAX package corrupts a replica inside a ``shard_map``; here every
+rank holds its own copy, so :func:`corrupt_one_replica` runs on every
+rank and only the rank whose data index is the target perturbs its
+tensors, in place (a fused optimizer's bucket views stay its views).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Callable, Sequence
+from typing import Any, Callable, Sequence
 
 __all__ = [
     "CORRUPTION_KINDS",
@@ -48,7 +71,11 @@ __all__ = [
     "FaultInjector",
     "FaultSpec",
     "InjectedFaultError",
+    "corrupt_one_replica",
     "parse_faults",
+    "poison",
+    "tear_checkpoint",
+    "validate_corruption_plan",
 ]
 
 
@@ -76,9 +103,9 @@ FAULT_SITES = {
     "partition": "cell",
 }
 
-# Faults that silently corrupt ONE data-parallel replica's state (served in
-# the JAX package by corrupt_one_replica, not ported yet); they need >= 2
-# replicas to be meaningful — and to be detectable at all.
+# Faults that silently corrupt ONE data-parallel replica's state (served by
+# corrupt_one_replica); they need >= 2 replicas to be meaningful — and to be
+# detectable at all.
 CORRUPTION_KINDS = frozenset({"bitflip", "desync", "grad_skew"})
 
 # PERSISTENT degradations: unlike every other kind (one effect at one
@@ -292,3 +319,162 @@ class FaultInjector:
         for spec in self.poll(site):
             if spec.kind == "stall":
                 time.sleep(spec.param or 0.0)
+
+
+def _is_float(x) -> bool:
+    import numpy as np
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.is_floating_point()
+    return np.issubdtype(np.asarray(x).dtype, np.floating)
+
+
+def poison(tree: Any) -> Any:
+    """NaN every floating-point leaf of a tree of tensors (or numpy
+    arrays) IN PLACE and return the tree: the injected-NaN faults'
+    payload. Parameters that are views of a fused optimizer's buckets
+    stay views (the kernel goes on updating the same memory)."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.train.guards import (
+        named_leaves,
+    )
+
+    with torch.no_grad():
+        for _, x in named_leaves(tree):
+            if not _is_float(x):
+                continue
+            if isinstance(x, torch.Tensor):
+                x.fill_(float("nan"))
+            else:
+                x[...] = float("nan")
+    return tree
+
+
+def validate_corruption_plan(plan: Sequence[FaultSpec], n_replicas: int,
+                             *, context: str) -> None:
+    """Reject a fault plan that injects silent corruption into a run with
+    no replicated data axis to diverge (``n_replicas < 2``) — the shared
+    fail-fast check every trainer constructor runs. ``context`` names the
+    topology for the error message (e.g. ``"strategy='fsdp'"``)."""
+    corrupting = sorted({s.kind for s in plan if s.kind in CORRUPTION_KINDS})
+    if corrupting and n_replicas < 2:
+        raise ValueError(
+            f"corruption faults {corrupting} perturb one data-parallel "
+            f"replica relative to the others, but {context} has "
+            f"{n_replicas} replicated replica(s) — nothing to diverge "
+            f"from, and no redundancy for the consistency sentinel to "
+            f"detect it with")
+
+
+_INT_OF = {2: "int16", 4: "int32", 8: "int64"}
+
+
+def flip_exponent_bit_(x) -> None:
+    """Flip the lowest exponent bit of element 0 of ``x`` in place (a
+    large but finite change; mantissa flips near zero can land on
+    denormals that flush back to zero)."""
+    import torch
+
+    nmant = torch.finfo(x.dtype).bits - 1 - _exponent_bits(x.dtype)
+    first = x.detach()[(0,) * x.ndim]          # a view, whatever the strides
+    first.view(getattr(torch, _INT_OF[x.element_size()])).bitwise_xor_(
+        1 << nmant)
+
+
+def _exponent_bits(dtype) -> int:
+    import torch
+
+    return {torch.float16: 5, torch.bfloat16: 8, torch.float32: 8,
+            torch.float64: 11}[dtype]
+
+
+def corrupt_one_replica(tensors: Sequence, n_replicas: int,
+                        data_index: int, kind: str,
+                        param: float | None = None, *,
+                        replica: int | None = None,
+                        shard_index: Sequence[int] | None = None) -> bool:
+    """Silently corrupt ONE data-parallel replica's copy of ``tensors``
+    (this rank's leaves, in the JAX tree's order), in place.
+
+    Every rank calls; the rank whose ``data_index`` is the target replica
+    (default: the highest, ``n_replicas - 1``) perturbs its tensors, so
+    the state still claims replication while one replica's buffers
+    differ — what a flipped bit or a drifting core leaves behind. Returns
+    whether this rank corrupted anything.
+
+    ``bitflip`` flips the lowest exponent bit of element 0 of float leaf
+    ``int(param)`` (default 0); ``desync`` multiplies every float leaf
+    by ``1 + param``; ``grad_skew`` adds ``param`` to every float leaf
+    (both default to 1e-3; an explicit 0 is rejected). ``shard_index``
+    (per leaf): this rank's index over the non-data axes the leaf is CUT
+    along (0 where it is whole) — a bitflip lands on shard 0 only, one
+    element of the logical leaf, on every copy of that shard.
+    """
+    import torch
+
+    if kind not in CORRUPTION_KINDS:
+        raise ValueError(f"not a corruption fault kind: {kind!r} "
+                         f"(known: {sorted(CORRUPTION_KINDS)})")
+    if n_replicas < 2:
+        raise ValueError(
+            f"corruption fault {kind!r} perturbs one replica relative to "
+            f"the others, but the mesh has {n_replicas} data-parallel "
+            f"replica(s) — nothing to diverge from")
+    target = n_replicas - 1 if replica is None else int(replica)
+    if not 0 <= target < n_replicas:
+        raise ValueError(
+            f"corrupt_one_replica: replica index {target} out of range "
+            f"for {n_replicas} data-parallel replicas")
+    float_idx = [i for i, t in enumerate(tensors) if t.is_floating_point()]
+    if not float_idx:
+        raise ValueError("corrupt_one_replica: tree has no float leaves")
+    if kind == "bitflip":
+        leaf_i = 0 if param is None else param
+        if leaf_i != int(leaf_i):
+            raise ValueError(
+                f"bitflip leaf index must be a whole number, got {param}")
+        leaf_i = int(leaf_i)
+        if not 0 <= leaf_i < len(float_idx):
+            raise ValueError(
+                f"bitflip leaf index {leaf_i} out of range: the tree "
+                f"has {len(float_idx)} float leaves")
+    if param == 0 and kind in ("desync", "grad_skew"):
+        raise ValueError(
+            f"{kind} with explicit magnitude 0 perturbs nothing — omit "
+            f"the param for the 1e-3 default or give a nonzero magnitude")
+    if data_index != target:
+        return False
+    scale = 1e-3 if param is None else param
+    with torch.no_grad():
+        if kind == "bitflip":
+            i = float_idx[leaf_i]
+            if shard_index is None or shard_index[i] == 0:
+                flip_exponent_bit_(tensors[i])
+            return True
+        for i in float_idx:
+            t = tensors[i]
+            if kind == "desync":
+                t.mul_(1.0 + scale)
+            else:                                        # grad_skew
+                t.add_(torch.tensor(scale, dtype=t.dtype, device=t.device))
+    return True
+
+
+def tear_checkpoint(path: str) -> None:
+    """Simulate a torn checkpoint write: truncate every regular file under
+    ``path`` to half its size (the integrity manifest, when present, is
+    left intact so verification can catch the tear)."""
+    from distributed_model_parallel_tpu_torch.train.checkpoint import (
+        MANIFEST_FILENAME,
+    )
+
+    for root, _dirs, files in os.walk(path):
+        for fn in files:
+            if fn == MANIFEST_FILENAME:
+                continue
+            p = os.path.join(root, fn)
+            size = os.path.getsize(p)
+            with open(p, "r+b") as f:
+                f.truncate(size // 2)

@@ -63,9 +63,12 @@ def resnet_costs():
     return out
 
 
-def _port_costs(name):
-    model = get_model(tconfig.ModelConfig(name=name), device="cpu")
-    return tap.unit_costs(model, (ROWS[name], 32, 32, 3))
+@pytest.fixture(scope="module")
+def port_costs():
+    """The port's unit costs per model, computed once for the module."""
+    return {name: tap.unit_costs(get_model(tconfig.ModelConfig(name=name),
+                                           device="cpu"), (rows, 32, 32, 3))
+            for name, rows in ROWS.items()}
 
 
 def _bottleneck(costs, bounds):
@@ -95,18 +98,18 @@ def test_dp_refuses_impossible_splits():
 
 
 @pytest.mark.parametrize("name", list(ROWS))
-def test_unit_costs_match_jax_per_unit(jax_costs, name):
+def test_unit_costs_match_jax_per_unit(jax_costs, port_costs, name):
     """Every unit's count == XLA's within its float32 rounding (the JAX
     counts carry ~1e-7 relative noise)."""
-    got, want = _port_costs(name), jax_costs[name]
+    got, want = port_costs[name], jax_costs[name]
     assert len(got) == len(want)
     gap = max(abs(g - w) / w for g, w in zip(got, want))
     assert gap <= 1e-6, gap
 
 
 @pytest.mark.parametrize("stages", [2, 3, 4, 8])
-def test_mobilenet_boundaries_match_jax(jax_costs, stages):
-    got = tap.cost_balanced_boundaries(_port_costs("mobilenetv2"), stages)
+def test_mobilenet_boundaries_match_jax(jax_costs, port_costs, stages):
+    got = tap.cost_balanced_boundaries(port_costs["mobilenetv2"], stages)
     assert got == jap.cost_balanced_boundaries(jax_costs["mobilenetv2"],
                                                stages)
     assert got == MOBILENET_CUTS[stages]
@@ -144,8 +147,8 @@ def test_conv_taps_with_explicit_padding(size, stride, pads):
 
 
 @pytest.mark.parametrize("stages", [2, 3, 4])
-def test_tinycnn_boundaries_match_jax(jax_costs, stages):
-    got = tap.cost_balanced_boundaries(_port_costs("tinycnn"), stages)
+def test_tinycnn_boundaries_match_jax(jax_costs, port_costs, stages):
+    got = tap.cost_balanced_boundaries(port_costs["tinycnn"], stages)
     assert got == jap.cost_balanced_boundaries(jax_costs["tinycnn"], stages)
 
 

@@ -419,14 +419,11 @@ def test_fit_matches_jax_trainer(jax_fit, fused, resident, tmp_path):
 # test_torch_ring_reduce.py, test_torch_fsdp.py, test_torch_resume.py,
 # test_torch_optimizers.py, test_torch_ema.py,
 # test_torch_hierarchical.py, and test_fit_with_optimizer_matches_jax
-# below); their entries here became what is still refused.
+# below); their entries here became what is still refused. So did the
+# resilience plane's (tests/test_torch_resilience.py,
+# test_torch_recovery_drills.py): its options now build the trainer.
 @pytest.mark.parametrize("bad", [
-    dict(stall_budget_s=1.0),
-    dict(strategy="auto"),
-    dict(check_finite_every=1), dict(consistency_every=1),
-    dict(emergency_every=5), dict(elastic=True), dict(statusz_port=0),
-    dict(recovery=tconfig.RecoveryConfig(max_retries=1)),
-    dict(recovery=tconfig.RecoveryConfig(faults=("nan_loss@1",))),
+    dict(strategy="auto"), dict(statusz_port=0),
     dict(mesh=tconfig.MeshConfig(stage=2, model=2)),
 ])
 def test_unported_trainer_options_raise(bad):
@@ -434,6 +431,25 @@ def test_unported_trainer_options_raise(bad):
                               data=tconfig.DataConfig(**DATA), device="cpu")
     with pytest.raises(ValueError, match="ROADMAP A"):
         ttrainer.Trainer(dataclasses.replace(cfg, **bad))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(stall_budget_s=1.0), dict(check_finite_every=1),
+    dict(consistency_every=1), dict(emergency_every=5), dict(elastic=True),
+    dict(recovery=tconfig.RecoveryConfig(max_retries=1)),
+    dict(recovery=tconfig.RecoveryConfig(faults=("nan_loss@1",)),
+         check_finite_every=1),
+])
+def test_plane_options_build_the_trainer(kw, tmp_path):
+    """The resilience plane's options, refused before they were ported:
+    the trainer builds with the plane armed."""
+    cfg = tconfig.TrainConfig(model=tconfig.ModelConfig(name="tinycnn"),
+                              data=tconfig.DataConfig(**DATA), device="cpu",
+                              **run_dirs(tmp_path))
+    t = ttrainer.Trainer(dataclasses.replace(cfg, **kw))
+    assert t.resilience.slot == "good" and t.emergency.slot == "emergency"
+    assert t.guards.enabled == bool(kw.get("check_finite_every")
+                                    or kw.get("stall_budget_s"))
 
 
 @pytest.mark.parametrize("bad,match", [
@@ -524,8 +540,16 @@ def test_cli_prints_one_record_per_epoch(capsys, tmp_path):
     records = [json.loads(x) for x in lines]
     assert [r["epoch"] for r in records] == [0, 1]
     assert all(np.isfinite(r["loss_train"]) for r in records)
-    with pytest.raises(SystemExit, match="ROADMAP A11"):
-        train_cnn.main(["--device", "cpu", "--elastic"])
+    # The resilience flags map onto the config (refused before the plane
+    # was ported).
+    cfg = train_cnn._config(train_cnn.parse_args(
+        ["--device", "cpu", "--elastic", "--check-finite-every", "2",
+         "--inject-faults", "nan_loss@1", "--emergency-every", "3",
+         "--recovery-retries", "1", "--recovery-lr-shrink", "0.5"]), 1)
+    assert cfg.elastic and cfg.check_finite_every == 2
+    assert cfg.emergency_every == 3
+    assert (cfg.recovery.max_retries, cfg.recovery.lr_shrink,
+            [f.kind for f in cfg.recovery.faults]) == (1, 0.5, ["nan_loss"])
 
 
 def test_cli_optimizer_accum_and_ema_flags(capsys, tmp_path):

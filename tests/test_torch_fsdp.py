@@ -110,9 +110,7 @@ def jax_fit(tmp_path_factory):
                 shards=shards)
 
 
-@pytest.fixture(scope="module")
-def ranks(jax_fit, tmp_path_factory):
-    train, evals = load_dataset(tconfig.DataConfig(**DATA))
+def _main_runs(jax_fit, root) -> dict:
     w = dict(params=jax_fit["params0"], state=jax_fit["state0"])
     clip = tconfig.OptimizerConfig(learning_rate=0.1, warmup_steps=2,
                                    grad_clip_norm=0.05)
@@ -123,14 +121,36 @@ def ranks(jax_fit, tmp_path_factory):
             "fsdp_clip": dict(config=_config(optimizer=clip), **w),
             "gspmd_clip": dict(config=_config(strategy="gspmd",
                                               optimizer=clip), **w)}
-    root = tmp_path_factory.mktemp("runs")
     for name, run in runs.items():
         run["config"] = run["config"].replace(**run_dirs(root, name))
-    return tmesh.spawn(workers.trainer_runs, N, runs,
-                       (train.images, train.labels),
-                       (evals.images, evals.labels), device="cpu",
-                       timeout_s=300, threads=1,
-                       store_dir=str(tmp_path_factory.mktemp("store")))
+    return runs
+
+
+@pytest.fixture(scope="module")
+def spawned(jax_fit, tmp_path_factory):
+    """Every rank case of this module in ONE spawn of N gloo ranks (each
+    spawn pays every rank's process start): the fits from the JAX run's
+    weights, the adaptive optimizers' fits, and the whole-weight counts of
+    one FSDP step at both widths."""
+    train, evals = load_dataset(tconfig.DataConfig(**DATA))
+    root = tmp_path_factory.mktemp("runs")
+    data = ((train.images, train.labels), (evals.images, evals.labels))
+    calls = [("trainer_runs", (_main_runs(jax_fit, root), *data)),
+             ("trainer_runs", (_adaptive_runs(root), *data))]
+    calls += [("fsdp_gathered", (_gathered_config(name, root),
+                                 (train.images, train.labels)))
+              for name in GATHERED]
+    out = tmesh.spawn(workers.several, N, calls, device="cpu",
+                      timeout_s=900, threads=1,
+                      store_dir=str(tmp_path_factory.mktemp("store")))
+    return {"ranks": [r[0] for r in out], "adaptive": [r[1] for r in out],
+            "gathered": {name: [r[2 + i] for r in out]
+                         for i, name in enumerate(GATHERED)}}
+
+
+@pytest.fixture(scope="module")
+def ranks(spawned):
+    return spawned["ranks"]
 
 
 def _close_params(got, want, rtol=2e-4, atol=2e-5):
@@ -198,8 +218,7 @@ ADAPTIVE = {"lars": dict(name="lars", learning_rate=0.5),
                               grad_clip_norm=0.05)}
 
 
-@pytest.fixture(scope="module")
-def adaptive_ranks(tmp_path_factory):
+def _adaptive_runs(root) -> dict:
     """fsdp and gspmd fits of tinycnn at width 128 (3x3 kernels of 128 x
     128: adafactor factors them, fsdp shards them) under lars, adafactor
     and lars with the clip, from the same weights."""
@@ -208,9 +227,7 @@ def adaptive_ranks(tmp_path_factory):
         params_to_jax,
     )
 
-    train, evals = load_dataset(tconfig.DataConfig(**DATA))
     params, state = params_to_jax(get_model(WIDE, device="cpu"))
-    root = tmp_path_factory.mktemp("adaptive")
     runs = {}
     for name, opt in ADAPTIVE.items():
         for strategy in ("fsdp", "gspmd"):
@@ -220,11 +237,12 @@ def adaptive_ranks(tmp_path_factory):
                                    warmup_steps=2, **opt)).replace(
                     **run_dirs(root, f"{strategy}_{name}")),
                 params=params, state=state)
-    return tmesh.spawn(workers.trainer_runs, N, runs,
-                       (train.images, train.labels),
-                       (evals.images, evals.labels), device="cpu",
-                       timeout_s=600, threads=1,
-                       store_dir=str(tmp_path_factory.mktemp("store")))
+    return runs
+
+
+@pytest.fixture(scope="module")
+def adaptive_ranks(spawned):
+    return spawned["adaptive"]
 
 
 @pytest.mark.parametrize("name", list(ADAPTIVE))
@@ -305,21 +323,22 @@ def test_cli_fsdp_and_ring(capsys, extra, tmp_path):
     assert all(np.isfinite(r["loss_train"]) for r in records)
 
 
-@pytest.fixture(scope="module", params=["tinycnn", "tinycnn_w128"])
-def gathered(request, tmp_path_factory):
+GATHERED = ("tinycnn", "tinycnn_w128")
+
+
+def _gathered_config(name, root):
     """One FSDP step per rank with the whole weights counted; width 128
     shards the head's Dense kernel too (autograd saves its transpose, a
     view of the gathered weight)."""
-    train, _ = load_dataset(tconfig.DataConfig(**DATA))
     model = (tconfig.ModelConfig(name="tinycnn", extra={"width": 128})
-             if request.param == "tinycnn_w128"
+             if name == "tinycnn_w128"
              else tconfig.ModelConfig(name="tinycnn"))
-    cfg = _config(model=model).replace(
-        **run_dirs(tmp_path_factory.mktemp("g"), "g"))
-    return tmesh.spawn(workers.fsdp_gathered, N, cfg,
-                       (train.images, train.labels), device="cpu",
-                       timeout_s=300, threads=1,
-                       store_dir=str(tmp_path_factory.mktemp("store")))
+    return _config(model=model).replace(**run_dirs(root, f"g_{name}"))
+
+
+@pytest.fixture(scope="module", params=GATHERED)
+def gathered(request, spawned):
+    return spawned["gathered"][request.param]
 
 
 def test_only_one_unit_holds_whole_weights(gathered):

@@ -361,8 +361,9 @@ def test_cli_trains_on_cpu_and_refuses_unported_flags(capsys, tmp_path):
     record = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert record["epoch"] == 0 and np.isfinite(record["loss_train"])
     # --resume, --pp and --ep are ported (tests/test_torch_lm_resume.py,
-    # test_torch_lm_pipeline_resume.py); the recovery plane's flags are not.
-    with pytest.raises(SystemExit, match="--emergency-every .*A11.*--elastic"
-                                         " .*A11: elastic restarts"):
-        train_lm.main(["--device", "cpu", "--emergency-every", "2",
-                       "--elastic"])
+    # test_torch_lm_pipeline_resume.py); so are the resilience flags.
+    cfg = train_lm.build_config(train_lm.parse_args(
+        ["--device", "cpu", "--emergency-every", "2", "--elastic",
+         "--consistency-every", "3", "--recovery-retries", "1"]))
+    assert (cfg.emergency_every, cfg.elastic, cfg.consistency_every,
+            cfg.recovery.max_retries) == (2, True, 3, 1)

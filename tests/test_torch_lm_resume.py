@@ -8,9 +8,11 @@ ranks (``(model 2, seq 2)`` ring under ``remat="dots"``, adamw). At
 ``(data 2, model 2)`` the uninterrupted history is held against the JAX
 ``LMTrainer``'s fit from the same weights (1e-4), and the text log's
 lines against the JAX ``RunLogger``'s (the same lines, numbers within
-1e-4, times aside). A resume under another split, and everything A9 and
-A11 leave for later, raise by name; so do the schedules and MoE configs
-the JAX trainer refuses, in its words."""
+1e-4, times aside). A resume under another split restores the same
+whole parameters and optimizer state (resharded); the resilience plane's
+options construct, the emergency slot resumes, and everything A9 and A11
+leave for later raises by name; so do the schedules and MoE configs the
+JAX trainer refuses, in its words."""
 
 import dataclasses
 import os
@@ -194,8 +196,19 @@ def test_text_log_lines_match_jax(runs):
 
 
 def test_resume_under_another_split_raises(runs):
+    """The (model 2, seq 2) checkpoint resumed on (data 2, model 2): every
+    rank holds the same whole parameters and optimizer state as the run
+    that wrote it, at its global step (a restore onto another split). The
+    name is the one the test had while the port refused that restore."""
     for rank in runs["ring"]:
-        assert "ROADMAP A11: resharded restore" in rank["other_mesh"]
+        other, cut = rank["other_mesh"], rank["cut"]
+        assert other["global_step"] == cut["global_step"]
+        for a, b in ((cut["params"], other["params"]),
+                     (cut["opt_state"], other["opt_state"])):
+            got = dict(_leaves(b))
+            assert set(got) == set(dict(_leaves(a)))
+            for key, leaf in _leaves(a):
+                np.testing.assert_array_equal(got[key], leaf, err_msg=key)
 
 
 @pytest.mark.parametrize("kw,match", [
@@ -212,14 +225,6 @@ def test_resume_under_another_split_raises(runs):
     (dict(mesh=tconfig.MeshConfig(data=2, expert=2, dcn_data=2)),
      "A9: dcn_data with the model, seq and expert axes"),
     (dict(strategy="auto"), "A11: autotune"),
-    (dict(emergency_every=2), "A11: emergency checkpoints"),
-    (dict(elastic=True), "A11: elastic restarts"),
-    (dict(check_finite_every=1), "A11: guards"),
-    (dict(stall_budget_s=1.0), "A11: guards"),
-    (dict(consistency_every=1), "A11: consistency sentinel"),
-    (dict(recovery=tconfig.RecoveryConfig(max_retries=1)), "A11: recovery"),
-    (dict(recovery=tconfig.RecoveryConfig(faults=("nan_loss@1",))),
-     "A11: fault injection"),
     (dict(statusz_port=0), "A11: status exporter"),
 ])
 def test_unported_options_raise_by_name(tmp_path, kw, match):
@@ -230,9 +235,29 @@ def test_unported_options_raise_by_name(tmp_path, kw, match):
         tlm.LMTrainer(dataclasses.replace(config, **kw))
 
 
+@pytest.mark.parametrize("kw", [
+    dict(emergency_every=2), dict(elastic=True),
+    dict(check_finite_every=1), dict(stall_budget_s=1.0),
+    dict(consistency_every=1),
+    dict(recovery=tconfig.RecoveryConfig(max_retries=1)),
+    dict(recovery=tconfig.RecoveryConfig(faults=("nan_loss@1",)),
+         check_finite_every=1),
+])
+def test_plane_options_construct(tmp_path, kw):
+    """The resilience plane's options, refused before they were ported,
+    now build a trainer with the plane armed."""
+    config = tlm.LMTrainConfig(
+        model=ttfm.TransformerConfig(**SHAPES["mha"]), device="cpu",
+        n_tokens=500, eval_batches=0, **run_dirs(tmp_path))
+    tr = tlm.LMTrainer(dataclasses.replace(config, **kw))
+    assert tr.config.mesh == config.mesh
+    assert tr.resilience.slot == "lm-good"
+    assert tr.emergency.slot == "lm-emergency"
+
+
 def test_plane_slots_refused_on_resume(tmp_path):
-    """A newest checkpoint in the emergency slot (written by the JAX
-    package's plane, which the port does not run) is refused by name."""
+    """A newest checkpoint in the emergency slot resumes from there (it
+    was refused before the plane was ported)."""
     config = tlm.LMTrainConfig(
         model=ttfm.TransformerConfig(**SHAPES["mha"]), device="cpu",
         n_tokens=500, eval_batches=0, steps_per_epoch=1,
@@ -240,8 +265,9 @@ def test_plane_slots_refused_on_resume(tmp_path):
     tr = tlm.LMTrainer(config)
     tr.fit()
     tr.ckpt.save(tr._ckpt_tree(), "lm-emergency")
-    with pytest.raises(ValueError, match="ROADMAP A11: emergency"):
-        tlm.LMTrainer(dataclasses.replace(config, resume=True))
+    resumed = tlm.LMTrainer(dataclasses.replace(config, resume=True))
+    assert resumed.ckpt.last_restored_path.endswith("lm-emergency-0")
+    assert resumed.global_step == tr.global_step
 
 
 def test_fused_refused_in_jax_words(tmp_path):

@@ -118,16 +118,33 @@ def test_spmd_trainer_matches_runner_trainer(jax_fit, tmp_path):
 
 
 @pytest.mark.parametrize("bad", [
-    dict(stall_budget_s=1.0), dict(emergency_every=5),
-    dict(check_finite_every=1),
-    dict(consistency_every=1), dict(statusz_port=0), dict(elastic=True),
-    dict(recovery=tconfig.RecoveryConfig(faults=("nan_loss@1",))),
-    dict(recovery=tconfig.RecoveryConfig(max_retries=1)),
-    dict(strategy="auto"),
+    dict(statusz_port=0), dict(strategy="auto"),
 ])
 def test_unported_options_are_refused_by_name(bad):
     with pytest.raises(ValueError, match="ROADMAP A"):
         tpipeline_trainer.PipelineTrainer(_port_config(**bad))
+
+
+@pytest.mark.parametrize("kw", [
+    dict(stall_budget_s=1.0), dict(emergency_every=5),
+    dict(check_finite_every=1), dict(consistency_every=1),
+    dict(elastic=True),
+    dict(recovery=tconfig.RecoveryConfig(faults=("nan_loss@1",)),
+         check_finite_every=1),
+    dict(recovery=tconfig.RecoveryConfig(max_retries=1)),
+])
+def test_plane_options_build_the_trainer(kw, tmp_path):
+    """The resilience plane's options, refused before they were ported:
+    the pipeline trainer builds with the plane armed (corruption faults
+    stay refused: one copy of every stage)."""
+    t = tpipeline_trainer.PipelineTrainer(
+        _port_config(**kw).replace(**run_dirs(tmp_path)))
+    assert t.resilience.slot == "pipeline-good"
+    assert t.emergency.slot == "pipeline-emergency"
+    with pytest.raises(ValueError, match="single-controller pipeline"):
+        tpipeline_trainer.PipelineTrainer(_port_config(
+            consistency_every=1, recovery=tconfig.RecoveryConfig(
+                faults=("bitflip@1",))).replace(**run_dirs(tmp_path)))
 
 
 def test_ema_and_too_few_devices_refused_as_jax_does(tmp_path):

@@ -30,8 +30,10 @@ print(" ".join(names), "|", bad)
 # Every module of the serving, LM training, CNN training, data-parallel
 # and pipeline slices, ResNet, the remaining data-parallel engines, the
 # sparse-gradient embedding path, the zoo and the checkpoint harness, the
-# serving engine's overload controls and planes, and the serving fleet
-# (device pool, fault injector, flight recorder, cells, router, fleet).
+# serving engine's overload controls and planes, the serving fleet
+# (device pool, fault injector, flight recorder, cells, router, fleet), and
+# the trainers' resilience plane (guards, recovery supervisor, consistency
+# sentinel, elastic restore, the chaos drill).
 _MODULES = {
     "config", "models.transformer", "ops._build", "ops.paged_attention",
     "ops.flash_attention", "serve.engine", "serve.generate", "serve.model",
@@ -53,6 +55,8 @@ _MODULES = {
     "serve.journal", "serve.capacity",
     "orchestrator", "orchestrator.scheduler", "utils.faults",
     "utils.flightrec", "serve.cells", "serve.router", "serve.fleet",
+    "train.guards", "train.resilience", "train.consistency",
+    "train.elastic", "train.chaos",
 }
 
 

@@ -13,6 +13,8 @@ MobileNetV2's last BN statistics 1.6e-4 of their scale from the float64
 values where JAX's f32 ones sit 4e-6 from them (measured on these
 inputs): the kernels' rounding, held where it does not enter."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -56,7 +58,10 @@ BUILD = {"mobilenetv2": (jmnv2.build_mobilenetv2, tmnv2.build_mobilenetv2,
                       {"arch": "resnet18"})}
 
 
+@functools.lru_cache(maxsize=None)
 def _inputs(name):
+    """The JAX model, its init at 224 px and one uint8 batch (shared by
+    both tests of a model; nothing here is changed by them)."""
     jm = jget_model(jconfig.ModelConfig(name=name, extra=EXTRA))
     params, state = jm.init(jax.random.key(0), jnp.zeros((2, 224, 224, 3)))
     rng = np.random.default_rng(5)

@@ -151,7 +151,8 @@ def test_best_acc_slot_precedence_and_fallback(tmp_path):
     assert r2.global_step == STEPS and r2.start_epoch == 1
     assert r2.best_acc == float(np.float32(t.best_acc))
     log = open(tmp_path / "log" / "p.txt").read()
-    assert "checkpoint fallback: preempt-0 rejected (size mismatch" in log
+    assert ("preempt-0 failed verification/restore (size mismatch" in log
+            and "falling back to the previous version" in log)
     assert "resume: slot 'ckpt' -> epoch 1 batch 0" in log
 
 
