@@ -77,7 +77,9 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     momentum 0, each printing the fused SGD kernel's device time;
 12. data parallelism — the CNN slice through the port's process group,
     one process per rank started by ``mesh.spawn``: (a) at world =
-    ``device_count()`` over NCCL, two gspmd steps at world 1 against
+    ``device_count()`` over NCCL (on one card the rank is this process,
+    joined to a one-rank group: phase 11's cuDNN autotuner results serve
+    it), two gspmd steps at world 1 against
     phase 11's one-device trainer from the same weights and batches,
     cuDNN deterministic, bit for bit; bench.py's timing shape through
     gspmd with samples/s, MFU, peak memory, the grad-allreduce µs a step
@@ -98,7 +100,7 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     ``0,4,10,16,19`` bit for bit phase 11's one-device trainer, and gpipe
     M=8 == 1f1b M=8 == interleaved V=2 M=8 (8 chunks at the port's
     cost-balanced cut) bit for bit over two steps; then naive M=1, gpipe
-    M=4 and M=8, 1f1b M=8 and interleaved V=2 M=8 timed (8 steps after 3,
+    M=4 and M=8, 1f1b M=8 and interleaved V=2 M=8 timed (6 steps after 1,
     each synced: step s, samples/s, host enqueue, peak memory, fused_sgd
     launches == chunks x steps) and one ``PipelineTrainer.fit`` epoch;
     (b) the SPMD engine through ``mesh.spawn`` at 2 stages (two ranks on
@@ -108,14 +110,15 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     S=2 with the same cut and M; hops and bytes, µs a ring shift of the
     boundary activation, step time; (c) ``PipelineTrainer`` over the 4
     stages, gpipe M=4 at the reference's cut, phase 15b's workload
-    (MobileNetV2 bf16, fused SGD, augment on, 4,096 / 1,024 rows at batch
+    (MobileNetV2 bf16, fused SGD, augment on, 3,072 / 512 rows at batch
     256, 2 epochs, cuDNN deterministic): ``fit(2)`` against ``fit``
     preempted by a ``step_hook`` at step 5 of epoch 1 and finished by
     ``PipelineTrainer(resume=True)``, bit for bit (parameters, momentum,
     BN statistics, update counts, global step, history), fused_sgd
     launches, the "pipeline" slot's best_acc, the text log's lines, save
     and restore ms and bytes; (d) two SPMD ranks (gloo on one card, NCCL
-    on two): the same gate under gpipe and 1f1b M=4 on 2,048 / 512 rows,
+    on two): the same gate under gpipe and 1f1b M=4 on 1,024 / 256 rows
+    (preempted at step 3 of epoch 1),
     then interleaved 1F1B V=2, M=4 at S=2 over 3 steps, each rank's
     chunks bit for bit the runner's interleaved V=2 at S=2 with the same
     cut, its hops and bytes a step beside 1F1B's;
@@ -144,8 +147,8 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     (``models/zoo.py``) at its CIFAR widths, bf16 over f32 parameters,
     FusedSGD (lr 0.4, momentum 0.9, wd 1e-4), batch 128 of synthetic
     32 px data on the card, device-resident, cuDNN's autotuner off: 2
-    one-step warm-ups, 10 steps in one dispatch, one sync — the JAX
-    package's parameter count,
+    steps in one dispatch, one sync (the timed ones: 2 one-step warm-ups,
+    then 10 steps in one dispatch) — the JAX package's parameter count,
     ``fused_sgd`` launches == steps x buckets on the card, finite losses;
     step s, samples/s and peak memory (over what was allocated before
     the model's Trainer) printed; phase 11a's check on
@@ -157,7 +160,8 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     history), per batch and device-resident at 10 steps a dispatch; the
     ``ckpt`` slot's best_acc, a torn newest version skipped and logged,
     the text log's lines, save and restore ms and the checkpoint's
-    bytes; (c) on 2,048 / 512 rows, the same gate at two ranks for ddp
+    bytes; (c) on 1,024 / 256 rows (preempted at step 3 of epoch 1), the
+    same gate at two ranks for ddp
     and zero (gloo on one card, NCCL on two or more), and zero's
     uninterrupted run against
     gspmd's from the same inputs, parameters, momentum and BN statistics
@@ -177,7 +181,7 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     under adam, adamw, lamb, lars and adafactor, the first 3 updates and
     every state tensor on the card against the same chain on the CPU fed
     the same gradients and parameters (1e-5 a leaf), finite losses over
-    20 more steps, with step s, samples/s, peak memory, state bytes, the
+    10 more steps, with step s, samples/s, peak memory, state bytes, the
     optimizer's host ms and CUDA kernels a step; (b) ``accum_steps`` 4 at
     B 128 against B 512 (mobilenetv2_nobn, f32, cuDNN deterministic), 3
     updates each from the big run's state, 1e-5 a leaf, ``fused_sgd``
@@ -249,7 +253,7 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     as a norm ratio of 2); step s, tokens/s
     and MFU a card, peak memory a rank, the table's bubble, stage hops
     and all-to-alls a step and their µs; (c) the MoE mesh at 4 layers:
-    ``fit`` preempted at step 3 and resumed equals the uninterrupted fit
+    ``fit`` preempted at step 2 and resumed equals the uninterrupted fit
     bit for bit on every rank, the restored slices in the interleaved
     storage order, the checkpoint's bytes, save and restore ms, and a
     resume at ``virtual_stages=1`` refused.
@@ -335,6 +339,32 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     8192) at 2 layers: ``nan_params`` caught by ``check_finite``, the
     good slot restored at half the LR, the epoch completed; each flash
     kernel launched n_layers x the steps run.
+24. The autotuner (``autotune/``), cuDNN deterministic: (a) the cost
+    model's coefficients on the card (``default_coefficients``, the HBM,
+    the peak) beside the card line — the card's name must be in the
+    profiling table and the HBM must be ``total_memory`` — and the plan
+    CLI's ``--dry-run`` top 3 for bench.py's LM at 8 devices; with four
+    cards 24e's ranks also time 4-byte and 64 MiB all-reduces over NCCL
+    (back to back between CUDA events) and print alpha and the wire rate
+    beside the constants; (b)
+    ``Trainer(strategy="auto")`` at bench.py's CNN geometry (MobileNetV2,
+    bf16, fused SGD, B 512, 10 steps a dispatch, 2 dispatches): the plan
+    this process computes, one ``plan`` record (``"startup"``), losses bit
+    for bit the gspmd run's, fused_sgd == steps x buckets, predicted
+    against measured step s and memory; (c) ``PipelineTrainer(strategy=
+    "auto")`` over 4 stages on the card (13a's workload, one fit epoch):
+    the cut auto_partition gives over the probe's costs, fused_sgd ==
+    chunks x steps; then the analytic top 3 microbatch counts each timed
+    for 2 steps through ``measure_plans`` (analytic and measured orders
+    printed, not gated); (d) ``LMTrainer(strategy="auto",
+    statusz_port=0)`` at bench.py's LM width (B 2, T 8192) at 2 layers, 3
+    steps through ``fit``: losses bit for bit ``strategy="spmd"``'s, each
+    flash kernel 2 x the steps, ``/statusz`` serving the trainer's
+    provider with the plan and the live global step, and ``/healthz``
+    200, read by a ``step_hook`` before every step; (e) 4 ranks riding
+    19b's spawn (MobileNetV2 bf16 B 128, 2 steps): every rank's decision
+    equal and equal to this process's plan for 4 devices, the steps run,
+    replicas bitwise under a data-parallel plan.
 
 Prints the card line, each phase's seconds, a ``{"data_parallel": ...}``
 line, a ``{"pipeline": ...}`` line, a ``{"resnet": ...}`` line, a
@@ -342,7 +372,8 @@ line, a ``{"pipeline": ...}`` line, a ``{"resnet": ...}`` line, a
 ``{"data_path": ...}`` line, a ``{"optim": ...}`` line, a
 ``{"lm_mesh": ...}`` line, a ``{"lm_pipe": ...}`` line, a ``{"decode":
 ...}`` line, a ``{"serve_planes": ...}`` line, a ``{"fleet": ...}`` line,
-a ``{"resilience": ...}`` line, the ``{"kernels": [...]}`` line and, last,
+a ``{"resilience": ...}`` line, an ``{"autotune": ...}`` line, the
+``{"kernels": [...]}`` line and, last,
 ``{"ok": true, "device": {...}}``. Exits non-zero
 without a card, or when run outside a checkout of the repository.
 ``--sgd-timing-only`` runs phases 1, 2 (the fused SGD kernel) and 10 and
@@ -374,6 +405,9 @@ lines and the paged kernel's rows of the ``{"kernels": ...}`` line; with
 four cards 20b runs over NCCL. ``--resilience-only`` runs phases 1, 2 (the
 fused SGD and flash kernels) and 23 (23b in a spawn of its own: NCCL
 with four cards, gloo on one) and prints the ``{"resilience": ...}`` line.
+``--autotune-only`` runs phases 1, 2 (the fused SGD and flash kernels)
+and 24 (24e in a spawn of its own: NCCL with four cards, gloo on one)
+and prints the ``{"autotune": ...}`` line.
 """
 
 from __future__ import annotations
@@ -396,8 +430,7 @@ MODEL = dict(vocab_size=32_000, d_model=1024, n_heads=8, n_layers=8,
 GEOMETRY = dict(n_slots=8, page_size=16, n_pages=(8 + 1) * 40,
                 max_seq_len=640, prefill_chunk=32)
 # New tokens a request in phase 5's profiled engine run.
-PROFILE_GEN = 16
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
+PROFILE_GEN = 8
 F32_FLOPS_PER_S = 67e12          # H100 SXM, float32 outside tensor cores
 # Kernel vs plain: bf16 output, f32 accumulation in both; the plain
 # version runs in f32 and is cast back, so the two differ by the
@@ -410,7 +443,6 @@ KERNEL_ATOL = 2e-2
 # kernel (a dropped page, a wrong head) moves logits by O(1).
 LOGITS_ATOL = 0.25
 
-BF16_FLOPS_PER_S = 989e12        # H100 SXM, dense bf16 tensor cores
 # Flash kernels vs plain (phase 6), B 2, H 8, bf16 N(0, 1) inputs: the
 # slice's shape and its edges (ragged T, full attention, a window, Dh 64).
 FLASH_CASES = {
@@ -561,9 +593,10 @@ DP_LOSS_ATOL = 2e-2
 # (each microbatch size would take its own first pass). 13b: the SPMD
 # engine, 2 stages as 2 ranks at the port's cost-balanced 2-stage cut.
 PP_STAGES, PP_CUT = 4, (0, 4, 10, 16, 19)
-# 13a times PP_TIMED_STEPS steps of each schedule (cut from 20, so the
-# script with phase 19 stays inside its time).
-PP_WARM_STEPS, PP_TIMED_STEPS = 3, 8
+# 13a times PP_TIMED_STEPS steps of each schedule (cut from 20, then 8,
+# so the script stays inside its time) after one warm-up step (the gates
+# ran the same schedules before).
+PP_WARM_STEPS, PP_TIMED_STEPS = 1, 6
 PP_RUNS = {                       # name -> (M, schedule, virtual stages)
     "naive_m1": (1, "gpipe", 1), "gpipe_m4": (4, "gpipe", 1),
     "gpipe_m8": (8, "gpipe", 1), "1f1b_m8": (8, "1f1b", 1),
@@ -616,6 +649,9 @@ BOW_RTOL, BOW_ATOL = 1e-5, 1e-6
 # package's parameter count of each (jax.eval_shape of its init on the
 # CPU; tests/test_torch_zoo_models.py).
 ZOO_BATCH, ZOO_WARM_DISPATCHES, ZOO_TIMED_STEPS = 128, 2, 10
+# The untimed models: one dispatch of this many steps, no warm-up (the
+# warm-ups serve the timing alone).
+ZOO_UNTIMED_STEPS = 2
 ZOO_TIMED = ("vgg16", "mobilenetv1")
 ZOO_PARAMS = {
     "vgg11": 9228362, "vgg13": 9413066, "vgg16": 14724042,
@@ -627,22 +663,24 @@ ZOO_PARAMS = {
     "simpledla": 15142970,
 }
 # Resume (phase 15b/c): the reference's workload (MobileNetV2,
-# bf16, fused SGD, augment on), 4,096 / 1,024 synthetic rows, batch 256
-# (16 steps an epoch), 2 epochs, preempted at step 5 of epoch 1 (the
-# first dispatch boundary after it at 10 steps a dispatch), cuDNN
+# bf16, fused SGD, augment on), 3,072 / 512 synthetic rows, batch 256
+# (12 steps an epoch; cut from 4,096 / 1,024 for the script's time), 2
+# epochs, preempted at step 5 of epoch 1 (the first dispatch boundary
+# after it at 10 steps a dispatch, inside the epoch), cuDNN
 # deterministic.
-RES_TRAIN, RES_EVAL, RES_BATCH, RES_PREEMPT_STEP = 4096, 1024, 256, 5
+RES_TRAIN, RES_EVAL, RES_BATCH, RES_PREEMPT_STEP = 3072, 512, 256, 5
 # The pipeline's harness (phase 13c/13d): 15b's workload and gate through
 # the pipeline. 13c: PipelineTrainer over PP_STAGES stages at the
 # reference's cut, gpipe M=4, RES_TRAIN / RES_EVAL rows. 13d: two SPMD
 # ranks, gpipe and 1f1b M=4, on PPS_TRAIN / PPS_EVAL rows (cut from 15b's
-# 4,096 / 1,024 so that six two-epoch fits over the host-staged gloo hops
-# fit the phase; 1,536 rows are 6 steps an epoch, the fewest that still
-# hold step RES_PREEMPT_STEP of epoch 1), then interleaved V=2 M=4 for
-# PP_SPMD_STEPS steps
-# against the runner, and 1F1B's hops beside it.
+# 3,072 / 512 so that the two-epoch fits over the host-staged gloo hops
+# fit the script's time: 1,024 rows are 4 steps an epoch, preempted at
+# step PPS_PREEMPT_STEP of epoch 1, one step before its end as 15b's step 5
+# of 6 was), then interleaved V=2 M=4 for PP_SPMD_STEPS steps against the
+# runner, and 1F1B's hops beside it. 15c's two-rank fits take the same
+# rows and preemption.
 PPR_M = 4
-PPS_TRAIN, PPS_EVAL = 1536, 256
+PPS_TRAIN, PPS_EVAL, PPS_PREEMPT_STEP = 1024, 256, 3
 # The data path (phase 16): (a) the reference's finetune recipe
 # (Readme.md:186-202, SURVEY.md:309): MobileNetV2 in the ImageNet layout,
 # bf16 over f32, FusedSGD lr 0.05 / momentum 0.9 / wd 1e-4 / 10 warm-up
@@ -681,7 +719,7 @@ FT_GATHER_ROWS, FT_GATHER_BATCH, FT_GATHER_REPS = 50_000, 512, 50
 # f32 rounding).
 OPT_LR = {"adam": 1e-3, "adamw": 1e-3, "lamb": 1e-2, "lars": 1.0,
           "adafactor": 1e-2}
-OPT_GATE_UPDATES, OPT_STEPS, OPT_CPU_RTOL = 3, 20, 1e-5
+OPT_GATE_UPDATES, OPT_STEPS, OPT_CPU_RTOL = 3, 10, 1e-5
 ACC_K, ACC_MICRO, ACC_UPDATES, ACC_RTOL, ACC_LR = 4, 128, 3, 1e-5, 0.01
 EMA_DECAY, EMA_STEPS, EMA_RTOL = 0.9, 3, 1e-6
 RESUME_OPT = dict(name="adamw", learning_rate=1e-3, warmup_steps=10,
@@ -727,11 +765,11 @@ LM18_MESHES = {
 LM18_LOSS_ATOL = 1e-3
 # 18c: the resume gate at 2 layers (the cut: 2 of bench.py's 8, so three
 # fits and their checkpoints of the whole model fit the phase),
-# LM18_RESUME_STEPS steps, preempted at step 2 of epoch 0 (4 and 2, cut
+# LM18_RESUME_STEPS steps, preempted at step 2 of epoch 0 (3 and 2, cut
 # from 5 and 3 for the script's time limit; the resumed run still takes
 # a step after the restore).
 LM18_RESUME_LAYERS = 2
-LM18_RESUME_STEPS = 4
+LM18_RESUME_STEPS = 3
 LM18_PREEMPT_AT = (0, 2)
 
 # Phase 19: the LM's stage and expert axes at full width (bench.py's LM
@@ -821,12 +859,12 @@ LM19_MOE_GRADS = "lm19a_moe_grads.pt"
 LM19_ROUTES = "lm19a_moe_routes.pt"
 # 19c: mesh iv at 4 layers and T 2048 (the cuts: 4 of 8 layers, the
 # fewest V 2 x S 2 allows, and a quarter of the tokens, so three fits and
-# their 2.8 GB checkpoints fit the phase), 4 steps, preempted at step 2 of
+# their 2.8 GB checkpoints fit the phase), 3 steps, preempted at step 2 of
 # epoch 0 (cut from 5 and 3 for the script's time limit; the resumed run
 # still takes a step after the restore).
 LM19_RESUME_LAYERS = 4
 LM19_RESUME_SEQ = 2048
-LM19_RESUME_STEPS = 4
+LM19_RESUME_STEPS = 3
 LM19_PREEMPT_AT = (0, 2)
 
 # Phase 20 (decoding beyond the engine). 20a: bench.py's decode workload
@@ -921,6 +959,17 @@ def fail(phase: str, msg: str) -> None:
     sys.exit(1)
 
 
+def card_peak(kind: str) -> float:
+    """The H100 SXM's rate from ``utils/profiling``'s tables (the data
+    sheet's; the card this script's bounds and MFU are taken for):
+    ``"flops"`` the dense bf16 FLOP/s, ``"hbm"`` the memory B/s."""
+    from distributed_model_parallel_tpu_torch.utils import profiling
+
+    table = (profiling.GPU_PEAK_FLOPS if kind == "flops"
+             else profiling.GPU_PEAK_HBM_BYTES)
+    return table["NVIDIA H100 80GB HBM3"]
+
+
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -939,7 +988,7 @@ def sgd_traffic(n: int, momentum: float, weight_decay: float,
     flops = (2 * (weight_decay != 0) + 2 * (momentum != 0)
              + 2 * bool(nesterov and momentum) + 2) * n
     bound_ms, bound_by = max(
-        (bytes_moved / HBM_BYTES_PER_S * 1e3, "bytes"),
+        (bytes_moved / card_peak('hbm') * 1e3, "bytes"),
         (flops / F32_FLOPS_PER_S * 1e3, "operations"))
     return dict(bytes=bytes_moved, flops=flops, bound_ms=bound_ms,
                 bound_by=bound_by)
@@ -1075,7 +1124,7 @@ def print_profile(label: str, run, card, kind=lm_kind) -> list:
 def profile_engine(Engine, params, cfg, serve, prompts, gens, card) -> None:
     """The same engine workload once more under ``torch.profiler``, each
     request cut to PROFILE_GEN new tokens (cut: the profiler took 42 s to
-    gather the trace of the whole 59-step run)."""
+    gather the trace of the whole 59-step run, and 12-19 s at 16 tokens)."""
     eng = Engine(params, cfg, serve)
     for i, (p, g) in enumerate(zip(prompts, gens)):
         eng.submit(p, min(g, PROFILE_GEN), seed=i)
@@ -1272,8 +1321,8 @@ def time_flash(fa, card) -> dict:
         vec = b * h * t * 4                                  # one f32 vector
         bytes_moved = (n_in + n_out) * elt + (1 if name == "flash_fwd"
                                               else 2) * vec
-        ops_ms = flops / BF16_FLOPS_PER_S * 1e3
-        bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+        ops_ms = flops / card_peak('flops') * 1e3
+        bytes_ms = bytes_moved / card_peak('hbm') * 1e3
         bound_ms, bound_by = max((ops_ms, "operations"), (bytes_ms, "bytes"))
         library_ms = sdpa_fwd_ms if name == "flash_fwd" else sdpa_bwd_ms
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
@@ -1423,8 +1472,8 @@ def train_full_width(tfm, lm, fa, lm_model_flops, card) -> tuple:
     print(f"trainer [{card}]: B {TRAIN_BATCH}, T {TRAIN_SEQ}, {TRAIN_STEPS} "
           f"steps in {sum(step_times)} s: tokens/s "
           f"{history[-1]['tokens_per_s']}, MFU (lm_model_flops {flops} / "
-          f"mean step s / {BF16_FLOPS_PER_S:.0f}) "
-          f"{flops / mean_s / BF16_FLOPS_PER_S}; mean step {mean_s} s, "
+          f"mean step s / {card_peak('flops'):.0f}) "
+          f"{flops / mean_s / card_peak('flops')}; mean step {mean_s} s, "
           f"median step {statistics.median(step_times)} s (steps "
           f"{step_times}); torch.cuda.max_memory_allocated {peak} B; "
           f"epoch record {json.dumps(history[-1])}")
@@ -1907,8 +1956,8 @@ def train_cnn(trainer_mod, fs, tconfig, card) -> tuple:
           f"(after {CNN_WARM_DISPATCHES} warm-up dispatches of {CNN_SPD}), "
           f"one sync: samples/s/chip {rec['samples_per_s']}, step "
           f"{rec['step_s']} s, MFU ({flops} flop per step "
-          f"/ step s / {BF16_FLOPS_PER_S:.0f}) "
-          f"{flops / rec['step_s'] / BF16_FLOPS_PER_S}, "
+          f"/ step s / {card_peak('flops'):.0f}) "
+          f"{flops / rec['step_s'] / card_peak('flops')}, "
           f"torch.cuda.max_memory_allocated {peak} B; "
           f"cudnn.benchmark {torch.backends.cudnn.benchmark}, cudnn "
           f"allow_tf32 {torch.backends.cudnn.allow_tf32}")
@@ -2168,6 +2217,23 @@ class RideAlong:
         return self.gate(self.results)
 
 
+class RankLaps:
+    """Rank 0 of a spawn prints the seconds of each named part of a rank
+    job (where a carrier spawn's time goes)."""
+
+    def __init__(self, spec, job: str):
+        self.show = spec.rank == 0
+        self.job = job
+        self.mark = time.perf_counter()
+
+    def done(self, part: str) -> None:
+        now = time.perf_counter()
+        if self.show:
+            print(f"{self.job} rank 0, {part}: {now - self.mark:.2f} s",
+                  flush=True)
+        self.mark = now
+
+
 def rank_jobs(spec, fn, args: tuple, rides: list) -> list:
     """A carrier spawn's rank function: its own ``fn(spec, *args)``, then
     each ride's on the group laid out anew as the ride's mesh."""
@@ -2175,16 +2241,42 @@ def rank_jobs(spec, fn, args: tuple, rides: list) -> list:
 
     from distributed_model_parallel_tpu_torch import mesh as mesh_mod
 
+    t0 = time.perf_counter()
     out = [fn(spec, *args)]
+    seconds = [(fn.__name__, time.perf_counter() - t0)]
     for ride_fn, config, ride_args in rides:
         # Each job starts from an emptied allocator cache, as in a spawn
         # of its own.
         gc.collect()
         torch.cuda.empty_cache()
+        t0 = time.perf_counter()
         ride_spec = (spec if config is None
                      else mesh_mod.make_mesh(config, spec.device))
         out.append(ride_fn(ride_spec, *ride_args))
+        seconds.append((ride_fn.__name__, time.perf_counter() - t0))
+    if spec.rank == 0:
+        print("carrier spawn, rank 0's seconds a job: " + ", ".join(
+            f"{name} {s:.2f}" for name, s in seconds), flush=True)
     return out
+
+
+def dp_in_process(mesh, fn, phase: str, *args):
+    """``fn(spec, *args)`` on a one-rank NCCL group that this process
+    joins and then leaves (``mesh.run_here``): the rank shares this
+    process's CUDA context and cuDNN autotuner results, and pays no
+    process start. The cuDNN flags are restored after it."""
+    import torch
+
+    flags = (torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.deterministic)
+    try:
+        return mesh.run_here(fn, *args, device="cuda", backend="nccl",
+                             store_dir=os.environ[RUN_DIR_ENV])
+    except (RuntimeError, ValueError) as e:
+        fail(phase, f"{type(e).__name__}: {e}")
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic \
+            = flags
 
 
 def dp_spawn(mesh, fn, nproc: int, phase: str, *args, rides=(), **kw):
@@ -2220,7 +2312,11 @@ def data_parallel(mesh, trainer_mod, tconfig, card,
     world = torch.cuda.device_count()
     ref = dp_gate_step(trainer_mod, tconfig)
     torch.cuda.empty_cache()
-    a = dp_spawn(mesh, dp_world_rank, world, "12a/data parallel")[0]
+    # One card: the rank is this process (phase 11 ran the same shapes, so
+    # cuDNN's autotuner has nothing left to try); more: a spawn.
+    a = (dp_in_process(mesh, dp_world_rank, "12a/data parallel")
+         if world == 1 else
+         dp_spawn(mesh, dp_world_rank, world, "12a/data parallel")[0])
     transport = a["backend"]
     out = {"world": world, "backend": transport, "transport": transport}
     if world == 1:
@@ -2242,7 +2338,7 @@ def data_parallel(mesh, trainer_mod, tconfig, card,
     b = a["bench"]
     us = sorted(b["allreduce_us"])
     med_us = statistics.median(us)
-    mfu = b["flops_per_rank_step"] / b["step_s"] / BF16_FLOPS_PER_S
+    mfu = b["flops_per_rank_step"] / b["step_s"] / card_peak('flops')
     per_step = b["reducer_calls"] / b["steps"]
     print(f"dp gspmd [{card}]: world {world}, backend {transport}, "
           f"transport {transport}; B {CNN_BATCH} ({CNN_BATCH // world} a "
@@ -2916,8 +3012,9 @@ def pp_resume_rank(spec, configs, train, evals, preempt_at, v2_config,
     t0 = time.perf_counter()
     fs.fused_sgd_kernel.launches = 0
     fs.plain_sgd_kernel.launches = 0
-    out = {"runs": workers.preempt_resume(spec, configs, train, evals,
-                                          preempt_at),
+    runs = workers.preempt_resume(spec, configs, train, evals, preempt_at)
+    drop_trees(runs)
+    out = {"runs": runs,
            "fused_sgd": fs.fused_sgd_kernel.launches,
            "plain_sgd": fs.plain_sgd_kernel.launches,
            "seconds": time.perf_counter() - t0}
@@ -2984,7 +3081,7 @@ def pp_spmd_resume(mesh, models, pipeline, auto_partition, tconfig, root,
     train, evals = load_dataset(configs["gpipe"].data)
     steps = PPS_TRAIN // RES_BATCH
     args = (configs, (train.images, train.labels),
-            (evals.images, evals.labels), steps + RES_PREEMPT_STEP,
+            (evals.images, evals.labels), steps + PPS_PREEMPT_STEP,
             hops["interleaved"], hops)
     result: dict = {}
 
@@ -3015,7 +3112,7 @@ def pp_spmd_resume(mesh, models, pipeline, auto_partition, tconfig, root,
             print(f"pp spmd resume {s}, 2 ranks over {backend} [{card}]: M "
                   f"{PPR_M}, cut {cut2}, B {RES_BATCH}, {steps} steps an "
                   f"epoch, preempted at global step "
-                  f"{steps + RES_PREEMPT_STEP}; arrays "
+                  f"{steps + PPS_PREEMPT_STEP}; arrays "
                   f"differing resumed vs uninterrupted {bad} (of "
                   f"{[len(x[0]) for x in leaves]}) per rank; update count, "
                   f"step "
@@ -3188,12 +3285,12 @@ def train_resnet(trainer_mod, fs, models, staged, tconfig, card) -> dict:
         t.model.apply(torch.zeros(CNN_BATCH, 32, 32, 3, dtype=torch.bfloat16,
                                   device=dev), train=False)
     flops = 3 * counter.get_total_flops()
-    mfu = flops / rec["step_s"] / BF16_FLOPS_PER_S
+    mfu = flops / rec["step_s"] / card_peak('flops')
     print(f"{RN_MODEL} trainer [{card}]: B {CNN_BATCH}, {CNN_TIMED_STEPS} "
           f"steps (after {CNN_WARM_DISPATCHES} warm-up dispatches of "
           f"{CNN_SPD}), one sync: samples/s/chip {rec['samples_per_s']}, "
           f"step {rec['step_s']} s, MFU ({flops} flop per step = 3 x "
-          f"FlopCounterMode's forward / step s / {BF16_FLOPS_PER_S:.0f}) "
+          f"FlopCounterMode's forward / step s / {card_peak('flops'):.0f}) "
           f"{mfu}, torch.cuda.max_memory_allocated {peak} B")
     rows = print_profile(f"{RN_MODEL} step", lambda: f"loss "
                          f"{t.run_steps(idxs[-1][:1])['loss'].item()}",
@@ -3207,7 +3304,7 @@ def train_resnet(trainer_mod, fs, models, staged, tconfig, card) -> dict:
         print(f"{RN_MODEL} step fused_sgd device time [{card}]: {kernel_us} "
               f"us for {sum(h[1] for h in hits)} launch(es) over "
               f"{n_params} parameters; byte bound {bound['bound_ms'] * 1e3} "
-              f"us ({bound['bytes']} B at {HBM_BYTES_PER_S:.3g} B/s), "
+              f"us ({bound['bytes']} B at {card_peak('hbm'):.3g} B/s), "
               f"{bound['bound_ms'] * 1e3 / kernel_us:.1%} of it")
     del t, params0
 
@@ -3699,10 +3796,12 @@ def zoo_run(trainer_mod, fs, tconfig, name: str, root: str, card,
     count, the fused update launched on the card (no plain fallback),
     launches == steps x buckets, finite losses. ``timed``: cuDNN's
     autotuner on, as train_cnn runs, and the steps' time and peak memory
-    reported; else the autotuner off and no time reported."""
+    reported; else the autotuner off, no warm-up, ZOO_UNTIMED_STEPS steps
+    and no time reported."""
     import torch
 
     phase = "15a/zoo"
+    t_model = time.perf_counter()
     torch.backends.cudnn.benchmark = timed
     # What earlier models and phases still hold, once cycles are freed (a
     # collection inside this model's run would otherwise lower the
@@ -3720,28 +3819,28 @@ def zoo_run(trainer_mod, fs, tconfig, name: str, root: str, card,
                     f"{ZOO_PARAMS[name]}")
     if getattr(t.optimizer, "_launchers", None) is None:
         fail(phase, f"{name}: FusedSGD runs the plain update on the card")
+    warm = ZOO_WARM_DISPATCHES if timed else 0
+    steps = ZOO_TIMED_STEPS if timed else ZOO_UNTIMED_STEPS
     gen = torch.Generator().manual_seed(0)
-    idx = torch.randint(0, 4 * ZOO_BATCH, (ZOO_WARM_DISPATCHES
-                                           + ZOO_TIMED_STEPS, ZOO_BATCH),
+    idx = torch.randint(0, 4 * ZOO_BATCH, (warm + steps, ZOO_BATCH),
                         generator=gen).cuda()
-    for w in range(ZOO_WARM_DISPATCHES):
+    for w in range(warm):
         t.run_steps(idx[w:w + 1])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fs.fused_sgd_kernel.launches = 0
     fs.plain_sgd_kernel.launches = 0
     t0 = time.perf_counter()
-    m = t.run_steps(idx[ZOO_WARM_DISPATCHES:])
+    m = t.run_steps(idx[warm:])
     losses = m["loss"].cpu().tolist()
     dt = time.perf_counter() - t0
     launches = {"fused_sgd": fs.fused_sgd_kernel.launches,
                 "plain_sgd": fs.plain_sgd_kernel.launches}
     kernel = "fused_sgd" if momentum else "plain_sgd"
-    want = {"fused_sgd": 0, "plain_sgd": 0, kernel: ZOO_TIMED_STEPS * buckets}
-    rec = dict(params=n, leaves=len(params), buckets=buckets,
-               step_s=dt / ZOO_TIMED_STEPS if timed else None,
-               samples_per_s=ZOO_BATCH * ZOO_TIMED_STEPS / dt
-               if timed else None,
+    want = {"fused_sgd": 0, "plain_sgd": 0, kernel: steps * buckets}
+    rec = dict(params=n, leaves=len(params), buckets=buckets, steps=steps,
+               step_s=dt / steps if timed else None,
+               samples_per_s=ZOO_BATCH * steps / dt if timed else None,
                peak_bytes=torch.cuda.max_memory_allocated() - base
                if timed else None,
                launches=launches, losses=losses)
@@ -3752,7 +3851,8 @@ def zoo_run(trainer_mod, fs, tconfig, name: str, root: str, card,
     print(f"zoo {name}{'' if momentum else ' (momentum 0)'} [{card}]: "
           f"{n} parameters, {len(params)} leaves, {buckets} bucket(s); "
           f"{timing}; launches {launches} (want {want}); "
-          f"losses {losses[0]} .. {losses[-1]}")
+          f"losses {losses[0]} .. {losses[-1]}; "
+          f"{time.perf_counter() - t_model:.2f} s in all")
     if not all(math.isfinite(x) for x in losses):
         fail(phase, f"{name}: non-finite losses {losses}")
     if launches != want:
@@ -3969,8 +4069,17 @@ def resume_rank(spec, configs, train, evals, preempt_at,
     t0 = time.perf_counter()
     out = workers.preempt_resume(spec, configs, train, evals, preempt_at,
                                  uninterrupted)
+    drop_trees(out)
     out["seconds"] = time.perf_counter() - t0
     return out
+
+
+def drop_trees(runs: dict) -> None:
+    """The whole checkpoint trees ``workers.preempt_resume`` returns per
+    run, which no gate here reads: not sent back to the parent."""
+    for per_config in runs.values():
+        for run in per_config.values():
+            run.pop("tree", None)
 
 
 def resume_ranks(mesh, tconfig, root, card,
@@ -4006,7 +4115,7 @@ def resume_ranks(mesh, tconfig, root, card,
     steps = PPS_TRAIN // RES_BATCH
     config = tconfig.MeshConfig(data=2)
     args = (configs, (train.images, train.labels),
-            (evals.images, evals.labels), steps + RES_PREEMPT_STEP,
+            (evals.images, evals.labels), steps + PPS_PREEMPT_STEP,
             ("gspmd",))
     result: dict = {}
 
@@ -4162,7 +4271,7 @@ def finetune(trainer_mod, fs, loader_mod, card) -> dict:
     step_s = dt / steps
     rec = dict(steps=steps, step_s=step_s,
                samples_per_s=FT_BATCH * steps / dt,
-               mfu=flops / step_s / BF16_FLOPS_PER_S, flop_per_step=flops,
+               mfu=flops / step_s / card_peak('flops'), flop_per_step=flops,
                peak_bytes=peak, fused_sgd=launches, plain_sgd=plain,
                want=want,
                losses=losses)
@@ -4171,7 +4280,7 @@ def finetune(trainer_mod, fs, loader_mod, card) -> dict:
           f"FusedSGD lr {FT_LR}, {steps} steps (after "
           f"{CNN_WARM_DISPATCHES} warm-up dispatches of {CNN_SPD}), one "
           f"sync: samples/s {rec['samples_per_s']}, step {step_s} s, MFU "
-          f"({flops} flop per step / step s / {BF16_FLOPS_PER_S:.0f}) "
+          f"({flops} flop per step / step s / {card_peak('flops'):.0f}) "
           f"{rec['mfu']}, torch.cuda.max_memory_allocated {peak} B; "
           f"fused_sgd launches {launches} (want steps x buckets = {want}), "
           f"plain_sgd {plain} (want 0); losses {losses[:3]} .. {losses[-3:]}")
@@ -5054,7 +5163,7 @@ def lm_single_card(fa, lm_model_flops, card, ref_loss) -> dict:
         flops = lm_model_flops(config.model, TRAIN_BATCH, TRAIN_SEQ)
         out[name] = dict(losses=losses, step_s=step_s, times=times,
                          tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / step_s,
-                         mfu=flops / step_s / BF16_FLOPS_PER_S,
+                         mfu=flops / step_s / card_peak('flops'),
                          peak_bytes=peak, launches=launches)
         print(f"lm 18a {name} [{card}]: step s {step_s} (median of steps "
               f"1-{LM18_STEPS - 1}; {times}), tokens/s "
@@ -5252,6 +5361,7 @@ def lm_mesh_rank(spec, meshes: dict, resume: bool) -> dict:
         setattr(mod, name, counted(getattr(mod, name)))
     wrappers = flash_wrappers(fa)
     out = {}
+    laps = RankLaps(spec, "18b-c")
     for name, (mesh, kw) in meshes.items():
         spec_m = mesh_mod.make_mesh(MeshConfig(**mesh), spec.device)
         row = {"grid": spec_m.grid}
@@ -5285,6 +5395,7 @@ def lm_mesh_rank(spec, meshes: dict, resume: bool) -> dict:
             toks, tgts = trainer.sample_batch(0, LM18_STEPS)
             trainer.train_step(toks, tgts)
         row["us"] = {k: v * 1e6 for k, v in secs.items()}
+        laps.done(f"18b {name}")
         step_s = statistics.median(times[1:])
         world = spec_m.config.num_devices
         row.update(losses=losses, times=times, step_s=step_s,
@@ -5292,13 +5403,14 @@ def lm_mesh_rank(spec, meshes: dict, resume: bool) -> dict:
                    tokens_per_s_card=TRAIN_BATCH * TRAIN_SEQ / step_s / world,
                    mfu_card=lm_model_flops(config.model, TRAIN_BATCH,
                                            TRAIN_SEQ) / world / step_s
-                   / BF16_FLOPS_PER_S)
+                   / card_peak('flops'))
         out[name] = row
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
     if resume:
         out["resume"] = lm18_resume(spec)
+        laps.done("18c")
     return out
 
 
@@ -5782,7 +5894,7 @@ def lm19_run(name: str, kw: dict, b: int, t: int, m: int, schedule: str,
     r = dict(losses=losses, times=times, step_s=step_s,
              tokens_per_s=b * t / step_s,
              mfu=lm_model_flops(config.model, b, t) / step_s
-             / BF16_FLOPS_PER_S, peak_bytes=peak, launches=launches,
+             / card_peak('flops'), peak_bytes=peak, launches=launches,
              launches_want=want, drop=drops)
     print(f"lm 19a {name} [{card}] B {b}, T {t}, M {m}, {schedule}: "
           f"timed step s {step_s} ({times}), tokens/s {r['tokens_per_s']}, "
@@ -5836,7 +5948,9 @@ def lm19_grad_check(trainer) -> dict:
         tensor_parallel as tp,
     )
 
-    card = torch.load(os.path.join(os.environ[RUN_DIR_ENV], LM19_MOE_GRADS))
+    # Mapped, not read: each rank touches only the slices it holds.
+    card = torch.load(os.path.join(os.environ[RUN_DIR_ENV], LM19_MOE_GRADS),
+                      mmap=True)
     spec, cfg = trainer.spec, trainer.cfg
     cuts = tp.param_cuts(cfg, spec)
     out = {}
@@ -5894,6 +6008,7 @@ def lm19_rank(spec, meshes: dict, resume: bool, decode: bool = False
         setattr(fa, name, counted(getattr(fa, name)))
     wrappers = flash_wrappers(fa)
     out = {}
+    laps = RankLaps(spec, "19b-c")
     for name, (mesh, kw, b, t, m, schedule, v, _) in meshes.items():
         spec_m = mesh_mod.make_mesh(MeshConfig(**mesh), spec.device)
         config = lm19_config(f"lm19b_{name}", mesh, batch=b, seq=t,
@@ -5938,21 +6053,24 @@ def lm19_rank(spec, meshes: dict, resume: bool, decode: bool = False
         with C.timed() as secs:
             trainer.train_step(*trainer.sample_batch(0, LM19_STEPS))
         row["us"] = {k: x * 1e6 for k, x in secs.items()}
+        laps.done(f"19b {name}")
         step_s = statistics.median(row["times"][1:])
         world = spec_m.config.num_devices
         row.update(step_s=step_s, bubble=trainer.pipeline.bubble_share(),
                    tokens_per_s_card=b * t / step_s / world,
                    mfu_card=lm_model_flops(config.model, b, t) / world
-                   / step_s / BF16_FLOPS_PER_S)
+                   / step_s / card_peak('flops'))
         out[name] = row
         del trainer
         gc.collect()
         torch.cuda.empty_cache()
     if resume:
         out["resume"] = lm19_resume(spec)
+        laps.done("19c")
     if decode:
         out["decode"] = gen_sharded_run(mesh_mod.make_mesh(
             MeshConfig(**GEN_MESH), spec.device))
+        laps.done("20b")
     return out
 
 
@@ -6383,7 +6501,7 @@ def generate_phase(tfm, pa, fa, card) -> dict:
     n_params = sum(v.numel() for v in params["blocks"].values()) + sum(
         v.numel() for k, v in params.items() if k != "blocks")
     nbytes = decode_bytes(tfm, cfg, n_params, GEN_B, GEN_PROMPT, GEN_STEPS)
-    bound_s = nbytes / HBM_BYTES_PER_S
+    bound_s = nbytes / card_peak('hbm')
     out = {"lm_decode_bs8_tokens_per_sec_per_chip":
            GEN_B * GEN_STEPS / wall,
            "wall_s": wall, "token_latency_ms": wall / GEN_STEPS * 1e3,
@@ -6773,7 +6891,7 @@ def spec_rows_check(pa, card) -> dict:
     bytes_moved = (2 * tokens_read * 8 * dh * elt + 2 * qw.numel() * elt
                    + tables.numel() * 4 + pos.numel() * 4)
     flops = 4 * pairs * 8 * dh
-    bound_ms, bound_by = max((bytes_moved / HBM_BYTES_PER_S * 1e3, "bytes"),
+    bound_ms, bound_by = max((bytes_moved / card_peak('hbm') * 1e3, "bytes"),
                              (flops / F32_FLOPS_PER_S * 1e3, "operations"))
     print(f"paged_decode_rows timing W {w} [{card}]: kernel {ms} ms, plain "
           f"{plain_ms} ms, sdpa {library_ms} ms, bound {bound_ms} ms "
@@ -7067,7 +7185,7 @@ def serve_phases(laps, card) -> dict:
                    + 2 * q.numel() * elt                     # q in, out
                    + tables.numel() * 4 + pos.numel() * 4)
     flops = 4 * tokens_read * 8 * dh                         # q.k and p.v
-    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bytes_ms = bytes_moved / card_peak('hbm') * 1e3
     ops_ms = flops / F32_FLOPS_PER_S * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
     print(f"paged_decode timing [{card}]: kernel {ms} ms (split + merge), "
@@ -8401,6 +8519,7 @@ def resilience_rank(spec, root: str) -> dict:
         return out
 
     out = {}
+    laps = RankLaps(spec, "23b")
     kw = dict(mesh=mesh4, consistency_every=1, max_inflight_steps=1,
               **RANKS23_DDP)
     clean, hit = chaos.drill_rank(spec, [
@@ -8408,11 +8527,13 @@ def resilience_rank(spec, root: str) -> dict:
         (cfg("r23_bitflip", recovery=R(max_retries=1,
                                        faults=("bitflip@1",)), **kw), True)])
     out["bitflip"] = dict(parity=same(clean, hit), **slim(hit))
+    laps.done("bitflip")
     (ov,) = chaos.overhead_rank(spec, [(cfg(
         "r23_overhead", mesh=mesh4, epochs=1,
         rows=RANKS23_BATCH * RANKS23_OVERHEAD_STEPS, max_inflight_steps=1,
         log_every_n_steps=1, **RANKS23_DDP), 10)])
     out["overhead"] = ov
+    laps.done("overhead")
     pk = dict(mesh=mesh4, max_inflight_steps=1, emergency_every=2,
               model=tconfig.ModelConfig(name=RANKS23_PREEMPT_MODEL,
                                         dtype="bfloat16"))
@@ -8429,6 +8550,7 @@ def resilience_rank(spec, root: str) -> dict:
     out["preempt"] = dict(kill=slim(kill), resume4=slim(r4),
                           parity4=same(base, r4),
                           base_step=base["global_step"])
+    laps.done("preempt at 4")
     sub = dist.new_group([0, 1])
     ddp4 = cfg("r23_ddp", mesh=mesh4, recovery=R(faults=("preempt@1",)),
                **RANKS23_DDP)
@@ -8458,6 +8580,7 @@ def resilience_rank(spec, root: str) -> dict:
                                            list(e.conflicts[0][2])],
                 value_error=isinstance(e, ValueError))
     mesh_barrier(spec)
+    laps.done("world 2")
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
         flags
     return out
@@ -8605,6 +8728,510 @@ def resilience_ride(card: str):
     return ride
 
 
+# -- phase 24: the autotuner ----------------------------------------------------
+
+LM24_LAYERS, LM24_STEPS = 2, 3               # 24d: bench.py's LM width, cut
+AUTO24_BATCH, AUTO24_STEPS = 128, 2          # 24e: 23b's geometry, 2 steps
+AUTO24_WIRE_BYTES = 64 << 20                 # 24a: the wire-rate all-reduce
+
+
+def autotune_config(tconfig, root: str, name: str, **kw):
+    """Phase 24's CNN workloads: bench.py's CNN geometry (cnn_config:
+    MobileNetV2, bf16 over f32, fused SGD) under ``strategy="auto"``,
+    logs and checkpoints under ``root``."""
+    return cnn_config(tconfig).replace(
+        strategy="auto", log_dir=os.path.join(root, "log"), log_name=name,
+        checkpoint_dir=os.path.join(root, f"ckpt_{name}"), **kw)
+
+
+def autotune_coefficients(card) -> dict:
+    """24a: the cost model's coefficients on the card, its HBM and peak,
+    beside nvidia-smi's name and power limit; the plan CLI's dry-run
+    ranking of bench.py's LM at 8 devices (top 3)."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+
+    from distributed_model_parallel_tpu_torch.autotune import (
+        cost_model,
+        dmp_plan,
+        memory,
+    )
+    from distributed_model_parallel_tpu_torch.utils import profiling
+
+    phase = "24a/autotune coefficients"
+    name = torch.cuda.get_device_name(0)
+    peak = profiling.peak_flops_per_chip()
+    if peak is None:
+        fail(phase, f"no peak FLOP/s for {name!r} in utils/profiling")
+    coeffs = cost_model.default_coefficients()
+    hbm = memory.device_hbm_bytes()
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"autotune 24a [{card}]: default_coefficients() {coeffs}; "
+          f"device_hbm_bytes() {hbm} (total_memory {total}); "
+          f"peak_flops_per_chip() {peak}; peak_hbm_bytes_per_chip() "
+          f"{profiling.peak_hbm_bytes_per_chip()}")
+    if hbm != float(total) or coeffs.peak_flops_per_s != peak:
+        fail(phase, f"HBM {hbm} != total_memory {total} or the "
+                    f"coefficients' peak {coeffs.peak_flops_per_s} != {peak}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        dmp_plan.main([
+            "--workload", "lm", "--devices", "8", "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--d-model",
+            str(LM_MODEL["d_model"]), "--heads", str(LM_MODEL["n_heads"]),
+            "--layers", str(LM_MODEL["n_layers"]), "--d-ff",
+            str(LM_MODEL["d_ff"]), "--vocab", str(LM_MODEL["vocab_size"]),
+            "--dry-run", "--top", "3"])
+    cli = json.loads(buf.getvalue())
+    top = [dict(strategy=r["strategy"], axes=r["axes"],
+                num_microbatches=r["num_microbatches"],
+                total_s=r["cost"]["total_s"],
+                mem_bytes_per_device=r["mem_bytes_per_device"])
+           for r in cli["ranked"]]
+    print(f"autotune 24a plan CLI [{card}]: bench.py's LM at 8 devices, B "
+          f"{TRAIN_BATCH}, T {TRAIN_SEQ}: {cli['n_feasible']} feasible, "
+          f"{cli['n_rejected']} rejected; top 3 {top}")
+    return dict(coefficients=dataclasses.asdict(coeffs), hbm_bytes=hbm,
+                peak_flops_per_s=peak,
+                peak_hbm_bytes_per_s=profiling.peak_hbm_bytes_per_chip(),
+                cli_top3=top, cli_n_feasible=cli["n_feasible"])
+
+
+def autotune_cnn(trainer_mod, fs, tconfig, root, card) -> dict:
+    """24b: Trainer(strategy="auto") at bench.py's CNN geometry on one
+    card against the parent's plan and the same run at gspmd, cuDNN
+    deterministic."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.autotune import (
+        cost_model,
+        memory,
+        search,
+    )
+    from distributed_model_parallel_tpu_torch.autotune.planner import (
+        plan_parallelism,
+    )
+
+    phase = "24b/autotune cnn"
+    cfg = autotune_config(tconfig, root, "auto_cnn")
+    # What plan_for_cnn must decide, computed here: fused SGD and
+    # device-resident data leave gspmd alone.
+    want = plan_parallelism(
+        search.cnn_workload(cfg.model, cfg.data), 1,
+        coeffs=cost_model.default_coefficients(),
+        hbm_bytes=memory.device_hbm_bytes(), strategies=("gspmd",),
+        allow_undersubscribe=True)
+    idx = torch.cat(cnn_dispatch_indices(4 * CNN_BATCH, 2))
+    runs = {}
+    for strategy in ("gspmd", "auto"):
+        t = trainer_mod.Trainer(cfg.replace(
+            strategy=strategy, log_name=f"auto_cnn_{strategy}"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fs.fused_sgd_kernel.launches = 0
+        fs.plain_sgd_kernel.launches = 0
+        t0 = time.perf_counter()
+        first = t.run_steps(idx[:CNN_SPD])["loss"]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        second = t.run_steps(idx[CNN_SPD:])["loss"]
+        torch.cuda.synchronize()
+        runs[strategy] = dict(
+            losses=torch.cat([first, second]).cpu().tolist(),
+            step_s=(time.perf_counter() - t1) / CNN_SPD,
+            first_dispatch_s=t1 - t0,
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            fused_sgd=fs.fused_sgd_kernel.launches,
+            plain_sgd=fs.plain_sgd_kernel.launches,
+            buckets=len(t.optimizer.buckets),
+            trainer=t if strategy == "auto" else None)
+        del t
+    auto = runs["auto"]
+    t = auto.pop("trainer")
+    runs["gspmd"].pop("trainer")
+    d = t.plan_decision
+    records = [r for r in jsonl(t) if r["kind"] == "plan"]
+    same = auto["losses"] == runs["gspmd"]["losses"]
+    steps = 2 * CNN_SPD
+    print(f"autotune 24b [{card}]: Trainer(strategy='auto') -> "
+          f"{d.describe()}; want {want.chosen.plan.describe()}; plan "
+          f"records {[(r['reason'], r['global_step']) for r in records]}; "
+          f"losses bitwise the gspmd run's {same} ({auto['losses'][0]} .. "
+          f"{auto['losses'][-1]}); predicted {d.chosen.cost.total_s} s a "
+          f"step, measured {auto['step_s']} s (10 steps in one dispatch, "
+          f"cuDNN deterministic); predicted {d.chosen.memory['total']} B a "
+          f"device, max_memory_allocated {auto['peak_bytes']} B; fused_sgd "
+          f"launches {auto['fused_sgd']} (want {steps} x {auto['buckets']})")
+    if d.telemetry_payload() != want.telemetry_payload():
+        fail(phase, "the trainer's plan is not the parent's")
+    if [(r["reason"], r["global_step"]) for r in records] != [
+            ("startup", 0)]:
+        fail(phase, f"plan records {records}")
+    if not same:
+        fail(phase, "auto's losses are not bitwise gspmd's")
+    if (auto["fused_sgd"] != steps * auto["buckets"] or auto["plain_sgd"]
+            or not all(math.isfinite(x) for x in auto["losses"])):
+        fail(phase, f"launches {auto['fused_sgd']} != {steps} x "
+                    f"{auto['buckets']} or non-finite losses")
+    del t
+    torch.cuda.empty_cache()
+    return dict(plan=d.chosen.payload(), predicted_s=d.chosen.cost.total_s,
+                measured_step_s=auto["step_s"],
+                predicted_bytes=d.chosen.memory["total"],
+                peak_bytes=auto["peak_bytes"],
+                launches={"fused_sgd": auto["fused_sgd"],
+                          "plain_sgd": auto["plain_sgd"]},
+                losses_bitwise_gspmd=same)
+
+
+def autotune_pipeline(models, pipeline, pipeline_trainer, fs, tconfig,
+                      root, card) -> dict:
+    """24c: PipelineTrainer(strategy="auto") over PP_STAGES stages on the
+    card (13a's workload, one fit epoch), then the analytic top 3
+    microbatch counts timed for 2 steps each through measure_plans."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch.autotune import (
+        cost_model,
+        measure,
+        memory,
+        search,
+    )
+    from distributed_model_parallel_tpu_torch.autotune.planner import (
+        plan_parallelism,
+    )
+    from distributed_model_parallel_tpu_torch.data.loader import (
+        step_generator,
+    )
+    from distributed_model_parallel_tpu_torch.parallel.auto_partition import (
+        cost_balanced_boundaries,
+    )
+
+    phase = "24c/autotune pipeline"
+    devices = ["cuda:0"] * PP_STAGES
+    cfg = autotune_config(tconfig, root, "auto_pp",
+                          device_resident_data=False, epochs=1)
+    w = search.cnn_workload(cfg.model, cfg.data)
+    t = pipeline_trainer.PipelineTrainer(cfg, devices)
+    d = t.plan_decision
+    cut = [lo for lo, _ in t.runner.slices] + [t.runner.slices[-1][1]]
+    want_cut = cost_balanced_boundaries(list(w.unit_flop_costs), PP_STAGES)
+    fs.fused_sgd_kernel.launches = 0
+    hist = t.fit()
+    launches = fs.fused_sgd_kernel.launches
+    want = len(t.train_loader) * t.runner.num_chunks
+    print(f"autotune 24c [{card}]: PipelineTrainer(strategy='auto') on "
+          f"{devices} -> {d.describe()}; cut {cut} (the probe's costs "
+          f"give {want_cut}); fit {hist}; fused_sgd launches {launches} "
+          f"(want chunks x steps = {want})")
+    if cut != want_cut:
+        fail(phase, f"cut {cut} != auto_partition's {want_cut}")
+    if launches != want or not math.isfinite(hist[0]["loss_train"]):
+        fail(phase, f"launches {launches} != {want} or non-finite {hist}")
+    del t
+    torch.cuda.empty_cache()
+
+    batch = pp_batches(cfg, [i for ix in cnn_dispatch_indices(
+        4 * CNN_BATCH, 1) for i in ix][:3])
+
+    def build(plan):
+        r = pp_runner(models, pipeline, tconfig, devices, cfg,
+                      m=plan.num_microbatches, boundaries=want_cut)
+        calls = iter(range(3))
+        return lambda: r.train_step_device(
+            step_generator(1, next(calls), "cuda"), *batch[0])
+
+    def measure_fn(plan):
+        row, = measure.measure_plans([plan], build, warmup=1, iters=2,
+                                     device="cuda:0")
+        if "error" in row:
+            raise RuntimeError(row["error"])
+        return row["measured_s"]
+
+    v = plan_parallelism(w, PP_STAGES, coeffs=cost_model.default_coefficients(),
+                         hbm_bytes=memory.device_hbm_bytes(),
+                         candidates=search.enumerate_stage_pipeline_plans(
+                             w, PP_STAGES),
+                         measure_fn=measure_fn, measure_top=3)
+    analytic = [r.plan.num_microbatches for r in v.ranked[:3]]
+    timed = [m for m in v.measured if "measured_s" in m]
+    measured = [m["num_microbatches"] for m in
+                sorted(timed, key=lambda m: (m["measured_s"],
+                                             m["predicted_s"]))]
+    print(f"autotune 24c validation [{card}]: analytic order (M) "
+          f"{analytic}, predicted s {[r.cost.total_s for r in v.ranked[:3]]};"
+          f" measured order {measured}, measured s "
+          f"{[m.get('measured_s', m.get('error')) for m in v.measured]}; "
+          f"measurement_won {v.measurement_won} -> {v.describe()}")
+    if len(timed) != 3:
+        fail(phase, f"a candidate failed to measure: {v.measured}")
+    torch.cuda.empty_cache()
+    return dict(plan=d.chosen.payload(), cut=cut, launches=launches,
+                analytic_order=analytic, measured_order=measured,
+                measured=list(v.measured),
+                measurement_won=v.measurement_won,
+                chosen_after_measure=v.chosen.plan.payload())
+
+
+def autotune_lm(fa, card) -> dict:
+    """24d: LMTrainer(strategy="auto", statusz_port=0) at bench.py's LM
+    width (B 2, T 8192) at LM24_LAYERS layers through ``fit``, against
+    strategy="spmd"'s steps on the same batches; a ``step_hook`` reads
+    /statusz and /healthz before every step of the fit."""
+    import dataclasses
+    import urllib.request
+
+    import torch
+
+    from distributed_model_parallel_tpu_torch.train import lm_trainer as lm
+    from distributed_model_parallel_tpu_torch.utils import statusz
+
+    phase = "24d/autotune lm"
+    base = lm18_config("auto_lm", n_layers=LM24_LAYERS, steps=LM24_STEPS)
+    kernels = flash_wrappers(fa)
+    runs = {}
+    for strategy in ("spmd", "auto"):
+        cfg = dataclasses.replace(
+            base, strategy=strategy, log_name=f"auto_lm_{strategy}",
+            statusz_port=0 if strategy == "auto" else None)
+        t = lm.LMTrainer(cfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        seen = []
+        if strategy == "spmd":
+            losses, times = lm18_steps(t, LM24_STEPS)
+        else:
+            url = statusz.active().url
+
+            def hook(tr):
+                # Before each step: the exporter's view of the live
+                # trainer, beside the step the trainer is at.
+                with urllib.request.urlopen(url + "/statusz",
+                                            timeout=10) as r:
+                    doc = json.loads(r.read())["providers"][cfg.log_name]
+                with urllib.request.urlopen(url + "/healthz",
+                                            timeout=10) as r:
+                    seen.append(dict(doc, healthz=r.status,
+                                     hook_step=tr.global_step))
+
+            t.step_hook = hook
+            t.fit()
+            torch.cuda.synchronize()
+            losses = [r["loss"] for r in t.step_log]
+            times = [r["step_time_s"] for r in t.step_log]
+        runs[strategy] = dict(
+            losses=losses, step_s=statistics.median(times[1:]),
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            launches={n: k.launches for n, k in kernels.items()},
+            status=seen, trainer=t if strategy == "auto" else None)
+        del t
+    statusz.shutdown()
+    auto = runs["auto"]
+    t = auto.pop("trainer")
+    runs["spmd"].pop("trainer")
+    d = t.plan_decision
+    records = [r for r in jsonl(t) if r["kind"] == "plan"]
+    same = auto["losses"] == runs["spmd"]["losses"]
+    seen = auto["status"]
+    status = seen[0] if seen else None
+    print(f"autotune 24d [{card}]: LMTrainer(strategy='auto') -> "
+          f"{d.describe()}; plan records "
+          f"{[(r['reason'], r['global_step']) for r in records]}; losses "
+          f"{auto['losses']} bitwise spmd's {same}; /statusz provider "
+          f"before step 0 {status}, global_step before each step "
+          f"{[(x['hook_step'], x['global_step']) for x in seen]} (the "
+          f"hook's, the provider's); predicted {d.chosen.cost.total_s} s "
+          f"a step, measured "
+          f"{auto['step_s']} s (median of steps 1-{LM24_STEPS - 1}); "
+          f"predicted {d.chosen.memory['total']} B a device, "
+          f"max_memory_allocated {auto['peak_bytes']} B; flash launches "
+          f"{auto['launches']} (want {LM24_LAYERS} x {LM24_STEPS} each)")
+    if [(r["reason"], r["global_step"]) for r in records] != [
+            ("startup", 0)]:
+        fail(phase, f"plan records {records}")
+    if not same:
+        fail(phase, "auto's losses are not bitwise spmd's")
+    if any(n != LM24_LAYERS * LM24_STEPS for n in auto["launches"].values()):
+        fail(phase, f"launches {auto['launches']}")
+    if [x["global_step"] for x in seen] != list(range(LM24_STEPS)) or any(
+            x["global_step"] != x["hook_step"]
+            or x.get("plan") != d.chosen.plan.payload()
+            or x.get("healthz") != 200 or x.get("workload") != "lm"
+            for x in seen):
+        fail(phase, f"/statusz provider during the fit {seen}")
+    del t
+    torch.cuda.empty_cache()
+    return dict(plan=d.chosen.payload(), predicted_s=d.chosen.cost.total_s,
+                measured_step_s=auto["step_s"],
+                predicted_bytes=d.chosen.memory["total"],
+                peak_bytes=auto["peak_bytes"], launches=auto["launches"],
+                losses_bitwise_spmd=same, status=status,
+                status_global_steps=[(x["hook_step"], x["global_step"])
+                                     for x in seen])
+
+
+def autotune_rank(spec, root: str, measure_wire: bool) -> dict:
+    """24e on each of 4 ranks: Trainer(strategy="auto") on MobileNetV2
+    bf16 at B AUTO24_BATCH (23b's geometry) planned on the group's world,
+    AUTO24_STEPS steps; the decision's payload and a digest of every
+    parameter and buffer. With ``measure_wire`` (NCCL, a card a rank):
+    alpha from 4-byte all-reduces and the wire rate from 64 MiB ones,
+    each timed back to back between CUDA events, through the ring
+    estimators."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from distributed_model_parallel_tpu_torch import config as tconfig
+    from distributed_model_parallel_tpu_torch.train.trainer import Trainer
+    from distributed_model_parallel_tpu_torch.utils.telemetry import (
+        wire_bytes_estimate,
+        wire_ops_estimate,
+    )
+
+    t0 = time.perf_counter()
+    cfg = res23_config(tconfig, root, "auto_ranks", batch=AUTO24_BATCH,
+                       rows=AUTO24_BATCH * AUTO24_STEPS, epochs=1,
+                       strategy="auto")
+    t = Trainer(cfg)
+    res = t.train_epoch(0)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for x in (*t.model.parameters(), *t.model.buffers()):
+        h.update(x.detach().float().cpu().numpy().tobytes())
+    out = dict(plan=t.plan_decision.telemetry_payload(), loss=res.loss,
+               steps=t.global_step, digest=h.hexdigest(),
+               strategy=t.config.strategy, seconds=time.perf_counter() - t0)
+    if measure_wire:
+        n = dist.get_world_size()
+        dev = torch.device("cuda", torch.cuda.current_device())
+
+        def timed(numel, reps):
+            # Seconds an all-reduce: ``reps`` back to back between two
+            # CUDA events on the stream the collectives join, so no host
+            # sync is inside the interval (a step never waits on the host
+            # between its collectives either).
+            x = torch.ones(numel, dtype=torch.float32, device=dev)
+            for _ in range(5):
+                dist.all_reduce(x)
+            torch.cuda.synchronize(dev)
+            start, end = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+            start.record()
+            for _ in range(reps):
+                dist.all_reduce(x)
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / 1e3 / reps
+
+        small = timed(1, 200)
+        big = timed(AUTO24_WIRE_BYTES // 4, 20)
+        alpha = small / wire_ops_estimate("psum", n)
+        wire = wire_bytes_estimate("psum", AUTO24_WIRE_BYTES, n) / (
+            big - alpha * wire_ops_estimate("psum", n))
+        out["wire"] = dict(n=n, small_s=small, big_s=big, alpha_s=alpha,
+                           wire_bytes_per_s=wire)
+    return out
+
+
+def autotune_ranks_gate(res: list, tconfig, root: str, card: str) -> dict:
+    """24e's gates on the ranks' records: every rank's payload equal and
+    equal to the parent's plan for 4 devices, the steps run, and under a
+    data-parallel plan the replicas bitwise equal."""
+    from distributed_model_parallel_tpu_torch.autotune import cost_model
+    from distributed_model_parallel_tpu_torch.autotune.planner import (
+        plan_for_cnn,
+    )
+
+    phase = "24e/autotune ranks"
+    cfg = res23_config(tconfig, root, "auto_ranks_parent",
+                       batch=AUTO24_BATCH, rows=AUTO24_BATCH * AUTO24_STEPS,
+                       epochs=1, strategy="auto")
+    _, want = plan_for_cnn(cfg, len(res))
+    plans = [r["plan"] for r in res]
+    digests = {r["digest"] for r in res}
+    data_parallel = res[0]["strategy"] in ("gspmd", "ddp", "fsdp")
+    wire = res[0].get("wire")
+    print(f"autotune 24e [{card}]: {len(res)} ranks, Trainer(strategy="
+          f"'auto') -> {res[0]['strategy']} {plans[0]['axes']}; payloads "
+          f"equal {all(p == plans[0] for p in plans)}, equal to the parent's "
+          f"plan_for_cnn at {len(res)} devices {plans[0] == want.telemetry_payload()}"
+          f"; steps {[r['steps'] for r in res]}, losses "
+          f"{[r['loss'] for r in res]}; replica digests {len(digests)} "
+          f"distinct; rank seconds {[round(r['seconds'], 2) for r in res]}")
+    if wire is not None:
+        c = cost_model.default_coefficients()
+        print(f"autotune 24a NCCL [{card}]: {wire['n']} cards, a 4-byte "
+              f"all-reduce {wire['small_s']} s -> alpha_s {wire['alpha_s']} "
+              f"(constant {c.alpha_s}); a {AUTO24_WIRE_BYTES} B all-reduce "
+              f"{wire['big_s']} s -> wire_bytes_per_s "
+              f"{wire['wire_bytes_per_s']} (constant {c.wire_bytes_per_s})")
+    if any(p != plans[0] for p in plans) or plans[0] != \
+            want.telemetry_payload():
+        fail(phase, f"the ranks' plans differ or are not the parent's: "
+                    f"{plans} vs {want.telemetry_payload()}")
+    if any(r["steps"] != AUTO24_STEPS for r in res):
+        fail(phase, f"steps {[r['steps'] for r in res]}")
+    if data_parallel and len(digests) != 1:
+        fail(phase, "replicas differ after the steps")
+    return dict(plan=res[0]["plan"]["axes"], strategy=res[0]["strategy"],
+                ranks=len(res), replicas_bitwise=len(digests) == 1,
+                losses=[r["loss"] for r in res],
+                rank_seconds=[r["seconds"] for r in res], wire=wire)
+
+
+def autotune_ride(tconfig, card: str, measure_wire: bool):
+    """Phase 24e as a :class:`RideAlong` of a spawn of four ranks; its
+    gated record lands in ``ride.record``."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="autotune_ranks_",
+                            dir=os.environ[RUN_DIR_ENV])
+    ride = RideAlong(autotune_rank, None, (root, measure_wire), None)
+    ride.record = None
+
+    def gate(results):
+        ride.record = autotune_ranks_gate(results, tconfig, root, card)
+        return ride.record
+
+    ride.gate = gate
+    return ride
+
+
+def autotune_phase(laps, trainer_mod, pipeline_trainer, models, pipeline,
+                   fs, fa, tconfig, card, ranks: dict) -> dict:
+    """Phase 24: 24a-d here, cuDNN deterministic, beside 24e's record (its
+    ranks rode a spawn of four)."""
+    import tempfile
+
+    import torch
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    root = tempfile.mkdtemp(prefix="autotune_", dir=os.environ[RUN_DIR_ENV])
+    coeffs = autotune_coefficients(card)
+    laps.done("24a/autotune coefficients")
+    cnn = autotune_cnn(trainer_mod, fs, tconfig, root, card)
+    laps.done("24b/autotune cnn")
+    pp = autotune_pipeline(models, pipeline, pipeline_trainer, fs, tconfig,
+                           root, card)
+    laps.done("24c/autotune pipeline")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        flags
+    lm = autotune_lm(fa, card)
+    laps.done("24d/autotune lm")
+    return {"coefficients": coeffs, "cnn": cnn, "pipeline": pp, "lm": lm,
+            "ranks": ranks}
+
+
 class Laps:
     """Prints each phase's seconds since the previous phase ended."""
 
@@ -8673,10 +9300,17 @@ def main() -> None:
                          "kernels) and 23 (the trainers' resilience plane; "
                          "23b in a spawn of four ranks of its own), print "
                          "the resilience JSON line and stop")
+    ap.add_argument("--autotune-only", action="store_true",
+                    help="run phases 1, 2 (the fused SGD and flash "
+                         "kernels) and 24 (the autotuner; 24e in a spawn of "
+                         "four ranks of its own: NCCL with four cards, "
+                         "where 24a measures alpha and the wire rate), "
+                         "print the autotune JSON line and stop")
     args = ap.parse_args()
     only = (args.sgd_timing_only or args.pipeline_only or args.dp_only
             or args.harness_only or args.data_only or args.optim_only
-            or args.lm_only or args.serve_only or args.resilience_only)
+            or args.lm_only or args.serve_only or args.resilience_only
+            or args.autotune_only)
     import atexit
     import shutil
     import tempfile
@@ -8736,7 +9370,7 @@ def main() -> None:
             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if args.lm_only
             else ("paged_decode", "flash_fwd") if args.serve_only
             else ("fused_sgd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-            if args.resilience_only
+            if args.resilience_only or args.autotune_only
             else ("fused_sgd",) if only else _build.KERNELS)
     except RuntimeError as e:
         fail("2/build", str(e))
@@ -8822,6 +9456,24 @@ def main() -> None:
         print(json.dumps({"resilience": resilience_phase(
             laps, cnn_trainer, fs, fa, tconfig, card, ranks23),
             "card": card}))
+        return
+    if args.autotune_only:
+        from distributed_model_parallel_tpu_torch import mesh
+        from distributed_model_parallel_tpu_torch.parallel import pipeline
+        from distributed_model_parallel_tpu_torch.train import (
+            pipeline_trainer,
+        )
+
+        four = torch.cuda.device_count() >= 4
+        ride = autotune_ride(tconfig, card, four)
+        ride.results = dp_spawn(mesh, autotune_rank, 4, "24e/autotune ranks",
+                                *ride.args,
+                                backend="nccl" if four else "gloo")
+        ride.finish()
+        laps.done("24e/autotune ranks")
+        print(json.dumps({"autotune": autotune_phase(
+            laps, cnn_trainer, pipeline_trainer, models, pipeline, fs, fa,
+            tconfig, card, ride.record), "card": card}))
         return
     if args.optim_only:
         from distributed_model_parallel_tpu_torch import mesh
@@ -8920,9 +9572,11 @@ def main() -> None:
     lm18 = lm_phase(laps, fa, lm_model_flops, mesh, card, lm8_loss, rides4)
 
     # -- phase 19: the LM's stage and expert axes ---------------------------
-    # 23b's ranks ride 19b's spawn of four too; its record is gated there.
+    # 23b's and 24e's ranks ride 19b's spawn of four too; their records are
+    # gated there.
     res23 = resilience_ride(card)
-    rides4.append(res23)
+    auto24 = autotune_ride(tconfig, card, torch.cuda.device_count() >= 4)
+    rides4 += [res23, auto24]
     lm19 = lm19_phase(laps, fa, lm_model_flops, mesh, card, decode=True,
                       rides=rides4)
     lm18_rows = lm_launch_rows(lm18)
@@ -8943,6 +9597,13 @@ def main() -> None:
     resil = resilience_phase(laps, cnn_trainer, fs, fa, tconfig, card,
                              res23.record)
 
+    # -- phase 24: the autotuner ---------------------------------------------
+    from distributed_model_parallel_tpu_torch.parallel import pipeline
+    from distributed_model_parallel_tpu_torch.train import pipeline_trainer
+
+    auto = autotune_phase(laps, cnn_trainer, pipeline_trainer, models,
+                          pipeline, fs, fa, tconfig, card, auto24.record)
+
     kernels = decode_kernel_rows(paged, dec, planes, fleet)
     for name, line in (("flash_fwd", 112), ("flash_bwd_dq", 199),
                        ("flash_bwd_dkv", 278)):
@@ -8960,6 +9621,7 @@ def main() -> None:
             **lm18_rows[name],
             **lm19_rows[name],
             "launches_23c_resilience": resil["lm"]["launches"][name],
+            "launches_24d_autotune_lm": auto["lm"]["launches"][name],
             "max_abs_err": flash_errs[name][0],
             "max_row_rel_err": flash_errs[name][1],
             **flash_times[name],
@@ -8997,6 +9659,9 @@ def main() -> None:
                 opt17["ranks"]["hierarchical"]["launches"]
                 if name == "fused_sgd" else 0),
             "launches_23a_resilience": resil["single"]["launches"][name],
+            "launches_24b_autotune_cnn": auto["cnn"]["launches"][name],
+            "launches_24c_autotune_pipeline": (
+                auto["pipeline"]["launches"] if name == "fused_sgd" else 0),
             "max_abs_err": sgd_err,
             **sgd_times[name],
             "in_step_us": sgd_in_step[name],
@@ -9014,6 +9679,7 @@ def main() -> None:
     print(json.dumps({"serve_planes": planes, "card": card}))
     print(json.dumps({"fleet": fleet, "card": card}))
     print(json.dumps({"resilience": resil, "card": card}))
+    print(json.dumps({"autotune": auto, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -481,22 +481,42 @@ def best_effort_distributed_init(device="cuda") -> bool:
 
 # -- the launcher --------------------------------------------------------------
 
+def _run_rank(fn, rank, world, init_method, config, device, backend,
+              args):
+    """``fn(spec, *args)`` as ``rank`` of a group this process joins and
+    then leaves."""
+    spec = init_process_group(config, rank=rank, world=world,
+                              init_method=init_method, device=device,
+                              backend=backend)
+    try:
+        return fn(spec, *args)
+    finally:
+        dist.destroy_process_group()
+
+
 def _rank_main(fn, rank, world, init_method, config, device, backend,
                threads, results, args) -> None:
     if threads is not None:
         torch.set_num_threads(threads)
     try:
-        spec = init_process_group(config, rank=rank, world=world,
-                                  init_method=init_method, device=device,
-                                  backend=backend)
-        try:
-            out = fn(spec, *args)
-        finally:
-            dist.destroy_process_group()
+        out = _run_rank(fn, rank, world, init_method, config, device,
+                        backend, args)
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
         raise
     results.put((rank, True, out))
+
+
+def run_here(fn, *args, device="cuda", backend: str | None = None,
+             config: MeshConfig | None = None,
+             store_dir: str | None = None):
+    """``fn(spec, *args)`` on a group of one rank that this process joins
+    and then leaves: :func:`spawn`'s one rank without a process start,
+    sharing this process's device context and caches (cuDNN's autotuner
+    results, built kernels)."""
+    with tempfile.TemporaryDirectory(dir=store_dir) as tmp:
+        return _run_rank(fn, 0, 1, "file://" + os.path.join(tmp, "store"),
+                         config, device, backend, args)
 
 
 def spawn(fn, nproc: int, *args, device="cuda", backend: str | None = None,

@@ -10,6 +10,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# The plan CLI's rank function, looked up by name like this module's.
+from distributed_model_parallel_tpu_torch.autotune.dmp_plan import (  # noqa: F401
+    measure_rank,
+)
 from distributed_model_parallel_tpu_torch.config import (
     ModelConfig,
     OptimizerConfig,
@@ -755,6 +759,27 @@ def lm_preempt_resume(spec: MeshSpec, configs: dict, tree: dict,
                                  opt_state=tr.opt_state_tree(),
                                  global_step=tr.global_step)
     return out
+
+
+def lm_auto_preempt(spec: MeshSpec, config, preempt_at: int) -> dict:
+    """An ``LMTrainer(config)`` under ``strategy="auto"``, planned on this
+    process group's world (no ``spec``: the plan builds the mesh),
+    preempted by a ``step_hook`` at global step ``preempt_at``: the
+    decision's payload, the planned mesh and the global step reached."""
+    from distributed_model_parallel_tpu_torch.train.lm_trainer import (
+        LMTrainer,
+    )
+
+    t = LMTrainer(config)
+
+    def hook(tr):
+        if tr.global_step == preempt_at:
+            tr.preemption.request()
+
+    t.step_hook = hook
+    t.fit()
+    return dict(plan=t.plan_decision.telemetry_payload(),
+                mesh=t.config.mesh.axis_sizes(), global_step=t.global_step)
 
 
 def lm_barrier_wait(spec: MeshSpec, config, hold_s: float) -> float:

@@ -19,10 +19,8 @@ is the capacity report:
   minus observed);
 * **what-if planning** (:func:`what_if`) — project fleet capacity at
   replicas ± N from the measured per-replica sustainable rate, pricing
-  per-iteration launch overhead with a caller-given ``alpha_s``
-  coefficient (the JAX package reads its autotune cost model's, which
-  is the TPU's; the port has no cost model of the card yet, so the
-  caller must pass one);
+  per-iteration launch overhead with the ``alpha_s`` coefficient of the
+  autotuner's cost model of the card (or the caller's);
 * **billing invariants** (:func:`check_invariants`) — the metering
   gate:
 
@@ -221,14 +219,15 @@ def what_if(cap: dict, delta: int, coeffs=None) -> dict:
     overhead with ``coeffs.alpha_s`` (seconds a launch): every engine
     iteration pays a fixed launch cost, so the same offered load on
     fewer replicas runs proportionally more iterations per replica and
-    the overhead term does NOT amortize away. ``coeffs`` is required:
-    the port has no cost model of the card yet, and the JAX package's
-    default coefficients are the TPU's."""
+    the overhead term does NOT amortize away. ``coeffs`` defaults to the
+    autotuner's cost model of the card
+    (``autotune.cost_model.default_coefficients``)."""
     if coeffs is None:
-        raise ValueError(
-            "what_if needs coeffs with an alpha_s measured on this "
-            "device; the port has no cost model yet (ROADMAP A11: "
-            "autotune)")
+        from distributed_model_parallel_tpu_torch.autotune.cost_model import (
+            default_coefficients,
+        )
+
+        coeffs = default_coefficients()
     replicas = cap.get("replicas") or {}
     n = len(replicas) or int(cap.get("n_replicas") or 1)
     n2 = max(1, n + int(delta))

@@ -38,8 +38,11 @@ replica, a bitflip on shard 0 of a leaf cut over the model, stage or
 expert axis), the consistency sentinel over the data replicas (the
 copy-rotated bitsum for leaves replicated over the other axes), the
 ``"lm-emergency"`` slot and ``elastic`` (the data axis refitted to the
-live world). Not ported yet, and refused by name: ``strategy="auto"`` and
-the status exporter (A11).
+live world). ``strategy="auto"`` (``autotune/planner.plan_for_lm``)
+plans the ``(data, stage, model, seq, expert)`` degrees, the microbatch
+count and the model's tp/sp/ep axes with the cost model of the card on
+the live world, writes a ``plan`` record after the resume and re-plans
+on an elastic restart; ``statusz_port`` serves the run's status.
 """
 
 from __future__ import annotations
@@ -109,13 +112,11 @@ def make_token_stream(vocab_size: int, n_tokens: int, seed: int = 0
 @dataclasses.dataclass(frozen=True)
 class LMTrainConfig:
     """The JAX ``LMTrainConfig``, field for field, plus ``device`` (the
-    card unless the caller asks for the CPU). The plane fields
-    (``emergency_every`` … ``statusz_port``) are kept so they can be
-    refused by name (ROADMAP A11)."""
+    card unless the caller asks for the CPU)."""
 
     model: tfm.TransformerConfig = tfm.TransformerConfig()
-    # "spmd" runs the configured mesh as is; "auto" (the autotuner) is
-    # refused (ROADMAP A11).
+    # "spmd" runs the configured mesh as is; "auto" plans it
+    # (autotune/planner.plan_for_lm).
     strategy: str = "spmd"
     mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     optimizer: OptimizerConfig = dataclasses.field(
@@ -152,30 +153,18 @@ class LMTrainConfig:
     device: str = "cuda"
 
 
-# Fields refused by name until they are ported.
-_UNPORTED = (
-    ("statusz_port", lambda c: c.statusz_port is not None,
-     "A11: status exporter (its trainer registry needs autotune)"),
-)
 # Slots a resume reads, newest valid first (the supervisor's good slot the
 # last resort).
 RESUME_SLOTS = ("lm", "lm-preempt", "lm-emergency", "lm-good")
 
 
 def check_lm_config(config: LMTrainConfig) -> None:
-    """Raise, naming the ROADMAP item, for what the port does not run, and
-    in the JAX trainer's words for what it refuses."""
-    if config.strategy == "auto":
-        raise ValueError("strategy='auto' is not ported yet (ROADMAP A11: "
-                         "autotune); pass strategy='spmd'")
+    """Raise in the JAX trainer's words for what it refuses (the planned
+    config of ``strategy="auto"`` included)."""
     if config.strategy != "spmd":
         raise ValueError(
             f"LMTrainConfig.strategy must be 'spmd' or 'auto', got "
             f"{config.strategy!r} — no silent ignores")
-    bad = [f"{name} (ROADMAP {item})" for name, refused, item in _UNPORTED
-           if refused(config)]
-    if bad:
-        raise ValueError(f"not ported yet: {', '.join(bad)}")
     if config.model.max_seq_len < config.seq_len:
         raise ValueError("model max_seq_len < training seq_len")
     if config.optimizer.ema_decay is not None:
@@ -250,9 +239,34 @@ class LMTrainer:
                  spec=None):
         from distributed_model_parallel_tpu_torch import mesh as mesh_mod
 
+        if config.strategy not in ("spmd", "auto"):
+            check_lm_config(config)
+        self.plan_decision = None
+        if config.strategy == "auto" and spec is not None:
+            raise ValueError(
+                "strategy='auto' plans the mesh layout itself and cannot "
+                "honor an explicit MeshSpec; resolve the plan first "
+                "(autotune.plan_for_lm) or pass strategy='spmd' — no "
+                "silent ignores")
+        if config.strategy == "auto":
+            # The cost model's (dp, pp, tp, sp, ep) layout of the live
+            # world (autotune/): mesh, microbatches and the model's
+            # tp/sp/ep axes rewritten from the winner, the same on every
+            # rank. An elastic restart re-plans here.
+            from distributed_model_parallel_tpu_torch.autotune.planner import (
+                check_plan_agreement,
+                plan_for_lm,
+            )
+            from distributed_model_parallel_tpu_torch.train.elastic import (
+                live_device_count,
+            )
+
+            config, self.plan_decision = plan_for_lm(config,
+                                                     live_device_count())
+            check_plan_agreement(self.plan_decision)
         check_lm_config(config)
         self.elastic_decision = None
-        if config.elastic and spec is None:
+        if config.elastic and spec is None and self.plan_decision is None:
             from distributed_model_parallel_tpu_torch.train.elastic import (
                 fit_mesh_to_devices,
                 live_device_count,
@@ -358,6 +372,13 @@ class LMTrainer:
                       model_flops_per_step=lm_model_flops(
                           cfg, config.batch_size, config.seq_len))
         ) if self._writer else None
+        # The status exporter (utils/statusz.py), rank 0's, as the CNN
+        # Trainer's.
+        from distributed_model_parallel_tpu_torch.utils import statusz
+
+        if self._writer:
+            statusz.maybe_serve(config.statusz_port)
+            statusz.register_trainer(self, "lm")
         self._build_plane()
         self.start_epoch = 0
         # The exact-continuation position: the next (epoch, step) the loop
@@ -370,6 +391,17 @@ class LMTrainer:
             self._log_line(self.elastic_decision.describe())
         if config.resume and any(self.ckpt.exists(n) for n in RESUME_SLOTS):
             self._resume()
+        if self.plan_decision is not None:
+            # After _resume, so an elastic re-plan is stamped with the
+            # exact global step the run continues from.
+            from distributed_model_parallel_tpu_torch.autotune.planner import (
+                emit_plan_record,
+            )
+
+            if self.logger is not None:
+                emit_plan_record(self.logger.telemetry, self.plan_decision,
+                                 global_step=self._global_step)
+            self._log_line(self.plan_decision.describe())
 
     def _build_plane(self) -> None:
         """The resilience plane (JAX ``lm_trainer.py:292-340``). Rank 0

@@ -35,9 +35,11 @@ fault sites, the ``"pipeline-emergency"`` slot, and a finiteness-only
 consistency sentinel: one controller holds one copy of every stage, so
 there is no replica to compare with. Corruption faults are refused.
 
-Not ported yet, and refused by name: the status exporter and
-``strategy="auto"``; ``ema_decay`` is refused as the JAX trainer refuses
-it.
+``strategy="auto"`` (``autotune/planner.plan_for_stage_pipeline``)
+keeps the device list's stage count, picks the microbatch count with the
+cost model of the card and turns the cost-balanced cut on; its ``plan``
+record is written after the resume. ``statusz_port`` serves the run's
+status. ``ema_decay`` is refused as the JAX trainer refuses it.
 """
 
 from __future__ import annotations
@@ -89,7 +91,6 @@ from distributed_model_parallel_tpu_torch.train.preemption import (
 )
 from distributed_model_parallel_tpu_torch.models.staged import load_leaves
 from distributed_model_parallel_tpu_torch.train.trainer import (
-    _UNPORTED,
     EpochResult,
     eval_now,
     load_momentum,
@@ -106,15 +107,7 @@ RESUME_SLOTS = ("pipeline", "pipeline-preempt", "pipeline-emergency",
 
 
 def check_pipeline_config(config: TrainConfig) -> None:
-    """Raise for what the pipeline trainer does not run: by ROADMAP item,
-    and ``ema_decay`` as the JAX trainer refuses it."""
-    if config.strategy == "auto":
-        raise ValueError("strategy='auto' (the pipeline autotuner) is not "
-                         "ported yet (ROADMAP A11: autotune)")
-    bad = [f"{name} (ROADMAP {item})" for name, refused, item
-           in _UNPORTED if refused(config)]
-    if bad:
-        raise ValueError(f"not ported yet: {', '.join(bad)}")
+    """Raise for ``ema_decay``, as the JAX trainer refuses it."""
     if config.optimizer.ema_decay is not None:
         raise ValueError(
             "ema_decay is implemented by the data-parallel Trainer "
@@ -148,6 +141,25 @@ class PipelineTrainer:
                  train_ds: ArrayDataset | None = None,
                  eval_ds: ArrayDataset | None = None,
                  params=None, state=None):
+        self.plan_decision = None
+        if config.strategy == "auto":
+            # The stage count is fixed by the device list, so the planner
+            # picks the microbatch count (the bubble against each hop's
+            # latency) and turns the cost-balanced cut on (autotune/).
+            from distributed_model_parallel_tpu_torch.autotune.planner import (
+                plan_for_stage_pipeline,
+            )
+
+            if config.mesh.stage > 1:
+                n_stages = config.mesh.stage
+            elif devices is not None:
+                n_stages = len(devices)
+            elif torch.device(config.device).type == "cuda":
+                n_stages = torch.cuda.device_count()
+            else:
+                n_stages = 1
+            config, self.plan_decision = plan_for_stage_pipeline(config,
+                                                                 n_stages)
         check_pipeline_config(config)
         self.config = config
         if devices is None:
@@ -217,9 +229,24 @@ class PipelineTrainer:
                       n_stages=len(self.devices),
                       num_microbatches=config.num_microbatches,
                       pipeline_schedule=config.pipeline_schedule))
+        # The status exporter (utils/statusz.py), as the Trainer's.
+        from distributed_model_parallel_tpu_torch.utils import statusz
+
+        statusz.maybe_serve(config.statusz_port)
+        statusz.register_trainer(self, "pipeline")
         self._build_plane()
         if config.resume and any(self.ckpt.exists(n) for n in RESUME_SLOTS):
             self._resume()
+        if self.plan_decision is not None:
+            # After _resume, so a re-plan is stamped with the exact global
+            # step the run continues from.
+            from distributed_model_parallel_tpu_torch.autotune.planner import (
+                emit_plan_record,
+            )
+
+            emit_plan_record(self.logger.telemetry, self.plan_decision,
+                             global_step=self.global_step)
+            self.logger.log_line(self.plan_decision.describe())
 
     def _build_plane(self) -> None:
         """The resilience plane (JAX ``pipeline_trainer.py:156-200``)."""

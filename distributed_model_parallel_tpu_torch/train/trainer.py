@@ -119,9 +119,13 @@ kernel at its next launch, no bucket rebuilt), ``recovery.faults``
 world). Restore, repair and injected faults write into the existing
 tensors in place, so a fused optimizer's bucket views stay its views.
 
-Not ported yet, and refused by :func:`check_train_config` where a config
-field asks for them (ROADMAP A9/A11): the other mesh axes,
-``strategy="auto"`` and the status exporter.
+``strategy="auto"`` plans the layout with the cost model of the card
+(``autotune/planner.plan_for_cnn``: gspmd, fsdp or the SPMD pipeline,
+ddp under ``grad_bucket_mb``) on the live world, writes a ``plan`` record
+after the resume, and re-plans on an elastic restart; ``statusz_port``
+serves the run's status (``utils/statusz.register_trainer``). Not ported
+yet, and refused by :func:`check_train_config` (ROADMAP A9): the model,
+seq and expert axes.
 """
 
 from __future__ import annotations
@@ -210,12 +214,6 @@ from distributed_model_parallel_tpu_torch.train.preemption import (
 
 METRIC_KEYS = ("loss", "batch", "correct@1", "correct@5")
 
-# TrainConfig fields the port does not run yet: (name, refused when, item).
-_UNPORTED = (
-    ("statusz_port", lambda c: c.statusz_port is not None,
-     "A11: status exporter (its trainer registry needs autotune)"),
-)
-_STRATEGIES = {"auto": "A11: autotune"}
 # Slots a resume considers, newest valid first: the best-accuracy save,
 # the preemption save, the step-cadence emergency save and, last resort,
 # the recovery supervisor's "good" slot.
@@ -225,11 +223,10 @@ RESUME_SLOTS = ("ckpt", "preempt", "emergency", "good")
 def check_train_config(config: TrainConfig) -> None:
     """Raise, naming the ROADMAP item, for what the port does not run, and
     as the JAX trainer does for what it refuses."""
-    if config.strategy in _STRATEGIES:
-        raise ValueError(f"strategy={config.strategy!r} is not ported yet "
-                         f"(ROADMAP {_STRATEGIES[config.strategy]}); the "
-                         f"port runs 'gspmd', 'ddp', 'fsdp', 'zero' and "
-                         f"'spmd_pipeline'")
+    if config.strategy == "auto":
+        raise ValueError("strategy='auto' is resolved by the Trainer "
+                         "(autotune.plan_for_cnn) before its config is "
+                         "checked; check the planned config")
     if config.strategy not in ("gspmd", "ddp", "fsdp", "zero",
                                "spmd_pipeline"):
         raise KeyError(f"unknown strategy {config.strategy!r}")
@@ -282,10 +279,6 @@ def check_train_config(config: TrainConfig) -> None:
                          f"gradient all-reduce (strategy='ddp'); "
                          f"strategy={config.strategy!r} reduces over the "
                          f"optimizer's buckets — no silent ignores")
-    bad = [f"{name} (ROADMAP {item})" for name, refused, item in _UNPORTED
-           if refused(config)]
-    if bad:
-        raise ValueError(f"not ported yet: {', '.join(bad)}")
 
 
 def check_spmd_pipeline_config(config: TrainConfig) -> None:
@@ -722,11 +715,35 @@ class Trainer:
                  train_ds: ArrayDataset | None = None,
                  eval_ds: ArrayDataset | None = None,
                  params=None, state=None, spec: MeshSpec | None = None):
+        self.plan_decision = None
+        if config.strategy == "auto" and spec is not None:
+            raise ValueError(
+                "strategy='auto' plans the mesh layout itself and cannot "
+                "honor an explicit MeshSpec; resolve the plan first "
+                "(autotune.plan_for_cnn) or pass a concrete strategy — "
+                "no silent ignores")
+        if config.strategy == "auto":
+            # The cost model's layout of the live world (autotune/): every
+            # rank plans the same (strategy, dp, pp) from the same inputs,
+            # and the ranks agree before a mesh is built. An elastic
+            # restart re-plans here instead of shrinking dp below.
+            from distributed_model_parallel_tpu_torch.autotune.planner import (
+                check_plan_agreement,
+                plan_for_cnn,
+            )
+            from distributed_model_parallel_tpu_torch.train.elastic import (
+                live_device_count,
+            )
+
+            config, self.plan_decision = plan_for_cnn(config,
+                                                      live_device_count())
+            check_plan_agreement(self.plan_decision)
         check_train_config(config)
         self.elastic_decision = None
-        if config.elastic and spec is None:
+        if config.elastic and spec is None and self.plan_decision is None:
             # The degraded-restart path: the largest data degree the live
-            # world supports (an explicit spec is the caller's topology).
+            # world supports (an explicit spec is the caller's topology;
+            # strategy="auto" re-planned above instead).
             from distributed_model_parallel_tpu_torch.train.elastic import (
                 fit_mesh_to_devices,
                 live_device_count,
@@ -898,12 +915,34 @@ class Trainer:
             steps_per_dispatch=config.steps_per_dispatch
             if config.device_resident_data else 1))
             if self._writer else None)
+        # The status exporter (utils/statusz.py): start the process's
+        # exporter when a port is configured (else join the running one)
+        # and publish this run's live state under /statusz; a no-op when
+        # neither statusz_port nor DMP_STATUSZ_PORT is set. Rank 0 serves,
+        # as it writes the run's logs (ranks on one host cannot share a
+        # port).
+        from distributed_model_parallel_tpu_torch.utils import statusz
+
+        if self._writer:
+            statusz.maybe_serve(config.statusz_port)
+            statusz.register_trainer(self, "cnn")
         self._build_plane()
         if (self.elastic_decision is not None
                 and self.elastic_decision.changed):
             self._log_line(self.elastic_decision.describe())
         if config.resume and any(self.ckpt.exists(n) for n in RESUME_SLOTS):
             self._resume()
+        if self.plan_decision is not None:
+            # After _resume, so an elastic re-plan is stamped with the
+            # exact global step the run continues from (rank 0 writes).
+            from distributed_model_parallel_tpu_torch.autotune.planner import (
+                emit_plan_record,
+            )
+
+            if self.logger is not None:
+                emit_plan_record(self.logger.telemetry, self.plan_decision,
+                                 global_step=self.global_step)
+            self._log_line(self.plan_decision.describe())
 
     def _build_plane(self) -> None:
         """The resilience plane (JAX ``trainer.py:520-605``): the fault

@@ -2,19 +2,19 @@
 ``/healthz`` over stdlib ``http.server`` on a daemon thread.
 
 Counterpart of ``distributed_model_parallel_tpu/utils/statusz.py`` (no
-framework code; the port's own copy, with the trainers' provider
-refused until the trainers' planes are ported). One HTTP exporter per
-process (``DMP_STATUSZ_PORT`` or ``ServeConfig.statusz_port``; port 0
-picks an ephemeral port) that any component of the process registers a
-**status provider** with, so an operator can ask a running engine what
-it is doing *now*:
+framework code; the port's own copy). One HTTP exporter per process
+(``DMP_STATUSZ_PORT``, ``ServeConfig.statusz_port`` or a trainer's
+``statusz_port``; port 0 picks an ephemeral port) that any component of
+the process registers a **status provider** with, so an operator can ask
+a running engine or trainer what it is doing *now*:
 
 * ``GET /metrics`` — Prometheus text exposition rendered from the live
   :class:`~.telemetry.MetricsRegistry`: counters (with per-tenant
   label series), gauges, and histograms as summary quantiles + ``_count``/``_sum``.
 * ``GET /statusz`` — one JSON document: every registered provider's
   payload (the serving engine: queue depth / page occupancy / slot
-  state / brownout level), plus built-ins — the
+  state / brownout level; a trainer: :func:`register_trainer`), plus
+  built-ins — the
   device-health sentinel's scores and quarantine set
   (:func:`~.health.installed`) and the open span stack of every thread
   (:func:`~.tracing.live_spans`).
@@ -53,6 +53,7 @@ __all__ = [
     "maybe_serve",
     "prometheus_text",
     "register",
+    "register_trainer",
     "registered",
     "shutdown",
     "status_payload",
@@ -93,13 +94,38 @@ def registered() -> tuple[str, ...]:
 
 
 def register_trainer(trainer, workload: str) -> bool:
-    """The JAX package's trainers register a provider reading their
-    plan (``autotune.plan``) and their resilience planes. Neither is
-    ported yet, so this refuses rather than report a partial status."""
-    raise NotImplementedError(
-        "statusz.register_trainer reads autotune.plan and the trainers' "
-        "resilience planes, which the port does not have yet (ROADMAP "
-        "A11)")
+    """One wiring call shared by the three trainers: register a
+    ``/statusz`` provider reading the trainer's live state — run name,
+    global step, start epoch, the rank's devices, the plan payload of its
+    config (``autotune.plan_payload``) and the stall watchdog's health —
+    named after the tenant when constructed inside a ``tenant_scope``,
+    else after the run. No-op without a running exporter."""
+    from distributed_model_parallel_tpu_torch.autotune.plan import (
+        plan_payload,
+    )
+    from distributed_model_parallel_tpu_torch.utils.telemetry import (
+        current_tenant,
+    )
+
+    name = current_tenant() or trainer.config.log_name
+
+    def _status() -> dict:
+        cfg = trainer.config
+        watchdog = getattr(getattr(trainer, "guards", None), "stall", None)
+        return {
+            "workload": workload,
+            "run": cfg.log_name,
+            # Read while the trainer may still be constructing.
+            "global_step": int(getattr(trainer, "global_step", 0)),
+            "start_epoch": int(getattr(trainer, "start_epoch", 0)),
+            "devices": list(getattr(trainer, "_device_ids", ())),
+            "plan": plan_payload(
+                cfg.mesh, getattr(cfg, "strategy", workload),
+                num_microbatches=getattr(cfg, "num_microbatches", 1)),
+            "healthy": not bool(getattr(watchdog, "stalled", False)),
+        }
+
+    return register(name, _status)
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,10 @@ seeded costs with ties), ``unit_costs`` per unit == JAX's XLA counts
 (MobileNetV2 at microbatch rows 128 and tinycnn) and the boundaries they
 give at 2, 3, 4 and 8 stages, ResNet-50's (with the ImageNet stem's max-pool,
 which XLA counts as window − 1 comparisons per output) at 2 and 4 stages
-in both layouts, and ``microbatch_rows``. JAX's MobileNetV2 and ResNet-50
-costs compile every unit: computed once for the module."""
+in both layouts, ``microbatch_rows``, and the autotuner's CNN probe
+(``autotune/search.cnn_workload``) on these costs in f32 and bf16. JAX's
+MobileNetV2 and ResNet-50 costs compile every unit: computed once for
+the module."""
 
 import itertools
 
@@ -172,3 +174,49 @@ def test_conv_and_matmul_counts_alone_cut_elsewhere():
                                    (128, 1, 4), (7, 0, 0)])
 def test_microbatch_rows_matches_jax(b, m, d):
     assert tap.microbatch_rows(b, m, d) == jap.microbatch_rows(b, m, d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["tinycnn", "mobilenetv2"])
+def test_cnn_workload_matches_jax_probe(jax_costs, monkeypatch, name,
+                                        dtype):
+    """The autotuner's CNN probe (``autotune/search.cnn_workload``)
+    against JAX's at the fixture's rows, in f32 and bf16: FLOPs within
+    1e-6 relative, counts and the boundary activation exact (a bf16
+    model hands the next unit 2 bytes an element in both packages).
+    JAX's unit costs are the fixture's (its own ``unit_costs`` at the
+    same shape, in f32: XLA's bf16 count adds the casts, which the port
+    does not count). JAX's ``model.init`` runs as its own ``eval_shape``:
+    the same tree of shapes and dtypes, which is all the parameter count
+    and the boundary walk read, without an op-by-op init (~30 s)."""
+    import dataclasses
+
+    import jax
+
+    from distributed_model_parallel_tpu import models as jmodels
+    from distributed_model_parallel_tpu.autotune import search as jsearch
+    from distributed_model_parallel_tpu_torch.autotune import search as tsearch
+
+    def abstract_init(cfg):
+        model = jget_model(cfg)
+        init = model.init
+        object.__setattr__(model, "init",
+                           lambda key, x: jax.eval_shape(init, key, x))
+        return model
+
+    rows, batch = ROWS[name], {"tinycnn": 64, "mobilenetv2": 512}[name]
+    monkeypatch.setattr(jap, "unit_costs",
+                        lambda model, shape: list(jax_costs[name]))
+    monkeypatch.setattr(jmodels, "get_model", abstract_init)
+    want = dataclasses.asdict(jsearch.cnn_workload(
+        jconfig.ModelConfig(name=name, dtype=dtype),
+        jconfig.DataConfig(batch_size=batch), probe_rows=rows))
+    got = dataclasses.asdict(tsearch.cnn_workload(
+        tconfig.ModelConfig(name=name, dtype=dtype),
+        tconfig.DataConfig(batch_size=batch), probe_rows=rows))
+    assert np.isclose(got.pop("flops_per_step"),
+                      want.pop("flops_per_step"), rtol=1e-6, atol=0)
+    np.testing.assert_allclose(got.pop("unit_flop_costs"),
+                               want.pop("unit_flop_costs"), rtol=1e-6,
+                               atol=0)
+    assert got == want

@@ -421,9 +421,11 @@ def test_fit_matches_jax_trainer(jax_fit, fused, resident, tmp_path):
 # test_torch_hierarchical.py, and test_fit_with_optimizer_matches_jax
 # below); their entries here became what is still refused. So did the
 # resilience plane's (tests/test_torch_resilience.py,
-# test_torch_recovery_drills.py): its options now build the trainer.
+# test_torch_recovery_drills.py): its options now build the trainer; and
+# strategy="auto" and statusz_port's (tests/test_torch_autotune*.py).
 @pytest.mark.parametrize("bad", [
-    dict(strategy="auto"), dict(statusz_port=0),
+    dict(mesh=tconfig.MeshConfig(seq=2)),
+    dict(mesh=tconfig.MeshConfig(expert=2)),
     dict(mesh=tconfig.MeshConfig(stage=2, model=2)),
 ])
 def test_unported_trainer_options_raise(bad):

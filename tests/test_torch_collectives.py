@@ -300,6 +300,29 @@ def test_spawn_times_out_and_kills_its_ranks(tmp_path):
     assert multiprocessing.active_children() == []
 
 
+def test_run_here_is_one_rank_in_this_process(tmp_path):
+    """``mesh.run_here``: the rank function runs in this process as rank
+    0 of a group of one (a collective runs), the group is left after it,
+    and a raising function leaves it too and raises."""
+    import os
+
+    import torch.distributed as dist
+
+    def rank_fn(spec, v):
+        t = torch.tensor([v])
+        dist.all_reduce(t)
+        return spec.rank, dist.get_world_size(), float(t), os.getpid()
+
+    assert tmesh.run_here(rank_fn, 3.0, device="cpu", backend="gloo",
+                          store_dir=str(tmp_path)) == (0, 1, 3.0,
+                                                       os.getpid())
+    assert not dist.is_initialized()
+    with pytest.raises(ZeroDivisionError):
+        tmesh.run_here(lambda spec: 1 / 0, device="cpu", backend="gloo",
+                       store_dir=str(tmp_path))
+    assert not dist.is_initialized()
+
+
 @pytest.mark.parametrize("call,match", [
     (lambda: tsp.spmd_ticks(2, 3, "1f1b", virtual_stages=2),
      "Megatron constraint"),

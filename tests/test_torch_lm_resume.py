@@ -10,9 +10,9 @@ ranks (``(model 2, seq 2)`` ring under ``remat="dots"``, adamw). At
 lines against the JAX ``RunLogger``'s (the same lines, numbers within
 1e-4, times aside). A resume under another split restores the same
 whole parameters and optimizer state (resharded); the resilience plane's
-options construct, the emergency slot resumes, and everything A9 and A11
-leave for later raises by name; so do the schedules and MoE configs the
-JAX trainer refuses, in its words."""
+options construct, the emergency slot resumes, and everything A9 leaves
+for later raises by name; so do the strategies, schedules and MoE
+configs the JAX trainer refuses, in its words."""
 
 import dataclasses
 import os
@@ -224,8 +224,9 @@ def test_resume_under_another_split_raises(runs):
      "A9: dcn_data with the model, seq and expert axes"),
     (dict(mesh=tconfig.MeshConfig(data=2, expert=2, dcn_data=2)),
      "A9: dcn_data with the model, seq and expert axes"),
-    (dict(strategy="auto"), "A11: autotune"),
-    (dict(statusz_port=0), "A11: status exporter"),
+    (dict(strategy="gpipe"), "must be 'spmd' or 'auto'"),
+    (dict(mesh=tconfig.MeshConfig(data=2, seq=2, dcn_data=2)),
+     "A9: dcn_data with the model, seq and expert axes"),
 ])
 def test_unported_options_raise_by_name(tmp_path, kw, match):
     config = tlm.LMTrainConfig(

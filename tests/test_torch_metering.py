@@ -2,9 +2,9 @@
 JAX package's: one terminal bill per request on the rtrace id, the duty
 ledger partitioning iteration wall exactly, zero-cost bills for typed
 sheds, the metering gate's violation lists on the same synthetic
-streams, the capacity fold, ``what_if`` refusing to price launches
-without the caller's coefficients, and ``meter=False`` switching the
-plane off.
+streams, the capacity fold, ``what_if`` pricing launches with the
+caller's coefficients or the cost model's, and ``meter=False`` switching
+the plane off.
 
 Each case mirrors the named case of ``tests/test_metering.py``; where
 both engines run, the bills' identity fields (request, tenant, event,
@@ -204,8 +204,9 @@ def test_gate_violation_lists_match_jax(mutate, needle):
 def test_capacity_report_folds_stream(model, tmp_path):
     """Mirrors test_capacity_report_folds_stream on one engine: the
     capacity fold of the port's stream has the JAX fold's shape and its
-    token and tenant figures; ``what_if`` prices launches only with the
-    caller's coefficients and then agrees with JAX's."""
+    token and tenant figures; ``what_if`` prices launches with the cost
+    model's coefficients by default, and with the caller's agrees with
+    JAX's."""
     pair = engines(model, tmp_path=tmp_path, sim=False)
     caps = []
     for e in pair:
@@ -224,8 +225,12 @@ def test_capacity_report_folds_stream(model, tmp_path):
     for row in cap["replicas"].values():
         assert abs(sum(row["duty"].values()) - 1.0) < 1e-3
     assert cap["sustainable_tokens_per_s"] >= cap["tokens_per_s"] > 0
-    with pytest.raises(ValueError, match="alpha_s"):
-        tcapacity.what_if(cap, -1)
+    from distributed_model_parallel_tpu_torch.autotune.cost_model import (
+        default_coefficients,
+    )
+
+    assert tcapacity.what_if(cap, -1) == \
+        tcapacity.what_if(cap, -1, default_coefficients())
     coeffs = types.SimpleNamespace(alpha_s=2e-5)
     assert tcapacity.what_if(cap, 1, coeffs) == \
         jcapacity.what_if(cap, 1, coeffs)

@@ -120,9 +120,25 @@ def test_spmd_trainer_matches_runner_trainer(jax_fit, tmp_path):
 @pytest.mark.parametrize("bad", [
     dict(statusz_port=0), dict(strategy="auto"),
 ])
-def test_unported_options_are_refused_by_name(bad):
-    with pytest.raises(ValueError, match="ROADMAP A"):
-        tpipeline_trainer.PipelineTrainer(_port_config(**bad))
+def test_unported_options_are_refused_by_name(bad, tmp_path):
+    """Refused until the autotuner was ported (ROADMAP A11); now each
+    builds the trainer: the status exporter serves its provider, and
+    ``auto`` keeps the 2 stages, plans the microbatches and turns the
+    cost-balanced cut on."""
+    from distributed_model_parallel_tpu_torch.utils import statusz
+
+    try:
+        t = tpipeline_trainer.PipelineTrainer(
+            _port_config(**{**bad, **run_dirs(tmp_path)}))
+        if "statusz_port" in bad:
+            assert statusz.registered() == (t.config.log_name,)
+        else:
+            assert t.plan_decision.chosen.plan.pp == 2
+            assert t.config.num_microbatches == \
+                t.plan_decision.chosen.plan.num_microbatches
+            assert t.config.auto_partition and len(t.devices) == 2
+    finally:
+        statusz.shutdown()
 
 
 @pytest.mark.parametrize("kw", [

@@ -33,7 +33,8 @@ print(" ".join(names), "|", bad)
 # serving engine's overload controls and planes, the serving fleet
 # (device pool, fault injector, flight recorder, cells, router, fleet), and
 # the trainers' resilience plane (guards, recovery supervisor, consistency
-# sentinel, elastic restore, the chaos drill).
+# sentinel, elastic restore, the chaos drill), and the autotuner (plan,
+# search, memory, cost model, measure, planner, the plan CLI).
 _MODULES = {
     "config", "models.transformer", "ops._build", "ops.paged_attention",
     "ops.flash_attention", "serve.engine", "serve.generate", "serve.model",
@@ -57,6 +58,9 @@ _MODULES = {
     "utils.flightrec", "serve.cells", "serve.router", "serve.fleet",
     "train.guards", "train.resilience", "train.consistency",
     "train.elastic", "train.chaos",
+    "autotune", "autotune.plan", "autotune.search", "autotune.memory",
+    "autotune.cost_model", "autotune.measure", "autotune.planner",
+    "autotune.dmp_plan",
 }
 
 

@@ -2,8 +2,8 @@
 no-op-when-unset contracts, ``/metrics`` Prometheus text (tenant labels,
 cumulative buckets, exemplars, escaping), ``/statusz`` (providers, the
 health sentinel, open spans; a dying provider), ``/healthz`` 200/503,
-the trainers' provider refused until their planes are ported, and the
-serving engine's provider, whose keys equal the JAX engine's.
+the trainers' provider against the JAX trainers', and the serving
+engine's provider, whose keys equal the JAX engine's.
 
 The server cases mirror ``tests/test_statusz.py`` on port 0 of
 127.0.0.1."""
@@ -164,9 +164,42 @@ def test_healthz_200_when_healthy_503_on_quarantine_or_provider():
 
 
 def test_register_trainer_is_refused_by_name():
-    """The trainers' provider reads planes the port does not have yet."""
-    with pytest.raises(NotImplementedError, match="A11"):
-        statusz.register_trainer(object(), "cnn")
+    """Refused until the autotuner was ported; now a no-op without an
+    exporter and, with one, a provider under the run's name whose
+    payload equals the JAX trainers' provider's for the same config and
+    state, less the devices (the port's are the rank's)."""
+    import types
+
+    from distributed_model_parallel_tpu import config as jconfig
+    from distributed_model_parallel_tpu_torch import config as tconfig
+
+    def trainer(config, stalled):
+        guards = types.SimpleNamespace(
+            stall=types.SimpleNamespace(stalled=stalled))
+        return types.SimpleNamespace(config=config, global_step=7,
+                                     _global_step=7, start_epoch=2,
+                                     _device_ids=(0,), guards=guards)
+
+    kw = dict(strategy="spmd_pipeline", num_microbatches=4,
+              log_name="probe")
+    port = trainer(tconfig.TrainConfig(
+        mesh=tconfig.MeshConfig(data=2, stage=2), **kw), True)
+    ref = trainer(jconfig.TrainConfig(
+        mesh=jconfig.MeshConfig(data=2, stage=2), **kw), True)
+    assert statusz.register_trainer(port, "cnn") is False
+    statusz.maybe_serve(0)
+    jstatusz.maybe_serve(0)
+    assert statusz.register_trainer(port, "cnn") is True
+    assert jstatusz.register_trainer(ref, "cnn") is True
+    assert statusz.registered() == ("probe",)
+    got = statusz.status_payload()["providers"]["probe"]
+    want = jstatusz.status_payload()["providers"]["probe"]
+    got.pop("devices")
+    want.pop("devices")
+    assert got == want
+    assert got["healthy"] is False
+    assert got["plan"]["axes"] == {"dp": 2, "pp": 2, "tp": 1, "sp": 1,
+                                   "ep": 1}
 
 
 def test_engine_provider_keys_match_jax():
