@@ -365,6 +365,34 @@ nothing of JAX or the JAX package. Phases, each fatal on failure:
     19b's spawn (MobileNetV2 bf16 B 128, 2 steps): every rank's decision
     equal and equal to this process's plan for 4 devices, the steps run,
     replicas bitwise under a data-parallel plan.
+25. The orchestrator (``orchestrator/``), cuDNN deterministic: (a) an
+    ``Orchestrator`` over 3 slots of the one card, quantum 1: a pipeline
+    tenant (13a's workload over 2 stages, gpipe M 4, 3 steps) and a CNN
+    tenant (bench.py's CNN width: MobileNetV2, bf16, fused SGD, B 512 on
+    the host input path, 3 steps an epoch, 2 epochs), then at round 1 an
+    LM tenant of priority 5 (bench.py's LM width at 2 layers, B 2, T 8192,
+    3 steps) that preempts the CNN tenant (the newest of the lowest
+    priority): every tenant completes, the resume lands at the exact
+    step, the CNN tenant's parameters are bit for bit a solo ``fit`` of
+    its config, the slices replayed from ``fleet.jsonl`` never overlap,
+    ``fused_sgd`` == steps x buckets per CNN and pipeline tenant and each
+    flash kernel == 2 layers x steps for the LM tenant, every launch
+    counted during that tenant's grants (each grant synced); prints each
+    tenant's step s and wall, the admissions' seconds, the orchestrator's
+    own host seconds a round (the rounds' spans less the tenants' work)
+    and the preempt checkpoint's save and restore ms; (b) a dp-2 CNN
+    tenant (MobileNetV2 bf16 B 128) run as a rank group (2 gloo ranks on
+    the card, or NCCL with a card each), ``shrink(1)`` -> dp 1 on a thread
+    -> ``grow()`` -> grow-back to dp 2, each resume at the exact step, the
+    replicas bitwise; prints the dp-2 admissions' seconds and a step
+    grant's round trip across the process boundary and the part of it no
+    rank was working (medians); (c) 4 ranks riding 19b's spawn:
+    MobileNetV2 bf16 B 128 on (data 2, model 2) against (data 4) on the
+    same global batches (losses within 1e-2, the copies' digests equal on
+    every rank) and bench.py's LM width at 2 layers, T 2048, on (data 2,
+    dcn_data 2, model 2) against (data 2, model 2) (losses within 1e-3,
+    bitwise expected: the same ranks form the same data group; the
+    slices of a model index bitwise across the data axis).
 
 Prints the card line, each phase's seconds, a ``{"data_parallel": ...}``
 line, a ``{"pipeline": ...}`` line, a ``{"resnet": ...}`` line, a
@@ -372,8 +400,9 @@ line, a ``{"pipeline": ...}`` line, a ``{"resnet": ...}`` line, a
 ``{"data_path": ...}`` line, a ``{"optim": ...}`` line, a
 ``{"lm_mesh": ...}`` line, a ``{"lm_pipe": ...}`` line, a ``{"decode":
 ...}`` line, a ``{"serve_planes": ...}`` line, a ``{"fleet": ...}`` line,
-a ``{"resilience": ...}`` line, an ``{"autotune": ...}`` line, the
-``{"kernels": [...]}`` line and, last,
+a ``{"resilience": ...}`` line, an ``{"autotune": ...}`` line, an
+``{"orchestrator": ...}`` line, the ``{"kernels": [...]}`` line and,
+last,
 ``{"ok": true, "device": {...}}``. Exits non-zero
 without a card, or when run outside a checkout of the repository.
 ``--sgd-timing-only`` runs phases 1, 2 (the fused SGD kernel) and 10 and
@@ -407,7 +436,10 @@ fused SGD and flash kernels) and 23 (23b in a spawn of its own: NCCL
 with four cards, gloo on one) and prints the ``{"resilience": ...}`` line.
 ``--autotune-only`` runs phases 1, 2 (the fused SGD and flash kernels)
 and 24 (24e in a spawn of its own: NCCL with four cards, gloo on one)
-and prints the ``{"autotune": ...}`` line.
+and prints the ``{"autotune": ...}`` line. ``--orchestrator-only`` runs
+phases 1, 2 (the fused SGD and flash kernels) and 25 (25c in a spawn of
+its own: NCCL with four cards, gloo on one) and prints the
+``{"orchestrator": ...}`` line.
 """
 
 from __future__ import annotations
@@ -594,9 +626,9 @@ DP_LOSS_ATOL = 2e-2
 # engine, 2 stages as 2 ranks at the port's cost-balanced 2-stage cut.
 PP_STAGES, PP_CUT = 4, (0, 4, 10, 16, 19)
 # 13a times PP_TIMED_STEPS steps of each schedule (cut from 20, then 8,
-# so the script stays inside its time) after one warm-up step (the gates
-# ran the same schedules before).
-PP_WARM_STEPS, PP_TIMED_STEPS = 1, 6
+# then 6, so the script stays inside its time) after one warm-up step (the
+# gates ran the same schedules before).
+PP_WARM_STEPS, PP_TIMED_STEPS = 1, 4
 PP_RUNS = {                       # name -> (M, schedule, virtual stages)
     "naive_m1": (1, "gpipe", 1), "gpipe_m4": (4, "gpipe", 1),
     "gpipe_m8": (8, "gpipe", 1), "1f1b_m8": (8, "1f1b", 1),
@@ -673,14 +705,14 @@ RES_TRAIN, RES_EVAL, RES_BATCH, RES_PREEMPT_STEP = 3072, 512, 256, 5
 # the pipeline. 13c: PipelineTrainer over PP_STAGES stages at the
 # reference's cut, gpipe M=4, RES_TRAIN / RES_EVAL rows. 13d: two SPMD
 # ranks, gpipe and 1f1b M=4, on PPS_TRAIN / PPS_EVAL rows (cut from 15b's
-# 3,072 / 512 so that the two-epoch fits over the host-staged gloo hops
-# fit the script's time: 1,024 rows are 4 steps an epoch, preempted at
-# step PPS_PREEMPT_STEP of epoch 1, one step before its end as 15b's step 5
-# of 6 was), then interleaved V=2 M=4 for PP_SPMD_STEPS steps against the
-# runner, and 1F1B's hops beside it. 15c's two-rank fits take the same
-# rows and preemption.
+# 3,072 / 512, then 1,024 / 256, so that the two-epoch fits over the
+# host-staged gloo hops fit the script's time: 768 rows are 3 steps an
+# epoch, preempted at step PPS_PREEMPT_STEP of epoch 1, one step before its
+# end as 15b's step 5 of 6 was), then interleaved V=2 M=4 for PP_SPMD_STEPS
+# steps against the runner, and 1F1B's hops beside it. 15c's two-rank fits
+# take the same rows and preemption.
 PPR_M = 4
-PPS_TRAIN, PPS_EVAL, PPS_PREEMPT_STEP = 1024, 256, 3
+PPS_TRAIN, PPS_EVAL, PPS_PREEMPT_STEP = 768, 256, 2
 # The data path (phase 16): (a) the reference's finetune recipe
 # (Readme.md:186-202, SURVEY.md:309): MobileNetV2 in the ImageNet layout,
 # bf16 over f32, FusedSGD lr 0.05 / momentum 0.9 / wd 1e-4 / 10 warm-up
@@ -765,12 +797,12 @@ LM18_MESHES = {
 LM18_LOSS_ATOL = 1e-3
 # 18c: the resume gate at 2 layers (the cut: 2 of bench.py's 8, so three
 # fits and their checkpoints of the whole model fit the phase),
-# LM18_RESUME_STEPS steps, preempted at step 2 of epoch 0 (3 and 2, cut
-# from 5 and 3 for the script's time limit; the resumed run still takes
-# a step after the restore).
+# LM18_RESUME_STEPS steps, preempted at step 1 of epoch 0 (2 and 1, cut
+# from 5 and 3, then 3 and 2, for the script's time limit; the resumed run
+# still takes a step after the restore).
 LM18_RESUME_LAYERS = 2
-LM18_RESUME_STEPS = 3
-LM18_PREEMPT_AT = (0, 2)
+LM18_RESUME_STEPS = 2
+LM18_PREEMPT_AT = (0, 1)
 
 # Phase 19: the LM's stage and expert axes at full width (bench.py's LM
 # model, bf16, phase 8's SGD, remat off, seed 0's weights), and the MoE
@@ -859,13 +891,13 @@ LM19_MOE_GRADS = "lm19a_moe_grads.pt"
 LM19_ROUTES = "lm19a_moe_routes.pt"
 # 19c: mesh iv at 4 layers and T 2048 (the cuts: 4 of 8 layers, the
 # fewest V 2 x S 2 allows, and a quarter of the tokens, so three fits and
-# their 2.8 GB checkpoints fit the phase), 3 steps, preempted at step 2 of
-# epoch 0 (cut from 5 and 3 for the script's time limit; the resumed run
-# still takes a step after the restore).
+# their 2.8 GB checkpoints fit the phase), 2 steps, preempted at step 1 of
+# epoch 0 (cut from 5 and 3, then 3 and 2, for the script's time limit;
+# the resumed run still takes a step after the restore).
 LM19_RESUME_LAYERS = 4
 LM19_RESUME_SEQ = 2048
-LM19_RESUME_STEPS = 3
-LM19_PREEMPT_AT = (0, 2)
+LM19_RESUME_STEPS = 2
+LM19_PREEMPT_AT = (0, 1)
 
 # Phase 20 (decoding beyond the engine). 20a: bench.py's decode workload
 # (bench.py:369-386: MODEL at bf16, B 8, prompt 128, 512 new tokens,
@@ -9232,6 +9264,519 @@ def autotune_phase(laps, trainer_mod, pipeline_trainer, models, pipeline,
             "ranks": ranks}
 
 
+# -- phase 25: the orchestrator, rank-group tenants, A9 on the card -----------
+
+ORC25_CNN_BATCH, ORC25_CNN_ROWS = 512, 3 * 512   # 25a: 3 steps an epoch
+ORC25_PP_BATCH, ORC25_PP_M = 512, 4              # 25a: 13a's workload, S 2
+ORC25_LM_LAYERS, ORC25_LM_STEPS = 2, 3           # 25a: bench.py's LM width
+RG25_BATCH, RG25_ROWS = 128, 2 * 128             # 25b: 2 steps an epoch
+A925_BATCH, A925_STEPS = 128, 2                  # 25c: the CNN copies
+A925_LM_SEQ, A925_LM_STEPS = 2048, 2             # 25c: the LM's dcn axis
+
+
+def orc25_slots(n: int, spread: bool = False) -> list:
+    """Phase 25's pool: ``n`` slots on card 0, or (``spread``) one a card
+    while cards last."""
+    import torch
+
+    if spread and torch.cuda.device_count() >= n:
+        return [f"cuda:{i}" for i in range(n)]
+    return ["cuda:0"] * n
+
+
+class TenantMeter:
+    """Phase 25's instrument on ``orchestrator.tenants.Tenant``: each
+    outermost grant, drain and boundary wait is timed (the card synced on
+    both sides) and the kernels' launch counts during it are attributed to
+    the tenant, so the orchestrator's own host time is a round's span
+    minus its tenants' share. :meth:`close` restores the class."""
+
+    def __init__(self, tenants_mod, fs, fa):
+        import torch
+
+        self.mod, self.torch = tenants_mod, torch
+        self.kernels = {"fused_sgd": fs.fused_sgd_kernel,
+                        "plain_sgd": fs.plain_sgd_kernel,
+                        **flash_wrappers(fa)}
+        self.launches: dict = {}
+        self.steps: dict = {}
+        self.inside = 0.0
+        self._depth = 0
+        self._orig = {}
+        for name in ("grant_steps", "drain", "wait_boundary"):
+            orig = getattr(tenants_mod.Tenant, name)
+            self._orig[name] = orig
+            setattr(tenants_mod.Tenant, name, self._wrap(name, orig))
+
+    def _wrap(self, name, orig):
+        meter = self
+
+        def timed(tenant, *a, **kw):
+            if meter._depth:
+                return orig(tenant, *a, **kw)
+            meter._depth += 1
+            before = {k: w.launches for k, w in meter.kernels.items()}
+            meter.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return orig(tenant, *a, **kw)
+            finally:
+                meter.torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                meter._depth -= 1
+                meter.inside += dt
+                got = meter.launches.setdefault(
+                    tenant.name, dict.fromkeys(meter.kernels, 0))
+                for k, w in meter.kernels.items():
+                    got[k] += w.launches - before[k]
+                if name == "grant_steps":
+                    meter.steps.setdefault(tenant.name, []).append(dt)
+
+        return timed
+
+    def close(self):
+        for name, orig in self._orig.items():
+            setattr(self.mod.Tenant, name, orig)
+
+
+class CkptMeter:
+    """Every ``Checkpointer.save`` / ``restore_resharded`` during phase
+    25a, timed (the card synced first): (slot, ms) each."""
+
+    def __init__(self, ckpt_mod):
+        import torch
+
+        self.mod, self.saves, self.restores = ckpt_mod, [], []
+        self._orig = (ckpt_mod.Checkpointer.save,
+                      ckpt_mod.Checkpointer.restore_resharded)
+        save, restore = self._orig
+
+        def timed_save(ck, tree, name, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = save(ck, tree, name, *a, **kw)
+            self.saves.append((name, (time.perf_counter() - t0) * 1e3))
+            return out
+
+        def timed_restore(ck, template, name, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = restore(ck, template, name, *a, **kw)
+            torch.cuda.synchronize()
+            self.restores.append((name, (time.perf_counter() - t0) * 1e3))
+            return out
+
+        ckpt_mod.Checkpointer.save = timed_save
+        ckpt_mod.Checkpointer.restore_resharded = timed_restore
+
+    def close(self):
+        (self.mod.Checkpointer.save,
+         self.mod.Checkpointer.restore_resharded) = self._orig
+
+
+def orc25_configs(tconfig, root: str) -> dict:
+    """25a's tenants: bench.py's CNN width (MobileNetV2, bf16 over f32,
+    fused SGD, B 512, the host input path, 3 steps an epoch, 2 epochs),
+    13a's workload over 2 stages (gpipe, M 4, one epoch of 3 steps), and
+    bench.py's LM width at ORC25_LM_LAYERS layers (B 2, T 8192)."""
+    import dataclasses
+
+    cnn = res23_config(tconfig, root, "orc_cnn", batch=ORC25_CNN_BATCH,
+                       rows=ORC25_CNN_ROWS, eval_every=100)
+    pipe = res23_config(tconfig, root, "orc_pipe", batch=ORC25_PP_BATCH,
+                        rows=3 * ORC25_PP_BATCH, epochs=1, eval_every=100,
+                        mesh=tconfig.MeshConfig(stage=2),
+                        num_microbatches=ORC25_PP_M)
+    lm = lm18_config("orc_lm", n_layers=ORC25_LM_LAYERS,
+                     steps=ORC25_LM_STEPS)
+    lm = dataclasses.replace(lm, log_dir=os.path.join(root, "log"),
+                             checkpoint_dir=os.path.join(root, "ckpt_lm"))
+    return {"cnn": cnn, "pipe": pipe, "lm": lm}
+
+
+def round_host_s(fleet_path: str, inside: float) -> tuple:
+    """The rounds' span seconds from the fleet stream, and the host seconds
+    a round spent outside its tenants' work (``inside``: the meter's)."""
+    from distributed_model_parallel_tpu_torch.utils.telemetry import (
+        read_records,
+    )
+
+    rounds = [r["dur_s"] for r in read_records(fleet_path)
+              if r["kind"] == "span" and r["name"] == "round"]
+    return len(rounds), (sum(rounds) - inside) / max(1, len(rounds))
+
+
+def replay_slices(fleet_path: str) -> dict:
+    """Replay a fleet stream's admissions and releases; raises if a slot
+    is ever held by two tenants. Returns what is held at the end."""
+    from distributed_model_parallel_tpu_torch.utils.telemetry import (
+        read_records,
+    )
+
+    held: dict = {}
+    for r in read_records(fleet_path):
+        if r.get("kind") != "tenant":
+            continue
+        if r["event"] == "admitted":
+            ids = set(r["devices"])
+            for other, theirs in held.items():
+                if ids & theirs:
+                    raise RuntimeError(f"{r['name']} admitted onto "
+                                       f"{sorted(ids & theirs)} held by "
+                                       f"{other}")
+            held[r["name"]] = ids
+        elif r["event"] in ("preempted", "completed", "failed", "cancelled"):
+            held.pop(r["name"], None)
+    return held
+
+
+def orchestrator_one_card(trainer_mod, fs, fa, tconfig, root, card) -> dict:
+    """25a (see the module docstring)."""
+    import numpy as np
+    import torch
+
+    from distributed_model_parallel_tpu_torch import orchestrator as orc
+    from distributed_model_parallel_tpu_torch.models import params_to_jax
+    from distributed_model_parallel_tpu_torch.orchestrator import tenants
+    from distributed_model_parallel_tpu_torch.train import checkpoint
+
+    phase = "25a/orchestrator one card"
+    cfgs = orc25_configs(tconfig, root)
+    meter = TenantMeter(tenants, fs, fa)
+    ckm = CkptMeter(checkpoint)
+    slots = orc25_slots(3)
+    t0 = time.perf_counter()
+    try:
+        o = orc.Orchestrator(slots, workdir=os.path.join(root, "fleet"),
+                             quantum=1)
+        o.submit(orc.TenantSpec(name="pipe", workload="pipeline",
+                                config=cfgs["pipe"]))
+        o.submit(orc.TenantSpec(name="cnn", workload="cnn",
+                                config=cfgs["cnn"]))
+
+        def on_round(o, r):
+            if r == 1 and "lm" not in o.tenants:
+                o.submit(orc.TenantSpec(name="lm", workload="lm",
+                                        config=cfgs["lm"], priority=5))
+
+        summary = o.run(on_round=on_round, max_rounds=100)
+        o.close()
+    except Exception as e:
+        fail(phase, f"{type(e).__name__}: {e}")
+    finally:
+        meter.close()
+        ckm.close()
+    wall = time.perf_counter() - t0
+    fleet = os.path.join(root, "fleet", "fleet.jsonl")
+    n_rounds, host_s = round_host_s(fleet, meter.inside)
+    try:
+        held = replay_slices(fleet)
+    except RuntimeError as e:
+        fail(phase, str(e))
+    ten = summary["tenants"]
+    cnn_t, pipe_t, lm_t = (o.tenants[n] for n in ("cnn", "pipe", "lm"))
+    # The preempted tenant against a solo run of its config.
+    solo = trainer_mod.Trainer(cfgs["cnn"].replace(
+        log_name="orc_cnn_solo",
+        checkpoint_dir=os.path.join(root, "ckpt_cnn_solo")))
+    solo.fit()
+    with torch.no_grad():
+        want = params_to_jax(solo.model)
+    bitwise = all(np.array_equal(a, b) for a, b in zip(
+        _leaves(cnn_t.weights), _leaves(want), strict=True))
+    buckets = {"cnn": len(solo.optimizer.buckets)}
+    del solo
+    runner = pipe_t.trainer.runner
+    buckets["pipe"] = sum(len(st.optimizer.buckets) for st in runner.stages)
+    want_sgd = {"cnn": ten["cnn"]["global_step"] * buckets["cnn"],
+                "pipe": ten["pipe"]["global_step"] * buckets["pipe"]}
+    launches = meter.launches
+    flash_want = ORC25_LM_LAYERS * ten["lm"]["global_step"]
+    # A tenant's step: the grants but its first (warm-up) and its last
+    # (the end of fit: eval and the checkpoint).
+    step_s = {n: statistics.median(v[1:-1] or v)
+              for n, v in meter.steps.items()}
+    saves = [ms for name, ms in ckm.saves if name == "preempt"]
+    restores = [ms for name, ms in ckm.restores if name == "preempt"]
+    grants = [(a["tenant"], a["devices"]) for a in summary["assignments"]]
+    states = [(n, t["state"], t["global_step"], t["preemptions"])
+              for n, t in ten.items()]
+    admit = [(n, round(t.admit_s or 0, 3)) for n, t in o.tenants.items()]
+    print(f"orchestrator 25a [{card}]: 3 slots on cuda:0, quantum 1; "
+          f"assignments {grants}; states {states}; "
+          f"resumes exact {summary['all_resumes_exact']}; the preempted "
+          f"cnn tenant bitwise a solo fit {bitwise}; slots held at the end "
+          f"{held}; launches {launches} (want fused_sgd {want_sgd}, flash "
+          f"{flash_want} each for lm); step s (median, card synced) "
+          f"{step_s}; admission s {admit}; "
+          f"{n_rounds} rounds, orchestrator host s a round outside the "
+          f"tenants' work {host_s}; preempt save ms {saves}, restore ms "
+          f"{restores}; wall {wall:.2f} s")
+    if summary["unrecovered"] or any(t["state"] != "completed"
+                                     for t in ten.values()):
+        fail(phase, f"tenants {ten} unrecovered {summary['unrecovered']}")
+    if ten["cnn"]["preemptions"] != 1 or not summary["all_resumes_exact"]:
+        fail(phase, "the cnn tenant was not preempted once and resumed at "
+                    "the exact step")
+    if not bitwise:
+        fail(phase, "the preempted tenant is not bitwise its solo run")
+    if held:
+        fail(phase, f"slots still held at the end: {held}")
+    for n in ("cnn", "pipe"):
+        got = launches[n]
+        if got["fused_sgd"] != want_sgd[n] or got["plain_sgd"]:
+            fail(phase, f"{n}: launches {got}, want fused_sgd "
+                        f"{want_sgd[n]} and no plain_sgd")
+    lm_got = launches["lm"]
+    if any(lm_got[k] != flash_want for k in flash_wrappers(fa)) or (
+            lm_got["fused_sgd"] or lm_got["plain_sgd"]):
+        fail(phase, f"lm: launches {lm_got}, want {flash_want} each flash")
+    if len(saves) != 1 or len(restores) != 1:
+        fail(phase, f"preempt saves {saves}, restores {restores}")
+    del o, cnn_t, pipe_t, lm_t, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        assignments=[(a["tenant"], list(a["devices"]))
+                     for a in summary["assignments"]],
+        tenants={n: dict(steps=t["global_step"], attempts=t["attempts"],
+                         preemptions=t["preemptions"],
+                         step_s=step_s.get(n), wall_s=sum(
+                             meter.steps.get(n, ())))
+                 for n, t in ten.items()},
+        launches=launches, buckets=buckets, solo_bitwise=bitwise,
+        rounds=n_rounds, host_s_per_round=host_s, save_ms=saves,
+        restore_ms=restores, wall_s=wall)
+
+
+def _leaves(tree):
+    """The arrays of a nested tuple/dict tree, in order."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def rank_group_tenant(tconfig, root, card) -> dict:
+    """25b (see the module docstring)."""
+    import torch
+
+    from distributed_model_parallel_tpu_torch import orchestrator as orc
+
+    phase = "25b/rank-group tenant"
+    slots = orc25_slots(2, spread=True)
+    four = len(set(slots)) == 2
+    cfg = res23_config(tconfig, root, "orc_rg", batch=RG25_BATCH,
+                       rows=RG25_ROWS, eval_every=100,
+                       mesh=tconfig.MeshConfig(data=2))
+    admits, grants, overhead = [], [], []
+    t0 = time.perf_counter()
+    try:
+        o = orc.Orchestrator(slots, workdir=os.path.join(root, "fleet_rg"),
+                             quantum=1)
+        t = o.submit(orc.TenantSpec(name="rg", workload="cnn", config=cfg))
+
+        def on_round(o, r):
+            if t.admit_s is not None and (not admits or admits[-1][0]
+                                          != t.attempts):
+                admits.append((t.attempts, len(t.devices), t.admit_s))
+            if t.grant_s:
+                grants.extend(t.grant_s)
+                overhead.extend(t.grant_overhead_s)
+                t.grant_s, t.grant_overhead_s = [], []
+            if r == 1:
+                o.shrink(1)
+            if r > 1 and len(t.devices) == 1 and o.pool.revoked_ids:
+                o.grow()
+
+        summary = o.run(on_round=on_round, max_rounds=100)
+        o.close()
+    except Exception as e:
+        fail(phase, f"{type(e).__name__}: {e}")
+    wall = time.perf_counter() - t0
+    grants.extend(t.grant_s)
+    overhead.extend(t.grant_overhead_s)
+    rg = summary["tenants"]["rg"]
+    sizes = rg["granted_sizes"]
+    spawn_s = [s for _, n, s in admits if n == 2]
+    rt_us = statistics.median(grants) * 1e6 if grants else None
+    baton_us = statistics.median(overhead) * 1e6 if overhead else None
+    print(f"orchestrator 25b [{card}]: a dp-2 MobileNetV2 bf16 B "
+          f"{RG25_BATCH} tenant on {slots} ("
+          f"{'NCCL' if four else 'gloo'}): slices {sizes}, resumes exact "
+          f"{rg['resumed_exact_step']}, grow-backs {rg['grow_backs']}, "
+          f"steps {rg['global_step']}, replicas' digests "
+          f"{len(set(t.replica_digests))} distinct of "
+          f"{len(t.replica_digests)}; admission s (attempt, slots, s) "
+          f"{admits}; a step grant's round trip across the process "
+          f"boundary {rt_us} us, of which no rank was working {baton_us} us "
+          f"(medians of {len(grants)} grants to both ranks); wall "
+          f"{wall:.2f} s")
+    if rg["state"] != "completed" or sizes != [2, 1, 2]:
+        fail(phase, f"tenant {rg}")
+    if rg["resumed_exact_step"] != [True, True] or rg["grow_backs"] != 1:
+        fail(phase, f"resumes {rg['resumed_exact_step']}, grow-backs "
+                    f"{rg['grow_backs']}")
+    if len(t.replica_digests) != 2 or len(set(t.replica_digests)) != 1:
+        fail(phase, f"the replicas differ: {t.replica_digests}")
+    torch.cuda.empty_cache()
+    return dict(slots=slots, backend="nccl" if four else "gloo",
+                granted_sizes=sizes, resumed_exact=rg["resumed_exact_step"],
+                steps=rg["global_step"], replicas_bitwise=True,
+                spawn_s=spawn_s, admissions=admits,
+                grant_round_trip_us=rt_us, grant_baton_us=baton_us,
+                grants=len(grants), wall_s=wall)
+
+
+def a9_rank(spec, root: str) -> dict:
+    """25c on each of 4 ranks: MobileNetV2 bf16 B A925_BATCH under gspmd on
+    (data 2, model 2) and on (data 4), A925_STEPS steps each on the same
+    global batches, cuDNN deterministic; then bench.py's LM width at 2
+    layers, T A925_LM_SEQ, on (data 2, dcn_data 2, model 2) and (data 2,
+    model 2), A925_LM_STEPS steps each. Losses and digests."""
+    import dataclasses
+    import hashlib
+
+    import torch
+
+    from distributed_model_parallel_tpu_torch import config as tconfig
+    from distributed_model_parallel_tpu_torch.train import lm_trainer as lm
+    from distributed_model_parallel_tpu_torch.train.trainer import Trainer
+
+    laps = RankLaps(spec, "25c")
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+    def digest(tensors):
+        h = hashlib.sha256()
+        for x in tensors:
+            h.update(x.detach().float().cpu().numpy().tobytes())
+        return h.hexdigest()
+
+    out = {"grid": spec.grid}
+    for name, mesh in (("data2_model2", dict(data=2, model=2)),
+                       ("data4", dict(data=4))):
+        cfg = res23_config(tconfig, root, f"a9_{name}", batch=A925_BATCH,
+                           rows=A925_BATCH * A925_STEPS, epochs=1,
+                           log_every_n_steps=1, eval_every=100,
+                           mesh=tconfig.MeshConfig(**mesh))
+        t = Trainer(cfg)
+        coords = t.spec.grid
+        t.train_epoch(0)
+        torch.cuda.synchronize()
+        out[name] = dict(
+            losses=[r["loss"] for r in t.step_log], grid=coords,
+            digest=digest([*t.model.parameters(), *t.model.buffers()]))
+        del t
+        laps.done(f"cnn {name}")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        flags
+    for name, mesh in (("data2_dcn2_model2", dict(data=2, dcn_data=2,
+                                                   model=2)),
+                       ("data2_model2", dict(data=2, model=2))):
+        cfg = lm18_config(f"a9_lm_{name}", mesh, steps=A925_LM_STEPS,
+                          n_layers=2, tp_axis="model")
+        cfg = dataclasses.replace(
+            cfg, seq_len=A925_LM_SEQ,
+            n_tokens=4 * cfg.batch_size * (A925_LM_SEQ + 1),
+            log_dir=os.path.join(root, "log"),
+            checkpoint_dir=os.path.join(root, f"ckpt_lm_{name}"))
+        t = lm.LMTrainer(cfg)
+        losses, _ = lm18_steps(t, A925_LM_STEPS)
+        out[f"lm_{name}"] = dict(losses=losses, grid=t.spec.grid,
+                                 digest=digest(t.leaves))
+        del t
+        torch.cuda.empty_cache()
+        laps.done(f"lm {name}")
+    return out
+
+
+def a9_ranks_gate(res: list, card: str) -> dict:
+    """25c's gates: the (data 2, model 2) copies bitwise on every rank,
+    its losses against (data 4)'s on the same global batches (bf16); the
+    LM's losses on the two meshes (the dcn factor changes no reduction:
+    the same ranks form the same data group), and its slices bitwise
+    between the replicas of a model index."""
+    phase = "25c/A9 on the card"
+    cnn = [r["data2_model2"] for r in res]
+    flat = [r["data4"] for r in res]
+    gap = max(abs(a - b) for a, b in zip(cnn[0]["losses"],
+                                         flat[0]["losses"]))
+    lm_a = [r["lm_data2_dcn2_model2"] for r in res]
+    lm_b = [r["lm_data2_model2"] for r in res]
+    lm_same = all(a["losses"] == b["losses"] for a, b in zip(lm_a, lm_b))
+    lm_gap = max(abs(x - y) for a, b in zip(lm_a, lm_b)
+                 for x, y in zip(a["losses"], b["losses"]))
+    by_model: dict = {}
+    for a in lm_a:
+        by_model.setdefault(a["grid"][2], set()).add(a["digest"])
+    print(f"A9 25c [{card}]: MobileNetV2 bf16 B {A925_BATCH} gspmd on "
+          f"(data 2, model 2): losses {cnn[0]['losses']}, every rank's "
+          f"digest equal {len({c['digest'] for c in cnn}) == 1}; on (data "
+          f"4) {flat[0]['losses']}, max |diff| {gap}; the LM (2 layers, T "
+          f"{A925_LM_SEQ}) on (data 2, dcn_data 2, model 2) "
+          f"{lm_a[0]['losses']}, on (data 2, model 2) {lm_b[0]['losses']}: "
+          f"bitwise {lm_same} (max |diff| {lm_gap}); slices per model index "
+          f"{ {m: len(d) for m, d in by_model.items()} } distinct digests")
+    if len({c["digest"] for c in cnn}) != 1:
+        fail(phase, "the copies along the model axis differ")
+    if any(c["losses"] != cnn[0]["losses"] for c in cnn):
+        fail(phase, "the ranks' losses differ")
+    if gap > 1e-2:
+        fail(phase, f"(data 2, model 2) vs (data 4): losses differ by {gap}")
+    if lm_gap > 1e-3 or any(len(d) != 1 for d in by_model.values()):
+        fail(phase, f"the LM's dcn mesh: loss gap {lm_gap}, slices "
+                    f"{by_model}")
+    if not all(math.isfinite(x) for a in lm_a for x in a["losses"]):
+        fail(phase, "non-finite LM losses")
+    return dict(cnn_losses=cnn[0]["losses"], cnn_flat_losses=flat[0]["losses"],
+                cnn_gap=gap, copies_bitwise=True, lm_losses=lm_a[0]["losses"],
+                lm_bitwise=lm_same, lm_gap=lm_gap)
+
+
+def a9_ride(card: str):
+    """Phase 25c as a :class:`RideAlong` of a spawn of four ranks; its
+    gated record lands in ``ride.record``."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="a9_ranks_", dir=os.environ[RUN_DIR_ENV])
+    ride = RideAlong(a9_rank, None, (root,), None)
+    ride.record = None
+
+    def gate(results):
+        ride.record = a9_ranks_gate(results, card)
+        return ride.record
+
+    ride.gate = gate
+    return ride
+
+
+def orchestrator_phase(laps, trainer_mod, fs, fa, tconfig, card,
+                       a9: dict) -> dict:
+    """Phase 25: 25a and 25b here, beside 25c's record (its ranks rode a
+    spawn of four)."""
+    import tempfile
+
+    import torch
+
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    root = tempfile.mkdtemp(prefix="orchestrator_",
+                            dir=os.environ[RUN_DIR_ENV])
+    one = orchestrator_one_card(trainer_mod, fs, fa, tconfig, root, card)
+    laps.done("25a/orchestrator one card")
+    rg = rank_group_tenant(tconfig, root, card)
+    laps.done("25b/rank-group tenant")
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        flags
+    return {"one_card": one, "rank_group": rg, "a9": a9}
+
+
 class Laps:
     """Prints each phase's seconds since the previous phase ended."""
 
@@ -9306,11 +9851,17 @@ def main() -> None:
                          "four ranks of its own: NCCL with four cards, "
                          "where 24a measures alpha and the wire rate), "
                          "print the autotune JSON line and stop")
+    ap.add_argument("--orchestrator-only", action="store_true",
+                    help="run phases 1, 2 (the fused SGD and flash "
+                         "kernels) and 25 (the orchestrator on one card, a "
+                         "rank-group tenant, and A9's meshes in a spawn of "
+                         "four ranks of its own: NCCL with four cards), "
+                         "print the orchestrator JSON line and stop")
     args = ap.parse_args()
     only = (args.sgd_timing_only or args.pipeline_only or args.dp_only
             or args.harness_only or args.data_only or args.optim_only
             or args.lm_only or args.serve_only or args.resilience_only
-            or args.autotune_only)
+            or args.autotune_only or args.orchestrator_only)
     import atexit
     import shutil
     import tempfile
@@ -9370,7 +9921,8 @@ def main() -> None:
             ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv") if args.lm_only
             else ("paged_decode", "flash_fwd") if args.serve_only
             else ("fused_sgd", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-            if args.resilience_only or args.autotune_only
+            if (args.resilience_only or args.autotune_only
+                or args.orchestrator_only)
             else ("fused_sgd",) if only else _build.KERNELS)
     except RuntimeError as e:
         fail("2/build", str(e))
@@ -9475,6 +10027,22 @@ def main() -> None:
             laps, cnn_trainer, pipeline_trainer, models, pipeline, fs, fa,
             tconfig, card, ride.record), "card": card}))
         return
+    if args.orchestrator_only:
+        import tempfile
+
+        from distributed_model_parallel_tpu_torch import mesh
+
+        four = torch.cuda.device_count() >= 4
+        ride = a9_ride(card)
+        ride.results = dp_spawn(mesh, a9_rank, 4, "25c/A9 ranks",
+                                *ride.args,
+                                backend="nccl" if four else "gloo")
+        ride.finish()
+        laps.done("25c/A9 ranks")
+        print(json.dumps({"orchestrator": orchestrator_phase(
+            laps, cnn_trainer, fs, fa, tconfig, card, ride.record),
+            "card": card}))
+        return
     if args.optim_only:
         from distributed_model_parallel_tpu_torch import mesh
 
@@ -9572,11 +10140,12 @@ def main() -> None:
     lm18 = lm_phase(laps, fa, lm_model_flops, mesh, card, lm8_loss, rides4)
 
     # -- phase 19: the LM's stage and expert axes ---------------------------
-    # 23b's and 24e's ranks ride 19b's spawn of four too; their records are
-    # gated there.
+    # 23b's, 24e's and 25c's ranks ride 19b's spawn of four too; their
+    # records are gated there.
     res23 = resilience_ride(card)
     auto24 = autotune_ride(tconfig, card, torch.cuda.device_count() >= 4)
-    rides4 += [res23, auto24]
+    a925 = a9_ride(card)
+    rides4 += [res23, auto24, a925]
     lm19 = lm19_phase(laps, fa, lm_model_flops, mesh, card, decode=True,
                       rides=rides4)
     lm18_rows = lm_launch_rows(lm18)
@@ -9604,6 +10173,11 @@ def main() -> None:
     auto = autotune_phase(laps, cnn_trainer, pipeline_trainer, models,
                           pipeline, fs, fa, tconfig, card, auto24.record)
 
+    # -- phase 25: the orchestrator, rank-group tenants, A9 ----------------
+    orc = orchestrator_phase(laps, cnn_trainer, fs, fa, tconfig, card,
+                             a925.record)
+    orc_launches = orc["one_card"]["launches"]
+
     kernels = decode_kernel_rows(paged, dec, planes, fleet)
     for name, line in (("flash_fwd", 112), ("flash_bwd_dq", 199),
                        ("flash_bwd_dkv", 278)):
@@ -9622,6 +10196,7 @@ def main() -> None:
             **lm19_rows[name],
             "launches_23c_resilience": resil["lm"]["launches"][name],
             "launches_24d_autotune_lm": auto["lm"]["launches"][name],
+            "launches_25a_orchestrator_lm": orc_launches["lm"][name],
             "max_abs_err": flash_errs[name][0],
             "max_row_rel_err": flash_errs[name][1],
             **flash_times[name],
@@ -9662,6 +10237,8 @@ def main() -> None:
             "launches_24b_autotune_cnn": auto["cnn"]["launches"][name],
             "launches_24c_autotune_pipeline": (
                 auto["pipeline"]["launches"] if name == "fused_sgd" else 0),
+            "launches_25a_orchestrator_cnn": orc_launches["cnn"][name],
+            "launches_25a_orchestrator_pipeline": orc_launches["pipe"][name],
             "max_abs_err": sgd_err,
             **sgd_times[name],
             "in_step_us": sgd_in_step[name],
@@ -9680,6 +10257,7 @@ def main() -> None:
     print(json.dumps({"fleet": fleet, "card": card}))
     print(json.dumps({"resilience": resil, "card": card}))
     print(json.dumps({"autotune": auto, "card": card}))
+    print(json.dumps({"orchestrator": orc, "card": card}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

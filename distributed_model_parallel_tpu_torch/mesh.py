@@ -33,8 +33,11 @@ mesh: data index ``d`` sits in dcn row ``d // (D/H)`` at inner index ``d %
 the fast, within-host links) and its outer group (the ranks of its inner
 index across the rows), the two levels ``ops/collectives.
 hierarchical_psum`` reduces over; ``MeshConfig(data=4, dcn_data=2)`` is a
-2 x 2 grid, ranks {0, 1} in row 0 and {2, 3} in row 1. Everything else
-runs over the whole data group, as JAX runs it over ``("dcn", data)``.
+2 x 2 grid, ranks {0, 1} in row 0 and {2, 3} in row 1. There is one inner
+and one outer group per ``(stage, model, seq, expert)`` coordinate, so the
+two levels sit beside any other axis. Everything else runs over the whole
+data group, as JAX runs it over ``("dcn", data)``: the Transformer LM's
+replica group, and every reduction of the CNN trainers.
 
 * :func:`init_process_group` joins this process to the group, from
   torchrun's environment (``env://``, ``LOCAL_RANK`` picks the card) or
@@ -45,6 +48,8 @@ runs over the whole data group, as JAX runs it over ``("dcn", data)``.
 * :func:`spawn` starts ``N`` ranks as fresh processes (start method
   ``spawn``, a ``file://`` store in a temporary directory), runs a
   function on each and returns their results in rank order;
+  :class:`RankGroup` is the same launch without blocking (the
+  orchestrator's rank-group tenants), and :func:`spawn` waits on one;
 * :func:`process_rows` is this process's data row's rows of a global
   batch, from the mesh it joined (``BatchLoader(shard_by_process=True)``);
 * :func:`local_batch_slice`, :func:`barrier_with_timeout` and
@@ -81,19 +86,12 @@ DCN_AXIS = "dcn"
 
 def check_mesh_config(config: MeshConfig) -> None:
     """Raise, in the JAX package's words, on a ``dcn_data`` that does not
-    divide ``data``, and, naming the ROADMAP item, on a two-level data
-    axis beside a model, seq or expert axis. Each trainer refuses the
-    axes it does not shard over (the CNN trainers ``model``, ``seq`` and
-    ``expert``)."""
+    divide ``data``."""
     if config.dcn_data < 1:
         raise ValueError(f"dcn_data must be >= 1, got {config.dcn_data}")
     if config.data % config.dcn_data:
         raise ValueError(f"dcn_data={config.dcn_data} must divide "
                          f"data={config.data}")
-    if config.dcn_data > 1 and config.model * config.seq * config.expert > 1:
-        raise ValueError("dcn_data > 1 with a model, seq or expert axis is "
-                         "not ported yet (ROADMAP A9: dcn_data with the "
-                         "model, seq and expert axes)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,7 +104,9 @@ class MeshSpec:
     is the whole world (``stage == model == seq == expert == 1``);
     ``stage_group``, ``model_group``, ``seq_group`` and ``expert_group``
     are None where their axis has size 1; ``replica_group`` (data x seq)
-    is None at ``seq == 1``, where it is the data group."""
+    is None at ``seq == 1``, where it is the data group. ``device_ids``:
+    the ids the device-health monitor scores this mesh's devices under
+    (an orchestrator's pool slot ids; None: this rank's number)."""
 
     config: MeshConfig
     rank: int = 0
@@ -120,6 +120,7 @@ class MeshSpec:
     seq_group: object = None
     expert_group: object = None
     replica_group: object = None
+    device_ids: tuple | None = None
 
     @property
     def num_data(self) -> int:
@@ -180,6 +181,12 @@ class MeshSpec:
         return self.inner_group, self.outer_group
 
     @property
+    def health_ids(self) -> tuple:
+        """The device ids a trainer's health observations carry."""
+        return (tuple(self.device_ids) if self.device_ids is not None
+                else (self.rank,))
+
+    @property
     def grid(self) -> tuple[int, int, int, int, int]:
         """This rank's ``(data, stage, model, seq, expert)`` position in
         JAX's device grid."""
@@ -211,6 +218,14 @@ class MeshSpec:
         return self.grid[4]
 
     @property
+    def copy_index(self) -> int:
+        """This rank's row-major index over the model, seq and expert axes:
+        which copy of its (data, stage) position it is where a trainer
+        replicates over those axes (the CNN trainers)."""
+        return ((self.model_index * self.num_seq + self.seq_index)
+                * self.num_expert + self.expert_index)
+
+    @property
     def group(self):
         """The process group of the data axis — this rank's stage, model
         and seq position across the data rows (None without a process
@@ -219,6 +234,14 @@ class MeshSpec:
             return None
         return self.data_group if self.data_group is not None else \
             dist.group.WORLD
+
+    @property
+    def mesh_group(self):
+        """The process group of every rank of this mesh: its data group
+        where the mesh is that axis alone (a mesh laid over a sub-group of
+        the world included), else the world (``None``)."""
+        return (self.group if self.config.num_devices == self.num_data
+                else None)
 
     @property
     def replicas(self):
@@ -299,17 +322,22 @@ def mesh_groups(data: int, stage: int) -> tuple[list, list]:
     return axis_groups(config, (0,)), axis_groups(config, (1,))
 
 
-def dcn_groups(data: int, stage: int, dcn: int) -> tuple[list, list]:
-    """The global ranks of every inner group (per stage, per dcn row: the
-    row's data indices) and of every outer group (per stage, per inner
-    index: that index across the rows) of a two-level data axis, in the
-    order :func:`init_process_group` creates them."""
+def dcn_groups(data: int, stage: int, dcn: int,
+               rest: int = 1) -> tuple[list, list]:
+    """The global ranks of every inner group (per ``(stage, rest)``
+    coordinate, per dcn row: the row's data indices) and of every outer
+    group (per coordinate, per inner index: that index across the rows) of
+    a two-level data axis, in the order :func:`init_process_group` creates
+    them. ``rest`` is ``model * seq * expert``: the coordinates of those
+    axes, row-major, inside each stage."""
     inner = data // dcn
-    at = lambda row, j, s: (row * inner + j) * stage + s
-    return ([[at(row, j, s) for j in range(inner)]
-             for s in range(stage) for row in range(dcn)],
-            [[at(row, j, s) for row in range(dcn)]
-             for s in range(stage) for j in range(inner)])
+    at = lambda row, j, s, x: ((row * inner + j) * stage + s) * rest + x
+    return ([[at(row, j, s, x) for j in range(inner)]
+             for s in range(stage) for x in range(rest)
+             for row in range(dcn)],
+            [[at(row, j, s, x) for row in range(dcn)]
+             for s in range(stage) for x in range(rest)
+             for j in range(inner)])
 
 
 def _mine(rank: int, groups: list[list]):
@@ -340,8 +368,9 @@ def _sub_groups(config: MeshConfig, rank: int) -> dict:
     elif config.seq > 1:
         out["replica_group"] = out["seq_group"]
     if config.dcn_data > 1:
-        inner_ranks, outer_ranks = dcn_groups(config.data, config.stage,
-                                              config.dcn_data)
+        inner_ranks, outer_ranks = dcn_groups(
+            config.data, config.stage, config.dcn_data,
+            config.model * config.seq * config.expert)
         out.update(inner_group=_mine(rank, inner_ranks),
                    outer_group=_mine(rank, outer_ranks))
     return out
@@ -368,6 +397,14 @@ def _rank_device(device, local_rank: int, backend: str) -> torch.device:
         raise RuntimeError("device='cuda' but no CUDA device is available; "
                            "pass device='cpu' to run on the CPU")
     n = torch.cuda.device_count()
+    index = torch.device(device).index
+    if index is not None:
+        # The caller placed this rank (an orchestrator's slot).
+        if index >= n:
+            raise ValueError(f"{device} is not visible ({n} card(s))")
+        dev = torch.device("cuda", index)
+        torch.cuda.set_device(dev)
+        return dev
     if local_rank >= n and backend != "gloo":
         raise ValueError(f"local rank {local_rank} needs cuda:{local_rank} "
                          f"but {n} card(s) are visible; NCCL runs one rank "
@@ -519,68 +556,117 @@ def run_here(fn, *args, device="cuda", backend: str | None = None,
                          config, device, backend, args)
 
 
+class RankGroup:
+    """``fn(spec, *args)`` on ``nproc`` ranks, each a fresh process (start
+    method ``spawn``) joined by a ``file://`` store in a temporary
+    directory under ``store_dir``, started without blocking: :meth:`poll`
+    takes the ranks' results as they come, :meth:`failed` names the ranks
+    that exited with no result, :meth:`close` kills what is still alive.
+    ``fn``, ``args`` and the results are pickled, so ``fn`` is a
+    module-level function; ``args`` may hold ``multiprocessing``
+    primitives of the ``spawn`` context. ``devices`` (optional, one per
+    rank) places rank r on ``devices[r]``, else on ``device`` (a CUDA rank
+    on ``cuda:r``). ``threads``: torch's intra-op threads per rank
+    (default: this process's count over ``nproc``)."""
+
+    def __init__(self, fn, nproc: int, *args, device="cuda",
+                 backend: str | None = None,
+                 config: MeshConfig | None = None,
+                 threads: int | None = None, store_dir: str | None = None,
+                 devices=None):
+        kinds = {torch.device(d).type for d in (devices or [device])}
+        if "cuda" in kinds and backend != "gloo":
+            if not torch.cuda.is_available():
+                raise RuntimeError("device='cuda' but no CUDA device is "
+                                   "available; pass device='cpu' for the "
+                                   "CPU")
+            if devices is None and nproc > torch.cuda.device_count():
+                raise ValueError(f"{nproc} ranks over NCCL need {nproc} "
+                                 f"cards, {torch.cuda.device_count()} are "
+                                 f"visible (backend='gloo' shares cards)")
+        if devices is not None and len(devices) != nproc:
+            raise ValueError(f"{len(devices)} devices for {nproc} ranks")
+        if threads is None:
+            threads = max(1, torch.get_num_threads() // nproc)
+        self.nproc = nproc
+        ctx = torch.multiprocessing.get_context("spawn")
+        self.results = ctx.Queue()
+        self._tmp = tempfile.TemporaryDirectory(dir=store_dir)
+        init_method = "file://" + os.path.join(self._tmp.name, "store")
+        self.procs = [ctx.Process(target=_rank_main, args=(
+            fn, r, nproc, init_method, config,
+            devices[r] if devices is not None else device, backend,
+            threads, self.results, args)) for r in range(nproc)]
+        for p in self.procs:
+            p.start()
+
+    def poll(self, timeout: float) -> tuple | None:
+        """One ``(rank, ok, value)`` — ``value`` the rank's result, or its
+        traceback when ``ok`` is False — or None after ``timeout`` s."""
+        try:
+            return self.results.get(timeout=timeout)
+        except queue.Empty:
+            return None
+
+    def failed(self, done) -> list[int]:
+        """The ranks, not in ``done``, that exited with no result."""
+        return [r for r, p in enumerate(self.procs) if r not in done
+                and p.exitcode not in (None, 0)]
+
+    def alive(self) -> list[int]:
+        return [r for r, p in enumerate(self.procs) if p.is_alive()]
+
+    def join(self, timeout: float) -> list[int]:
+        """Wait up to ``timeout`` s in all for the ranks to exit; the ranks
+        still alive."""
+        deadline = time.monotonic() + timeout
+        for p in self.procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        return self.alive()
+
+    def close(self) -> None:
+        """Kill every rank still alive and remove the store."""
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        self.results.close()
+        self._tmp.cleanup()
+
+
 def spawn(fn, nproc: int, *args, device="cuda", backend: str | None = None,
           config: MeshConfig | None = None, timeout_s: float = 600.0,
           threads: int | None = None, store_dir: str | None = None) -> list:
-    """Run ``fn(spec, *args)`` on ``nproc`` ranks, each a fresh process
-    (start method ``spawn``) joined by a ``file://`` store in a temporary
-    directory under ``store_dir``, and return the results in rank order.
-    ``fn``, ``args`` and the results are pickled, so ``fn`` is a
-    module-level function. A rank that raises fails the call with its
-    traceback; when ``timeout_s`` runs out every rank still alive is
-    killed and :class:`TimeoutError` is raised. ``threads``: torch's
-    intra-op threads per rank (default: this process's count over
-    ``nproc``)."""
-    if torch.device(device).type == "cuda" and backend != "gloo":
-        if not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' but no CUDA device is "
-                               "available; pass device='cpu' for the CPU")
-        if nproc > torch.cuda.device_count():
-            raise ValueError(f"{nproc} ranks over NCCL need {nproc} cards, "
-                             f"{torch.cuda.device_count()} are visible "
-                             f"(backend='gloo' shares cards)")
-    if threads is None:
-        threads = max(1, torch.get_num_threads() // nproc)
-    ctx = torch.multiprocessing.get_context("spawn")
-    results = ctx.Queue()
+    """Run ``fn(spec, *args)`` on ``nproc`` ranks (a :class:`RankGroup`)
+    and return the results in rank order. A rank that raises fails the
+    call with its traceback; when ``timeout_s`` runs out every rank still
+    alive is killed and :class:`TimeoutError` is raised."""
     deadline = time.monotonic() + timeout_s
-    with tempfile.TemporaryDirectory(dir=store_dir) as tmp:
-        init_method = "file://" + os.path.join(tmp, "store")
-        procs = [ctx.Process(target=_rank_main, args=(
-            fn, r, nproc, init_method, config, device, backend, threads,
-            results, args)) for r in range(nproc)]
-        try:
-            for p in procs:
-                p.start()
-            out: dict = {}
-            while len(out) < nproc:
-                left = deadline - time.monotonic()
-                if left <= 0:
-                    raise TimeoutError(f"spawn: {nproc - len(out)} rank(s) "
-                                       f"did not finish in {timeout_s} s")
-                try:
-                    rank, ok, value = results.get(timeout=min(left, 1.0))
-                except queue.Empty:
-                    dead = [r for r, p in enumerate(procs) if r not in out
-                            and p.exitcode not in (None, 0)]
-                    if dead:
-                        raise RuntimeError(f"spawn: rank(s) {dead} exited "
-                                           f"with no result") from None
-                    continue
-                if not ok:
-                    raise RuntimeError(f"spawn: rank {rank} failed:\n{value}")
-                out[rank] = value
-            for p in procs:
-                p.join(max(deadline - time.monotonic(), 1.0))
-            alive = [r for r, p in enumerate(procs) if p.is_alive()]
-            if alive:
-                raise TimeoutError(f"spawn: rank(s) {alive} did not exit")
-        finally:
-            for p in procs:
-                if p.is_alive():
-                    p.kill()
-                    p.join(10)
-            results.close()
+    group = RankGroup(fn, nproc, *args, device=device, backend=backend,
+                      config=config, threads=threads, store_dir=store_dir)
+    try:
+        out: dict = {}
+        while len(out) < nproc:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(f"spawn: {nproc - len(out)} rank(s) "
+                                   f"did not finish in {timeout_s} s")
+            got = group.poll(min(left, 1.0))
+            if got is None:
+                dead = group.failed(out)
+                if dead:
+                    raise RuntimeError(f"spawn: rank(s) {dead} exited "
+                                       f"with no result")
+                continue
+            rank, ok, value = got
+            if not ok:
+                raise RuntimeError(f"spawn: rank {rank} failed:\n{value}")
+            out[rank] = value
+        alive = group.join(max(deadline - time.monotonic(), 1.0))
+        if alive:
+            raise TimeoutError(f"spawn: rank(s) {alive} did not exit")
+    finally:
+        group.close()
     return [out[r] for r in range(nproc)]
 
 

@@ -563,11 +563,12 @@ def all_to_all_tiled(x: torch.Tensor, split_axis: int, concat_axis: int,
 
 
 def mesh_barrier(spec) -> float:
-    """Rendezvous of every rank of ``spec``'s mesh: an all-reduce of one
-    that cannot complete until all ranks take part; blocks until it does.
-    Returns the world size (the reduced value)."""
+    """Rendezvous of every rank of ``spec``'s mesh (``MeshSpec.mesh_group``:
+    its data group, or the world where the mesh has other axes): an
+    all-reduce of one that cannot complete until all ranks take part;
+    blocks until it does. Returns the mesh's size (the reduced value)."""
     one = torch.ones((), dtype=torch.float32, device=spec.device)
-    all_reduce_(one, spec.group, kind="barrier")
+    all_reduce_(one, spec.mesh_group, kind="barrier")
     return float(one)
 
 

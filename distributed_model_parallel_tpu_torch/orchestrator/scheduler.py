@@ -1,14 +1,24 @@
-"""Device-pool ownership ledger.
+"""Device-pool admission control and priority preemption.
 
-Counterpart of ``DevicePool`` in
-``distributed_model_parallel_tpu/orchestrator/scheduler.py``: the same
-ledger, rules and messages. The JAX pool keys JAX devices by their
-``.id``; a ``torch.device`` has no id (only ``.index``, and several
-slots may share a card), so this pool holds :class:`DeviceSlot` records,
-each an ``id`` and the ``torch.device`` it stands for. A plain list of
-``torch.device`` s (or device strings) becomes slots numbered by
-position; the default is one slot per card. The tenant scheduler
-(``Scheduler``) waits for ROADMAP A11.
+The counterpart of ``distributed_model_parallel_tpu/orchestrator/
+scheduler.py``: the same ledger, placement rules and messages, pure
+deterministic bookkeeping (no threads, no processes), so a fixed
+submission order replays the same schedule.
+
+* :class:`DevicePool` is the ownership ledger. The JAX pool keys JAX
+  devices by their ``.id``; a ``torch.device`` has no id (only
+  ``.index``, and several slots may share a card), so this pool holds
+  :class:`DeviceSlot` records, each an ``id`` and the ``torch.device`` it
+  stands for. A plain list of ``torch.device`` s (or device strings)
+  becomes slots numbered by position; the default is one slot per card.
+* :class:`Scheduler` is the placement policy over it, in the pool's slot
+  ids: a tenant's slice is exactly what its resolved mesh needs (the
+  data axis shrinks to the free slots and the batch, the other axes and
+  a pipeline's stage count do not), queued tenants are served in
+  (priority desc, submission order) with head-of-line blocking, and
+  victims are chosen lowest priority first, newest admission first
+  within a priority, only when the slots they free (out-of-service ones
+  not counted) make the waiter placeable.
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ from distributed_model_parallel_tpu_torch.utils.health import (
     DeviceDegradedError,
 )
 
-__all__ = ["DevicePool", "DeviceSlot"]
+__all__ = ["DevicePool", "DeviceSlot", "Scheduler"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,3 +235,69 @@ class DevicePool:
         bad = set(self._quarantined)
         return sorted(t for t, ids in self._assigned.items()
                       if bad & set(ids))
+
+
+class Scheduler:
+    """Deterministic placement policy over a :class:`DevicePool`."""
+
+    def __init__(self, pool: DevicePool):
+        self.pool = pool
+
+    # -- placement -----------------------------------------------------------
+    def resolve_slice(self, spec, n_free: int) -> int | None:
+        """How many slots ``spec`` (a ``TenantSpec``) would take from an
+        ``n_free`` pool: the resolved mesh size after shrinking the data
+        axis to fit (and to divide the batch), or None when the tenant
+        cannot run on ``n_free`` at all (non-data axes too wide, a
+        pipeline short of stages, or a corruption drill squeezed below two
+        replicas)."""
+        need = spec.min_devices()
+        if n_free < need:
+            return None
+        if spec.workload == "pipeline":
+            return spec.config.mesh.stage
+        from distributed_model_parallel_tpu_torch.train.elastic import (
+            fit_mesh_to_devices,
+        )
+
+        try:
+            mesh_cfg, _ = fit_mesh_to_devices(spec.config.mesh, n_free,
+                                              batch_size=spec.batch_size)
+        except ValueError:
+            return None
+        n = mesh_cfg.num_devices
+        return n if n >= need else None
+
+    def pick_victims(self, waiter, running: Sequence) -> list | None:
+        """Choose the strictly-lower-priority victims whose slices, added
+        to the free pool (and to slices already draining), make ``waiter``
+        placeable. Lowest priority first; newest admission first within a
+        priority. None when no such set exists. Held slots that are
+        revoked or quarantined do not return to the free pool when their
+        holder drains, so they are not counted."""
+        from distributed_model_parallel_tpu_torch.orchestrator.tenants import (
+            TenantState,
+        )
+
+        out_of_service = (set(self.pool.revoked_ids)
+                          | set(self.pool.quarantined_ids))
+
+        def reclaimable(t) -> int:
+            return sum(1 for d in t.devices if d.id not in out_of_service)
+
+        draining = sum(reclaimable(t) for t in running
+                       if t.state is TenantState.PREEMPTING)
+        avail = self.pool.n_free + draining
+        if self.resolve_slice(waiter.spec, avail) is not None:
+            return []               # already satisfiable once drains land
+        candidates = sorted(
+            (t for t in running if t.state is TenantState.RUNNING
+             and t.priority < waiter.priority),
+            key=lambda t: (t.priority, -t.admit_seq))
+        chosen: list = []
+        for v in candidates:
+            chosen.append(v)
+            avail += reclaimable(v)
+            if self.resolve_slice(waiter.spec, avail) is not None:
+                return chosen
+        return None

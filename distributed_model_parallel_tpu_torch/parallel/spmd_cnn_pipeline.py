@@ -380,9 +380,10 @@ def global_metrics(micro: list, spec: MeshSpec, b_local: int,
                    device) -> dict:
     """Stage 0's per-microbatch metrics of every data row → the global
     batch's on every rank: one all-reduce over the world (the other
-    stages add zeros); loss = the mean over rows of the rows' means."""
+    stages, and the copies along the model, seq and expert axes, add
+    zeros); loss = the mean over rows of the rows' means."""
     row = torch.zeros(len(METRIC_KEYS), dtype=torch.float32, device=device)
-    if micro:
+    if micro and spec.copy_index == 0:
         losses = torch.stack([m["loss"].float() for m in micro])
         row[0] = losses.mean() / spec.num_data
         row[1] = float(b_local)

@@ -15,6 +15,7 @@ from distributed_model_parallel_tpu_torch.autotune.dmp_plan import (  # noqa: F4
     measure_rank,
 )
 from distributed_model_parallel_tpu_torch.config import (
+    MeshConfig,
     ModelConfig,
     OptimizerConfig,
 )
@@ -236,6 +237,26 @@ def several(spec: MeshSpec, calls: list) -> list:
     """Several rank functions of this module in one spawn: ``calls`` are
     ``(name, args)`` pairs; their results, in order."""
     return [globals()[name](spec, *args) for name, args in calls]
+
+
+def subgroup_fit(spec: MeshSpec, config, train: tuple,
+                 evals: tuple) -> dict:
+    """Ranks 0-1 of the world fit a ``data=2`` mesh laid over their own
+    sub-group (its saves wait at the mesh's barrier) while the other ranks
+    go straight to a world barrier: every rank must leave it once, with no
+    collective of the two left unpaired. The fit's history on ranks 0-1."""
+    import torch.distributed as dist
+
+    sub = dist.new_group([0, 1])
+    out = {}
+    if spec.rank < 2:
+        mesh2 = MeshSpec(MeshConfig(data=2), spec.rank, spec.device,
+                         spec.backend, data_group=sub)
+        t = Trainer(config, train_ds=ArrayDataset(*train, 10),
+                    eval_ds=ArrayDataset(*evals, 10), spec=mesh2)
+        out["history"] = t.fit()
+    C.mesh_barrier(spec)
+    return out
 
 
 def mesh_coords(spec: MeshSpec) -> dict:

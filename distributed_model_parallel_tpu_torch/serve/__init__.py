@@ -26,9 +26,10 @@
   (``ServeFleet.recover``);
 * :mod:`.generate` — the command-line entry point.
 
-Still to come (ROADMAP A11): the orchestrator's tenant scheduler, which
-would co-schedule a fleet with training on one pool, and the serving
-CLIs (``dmp_soak``'s fleet scenarios among them).
+The fleet's device pool is the orchestrator's ``DevicePool``
+(``orchestrator/``, which schedules the training tenants). Still to come
+(ROADMAP A11): the serving CLIs (``dmp_soak``'s fleet scenarios among
+them).
 """
 
 from distributed_model_parallel_tpu_torch.serve.cells import (  # noqa: F401

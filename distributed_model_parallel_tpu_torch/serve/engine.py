@@ -52,9 +52,8 @@ propagates as :class:`EngineKilled`, and a flight-recorder bundle
 
 The serving fleet (``serve/fleet.py``) drives engines through
 ``step_once``, ``try_enqueue``, ``drain``, ``enqueue(force=True)``,
-``clear_cache`` and ``kill``. Still owed (ROADMAP A11): the
-orchestrator's scheduler and tenants, which would co-schedule a fleet
-with training.
+``clear_cache`` and ``kill``, on slots of the orchestrator's
+``DevicePool`` (``orchestrator/scheduler.py``).
 """
 
 from __future__ import annotations

@@ -358,11 +358,8 @@ class ConsistencySentinel:
         from distributed_model_parallel_tpu_torch import mesh
         from distributed_model_parallel_tpu_torch.ops import collectives
 
-        # The mesh's ranks: its data group where the mesh is that axis
-        # alone (which may be a sub-group of the world), else the world.
         spec = self.spec
-        group = (spec.group if spec.config.num_devices == spec.num_data
-                 else None)
+        group = spec.mesh_group
         rows = self._rows(leaves, rotate=True)
         world = dist.get_world_size(group)
         head = torch.tensor([len(leaves), self.part], device=rows.device)

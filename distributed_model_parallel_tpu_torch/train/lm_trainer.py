@@ -431,7 +431,7 @@ class LMTrainer:
         self.faults = FaultInjector(config.recovery.faults)
         validate_corruption_plan(self.faults.plan, spec.num_data,
                                  context=f"dp={spec.num_data}")
-        self._device_ids = (spec.rank,)
+        self._device_ids = spec.health_ids
         self.ckpt = Checkpointer(config.checkpoint_dir,
                                  keep=config.recovery.keep_checkpoints,
                                  meta_fn=self._ckpt_meta,

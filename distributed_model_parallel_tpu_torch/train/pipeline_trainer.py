@@ -130,9 +130,10 @@ def default_devices(config: TrainConfig) -> list:
 class PipelineTrainer:
     """``PipelineTrainer(config, devices=None)``: with no device list it
     takes ``mesh.stage`` cards and raises when fewer are visible; an
-    explicit list (e.g. four entries of ``cuda:0``) is the caller's
-    choice and is honoured. ``train_ds``/``eval_ds`` and ``params``/
-    ``state`` (the JAX package's staged trees, together) are optional, as
+    explicit list (e.g. four entries of ``cuda:0``, or a device pool's
+    slots) is the caller's choice and is honoured. ``train_ds``/
+    ``eval_ds`` and ``params``/``state`` (the JAX package's staged trees,
+    together) are optional, as
     for :class:`~.trainer.Trainer`. ``step_hook`` (None) is called with
     the trainer at every train-step boundary, before the preemption
     poll."""
@@ -169,7 +170,12 @@ class PipelineTrainer:
                 f"pipeline depth {config.mesh.stage} needs that many "
                 f"devices, but only {len(devices)} are available; pass an "
                 f"explicit device list (several entries may name one card)")
-        self.devices = list(devices)
+        # A pool's slots (orchestrator/scheduler.DeviceSlot) carry the ids
+        # the device-health monitor scores them under; plain devices are
+        # numbered by position.
+        self._device_ids = tuple(getattr(d, "id", i)
+                                 for i, d in enumerate(devices))
+        self.devices = [getattr(d, "device", d) for d in devices]
         if train_ds is None or eval_ds is None:
             train_ds, eval_ds = load_dataset(config.data)
         self.train_ds, self.eval_ds = train_ds, eval_ds
@@ -276,7 +282,6 @@ class PipelineTrainer:
                                  keep=config.recovery.keep_checkpoints,
                                  meta_fn=self._ckpt_meta,
                                  injector=self.faults)
-        self._device_ids = tuple(range(len(self.devices)))
         self.resilience = RecoverySupervisor(
             config.recovery, logger=self.logger, ckpt=self.ckpt,
             preemption=self.preemption, slot="pipeline-good",

@@ -123,9 +123,18 @@ tensors in place, so a fused optimizer's bucket views stay its views.
 (``autotune/planner.plan_for_cnn``: gspmd, fsdp or the SPMD pipeline,
 ddp under ``grad_bucket_mb``) on the live world, writes a ``plan`` record
 after the resume, and re-plans on an elastic restart; ``statusz_port``
-serves the run's status (``utils/statusz.register_trainer``). Not ported
-yet, and refused by :func:`check_train_config` (ROADMAP A9): the model,
-seq and expert axes.
+serves the run's status (``utils/statusz.register_trainer``).
+
+The model, seq and expert axes: no CNN strategy shards over them, so the
+trainer replicates over them, as the JAX trainer does (its shardings name
+the data axis only). The ranks that differ only along those axes are
+copies: each takes the rows of its data index, reduces gradients, metrics
+and BatchNorm statistics over its data group (so nothing is counted once
+per copy), and computes what its data row's other copies compute, bit for
+bit. Rank 0 writes the checkpoints and the log, and every rank of the mesh
+waits for it. The consistency sentinel rotates each copy's bitsum by its
+index over those axes, so copies that differ cannot cancel out. The SPMD
+pipeline's 1F1B refuses them in the JAX package's words.
 """
 
 from __future__ import annotations
@@ -242,14 +251,6 @@ def check_train_config(config: TrainConfig) -> None:
             "compare; strategy='fsdp' shards params + optimizer state over "
             "it — no redundancy, no cross-replica check. No silent ignores")
     check_mesh_config(config.mesh)
-    for axis in ("model", "seq", "expert"):
-        n = getattr(config.mesh, axis)
-        if n != 1:
-            raise ValueError(
-                f"MeshConfig({axis}={n}) is not ported for the CNN trainers "
-                f"(ROADMAP A9: the CNN trainers over the model, seq and "
-                f"expert axes); the port shards the Transformer LM over "
-                f"them (train/lm_trainer.LMTrainer)")
     if config.strategy == "spmd_pipeline":
         check_spmd_pipeline_config(config)
     elif config.mesh.stage != 1:
@@ -309,6 +310,13 @@ def check_spmd_pipeline_config(config: TrainConfig) -> None:
             f"stage_boundaries has {len(b)} cut points but the pipeline "
             f"splits into {n_chunks} chunks ({config.mesh.stage} stages x "
             f"{config.virtual_stages} virtual) — provide {n_chunks + 1}")
+    if config.pipeline_schedule == "1f1b":
+        for axis in ("model", "seq", "expert"):
+            n = getattr(config.mesh, axis)
+            if n > 1:
+                raise ValueError(
+                    f"cnn 1f1b supports data x stage meshes only; axis "
+                    f"{axis!r} has size {n}")
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor
@@ -794,7 +802,7 @@ class Trainer:
                                    device=self.device, axis=spec.group)
             if params is not None:
                 if ddp:
-                    state = ddp.replica_state(state, spec.rank)
+                    state = ddp.replica_state(state, spec.data_index)
                 params_from_jax(self.model, params, state, self.device)
         self.dtype = DTYPES[config.model.dtype]
 
@@ -968,7 +976,7 @@ class Trainer:
 
         config, spec = self.config, self.spec
         plane_log = self.logger if self.logger is not None else NullLogger()
-        self._device_ids = (spec.rank,)
+        self._device_ids = spec.health_ids
         self.faults = FaultInjector(config.recovery.faults)
         validate_corruption_plan(
             self.faults.plan,
@@ -1074,7 +1082,8 @@ class Trainer:
         this rank's own under ddp."""
         if not self.config.data.augment:
             return None
-        rank = self.spec.rank if self.config.strategy == "ddp" else None
+        rank = (self.spec.data_index if self.config.strategy == "ddp"
+                else None)
         return step_generator(self._aug_seed, self.global_step, self.device,
                               rank)
 
@@ -1320,6 +1329,8 @@ class Trainer:
 
     # -- checkpointing (reference data_parallel.py:80-87,143-155) ----------
     def _barrier(self) -> None:
+        """Every rank of the mesh waits for rank 0's write (the copies
+        along the model, seq and expert axes too: ``mesh_barrier``)."""
         if self.spec.group is not None:
             mesh_barrier(self.spec)
 
@@ -1422,7 +1433,7 @@ class Trainer:
         (data row 0, stage 0), gathered over row 0's stage ring; the other
         rows hold copies and send nothing, and every rank but the writer
         keeps its own parts. The stages' counters must agree."""
-        if self.spec.data_index != 0:
+        if self.spec.data_index != 0 or self.spec.copy_index != 0:
             return params, state, momentum, opt_state, counters
         import torch.distributed as dist
 
@@ -1499,7 +1510,7 @@ class Trainer:
                 replica_state,
             )
 
-            state = replica_state(state, self.spec.rank)
+            state = replica_state(state, self.spec.data_index)
         load_leaves(self.model, params, state)
         counters = {"count": tree["opt_count"], **tree.get("accum", {})}
         load_optimizer_state(self.model, [self.optimizer], opt_state,
@@ -1627,23 +1638,25 @@ class Trainer:
 
         ddp = self.config.strategy == "ddp"
         zero = self.config.strategy == "zero"
-        out = [StateLeaf(f"['params'][{i}]", p)
+        copy = self.spec.copy_index
+        leaf = lambda label, t, **kw: StateLeaf(label, t, copy_index=copy,
+                                                **kw)
+        out = [leaf(f"['params'][{i}]", p)
                for i, p in enumerate(self._jax_order_params())]
-        out += [StateLeaf(f"['batch_stats'][{i}]",
-                          getattr(leaf.module, leaf.attr), data_sharded=ddp)
-                for i, leaf in enumerate(model_leaves(self.model,
-                                                      state=True))]
+        out += [leaf(f"['batch_stats'][{i}]",
+                     getattr(m.module, m.attr), data_sharded=ddp)
+                for i, m in enumerate(model_leaves(self.model, state=True))]
         opt = self.optimizer
         for i in range(len(opt.params)):
             m = opt.momentum_buffer(i)
             if m is not None:
-                out.append(StateLeaf(f"['momentum'][{i}]", m))
+                out.append(leaf(f"['momentum'][{i}]", m))
         for name, tensors in sorted(opt.leaf_state().items()):
-            out += [StateLeaf(f"['opt_state'][{name!r}][{i}]", t,
-                              data_sharded=zero)
+            out += [leaf(f"['opt_state'][{name!r}][{i}]", t,
+                         data_sharded=zero)
                     for i, t in enumerate(tensors) if t is not None]
         if self.ema is not None:
-            out += [StateLeaf(f"['ema'][{i}]", a)
+            out += [leaf(f"['ema'][{i}]", a)
                     for i, a in enumerate(self.ema.avg)]
         return out
 

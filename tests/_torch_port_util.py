@@ -1,6 +1,7 @@
 """Shared inputs for the torch-port tests: one small model shape in both
 packages and one numpy parameter tree (from a seed) that feeds both."""
 
+import contextlib
 import os
 
 import jax.numpy as jnp
@@ -79,3 +80,39 @@ def cli_dirs(root) -> list:
     d = run_dirs(root)
     return ["--log-dir", d["log_dir"], "--checkpoint-dir",
             d["checkpoint_dir"]]
+
+
+@contextlib.contextmanager
+def jax_compile_cache(path):
+    """JAX's persistent compilation cache under ``path`` for the scope,
+    every compile cached: trainers that JAX builds anew for the same
+    program (an orchestrator's re-admissions) load it instead of compiling
+    it again. The previous settings are restored on exit."""
+    import jax
+    from jax._src import compilation_cache
+
+    keys = {"jax_compilation_cache_dir": str(path),
+            "jax_persistent_cache_min_compile_time_secs": 0.0,
+            "jax_persistent_cache_min_entry_size_bytes": 0}
+    before = {k: getattr(jax.config, k) for k in keys}
+    compilation_cache.reset_cache()
+    for k, v in keys.items():
+        jax.config.update(k, v)
+    try:
+        yield
+    finally:
+        for k, v in before.items():
+            jax.config.update(k, v)
+        compilation_cache.reset_cache()
+
+
+def both_sides(jax_fn, port_fn):
+    """``(jax_fn(), port_fn())``, the port's side on a thread of its own
+    while JAX's runs on this one: the two campaigns share nothing, and JAX
+    spends most of its side compiling."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(1) as pool:
+        port = pool.submit(port_fn)
+        want = jax_fn()
+        return want, port.result()

@@ -10,9 +10,10 @@ ranks (``(model 2, seq 2)`` ring under ``remat="dots"``, adamw). At
 lines against the JAX ``RunLogger``'s (the same lines, numbers within
 1e-4, times aside). A resume under another split restores the same
 whole parameters and optimizer state (resharded); the resilience plane's
-options construct, the emergency slot resumes, and everything A9 leaves
-for later raises by name; so do the strategies, schedules and MoE
-configs the JAX trainer refuses, in its words."""
+options construct, the emergency slot resumes, and a mesh of several
+ranks in a process without a process group raises by name; so do the
+strategies, schedules and MoE configs the JAX trainer refuses, in its
+words."""
 
 import dataclasses
 import os
@@ -220,13 +221,21 @@ def test_resume_under_another_split_raises(runs):
     (dict(model=ttfm.TransformerConfig(**SHAPES["mha"], moe_experts=4,
                                        moe_top_k=5)),
      r"top_k=5 must be in \[1, num_experts=4\]"),
-    (dict(mesh=tconfig.MeshConfig(data=2, model=2, dcn_data=2)),
-     "A9: dcn_data with the model, seq and expert axes"),
-    (dict(mesh=tconfig.MeshConfig(data=2, expert=2, dcn_data=2)),
-     "A9: dcn_data with the model, seq and expert axes"),
+    # A two-level data axis beside a model, seq or expert axis is ported
+    # (ROADMAP A9): what one process without a process group refuses is
+    # its four ranks. The cases keep the ids they had while the port
+    # refused the mesh itself.
+    pytest.param(dict(mesh=tconfig.MeshConfig(data=2, model=2, dcn_data=2)),
+                 "needs a process group of 4 ranks",
+                 id="kw5-A9: dcn_data with the model, seq and expert axes"),
+    pytest.param(dict(mesh=tconfig.MeshConfig(data=2, expert=2,
+                                              dcn_data=2)),
+                 "needs a process group of 4 ranks",
+                 id="kw6-A9: dcn_data with the model, seq and expert axes"),
     (dict(strategy="gpipe"), "must be 'spmd' or 'auto'"),
-    (dict(mesh=tconfig.MeshConfig(data=2, seq=2, dcn_data=2)),
-     "A9: dcn_data with the model, seq and expert axes"),
+    pytest.param(dict(mesh=tconfig.MeshConfig(data=2, seq=2, dcn_data=2)),
+                 "needs a process group of 4 ranks",
+                 id="kw8-A9: dcn_data with the model, seq and expert axes"),
 ])
 def test_unported_options_raise_by_name(tmp_path, kw, match):
     config = tlm.LMTrainConfig(

@@ -34,7 +34,9 @@ print(" ".join(names), "|", bad)
 # (device pool, fault injector, flight recorder, cells, router, fleet), and
 # the trainers' resilience plane (guards, recovery supervisor, consistency
 # sentinel, elastic restore, the chaos drill), and the autotuner (plan,
-# search, memory, cost model, measure, planner, the plan CLI).
+# search, memory, cost model, measure, planner, the plan CLI), and the
+# orchestrator (the scheduler, the tenants with their rank groups, the
+# control loop).
 _MODULES = {
     "config", "models.transformer", "ops._build", "ops.paged_attention",
     "ops.flash_attention", "serve.engine", "serve.generate", "serve.model",
@@ -61,6 +63,7 @@ _MODULES = {
     "autotune", "autotune.plan", "autotune.search", "autotune.memory",
     "autotune.cost_model", "autotune.measure", "autotune.planner",
     "autotune.dmp_plan",
+    "orchestrator.tenants", "orchestrator.orchestrator",
 }
 
 
